@@ -6,18 +6,28 @@
 Phases, in order; any failure stops the run with a non-zero exit:
   1. build every kernel of `vibevoice_tpu_torch/csrc/` (one nvcc per source,
      all started together);
-  2. each kernel against its plain PyTorch version at the 1.5B shapes (bf16
-     and int8 KV, layers 0 and 27, a partial and a full live length, a
-     visibility mask with holes), with its time, the plain version's, the
-     library yardstick's and the bound;
+  2. each kernel against its plain PyTorch version at the 1.5B shapes, with
+     its time, the plain version's, the library yardstick's and the bound:
+     decode attention (bf16 and int8 KV, layers 0 and 27, a partial and a full
+     live length, a visibility mask with holes); int4_matmul at the four LM
+     projections with M=2 (per channel and with 128-row groups) and at M=64
+     and M=128; the int4 Block1D chain at the 1.5B stage shapes with B=1 and
+     B=4; the fused int4 head at N=2;
   3. the long-cache engine as `bench.py` drives it (1.5B, bf16, B=1, prompt
      256, 3840 steps -> a 4096-slot cache, so decode attention runs on the
      kernel): prefill, a 16-step warm-up chunk and two timed 32-step chunks;
-  4. the same engine with `kv_dtype="int8"` for 16 steps;
-  5. `VibeVoiceTTS.from_random(vibevoice_1_5b())` serving three scripts (one
-     with two speakers) with a streamer, each stopped after 24 steps;
-  6. a tiny model on the card against the same model on the CPU (plain
-     versions), as the reference on a small input.
+  4. the same engine with `kv_dtype="int8"` for 8 + 8 steps;
+  5. the quantized engine, full width and depth: the same weights through
+     `VibeVoiceTTS(quantize="int4", quantize_tokenizer="int4k",
+     quantize_diffusion="int4k")`, prefill, a 16-step warm-up and two timed
+     32-step chunks, every kernel's launches asserted per step; then
+     `quantize="int4f"` for 8 + 8 steps;
+  6. `VibeVoiceTTS.from_random(vibevoice_1_5b())` serving three scripts (one
+     with two speakers) with a streamer, each stopped after 24 steps, in bf16
+     and then in the quantized configuration;
+  7. a tiny model on the card against the same model on the CPU (plain
+     versions), as the reference on a small input: bf16-free fp32, plain and
+     in the int4 modes (group scales, int8 tokenizer stages).
 
 Weights are random, made from a seed.  Prints one JSON line per measurement,
 then the `kernels` line, the card's name and power limit, and as the last line
@@ -38,6 +48,8 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOPS = 989e12
 KERNEL_TOL = 2e-3  # bf16 output (|out| < 0.5: one rounding step ~2e-3) + fp32 sum order
 SEED = 0
+L2_BYTES = 50e6
+QUANT_MODES = dict(quantize="int4", quantize_tokenizer="int4k", quantize_diffusion="int4k")
 
 
 def emit(tag, **kw):
@@ -178,7 +190,164 @@ def phase_kernels(dev):
 
 
 # ---------------------------------------------------------------------------
-# phases 3-4: the long-cache engine
+# phase 2, the int4 kernels: int4_matmul, the Block1D chain, the fused head
+# ---------------------------------------------------------------------------
+
+def rel_tol(want) -> float:
+    """bf16 outputs: one rounding step of the largest output (2^-7 of it),
+    after fp32 sums taken in another order."""
+    return 2 ** -7 * float(want.float().abs().max())
+
+
+def agree(name, got, want):
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(got).all()):
+        raise RuntimeError(f"{name} kernel returned non-finite values")
+    err, tol = float((got.float() - want.float()).abs().max()), rel_tol(want)
+    if not err <= tol:
+        raise RuntimeError(f"{name} disagrees with its plain version: {err} > {tol}")
+    return err, tol
+
+
+def bound(nbytes, flops):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def copies_for(size: int) -> int:
+    """Weight copies a timing loop rotates over so that it reads about twice
+    what the 50 MB L2 holds, as a decode step finds its weights cold."""
+    return max(2, -(-int(2 * L2_BYTES) // max(1, size)))
+
+
+def measure_int4(x, weights):
+    """int4_matmul on x [M, K] bf16 against weight copies of one shape: error
+    against the plain version, kernel / plain / library (torch.matmul against
+    the pre-dequantized bf16 weight) times, and the bound (per call)."""
+    from vibevoice_tpu_torch.ops import int4_matmul as im
+    w0 = weights[0]
+    err, tol = agree("int4_matmul", im.int4_matmul(x, w0["qint4"], w0["scale4"]),
+                     im.int4_matmul_ref(x, w0["qint4"], w0["scale4"]))
+    n = len(weights)
+    ms = cuda_ms(lambda i: im.int4_matmul(x, weights[i % n]["qint4"], weights[i % n]["scale4"]),
+                 2 * n)
+    plain_ms = cuda_ms(lambda i: im.int4_matmul_ref(x, weights[i % n]["qint4"],
+                                                    weights[i % n]["scale4"]), min(n, 8))
+    dense = [im.dequant_int4(w["qint4"], w["scale4"], x.dtype) for w in weights]
+    lib_ms = cuda_ms(lambda i: torch.matmul(x, dense[i % n]), 2 * n)
+    del dense
+    m, k = x.shape
+    cols = w0["qint4"].shape[1]
+    out_bytes = m * cols * x.element_size()
+    bms, by = bound(nbytes(x, w0["qint4"], w0["scale4"]) + out_bytes, 2 * m * k * cols)
+    return dict(max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=lib_ms)
+
+
+def chain_inputs(pack, b, t, gen, dev):
+    n, _, d = pack["vecs"].shape
+    x = (0.5 * torch.randn((b, t, d), generator=gen, device=dev)).to(torch.bfloat16)
+    ctx = (0.5 * torch.randn((b, n, 6, d), generator=gen, device=dev)).to(torch.bfloat16)
+    return x, ctx
+
+
+def measure_chain(packs, x, ctx):
+    """The int4 chain over pack copies of one stage shape (per call)."""
+    from vibevoice_tpu_torch.ops import fused_blocks as fb
+    y, new_ctx = fb.fused_block_chain_batched(packs[0], x, ctx)
+    y_ref, ctx_ref = fb.fused_block_chain_batched_ref(packs[0], x, ctx)
+    err, tol = agree("fused_block_chain", y, y_ref)
+    err_c, tol_c = agree("fused_block_chain[ctx]", new_ctx, ctx_ref)
+    n = len(packs)
+    ms = cuda_ms(lambda i: fb.fused_block_chain_batched(packs[i % n], x, ctx), 2 * n)
+    plain_ms = cuda_ms(lambda i: fb.fused_block_chain_batched_ref(packs[i % n], x, ctx),
+                       min(n, 4))
+    b, t, d = x.shape
+    nb, f = packs[0]["vecs"].shape[0], packs[0]["w1q"].shape[2]
+    bms, by = bound(fb.pack_bytes(packs[0]) + 2 * nbytes(x, ctx), 4 * b * t * d * f * nb)
+    return dict(max_abs_err=max(err, err_c), tol=min(tol, tol_c), ms=ms, plain_ms=plain_ms,
+                bound_ms=bms, bound_by=by, library_ms=None)
+
+
+def head_inputs(pack, n, lat, gen, dev):
+    nl, _, h = pack["norms"].shape
+    bf = torch.bfloat16
+    r = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    return (r(n, h).to(bf), (0.3 * r(nl, n, 3 * h)).to(bf), (0.3 * r(n, 2 * h)).to(bf),
+            (0.05 * r(h, lat)).to(bf))
+
+
+def measure_head(packs, x, mods, fmod, fl, eps=1e-5):
+    """The fused int4 head step over pack copies (per call)."""
+    from vibevoice_tpu_torch.ops import fused_head as fh
+    err, tol = agree("fused_head", fh.fused_head_solver_step(packs[0], x, mods, fmod, fl, eps),
+                     fh.fused_head_solver_step_ref(packs[0], x, mods, fmod, fl, eps))
+    n = len(packs)
+    ms = cuda_ms(lambda i: fh.fused_head_solver_step(packs[i % n], x, mods, fmod, fl, eps), 2 * n)
+    plain_ms = cuda_ms(lambda i: fh.fused_head_solver_step_ref(packs[i % n], x, mods, fmod, fl,
+                                                               eps), min(n, 4))
+    rows, h = x.shape
+    nl, f = packs[0]["norms"].shape[0], packs[0]["wgq"].shape[2]
+    bms, by = bound(fh.pack_bytes(packs[0]) + nbytes(x, mods, fmod, fl)
+                    + rows * fl.shape[1] * x.element_size(),
+                    6 * rows * h * f * nl + 2 * rows * h * fl.shape[1])
+    return dict(max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=None)
+
+
+def random_stage(d, n, gen, dev):
+    r = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    return [{"norm_w": 1 + 0.1 * r(d), "mixer": {"w": 0.2 * r(7, 1, d), "b": 0.1 * r(d)},
+             "gamma": 0.3 * r(d), "ffn_norm_w": 1 + 0.1 * r(d),
+             "ffn1": {"w": 0.02 * r(d, 4 * d), "b": 0.1 * r(4 * d)},
+             "ffn2": {"w": 0.02 * r(4 * d, d), "b": 0.1 * r(d)}, "ffn_gamma": 0.3 * r(d)}
+            for _ in range(n)]
+
+
+def phase_int4_kernels(dev):
+    """The three int4 kernels against their plain versions at the 1.5B
+    shapes, on random weights made from the seed."""
+    from vibevoice_tpu_torch.ops import fused_blocks as fb, fused_head as fh
+    from vibevoice_tpu_torch.ops import int4_matmul as im
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    shapes = {"qkv": (1536, 2048), "o": (1536, 1536), "gateup": (1536, 17920),
+              "down": (8960, 1536)}
+    cases = [(name, 2, gs) for name in shapes for gs in (None, 128)]
+    cases += [("qkv", 64, None), ("qkv", 128, None), ("qkv", 128, 128)]
+    for name, m, gs in cases:
+        k, n = shapes[name]
+        weights = [im.quantize_int4(torch.randn((k, n), generator=gen, device=dev) * 0.02, gs)
+                   for _ in range(copies_for(k * n // 2))]
+        x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+        emit("kernel_vs_plain", kernel="int4_matmul", proj=name, M=m, K=k, N=n,
+             group_size=gs, **measure_int4(x, weights))
+        del weights
+    # the four 1.5B stages are two shapes (decoder 0 / encoder 6: D=2048, 8
+    # blocks, T=1; decoder 1 / encoder 5: D=1024, 3 blocks, T=8), plus B=4
+    for d, nblk, t, b in ((2048, 8, 1, 1), (1024, 3, 8, 1), (1024, 3, 8, 4)):
+        packs = [fb.pack_stage_q(random_stage(d, nblk, gen, dev))
+                 for _ in range(copies_for(nblk * d * 4 * d))]
+        x, ctx = chain_inputs(packs[0], b, t, gen, dev)
+        emit("kernel_vs_plain", kernel="fused_block_chain_batched", D=d, blocks=nblk, T=t, B=b,
+             **measure_chain(packs, x, ctx))
+        del packs
+    h, f = 1536, 4608
+    r = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    packs = [fh.pack_head_solver_q({"layers": [
+        {"norm_w": 1 + 0.1 * r(h), "gate": 0.03 * r(h, f), "up": 0.03 * r(h, f),
+         "down": 0.03 * r(f, h)} for _ in range(4)]}) for _ in range(copies_for(6 * h * f))]
+    emit("kernel_vs_plain", kernel="fused_head_solver_step", N=2, H=h, F=f, layers=4,
+         **measure_head(packs, *head_inputs(packs[0], 2, 64, gen, dev)))
+    del packs
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phases 3-5: the long-cache engine, bf16 and quantized
 # ---------------------------------------------------------------------------
 
 def bench_gen(G):
@@ -189,12 +358,44 @@ def bench_gen(G):
         force_diffusion=True, max_length_times=64.0)
 
 
-def run_engine(params, cfg, dev, kv_dtype, warm_steps, timed_chunks, card):
+def kernel_counters():
+    """name -> the wrapper whose `launches` counts that kernel's launches."""
+    from vibevoice_tpu_torch.ops import decode_attention as da, fused_blocks as fb
+    from vibevoice_tpu_torch.ops import fused_head as fh, int4_matmul as im
+    return {"decode_attention": da.decode_attention, "int4_matmul": im.int4_matmul,
+            "fused_block_chain_batched": fb.fused_block_chain_batched,
+            "fused_head_solver_step": fh.fused_head_solver_step}
+
+
+def expected_launches(cfg, quant):
+    """(prefill, per decode step) launches of each kernel at B=1 with
+    force_diffusion: decode attention once per layer per decode step; the
+    int4 GEMVs (qkv, o, gateup, down; only gateup and down under int4f) once
+    per layer in the negative stream's M=B prefill forward and in every step
+    (the 256-row prompt forward takes the dequantized route); the chain once
+    per packed stage (2 in the vocoder, 2 in the re-encode) and the head once
+    per solver step on every diffusing step, step 0 (in prefill) included."""
+    n_layers = cfg.decoder.num_hidden_layers
+    gemv = {None: 0, "int4": 4, "int4f": 2}[quant] * n_layers
+    chain = 4 if quant else 0
+    head = 5 if quant else 0
+    prefill = {"decode_attention": 0, "int4_matmul": gemv,
+               "fused_block_chain_batched": chain, "fused_head_solver_step": head}
+    step = {"decode_attention": n_layers, "int4_matmul": gemv,
+            "fused_block_chain_batched": chain, "fused_head_solver_step": head}
+    return prefill, step
+
+
+def run_engine(params, cfg, dev, kv_dtype, warm_steps, timed_chunks, card, quant=None):
+    """Prefill, a warm-up chunk and the timed chunks of the long-cache engine;
+    asserts every kernel's launches against `expected_launches`.  Returns
+    (launches of the whole run by kernel, the final state)."""
     from vibevoice_tpu_torch.engine import generate as G
-    from vibevoice_tpu_torch.ops import decode_attention as da
     batch, prompt_len, max_steps = 1, 256, 3840
+    fused = quant is not None
     eng = G.Engine(params, cfg, bench_gen(G), max_steps=max_steps, batch=batch,
-                   prompt_len=prompt_len, dtype=torch.bfloat16, kv_dtype=kv_dtype, device=dev)
+                   prompt_len=prompt_len, dtype=torch.bfloat16, kv_dtype=kv_dtype, device=dev,
+                   use_fused_vocoder=fused, use_fused_semantic=fused)
     if not (eng.use_flash_decode and eng.cache_len >= 4096):
         raise RuntimeError(f"engine is off the long-cache path: cache {eng.cache_len}")
     ids = np.random.default_rng(SEED).integers(0, 1000, (batch, prompt_len)).astype(np.int32)
@@ -202,12 +403,14 @@ def run_engine(params, cfg, dev, kv_dtype, warm_steps, timed_chunks, card):
     sim = np.zeros((batch, prompt_len), bool)
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
-    da.decode_attention.launches = 0
+    counters = kernel_counters()
+    for c in counters.values():
+        c.launches = 0
     t0 = time.perf_counter()
     state, _ = eng.prefill(ids, mask, sim, generator=gen)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
-    prefill_launches = da.decode_attention.launches
+    prefill_launches = {k: c.launches for k, c in counters.items()}
     state, _ = eng.decode_chunk(state, warm_steps)
     f_prev = int(state.frames.sum())
     chunks = []
@@ -218,16 +421,16 @@ def run_engine(params, cfg, dev, kv_dtype, warm_steps, timed_chunks, card):
         dt = time.perf_counter() - t0
         chunks.append({"steps": n, "frames": f_now - f_prev, "wall_s": dt})
         f_prev = f_now
-    launches = da.decode_attention.launches
+    launches = {k: c.launches for k, c in counters.items()}
     steps = warm_steps + sum(timed_chunks)
-    n_layers = cfg.decoder.num_hidden_layers
 
+    want_prefill, want_step = expected_launches(cfg, quant)
+    want = {k: want_prefill[k] + steps * want_step[k] for k in counters}
+    if prefill_launches != want_prefill or launches != want:
+        raise RuntimeError(f"kernel launches: prefill {prefill_launches} (want {want_prefill}),"
+                           f" run {launches} (want {want}) over {steps} decode steps")
     emitted = state.emitted[:, : state.step]
     audio = state.audio[:, : state.step]
-    if prefill_launches != 0:
-        raise RuntimeError(f"prefill launched decode attention {prefill_launches} times")
-    if launches != n_layers * steps:
-        raise RuntimeError(f"decode attention ran {launches} times, want {n_layers} x {steps}")
     if not bool(emitted.all()):
         raise RuntimeError("a forced-diffusion step emitted no frame")
     if not bool(torch.isfinite(audio).all()) or float(audio.abs().max()) == 0.0:
@@ -235,16 +438,101 @@ def run_engine(params, cfg, dev, kv_dtype, warm_steps, timed_chunks, card):
     hop = cfg.speech_compress_ratio
     frames = sum(c["frames"] for c in chunks)
     wall = sum(c["wall_s"] for c in chunks)
-    emit("engine", kv=kv_dtype, cache_slots=eng.cache_len, prefill_s=prefill_s,
-         decode_steps=steps, kernel_launches=launches, launches_per_step=launches / steps,
+    emit("engine", kv=kv_dtype, quant=quant, cache_slots=eng.cache_len, prefill_s=prefill_s,
+         decode_steps=steps, prefill_launches=prefill_launches, kernel_launches=launches,
+         launches_per_step={k: (launches[k] - prefill_launches[k]) / steps for k in launches},
          chunks=chunks, ms_per_frame=(1e3 * wall / frames) if frames else None,
          audio_s_per_s=(frames * hop / 24000.0 / wall) if frames else None,
          audio_absmax=float(audio.abs().max()), card=card)
-    # the decode step's own operands, for the kernel's entry in the kernels line
+    return launches, state
+
+
+def attention_operands(state, batch, dev):
+    """The decode step's own visibility and lengths, for the kernels line."""
     lengths = torch.full((2 * batch,), state.write_pos + 1, dtype=torch.int32, device=dev)
     vis = state.visible.clone()
     vis[:, state.write_pos] = 1
-    return launches, state.cache, vis, lengths
+    return vis, lengths
+
+
+def stage_frames(cfg):
+    """{(pack key, stage index): frames per call} of the sigma-VAE stages at
+    streaming decode (one 7.5 Hz frame per call)."""
+    ac, se = cfg.acoustic_tokenizer, cfg.semantic_tokenizer
+    out, t = {}, 1
+    for i in range(len(ac.decoder_depths_resolved())):
+        t *= ac.decoder_ratios[i - 1] if i else 1
+        out[("_vocoder_packs", i)] = t
+    t = cfg.speech_compress_ratio
+    for i, stride in enumerate([1] + list(reversed(se.encoder_ratios))):
+        t //= stride
+        out[("_semantic_packs", i)] = t
+    return out
+
+
+def quant_entries(params, cfg, launches, dev):
+    """The kernels-line entries of the three int4 kernels, measured on the
+    quantized engine's own weights and packs at its B=1 shapes: per launch,
+    averaged over the launches of one decode step (the 28 layers' qkv / o /
+    gateup / down GEMVs at M=2; the vocoder's and the re-encode's two packed
+    stages; one solver step of the head at N=2).  Each timing loop rotates
+    over copies of the weights (the layers', then clones) that exceed L2."""
+    from vibevoice_tpu_torch.ops import fused_blocks as fb, fused_head as fh
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    layers = params["lm"]["layers"]
+    per_shape = []
+    for name in ("qkv", "o", "gateup", "down"):
+        ws = [lp[name]["w"] if name in ("qkv", "o") else lp[name] for lp in layers]
+        size = ws[0]["qint4"].numel()
+        ws = ws + [{k: v.clone() for k, v in ws[i % len(ws)].items()}
+                   for i in range(max(0, copies_for(size) - len(ws)))]
+        x = torch.randn((2, 2 * ws[0]["qint4"].shape[0]), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        per_shape.append(measure_int4(x, ws))
+    stages = []
+    frames = stage_frames(cfg)
+    for key in ("_vocoder_packs", "_semantic_packs"):
+        for i, pack in sorted(params[key].items()):
+            x, ctx = chain_inputs(pack, 1, frames[(key, i)], gen, dev)
+            # copies of the pack, so that the timing loop reads it from HBM
+            clones = [pack] + [{k: v.clone() for k, v in pack.items()}
+                               for _ in range(copies_for(fb.pack_bytes(pack)) - 1)]
+            stages.append(measure_chain(clones, x, ctx))
+            del clones
+    head = params["_diffusion_head_packq"]
+    heads = [head] + [{k: v.clone() for k, v in head.items()}
+                      for _ in range(copies_for(fh.pack_bytes(head)) - 1)]
+    fl = params["diffusion_head"]["final_linear"]
+    x, mods, fmod, _ = head_inputs(head, 2, fl.shape[1], gen, dev)
+    head_r = measure_head(heads, x, mods, fmod, fl.contiguous())
+    del heads
+
+    def mean(rs):
+        out = {k: sum(r[k] for r in rs) / len(rs)
+               for k in ("max_abs_err", "ms", "plain_ms", "bound_ms")}
+        out["max_abs_err"] = max(r["max_abs_err"] for r in rs)
+        out["tol"] = min(r["tol"] for r in rs)
+        out["bound_by"] = rs[0]["bound_by"]
+        lib = [r["library_ms"] for r in rs]
+        out["library_ms"] = None if None in lib else sum(lib) / len(lib)
+        return out
+
+    src = "vibevoice_tpu_torch/csrc/"
+    return [
+        {"name": "int4_matmul", "route": "cuda", "source": src + "int4_matmul.cu",
+         "replaces": "vibevoice_tpu/ops/int4_matmul.py:101",
+         "launches": launches["int4_matmul"], **mean(per_shape),
+         "per": "launch, mean over the decode step's qkv/o/gateup/down GEMVs at M=2"},
+        {"name": "fused_block_chain_batched", "route": "cuda",
+         "source": src + "fused_block_chain.cu",
+         "replaces": "vibevoice_tpu/ops/fused_blocks.py:290",
+         "launches": launches["fused_block_chain_batched"], **mean(stages),
+         "per": "launch, mean over the step's four packed stages at B=1"},
+        {"name": "fused_head_solver_step", "route": "cuda", "source": src + "fused_head.cu",
+         "replaces": "vibevoice_tpu/ops/fused_head.py:130",
+         "launches": launches["fused_head_solver_step"], **head_r,
+         "per": "launch: one solver step at N=2"},
+    ]
 
 
 def kernel_entry(name, launches, cache, vis, lengths, quant, dev, dec):
@@ -268,12 +556,13 @@ def kernel_entry(name, launches, cache, vis, lengths, quant, dev, dec):
 
 
 # ---------------------------------------------------------------------------
-# phase 5: the pipeline
+# phase 6: the pipeline
 # ---------------------------------------------------------------------------
 
 def register_forced_engine(tts, G, script, voices, max_new_tokens):
     """A force_diffusion engine under the key `generate` will ask for (random
-    weights almost never pick the diffusion token by themselves)."""
+    weights almost never pick the diffusion token by themselves), with the
+    fused sigma-VAE stages on when the pipeline holds int4 chain packs."""
     t0 = tts.processor(script, voices).input_ids.shape[1]
     bucket = max(tts.prompt_bucket, -(-t0 // tts.prompt_bucket) * tts.prompt_bucket)
     key = (1, bucket, max_new_tokens)
@@ -284,21 +573,28 @@ def register_forced_engine(tts, G, script, voices, max_new_tokens):
             speech_diffusion_id=tts.tokenizer.speech_diffusion_id,
             eos_id=tts.tokenizer.eos_id, cfg_scale=tts.cfg_scale, ddpm_steps=tts.ddpm_steps,
             algorithm_type=tts.algorithm_type, force_diffusion=True, max_length_times=64.0)
+        chain = tts._chain_packs is not None
         tts._engines[key] = G.Engine(tts.params, tts.cfg, gen, max_steps=max_new_tokens,
                                      batch=1, prompt_len=bucket, dtype=tts.dtype,
-                                     device=tts.device)
+                                     device=tts.device, use_fused_vocoder=chain,
+                                     use_fused_semantic=chain)
     return tts._engines[key]
 
 
-def phase_pipeline(dev, card):
+def phase_pipeline(dev, card, quant=None):
+    """Three requests through `VibeVoiceTTS.generate` with a streamer; with
+    `quant` in the quantized serving configuration (QUANT_MODES, or int4f)."""
     from vibevoice_tpu_torch.configs import vibevoice_1_5b
     from vibevoice_tpu_torch.engine import generate as G
     from vibevoice_tpu_torch.engine.streamer import AudioStreamer
-    from vibevoice_tpu_torch.ops import decode_attention as da
     from vibevoice_tpu_torch.pipeline import VibeVoiceTTS
+    modes = dict(QUANT_MODES, quantize=quant) if quant else {}
+    t0 = time.perf_counter()
     tts = VibeVoiceTTS.from_random(vibevoice_1_5b(), seed=SEED + 2, dtype=torch.bfloat16,
                                    ddpm_steps=5, cfg_scale=1.3,
-                                   algorithm_type="sde-dpmsolver++", device=dev)
+                                   algorithm_type="sde-dpmsolver++", device=dev, **modes)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
     rng = np.random.default_rng(SEED)
     voices = [rng.normal(0, 0.05, 48000).astype(np.float32),
               rng.normal(0, 0.05, 36000).astype(np.float32)]
@@ -307,19 +603,21 @@ def phase_pipeline(dev, card):
                 "Speaker 1: Tell me more.", voices),
                ("Speaker 1: " + "This is a longer passage read aloud. " * 6, voices[1:])]
     max_new, stop_after, hop = 3840, 24, tts.cfg.speech_compress_ratio
-    total = 0
+    counters = kernel_counters()
+    want_prefill, want_step = expected_launches(tts.cfg, quant)
     for i, (script, vs) in enumerate(scripts):
         eng = register_forced_engine(tts, G, script, vs, max_new)
         if not (eng.use_flash_decode and eng.cache_len >= 4096):
             raise RuntimeError(f"pipeline engine is off the long-cache path: {eng.cache_len}")
         streamer = AudioStreamer(batch_size=1)
         seen = []
-        da.decode_attention.launches = 0
+        for c in counters.values():
+            c.launches = 0
         res, metrics = tts.generate(script, vs, max_new_tokens=max_new, seed=i,
                                     audio_streamer=streamer,
                                     stop_check_fn=lambda: len(seen) >= stop_after,
                                     on_step=seen.append)
-        launches = da.decode_attention.launches
+        launches = {k: c.launches for k, c in counters.items()}
         chunks = list(streamer.get_stream(0))
         audio = res.audio[0]
         if audio is None or not np.isfinite(audio).all() or np.abs(audio).max() == 0:
@@ -328,21 +626,20 @@ def phase_pipeline(dev, card):
             raise RuntimeError(f"request {i}: streamed chunks differ from the buffered audio")
         if len(audio) != res.steps * hop or res.steps < stop_after:
             raise RuntimeError(f"request {i}: {res.steps} steps, {len(audio)} samples")
-        if launches != tts.cfg.decoder.num_hidden_layers * (res.steps - 1):
-            raise RuntimeError(f"request {i}: decode attention ran {launches} times "
-                               f"for {res.steps - 1} decode steps")
-        total += launches
-        emit("pipeline", request=i, speakers=len(vs), prompt_bucket=eng.prompt_len,
+        want = {k: want_prefill[k] + (res.steps - 1) * want_step[k] for k in counters}
+        if launches != want:
+            raise RuntimeError(f"request {i}: launches {launches}, want {want} for "
+                               f"{res.steps - 1} decode steps")
+        emit("pipeline", quant=quant, request=i, speakers=len(vs), prompt_bucket=eng.prompt_len,
              cache_slots=eng.cache_len, steps=res.steps, kernel_launches=launches,
-             wall_s=metrics["wall_s"], audio_sec=metrics["audio_sec"], rtf=metrics["rtf"],
-             card=card)
+             setup_s=setup_s if i == 0 else None, wall_s=metrics["wall_s"],
+             audio_sec=metrics["audio_sec"], rtf=metrics["rtf"], card=card)
     del tts
     torch.cuda.empty_cache()
-    return total
 
 
 # ---------------------------------------------------------------------------
-# phase 6: a small model on the card against the same model on the CPU
+# phase 7: a small model on the card against the same model on the CPU
 # ---------------------------------------------------------------------------
 
 def _live_audio_path(params, gen):
@@ -368,17 +665,28 @@ def _live_audio_path(params, gen):
     params["speech_bias_factor"] = torch.tensor(0.1)
 
 
-def phase_reference(dev):
+def phase_reference(dev, quant=False):
+    """fp32 on both sides.  With `quant` the model is first put through
+    `VibeVoiceTTS(quantize="int4", int4_group_size=32, quantize_tokenizer=
+    "int4k", quantize_diffusion="int4k", tokenizer_min_dim=4)` on the CPU, so
+    the card runs every int4 kernel (the tiny stacks' unpacked stages take int8
+    FFNs) and the CPU their plain versions."""
     from vibevoice_tpu_torch.configs import tiny_config
     from vibevoice_tpu_torch.engine import generate as G
     from vibevoice_tpu_torch.models import vibevoice as V
-    from vibevoice_tpu_torch.ops import decode_attention as da
+    from vibevoice_tpu_torch.pipeline import VibeVoiceTTS
+    from vibevoice_tpu_torch.processor.text_tokenizer import ByteFallbackTokenizer
     cfg = tiny_config(hidden_size=256, vocab_size=320)  # head_dim 64: the kernel's
     gen = torch.Generator().manual_seed(SEED)
     params = V.init_model(cfg, generator=gen)
     _live_audio_path(params, gen)
+    if quant:
+        params = VibeVoiceTTS(params, cfg, ByteFallbackTokenizer(), dtype=torch.float32,
+                              device="cpu", int4_group_size=32, tokenizer_min_dim=4,
+                              **QUANT_MODES).params
     rng = np.random.default_rng(SEED)
-    b, t, steps = 2, 40, 24
+    # a 72-token prompt: the quantized prefill (144 rows) takes the dequantized route
+    b, t, steps = 2, (72 if quant else 40), 24
     ids = rng.integers(0, 250, (b, t)).astype(np.int32)
     ids[:, -1] = 258
     mask = np.ones((b, t), np.int32)
@@ -388,16 +696,25 @@ def phase_reference(dev):
     gcfg = G.GenerationConfig(speech_start_id=258, speech_end_id=259, speech_diffusion_id=260,
                              eos_id=256, cfg_scale=1.3, ddpm_steps=3, force_diffusion=True,
                              max_length_times=64.0)
+    counters = kernel_counters()
     out = {}
     for where in ("cpu", dev):
         eng = G.Engine(params, cfg, gcfg, max_steps=steps, batch=b, prompt_len=t,
-                       inject_latent_noise=True, use_flash_decode=True, device=where)
-        da.decode_attention.launches = 0
+                       inject_latent_noise=True, use_flash_decode=True, device=where,
+                       use_fused_vocoder=quant, use_fused_semantic=quant)
+        for c in counters.values():
+            c.launches = 0
         out[str(where)] = (G.generate(eng, ids, mask, sim, latent_noise=noise),
-                           da.decode_attention.launches)
+                           {k: c.launches for k, c in counters.items()})
     (ref, cpu_launches), (got, gpu_launches) = out["cpu"], out[str(dev)]
-    if cpu_launches != 0 or gpu_launches != cfg.decoder.num_hidden_layers * (steps - 1):
-        raise RuntimeError(f"launches: cpu {cpu_launches}, gpu {gpu_launches}")
+    n_layers = cfg.decoder.num_hidden_layers
+    # every step diffuses: 3 + 3 packed stages and 3 solver steps each
+    want = {"decode_attention": n_layers * (steps - 1),
+            "int4_matmul": 4 * n_layers * steps if quant else 0,
+            "fused_block_chain_batched": 6 * steps if quant else 0,
+            "fused_head_solver_step": 3 * steps if quant else 0}
+    if any(cpu_launches.values()) or gpu_launches != want:
+        raise RuntimeError(f"launches: cpu {cpu_launches}, gpu {gpu_launches}, want {want}")
     if not np.array_equal(got.tokens, ref.tokens):
         raise RuntimeError(f"tokens differ: {got.tokens} vs {ref.tokens}")
     a, w = np.concatenate(got.audio), np.concatenate(ref.audio)
@@ -405,8 +722,9 @@ def phase_reference(dev):
         raise RuntimeError("tiny-model audio is not finite")
     err, scale = float(np.abs(a - w).max()), float(np.abs(w).max())
     tol = 1e-3 * scale  # fp32 on both; sums in another order on the card
-    emit("reference", model="tiny_config(hidden_size=256)", steps=steps,
-         audio_max_abs_err=err, audio_absmax=scale, tol=tol)
+    emit("reference", model="tiny_config(hidden_size=256)",
+         modes=dict(QUANT_MODES, int4_group_size=32) if quant else None, steps=steps,
+         kernel_launches=gpu_launches, audio_max_abs_err=err, audio_absmax=scale, tol=tol)
     if not (scale > 0 and err <= tol):
         raise RuntimeError(f"card and CPU disagree: {err} > {tol}")
 
@@ -422,6 +740,8 @@ def main() -> int:
     from vibevoice_tpu_torch.engine.generate import resolve_device
     from vibevoice_tpu_torch.models import vibevoice as V
     from vibevoice_tpu_torch.ops import cuda_build
+    from vibevoice_tpu_torch.pipeline import VibeVoiceTTS
+    from vibevoice_tpu_torch.processor.text_tokenizer import ByteFallbackTokenizer
 
     t_start = time.perf_counter()
     dev = resolve_device("cuda")
@@ -433,10 +753,11 @@ def main() -> int:
     build_s, logs = cuda_build.build_all()
     emit("build", seconds=build_s, sources=sorted(cuda_build.SOURCES.values()),
          ptxas=[ln.strip() for log in logs.values() for ln in log.splitlines()
-                if "registers" in ln or "spill" in ln][:12])
+                if "registers" in ln or "spill" in ln][:24])
 
     # 2. kernel against plain
     phase_kernels(dev)
+    phase_int4_kernels(dev)
 
     # 3-4. engine, bf16 then int8 KV
     cfg = vibevoice_1_5b()
@@ -447,21 +768,41 @@ def main() -> int:
     params["speech_bias_factor"] = torch.tensor(0.0, device=dev)
     torch.cuda.synchronize()
     emit("init", model="vibevoice_1_5b", dtype="bf16", seconds=time.perf_counter() - t0)
-    n_main, cache, vis, lengths = run_engine(params, cfg, dev, "model", 16, (32, 32), card)
-    entries = [kernel_entry("decode_attention", n_main, cache, vis, lengths, False, dev,
+    runs = {}
+    for kv, warm, chunks in (("model", 16, (32, 32)), ("int8", 8, (8,))):
+        launches, state = run_engine(params, cfg, dev, kv, warm, chunks, card)
+        vis, lengths = attention_operands(state, 1, dev)
+        runs[kv] = (launches["decode_attention"], state.cache, vis, lengths)
+        del state
+    entries = [kernel_entry("decode_attention", *runs["model"], False, dev, cfg.decoder),
+               kernel_entry("decode_attention[int8 KV]", *runs["int8"], True, dev,
                             cfg.decoder)]
-    del cache
-    n_int8, cache, vis, lengths = run_engine(params, cfg, dev, "int8", 8, (8,), card)
-    entries.append(kernel_entry("decode_attention[int8 KV]", n_int8, cache, vis, lengths,
-                                True, dev, cfg.decoder))
-    del cache, params
+    del runs
+
+    # 5. the quantized engine on the same weights, int4 then int4f
+    for quant, warm, chunks in (("int4", 16, (32, 32)), ("int4f", 8, (8,))):
+        t0 = time.perf_counter()
+        qparams = VibeVoiceTTS(params, cfg, ByteFallbackTokenizer(), dtype=torch.bfloat16,
+                               device=dev, **dict(QUANT_MODES, quantize=quant)).params
+        torch.cuda.synchronize()
+        emit("quantize", modes=dict(QUANT_MODES, quantize=quant),
+             seconds=time.perf_counter() - t0)
+        launches, state = run_engine(qparams, cfg, dev, "model", warm, chunks, card, quant)
+        del state
+        if quant == "int4":
+            entries += quant_entries(qparams, cfg, launches, dev)
+        del qparams
+        torch.cuda.empty_cache()
+    del params
     torch.cuda.empty_cache()
 
-    # 5. pipeline
+    # 6. pipeline, bf16 then quantized
     phase_pipeline(dev, card)
+    phase_pipeline(dev, card, quant="int4")
 
-    # 6. reference on a small input
+    # 7. reference on a small input, plain then quantized
     phase_reference(dev)
+    phase_reference(dev, quant=True)
 
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": entries}), flush=True)

@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
 """Where the time of the PyTorch port's decode step goes, on one NVIDIA GPU.
 
-    python3 scripts/torch_profile_step.py [--steps 8] [--kv model|int8]
+    python3 scripts/torch_profile_step.py [--steps 8] [--kv model|int8] [--quant int4|int4f]
 
 Builds the long-cache engine that `chip_smoke.py` phase 3 drives (1.5B,
 random bf16 weights, B=1, prompt 256, 3840 steps -> a 4096-slot cache, 5-step
-sde-dpmsolver++, cfg 1.3, forced diffusion), warms it up, then traces
+sde-dpmsolver++, cfg 1.3, forced diffusion); with `--quant` the weights first
+go through `VibeVoiceTTS(quantize=..., quantize_tokenizer="int4k",
+quantize_diffusion="int4k")`, as in `chip_smoke.py` phase 5.  It warms the
+engine up, then traces
 `--steps` decode steps with `torch.profiler`.  Prints JSON lines: the host
 wall time per step, the device's busy time per step (the union of its kernel
 intervals) and its idle share, the launches per step, the device time of each
@@ -56,7 +59,11 @@ def _mark_parts():
     for mod, name, label in ((G.qwen2, "forward", "part:lm"),
                              (G.vibevoice, "sample_speech_latents", "part:diffusion_head"),
                              (G.tokenizer, "decoder_apply_streaming", "part:acoustic_decoder"),
-                             (G.tokenizer, "encoder_apply_streaming", "part:semantic_encoder")):
+                             (G.tokenizer, "decoder_apply_streaming_fused",
+                              "part:acoustic_decoder"),
+                             (G.tokenizer, "encoder_apply_streaming", "part:semantic_encoder"),
+                             (G.tokenizer, "encoder_apply_streaming_fused",
+                              "part:semantic_encoder")):
         _wrap(mod, name, label)
 
 
@@ -64,6 +71,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--kv", default="model", choices=["model", "int8"])
+    ap.add_argument("--quant", default=None, choices=["int4", "int4f"])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_profile_step: no CUDA device", file=sys.stderr)
@@ -79,12 +87,20 @@ def main() -> int:
                           generator=torch.Generator(device=dev).manual_seed(0))
     params["speech_scaling_factor"] = torch.tensor(1.0, device=dev)
     params["speech_bias_factor"] = torch.tensor(0.0, device=dev)
+    if args.quant:
+        from vibevoice_tpu_torch.pipeline import VibeVoiceTTS
+        from vibevoice_tpu_torch.processor.text_tokenizer import ByteFallbackTokenizer
+        params = VibeVoiceTTS(params, cfg, ByteFallbackTokenizer(), dtype=torch.bfloat16,
+                              device=dev, quantize=args.quant, quantize_tokenizer="int4k",
+                              quantize_diffusion="int4k").params
     gen = G.GenerationConfig(
         speech_start_id=151652, speech_end_id=151653, speech_diffusion_id=151654,
         eos_id=151643, cfg_scale=1.3, ddpm_steps=5, algorithm_type="sde-dpmsolver++",
         force_diffusion=True, max_length_times=64.0)
+    fused = args.quant is not None
     eng = G.Engine(params, cfg, gen, max_steps=3840, batch=1, prompt_len=256,
-                   dtype=torch.bfloat16, kv_dtype=args.kv, device=dev)
+                   dtype=torch.bfloat16, kv_dtype=args.kv, device=dev,
+                   use_fused_vocoder=fused, use_fused_semantic=fused)
     ids = np.random.default_rng(0).integers(0, 1000, (1, 256)).astype(np.int32)
     state, _ = eng.prefill(ids, np.ones((1, 256), np.int32), np.zeros((1, 256), bool))
     state, _ = eng.decode_chunk(state, 8)
@@ -106,7 +122,7 @@ def main() -> int:
     kernels = [e for e in cuda if not e.name.startswith("part:")]
     intervals = [(e.time_range.start, e.time_range.end) for e in kernels]
     busy_us = _busy_us(intervals)
-    print(json.dumps({"kv": args.kv, "steps": n, "cache_slots": eng.cache_len,
+    print(json.dumps({"kv": args.kv, "quant": args.quant, "steps": n, "cache_slots": eng.cache_len,
                       "wall_ms_per_step": 1e3 * wall / n,
                       "device_busy_ms_per_step": busy_us / 1e3 / n,
                       "device_idle_share": 1 - busy_us / 1e6 / wall,

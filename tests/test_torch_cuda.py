@@ -98,3 +98,124 @@ def test_engine_on_card_matches_cpu(cuda_device):
     a, w = np.concatenate(got.audio), np.concatenate(ref.audio)
     assert np.isfinite(a).all() and np.abs(w).max() > 0
     np.testing.assert_allclose(a, w, atol=1e-3 * np.abs(w).max(), rtol=0)
+
+
+def _rel_tol(want):
+    # bf16 outputs: one rounding step of the largest output (2^-7 of it) after
+    # fp32 sums taken in another order
+    return 2 ** -7 * float(want.float().abs().max())
+
+
+@pytest.mark.parametrize("group_size", [None, 128])
+@pytest.mark.parametrize("m,k,n", [(2, 1536, 2048), (2, 8960, 1536), (64, 1536, 1536)])
+def test_int4_matmul_kernel_matches_plain(cuda_device, group_size, m, k, n):
+    from vibevoice_tpu_torch.ops import int4_matmul as im
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    q = im.quantize_int4(torch.randn((k, n), generator=gen, device=cuda_device) * 0.02,
+                         group_size)
+    x = torch.randn((m, k), generator=gen, device=cuda_device).to(torch.bfloat16)
+    before = im.int4_matmul.launches
+    got = im.int4_matmul(x, q["qint4"], q["scale4"])
+    torch.cuda.synchronize()
+    want = im.int4_matmul_ref(x, q["qint4"], q["scale4"])
+    assert im.int4_matmul.launches == before + 1
+    torch.testing.assert_close(got.float(), want.float(), atol=_rel_tol(want), rtol=0)
+
+
+def _stage(d, n, gen, dev):
+    r = lambda *s: torch.randn(s, generator=gen, device=dev)
+    return [{"norm_w": 1 + 0.1 * r(d), "mixer": {"w": 0.2 * r(7, 1, d), "b": 0.1 * r(d)},
+             "gamma": 0.3 * r(d), "ffn_norm_w": 1 + 0.1 * r(d),
+             "ffn1": {"w": 0.05 * r(d, 4 * d), "b": 0.1 * r(4 * d)},
+             "ffn2": {"w": 0.05 * r(4 * d, d), "b": 0.1 * r(d)}, "ffn_gamma": 0.3 * r(d)}
+            for _ in range(n)]
+
+
+@pytest.mark.parametrize("b,t,d,n", [(1, 1, 2048, 8), (1, 8, 1024, 3), (4, 8, 1024, 3),
+                                     (2, 5, 8, 2)])
+def test_fused_block_chain_kernel_matches_plain(cuda_device, b, t, d, n):
+    """The 1.5B stage shapes (B=1 and one B=4 case) and a tiny ragged one."""
+    from vibevoice_tpu_torch.ops import fused_blocks as fb
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    pack = fb.pack_stage_q(_stage(d, n, gen, cuda_device))
+    x = (0.5 * torch.randn((b, t, d), generator=gen, device=cuda_device)).to(torch.bfloat16)
+    ctx = (0.5 * torch.randn((b, n, 6, d), generator=gen, device=cuda_device)).to(torch.bfloat16)
+    before = fb.fused_block_chain_batched.launches
+    y, new_ctx = fb.fused_block_chain_batched(pack, x, ctx)
+    torch.cuda.synchronize()
+    y_ref, ctx_ref = fb.fused_block_chain_batched_ref(pack, x, ctx)
+    assert fb.fused_block_chain_batched.launches == before + 1
+    torch.testing.assert_close(y.float(), y_ref.float(), atol=_rel_tol(y_ref), rtol=0)
+    torch.testing.assert_close(new_ctx.float(), ctx_ref.float(), atol=_rel_tol(ctx_ref), rtol=0)
+
+
+@pytest.mark.parametrize("n,h,f", [(2, 1536, 4608), (6, 64, 192)])
+def test_fused_head_kernel_matches_plain(cuda_device, n, h, f):
+    from vibevoice_tpu_torch.ops import fused_head as fh
+    dev = cuda_device
+    gen = torch.Generator(device=dev).manual_seed(3)
+    r = lambda *s: torch.randn(s, generator=gen, device=dev)
+    head = {"layers": [{"norm_w": 1 + 0.1 * r(h), "gate": 0.03 * r(h, f), "up": 0.03 * r(h, f),
+                        "down": 0.03 * r(f, h)} for _ in range(4)]}
+    pack = fh.pack_head_solver_q(head)
+    bf = torch.bfloat16
+    x, mods = r(n, h).to(bf), (0.3 * r(4, n, 3 * h)).to(bf)
+    fmod, fl = (0.3 * r(n, 2 * h)).to(bf), (0.05 * r(h, 64)).to(bf)
+    before = fh.fused_head_solver_step.launches
+    got = fh.fused_head_solver_step(pack, x, mods, fmod, fl, 1e-5)
+    torch.cuda.synchronize()
+    want = fh.fused_head_solver_step_ref(pack, x, mods, fmod, fl, 1e-5)
+    assert fh.fused_head_solver_step.launches == before + 1
+    torch.testing.assert_close(got.float(), want.float(), atol=_rel_tol(want), rtol=0)
+
+
+def test_quantized_engine_on_card_matches_cpu(cuda_device):
+    """A small fp32 model in the int4 serving modes (int4 LM with group
+    scales, int4k tokenizer chains, int4k head): every int4 kernel on the
+    card, the plain versions on the CPU; equal tokens, audio within 1e-3 of
+    its scale."""
+    from vibevoice_tpu_torch.ops import fused_blocks as fb, fused_head as fh, int4_matmul as im
+    from vibevoice_tpu_torch.pipeline import VibeVoiceTTS
+    from vibevoice_tpu_torch.processor.text_tokenizer import ByteFallbackTokenizer
+    cfg = tiny_config(hidden_size=256, vocab_size=320)
+    gen = torch.Generator().manual_seed(0)
+    params = V.init_model(cfg, generator=gen)
+    head = params["diffusion_head"]
+    for lp in head["layers"]:
+        lp["ada_w"] = torch.randn(lp["ada_w"].shape, generator=gen) * 0.05
+    for name in ("final_ada_w", "final_linear"):
+        head[name] = torch.randn(head[name].shape, generator=gen) * 0.05
+    params["speech_scaling_factor"] = torch.tensor(0.8)
+    params["speech_bias_factor"] = torch.tensor(0.1)
+    tts = VibeVoiceTTS(params, cfg, ByteFallbackTokenizer(), dtype=torch.float32, device="cpu",
+                       quantize="int4", int4_group_size=32, quantize_tokenizer="int4k",
+                       quantize_diffusion="int4k", tokenizer_min_dim=4)
+    rng = np.random.default_rng(0)
+    b, t, steps = 2, 72, 8  # a 144-row prompt: prefill takes the dequantized route
+    ids = rng.integers(0, 250, (b, t)).astype(np.int32)
+    mask = np.ones((b, t), np.int32)
+    mask[1, :9] = 0
+    sim = np.zeros((b, t), bool)
+    noise = rng.normal(size=(steps, b, cfg.acoustic_vae_dim)).astype(np.float32)
+    gcfg = G.GenerationConfig(speech_start_id=258, speech_end_id=259, speech_diffusion_id=260,
+                              eos_id=256, ddpm_steps=3, force_diffusion=True,
+                              max_length_times=64.0)
+    counters = (im.int4_matmul, fb.fused_block_chain_batched, fh.fused_head_solver_step)
+    runs = {}
+    for name, where in (("cpu", "cpu"), ("card", cuda_device)):
+        eng = G.Engine(tts.params, cfg, gcfg, max_steps=steps, batch=b, prompt_len=t,
+                       inject_latent_noise=True, use_fused_vocoder=True,
+                       use_fused_semantic=True, device=where)
+        before = [c.launches for c in counters]
+        res = G.generate(eng, ids, mask, sim, latent_noise=noise)
+        runs[name] = (res, [c.launches - n for c, n in zip(counters, before)])
+    (ref, cpu_launches), (got, card_launches) = runs["cpu"], runs["card"]
+    assert cpu_launches == [0, 0, 0]
+    n_layers = cfg.decoder.num_hidden_layers
+    # prefill's negative-stream forward (M=B) and every decode step run 4 int4
+    # GEMVs per layer; every step diffuses: 4 chain stages, 3 solver steps
+    assert card_launches == [4 * n_layers * steps, 6 * steps, 3 * steps]
+    np.testing.assert_array_equal(got.tokens, ref.tokens)
+    a, w = np.concatenate(got.audio), np.concatenate(ref.audio)
+    assert np.isfinite(a).all() and np.abs(w).max() > 0
+    np.testing.assert_allclose(a, w, atol=1e-3 * np.abs(w).max(), rtol=0)

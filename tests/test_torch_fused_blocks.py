@@ -1,0 +1,153 @@
+"""The port's int4 Block1D chain (`ops/fused_blocks.py`) against the JAX
+package's, as tests/test_fused_blocks.py:132-204 checks the JAX kernel: the
+batched chain for B in {1, 3} and T in {1, 5, 8} (the JAX kernel in interpret
+mode on the CPU, the port's plain version), and decoder/encoder streaming
+with int4 packs over several frames."""
+import numpy as np
+import pytest
+import jax.numpy as jnp
+import torch
+
+from vibevoice_tpu.models import tokenizer as jtok
+from vibevoice_tpu.ops import fused_blocks as JFB
+from vibevoice_tpu_torch import configs as TC
+from vibevoice_tpu_torch.models import tokenizer as ttok
+from vibevoice_tpu_torch.ops import fused_blocks as TFB
+from vibevoice_tpu_torch.weights import from_jax
+
+from tests._torch_parity import tiny_params, to_np
+from tests.test_torch_quantize import _assert_trees_equal
+
+# The TPU kernel's rational erf (|err| < 1.5e-7) against the exact erf, and
+# sums in another order: fp32 agreement to a few 1e-6 of the output's scale.
+TOL = 2e-5
+
+
+def _blocks(d, n, seed):
+    rng = np.random.default_rng(seed)
+    f = 4 * d
+    r = lambda *s: rng.normal(size=s).astype(np.float32)
+    return [{"norm_w": 1 + 0.1 * r(d), "mixer": {"w": 0.2 * r(7, 1, d), "b": 0.1 * r(d)},
+             "gamma": 0.3 * r(d), "ffn_norm_w": 1 + 0.1 * r(d),
+             "ffn1": {"w": 0.05 * r(d, f), "b": 0.1 * r(f)},
+             "ffn2": {"w": 0.05 * r(f, d), "b": 0.1 * r(d)}, "ffn_gamma": 0.3 * r(d)}
+            for _ in range(n)]
+
+
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("t", [1, 5, 8])
+def test_batched_chain_matches_jax(b, t):
+    d, n = 16, 2
+    blocks = _blocks(d, n, seed=10 * b + t)
+    jpack = JFB.pack_stage_q([{k: (jnp.asarray(v) if not isinstance(v, dict) else
+                                   {kk: jnp.asarray(vv) for kk, vv in v.items()})
+                               for k, v in bp.items()} for bp in blocks])
+    tpack = TFB.pack_stage_q(from_jax(blocks))
+    _assert_trees_equal(tpack, jpack)
+    rng = np.random.default_rng(b * t)
+    x = (0.5 * rng.normal(size=(b, t, d))).astype(np.float32)
+    ctx = (0.5 * rng.normal(size=(b, n, 6, d))).astype(np.float32)
+    jy, jctx = JFB.fused_block_chain_batched(jpack, jnp.asarray(x), jnp.asarray(ctx))
+    ty, tctx = TFB.fused_block_chain_batched(tpack, torch.tensor(x), torch.tensor(ctx))
+    assert ty.shape == (b, t, d) and tctx.shape == (b, n, 6, d)
+    scale = np.abs(np.asarray(jy)).max()
+    np.testing.assert_allclose(ty.numpy(), np.asarray(jy), atol=TOL * scale, rtol=0)
+    np.testing.assert_allclose(tctx.numpy(), np.asarray(jctx), atol=TOL * scale, rtol=0)
+    # one row at a time through the single-row entry point: the same numbers
+    for r in range(b):
+        y1, c1 = TFB.fused_block_chain(tpack, torch.tensor(x[r]), torch.tensor(ctx[r]))
+        np.testing.assert_allclose(y1.numpy(), ty[r].numpy(), atol=1e-6, rtol=0)
+        np.testing.assert_allclose(c1.numpy(), tctx[r].numpy(), atol=1e-6, rtol=0)
+
+
+@pytest.fixture(scope="module")
+def models():
+    cfg, jp = tiny_params()
+    return cfg, jp, from_jax(to_np(jp)), TC.tiny_config(vocab_size=320)
+
+
+def test_decoder_streaming_with_int4_packs_matches_jax(models):
+    """Four frames through the acoustic decoder with its T <= 8 stages on the
+    chain (stages 0, 1, 2 of the tiny decoder)."""
+    cfg, jp, tp, tcfg = models
+    jpacks = jtok.pack_decoder_stages(jp["acoustic_decoder"], cfg.acoustic_tokenizer,
+                                      quant="int4")
+    tpacks = ttok.pack_decoder_stages(tp["acoustic_decoder"], tcfg.acoustic_tokenizer,
+                                      quant="int4")
+    assert set(tpacks) == set(jpacks) == {0, 1, 2}
+    _assert_trees_equal(tpacks, jpacks)
+    z = np.random.default_rng(14).normal(size=(2, 4, cfg.acoustic_vae_dim)).astype(np.float32)
+    jst = jtok.decoder_state_init(cfg.acoustic_tokenizer, 2)
+    tst = ttok.decoder_state_init(tcfg.acoustic_tokenizer, 2)
+    for f in range(4):
+        jy, jst = jtok.decoder_apply_streaming_fused(
+            jp["acoustic_decoder"], cfg.acoustic_tokenizer, jnp.asarray(z[:, f:f + 1]), jst,
+            fused_packs=jpacks)
+        ty, tst = ttok.decoder_apply_streaming_fused(
+            tp["acoustic_decoder"], tcfg.acoustic_tokenizer, torch.tensor(z[:, f:f + 1]), tst,
+            fused_packs=tpacks)
+        scale = np.abs(np.asarray(jy)).max()
+        assert scale > 1e-2
+        np.testing.assert_allclose(ty.numpy(), np.asarray(jy), atol=1e-4 * scale, rtol=0)
+    for js, ts in zip(jst, tst):  # the carried streaming states too
+        np.testing.assert_allclose(ts[0].numpy(), np.asarray(js[0]), atol=1e-4, rtol=1e-4)
+
+
+def test_encoder_streaming_with_int4_packs_matches_jax(models):
+    """Three frames through the semantic encoder with its T <= 8 stages on the
+    chain (stages 1, 2, 3 of the tiny encoder)."""
+    cfg, jp, tp, tcfg = models
+    hop = cfg.speech_compress_ratio
+    jpacks = jtok.pack_encoder_stages(jp["semantic_encoder"], cfg.semantic_tokenizer,
+                                      chunk_t=hop, quant="int4")
+    tpacks = ttok.pack_encoder_stages(tp["semantic_encoder"], tcfg.semantic_tokenizer,
+                                      chunk_t=hop, quant="int4")
+    assert set(tpacks) == set(jpacks) == {1, 2, 3}
+    _assert_trees_equal(tpacks, jpacks)
+    audio = np.random.default_rng(15).normal(size=(2, 3 * hop, 1)).astype(np.float32) * 0.3
+    jst = jtok.encoder_state_init(cfg.semantic_tokenizer, 2)
+    tst = ttok.encoder_state_init(tcfg.semantic_tokenizer, 2)
+    for f in range(3):
+        chunk = audio[:, f * hop:(f + 1) * hop]
+        jy, jst = jtok.encoder_apply_streaming_fused(
+            jp["semantic_encoder"], cfg.semantic_tokenizer, jnp.asarray(chunk), jst,
+            fused_packs=jpacks)
+        ty, tst = ttok.encoder_apply_streaming_fused(
+            tp["semantic_encoder"], tcfg.semantic_tokenizer, torch.tensor(chunk), tst,
+            fused_packs=tpacks)
+        scale = np.abs(np.asarray(jy)).max()
+        np.testing.assert_allclose(ty.numpy(), np.asarray(jy), atol=1e-4 * scale, rtol=0)
+
+
+def test_paths_outside_the_slice_raise(models):
+    cfg, _, tp, tcfg = models
+    blocks = tp["acoustic_decoder"]["stages"][0]
+    with pytest.raises(NotImplementedError, match="B6"):
+        TFB.pack_stage(blocks)
+    with pytest.raises(NotImplementedError, match="B6"):
+        ttok.pack_decoder_stages(tp["acoustic_decoder"], tcfg.acoustic_tokenizer)
+    with pytest.raises(NotImplementedError, match="B6"):
+        TFB.fused_block_chain({"vecs": None, "w1": None}, torch.zeros(1, 32),
+                              torch.zeros(2, 6, 32))
+    st = ttok.decoder_state_init(tcfg.acoustic_tokenizer, 1)
+    with pytest.raises(NotImplementedError, match="B4"):
+        ttok.decoder_apply_streaming_fused(tp["acoustic_decoder"], tcfg.acoustic_tokenizer,
+                                           torch.zeros(1, 1, 8), st, large_packs={3: {}})
+    quantized = [dict(bp, ffn1={"w": {"qint8": torch.zeros(32, 128, dtype=torch.int8)},
+                                "b": None}) for bp in blocks]
+    with pytest.raises(ValueError, match="unquantized"):
+        TFB.pack_stage_q(quantized)
+
+
+def test_tiles_and_row_groups():
+    """The kernel's FFN tiles (about one per SM, 4-column multiples, at most
+    64 wide) and row groups (the shared-memory budget) at the 1.5B shapes."""
+    assert TFB.ffn_tile(8192, 132) == (64, 128)
+    assert TFB.ffn_tile(4096, 132) == (32, 128)
+    assert TFB.ffn_tile(4608, 132) == (36, 128)
+    assert TFB.ffn_tile(32, 132) == (4, 8)
+    assert TFB.row_group(1, 1, 2048) == 1
+    assert TFB.row_group(4, 8, 1024) == 4
+    assert TFB.row_group(64, 8, 1024) == 5
+    with pytest.raises(ValueError, match="budget"):
+        TFB.row_group(1, 8, 8192)

@@ -47,15 +47,33 @@ def force_diffusion_engine(tts, script, voices, max_new_tokens):
         speech_diffusion_id=tts.tokenizer.speech_diffusion_id,
         eos_id=tts.tokenizer.eos_id, ddpm_steps=tts.ddpm_steps, force_diffusion=True,
         max_length_times=64.0, algorithm_type=tts.algorithm_type)
+    chain = tts._chain_packs is not None
     tts._engines[(1, bucket, max_new_tokens)] = TG.Engine(
         tts.params, tts.cfg, gen, max_steps=max_new_tokens, batch=1, prompt_len=bucket,
-        dtype=tts.dtype, device=tts.device)
+        dtype=tts.dtype, device=tts.device, use_fused_vocoder=chain, use_fused_semantic=chain)
 
 
 def test_pipeline_serves_requests_with_streamer_and_stop():
+    _serve(VibeVoiceTTS.from_random(TC.tiny_config(vocab_size=320), dtype=torch.float32,
+                                    ddpm_steps=2, prompt_bucket=64, device="cpu",
+                                    algorithm_type="sde-dpmsolver++"))
+
+
+@pytest.mark.parametrize("modes", [
+    dict(quantize="int4", quantize_tokenizer="int4k", quantize_diffusion="int4k"),
+    dict(quantize="int4f", int4_group_size=16, quantize_tokenizer="int8", tokenizer_min_dim=4)])
+def test_quantized_pipeline_serves_requests(modes):
+    """Two quantized serving configurations through the same requests: the
+    first with the int4 chain and head packs (its engines run the fused
+    sigma-VAE stages), the second with int8 tokenizer FFNs."""
     tts = VibeVoiceTTS.from_random(TC.tiny_config(vocab_size=320), dtype=torch.float32,
                                    ddpm_steps=2, prompt_bucket=64, device="cpu",
-                                   algorithm_type="sde-dpmsolver++")
+                                   algorithm_type="sde-dpmsolver++", **modes)
+    assert (tts._chain_packs is not None) == (modes.get("quantize_tokenizer") == "int4k")
+    _serve(tts)
+
+
+def _serve(tts):
     hop, stop_after, max_new = tts.cfg.speech_compress_ratio, 6, 16
     for script, n_voices in SCRIPTS:
         voices = _voices(n_voices)

@@ -25,7 +25,12 @@ Where it differs from the JAX engine:
 
 The long-cache decode attention goes through the CUDA kernel
 `ops.decode_attention` (auto-on at 4096 slots or more, with the cache rounded
-up to a multiple of 2048 slots, as in the JAX engine).
+up to a multiple of 2048 slots, as in the JAX engine).  Quantized params
+(`utils.quantize.quantize_model`) run as they are: int4 projections of at most
+128 rows take the `ops.int4_matmul` kernel, an int4 head pack in
+`params["_diffusion_head_packq"]` the fused head kernel, and with
+`use_fused_vocoder` / `use_fused_semantic` the small-T sigma-VAE stages the
+int4 chain kernel (`params["_vocoder_packs"]` / `["_semantic_packs"]`).
 """
 from __future__ import annotations
 
@@ -146,10 +151,10 @@ class Engine:
                  kv_dtype: str = "model",
                  mesh=None,
                  device="cuda"):
-        if use_fused_vocoder or use_fused_semantic or use_fused_stages:
+        if use_fused_stages:
             raise NotImplementedError(
-                "the fused sigma-VAE kernels (use_fused_*) are not ported yet "
-                "(ROADMAP B3/B4/B6/B7)")
+                "the large-T fused stage kernels (use_fused_stages) are not ported yet "
+                "(ROADMAP B4/B7)")
         if use_flash_prefill:  # None (auto) takes the dense prefill
             raise NotImplementedError(
                 "flash prefill is not ported yet (ROADMAP B5)")
@@ -160,6 +165,8 @@ class Engine:
             raise ValueError(f"kv_dtype must be 'model' or 'int8', got {kv_dtype}")
         self.device = resolve_device(device)
         self.inject_latent_noise = inject_latent_noise
+        self.use_fused_vocoder = use_fused_vocoder
+        self.use_fused_semantic = use_fused_semantic
         self.kv_quant = kv_dtype == "int8"
         # keep_audio=False drops the [B, max_steps, hop] waveform buffer;
         # streaming consumers get per-step chunks from StepOutput instead
@@ -196,8 +203,18 @@ class Engine:
         allowed = sorted(set(allowed))
         self.allowed_ids = torch.tensor(allowed, dtype=torch.int32, device=self.device)
         params = to_device(dict(params), self.device)
+        # chain-kernel packs live in the params tree; a caller may pass packs
+        # built before quantization (the pipeline's int4 packs), which are
+        # kept as they are.  Packed here they are the bf16 chain's (ROADMAP B6).
+        if use_fused_vocoder and "_vocoder_packs" not in params:
+            params["_vocoder_packs"] = tokenizer.pack_decoder_stages(
+                params["acoustic_decoder"], cfg.acoustic_tokenizer)
+        if use_fused_semantic and "_semantic_packs" not in params:
+            params["_semantic_packs"] = tokenizer.pack_encoder_stages(
+                params["semantic_encoder"], cfg.semantic_tokenizer,
+                chunk_t=cfg.speech_compress_ratio)
         if "_lm_head_sub" not in params:
-            params["_lm_head_sub"] = vibevoice.lm_head_subset(params, allowed)
+            params["_lm_head_sub"] = vibevoice.lm_head_subset(params, allowed, dtype)
         self.params = params
 
     # ------------------------------------------------------------------
@@ -259,11 +276,21 @@ class Engine:
                 p, cfg, self.solver_cfg, self.sched, h_t, h_neg, gen.cfg_scale, x_init,
                 sde_generator=sde_gen)
             scaled = vibevoice.unscale_latents(p, latent)
-            chunk, ac_new = tokenizer.decoder_apply_streaming(
-                p["acoustic_decoder"], cfg.acoustic_tokenizer, scaled[:, None, :],
-                acoustic_state)
-            sem, sem_new = tokenizer.encoder_apply_streaming(
-                p["semantic_encoder"], cfg.semantic_tokenizer, chunk, semantic_state)
+            if self.use_fused_vocoder:
+                chunk, ac_new = tokenizer.decoder_apply_streaming_fused(
+                    p["acoustic_decoder"], cfg.acoustic_tokenizer, scaled[:, None, :],
+                    acoustic_state, fused_packs=p.get("_vocoder_packs"))
+            else:
+                chunk, ac_new = tokenizer.decoder_apply_streaming(
+                    p["acoustic_decoder"], cfg.acoustic_tokenizer, scaled[:, None, :],
+                    acoustic_state)
+            if self.use_fused_semantic:
+                sem, sem_new = tokenizer.encoder_apply_streaming_fused(
+                    p["semantic_encoder"], cfg.semantic_tokenizer, chunk, semantic_state,
+                    fused_packs=p.get("_semantic_packs"))
+            else:
+                sem, sem_new = tokenizer.encoder_apply_streaming(
+                    p["semantic_encoder"], cfg.semantic_tokenizer, chunk, semantic_state)
             diff_embeds = (connectors.apply(p["acoustic_connector"], latent)
                            + connectors.apply(p["semantic_connector"], sem[:, 0]))
             chunk = chunk[:, :, 0]

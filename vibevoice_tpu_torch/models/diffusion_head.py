@@ -6,7 +6,8 @@ sinusoidal timestep embedding -> 2-layer SiLU MLP, condition projection; N
 adaLN-modulated SwiGLU FFN blocks; final adaLN linear back to the latent dim.
 The adaLN modulations of every solver step are computed once per frame
 (`precompute_modulations`), so each step runs only the projection, the FFNs
-and the final linear.
+and the final linear.  The FFN and adaLN weights may be quantized
+(`utils.quantize.mm`); the int4 layout fuses gate|up into `gateup`.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs import DiffusionHeadConfig
+from ..utils.quantize import mm
 from .norms import rms_norm
 
 Params = Dict[str, Any]
@@ -65,8 +67,10 @@ def timestep_embedding(t: torch.Tensor, dim: int, max_period: int = 10000) -> to
 
 def _swiglu(h: torch.Tensor, lp: Params) -> torch.Tensor:
     if "gateup" in lp:
-        raise NotImplementedError("fused int4 gate/up weights are not ported yet (ROADMAP A7)")
-    return F.silu(h @ lp["gate"]) * (h @ lp["up"])
+        gu = mm(h, lp["gateup"])
+        ffn = gu.shape[-1] // 2
+        return F.silu(gu[..., :ffn]) * gu[..., ffn:]
+    return F.silu(mm(h, lp["gate"])) * mm(h, lp["up"])
 
 
 def precompute_modulations(params: Params, cfg: DiffusionHeadConfig,
@@ -78,8 +82,8 @@ def precompute_modulations(params: Params, cfg: DiffusionHeadConfig,
     t_emb = F.silu(t_freq.to(condition.dtype) @ params["t_mlp1"]) @ params["t_mlp2"]
     c = condition @ params["cond_proj"]                # [N, H]
     silu_c = F.silu(c[None, :, :] + t_emb[:, None, :])  # [S, N, H]
-    layer_mods = [silu_c @ lp["ada_w"] for lp in params["layers"]]
-    final_mod = silu_c @ params["final_ada_w"]
+    layer_mods = [mm(silu_c, lp["ada_w"]) for lp in params["layers"]]
+    final_mod = mm(silu_c, params["final_ada_w"])
     return layer_mods, final_mod
 
 
@@ -91,7 +95,7 @@ def apply_with_modulations(params: Params, cfg: DiffusionHeadConfig,
     for lp, mod in zip(params["layers"], layer_mods):
         shift, scale, gate = torch.chunk(mod, 3, dim=-1)
         h = rms_norm(x, lp["norm_w"], eps) * (1 + scale) + shift
-        x = x + gate * (_swiglu(h, lp) @ lp["down"])
+        x = x + gate * mm(_swiglu(h, lp), lp["down"])
     shift, scale = torch.chunk(final_mod, 2, dim=-1)
     x = rms_norm(x, None, eps) * (1 + scale) + shift
     return x @ params["final_linear"]

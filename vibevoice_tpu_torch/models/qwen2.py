@@ -2,7 +2,9 @@
 
 Port of `vibevoice_tpu/models/qwen2.py`: RoPE (theta 1e6), GQA, RMSNorm,
 SwiGLU MLP, biased q/k/v projections, HF Qwen2 numerics.  Plain functions over
-the same parameter dict as the JAX package (linear weights [in, out]).
+the same parameter dict as the JAX package (linear weights [in, out]).  Every
+projection goes through `utils.quantize.mm`, so a layer may hold plain, int8 or
+int4 weights, including the int4 modes' fused `qkv` and `gateup` matrices.
 
 The KV cache is one preallocated `[L, B, S, KVH*D]` pair, written in place at
 one slot range per call (`write_pos`, a host int shared by every row, and
@@ -19,6 +21,7 @@ import torch.nn.functional as F
 
 from ..configs import Qwen2Config
 from ..ops.decode_attention import decode_attention
+from ..utils.quantize import mm
 from .norms import rms_norm
 
 Params = Dict[str, Any]
@@ -149,7 +152,7 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _linear(x: torch.Tensor, p: Dict[str, Any]) -> torch.Tensor:
-    y = x @ p["w"]
+    y = mm(x, p["w"])
     return y if p["b"] is None else y + p["b"]
 
 
@@ -161,16 +164,18 @@ def _layer(lp: Params, cfg: Qwen2Config, x: torch.Tensor, cos: torch.Tensor,
     the new k/v are written in place into the stacked cache at slots
     [write_pos, write_pos+T) of rows [row_off, row_off+B), and attention reads
     this layer's cache."""
-    if "qkv" in lp or "gateup" in lp:
-        raise NotImplementedError(
-            "fused int4 qkv/gateup weights are not ported yet (ROADMAP A7/B2)")
     b, t, _ = x.shape
     nh, nkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
 
     hn = rms_norm(x, lp["input_norm_w"], cfg.rms_norm_eps)
-    q = apply_rope(_linear(hn, lp["q"]).reshape(b, t, nh, hd), cos, sin)
-    k = apply_rope(_linear(hn, lp["k"]).reshape(b, t, nkv, hd), cos, sin)
-    v = _linear(hn, lp["v"])
+    if "qkv" in lp:  # int4 layout: q/k/v in one packed matrix, one kernel call
+        qkv = _linear(hn, lp["qkv"])
+        q, k, v = qkv[..., : nh * hd], qkv[..., nh * hd: (nh + nkv) * hd], \
+            qkv[..., (nh + nkv) * hd:]
+    else:
+        q, k, v = _linear(hn, lp["q"]), _linear(hn, lp["k"]), _linear(hn, lp["v"])
+    q = apply_rope(q.reshape(b, t, nh, hd), cos, sin)
+    k = apply_rope(k.reshape(b, t, nkv, hd), cos, sin)
 
     if cache_full is not None:
         cache, li, pos, row_off = cache_full
@@ -206,10 +211,15 @@ def _layer(lp: Params, cfg: Qwen2Config, x: torch.Tensor, cos: torch.Tensor,
                           v_att.reshape(b, s_max, nkv, hd), bias)
     else:
         att = _attend(q, k, v.reshape(b, t, nkv, hd), bias)
-    x = x + att.reshape(b, t, nh * hd) @ lp["o"]["w"]
+    x = x + mm(att.reshape(b, t, nh * hd), lp["o"]["w"])
 
     hn = rms_norm(x, lp["post_norm_w"], cfg.rms_norm_eps)
-    mlp = (F.silu(hn @ lp["gate"]) * (hn @ lp["up"])) @ lp["down"]
+    if "gateup" in lp:  # int4 layout: gate|up in one packed matrix
+        gu = mm(hn, lp["gateup"])
+        ffn = gu.shape[-1] // 2
+        mlp = mm(F.silu(gu[..., :ffn]) * gu[..., ffn:], lp["down"])
+    else:
+        mlp = mm(F.silu(mm(hn, lp["gate"])) * mm(hn, lp["up"]), lp["down"])
     return x + mlp
 
 
@@ -261,19 +271,24 @@ def positions_from_mask(attention_mask: torch.Tensor) -> torch.Tensor:
 
 
 def embed_rows(lm_params: Params, ids: torch.Tensor) -> torch.Tensor:
-    """Embedding lookup from a plain [V, H] table."""
+    """Embedding lookup from a plain [V, H] table or an int8 dict with per-row
+    scales (only the gathered rows are dequantized)."""
     e = lm_params["embed"]
     if isinstance(e, dict):
-        raise NotImplementedError("int8 embeddings are not ported yet (ROADMAP A7)")
+        return e["qint8"][ids].to(e["scale"].dtype) * e["scale"][ids][..., None]
     return e[ids]
 
 
 def logits(params: Params, cfg: Qwen2Config, hidden: torch.Tensor,
            lm_head=None) -> torch.Tensor:
-    """LM head; tied to the embedding when `lm_head` is None."""
+    """LM head; tied to the embedding when `lm_head` is None.  Takes an int8
+    embedding and a quantized head."""
     if lm_head is None:
-        return hidden @ params["embed"].T
-    return hidden @ lm_head
+        e = params["embed"]
+        if isinstance(e, dict):  # int8 embed: h @ q^T, then per-row scales
+            return (hidden @ e["qint8"].to(hidden.dtype).T) * e["scale"].to(hidden.dtype)
+        return hidden @ e.T
+    return mm(hidden, lm_head)
 
 
 __all__ = [

@@ -9,8 +9,13 @@ Port of `vibevoice_tpu/models/tokenizer.py` (reference codec stack
 * Decoder: the mirror, upsampling with transposed convs (matmul + overlap-add).
 * Streaming: every conv carries a fixed-shape state, collected in one flat
   list in the order the apply functions consume them (`*_state_init`).
-
-The fused stage kernels (`pack_*`, `*_fused`) are later slices of the port.
+* Quantized weights (`utils.quantize.quantize_tokenizer_stack`): the FFNs go
+  through `quantize.mm`, the transition convs take their int8 paths.
+* Fused streaming (`*_apply_streaming_fused`): the small-T stages (T <= 8
+  frames per 7.5 Hz frame) run as ONE int4 chain-kernel call per stage
+  (`ops.fused_blocks`, packs from `pack_*_stages(quant="int4")`).  The bf16
+  chain packs (ROADMAP B6) and the large-T stage kernel (`large_packs`,
+  ROADMAP B4) are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ import torch.nn.functional as F
 
 from ..configs import AcousticTokenizerConfig
 from ..ops.conv import (
+    ConvState,
     causal_conv1d,
     causal_conv1d_streaming,
     causal_conv_transpose1d,
@@ -28,6 +34,8 @@ from ..ops.conv import (
     conv_state_init,
     conv_transpose_state_init,
 )
+from ..ops import fused_blocks as fb
+from ..utils.quantize import mm
 from .norms import rms_norm
 
 Params = Dict[str, Any]
@@ -117,10 +125,9 @@ def init_decoder(cfg: AcousticTokenizerConfig, dtype=torch.float32, device="cpu"
 # apply
 # ---------------------------------------------------------------------------
 
-def _plain_linear(h: torch.Tensor, p: Dict[str, Any]) -> torch.Tensor:
-    if isinstance(p["w"], dict) or p["w"] is None:
-        raise NotImplementedError("quantized tokenizer weights are not ported yet (ROADMAP A7)")
-    h = h @ p["w"]
+def _linear(h: torch.Tensor, p: Dict[str, Any]) -> torch.Tensor:
+    """Plain, int8 or int4 FFN weight (`quantize.mm`)."""
+    h = mm(h, p["w"])
     return h if p["b"] is None else h + p["b"]
 
 
@@ -141,33 +148,55 @@ def _block_apply(p: Params, x: torch.Tensor, eps: float, groups: int,
     h = _conv(rms_norm(x, p["norm_w"], eps), p["mixer"], states, groups=groups)
     x = x + h * p["gamma"]
     h = rms_norm(x, p["ffn_norm_w"], eps)
-    h = F.gelu(_plain_linear(h, p["ffn1"]), approximate="none")
-    return x + _plain_linear(h, p["ffn2"]) * p["ffn_gamma"]
+    h = F.gelu(_linear(h, p["ffn1"]), approximate="none")
+    return x + _linear(h, p["ffn2"]) * p["ffn_gamma"]
 
 
 def _groups_of(cfg, dim: int) -> int:
     return dim if cfg.mixer_layer == "depthwise_conv" else 1
 
 
+def _stage(params: Params, cfg, i: int, h: torch.Tensor, states: Optional[list],
+           fused_packs=None) -> torch.Tensor:
+    """Stage i's Block1D chain: through the int4 chain kernel when it has a
+    pack in `fused_packs` (streaming only), else block by block; threads the
+    streaming states either way."""
+    blocks = params["stages"][i]
+    if fused_packs and i in fused_packs:
+        packed = fused_packs[i]
+        if "w1q" not in packed:
+            fb.pack_stage(blocks)  # a bf16 pack: raises, naming B6
+        n = len(blocks)
+        ctx = torch.stack([states.pop(0).buf for _ in range(n)], dim=1)  # [B, N, 6, D]
+        h, new_ctx = fb.fused_block_chain_batched(packed, h.contiguous(), ctx.contiguous(),
+                                                  eps=cfg.layernorm_eps)
+        states.extend(ConvState(buf=new_ctx[:, j]) for j in range(n))
+        return h
+    for bp in blocks:
+        h = _block_apply(bp, h, cfg.layernorm_eps, _groups_of(cfg, h.shape[-1]), states)
+    return h
+
+
 def encoder_apply(params: Params, cfg, x: torch.Tensor,
-                  states: Optional[list] = None) -> torch.Tensor:
+                  states: Optional[list] = None, fused_packs=None) -> torch.Tensor:
     """audio [B, T, 1] -> latents [B, T/hop, vae_dim] (ref forward :810-813).
     With `states` (from `encoder_state_init`) it runs one streaming chunk and
-    rotates the list in place."""
+    rotates the list in place; `fused_packs` then puts the packed stages on
+    the chain kernel."""
     strides = [1] + list(reversed(cfg.encoder_ratios))
     h = x
     for i in range(len(cfg.encoder_depths)):
         h = _conv(h, params["down"][i], states, stride=strides[i])
-        for bp in params["stages"][i]:
-            h = _block_apply(bp, h, cfg.layernorm_eps, _groups_of(cfg, h.shape[-1]), states)
+        h = _stage(params, cfg, i, h, states, fused_packs)
     if params["final_norm_w"] is not None:
         h = rms_norm(h, params["final_norm_w"], cfg.layernorm_eps)
     return _conv(h, params["head"], states)
 
 
 def decoder_apply(params: Params, cfg: AcousticTokenizerConfig, z: torch.Tensor,
-                  states: Optional[list] = None) -> torch.Tensor:
-    """latents [B, F, vae_dim] -> audio [B, F*hop, 1] (ref forward :948-951)."""
+                  states: Optional[list] = None, fused_packs=None) -> torch.Tensor:
+    """latents [B, F, vae_dim] -> audio [B, F*hop, 1] (ref forward :948-951);
+    streaming and `fused_packs` as in `encoder_apply`."""
     strides = list(cfg.decoder_ratios)
     h = z
     for i in range(len(cfg.decoder_depths_resolved())):
@@ -180,8 +209,7 @@ def decoder_apply(params: Params, cfg: AcousticTokenizerConfig, z: torch.Tensor,
             h, new_st = causal_conv_transpose1d_streaming(h, states.pop(0), up["w"], up["b"],
                                                           stride=strides[i - 1])
             states.append(new_st)
-        for bp in params["stages"][i]:
-            h = _block_apply(bp, h, cfg.layernorm_eps, _groups_of(cfg, h.shape[-1]), states)
+        h = _stage(params, cfg, i, h, states, fused_packs)
     if params["final_norm_w"] is not None:
         h = rms_norm(h, params["final_norm_w"], cfg.layernorm_eps)
     return _conv(h, params["head"], states)
@@ -197,6 +225,79 @@ def decoder_apply_streaming(params: Params, cfg, z: torch.Tensor, states):
     """Functional streaming decode: returns (audio, new_states)."""
     s = list(states)
     return decoder_apply(params, cfg, z, s), s
+
+
+# ---------------------------------------------------------------------------
+# fused streaming (int4 chain kernel for the small-T stages)
+# ---------------------------------------------------------------------------
+
+def _stage_pack(blocks, quant: Optional[str]):
+    if quant == "int4":
+        return fb.pack_stage_q(blocks)
+    return fb.pack_stage(blocks)  # the bf16 chain: raises, naming B6
+
+
+def pack_decoder_stages(params: Params, cfg: AcousticTokenizerConfig,
+                        max_frames: int = 8, quant: Optional[str] = None):
+    """Chain-kernel packs of the decoder stages whose per-frame T =
+    prod(ratios[:i]) is at most `max_frames` ({stage index: pack}).
+    quant="int4": nibble-packed FFN weights (`ops.fused_blocks.pack_stage_q`)."""
+    depths = cfg.decoder_depths_resolved()
+    strides = list(cfg.decoder_ratios)
+    packs = {}
+    t = 1
+    for i in range(len(depths)):
+        if i > 0:
+            t *= strides[i - 1]
+        if t <= max_frames and depths[i] > 0:
+            packs[i] = _stage_pack(params["stages"][i], quant)
+    return packs
+
+
+def pack_encoder_stages(params: Params, cfg, chunk_t: int, max_frames: int = 8,
+                        quant: Optional[str] = None):
+    """Mirror of `pack_decoder_stages` for the semantic re-encode: encoder
+    stage i runs at T = chunk_t / prod(strides[:i+1])."""
+    if cfg.mixer_layer != "depthwise_conv":
+        return {}  # the kernel packs depthwise taps only
+    depths = cfg.encoder_depths
+    strides = [1] + list(reversed(cfg.encoder_ratios))
+    packs = {}
+    t = chunk_t
+    for i in range(len(depths)):
+        if t % strides[i]:
+            raise ValueError(f"chunk {chunk_t} does not stream-divide encoder strides")
+        t //= strides[i]
+        if t <= max_frames and depths[i] > 0:
+            packs[i] = _stage_pack(params["stages"][i], quant)
+    return packs
+
+
+def _no_large_packs(large_packs):
+    if large_packs:
+        raise NotImplementedError("the large-T fused stage kernel (use_fused_stages) is "
+                                  "not ported yet (ROADMAP B4)")
+
+
+def decoder_apply_streaming_fused(params: Params, cfg: AcousticTokenizerConfig,
+                                  z: torch.Tensor, states, fused_packs=None,
+                                  large_packs=None):
+    """Streaming decode with the small-T stages on the chain kernel
+    (`fused_packs` from `pack_decoder_stages(quant="int4")`); the same
+    numerics as `decoder_apply_streaming` up to int4 weights and fp32
+    in-kernel rounding.  Returns (audio, new_states)."""
+    _no_large_packs(large_packs)
+    s = list(states)
+    return decoder_apply(params, cfg, z, s, fused_packs), s
+
+
+def encoder_apply_streaming_fused(params: Params, cfg, x: torch.Tensor, states,
+                                  fused_packs=None, large_packs=None):
+    """Streaming encode with the small-T stages on the chain kernel (mirror of
+    `decoder_apply_streaming_fused`).  Returns (latents, new_states)."""
+    _no_large_packs(large_packs)
+    s = list(states)
+    return encoder_apply(params, cfg, x, s, fused_packs), s
 
 
 # ---------------------------------------------------------------------------
@@ -280,6 +381,10 @@ __all__ = [
     "decoder_apply",
     "encoder_apply_streaming",
     "decoder_apply_streaming",
+    "encoder_apply_streaming_fused",
+    "decoder_apply_streaming_fused",
+    "pack_decoder_stages",
+    "pack_encoder_stages",
     "encoder_state_init",
     "decoder_state_init",
     "state_reset_where",

@@ -14,6 +14,8 @@ import torch
 
 from ..configs import VibeVoiceConfig
 from ..schedule import dpm_solver as ds
+from ..ops import fused_head
+from ..ops.int4_matmul import dequant_int4
 from . import connectors, diffusion_head, qwen2, tokenizer
 
 Params = Dict[str, Any]
@@ -44,27 +46,35 @@ def init_model(cfg: VibeVoiceConfig, dtype=torch.float32, device="cpu",
     return params
 
 
-def lm_head_subset(params: Params, ids) -> Dict[str, Any]:
+def lm_head_subset(params: Params, ids, dtype=torch.bfloat16) -> Dict[str, Any]:
     """Columns of the logits head for the allowed control tokens only.
 
     Generation can select just 4-5 control tokens, so the per-step logits
     matmul reads [H, n] instead of the whole [H, V] head.  Each column is the
     same dot as in the full matmul, and the ids are sorted ascending, so the
-    subset argmax equals the bias-masked full argmax.  Plain weights only."""
+    subset argmax equals the bias-masked full argmax.  Returns {"q": int8
+    [H, n], "scale": [n]} for an int8 head or embedding, {"w": [H, n]}
+    otherwise; an int4 head's columns are dequantized once, to `dtype`, by the
+    plain `dequant_int4` (as the JAX package does)."""
     ids = sorted(set(int(i) for i in ids))
     head = params.get("lm_head")
     if head is None:
         e = params["lm"]["embed"]
-        if isinstance(e, dict):
-            raise NotImplementedError("int8 embeddings are not ported yet (ROADMAP A7)")
+        if isinstance(e, dict):  # int8 embed, per-row scales (rows = vocab)
+            return {"q": e["qint8"][ids].T.contiguous(), "scale": e["scale"][ids]}
         return {"w": e[ids].T.contiguous()}
     if isinstance(head, dict):
-        raise NotImplementedError("quantized logits heads are not ported yet (ROADMAP A7)")
+        if "qint4" in head:
+            return {"w": dequant_int4(head["qint4"][:, ids].contiguous(),
+                                      head["scale4"][:, ids].contiguous(), dtype)}
+        return {"q": head["qint8"][:, ids].contiguous(), "scale": head["scale"][ids]}
     return {"w": head[:, ids].contiguous()}
 
 
 def lm_logits_subset(sub: Dict[str, Any], hidden: torch.Tensor) -> torch.Tensor:
     """Logits over the allowed-token subset (see `lm_head_subset`)."""
+    if "q" in sub:
+        return (hidden @ sub["q"].to(hidden.dtype)) * sub["scale"].to(hidden.dtype)
     return hidden @ sub["w"].to(hidden.dtype)
 
 
@@ -83,20 +93,31 @@ def sample_speech_latents(
     """DPM-Solver sampling with classifier-free guidance (ref
     `sample_speech_tokens`, modeling_vibevoice_inference.py:712-725): each
     step runs the head on the [cond; neg] doubled batch and combines
-    `uncond + s * (cond - uncond)`."""
-    if params.get("_diffusion_head_packq") is not None:
-        raise NotImplementedError("the fused int4 head kernel is not ported yet (ROADMAP B8)")
+    `uncond + s * (cond - uncond)`.
+
+    With an int4 head pack in `params["_diffusion_head_packq"]`
+    (`quantize_diffusion="int4k"`) each solver step is ONE call of the fused
+    head kernel (`ops.fused_head`)."""
     dh_cfg = cfg.diffusion_head
+    head = params["diffusion_head"]
     cond2 = torch.cat([condition, neg_condition], dim=0)
     state = ds.init_state(solver_cfg, tuple(x_init.shape), device=x_init.device)
     timesteps = torch.as_tensor(sched.timesteps, device=condition.device)
     layer_mods, final_mod = diffusion_head.precompute_modulations(
-        params["diffusion_head"], dh_cfg, cond2, timesteps)
+        head, dh_cfg, cond2, timesteps)
+    packq = params.get("_diffusion_head_packq")
+    if packq is not None:
+        mods_stack = torch.stack(layer_mods, dim=1)  # [S, L, N, 3H]
     x = x_init
     for i in range(sched.num_steps):
-        eps = diffusion_head.apply_with_modulations(
-            params["diffusion_head"], dh_cfg, torch.cat([x, x], dim=0),
-            [m[i] for m in layer_mods], final_mod[i])
+        x2 = torch.cat([x, x], dim=0)
+        if packq is not None:
+            eps = fused_head.fused_head_solver_step(
+                packq, x2 @ head["noisy_proj"], mods_stack[i], final_mod[i],
+                head["final_linear"], dh_cfg.rms_norm_eps)
+        else:
+            eps = diffusion_head.apply_with_modulations(
+                head, dh_cfg, x2, [m[i] for m in layer_mods], final_mod[i])
         cond_eps, uncond_eps = torch.chunk(eps, 2, dim=0)
         guided = uncond_eps + cfg_scale * (cond_eps - uncond_eps)
         noise = None

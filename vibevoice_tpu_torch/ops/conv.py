@@ -1,13 +1,18 @@
 """Causal 1-D convolutions, channel-last `[B, T, C]`, full and streaming.
 
 Port of `vibevoice_tpu/ops/conv.py` (reference SConv1d / SConvTranspose1d,
-`modular_vibevoice_tokenizer.py:258-576`), plain weights only:
+`modular_vibevoice_tokenizer.py:258-576`):
 
 * `causal_conv1d` — left-padded strided conv (`F.conv1d`).
 * `causal_conv_transpose1d` — transposed conv as ONE matmul plus an
   overlap-add of output frames `stride` apart, then the causal trim.
 * streaming variants carry `ConvState` (the trailing input context) and
   `ConvTState` (the bias-free overlap partial sums past the emitted frames).
+* int8-quantized weights (`utils.quantize.quantize_conv_weight` /
+  `quantize_convt_weight`): a k == 2*stride downsampling conv runs as ONE
+  window matmul through `quantize.mm`; a transposed conv's projection
+  converts the int8 weight to x's dtype and applies per-(tap, channel) scales.
+  Plain PyTorch, as the JAX package leaves both to XLA.
 
 Weight layouts are the JAX package's: conv [K, Cin/groups, Cout], transposed
 conv [Cin, K, Cout].
@@ -26,10 +31,25 @@ def causal_pad_amount(kernel_size: int, stride: int = 1, dilation: int = 1) -> i
     return (kernel_size - 1) * dilation - (stride - 1)
 
 
-def _plain(weight):
-    if isinstance(weight, dict):
-        raise NotImplementedError("quantized conv weights are not ported yet (ROADMAP A7)")
-    return weight
+def _conv_windows(full: torch.Tensor, stride: int) -> torch.Tensor:
+    """[B, (F+1)*stride, C] -> [B, F, 2*stride*C] sliding k=2s windows: window
+    i is stride-blocks i and i+1, flattened (time, channel) row-major as a
+    [K, Cin, Cout] weight flattened to [K*Cin, Cout]."""
+    b, tt, c = full.shape
+    blocks = full.reshape(b, tt // stride, stride * c)
+    return torch.cat([blocks[:, :-1], blocks[:, 1:]], dim=-1)
+
+
+def _causal_conv1d_q(x: torch.Tensor, weight, bias, stride: int) -> torch.Tensor:
+    """int8 k == 2*stride downsampling conv: stride-block windows, one matmul."""
+    from ..utils.quantize import mm
+    b, t, c = x.shape
+    if weight["qint8"].shape[0] != 2 * stride * c:
+        raise ValueError("quantized conv expects k == 2*stride packing")
+    f = -(-t // stride)
+    full = F.pad(x, (0, 0, stride, f * stride - t))
+    y = mm(_conv_windows(full, stride), weight)
+    return y if bias is None else y + bias
 
 
 def _conv(x: torch.Tensor, weight: torch.Tensor, bias, stride: int, dilation: int,
@@ -44,8 +64,12 @@ def _conv(x: torch.Tensor, weight: torch.Tensor, bias, stride: int, dilation: in
 def causal_conv1d(x: torch.Tensor, weight, bias: Optional[torch.Tensor],
                   stride: int = 1, dilation: int = 1, groups: int = 1) -> torch.Tensor:
     """Causal conv over [B, T, C]; output [B, ceil(T/stride), Cout] (ref
-    SConv1d._forward_non_streaming :384-418)."""
-    weight = _plain(weight)
+    SConv1d._forward_non_streaming :384-418).  `weight` may be an int8 dict
+    (k == 2*stride convs only)."""
+    if isinstance(weight, dict):
+        if dilation != 1 or groups != 1:
+            raise ValueError("quantized convs take dilation 1 and groups 1")
+        return _causal_conv1d_q(x, weight, bias, stride)
     k = weight.shape[0]
     pad_left = causal_pad_amount(k, stride, dilation)
     t = x.shape[1]
@@ -76,23 +100,43 @@ def causal_conv1d_streaming(x: torch.Tensor, state: ConvState, weight,
     """One streaming chunk, [B, T, Cin] with T a multiple of `stride`: concat
     the carried context, VALID conv, keep the trailing `ctx` inputs.  From a
     zero state this equals `causal_conv1d` on the concatenated stream."""
-    weight = _plain(weight)
     ctx = state.buf.shape[1]
     full = torch.cat([state.buf, x], dim=1) if ctx > 0 else x
+    if isinstance(weight, dict):
+        # k == 2*stride => ctx == stride, so `full` is (F+1) whole blocks
+        from ..utils.quantize import mm
+        if dilation != 1 or groups != 1 or ctx != stride:
+            raise ValueError("quantized streaming convs take k == 2*stride, groups 1")
+        y = mm(_conv_windows(full, stride), weight)
+        if bias is not None:
+            y = y + bias
+        return y, ConvState(buf=full[:, full.shape[1] - ctx:, :])
     y = _conv(full, weight, bias, stride, dilation, groups)
     new_buf = full[:, full.shape[1] - ctx:, :] if ctx > 0 else state.buf
     return y, ConvState(buf=new_buf)
 
 
+def _convt_project(x: torch.Tensor, weight) -> torch.Tensor:
+    """The transposed conv's dense projection [B, T, Cin] -> [B, T, K*Cout];
+    an int8 dict ({"qint8" [Cin, K, Cout], "scale" [K, Cout]}) is converted to
+    x's dtype and its per-(tap, channel) scales applied to the output."""
+    if isinstance(weight, dict):
+        q = weight["qint8"]
+        cin, k, cout = q.shape
+        y = x @ q.to(x.dtype).reshape(cin, k * cout)
+        return y * weight["scale"].to(x.dtype).reshape(k * cout)
+    cin, k, cout = weight.shape
+    return x @ weight.reshape(cin, k * cout)
+
+
 def _convt_overlap_add(x: torch.Tensor, weight, stride: int) -> torch.Tensor:
     """[B, T, Cin] -> bias-free overlap-added [B, T + g - 1, stride, Cout]."""
-    weight = _plain(weight)
-    cin, k, cout = weight.shape
+    _, k, cout = (weight["qint8"] if isinstance(weight, dict) else weight).shape
     if k % stride:
         raise ValueError("transposed conv kernel must be a multiple of its stride")
     b, t, _ = x.shape
     g = k // stride  # frames each input sample touches
-    y = (x @ weight.reshape(cin, k * cout)).reshape(b, t, g, stride, cout)
+    y = _convt_project(x, weight).reshape(b, t, g, stride, cout)
     out = torch.zeros((b, t + g - 1, stride, cout), dtype=x.dtype, device=x.device)
     for gi in range(g):  # chunk gi of input frame t lands in output frame t + gi
         out[:, gi:gi + t] += y[:, :, gi]

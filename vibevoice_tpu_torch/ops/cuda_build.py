@@ -4,7 +4,8 @@ Each source compiles with `nvcc` for Hopper (`sm_90a`) into a shared library
 with a plain C interface, at first use, into a build directory that git
 ignores (`vibevoice_tpu_torch/_build/`, or `$VIBEVOICE_TORCH_BUILD_DIR`).  A
 library's file name carries a hash of its source and flags, so an edited source
-is rebuilt and a stale library is never loaded.  Nothing here runs at import.
+(or of a shared header in csrc/) is rebuilt and a stale library is never
+loaded.  Nothing here runs at import.
 """
 from __future__ import annotations
 
@@ -22,6 +23,9 @@ CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 # kernel name -> source file in csrc/
 SOURCES: Dict[str, str] = {
     "decode_attention": "decode_attention.cu",
+    "int4_matmul": "int4_matmul.cu",
+    "fused_block_chain": "fused_block_chain.cu",
+    "fused_head": "fused_head.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -46,10 +50,12 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> str:
-    src = os.path.join(CSRC_DIR, SOURCES[name])
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return os.path.join(build_dir(), f"lib{name}-{digest}.so")
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for fname in [SOURCES[name], *headers]:
+        with open(os.path.join(CSRC_DIR, fname), "rb") as f:
+            h.update(f.read())
+    return os.path.join(build_dir(), f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
 def _start(name: str) -> Tuple[Optional[subprocess.Popen], str, str]:

@@ -3,9 +3,13 @@
 Port of `vibevoice_tpu/pipeline.py` (the reference's `from_pretrained` +
 processor + generate flow, demo/inference_from_file.py:182-400).  Engines are
 cached per (batch, bucketed prompt length, max steps).  Runs on CUDA unless
-`device="cpu"` is given.  Quantized modes and the fused sigma-VAE stages are
-later slices of the port and raise `NotImplementedError`; `from_pretrained`
-waits for the checkpoint slice.
+`device="cpu"` is given.  The quantized serving modes are wired as in the JAX
+package: `quantize="int8"|"int4"|"int4f"` (LM and logits head),
+`quantize_tokenizer="int8"|"int4"|"int4k"` (sigma-VAE decode path; "int4k"
+runs the deep stages on the int4 chain kernel) and `quantize_diffusion="int4k"`
+(the fused int4 head kernel).  The large-T fused stages (`use_fused_stages`,
+ROADMAP B4) raise `NotImplementedError`; `from_pretrained` waits for the
+checkpoint slice.
 """
 from __future__ import annotations
 
@@ -18,9 +22,12 @@ import torch
 from .configs import VibeVoiceConfig, vibevoice_1_5b
 from .engine import generate as G
 from .engine.streamer import AudioStreamer
+from .models import tokenizer as tokmod
 from .models import vibevoice as V
+from .ops import fused_head
 from .processor.processor import VibeVoiceProcessor
 from .processor.text_tokenizer import ByteFallbackTokenizer
+from .utils import quantize as Q
 
 
 class VibeVoiceTTS:
@@ -32,20 +39,17 @@ class VibeVoiceTTS:
                  int4_group_size: Optional[int] = None,
                  quantize_tokenizer: Optional[str] = None,
                  quantize_diffusion: Optional[str] = None,
+                 tokenizer_min_dim: int = 512,
                  use_fused_stages: bool = False,
                  keep_audio: bool = True,
                  processor: Optional[VibeVoiceProcessor] = None,
                  device="cuda"):
-        for name, value in (("quantize", quantize), ("quantize_tokenizer", quantize_tokenizer),
-                            ("quantize_diffusion", quantize_diffusion),
-                            ("int4_group_size", int4_group_size)):
-            if value is not None:
-                raise NotImplementedError(
-                    f"{name}={value!r}: quantized modes are not ported yet (ROADMAP A7)")
         if use_fused_stages:
             raise NotImplementedError(
                 "use_fused_stages: the fused stage kernel is not ported yet (ROADMAP B4)")
         self.device = G.resolve_device(device)
+        params = self._quantize(params, cfg, quantize, int4_group_size, quantize_tokenizer,
+                                quantize_diffusion, tokenizer_min_dim)
         self.do_sample = do_sample
         self.refresh_negative = refresh_negative
         self.algorithm_type = algorithm_type
@@ -63,6 +67,62 @@ class VibeVoiceTTS:
         self.processor = processor or VibeVoiceProcessor(
             tokenizer, speech_tok_compress_ratio=cfg.speech_compress_ratio)
         self._engines: Dict[tuple, G.Engine] = {}
+
+    def _quantize(self, params, cfg, quantize, group_size, quantize_tokenizer,
+                  quantize_diffusion, tokenizer_min_dim):
+        """The JAX pipeline's quantization wiring, in its order: int4 packs
+        from the ORIGINAL weights first, then `quantize_model` (which skips
+        the packed stages), then the packs stashed in the tree and the
+        weights they replace dropped."""
+        self._chain_packs = None
+        self._head_packq = None
+        if quantize_diffusion is not None:
+            if quantize_diffusion != "int4k":
+                raise ValueError(f"quantize_diffusion must be 'int4k', got {quantize_diffusion}")
+            self._head_packq = fused_head.pack_head_solver_q(params["diffusion_head"])
+        tok_mode, tok_skip = quantize_tokenizer, None
+        if quantize_tokenizer == "int4k":
+            voc = tokmod.pack_decoder_stages(params["acoustic_decoder"],
+                                             cfg.acoustic_tokenizer, quant="int4")
+            sem = tokmod.pack_encoder_stages(params["semantic_encoder"],
+                                             cfg.semantic_tokenizer,
+                                             chunk_t=cfg.speech_compress_ratio, quant="int4")
+            self._chain_packs = (voc, sem)
+            tok_mode = "int8"
+            tok_skip = {"acoustic_decoder": set(voc), "semantic_encoder": set(sem)}
+        if quantize is not None:
+            if quantize not in ("int8", "int4", "int4f"):
+                raise ValueError(f"quantize must be 'int8', 'int4' or 'int4f', got {quantize}")
+            params = Q.quantize_model(params, cfg.decoder.tie_word_embeddings, mode=quantize,
+                                      group_size=group_size, tokenizer_mode=tok_mode,
+                                      tokenizer_min_dim=tokenizer_min_dim,
+                                      tokenizer_skip=tok_skip)
+        elif quantize_tokenizer is not None:
+            if quantize_tokenizer not in ("int8", "int4", "int4k"):
+                raise ValueError(f"quantize_tokenizer must be 'int8', 'int4' or 'int4k', "
+                                 f"got {quantize_tokenizer}")
+            params = Q.quantize_tokenizers(params, mode=tok_mode, min_dim=tokenizer_min_dim,
+                                           skip=tok_skip)
+        if self._head_packq is not None:
+            # the per-step FFN weights now live in the pack only
+            params = dict(params, _diffusion_head_packq=self._head_packq)
+            headp = dict(params["diffusion_head"])
+            headp["layers"] = [{k: (None if k in ("gate", "up", "down", "gateup") else v)
+                                for k, v in lp.items()} for lp in headp["layers"]]
+            params["diffusion_head"] = headp
+        if self._chain_packs is not None:
+            # the packed stages' FFN weights now live in the packs only
+            voc, sem = self._chain_packs
+            params = dict(params, _vocoder_packs=voc, _semantic_packs=sem)
+            for name, packs in (("acoustic_decoder", voc), ("semantic_encoder", sem)):
+                stack = dict(params[name])
+                stages = list(stack["stages"])
+                for i in packs:
+                    stages[i] = [dict(bp, ffn1=dict(bp["ffn1"], w=None),
+                                      ffn2=dict(bp["ffn2"], w=None)) for bp in stages[i]]
+                stack["stages"] = stages
+                params[name] = stack
+        return params
 
     # ------------------------------------------------------------------
     @classmethod
@@ -93,10 +153,13 @@ class VibeVoiceTTS:
                 do_sample=self.do_sample, refresh_negative=self.refresh_negative,
                 algorithm_type=self.algorithm_type,
             )
+            chain = self._chain_packs is not None
             self._engines[key] = G.Engine(self.params, self.cfg, gen,
                                           max_steps=max_steps, batch=batch,
                                           prompt_len=bucket, dtype=self.dtype,
                                           kv_dtype=self.kv_dtype,
+                                          use_fused_vocoder=chain,
+                                          use_fused_semantic=chain,
                                           keep_audio=self.keep_audio,
                                           device=self.device)
         return self._engines[key]

@@ -5,7 +5,10 @@ conv [K, Cin, Cout], transposed conv [Cin, K, Cout]), so a
 `vibevoice.init_model` pytree converted leaf by leaf with `np.asarray` maps
 one to one onto torch tensors.  This is the inverse direction of
 `vibevoice_tpu/utils/torch_bridge.py`, which turns reference torch modules into
-JAX pytrees.
+JAX pytrees.  A tree the JAX package quantized carries over as it is: int8
+leaves, the quantized weights' dicts ({"qint8", "scale"}, {"qint4", "scale4"})
+and the kernel packs ("_vocoder_packs", "_semantic_packs" keyed by stage index,
+"_diffusion_head_packq").
 """
 from __future__ import annotations
 
@@ -27,14 +30,24 @@ def _leaf_to_torch(x, device, dtype: Optional[torch.dtype]) -> torch.Tensor:
     return t.to(device)
 
 
+def _keeps_dtypes(key, node) -> bool:
+    """Quantized weights and kernel packs keep their stored dtypes (their
+    scales are part of the quantized values)."""
+    if isinstance(key, str) and key.startswith("_"):
+        return True
+    return isinstance(node, dict) and ("qint8" in node or "qint4" in node)
+
+
 def from_jax(params_np: Any, device="cpu", dtype: Optional[torch.dtype] = None) -> Any:
     """numpy pytree (dicts, lists, tuples, None leaves) -> the same tree of
-    torch tensors on `device`.  `dtype` recasts the floating arrays (0-dim
-    scalars such as the speech scaling factors stay fp32)."""
+    torch tensors on `device`.  `dtype` recasts the floating arrays, except
+    0-dim scalars (the speech scaling factors stay fp32), quantized weights
+    and kernel packs."""
     if params_np is None:
         return None
     if isinstance(params_np, dict):
-        return {k: from_jax(v, device, dtype) for k, v in params_np.items()}
+        return {k: from_jax(v, device, None if _keeps_dtypes(k, v) else dtype)
+                for k, v in params_np.items()}
     if isinstance(params_np, (list, tuple)):
         return type(params_np)(from_jax(v, device, dtype) for v in params_np)
     return _leaf_to_torch(params_np, device, dtype)
