@@ -12,22 +12,32 @@ Phases, in order; any failure stops the run with a non-zero exit:
      live length, a visibility mask with holes); int4_matmul at the four LM
      projections with M=2 (per channel and with 128-row groups) and at M=64
      and M=128; the int4 Block1D chain at the 1.5B stage shapes with B=1 and
-     B=4; the fused int4 head at N=2;
+     B=4; the fused int4 head at N=2; the large-T stage kernel at the eight
+     folded B=1 stage calls of a 1.5B decode step (two chunks each, states
+     carried), with the folded tail, and unfolded at B=2; the row-lane stage
+     kernel at B=2, 4 and 32, each followed by the plain stage kernel on the
+     same rows;
   3. the long-cache engine as `bench.py` drives it (1.5B, bf16, B=1, prompt
      256, 3840 steps -> a 4096-slot cache, so decode attention runs on the
      kernel): prefill, a 16-step warm-up chunk and two timed 32-step chunks;
-  4. the same engine with `kv_dtype="int8"` for 8 + 8 steps;
+  4. the same engine with `kv_dtype="int8"` for 8 + 8 steps, then at B=2 with
+     `use_fused_stages=True` for 8 + 16 steps, by default (eight stage-kernel
+     calls per step) and with `fused_stage_rowlane=True` (4 + 4 row-lane);
   5. the quantized engine, full width and depth: the same weights through
      `VibeVoiceTTS(quantize="int4", quantize_tokenizer="int4k",
      quantize_diffusion="int4k")`, prefill, a 16-step warm-up and two timed
-     32-step chunks, every kernel's launches asserted per step; then
-     `quantize="int4f"` for 8 + 8 steps;
+     32-step chunks, every kernel's launches asserted per step; the same
+     quantized weights with `use_fused_stages=True` (eight stage-kernel calls
+     per step, the transition convs folded), as long; then `quantize="int4f"`
+     for 8 + 8 steps;
   6. `VibeVoiceTTS.from_random(vibevoice_1_5b())` serving three scripts (one
      with two speakers) with a streamer, each stopped after 24 steps, in bf16
-     and then in the quantized configuration;
+     and then in the quantized configuration, which also serves one script
+     with `use_fused_stages=True`;
   7. a tiny model on the card against the same model on the CPU (plain
      versions), as the reference on a small input: bf16-free fp32, plain and
-     in the int4 modes (group scales, int8 tokenizer stages).
+     in the int4 modes (group scales, int8 tokenizer stages), and with
+     `use_fused_stages=True` at B=1 (folds) and B=2 (row-lane, asked for).
 
 Weights are random, made from a seed.  Prints one JSON line per measurement,
 then the `kernels` line, the card's name and power limit, and as the last line
@@ -347,6 +357,148 @@ def phase_int4_kernels(dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 2, the large-T stage kernels: fused_stage_chain and its row-lane form
+# ---------------------------------------------------------------------------
+
+# (name, B, stage T, D, folded conv (kind, s, k, cin), folded tail, row-lane R);
+# 3 blocks each, as every large-T stage of the 1.5B stacks
+STAGE_CASES = [
+    ("decoder 3", 1, 200, 256, ("up", 5, 10, 512), False, None),
+    ("decoder 4", 1, 800, 128, ("up", 4, 8, 256), False, None),
+    ("decoder 5", 1, 1600, 64, ("up", 2, 4, 128), False, None),
+    ("decoder 6", 1, 3200, 32, ("up", 2, 4, 64), False, None),
+    ("encoder 0", 1, 3200, 32, ("down", 1, 7, 1), False, None),
+    ("encoder 1", 1, 1600, 64, ("down", 2, 4, 32), False, None),
+    ("encoder 2", 1, 800, 128, ("down", 2, 4, 64), False, None),
+    ("encoder 3", 1, 200, 256, ("down", 4, 8, 128), False, None),
+    ("decoder 6 + tail", 1, 3200, 32, ("up", 2, 4, 64), True, None),
+    ("decoder 4", 2, 800, 128, None, False, None),
+    ("decoder 3", 2, 200, 256, None, False, None),
+    ("decoder 6", 2, 3200, 32, None, False, 2),
+    ("decoder 5", 2, 1600, 64, None, False, 2),
+    ("decoder 6", 4, 3200, 32, None, False, 4),
+    ("decoder 5", 4, 1600, 64, None, False, 2),
+    ("decoder 6", 32, 3200, 32, None, False, 4),
+    ("decoder 5", 32, 1600, 64, None, False, 2),
+]
+
+
+def stage_inputs(pack, b, t, gen, dev):
+    """Two chunks of x, the block contexts and the folds' states of a stage
+    pack at batch b and stage T (the activation dtype is the pack's)."""
+    n, _, d = pack["vecs"].shape
+    rnd = lambda *shape: (0.5 * torch.randn(shape, generator=gen, device=dev)).to(
+        pack["vecs"].dtype)
+    conv, states = pack.get("conv"), {}
+    xshape = (b, t, d)
+    if conv is not None and conv.kind == "up":
+        xshape, states["conv_state"] = (b, t // conv.s, conv.cin), (b, conv.s, d)
+    elif conv is not None:
+        xshape, states["conv_state"] = (b, t * conv.s, conv.cin), (b, conv.k - conv.s, conv.cin)
+    if "head" in pack:
+        states["head_state"] = (b, pack["head"].k - 1, d)
+    return ([rnd(*xshape) for _ in range(2)], rnd(b, n, 6, d),
+            {k: rnd(*shape) for k, shape in states.items()})
+
+
+def clone_pack(pack):
+    from vibevoice_tpu_torch.ops import fused_stage as fs
+    out = {}
+    for k, v in pack.items():
+        if isinstance(v, dict):
+            out[k] = clone_pack(v)
+        elif isinstance(v, fs.ConvPack):
+            out[k] = fs.ConvPack(v.kind, v.w.clone(), v.b.clone(), v.s, v.k, v.cin)
+        elif isinstance(v, fs.HeadPack):
+            out[k] = fs.HeadPack(v.w.clone(), None if v.b is None else v.b.clone(), v.k,
+                                 v.has_norm)
+        else:
+            out[k] = v.clone()
+    return out
+
+
+def uses_rowlane(pack, batch) -> bool:
+    """Whether `fused_stage_chain` sends this pack to the row-lane kernel."""
+    if "rowlane" not in pack or "conv" in pack or "head" in pack:
+        return False
+    r = pack["rowlane"]["vecs"].shape[2] // pack["vecs"].shape[2]
+    return r > 1 and batch % r == 0
+
+
+def measure_stage(pack, b, t, gen, dev):
+    """A stage kernel over two chunks (each chunk's returned states feed the
+    next call, on either side) against its plain version, then its time over
+    pack copies that exceed L2, the plain version's and the bound (per call)."""
+    from vibevoice_tpu_torch.ops import fused_stage as fs
+    rowlane = uses_rowlane(pack, b)
+    plain = fs.fused_stage_chain_rowlane_ref if rowlane else fs.fused_stage_chain_ref
+    xs, ctx, states = stage_inputs(pack, b, t, gen, dev)
+    names = list(states)
+    got_st = want_st = (ctx, *states.values())
+    err, tol = 0.0, 1.0  # the output closest to its tolerance
+    for x in xs:
+        got = fs.fused_stage_chain(pack, x, got_st[0], **dict(zip(names, got_st[1:])))
+        want = plain(pack, x, want_st[0], **dict(zip(names, want_st[1:])))
+        for j, (g, w) in enumerate(zip(got, want)):
+            e, tl = agree(f"fused_stage_chain{'_rowlane' if rowlane else ''}[{j}]", g, w)
+            if e * tol >= err * tl:
+                err, tol = e, tl
+        got_st, want_st = got[1:], want[1:]
+    nbytes, flops = fs.stage_work(pack, xs[0])
+    copies = [pack] + [clone_pack(pack) for _ in range(min(63, copies_for(nbytes) - 1))]
+    n = len(copies)
+    ms = cuda_ms(lambda i: fs.fused_stage_chain(copies[i % n], xs[0], ctx, **states), 2 * n)
+    plain_ms = cuda_ms(lambda i: plain(copies[i % n], xs[0], ctx, **states), min(n, 4))
+    bms, by = bound(nbytes, flops)
+    return dict(max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                library_ms=None)
+
+
+def random_stage_pack(d, conv, head, r, gen, dev):
+    """A bf16 pack of a random 3-block stage of width d, with a folded conv
+    (kind, s, k, cin), the folded tail and a row-lane pack for r rows as
+    asked."""
+    from vibevoice_tpu_torch.ops import fused_stage as fs
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    bf = torch.bfloat16
+    blocks = random_stage(d, 3, gen, dev)
+    pack = fs.pack_stage(blocks, dtype=bf)
+    if r:
+        pack["rowlane"] = fs.pack_stage_rowlane(blocks, r, dtype=bf)
+    if conv and conv[0] == "up":
+        pack["conv"] = fs.pack_up_conv({"w": rnd(conv[3], conv[2], d) / conv[3] ** 0.5,
+                                        "b": 0.1 * rnd(d)}, conv[1], bf)
+    elif conv:
+        pack["conv"] = fs.pack_down_conv({"w": rnd(conv[2], conv[3], d) / conv[3] ** 0.5,
+                                          "b": 0.1 * rnd(d)}, conv[1], bf)
+    if head:
+        pack["head"] = fs.pack_head({"w": 0.1 * rnd(7, d, 1), "b": 0.1 * rnd(1)},
+                                    1 + 0.1 * rnd(d))
+    return pack
+
+
+def phase_stage_kernels(dev):
+    """Both stage kernels against their plain versions at the 1.5B stage
+    shapes in bf16, on random weights made from the seed.  Each row-lane case
+    is followed by the plain stage kernel on the same rows (the pack without
+    its row-lane entry), the two readings the engine's row-lane policy rests
+    on."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    for name, b, t, d, conv, head, r in STAGE_CASES:
+        pack = random_stage_pack(d, conv, head, r, gen, dev)
+        emit("kernel_vs_plain",
+             kernel="fused_stage_chain_rowlane" if uses_rowlane(pack, b) else "fused_stage_chain",
+             stage=name, B=b, T=t, D=d, blocks=3, conv=conv, head=head, rows=r,
+             **measure_stage(pack, b, t, gen, dev))
+        if r:
+            same_rows = {k: v for k, v in pack.items() if k != "rowlane"}
+            emit("kernel_vs_plain", kernel="fused_stage_chain", stage=name, B=b, T=t, D=d,
+                 blocks=3, conv=conv, head=head, rows=None, same_rows_as_rowlane=r,
+                 **measure_stage(same_rows, b, t, gen, dev))
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # phases 3-5: the long-cache engine, bf16 and quantized
 # ---------------------------------------------------------------------------
 
@@ -361,20 +513,36 @@ def bench_gen(G):
 def kernel_counters():
     """name -> the wrapper whose `launches` counts that kernel's launches."""
     from vibevoice_tpu_torch.ops import decode_attention as da, fused_blocks as fb
-    from vibevoice_tpu_torch.ops import fused_head as fh, int4_matmul as im
+    from vibevoice_tpu_torch.ops import fused_head as fh, fused_stage as fs
+    from vibevoice_tpu_torch.ops import int4_matmul as im
     return {"decode_attention": da.decode_attention, "int4_matmul": im.int4_matmul,
             "fused_block_chain_batched": fb.fused_block_chain_batched,
-            "fused_head_solver_step": fh.fused_head_solver_step}
+            "fused_head_solver_step": fh.fused_head_solver_step,
+            "fused_stage_chain": fs.fused_stage_chain,
+            "fused_stage_chain_rowlane": fs.fused_stage_chain_rowlane}
 
 
-def expected_launches(cfg, quant):
-    """(prefill, per decode step) launches of each kernel at B=1 with
-    force_diffusion: decode attention once per layer per decode step; the
-    int4 GEMVs (qkv, o, gateup, down; only gateup and down under int4f) once
-    per layer in the negative stream's M=B prefill forward and in every step
-    (the 256-row prompt forward takes the dequantized route); the chain once
-    per packed stage (2 in the vocoder, 2 in the re-encode) and the head once
-    per solver step on every diffusing step, step 0 (in prefill) included."""
+def stage_launches(eng):
+    """Launches of the two stage kernels per diffusing step, counted from the
+    large-T packs the engine built (none without `use_fused_stages`)."""
+    out = {"fused_stage_chain": 0, "fused_stage_chain_rowlane": 0}
+    if eng.use_fused_stages:
+        for key in ("_vocoder_packs_large", "_semantic_packs_large"):
+            for pack in eng.params[key].values():
+                rowlane = uses_rowlane(pack, eng.batch)
+                out["fused_stage_chain_rowlane" if rowlane else "fused_stage_chain"] += 1
+    return out
+
+
+def expected_launches(cfg, quant, eng=None):
+    """(prefill, per decode step) launches of each kernel with force_diffusion:
+    decode attention once per layer per decode step; the int4 GEMVs (qkv, o,
+    gateup, down; only gateup and down under int4f) once per layer in the
+    negative stream's M=B prefill forward and in every step (the 256-row
+    prompt forward takes the dequantized route); the chain once per packed
+    stage (2 in the vocoder, 2 in the re-encode), the head once per solver
+    step and the stage kernels once per large-T pack of `eng`
+    (`stage_launches`) on every diffusing step, step 0 (in prefill) included."""
     n_layers = cfg.decoder.num_hidden_layers
     gemv = {None: 0, "int4": 4, "int4f": 2}[quant] * n_layers
     chain = 4 if quant else 0
@@ -383,19 +551,28 @@ def expected_launches(cfg, quant):
                "fused_block_chain_batched": chain, "fused_head_solver_step": head}
     step = {"decode_attention": n_layers, "int4_matmul": gemv,
             "fused_block_chain_batched": chain, "fused_head_solver_step": head}
-    return prefill, step
+    stages = stage_launches(eng) if eng is not None else dict.fromkeys(
+        ("fused_stage_chain", "fused_stage_chain_rowlane"), 0)
+    return dict(prefill, **stages), dict(step, **stages)
 
 
-def run_engine(params, cfg, dev, kv_dtype, warm_steps, timed_chunks, card, quant=None):
+def run_engine(params, cfg, dev, kv_dtype, warm_steps, timed_chunks, card, quant=None,
+               batch=1, stages=False, want_stages=None, rowlane=False):
     """Prefill, a warm-up chunk and the timed chunks of the long-cache engine;
-    asserts every kernel's launches against `expected_launches`.  Returns
-    (launches of the whole run by kernel, the final state)."""
+    asserts every kernel's launches against `expected_launches` (and, with
+    `use_fused_stages`, the stage kernels' per-step counts against
+    `want_stages`; `rowlane` asks for the row-lane layout).  Returns
+    (launches of the whole run by kernel, the final state, the engine)."""
     from vibevoice_tpu_torch.engine import generate as G
-    batch, prompt_len, max_steps = 1, 256, 3840
+    prompt_len, max_steps = 256, 3840
     fused = quant is not None
     eng = G.Engine(params, cfg, bench_gen(G), max_steps=max_steps, batch=batch,
                    prompt_len=prompt_len, dtype=torch.bfloat16, kv_dtype=kv_dtype, device=dev,
-                   use_fused_vocoder=fused, use_fused_semantic=fused)
+                   use_fused_vocoder=fused, use_fused_semantic=fused, use_fused_stages=stages,
+                   fused_stage_rowlane=rowlane)
+    if stages and stage_launches(eng) != want_stages:
+        raise RuntimeError(f"stage packs give {stage_launches(eng)} launches per step, "
+                           f"want {want_stages}")
     if not (eng.use_flash_decode and eng.cache_len >= 4096):
         raise RuntimeError(f"engine is off the long-cache path: cache {eng.cache_len}")
     ids = np.random.default_rng(SEED).integers(0, 1000, (batch, prompt_len)).astype(np.int32)
@@ -424,7 +601,7 @@ def run_engine(params, cfg, dev, kv_dtype, warm_steps, timed_chunks, card, quant
     launches = {k: c.launches for k, c in counters.items()}
     steps = warm_steps + sum(timed_chunks)
 
-    want_prefill, want_step = expected_launches(cfg, quant)
+    want_prefill, want_step = expected_launches(cfg, quant, eng)
     want = {k: want_prefill[k] + steps * want_step[k] for k in counters}
     if prefill_launches != want_prefill or launches != want:
         raise RuntimeError(f"kernel launches: prefill {prefill_launches} (want {want_prefill}),"
@@ -438,13 +615,14 @@ def run_engine(params, cfg, dev, kv_dtype, warm_steps, timed_chunks, card, quant
     hop = cfg.speech_compress_ratio
     frames = sum(c["frames"] for c in chunks)
     wall = sum(c["wall_s"] for c in chunks)
-    emit("engine", kv=kv_dtype, quant=quant, cache_slots=eng.cache_len, prefill_s=prefill_s,
+    emit("engine", kv=kv_dtype, quant=quant, batch=batch, fused_stages=stages,
+         rowlane=rowlane, cache_slots=eng.cache_len, prefill_s=prefill_s,
          decode_steps=steps, prefill_launches=prefill_launches, kernel_launches=launches,
          launches_per_step={k: (launches[k] - prefill_launches[k]) / steps for k in launches},
          chunks=chunks, ms_per_frame=(1e3 * wall / frames) if frames else None,
          audio_s_per_s=(frames * hop / 24000.0 / wall) if frames else None,
          audio_absmax=float(audio.abs().max()), card=card)
-    return launches, state
+    return launches, state, eng
 
 
 def attention_operands(state, batch, dev):
@@ -507,32 +685,65 @@ def quant_entries(params, cfg, launches, dev):
     head_r = measure_head(heads, x, mods, fmod, fl.contiguous())
     del heads
 
-    def mean(rs):
-        out = {k: sum(r[k] for r in rs) / len(rs)
-               for k in ("max_abs_err", "ms", "plain_ms", "bound_ms")}
-        out["max_abs_err"] = max(r["max_abs_err"] for r in rs)
-        out["tol"] = min(r["tol"] for r in rs)
-        out["bound_by"] = rs[0]["bound_by"]
-        lib = [r["library_ms"] for r in rs]
-        out["library_ms"] = None if None in lib else sum(lib) / len(lib)
-        return out
-
     src = "vibevoice_tpu_torch/csrc/"
     return [
         {"name": "int4_matmul", "route": "cuda", "source": src + "int4_matmul.cu",
          "replaces": "vibevoice_tpu/ops/int4_matmul.py:101",
-         "launches": launches["int4_matmul"], **mean(per_shape),
+         "launches": launches["int4_matmul"], **mean_entry(per_shape),
          "per": "launch, mean over the decode step's qkv/o/gateup/down GEMVs at M=2"},
         {"name": "fused_block_chain_batched", "route": "cuda",
          "source": src + "fused_block_chain.cu",
          "replaces": "vibevoice_tpu/ops/fused_blocks.py:290",
-         "launches": launches["fused_block_chain_batched"], **mean(stages),
+         "launches": launches["fused_block_chain_batched"], **mean_entry(stages),
          "per": "launch, mean over the step's four packed stages at B=1"},
         {"name": "fused_head_solver_step", "route": "cuda", "source": src + "fused_head.cu",
          "replaces": "vibevoice_tpu/ops/fused_head.py:130",
          "launches": launches["fused_head_solver_step"], **head_r,
          "per": "launch: one solver step at N=2"},
     ]
+
+
+def mean_entry(rs):
+    """Per-launch means of several kernel_vs_plain results; the error and
+    tolerance are those of the result closest to its tolerance."""
+    out = {k: sum(r[k] for r in rs) / len(rs) for k in ("ms", "plain_ms", "bound_ms")}
+    worst = max(rs, key=lambda r: r["max_abs_err"] / r["tol"] if r["tol"] else 0.0)
+    out["max_abs_err"], out["tol"] = worst["max_abs_err"], worst["tol"]
+    out["bound_by"] = rs[0]["bound_by"]
+    lib = [r["library_ms"] for r in rs]
+    out["library_ms"] = None if None in lib else sum(lib) / len(lib)
+    return out
+
+
+def stage_entries(runs, cfg, dev):
+    """The kernels-line entries of the two stage kernels, measured on the
+    packs the engines of the main path built, at their shapes: per launch,
+    averaged over one decode step's calls.  `runs` maps each kernel to
+    (engine, launches in its run)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    ac, se = cfg.acoustic_tokenizer, cfg.semantic_tokenizer
+    src = "vibevoice_tpu_torch/csrc/fused_stage.cu"
+    replaces = {"fused_stage_chain": "vibevoice_tpu/ops/fused_stage.py:516",
+                "fused_stage_chain_rowlane": "vibevoice_tpu/ops/fused_stage.py:404"}
+    entries = []
+    for name, (eng, launches) in runs.items():
+        rs = []
+        t = 1
+        for i in range(len(ac.decoder_depths_resolved())):
+            t *= ac.decoder_ratios[i - 1] if i else 1
+            pack = eng.params["_vocoder_packs_large"].get(i)
+            if pack is not None and uses_rowlane(pack, eng.batch) == (name != "fused_stage_chain"):
+                rs.append(measure_stage(pack, eng.batch, t, gen, dev))
+        t = cfg.speech_compress_ratio
+        for i, stride in enumerate([1] + list(reversed(se.encoder_ratios))):
+            t //= stride
+            pack = eng.params["_semantic_packs_large"].get(i)
+            if pack is not None and uses_rowlane(pack, eng.batch) == (name != "fused_stage_chain"):
+                rs.append(measure_stage(pack, eng.batch, t, gen, dev))
+        entries.append({"name": name, "route": "cuda", "source": src, "replaces": replaces[name],
+                        "launches": launches, **mean_entry(rs),
+                        "per": f"launch, mean over the step's {len(rs)} calls at B={eng.batch}"})
+    return entries
 
 
 def kernel_entry(name, launches, cache, vis, lengths, quant, dev, dec):
@@ -562,7 +773,8 @@ def kernel_entry(name, launches, cache, vis, lengths, quant, dev, dec):
 def register_forced_engine(tts, G, script, voices, max_new_tokens):
     """A force_diffusion engine under the key `generate` will ask for (random
     weights almost never pick the diffusion token by themselves), with the
-    fused sigma-VAE stages on when the pipeline holds int4 chain packs."""
+    int4 chain on when the pipeline holds its packs, and the large-T stage
+    kernels with the pipeline's `use_fused_stages`."""
     t0 = tts.processor(script, voices).input_ids.shape[1]
     bucket = max(tts.prompt_bucket, -(-t0 // tts.prompt_bucket) * tts.prompt_bucket)
     key = (1, bucket, max_new_tokens)
@@ -577,13 +789,15 @@ def register_forced_engine(tts, G, script, voices, max_new_tokens):
         tts._engines[key] = G.Engine(tts.params, tts.cfg, gen, max_steps=max_new_tokens,
                                      batch=1, prompt_len=bucket, dtype=tts.dtype,
                                      device=tts.device, use_fused_vocoder=chain,
-                                     use_fused_semantic=chain)
+                                     use_fused_semantic=chain,
+                                     use_fused_stages=tts.use_fused_stages)
     return tts._engines[key]
 
 
 def phase_pipeline(dev, card, quant=None):
     """Three requests through `VibeVoiceTTS.generate` with a streamer; with
-    `quant` in the quantized serving configuration (QUANT_MODES, or int4f)."""
+    `quant` in the quantized serving configuration (QUANT_MODES, or int4f),
+    and then the first again with `use_fused_stages=True`."""
     from vibevoice_tpu_torch.configs import vibevoice_1_5b
     from vibevoice_tpu_torch.engine import generate as G
     from vibevoice_tpu_torch.engine.streamer import AudioStreamer
@@ -604,9 +818,17 @@ def phase_pipeline(dev, card, quant=None):
                ("Speaker 1: " + "This is a longer passage read aloud. " * 6, voices[1:])]
     max_new, stop_after, hop = 3840, 24, tts.cfg.speech_compress_ratio
     counters = kernel_counters()
-    want_prefill, want_step = expected_launches(tts.cfg, quant)
-    for i, (script, vs) in enumerate(scripts):
+    requests = [(script, vs, False) for script, vs in scripts]
+    if quant:
+        requests.append((*scripts[0], True))
+    for i, (script, vs, stages) in enumerate(requests):
+        if stages:
+            tts.use_fused_stages = True
+            tts._engines.clear()
         eng = register_forced_engine(tts, G, script, vs, max_new)
+        want_prefill, want_step = expected_launches(tts.cfg, quant, eng)
+        if stages and want_step["fused_stage_chain"] != 8:
+            raise RuntimeError(f"pipeline engine has {want_step} stage launches per step")
         if not (eng.use_flash_decode and eng.cache_len >= 4096):
             raise RuntimeError(f"pipeline engine is off the long-cache path: {eng.cache_len}")
         streamer = AudioStreamer(batch_size=1)
@@ -630,7 +852,8 @@ def phase_pipeline(dev, card, quant=None):
         if launches != want:
             raise RuntimeError(f"request {i}: launches {launches}, want {want} for "
                                f"{res.steps - 1} decode steps")
-        emit("pipeline", quant=quant, request=i, speakers=len(vs), prompt_bucket=eng.prompt_len,
+        emit("pipeline", quant=quant, fused_stages=stages, request=i, speakers=len(vs),
+             prompt_bucket=eng.prompt_len,
              cache_slots=eng.cache_len, steps=res.steps, kernel_launches=launches,
              setup_s=setup_s if i == 0 else None, wall_s=metrics["wall_s"],
              audio_sec=metrics["audio_sec"], rtf=metrics["rtf"], card=card)
@@ -665,12 +888,14 @@ def _live_audio_path(params, gen):
     params["speech_bias_factor"] = torch.tensor(0.1)
 
 
-def phase_reference(dev, quant=False):
+def phase_reference(dev, quant=False, stages=False, b=2):
     """fp32 on both sides.  With `quant` the model is first put through
     `VibeVoiceTTS(quantize="int4", int4_group_size=32, quantize_tokenizer=
     "int4k", quantize_diffusion="int4k", tokenizer_min_dim=4)` on the CPU, so
     the card runs every int4 kernel (the tiny stacks' unpacked stages take int8
-    FFNs) and the CPU their plain versions."""
+    FFNs) and the CPU their plain versions.  With `stages` the engines run
+    `use_fused_stages=True, fused_stage_t_min=7` (the tiny stacks' T >= 7
+    stages: folded convs at b=1, the row-lane layout, asked for, at b=2)."""
     from vibevoice_tpu_torch.configs import tiny_config
     from vibevoice_tpu_torch.engine import generate as G
     from vibevoice_tpu_torch.models import vibevoice as V
@@ -686,11 +911,11 @@ def phase_reference(dev, quant=False):
                               **QUANT_MODES).params
     rng = np.random.default_rng(SEED)
     # a 72-token prompt: the quantized prefill (144 rows) takes the dequantized route
-    b, t, steps = 2, (72 if quant else 40), 24
+    t, steps = (72 if quant else 40), 24
     ids = rng.integers(0, 250, (b, t)).astype(np.int32)
     ids[:, -1] = 258
     mask = np.ones((b, t), np.int32)
-    mask[1, :9] = 0
+    mask[b - 1, :9] = 0
     sim = np.zeros((b, t), bool)
     noise = rng.normal(size=(steps, b, cfg.acoustic_vae_dim)).astype(np.float32)
     gcfg = G.GenerationConfig(speech_start_id=258, speech_end_id=259, speech_diffusion_id=260,
@@ -701,18 +926,24 @@ def phase_reference(dev, quant=False):
     for where in ("cpu", dev):
         eng = G.Engine(params, cfg, gcfg, max_steps=steps, batch=b, prompt_len=t,
                        inject_latent_noise=True, use_flash_decode=True, device=where,
-                       use_fused_vocoder=quant, use_fused_semantic=quant)
+                       use_fused_vocoder=quant, use_fused_semantic=quant,
+                       use_fused_stages=stages, fused_stage_t_min=7,
+                       fused_stage_rowlane=stages and b > 1)
         for c in counters.values():
             c.launches = 0
         out[str(where)] = (G.generate(eng, ids, mask, sim, latent_noise=noise),
                            {k: c.launches for k, c in counters.items()})
     (ref, cpu_launches), (got, gpu_launches) = out["cpu"], out[str(dev)]
     n_layers = cfg.decoder.num_hidden_layers
-    # every step diffuses: 3 + 3 packed stages and 3 solver steps each
+    # every step diffuses: 3 + 3 packed stages, 3 solver steps and the
+    # stage kernels once per large-T pack each
     want = {"decode_attention": n_layers * (steps - 1),
             "int4_matmul": 4 * n_layers * steps if quant else 0,
             "fused_block_chain_batched": 6 * steps if quant else 0,
-            "fused_head_solver_step": 3 * steps if quant else 0}
+            "fused_head_solver_step": 3 * steps if quant else 0,
+            **{k: n * steps for k, n in stage_launches(eng).items()}}
+    if stages and sum(stage_launches(eng).values()) != 4:
+        raise RuntimeError(f"tiny engine stage packs: {stage_launches(eng)}")
     if any(cpu_launches.values()) or gpu_launches != want:
         raise RuntimeError(f"launches: cpu {cpu_launches}, gpu {gpu_launches}, want {want}")
     if not np.array_equal(got.tokens, ref.tokens):
@@ -722,7 +953,7 @@ def phase_reference(dev, quant=False):
         raise RuntimeError("tiny-model audio is not finite")
     err, scale = float(np.abs(a - w).max()), float(np.abs(w).max())
     tol = 1e-3 * scale  # fp32 on both; sums in another order on the card
-    emit("reference", model="tiny_config(hidden_size=256)",
+    emit("reference", model="tiny_config(hidden_size=256)", batch=b, fused_stages=stages,
          modes=dict(QUANT_MODES, int4_group_size=32) if quant else None, steps=steps,
          kernel_launches=gpu_launches, audio_max_abs_err=err, audio_absmax=scale, tol=tol)
     if not (scale > 0 and err <= tol):
@@ -758,6 +989,7 @@ def main() -> int:
     # 2. kernel against plain
     phase_kernels(dev)
     phase_int4_kernels(dev)
+    phase_stage_kernels(dev)
 
     # 3-4. engine, bf16 then int8 KV
     cfg = vibevoice_1_5b()
@@ -770,7 +1002,7 @@ def main() -> int:
     emit("init", model="vibevoice_1_5b", dtype="bf16", seconds=time.perf_counter() - t0)
     runs = {}
     for kv, warm, chunks in (("model", 16, (32, 32)), ("int8", 8, (8,))):
-        launches, state = run_engine(params, cfg, dev, kv, warm, chunks, card)
+        launches, state, _ = run_engine(params, cfg, dev, kv, warm, chunks, card)
         vis, lengths = attention_operands(state, 1, dev)
         runs[kv] = (launches["decode_attention"], state.cache, vis, lengths)
         del state
@@ -778,8 +1010,20 @@ def main() -> int:
                kernel_entry("decode_attention[int8 KV]", *runs["int8"], True, dev,
                             cfg.decoder)]
     del runs
+    # the large-T stages at B=2: 8 stage calls per step by default, and 4
+    # stage calls and 4 row-lane calls with the row-lane layout asked for
+    _, state, _ = run_engine(
+        params, cfg, dev, "model", 8, (16,), card, batch=2, stages=True,
+        want_stages={"fused_stage_chain": 8, "fused_stage_chain_rowlane": 0})
+    del state
+    launches, state, eng_b2 = run_engine(
+        params, cfg, dev, "model", 8, (16,), card, batch=2, stages=True,
+        want_stages={"fused_stage_chain": 4, "fused_stage_chain_rowlane": 4}, rowlane=True)
+    stage_runs = {"fused_stage_chain_rowlane": (eng_b2, launches["fused_stage_chain_rowlane"])}
+    del state
 
-    # 5. the quantized engine on the same weights, int4 then int4f
+    # 5. the quantized engine on the same weights: int4, int4 with the large-T
+    # stage kernels (8 calls per step, transition convs folded), then int4f
     for quant, warm, chunks in (("int4", 16, (32, 32)), ("int4f", 8, (8,))):
         t0 = time.perf_counter()
         qparams = VibeVoiceTTS(params, cfg, ByteFallbackTokenizer(), dtype=torch.bfloat16,
@@ -787,10 +1031,17 @@ def main() -> int:
         torch.cuda.synchronize()
         emit("quantize", modes=dict(QUANT_MODES, quantize=quant),
              seconds=time.perf_counter() - t0)
-        launches, state = run_engine(qparams, cfg, dev, "model", warm, chunks, card, quant)
+        launches, state, _ = run_engine(qparams, cfg, dev, "model", warm, chunks, card, quant)
         del state
         if quant == "int4":
             entries += quant_entries(qparams, cfg, launches, dev)
+            launches, state, eng = run_engine(
+                qparams, cfg, dev, "model", warm, chunks, card, quant, stages=True,
+                want_stages={"fused_stage_chain": 8, "fused_stage_chain_rowlane": 0})
+            stage_runs["fused_stage_chain"] = (eng, launches["fused_stage_chain"])
+            del state, eng
+            entries += stage_entries(stage_runs, cfg, dev)
+            del stage_runs, eng_b2
         del qparams
         torch.cuda.empty_cache()
     del params
@@ -800,9 +1051,11 @@ def main() -> int:
     phase_pipeline(dev, card)
     phase_pipeline(dev, card, quant="int4")
 
-    # 7. reference on a small input, plain then quantized
+    # 7. reference on a small input: plain, quantized, large-T stage kernels
     phase_reference(dev)
     phase_reference(dev, quant=True)
+    phase_reference(dev, stages=True, b=1)
+    phase_reference(dev, stages=True, b=2)
 
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": entries}), flush=True)

@@ -2,13 +2,16 @@
 """Where the time of the PyTorch port's decode step goes, on one NVIDIA GPU.
 
     python3 scripts/torch_profile_step.py [--steps 8] [--kv model|int8] [--quant int4|int4f]
+                                          [--stages]
 
 Builds the long-cache engine that `chip_smoke.py` phase 3 drives (1.5B,
 random bf16 weights, B=1, prompt 256, 3840 steps -> a 4096-slot cache, 5-step
 sde-dpmsolver++, cfg 1.3, forced diffusion); with `--quant` the weights first
 go through `VibeVoiceTTS(quantize=..., quantize_tokenizer="int4k",
-quantize_diffusion="int4k")`, as in `chip_smoke.py` phase 5.  It warms the
-engine up, then traces
+quantize_diffusion="int4k")`, as in `chip_smoke.py` phase 5; `--stages` turns
+on `use_fused_stages` (the large-T sigma-VAE stages on the fused stage
+kernel, the transition convs folded at B=1).  It warms the engine up, then
+traces
 `--steps` decode steps with `torch.profiler`.  Prints JSON lines: the host
 wall time per step, the device's busy time per step (the union of its kernel
 intervals) and its idle share, the launches per step, the device time of each
@@ -72,6 +75,7 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--kv", default="model", choices=["model", "int8"])
     ap.add_argument("--quant", default=None, choices=["int4", "int4f"])
+    ap.add_argument("--stages", action="store_true", help="use_fused_stages=True")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_profile_step: no CUDA device", file=sys.stderr)
@@ -100,7 +104,8 @@ def main() -> int:
     fused = args.quant is not None
     eng = G.Engine(params, cfg, gen, max_steps=3840, batch=1, prompt_len=256,
                    dtype=torch.bfloat16, kv_dtype=args.kv, device=dev,
-                   use_fused_vocoder=fused, use_fused_semantic=fused)
+                   use_fused_vocoder=fused, use_fused_semantic=fused,
+                   use_fused_stages=args.stages)
     ids = np.random.default_rng(0).integers(0, 1000, (1, 256)).astype(np.int32)
     state, _ = eng.prefill(ids, np.ones((1, 256), np.int32), np.zeros((1, 256), bool))
     state, _ = eng.decode_chunk(state, 8)
@@ -122,7 +127,8 @@ def main() -> int:
     kernels = [e for e in cuda if not e.name.startswith("part:")]
     intervals = [(e.time_range.start, e.time_range.end) for e in kernels]
     busy_us = _busy_us(intervals)
-    print(json.dumps({"kv": args.kv, "quant": args.quant, "steps": n, "cache_slots": eng.cache_len,
+    print(json.dumps({"kv": args.kv, "quant": args.quant, "fused_stages": args.stages,
+                      "steps": n, "cache_slots": eng.cache_len,
                       "wall_ms_per_step": 1e3 * wall / n,
                       "device_busy_ms_per_step": busy_us / 1e3 / n,
                       "device_idle_share": 1 - busy_us / 1e6 / wall,

@@ -219,3 +219,77 @@ def test_quantized_engine_on_card_matches_cpu(cuda_device):
     a, w = np.concatenate(got.audio), np.concatenate(ref.audio)
     assert np.isfinite(a).all() and np.abs(w).max() > 0
     np.testing.assert_allclose(a, w, atol=1e-3 * np.abs(w).max(), rtol=0)
+
+
+# the large-T stage kernels: (B, stage T, D, blocks, fold conv (kind, s, k, cin),
+# fold head, row-lane R); the 1.5B stage shapes (some cut in T) and tiny fp32 ones
+STAGE_CASES = {
+    "dec3-up": (1, 200, 256, 3, ("up", 5, 10, 512), False, None),
+    "dec6-up": (1, 800, 32, 3, ("up", 2, 4, 64), False, None),
+    "dec6-up-head": (1, 800, 32, 3, ("up", 2, 4, 64), True, None),
+    "enc0-stem": (1, 800, 32, 3, ("down", 1, 7, 1), False, None),
+    "enc3-down": (1, 200, 256, 3, ("down", 4, 8, 128), False, None),
+    "plain-b2": (2, 400, 128, 3, None, False, None),
+    "rowlane-r2": (2, 800, 32, 3, None, False, 2),
+    "rowlane-r4": (4, 400, 32, 2, None, False, 4),
+    "rowlane-d64": (4, 400, 64, 2, None, False, 2),
+    "tiny-up-fp32": (1, 16, 4, 1, ("up", 2, 4, 8), True, None),
+    "tiny-rowlane-fp32": (2, 8, 8, 1, None, False, 2),
+}
+
+
+def _stage_case(case, dev, gen):
+    from vibevoice_tpu_torch.ops import fused_stage as fs
+    b, t, d, n, conv, head, r = STAGE_CASES[case]
+    dt = torch.float32 if case.endswith("fp32") else torch.bfloat16
+    rn = lambda *s: torch.randn(s, generator=gen, device=dev)
+    blocks = _stage(d, n, gen, dev)
+    pack = fs.pack_stage(blocks, dtype=dt)
+    xshape, state = (b, t, d), None
+    if r:
+        pack["rowlane"] = fs.pack_stage_rowlane(blocks, r, dtype=dt)
+    if conv:
+        kind, s, k, cin = conv
+        if kind == "up":
+            pack["conv"] = fs.pack_up_conv({"w": 0.05 * rn(cin, k, d), "b": 0.1 * rn(d)}, s, dt)
+            xshape, state = (b, t // s, cin), ("conv_state", (b, s, d))
+        else:
+            pack["conv"] = fs.pack_down_conv({"w": 0.3 * rn(k, cin, d) / cin ** 0.5,
+                                              "b": 0.1 * rn(d)}, s, dt)
+            xshape, state = (b, t * s, cin), ("conv_state", (b, k - s, cin))
+    states = {} if state is None else {state[0]: (0.5 * rn(*state[1])).to(dt)}
+    if head:
+        pack["head"] = fs.pack_head({"w": 0.1 * rn(7, d, 1), "b": 0.1 * rn(1)}, 1 + 0.1 * rn(d))
+        states["head_state"] = (0.5 * rn(b, 6, d)).to(dt)
+    ctx = (0.5 * rn(b, n, 6, d)).to(dt)
+    xs = [(0.5 * rn(*xshape)).to(dt) for _ in range(2)]
+    return pack, xs, ctx, states
+
+
+@pytest.mark.parametrize("case", list(STAGE_CASES))
+def test_fused_stage_kernels_match_plain(cuda_device, case):
+    """Each fold and row-lane layout, over two chunks: the kernel's returned
+    states feed its next call, the plain version's its own."""
+    from vibevoice_tpu_torch.ops import fused_stage as fs
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    pack, xs, ctx, states = _stage_case(case, cuda_device, gen)
+    rowlane = STAGE_CASES[case][6] is not None
+    counter = fs.fused_stage_chain_rowlane if rowlane else fs.fused_stage_chain
+    plain = fs.fused_stage_chain_rowlane_ref if rowlane else fs.fused_stage_chain_ref
+    names = list(states)
+    got_st, want_st = (ctx, *states.values()), (ctx, *states.values())
+    for x in xs:
+        before = counter.launches
+        got = fs.fused_stage_chain(pack, x, got_st[0], **dict(zip(names, got_st[1:])))
+        torch.cuda.synchronize()
+        want = plain(pack, x, want_st[0], **dict(zip(names, want_st[1:])))
+        assert counter.launches == before + 1
+        assert len(got) == len(want) == 2 + len(names)
+        for g, w in zip(got, want):
+            assert g.shape == w.shape and g.dtype == w.dtype
+            assert torch.isfinite(g).all()
+            # bf16: one rounding step of the largest value; fp32: sums in
+            # another order, over three blocks and two chunks
+            tol = (1e-4 if g.dtype == torch.float32 else 2 ** -7) * float(w.float().abs().max())
+            torch.testing.assert_close(g.float(), w.float(), atol=tol, rtol=0)
+        got_st, want_st = got[1:], want[1:]

@@ -101,8 +101,7 @@ def test_engine_rejects_modes_outside_the_slice():
     tcfg = TC.tiny_config(vocab_size=320)
     gen = TG.GenerationConfig(**GEN)
     base = dict(max_steps=4, batch=1, prompt_len=8, device="cpu")
-    for kw, item in ((dict(use_fused_stages=True), "B4"),
-                     (dict(use_fused_vocoder=True), "B6"),
+    for kw, item in ((dict(use_fused_vocoder=True), "B6"),
                      (dict(use_flash_prefill=True), "B5"),
                      (dict(mesh=object()), "parallel")):
         with pytest.raises(NotImplementedError, match=item):

@@ -120,23 +120,26 @@ def test_encoder_streaming_with_int4_packs_matches_jax(models):
 
 
 def test_paths_outside_the_slice_raise(models):
+    """The plain pack exists now (the large-T stage kernel runs on it), but
+    the T <= 8 chain with a plain pack (ROADMAP B6) still raises."""
     cfg, _, tp, tcfg = models
     blocks = tp["acoustic_decoder"]["stages"][0]
+    plain = TFB.pack_stage(blocks)
+    assert plain["w1"].shape == (len(blocks), blocks[0]["norm_w"].shape[0] + 8,
+                                 blocks[0]["ffn1"]["w"].shape[1])
     with pytest.raises(NotImplementedError, match="B6"):
-        TFB.pack_stage(blocks)
-    with pytest.raises(NotImplementedError, match="B6"):
-        ttok.pack_decoder_stages(tp["acoustic_decoder"], tcfg.acoustic_tokenizer)
-    with pytest.raises(NotImplementedError, match="B6"):
-        TFB.fused_block_chain({"vecs": None, "w1": None}, torch.zeros(1, 32),
-                              torch.zeros(2, 6, 32))
+        TFB.fused_block_chain(plain, torch.zeros(1, 32), torch.zeros(len(blocks), 6, 32))
+    packs = ttok.pack_decoder_stages(tp["acoustic_decoder"], tcfg.acoustic_tokenizer)
     st = ttok.decoder_state_init(tcfg.acoustic_tokenizer, 1)
-    with pytest.raises(NotImplementedError, match="B4"):
+    with pytest.raises(NotImplementedError, match="B6"):
         ttok.decoder_apply_streaming_fused(tp["acoustic_decoder"], tcfg.acoustic_tokenizer,
-                                           torch.zeros(1, 1, 8), st, large_packs={3: {}})
+                                           torch.zeros(1, 1, 8), st, fused_packs=packs)
     quantized = [dict(bp, ffn1={"w": {"qint8": torch.zeros(32, 128, dtype=torch.int8)},
                                 "b": None}) for bp in blocks]
     with pytest.raises(ValueError, match="unquantized"):
         TFB.pack_stage_q(quantized)
+    with pytest.raises(ValueError, match="plain weights"):
+        TFB.pack_stage(quantized)
 
 
 def test_tiles_and_row_groups():

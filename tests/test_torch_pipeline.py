@@ -38,7 +38,8 @@ def test_processor_matches_jax(script, n_voices):
 
 
 def force_diffusion_engine(tts, script, voices, max_new_tokens):
-    """Register a force_diffusion engine under the key `generate` will ask for."""
+    """Register a force_diffusion engine under the key `generate` will ask for
+    (with the pipeline's `use_fused_stages`, at the tiny model's T >= 7)."""
     t0 = tts.processor(script, voices).input_ids.shape[1]
     bucket = max(tts.prompt_bucket, -(-t0 // tts.prompt_bucket) * tts.prompt_bucket)
     gen = TG.GenerationConfig(
@@ -50,7 +51,8 @@ def force_diffusion_engine(tts, script, voices, max_new_tokens):
     chain = tts._chain_packs is not None
     tts._engines[(1, bucket, max_new_tokens)] = TG.Engine(
         tts.params, tts.cfg, gen, max_steps=max_new_tokens, batch=1, prompt_len=bucket,
-        dtype=tts.dtype, device=tts.device, use_fused_vocoder=chain, use_fused_semantic=chain)
+        dtype=tts.dtype, device=tts.device, use_fused_vocoder=chain, use_fused_semantic=chain,
+        use_fused_stages=tts.use_fused_stages, fused_stage_t_min=7)
 
 
 def test_pipeline_serves_requests_with_streamer_and_stop():

@@ -37,6 +37,12 @@ def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
 
+def kw_engine(tts):
+    chain = tts._chain_packs is not None
+    return dict(use_fused_vocoder=chain, use_fused_semantic=chain,
+                use_fused_stages=tts.use_fused_stages)
+
+
 def _gen():
     return TG.GenerationConfig(speech_start_id=258, speech_end_id=259,
                                speech_diffusion_id=260, eos_id=256)
@@ -62,10 +68,12 @@ def test_entry_points_pin_fp32_matmuls_to_full_precision():
 @pytest.mark.parametrize("kw", [dict(quantize="int8"), dict(quantize_tokenizer="int4k"),
                                 dict(quantize_diffusion="int4k"), dict()])
 def test_pipeline_modes_outside_the_slice_raise(kw):
-    """The large-T fused stages (ROADMAP B4) stay outside the port in every
-    quantized mode, which the port runs (A7)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP B4"):
-        VibeVoiceTTS.from_random(TC.tiny_config(vocab_size=320), dtype=torch.float32,
-                                 device="cpu", use_fused_stages=True, **kw)
-    VibeVoiceTTS.from_random(TC.tiny_config(vocab_size=320), dtype=torch.float32,
-                             device="cpu", **kw)
+    """The large-T fused stages (ROADMAP B4/B7) are in the port now and compose
+    with every quantized mode; flash prefill (B5) stays outside and raises."""
+    tts = VibeVoiceTTS.from_random(TC.tiny_config(vocab_size=320), dtype=torch.float32,
+                                   device="cpu", use_fused_stages=True, **kw)
+    eng = tts._engine(1, 8, 4)
+    assert eng.use_fused_stages and "_vocoder_packs_large" in eng.params
+    with pytest.raises(NotImplementedError, match="ROADMAP B5"):
+        TG.Engine(tts.params, tts.cfg, _gen(), max_steps=4, batch=1, prompt_len=8,
+                  device="cpu", use_flash_prefill=True, **kw_engine(tts))

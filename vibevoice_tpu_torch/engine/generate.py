@@ -30,7 +30,12 @@ up to a multiple of 2048 slots, as in the JAX engine).  Quantized params
 128 rows take the `ops.int4_matmul` kernel, an int4 head pack in
 `params["_diffusion_head_packq"]` the fused head kernel, and with
 `use_fused_vocoder` / `use_fused_semantic` the small-T sigma-VAE stages the
-int4 chain kernel (`params["_vocoder_packs"]` / `["_semantic_packs"]`).
+int4 chain kernel (`params["_vocoder_packs"]` / `["_semantic_packs"]`, which
+the caller injects: the pipeline's `quantize_tokenizer="int4k"` builds them).
+`use_fused_stages` puts the large-T stages of both sigma-VAE stacks on the
+fused stage kernels (`ops.fused_stage`, packs in
+`params["_vocoder_packs_large"]` / `["_semantic_packs_large"]`), with the JAX
+engine's batch policies for the folds; the row-lane layout only when asked.
 """
 from __future__ import annotations
 
@@ -147,14 +152,21 @@ class Engine:
                  use_fused_vocoder: bool = False,
                  use_fused_semantic: bool = False,
                  use_fused_stages: bool = False,
+                 fused_stage_t_min: int = 128,
+                 fused_stage_fold_conv: Optional[bool] = None,
+                 fused_stage_fold_head: Optional[bool] = None,
+                 fused_stage_rowlane: bool = False,
                  keep_audio: bool = True,
                  kv_dtype: str = "model",
                  mesh=None,
                  device="cuda"):
-        if use_fused_stages:
-            raise NotImplementedError(
-                "the large-T fused stage kernels (use_fused_stages) are not ported yet "
-                "(ROADMAP B4/B7)")
+        for flag, key in ((use_fused_vocoder, "_vocoder_packs"),
+                          (use_fused_semantic, "_semantic_packs")):
+            if flag and key not in params:
+                # packed here they would be the bf16/fp32 chain's (TPU kernel #6)
+                raise NotImplementedError(
+                    f"{key} are not given: the bf16/fp32 fused Block1D chain is not "
+                    "ported yet (ROADMAP B6); pass int4 packs (quantize_tokenizer='int4k')")
         if use_flash_prefill:  # None (auto) takes the dense prefill
             raise NotImplementedError(
                 "flash prefill is not ported yet (ROADMAP B5)")
@@ -167,6 +179,7 @@ class Engine:
         self.inject_latent_noise = inject_latent_noise
         self.use_fused_vocoder = use_fused_vocoder
         self.use_fused_semantic = use_fused_semantic
+        self.use_fused_stages = use_fused_stages
         self.kv_quant = kv_dtype == "int8"
         # keep_audio=False drops the [B, max_steps, hop] waveform buffer;
         # streaming consumers get per-step chunks from StepOutput instead
@@ -203,16 +216,32 @@ class Engine:
         allowed = sorted(set(allowed))
         self.allowed_ids = torch.tensor(allowed, dtype=torch.int32, device=self.device)
         params = to_device(dict(params), self.device)
-        # chain-kernel packs live in the params tree; a caller may pass packs
-        # built before quantization (the pipeline's int4 packs), which are
-        # kept as they are.  Packed here they are the bf16 chain's (ROADMAP B6).
-        if use_fused_vocoder and "_vocoder_packs" not in params:
-            params["_vocoder_packs"] = tokenizer.pack_decoder_stages(
-                params["acoustic_decoder"], cfg.acoustic_tokenizer)
-        if use_fused_semantic and "_semantic_packs" not in params:
-            params["_semantic_packs"] = tokenizer.pack_encoder_stages(
-                params["semantic_encoder"], cfg.semantic_tokenizer,
-                chunk_t=cfg.speech_compress_ratio)
+        if use_fused_stages:
+            # the JAX engine's batch policies: the transition convs fold at
+            # B == 1 only, the tail never unless asked.  The row-lane layout,
+            # which the JAX engine turns on at 2 <= B <= 4 and B >= 32, stays
+            # off unless asked: on the H100 the plain stage kernel on the same
+            # rows takes 0.31-0.53 of its time at B = 2, 4 and 32
+            # (`chip_smoke.py` phase 2, PERF.md).
+            # Packs already in the tree (e.g. a JAX engine's, through
+            # `weights.from_jax`) are kept; any pack is right at any batch (a
+            # row-lane pack whose row group does not divide the batch runs the
+            # plain stage kernel).
+            if fused_stage_fold_conv is None:
+                fused_stage_fold_conv = batch == 1
+            if fused_stage_fold_head is None:
+                fused_stage_fold_head = False
+            rl_batch = batch if (fused_stage_rowlane and batch > 1) else 0
+            if "_vocoder_packs_large" not in params:
+                params["_vocoder_packs_large"] = tokenizer.pack_decoder_stages_large(
+                    params["acoustic_decoder"], cfg.acoustic_tokenizer,
+                    t_min=fused_stage_t_min, fold_conv=fused_stage_fold_conv,
+                    fold_head=fused_stage_fold_head, rowlane_batch=rl_batch)
+            if "_semantic_packs_large" not in params:
+                params["_semantic_packs_large"] = tokenizer.pack_encoder_stages_large(
+                    params["semantic_encoder"], cfg.semantic_tokenizer,
+                    chunk_t=cfg.speech_compress_ratio, t_min=fused_stage_t_min,
+                    fold_conv=fused_stage_fold_conv, rowlane_batch=rl_batch)
         if "_lm_head_sub" not in params:
             params["_lm_head_sub"] = vibevoice.lm_head_subset(params, allowed, dtype)
         self.params = params
@@ -276,18 +305,20 @@ class Engine:
                 p, cfg, self.solver_cfg, self.sched, h_t, h_neg, gen.cfg_scale, x_init,
                 sde_generator=sde_gen)
             scaled = vibevoice.unscale_latents(p, latent)
-            if self.use_fused_vocoder:
+            if self.use_fused_vocoder or self.use_fused_stages:
                 chunk, ac_new = tokenizer.decoder_apply_streaming_fused(
                     p["acoustic_decoder"], cfg.acoustic_tokenizer, scaled[:, None, :],
-                    acoustic_state, fused_packs=p.get("_vocoder_packs"))
+                    acoustic_state, fused_packs=p.get("_vocoder_packs"),
+                    large_packs=p.get("_vocoder_packs_large"))
             else:
                 chunk, ac_new = tokenizer.decoder_apply_streaming(
                     p["acoustic_decoder"], cfg.acoustic_tokenizer, scaled[:, None, :],
                     acoustic_state)
-            if self.use_fused_semantic:
+            if self.use_fused_semantic or self.use_fused_stages:
                 sem, sem_new = tokenizer.encoder_apply_streaming_fused(
                     p["semantic_encoder"], cfg.semantic_tokenizer, chunk, semantic_state,
-                    fused_packs=p.get("_semantic_packs"))
+                    fused_packs=p.get("_semantic_packs"),
+                    large_packs=p.get("_semantic_packs_large"))
             else:
                 sem, sem_new = tokenizer.encoder_apply_streaming(
                     p["semantic_encoder"], cfg.semantic_tokenizer, chunk, semantic_state)

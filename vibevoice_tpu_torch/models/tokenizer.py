@@ -13,9 +13,12 @@ Port of `vibevoice_tpu/models/tokenizer.py` (reference codec stack
   through `quantize.mm`, the transition convs take their int8 paths.
 * Fused streaming (`*_apply_streaming_fused`): the small-T stages (T <= 8
   frames per 7.5 Hz frame) run as ONE int4 chain-kernel call per stage
-  (`ops.fused_blocks`, packs from `pack_*_stages(quant="int4")`).  The bf16
-  chain packs (ROADMAP B6) and the large-T stage kernel (`large_packs`,
-  ROADMAP B4) are not ported yet and raise.
+  (`ops.fused_blocks`, packs from `pack_*_stages(quant="int4")`), and the
+  large-T stages (`large_packs` from `pack_*_stages_large`) as ONE fused
+  stage-kernel call each (`ops.fused_stage`), optionally with the transition
+  conv in front and the decoder tail folded into the same call.  The bf16
+  chain packs of the small-T stages (ROADMAP B6) are not ported yet and
+  raise where they meet the chain.
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ import torch.nn.functional as F
 from ..configs import AcousticTokenizerConfig
 from ..ops.conv import (
     ConvState,
+    ConvTState,
     causal_conv1d,
     causal_conv1d_streaming,
     causal_conv_transpose1d,
@@ -35,6 +39,7 @@ from ..ops.conv import (
     conv_transpose_state_init,
 )
 from ..ops import fused_blocks as fb
+from ..ops import fused_stage as fs
 from ..utils.quantize import mm
 from .norms import rms_norm
 
@@ -157,46 +162,75 @@ def _groups_of(cfg, dim: int) -> int:
 
 
 def _stage(params: Params, cfg, i: int, h: torch.Tensor, states: Optional[list],
-           fused_packs=None) -> torch.Tensor:
+           fused_packs=None, large_packs=None, tile_want: int = 400) -> torch.Tensor:
     """Stage i's Block1D chain: through the int4 chain kernel when it has a
-    pack in `fused_packs` (streaming only), else block by block; threads the
+    pack in `fused_packs`, through the large-T stage kernel when it has one in
+    `large_packs` (streaming only), else block by block; threads the
     streaming states either way."""
     blocks = params["stages"][i]
+    n = len(blocks)
     if fused_packs and i in fused_packs:
         packed = fused_packs[i]
         if "w1q" not in packed:
-            fb.pack_stage(blocks)  # a bf16 pack: raises, naming B6
-        n = len(blocks)
+            fb.refuse_plain_chain()  # a bf16/fp32 pack: the B6 kernel
         ctx = torch.stack([states.pop(0).buf for _ in range(n)], dim=1)  # [B, N, 6, D]
         h, new_ctx = fb.fused_block_chain_batched(packed, h.contiguous(), ctx.contiguous(),
                                                   eps=cfg.layernorm_eps)
         states.extend(ConvState(buf=new_ctx[:, j]) for j in range(n))
         return h
+    if large_packs and i in large_packs:
+        return _large_stage(params, cfg, i, h, states, large_packs[i], tile_want)
     for bp in blocks:
         h = _block_apply(bp, h, cfg.layernorm_eps, _groups_of(cfg, h.shape[-1]), states)
     return h
 
 
+def _large_stage(params: Params, cfg, i: int, h: torch.Tensor, states: list, packed,
+                 tile_want: int, conv_st=None) -> torch.Tensor:
+    """Stage i as ONE stage-kernel call, with the transition conv in front
+    when `conv_st` (its state, popped already) is given and the decoder tail
+    when the pack has a head: pops the N block states (and the head's) and
+    appends the successors in the order [conv, blocks, head]."""
+    n = len(params["stages"][i])
+    ctx = torch.stack([states.pop(0).buf for _ in range(n)], dim=1)  # [B, N, 6, D]
+    kw = {}
+    head_st = None
+    if packed.get("head") is not None:
+        head_st = states.pop(0)
+        kw["head_state"] = head_st.buf
+    transposed = isinstance(conv_st, ConvTState)
+    if conv_st is not None:
+        kw["conv_state"] = conv_st.tail if transposed else conv_st.buf
+    res = list(fs.fused_stage_chain(packed, h, ctx, eps=cfg.layernorm_eps,
+                                    tile_want=tile_want, **kw))
+    if conv_st is not None:
+        new_c = res.pop(2).to(kw["conv_state"].dtype)
+        states.append(ConvTState(tail=new_c) if transposed else ConvState(buf=new_c))
+    states.extend(ConvState(buf=res[1][:, j]) for j in range(n))
+    if head_st is not None:
+        states.append(ConvState(buf=res[2].to(head_st.buf.dtype)))
+    return res[0]
+
+
 def encoder_apply(params: Params, cfg, x: torch.Tensor,
-                  states: Optional[list] = None, fused_packs=None) -> torch.Tensor:
+                  states: Optional[list] = None) -> torch.Tensor:
     """audio [B, T, 1] -> latents [B, T/hop, vae_dim] (ref forward :810-813).
     With `states` (from `encoder_state_init`) it runs one streaming chunk and
-    rotates the list in place; `fused_packs` then puts the packed stages on
-    the chain kernel."""
+    rotates the list in place."""
     strides = [1] + list(reversed(cfg.encoder_ratios))
     h = x
     for i in range(len(cfg.encoder_depths)):
         h = _conv(h, params["down"][i], states, stride=strides[i])
-        h = _stage(params, cfg, i, h, states, fused_packs)
+        h = _stage(params, cfg, i, h, states)
     if params["final_norm_w"] is not None:
         h = rms_norm(h, params["final_norm_w"], cfg.layernorm_eps)
     return _conv(h, params["head"], states)
 
 
 def decoder_apply(params: Params, cfg: AcousticTokenizerConfig, z: torch.Tensor,
-                  states: Optional[list] = None, fused_packs=None) -> torch.Tensor:
+                  states: Optional[list] = None) -> torch.Tensor:
     """latents [B, F, vae_dim] -> audio [B, F*hop, 1] (ref forward :948-951);
-    streaming and `fused_packs` as in `encoder_apply`."""
+    streaming as in `encoder_apply`."""
     strides = list(cfg.decoder_ratios)
     h = z
     for i in range(len(cfg.decoder_depths_resolved())):
@@ -209,7 +243,7 @@ def decoder_apply(params: Params, cfg: AcousticTokenizerConfig, z: torch.Tensor,
             h, new_st = causal_conv_transpose1d_streaming(h, states.pop(0), up["w"], up["b"],
                                                           stride=strides[i - 1])
             states.append(new_st)
-        h = _stage(params, cfg, i, h, states, fused_packs)
+        h = _stage(params, cfg, i, h, states)
     if params["final_norm_w"] is not None:
         h = rms_norm(h, params["final_norm_w"], cfg.layernorm_eps)
     return _conv(h, params["head"], states)
@@ -234,7 +268,8 @@ def decoder_apply_streaming(params: Params, cfg, z: torch.Tensor, states):
 def _stage_pack(blocks, quant: Optional[str]):
     if quant == "int4":
         return fb.pack_stage_q(blocks)
-    return fb.pack_stage(blocks)  # the bf16 chain: raises, naming B6
+    # the bf16/fp32 chain pack: the chain refuses it (ROADMAP B6)
+    return fb.pack_stage(blocks, dtype=blocks[0]["ffn1"]["w"].dtype)
 
 
 def pack_decoder_stages(params: Params, cfg: AcousticTokenizerConfig,
@@ -273,31 +308,139 @@ def pack_encoder_stages(params: Params, cfg, chunk_t: int, max_frames: int = 8,
     return packs
 
 
-def _no_large_packs(large_packs):
-    if large_packs:
-        raise NotImplementedError("the large-T fused stage kernel (use_fused_stages) is "
-                                  "not ported yet (ROADMAP B4)")
+def _large_stage_pack(params: Params, i: int, rowlane_batch: int):
+    """The plain stage pack of stage i in its weights' dtype, or None when its
+    FFNs are quantized or live in an int4 chain pack already (w None); with a
+    row-lane pack for `rowlane_batch` rows when the row group is > 1 (added
+    later only if no conv is folded)."""
+    blocks = params["stages"][i]
+    if blocks[0]["ffn1"]["w"] is None or isinstance(blocks[0]["ffn1"]["w"], dict):
+        return None, None
+    dtype = blocks[0]["ffn1"]["w"].dtype
+    d = blocks[0]["norm_w"].shape[0]
+    r = fs.rowlane_rows(d, rowlane_batch) if rowlane_batch else 1
+    rowlane = fs.pack_stage_rowlane(blocks, r, dtype=dtype) if r > 1 else None
+    return fs.pack_stage(blocks, dtype=dtype), rowlane
+
+
+def pack_decoder_stages_large(params: Params, cfg: AcousticTokenizerConfig,
+                              t_min: int = 128, fold_conv: bool = True,
+                              fold_head: bool = True, rowlane_batch: int = 0):
+    """Packs of the large-T stage kernel (`ops.fused_stage`) for the decoder
+    stages whose per-frame T = prod(ratios[:i]) is at least t_min (and > 6),
+    skipping stages with quantized FFNs.  `fold_conv` folds each such stage's
+    transposed "up" conv (k = 2s, plain weight) into its call; `fold_head`
+    folds the decoder tail (final norm + head conv D -> 1) into the last
+    stage's; `rowlane_batch` adds row-lane packs to the stages without a
+    folded conv (`ops.fused_stage.rowlane_rows`)."""
+    if cfg.mixer_layer != "depthwise_conv":
+        return {}
+    depths = cfg.decoder_depths_resolved()
+    strides = list(cfg.decoder_ratios)
+    packs = {}
+    t = 1
+    for i in range(len(depths)):
+        if i > 0:
+            t *= strides[i - 1]
+        if t < max(t_min, 7) or depths[i] == 0:
+            continue
+        pack, rowlane = _large_stage_pack(params, i, rowlane_batch)
+        if pack is None:
+            continue
+        up = params["up"][i]
+        if (fold_conv and i > 0 and not isinstance(up["w"], dict)
+                and up["w"].shape[1] == 2 * strides[i - 1]):
+            pack["conv"] = fs.pack_up_conv(up, strides[i - 1], dtype=pack["w1"].dtype)
+        if rowlane is not None and "conv" not in pack:
+            pack["rowlane"] = rowlane
+        packs[i] = pack
+    last = len(depths) - 1
+    hw = params["head"]["w"]
+    if (fold_head and last in packs and not isinstance(hw, dict)
+            and hw.shape[2] == 1 and 0 < hw.shape[0] - 1 <= 8):
+        packs[last]["head"] = fs.pack_head(params["head"], params["final_norm_w"])
+    return packs
+
+
+def pack_encoder_stages_large(params: Params, cfg, chunk_t: int, t_min: int = 128,
+                              fold_conv: bool = True, rowlane_batch: int = 0):
+    """Mirror of `pack_decoder_stages_large` for the semantic re-encode:
+    encoder stage i runs at T = chunk_t / prod(strides[:i+1]); `fold_conv`
+    folds the strided "down" conv in front (k = 2s, or the s = 1 stem)."""
+    if cfg.mixer_layer != "depthwise_conv":
+        return {}
+    depths = cfg.encoder_depths
+    strides = [1] + list(reversed(cfg.encoder_ratios))
+    packs = {}
+    t = chunk_t
+    for i in range(len(depths)):
+        t //= strides[i]
+        if t < max(t_min, 7) or depths[i] == 0:
+            continue
+        pack, rowlane = _large_stage_pack(params, i, rowlane_batch)
+        if pack is None:
+            continue
+        dp = params["down"][i]
+        s_i, k_i = strides[i], (0 if isinstance(dp["w"], dict) else dp["w"].shape[0])
+        if fold_conv and k_i and (s_i == 1 or k_i == 2 * s_i) and 0 < k_i - s_i <= 8:
+            pack["conv"] = fs.pack_down_conv(dp, s_i, dtype=pack["w1"].dtype)
+        if rowlane is not None and "conv" not in pack:
+            pack["rowlane"] = rowlane
+        packs[i] = pack
+    return packs
 
 
 def decoder_apply_streaming_fused(params: Params, cfg: AcousticTokenizerConfig,
                                   z: torch.Tensor, states, fused_packs=None,
-                                  large_packs=None):
-    """Streaming decode with the small-T stages on the chain kernel
-    (`fused_packs` from `pack_decoder_stages(quant="int4")`); the same
-    numerics as `decoder_apply_streaming` up to int4 weights and fp32
-    in-kernel rounding.  Returns (audio, new_states)."""
-    _no_large_packs(large_packs)
+                                  large_packs=None, tile_want: int = 400):
+    """Streaming decode with the small-T stages on the int4 chain kernel
+    (`fused_packs`) and the large-T stages on the stage kernel
+    (`large_packs`); the same numerics as `decoder_apply_streaming` up to
+    int4 weights and fp32 in-kernel rounding.  Returns (audio, new_states)."""
+    depths = cfg.decoder_depths_resolved()
+    strides = list(cfg.decoder_ratios)
     s = list(states)
-    return decoder_apply(params, cfg, z, s, fused_packs), s
+    h = z
+    large_packs = large_packs or {}
+    for i in range(len(depths)):
+        lp = large_packs.get(i)
+        if lp is not None and "conv" in lp:
+            h = _large_stage(params, cfg, i, h, s, lp, tile_want, conv_st=s.pop(0))
+            continue
+        up = params["up"][i]
+        if i == 0:
+            h = _conv(h, up, s)
+        else:
+            h, new_st = causal_conv_transpose1d_streaming(h, s.pop(0), up["w"], up["b"],
+                                                          stride=strides[i - 1])
+            s.append(new_st)
+        h = _stage(params, cfg, i, h, s, fused_packs, large_packs, tile_want)
+    last = large_packs.get(len(depths) - 1)
+    if last is not None and "head" in last:
+        return h, s  # the tail ran inside the last stage's call
+    if params["final_norm_w"] is not None:
+        h = rms_norm(h, params["final_norm_w"], cfg.layernorm_eps)
+    return _conv(h, params["head"], s), s
 
 
 def encoder_apply_streaming_fused(params: Params, cfg, x: torch.Tensor, states,
-                                  fused_packs=None, large_packs=None):
-    """Streaming encode with the small-T stages on the chain kernel (mirror of
-    `decoder_apply_streaming_fused`).  Returns (latents, new_states)."""
-    _no_large_packs(large_packs)
+                                  fused_packs=None, large_packs=None, tile_want: int = 400):
+    """Streaming encode, the mirror of `decoder_apply_streaming_fused`.
+    Returns (latents, new_states)."""
+    strides = [1] + list(reversed(cfg.encoder_ratios))
     s = list(states)
-    return encoder_apply(params, cfg, x, s, fused_packs), s
+    h = x
+    large_packs = large_packs or {}
+    for i in range(len(cfg.encoder_depths)):
+        lp = large_packs.get(i)
+        if lp is not None and "conv" in lp:
+            h = _large_stage(params, cfg, i, h, s, lp, tile_want, conv_st=s.pop(0))
+            continue
+        h = _conv(h, params["down"][i], s, stride=strides[i])
+        h = _stage(params, cfg, i, h, s, fused_packs, large_packs, tile_want)
+    if params["final_norm_w"] is not None:
+        h = rms_norm(h, params["final_norm_w"], cfg.layernorm_eps)
+    return _conv(h, params["head"], s), s
 
 
 # ---------------------------------------------------------------------------
@@ -385,6 +528,8 @@ __all__ = [
     "decoder_apply_streaming_fused",
     "pack_decoder_stages",
     "pack_encoder_stages",
+    "pack_decoder_stages_large",
+    "pack_encoder_stages_large",
     "encoder_state_init",
     "decoder_state_init",
     "state_reset_where",

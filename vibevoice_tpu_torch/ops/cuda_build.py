@@ -26,6 +26,7 @@ SOURCES: Dict[str, str] = {
     "int4_matmul": "int4_matmul.cu",
     "fused_block_chain": "fused_block_chain.cu",
     "fused_head": "fused_head.cu",
+    "fused_stage": "fused_stage.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

@@ -24,9 +24,10 @@ int4 pack of one stage (`pack_stage_q`; N blocks, dim D, hidden F):
   w2q  [N, F/2, D] int8, s2 [N, 1, D] fp32
 Streaming context: ctx [B, N, 6, D], the last 6 mixer inputs of each block.
 
-The bf16/fp32 pack (`pack_stage`) and its single-row kernel
-(`fused_block_chain` with such a pack, TPU kernel #6) are not ported yet
-(ROADMAP B6) and raise.
+The bf16/fp32 pack (`pack_stage`; the large-T stage kernel of
+`ops/fused_stage.py` runs on it) is ported; its single-row T <= 8 kernel
+(`fused_block_chain` with such a pack, TPU kernel #6) is not yet (ROADMAP B6)
+and raises.
 """
 from __future__ import annotations
 
@@ -64,10 +65,45 @@ def row_group(batch: int, rows_per_item: int, d: int) -> int:
     return max(1, min(batch, _ROWS_FLOATS // (rows_per_item * d)))
 
 
-def pack_stage(blocks, dtype=torch.float32):
+def refuse_plain_chain():
+    """A plain (bf16/fp32) pack met the T <= 8 chain: its single-row kernel
+    is not ported yet."""
     raise NotImplementedError(
         "the bf16/fp32 fused Block1D chain (TPU kernel #6, use_fused_vocoder with "
         "plain packs) is not ported yet (ROADMAP B6)")
+
+
+def pack_stage(blocks: List[Dict], dtype=torch.float32) -> Dict[str, torch.Tensor]:
+    """Plain pack of one stage, all in `dtype`: vecs/mixw [N, 8, D] as in the
+    int4 pack; w1 [N, D+8, F] with the ffn1 bias in row D (taken through an
+    all-ones activation column) and zero rows D+1..; w2 [N, F, D]."""
+    if any(isinstance(bp["ffn1"]["w"], dict) for bp in blocks):
+        raise ValueError(
+            "fused Block1D kernel packs plain weights only — it is mutually "
+            "exclusive with quantize_tokenizer")
+    n = len(blocks)
+    d = blocks[0]["norm_w"].shape[0]
+    f = blocks[0]["ffn1"]["w"].shape[1]
+    dev = blocks[0]["norm_w"].device
+    vecs = torch.zeros((n, 8, d), dtype=dtype, device=dev)
+    mixw = torch.zeros((n, 8, d), dtype=dtype, device=dev)
+    w1 = torch.zeros((n, d + 8, f), dtype=dtype, device=dev)
+    w2 = torch.zeros((n, f, d), dtype=dtype, device=dev)
+    for i, bp in enumerate(blocks):
+        vecs[i, 0] = bp["norm_w"].to(dtype)
+        if bp["mixer"]["b"] is not None:
+            vecs[i, 1] = bp["mixer"]["b"].to(dtype)
+        vecs[i, 2] = bp["gamma"].to(dtype)
+        vecs[i, 3] = bp["ffn_norm_w"].to(dtype)
+        vecs[i, 4] = bp["ffn_gamma"].to(dtype)
+        if bp["ffn2"]["b"] is not None:
+            vecs[i, 5] = bp["ffn2"]["b"].to(dtype)
+        mixw[i, :7] = bp["mixer"]["w"][:, 0, :].to(dtype)
+        w1[i, :d] = bp["ffn1"]["w"].to(dtype)
+        if bp["ffn1"]["b"] is not None:
+            w1[i, d] = bp["ffn1"]["b"].to(dtype)
+        w2[i] = bp["ffn2"]["w"].to(dtype)
+    return {"vecs": vecs, "mixw": mixw, "w1": w1, "w2": w2}
 
 
 def pack_stage_q(blocks: List[Dict]) -> Dict[str, torch.Tensor]:
@@ -210,7 +246,7 @@ def fused_block_chain(packed, x: torch.Tensor, ctx: torch.Tensor,
     """The chain for ONE batch row: x [T, D], ctx [N, 6, D].  int4 packs only:
     a plain pack is the single-row bf16 kernel, not ported yet (ROADMAP B6)."""
     if "w1q" not in packed:
-        pack_stage(None)  # raises, naming B6
+        refuse_plain_chain()
     y, new_ctx = fused_block_chain_batched(packed, x[None], ctx[None], eps=eps)
     return y[0], new_ctx[0]
 
@@ -230,5 +266,5 @@ def pack_bytes(packed) -> int:
     return sum(t.numel() * t.element_size() for t in packed.values())
 
 
-__all__ = ["CTX", "ffn_tile", "row_group", "pack_stage", "pack_stage_q", "fused_block_chain",
-           "fused_block_chain_batched", "fused_block_chain_batched_ref", "pack_bytes"]
+__all__ = ["CTX", "ffn_tile", "row_group", "pack_stage", "refuse_plain_chain", "pack_stage_q",
+           "fused_block_chain", "fused_block_chain_batched", "fused_block_chain_batched_ref", "pack_bytes"]

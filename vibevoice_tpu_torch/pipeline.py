@@ -7,8 +7,10 @@ cached per (batch, bucketed prompt length, max steps).  Runs on CUDA unless
 package: `quantize="int8"|"int4"|"int4f"` (LM and logits head),
 `quantize_tokenizer="int8"|"int4"|"int4k"` (sigma-VAE decode path; "int4k"
 runs the deep stages on the int4 chain kernel) and `quantize_diffusion="int4k"`
-(the fused int4 head kernel).  The large-T fused stages (`use_fused_stages`,
-ROADMAP B4) raise `NotImplementedError`; `from_pretrained` waits for the
+(the fused int4 head kernel).  `use_fused_stages=True` runs the large-T
+sigma-VAE stages on the fused stage kernels (`ops.fused_stage`); it composes
+with the quantized modes, since the large-T stages' dims sit below
+`tokenizer_min_dim` and stay plain.  `from_pretrained` waits for the
 checkpoint slice.
 """
 from __future__ import annotations
@@ -44,13 +46,11 @@ class VibeVoiceTTS:
                  keep_audio: bool = True,
                  processor: Optional[VibeVoiceProcessor] = None,
                  device="cuda"):
-        if use_fused_stages:
-            raise NotImplementedError(
-                "use_fused_stages: the fused stage kernel is not ported yet (ROADMAP B4)")
         self.device = G.resolve_device(device)
         params = self._quantize(params, cfg, quantize, int4_group_size, quantize_tokenizer,
                                 quantize_diffusion, tokenizer_min_dim)
         self.do_sample = do_sample
+        self.use_fused_stages = use_fused_stages
         self.refresh_negative = refresh_negative
         self.algorithm_type = algorithm_type
         self.kv_dtype = kv_dtype
@@ -160,6 +160,7 @@ class VibeVoiceTTS:
                                           kv_dtype=self.kv_dtype,
                                           use_fused_vocoder=chain,
                                           use_fused_semantic=chain,
+                                          use_fused_stages=self.use_fused_stages,
                                           keep_audio=self.keep_audio,
                                           device=self.device)
         return self._engines[key]

@@ -8,7 +8,10 @@ one to one onto torch tensors.  This is the inverse direction of
 JAX pytrees.  A tree the JAX package quantized carries over as it is: int8
 leaves, the quantized weights' dicts ({"qint8", "scale"}, {"qint4", "scale4"})
 and the kernel packs ("_vocoder_packs", "_semantic_packs" keyed by stage index,
-"_diffusion_head_packq").
+"_diffusion_head_packq", and the large-T stage packs "_vocoder_packs_large" /
+"_semantic_packs_large", whose folded conv and head are the JAX package's
+`ConvPack` / `HeadPack` objects, recognised by their attributes and carried
+into the port's classes of the same names).
 """
 from __future__ import annotations
 
@@ -16,6 +19,11 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+
+from .ops.fused_stage import ConvPack, HeadPack
+
+_CONV_ATTRS = ("kind", "w", "b", "s", "k", "cin")
+_HEAD_ATTRS = ("w", "b", "k", "has_norm")
 
 
 def _leaf_to_torch(x, device, dtype: Optional[torch.dtype]) -> torch.Tensor:
@@ -50,6 +58,12 @@ def from_jax(params_np: Any, device="cpu", dtype: Optional[torch.dtype] = None) 
                 for k, v in params_np.items()}
     if isinstance(params_np, (list, tuple)):
         return type(params_np)(from_jax(v, device, dtype) for v in params_np)
+    if all(hasattr(params_np, a) for a in _CONV_ATTRS):
+        p = params_np
+        return ConvPack(p.kind, from_jax(p.w, device), from_jax(p.b, device), p.s, p.k, p.cin)
+    if all(hasattr(params_np, a) for a in _HEAD_ATTRS):
+        p = params_np
+        return HeadPack(from_jax(p.w, device), from_jax(p.b, device), p.k, p.has_norm)
     return _leaf_to_torch(params_np, device, dtype)
 
 
@@ -61,7 +75,7 @@ def to_device(params: Any, device) -> Any:
         return {k: to_device(v, device) for k, v in params.items()}
     if isinstance(params, (list, tuple)):
         return type(params)(to_device(v, device) for v in params)
-    if isinstance(params, torch.Tensor):
+    if isinstance(params, (torch.Tensor, ConvPack, HeadPack)):
         return params.to(device)
     return params
 
