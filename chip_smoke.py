@@ -16,13 +16,23 @@ Phases, in order; any failure stops the run with a non-zero exit:
      folded B=1 stage calls of a 1.5B decode step (two chunks each, states
      carried), with the folded tail, and unfolded at B=2; the row-lane stage
      kernel at B=2, 4 and 32, each followed by the plain stage kernel on the
-     same rows;
+     same rows; flash prefill (bf16, H=12, KVH=2, D=128) at B=1 with T=1024
+     and 4096 and at B=2, T=1024 with one row left-padded by 333 tokens,
+     against its bound and SDPA; the plain-pack (bf16) chain at the four
+     packed stages of a step, B=1 and B=2, two chunks with the context
+     carried;
   3. the long-cache engine as `bench.py` drives it (1.5B, bf16, B=1, prompt
      256, 3840 steps -> a 4096-slot cache, so decode attention runs on the
      kernel): prefill, a 16-step warm-up chunk and two timed 32-step chunks;
   4. the same engine with `kv_dtype="int8"` for 8 + 8 steps, then at B=2 with
      `use_fused_stages=True` for 8 + 16 steps, by default (eight stage-kernel
      calls per step) and with `fused_stage_rowlane=True` (4 + 4 row-lane);
+     then the long-prompt engine: a 4096-token prompt (flash prefill by the
+     auto rule, 28 launches) with `use_fused_vocoder` / `use_fused_semantic`
+     on plain bf16 packs (4 chain launches per step), prefill and 8 + 16
+     steps; the same prompt's prefill through the dense path, its last hidden
+     state held against the flash prefill's; and a 16 384-token flash prefill
+     with its peak memory;
   5. the quantized engine, full width and depth: the same weights through
      `VibeVoiceTTS(quantize="int4", quantize_tokenizer="int4k",
      quantize_diffusion="int4k")`, prefill, a 16-step warm-up and two timed
@@ -37,7 +47,9 @@ Phases, in order; any failure stops the run with a non-zero exit:
   7. a tiny model on the card against the same model on the CPU (plain
      versions), as the reference on a small input: bf16-free fp32, plain and
      in the int4 modes (group scales, int8 tokenizer stages), and with
-     `use_fused_stages=True` at B=1 (folds) and B=2 (row-lane, asked for).
+     `use_fused_stages=True` at B=1 (folds) and B=2 (row-lane, asked for),
+     and with flash prefill forced on (B=2, one row left-padded) and the
+     plain chain, at head_dim 128 (`tiny_config(hidden_size=512)`).
 
 Weights are random, made from a seed.  Prints one JSON line per measurement,
 then the `kernels` line, the card's name and power limit, and as the last line
@@ -266,18 +278,22 @@ def chain_inputs(pack, b, t, gen, dev):
 
 
 def measure_chain(packs, x, ctx):
-    """The int4 chain over pack copies of one stage shape (per call)."""
+    """A chain kernel over pack copies of one stage shape (per call): the int4
+    chain for int4 packs, the plain-pack chain for plain ones."""
     from vibevoice_tpu_torch.ops import fused_blocks as fb
-    y, new_ctx = fb.fused_block_chain_batched(packs[0], x, ctx)
-    y_ref, ctx_ref = fb.fused_block_chain_batched_ref(packs[0], x, ctx)
-    err, tol = agree("fused_block_chain", y, y_ref)
-    err_c, tol_c = agree("fused_block_chain[ctx]", new_ctx, ctx_ref)
+    plain = "w1q" not in packs[0]
+    run = fb.fused_block_chain_plain if plain else fb.fused_block_chain_batched
+    ref = fb.fused_block_chain_plain_ref if plain else fb.fused_block_chain_batched_ref
+    name = "fused_block_chain" if plain else "fused_block_chain_batched"
+    y, new_ctx = run(packs[0], x, ctx)
+    y_ref, ctx_ref = ref(packs[0], x, ctx)
+    err, tol = agree(name, y, y_ref)
+    err_c, tol_c = agree(f"{name}[ctx]", new_ctx, ctx_ref)
     n = len(packs)
-    ms = cuda_ms(lambda i: fb.fused_block_chain_batched(packs[i % n], x, ctx), 2 * n)
-    plain_ms = cuda_ms(lambda i: fb.fused_block_chain_batched_ref(packs[i % n], x, ctx),
-                       min(n, 4))
+    ms = cuda_ms(lambda i: run(packs[i % n], x, ctx), 2 * n)
+    plain_ms = cuda_ms(lambda i: ref(packs[i % n], x, ctx), min(n, 4))
     b, t, d = x.shape
-    nb, f = packs[0]["vecs"].shape[0], packs[0]["w1q"].shape[2]
+    nb, f = packs[0]["vecs"].shape[0], packs[0]["w1" if plain else "w1q"].shape[2]
     bms, by = bound(fb.pack_bytes(packs[0]) + 2 * nbytes(x, ctx), 4 * b * t * d * f * nb)
     return dict(max_abs_err=max(err, err_c), tol=min(tol, tol_c), ms=ms, plain_ms=plain_ms,
                 bound_ms=bms, bound_by=by, library_ms=None)
@@ -499,6 +515,97 @@ def phase_stage_kernels(dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 2, the kernels of the long-prompt path: flash prefill, the plain chain
+# ---------------------------------------------------------------------------
+
+def flash_inputs(b, t, pad, gen, dev, h=12, kvh=2, d=128):
+    """bf16 q [B, T, H, D], k/v [B, T, KVH, D] and the pad mask, the last row
+    left-padded by `pad` tokens."""
+    rnd = lambda *shape: (0.5 * torch.randn(shape, generator=gen, device=dev)).to(torch.bfloat16)
+    mask = torch.ones((b, t), dtype=torch.int32, device=dev)
+    mask[b - 1, :pad] = 0
+    return rnd(b, t, h, d), rnd(b, t, kvh, d), rnd(b, t, kvh, d), mask
+
+
+def measure_flash(q, k, v, mask):
+    """Flash prefill against its plain version on the real query rows (every
+    row must be finite), then the kernel's, the plain version's and SDPA's
+    times (causal, GQA; with the pad mask where a row is padded) and the
+    bound: the real rows' causal (row, key) pairs at 4*D*H flops each, or q,
+    k, v, the mask and the output once over HBM."""
+    import torch.nn.functional as F
+    from vibevoice_tpu_torch.ops import flash_attention as fa
+    got = fa.flash_attention_prefill(q, k, v, mask)
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(got).all()):
+        raise RuntimeError("flash_attention_prefill kernel returned non-finite values")
+    want = fa.flash_attention_prefill_ref(q, k, v, mask)
+    real = mask > 0
+    err, tol = agree("flash_attention_prefill", got[real], want[real])
+    ms = cuda_ms(lambda i: fa.flash_attention_prefill(q, k, v, mask), 20)
+    plain_ms = cuda_ms(lambda i: fa.flash_attention_prefill_ref(q, k, v, mask), 3)
+    b, t, h, d = q.shape
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    if bool(real.all()):
+        lib = lambda i: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                       enable_gqa=True)
+    else:
+        allowed = (torch.ones((t, t), dtype=torch.bool, device=q.device).tril()[None]
+                   & real[:, None, :])[:, None]
+        lib = lambda i: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=allowed,
+                                                       enable_gqa=True)
+    lib_ms = cuda_ms(lib, 20)
+    pairs = fa.attended_pairs(mask, t)
+    bms, by = bound(nbytes(q, k, v, mask) + nbytes(q), 4 * d * h * pairs)
+    return dict(max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                library_ms=lib_ms)
+
+
+def phase_flash_kernel(dev):
+    """Flash prefill at the 1.5B attention shape (H=12, KVH=2, D=128), bf16."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    for b, t, pad in ((1, 1024, 0), (1, 4096, 0), (2, 1024, 333)):
+        r = measure_flash(*flash_inputs(b, t, pad, gen, dev))
+        emit("kernel_vs_plain", kernel="flash_attention_prefill", B=b, T=t, H=12, KVH=2, D=128,
+             left_pad=pad, **r)
+    torch.cuda.empty_cache()
+
+
+def phase_plain_chain(dev):
+    """The plain-pack chain at the four packed stages of a 1.5B step (bf16
+    packs of random weights; two per shape: decoder 0 / encoder 6 at D=2048,
+    8 blocks, T=1; decoder 1 / encoder 5 at D=1024, 3 blocks, T=8), B=1 and
+    B=2: each pack over two chunks with the context carried on both sides,
+    then the time per call rotating over the shape's two packs (each pair is
+    over 100 MB, twice L2)."""
+    from vibevoice_tpu_torch.ops import fused_blocks as fb
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    for (d, nblk, t), stages in (((2048, 8, 1), ("decoder 0", "encoder 6")),
+                                 ((1024, 3, 8), ("decoder 1", "encoder 5"))):
+        packs = [fb.pack_stage(random_stage(d, nblk, gen, dev), dtype=torch.bfloat16)
+                 for _ in stages]
+        for b in (1, 2):
+            worst = (0.0, 1.0)
+            for pack in packs:
+                got_c = want_c = chain_inputs(pack, b, t, gen, dev)[1]
+                for _ in range(2):
+                    x = chain_inputs(pack, b, t, gen, dev)[0]
+                    y, got_c = fb.fused_block_chain_plain(pack, x, got_c)
+                    y_ref, want_c = fb.fused_block_chain_plain_ref(pack, x, want_c)
+                    for e in (agree("fused_block_chain", y, y_ref),
+                              agree("fused_block_chain[ctx]", got_c, want_c)):
+                        worst = max(worst, e, key=lambda et: et[0] / et[1])
+            x, ctx = chain_inputs(packs[0], b, t, gen, dev)
+            r = measure_chain(packs, x, ctx)
+            r["max_abs_err"], r["tol"] = max(worst, (r["max_abs_err"], r["tol"]),
+                                             key=lambda et: et[0] / et[1])
+            emit("kernel_vs_plain", kernel="fused_block_chain", stages=stages, D=d, blocks=nblk,
+                 T=t, B=b, chunks=2, **r)
+        del packs
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # phases 3-5: the long-cache engine, bf16 and quantized
 # ---------------------------------------------------------------------------
 
@@ -512,60 +619,85 @@ def bench_gen(G):
 
 def kernel_counters():
     """name -> the wrapper whose `launches` counts that kernel's launches."""
-    from vibevoice_tpu_torch.ops import decode_attention as da, fused_blocks as fb
-    from vibevoice_tpu_torch.ops import fused_head as fh, fused_stage as fs
-    from vibevoice_tpu_torch.ops import int4_matmul as im
+    from vibevoice_tpu_torch.ops import decode_attention as da, flash_attention as fa
+    from vibevoice_tpu_torch.ops import fused_blocks as fb, fused_head as fh
+    from vibevoice_tpu_torch.ops import fused_stage as fs, int4_matmul as im
     return {"decode_attention": da.decode_attention, "int4_matmul": im.int4_matmul,
             "fused_block_chain_batched": fb.fused_block_chain_batched,
             "fused_head_solver_step": fh.fused_head_solver_step,
             "fused_stage_chain": fs.fused_stage_chain,
-            "fused_stage_chain_rowlane": fs.fused_stage_chain_rowlane}
+            "fused_stage_chain_rowlane": fs.fused_stage_chain_rowlane,
+            "flash_attention_prefill": fa.flash_attention_prefill,
+            "fused_block_chain": fb.fused_block_chain_plain}
 
 
-def stage_launches(eng):
-    """Launches of the two stage kernels per diffusing step, counted from the
-    large-T packs the engine built (none without `use_fused_stages`)."""
-    out = {"fused_stage_chain": 0, "fused_stage_chain_rowlane": 0}
-    if eng.use_fused_stages:
-        for key in ("_vocoder_packs_large", "_semantic_packs_large"):
-            for pack in eng.params[key].values():
-                rowlane = uses_rowlane(pack, eng.batch)
-                out["fused_stage_chain_rowlane" if rowlane else "fused_stage_chain"] += 1
+def codec_launches(eng):
+    """Launches per diffusing step of the streaming codecs' four kernels,
+    walking each stage of the vocoder and the re-encode as the tokenizer
+    does when the engine takes the fused path (`use_fused_vocoder` /
+    `use_fused_semantic`, or `use_fused_stages`): a large-T pack with a
+    folded conv runs the stage kernel; else a small-T chain pack runs its
+    chain (int4 packs `fused_block_chain_batched`, plain ones
+    `fused_block_chain`); else a large-T pack runs the stage kernel, in its
+    row-lane form where `uses_rowlane` says so."""
+    out = dict.fromkeys(("fused_stage_chain", "fused_stage_chain_rowlane",
+                         "fused_block_chain_batched", "fused_block_chain"), 0)
+    for flag, key in ((eng.use_fused_vocoder, "_vocoder_packs"),
+                      (eng.use_fused_semantic, "_semantic_packs")):
+        if not (flag or eng.use_fused_stages):
+            continue
+        chain, large = eng.params.get(key) or {}, eng.params.get(key + "_large") or {}
+        for i in set(chain) | set(large):
+            lp = large.get(i)
+            if i in chain and not (lp is not None and "conv" in lp):
+                out["fused_block_chain_batched" if "w1q" in chain[i] else "fused_block_chain"] += 1
+            elif uses_rowlane(lp, eng.batch):
+                out["fused_stage_chain_rowlane"] += 1
+            else:
+                out["fused_stage_chain"] += 1
     return out
 
 
-def expected_launches(cfg, quant, eng=None):
-    """(prefill, per decode step) launches of each kernel with force_diffusion:
-    decode attention once per layer per decode step; the int4 GEMVs (qkv, o,
-    gateup, down; only gateup and down under int4f) once per layer in the
+def stage_launches(eng):
+    """Launches of the two stage kernels per diffusing step (`codec_launches`)."""
+    c = codec_launches(eng)
+    return {k: c[k] for k in ("fused_stage_chain", "fused_stage_chain_rowlane")}
+
+
+def expected_launches(cfg, quant, eng):
+    """(prefill, per decode step) launches of each kernel of `eng` with
+    force_diffusion: decode attention once per layer per decode step; flash
+    prefill once per layer in the prompt's forward where the engine takes it
+    (prompts of 1024 tokens or more), never in a step; the int4 GEMVs (qkv,
+    o, gateup, down; only gateup and down under int4f) once per layer in the
     negative stream's M=B prefill forward and in every step (the 256-row
-    prompt forward takes the dequantized route); the chain once per packed
-    stage (2 in the vocoder, 2 in the re-encode), the head once per solver
-    step and the stage kernels once per large-T pack of `eng`
-    (`stage_launches`) on every diffusing step, step 0 (in prefill) included."""
+    prompt forward takes the dequantized route); the chains and the stage
+    kernels as `codec_launches` counts them (at 1.5B: a chain on 2 stages of
+    the vocoder and 2 of the re-encode) and the head once per solver step, on
+    every diffusing step, step 0 (in prefill) included."""
     n_layers = cfg.decoder.num_hidden_layers
     gemv = {None: 0, "int4": 4, "int4f": 2}[quant] * n_layers
-    chain = 4 if quant else 0
     head = 5 if quant else 0
-    prefill = {"decode_attention": 0, "int4_matmul": gemv,
-               "fused_block_chain_batched": chain, "fused_head_solver_step": head}
-    step = {"decode_attention": n_layers, "int4_matmul": gemv,
-            "fused_block_chain_batched": chain, "fused_head_solver_step": head}
-    stages = stage_launches(eng) if eng is not None else dict.fromkeys(
-        ("fused_stage_chain", "fused_stage_chain_rowlane"), 0)
-    return dict(prefill, **stages), dict(step, **stages)
+    per_step = dict(codec_launches(eng), fused_head_solver_step=head)
+    prefill = dict(per_step, decode_attention=0, int4_matmul=gemv,
+                   flash_attention_prefill=n_layers if eng.use_flash_prefill else 0)
+    step = dict(per_step, decode_attention=n_layers, int4_matmul=gemv,
+                flash_attention_prefill=0)
+    return prefill, step
 
 
 def run_engine(params, cfg, dev, kv_dtype, warm_steps, timed_chunks, card, quant=None,
-               batch=1, stages=False, want_stages=None, rowlane=False):
+               batch=1, stages=False, want_stages=None, rowlane=False, prompt_len=256,
+               max_steps=3840, chain=False):
     """Prefill, a warm-up chunk and the timed chunks of the long-cache engine;
     asserts every kernel's launches against `expected_launches` (and, with
     `use_fused_stages`, the stage kernels' per-step counts against
-    `want_stages`; `rowlane` asks for the row-lane layout).  Returns
-    (launches of the whole run by kernel, the final state, the engine)."""
+    `want_stages`; `rowlane` asks for the row-lane layout).  The small-T
+    chains are on with `quant` (the pipeline's int4 packs in `params`) or
+    `chain` (plain packs, built by the engine).  Returns (launches of the
+    whole run by kernel, the final state, the engine)."""
     from vibevoice_tpu_torch.engine import generate as G
-    prompt_len, max_steps = 256, 3840
-    fused = quant is not None
+    fused = quant is not None or chain
     eng = G.Engine(params, cfg, bench_gen(G), max_steps=max_steps, batch=batch,
                    prompt_len=prompt_len, dtype=torch.bfloat16, kv_dtype=kv_dtype, device=dev,
                    use_fused_vocoder=fused, use_fused_semantic=fused, use_fused_stages=stages,
@@ -616,7 +748,8 @@ def run_engine(params, cfg, dev, kv_dtype, warm_steps, timed_chunks, card, quant
     frames = sum(c["frames"] for c in chunks)
     wall = sum(c["wall_s"] for c in chunks)
     emit("engine", kv=kv_dtype, quant=quant, batch=batch, fused_stages=stages,
-         rowlane=rowlane, cache_slots=eng.cache_len, prefill_s=prefill_s,
+         rowlane=rowlane, prompt_len=prompt_len, flash_prefill=eng.use_flash_prefill,
+         codec_launches=codec_launches(eng), cache_slots=eng.cache_len, prefill_s=prefill_s,
          decode_steps=steps, prefill_launches=prefill_launches, kernel_launches=launches,
          launches_per_step={k: (launches[k] - prefill_launches[k]) / steps for k in launches},
          chunks=chunks, ms_per_frame=(1e3 * wall / frames) if frames else None,
@@ -655,7 +788,7 @@ def quant_entries(params, cfg, launches, dev):
     gateup / down GEMVs at M=2; the vocoder's and the re-encode's two packed
     stages; one solver step of the head at N=2).  Each timing loop rotates
     over copies of the weights (the layers', then clones) that exceed L2."""
-    from vibevoice_tpu_torch.ops import fused_blocks as fb, fused_head as fh
+    from vibevoice_tpu_torch.ops import fused_head as fh
     gen = torch.Generator(device=dev).manual_seed(SEED + 4)
     layers = params["lm"]["layers"]
     per_shape = []
@@ -667,16 +800,7 @@ def quant_entries(params, cfg, launches, dev):
         x = torch.randn((2, 2 * ws[0]["qint4"].shape[0]), generator=gen,
                         device=dev).to(torch.bfloat16)
         per_shape.append(measure_int4(x, ws))
-    stages = []
-    frames = stage_frames(cfg)
-    for key in ("_vocoder_packs", "_semantic_packs"):
-        for i, pack in sorted(params[key].items()):
-            x, ctx = chain_inputs(pack, 1, frames[(key, i)], gen, dev)
-            # copies of the pack, so that the timing loop reads it from HBM
-            clones = [pack] + [{k: v.clone() for k, v in pack.items()}
-                               for _ in range(copies_for(fb.pack_bytes(pack)) - 1)]
-            stages.append(measure_chain(clones, x, ctx))
-            del clones
+    stages = chain_results(params, cfg, gen, dev)
     head = params["_diffusion_head_packq"]
     heads = [head] + [{k: v.clone() for k, v in head.items()}
                       for _ in range(copies_for(fh.pack_bytes(head)) - 1)]
@@ -701,6 +825,23 @@ def quant_entries(params, cfg, launches, dev):
          "launches": launches["fused_head_solver_step"], **head_r,
          "per": "launch: one solver step at N=2"},
     ]
+
+
+def chain_results(params, cfg, gen, dev):
+    """`measure_chain` on each packed small-T stage of `params` (the
+    vocoder's two, then the re-encode's two) at B=1 and its frames per call,
+    each timing loop rotating over clones of the pack that exceed L2."""
+    from vibevoice_tpu_torch.ops import fused_blocks as fb
+    out = []
+    frames = stage_frames(cfg)
+    for key in ("_vocoder_packs", "_semantic_packs"):
+        for i, pack in sorted(params[key].items()):
+            x, ctx = chain_inputs(pack, 1, frames[(key, i)], gen, dev)
+            clones = [pack] + [{k: v.clone() for k, v in pack.items()}
+                               for _ in range(copies_for(fb.pack_bytes(pack)) - 1)]
+            out.append(measure_chain(clones, x, ctx))
+            del clones
+    return out
 
 
 def mean_entry(rs):
@@ -764,6 +905,176 @@ def kernel_entry(name, launches, cache, vis, lengths, quant, dev, dec):
             "launches": launches, **r, "tol": KERNEL_TOL,
             "shape": {"q": list(q.shape), "cache": list(cache.k.shape),
                       "live": int(lengths[0])}}
+
+
+class PromptHidden:
+    """Keeps the last position's final hidden state of every prompt forward
+    (T > 1) the engine runs, which `Engine.prefill` does not return: wraps
+    `qwen2.forward` while the context is open."""
+
+    def __enter__(self):
+        from vibevoice_tpu_torch.models import qwen2
+        self.module, self.forward, self.rows = qwen2, qwen2.forward, []
+
+        def spy(*args, **kw):
+            hidden, cache = self.forward(*args, **kw)
+            if hidden.shape[1] > 1:
+                self.rows.append(hidden[:, -1].float().clone())
+            return hidden, cache
+
+        qwen2.forward = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.module.forward = self.forward
+
+
+PROMPT_LONG, PROMPT_16K = 4096, 16384
+# flash and dense prefills of one bf16 prompt: the last hidden state after 28
+# layers, each of whose attention outputs may differ by a bf16 step (2^-8)
+# where the two paths round P at different points and sum in another order
+# (relative L2 error)
+HIDDEN_REL_TOL = 0.05
+
+
+def prompt_inputs(batch, prompt_len):
+    ids = np.random.default_rng(SEED).integers(0, 1000, (batch, prompt_len)).astype(np.int32)
+    return ids, np.ones((batch, prompt_len), np.int32), np.zeros((batch, prompt_len), bool)
+
+
+def timed_prefill(eng, dev):
+    """One prefill: its seconds, `torch.cuda.max_memory_allocated()` over it
+    (`max_bytes`) and that peak above what was allocated before it (`peak`),
+    the prompt's last hidden state and the launches by kernel."""
+    counters = kernel_counters()
+    for c in counters.values():
+        c.launches = 0
+    ids, mask, sim = prompt_inputs(eng.batch, eng.prompt_len)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    with PromptHidden() as hid:
+        t0 = time.perf_counter()
+        state, _ = eng.prefill(ids, mask, sim, generator=gen)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    max_bytes = torch.cuda.max_memory_allocated()
+    del state
+    if len(hid.rows) != 1 or not bool(torch.isfinite(hid.rows[0]).all()):
+        raise RuntimeError("prefill ran no single finite prompt forward")
+    return dict(s=secs, max_bytes=max_bytes, peak=max_bytes - base, hidden=hid.rows[0],
+                launches={k: c.launches for k, c in counters.items()})
+
+
+def fp32_prompt_hidden(params, cfg, dev):
+    """The 4096-token prompt's last hidden state from an fp32 copy of the LM
+    (flash prefill in fp32, no cache): the yardstick both bf16 prefills are
+    held against."""
+    from vibevoice_tpu_torch.models import qwen2
+    ids, mask, _ = prompt_inputs(1, PROMPT_LONG)
+    as32 = lambda t: t.float() if torch.is_tensor(t) and t.is_floating_point() else t
+    lm = {"embed": as32(params["lm"]["embed"]), "final_norm_w": as32(params["lm"]["final_norm_w"]),
+          "layers": [{k: ({kk: as32(vv) for kk, vv in v.items()} if isinstance(v, dict)
+                          else as32(v)) for k, v in lp.items()}
+                     for lp in params["lm"]["layers"]]}
+    ids, mask = torch.as_tensor(ids, device=dev).long(), torch.as_tensor(mask, device=dev)
+    with torch.no_grad():
+        hidden, _ = qwen2.forward(lm, cfg.decoder, qwen2.embed_rows(lm, ids),
+                                  qwen2.positions_from_mask(mask), None, pad_mask=mask,
+                                  use_flash=True)
+    return hidden[:, -1].float()
+
+
+def phase_long_prompt(params, cfg, dev, card):
+    """The long-prompt path at 1.5B, bf16, B=1: a 4096-token prompt (flash
+    prefill by the engine's auto rule) with the small-T chains on plain
+    packs, prefill and 8 + 16 decode steps, every kernel's launches asserted
+    (28 flash launches in the prefill, none per step; 4 plain-chain launches
+    per step and 4 in the prefill).  Then the same prompt's prefill through
+    the dense path beside the flash one, in turns (dense, flash, flash,
+    dense): times, peak memory and the last hidden state; and a 16 384-token
+    flash prefill with its peak memory.  Returns (launches of the main run,
+    its engine)."""
+    from vibevoice_tpu_torch.engine import generate as G
+    n_layers = cfg.decoder.num_hidden_layers
+    launches, state, eng = run_engine(params, cfg, dev, "model", 8, (16,), card,
+                                      prompt_len=PROMPT_LONG, max_steps=64, chain=True)
+    del state
+    if not (eng.use_flash_prefill and launches["flash_attention_prefill"] == n_layers
+            and codec_launches(eng)["fused_block_chain"] == 4):
+        raise RuntimeError(f"the long-prompt engine is off its path: {launches}")
+    packed = dict(params, _vocoder_packs=eng.params["_vocoder_packs"],
+                  _semantic_packs=eng.params["_semantic_packs"])
+    engines = {flash: G.Engine(packed, cfg, bench_gen(G), max_steps=64, batch=1,
+                               prompt_len=PROMPT_LONG, dtype=torch.bfloat16, device=dev,
+                               use_flash_prefill=flash, use_fused_vocoder=True,
+                               use_fused_semantic=True) for flash in (True, False)}
+    runs = {True: [], False: []}
+    for flash in (False, True, True, False):
+        runs[flash].append(timed_prefill(engines[flash], dev))
+    for flash, rs in runs.items():
+        got = [r["launches"]["flash_attention_prefill"] for r in rs]
+        if got != [n_layers if flash else 0] * 2:
+            raise RuntimeError(f"flash={flash} prefills launched flash prefill {got} times")
+    h_flash, h_dense = runs[True][0]["hidden"], runs[False][0]["hidden"]
+    rel = float((h_flash - h_dense).norm() / h_dense.norm())
+    h32 = fp32_prompt_hidden(params, cfg, dev)
+    rel32 = {name: float((h - h32).norm() / h32.norm())
+             for name, h in (("flash", h_flash), ("dense", h_dense))}
+    emit("prefill_flash_vs_dense", prompt=PROMPT_LONG, batch=1, dtype="bf16",
+         flash_s=[r["s"] for r in runs[True]], dense_s=[r["s"] for r in runs[False]],
+         flash_peak_bytes=[r["peak"] for r in runs[True]],
+         dense_peak_bytes=[r["peak"] for r in runs[False]],
+         flash_max_memory_allocated=[r["max_bytes"] for r in runs[True]],
+         dense_max_memory_allocated=[r["max_bytes"] for r in runs[False]],
+         hidden_rel_err=rel, hidden_max_abs_err=float((h_flash - h_dense).abs().max()),
+         hidden_absmax=float(h_dense.abs().max()), tol=HIDDEN_REL_TOL,
+         hidden_rel_err_vs_fp32=rel32,
+         flash_repeat_equal=bool(torch.equal(h_flash, runs[True][1]["hidden"])), card=card)
+    if not rel <= HIDDEN_REL_TOL:
+        raise RuntimeError(f"flash and dense prefills disagree: {rel} > {HIDDEN_REL_TOL}")
+    # the flash path is no further from fp32 than twice the dense path's own
+    # bf16 error
+    if not rel32["flash"] <= max(2 * rel32["dense"], 0.01):
+        raise RuntimeError(f"flash prefill is off the fp32 prefill: {rel32}")
+    del engines, packed
+    torch.cuda.empty_cache()
+    e16 = G.Engine(params, cfg, bench_gen(G), max_steps=64, batch=1, prompt_len=PROMPT_16K,
+                   dtype=torch.bfloat16, device=dev)
+    r16 = timed_prefill(e16, dev)
+    if not e16.use_flash_prefill or r16["launches"]["flash_attention_prefill"] != n_layers:
+        raise RuntimeError(f"the 16K prefill is off the flash path: {r16['launches']}")
+    emit("prefill_16k", prompt=PROMPT_16K, batch=1, dtype="bf16", cache_slots=e16.cache_len,
+         prefill_s=r16["s"], max_memory_allocated=r16["max_bytes"], peak_bytes=r16["peak"],
+         peak_vs_4096_flash=r16["peak"] / runs[True][0]["peak"], launches=r16["launches"],
+         card=card)
+    del e16
+    torch.cuda.empty_cache()
+    return launches, eng
+
+
+def long_prompt_entries(eng, launches, cfg, dev):
+    """The kernels-line entries of flash prefill (one layer's prompt attention
+    at the engine's shape, B=1, T=4096, H=12, KVH=2, D=128, random bf16 q/k/v)
+    and of the plain chain (measured on the engine's own four packs at B=1,
+    per launch, averaged over the step's four stages)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    dec = cfg.decoder
+    flash = measure_flash(*flash_inputs(1, eng.prompt_len, 0, gen, dev, dec.num_attention_heads,
+                                        dec.num_key_value_heads, dec.head_dim))
+    src = "vibevoice_tpu_torch/csrc/"
+    return [
+        {"name": "flash_attention_prefill", "route": "cuda", "source": src + "flash_prefill.cu",
+         "replaces": "vibevoice_tpu/ops/flash_attention.py:84",
+         "launches": launches["flash_attention_prefill"], **flash,
+         "per": f"launch: one layer's prompt attention, B=1, T={eng.prompt_len}"},
+        {"name": "fused_block_chain", "route": "cuda", "source": src + "fused_block_chain.cu",
+         "replaces": "vibevoice_tpu/ops/fused_blocks.py:367",
+         "launches": launches["fused_block_chain"],
+         **mean_entry(chain_results(eng.params, cfg, gen, dev)),
+         "per": "launch, mean over the step's four plain-pack stages at B=1"},
+    ]
 
 
 # ---------------------------------------------------------------------------
@@ -888,20 +1199,24 @@ def _live_audio_path(params, gen):
     params["speech_bias_factor"] = torch.tensor(0.1)
 
 
-def phase_reference(dev, quant=False, stages=False, b=2):
+def phase_reference(dev, quant=False, stages=False, b=2, flash_chain=False):
     """fp32 on both sides.  With `quant` the model is first put through
     `VibeVoiceTTS(quantize="int4", int4_group_size=32, quantize_tokenizer=
     "int4k", quantize_diffusion="int4k", tokenizer_min_dim=4)` on the CPU, so
     the card runs every int4 kernel (the tiny stacks' unpacked stages take int8
     FFNs) and the CPU their plain versions.  With `stages` the engines run
     `use_fused_stages=True, fused_stage_t_min=7` (the tiny stacks' T >= 7
-    stages: folded convs at b=1, the row-lane layout, asked for, at b=2)."""
+    stages: folded convs at b=1, the row-lane layout, asked for, at b=2).
+    With `flash_chain` the model has head_dim 128 (hidden 512, 4 heads) and
+    the engines run flash prefill, forced on, and the small-T chains on plain
+    fp32 packs."""
     from vibevoice_tpu_torch.configs import tiny_config
     from vibevoice_tpu_torch.engine import generate as G
     from vibevoice_tpu_torch.models import vibevoice as V
     from vibevoice_tpu_torch.pipeline import VibeVoiceTTS
     from vibevoice_tpu_torch.processor.text_tokenizer import ByteFallbackTokenizer
-    cfg = tiny_config(hidden_size=256, vocab_size=320)  # head_dim 64: the kernel's
+    # head_dim 64 (hidden 256), or 128 (hidden 512), as the kernels take it
+    cfg = tiny_config(hidden_size=512 if flash_chain else 256, vocab_size=320)
     gen = torch.Generator().manual_seed(SEED)
     params = V.init_model(cfg, generator=gen)
     _live_audio_path(params, gen)
@@ -926,9 +1241,10 @@ def phase_reference(dev, quant=False, stages=False, b=2):
     for where in ("cpu", dev):
         eng = G.Engine(params, cfg, gcfg, max_steps=steps, batch=b, prompt_len=t,
                        inject_latent_noise=True, use_flash_decode=True, device=where,
-                       use_fused_vocoder=quant, use_fused_semantic=quant,
+                       use_fused_vocoder=quant or flash_chain,
+                       use_fused_semantic=quant or flash_chain,
                        use_fused_stages=stages, fused_stage_t_min=7,
-                       fused_stage_rowlane=stages and b > 1)
+                       fused_stage_rowlane=stages and b > 1, use_flash_prefill=flash_chain)
         for c in counters.values():
             c.launches = 0
         out[str(where)] = (G.generate(eng, ids, mask, sim, latent_noise=noise),
@@ -936,11 +1252,13 @@ def phase_reference(dev, quant=False, stages=False, b=2):
     (ref, cpu_launches), (got, gpu_launches) = out["cpu"], out[str(dev)]
     n_layers = cfg.decoder.num_hidden_layers
     # every step diffuses: 3 + 3 packed stages, 3 solver steps and the
-    # stage kernels once per large-T pack each
+    # stage kernels once per large-T pack each; flash prefill once per layer
     want = {"decode_attention": n_layers * (steps - 1),
             "int4_matmul": 4 * n_layers * steps if quant else 0,
             "fused_block_chain_batched": 6 * steps if quant else 0,
             "fused_head_solver_step": 3 * steps if quant else 0,
+            "flash_attention_prefill": n_layers if flash_chain else 0,
+            "fused_block_chain": 6 * steps if flash_chain else 0,
             **{k: n * steps for k, n in stage_launches(eng).items()}}
     if stages and sum(stage_launches(eng).values()) != 4:
         raise RuntimeError(f"tiny engine stage packs: {stage_launches(eng)}")
@@ -953,7 +1271,8 @@ def phase_reference(dev, quant=False, stages=False, b=2):
         raise RuntimeError("tiny-model audio is not finite")
     err, scale = float(np.abs(a - w).max()), float(np.abs(w).max())
     tol = 1e-3 * scale  # fp32 on both; sums in another order on the card
-    emit("reference", model="tiny_config(hidden_size=256)", batch=b, fused_stages=stages,
+    emit("reference", model=f"tiny_config(hidden_size={cfg.decoder.hidden_size})", batch=b,
+         fused_stages=stages, flash_prefill_and_plain_chain=flash_chain,
          modes=dict(QUANT_MODES, int4_group_size=32) if quant else None, steps=steps,
          kernel_launches=gpu_launches, audio_max_abs_err=err, audio_absmax=scale, tol=tol)
     if not (scale > 0 and err <= tol):
@@ -990,6 +1309,8 @@ def main() -> int:
     phase_kernels(dev)
     phase_int4_kernels(dev)
     phase_stage_kernels(dev)
+    phase_flash_kernel(dev)
+    phase_plain_chain(dev)
 
     # 3-4. engine, bf16 then int8 KV
     cfg = vibevoice_1_5b()
@@ -1021,6 +1342,11 @@ def main() -> int:
         want_stages={"fused_stage_chain": 4, "fused_stage_chain_rowlane": 4}, rowlane=True)
     stage_runs = {"fused_stage_chain_rowlane": (eng_b2, launches["fused_stage_chain_rowlane"])}
     del state
+    # the long-prompt path: flash prefill and the plain-pack chains
+    launches, eng_long = phase_long_prompt(params, cfg, dev, card)
+    entries += long_prompt_entries(eng_long, launches, cfg, dev)
+    del eng_long
+    torch.cuda.empty_cache()
 
     # 5. the quantized engine on the same weights: int4, int4 with the large-T
     # stage kernels (8 calls per step, transition convs folded), then int4f
@@ -1056,6 +1382,7 @@ def main() -> int:
     phase_reference(dev, quant=True)
     phase_reference(dev, stages=True, b=1)
     phase_reference(dev, stages=True, b=2)
+    phase_reference(dev, flash_chain=True)
 
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": entries}), flush=True)

@@ -293,3 +293,113 @@ def test_fused_stage_kernels_match_plain(cuda_device, case):
             tol = (1e-4 if g.dtype == torch.float32 else 2 ** -7) * float(w.float().abs().max())
             torch.testing.assert_close(g.float(), w.float(), atol=tol, rtol=0)
         got_st, want_st = got[1:], want[1:]
+
+
+# flash prefill: (B, T, S, H, KVH, D, left pad of the last row, row_offset, dtype)
+FLASH_CASES = {
+    "1.5b-pad": (2, 1024, 1024, 12, 2, 128, 333, None, torch.bfloat16),
+    "1.5b-shard": (2, 384, 1408, 12, 2, 128, 77, 1024, torch.bfloat16),
+    "d64-fp32": (2, 200, 200, 4, 2, 64, 37, None, torch.float32),
+}
+
+
+@pytest.mark.parametrize("case", list(FLASH_CASES))
+def test_flash_prefill_kernel_matches_plain(cuda_device, case):
+    """A left-padded row (a pad count that is not a tile multiple) and a
+    query shard (T != S) at a `row_offset`: the real rows within one rounding
+    step of the output's scale (bf16) or 1e-5 of it (fp32), every row finite,
+    the rows that see no key zero on both sides."""
+    from vibevoice_tpu_torch.ops import flash_attention as fa
+    b, t, s, h, kvh, d, pad, off, dt = FLASH_CASES[case]
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    rnd = lambda *shape: (0.5 * torch.randn(shape, generator=gen, device=cuda_device)).to(dt)
+    q, k, v = rnd(b, t, h, d), rnd(b, s, kvh, d), rnd(b, s, kvh, d)
+    mask = torch.ones((b, s), dtype=torch.int32, device=cuda_device)
+    mask[b - 1, :pad] = 0
+    before = fa.flash_attention_prefill.launches
+    got = fa.flash_attention_prefill(q, k, v, mask, row_offset=off)
+    torch.cuda.synchronize()
+    want = fa.flash_attention_prefill_ref(q, k, v, mask, row_offset=off)
+    assert fa.flash_attention_prefill.launches == before + 1
+    assert torch.isfinite(got).all()
+    real = mask[:, (off or 0) + torch.arange(t, device=cuda_device)] > 0
+    tol = (2 ** -7 if dt == torch.bfloat16 else 1e-5) * float(want.float().abs().max())
+    torch.testing.assert_close(got[real].float(), want[real].float(), atol=tol, rtol=0)
+    assert not got[~real].any()
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention_prefill(q[..., :32].contiguous(), k[..., :32].contiguous(),
+                                   v[..., :32].contiguous(), mask)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,t,d,n", [(1, 1, 2048, 8), (2, 8, 1024, 3), (3, 5, 8, 2)])
+def test_plain_chain_kernel_matches_plain(cuda_device, dtype, b, t, d, n):
+    """The plain-pack chain at the 1.5B stage shapes and a tiny ragged one,
+    bf16 and fp32 packs, over two chunks with the context carried."""
+    from vibevoice_tpu_torch.ops import fused_blocks as fb
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    pack = fb.pack_stage(_stage(d, n, gen, cuda_device), dtype=dtype)
+    got_c = want_c = (0.5 * torch.randn((b, n, 6, d), generator=gen, device=cuda_device)).to(dtype)
+    for _ in range(2):
+        x = (0.5 * torch.randn((b, t, d), generator=gen, device=cuda_device)).to(dtype)
+        before = fb.fused_block_chain_plain.launches
+        y, got_c = fb.fused_block_chain_plain(pack, x, got_c)
+        torch.cuda.synchronize()
+        y_ref, want_c = fb.fused_block_chain_plain_ref(pack, x, want_c)
+        assert fb.fused_block_chain_plain.launches == before + 1
+        for g, w in ((y, y_ref), (got_c, want_c)):
+            assert g.dtype == dtype and torch.isfinite(g).all()
+            # bf16: one rounding step of the largest value; fp32: sums in
+            # another order through n blocks
+            tol = (2 ** -7 if dtype == torch.bfloat16 else 1e-5) * float(w.float().abs().max())
+            torch.testing.assert_close(g.float(), w.float(), atol=tol, rtol=0)
+
+
+def test_flash_prefill_and_plain_chain_engine_on_card_matches_cpu(cuda_device):
+    """A small fp32 model at head_dim 128 (hidden 512, 4 heads) with flash
+    prefill forced on (B=2, one row left-padded) and the small-T chains on
+    plain packs: both kernels on the card, the plain versions on the CPU;
+    equal tokens, audio within 1e-3 of its scale."""
+    from vibevoice_tpu_torch.ops import flash_attention as fa, fused_blocks as fb
+    cfg = tiny_config(hidden_size=512, vocab_size=320)
+    gen = torch.Generator().manual_seed(0)
+    params = V.init_model(cfg, generator=gen)
+    for name in ("acoustic_decoder", "semantic_encoder"):  # audio of order 0.1, not 1e-7
+        for stage in params[name]["stages"]:
+            for bp in stage:
+                bp["gamma"] = bp["gamma"] * 0.5e6
+                bp["ffn_gamma"] = bp["ffn_gamma"] * 0.5e6
+    head = params["diffusion_head"]
+    for lp in head["layers"]:
+        lp["ada_w"] = torch.randn(lp["ada_w"].shape, generator=gen) * 0.05
+    for name in ("final_ada_w", "final_linear"):
+        head[name] = torch.randn(head[name].shape, generator=gen) * 0.05
+    params["speech_scaling_factor"] = torch.tensor(0.8)
+    params["speech_bias_factor"] = torch.tensor(0.1)
+    rng = np.random.default_rng(0)
+    b, t, steps = 2, 40, 10
+    ids = rng.integers(0, 250, (b, t)).astype(np.int32)
+    mask = np.ones((b, t), np.int32)
+    mask[1, :9] = 0
+    sim = np.zeros((b, t), bool)
+    noise = rng.normal(size=(steps, b, cfg.acoustic_vae_dim)).astype(np.float32)
+    gcfg = G.GenerationConfig(speech_start_id=258, speech_end_id=259, speech_diffusion_id=260,
+                              eos_id=256, ddpm_steps=3, force_diffusion=True,
+                              max_length_times=64.0)
+    counters = (fa.flash_attention_prefill, fb.fused_block_chain_plain)
+    runs = {}
+    for name, where in (("cpu", "cpu"), ("card", cuda_device)):
+        eng = G.Engine(params, cfg, gcfg, max_steps=steps, batch=b, prompt_len=t,
+                       inject_latent_noise=True, use_flash_prefill=True, use_fused_vocoder=True,
+                       use_fused_semantic=True, device=where)
+        before = [c.launches for c in counters]
+        res = G.generate(eng, ids, mask, sim, latent_noise=noise)
+        runs[name] = (res, [c.launches - n for c, n in zip(counters, before)])
+    (ref, cpu_launches), (got, card_launches) = runs["cpu"], runs["card"]
+    assert cpu_launches == [0, 0]
+    # flash once per layer in the prefill; 3 + 3 chain stages per diffusing step
+    assert card_launches == [cfg.decoder.num_hidden_layers, 6 * steps]
+    np.testing.assert_array_equal(got.tokens, ref.tokens)
+    a, w = np.concatenate(got.audio), np.concatenate(ref.audio)
+    assert np.isfinite(a).all() and np.abs(w).max() > 0
+    np.testing.assert_allclose(a, w, atol=1e-3 * np.abs(w).max(), rtol=0)

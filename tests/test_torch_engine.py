@@ -15,6 +15,7 @@ import torch
 from vibevoice_tpu.engine import generate as JG
 from vibevoice_tpu_torch import configs as TC
 from vibevoice_tpu_torch.engine import generate as TG
+from vibevoice_tpu_torch.models import vibevoice as TV
 from vibevoice_tpu_torch.weights import from_jax
 
 from tests._torch_parity import DIFF, END, EOS, START, tiny_params, to_np
@@ -97,15 +98,27 @@ def test_engine_slice_matches_jax(kv_dtype):
 
 
 def test_engine_rejects_modes_outside_the_slice():
+    """Meshes (ROADMAP A12) still raise; the auto rules of the JAX engine hold:
+    flash prefill at prompts of 1024 tokens or more with head_dim % 128 == 0,
+    flash decode at 4096 slots or more, with the cache rounded up to 2048-slot
+    multiples (the engines are only built)."""
     cfg, _, tp = _params()
     tcfg = TC.tiny_config(vocab_size=320)
     gen = TG.GenerationConfig(**GEN)
     base = dict(max_steps=4, batch=1, prompt_len=8, device="cpu")
-    for kw, item in ((dict(use_fused_vocoder=True), "B6"),
-                     (dict(use_flash_prefill=True), "B5"),
-                     (dict(mesh=object()), "parallel")):
-        with pytest.raises(NotImplementedError, match=item):
-            TG.Engine(tp, tcfg, gen, **base, **kw)
+    with pytest.raises(NotImplementedError, match="parallel"):
+        TG.Engine(tp, tcfg, gen, **base, mesh=object())
+    # head_dim 16 (tiny) and 128 (hidden 512, 4 heads): flash prefill auto-on
+    # from 1024 prompt tokens, and only at a head_dim that is a multiple of 128
+    wide = TC.tiny_config(hidden_size=512, vocab_size=320)
+    wide_params = TV.init_model(wide, generator=torch.Generator().manual_seed(0))
+    for c, p in ((tcfg, tp), (wide, wide_params)):
+        for prompt_len in (1023, 1024):
+            eng = TG.Engine(p, c, gen, max_steps=4, batch=1, prompt_len=prompt_len,
+                            device="cpu")
+            want = prompt_len >= 1024 and c.decoder.head_dim % 128 == 0
+            assert eng.use_flash_prefill == want, (c.decoder.head_dim, prompt_len)
+    assert TG.Engine(tp, tcfg, gen, **base, use_flash_prefill=True).use_flash_prefill
     # the auto flash-decode rule and its 2048-slot rounding, as in the JAX engine
     assert not TG.Engine(tp, tcfg, gen, **base).use_flash_decode
     eng = TG.Engine(tp, tcfg, gen, max_steps=3000, batch=1, prompt_len=1096, device="cpu")

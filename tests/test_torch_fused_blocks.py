@@ -1,8 +1,10 @@
-"""The port's int4 Block1D chain (`ops/fused_blocks.py`) against the JAX
-package's, as tests/test_fused_blocks.py:132-204 checks the JAX kernel: the
-batched chain for B in {1, 3} and T in {1, 5, 8} (the JAX kernel in interpret
-mode on the CPU, the port's plain version), and decoder/encoder streaming
-with int4 packs over several frames."""
+"""The port's Block1D chains (`ops/fused_blocks.py`) against the JAX
+package's, as tests/test_fused_blocks.py checks the JAX kernels (in interpret
+mode on the CPU, against the port's plain versions): the int4 batched chain
+for B in {1, 3} and T in {1, 5, 8}; the plain-pack chain (fp32 and bf16
+packs, T in {1, 4, 8}) over two chunks with the context carried; and
+decoder/encoder streaming with int4 and with plain packs over several
+frames."""
 import numpy as np
 import pytest
 import jax.numpy as jnp
@@ -119,21 +121,133 @@ def test_encoder_streaming_with_int4_packs_matches_jax(models):
         np.testing.assert_allclose(ty.numpy(), np.asarray(jy), atol=1e-4 * scale, rtol=0)
 
 
+def _jnp_blocks(blocks):
+    return [{k: (jnp.asarray(v) if not isinstance(v, dict) else
+                 {kk: jnp.asarray(vv) for kk, vv in v.items()}) for k, v in bp.items()}
+            for bp in blocks]
+
+
+def _bits(x):
+    """bf16 leaves by their bit patterns, so that packs compare bit for bit."""
+    a = x.view(torch.int16).numpy() if x.dtype == torch.bfloat16 else x.numpy()
+    return a
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("t", [1, 4, 8])
+def test_plain_chain_matches_jax(dtype, t):
+    """Two rows through the plain-pack chain for two chunks, each side carrying
+    its own context: the JAX single-row kernel once per row, the port's
+    batched entry once.  fp32 within TOL of the output's scale; bf16 (inputs,
+    packs and outputs) within one bf16 step (2^-7) of it, since the sums run
+    in another order before the last rounding."""
+    d, n, b = 16, 2, 2
+    blocks = _blocks(d, n, seed=20 + t)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    jpack = JFB.pack_stage(_jnp_blocks(blocks), dtype=jdt)
+    tpack = TFB.pack_stage(from_jax(blocks), dtype=tdt)
+    assert sorted(tpack) == sorted(jpack)
+    for k in jpack:
+        assert tpack[k].dtype == tdt
+        np.testing.assert_array_equal(
+            _bits(tpack[k]), np.asarray(jpack[k]).view(np.int16 if dtype == "bfloat16"
+                                                       else np.float32))
+    rng = np.random.default_rng(t)
+    xs = (0.5 * rng.normal(size=(2, b, t, d))).astype(np.float32)
+    ctx = (0.5 * rng.normal(size=(b, n, 6, d))).astype(np.float32)
+    jctx = [jnp.asarray(ctx[r], jdt) for r in range(b)]
+    tctx = torch.tensor(ctx).to(tdt)
+    tol = TOL if dtype == "float32" else 2 ** -7
+    for x in xs:
+        jy = []
+        for r in range(b):
+            y_r, jctx[r] = JFB.fused_block_chain(jpack, jnp.asarray(x[r], jdt), jctx[r])
+            jy.append(np.asarray(y_r, np.float32))
+        ty, tctx = TFB.fused_block_chain_plain(tpack, torch.tensor(x).to(tdt), tctx)
+        assert ty.dtype == tctx.dtype == tdt and ty.shape == (b, t, d)
+        jy = np.stack(jy)
+        scale = np.abs(jy).max()
+        np.testing.assert_allclose(ty.float().numpy(), jy, atol=tol * scale, rtol=0)
+        np.testing.assert_allclose(tctx.float().numpy(),
+                                   np.stack([np.asarray(c, np.float32) for c in jctx]),
+                                   atol=tol * scale, rtol=0)
+        # the single-row entry point gives the batched entry's rows
+        y1, _ = TFB.fused_block_chain(tpack, torch.tensor(x[1]).to(tdt), tctx[1])
+        assert y1.shape == (t, d) and torch.isfinite(y1.float()).all()
+
+
+def test_decoder_streaming_with_plain_packs_matches_jax(models):
+    """Four frames through the acoustic decoder with its T <= 8 stages on the
+    plain chain (fp32 packs), against the JAX package's vmapped kernel."""
+    cfg, jp, tp, tcfg = models
+    jpacks = jtok.pack_decoder_stages(jp["acoustic_decoder"], cfg.acoustic_tokenizer)
+    tpacks = ttok.pack_decoder_stages(tp["acoustic_decoder"], tcfg.acoustic_tokenizer)
+    assert set(tpacks) == set(jpacks) == {0, 1, 2}
+    _assert_trees_equal(tpacks, jpacks)
+    z = np.random.default_rng(16).normal(size=(2, 4, cfg.acoustic_vae_dim)).astype(np.float32)
+    jst = jtok.decoder_state_init(cfg.acoustic_tokenizer, 2)
+    tst = ttok.decoder_state_init(tcfg.acoustic_tokenizer, 2)
+    for f in range(4):
+        jy, jst = jtok.decoder_apply_streaming_fused(
+            jp["acoustic_decoder"], cfg.acoustic_tokenizer, jnp.asarray(z[:, f:f + 1]), jst,
+            fused_packs=jpacks)
+        ty, tst = ttok.decoder_apply_streaming_fused(
+            tp["acoustic_decoder"], tcfg.acoustic_tokenizer, torch.tensor(z[:, f:f + 1]), tst,
+            fused_packs=tpacks)
+        scale = np.abs(np.asarray(jy)).max()
+        assert scale > 1e-2
+        np.testing.assert_allclose(ty.numpy(), np.asarray(jy), atol=1e-4 * scale, rtol=0)
+    for js, ts in zip(jst, tst):
+        np.testing.assert_allclose(ts[0].numpy(), np.asarray(js[0]), atol=1e-4, rtol=1e-4)
+
+
+def test_encoder_streaming_with_plain_packs_matches_jax(models):
+    """Three frames through the semantic encoder with its T <= 8 stages on the
+    plain chain (fp32 packs)."""
+    cfg, jp, tp, tcfg = models
+    hop = cfg.speech_compress_ratio
+    jpacks = jtok.pack_encoder_stages(jp["semantic_encoder"], cfg.semantic_tokenizer,
+                                      chunk_t=hop)
+    tpacks = ttok.pack_encoder_stages(tp["semantic_encoder"], tcfg.semantic_tokenizer,
+                                      chunk_t=hop)
+    assert set(tpacks) == set(jpacks) == {1, 2, 3}
+    _assert_trees_equal(tpacks, jpacks)
+    audio = np.random.default_rng(17).normal(size=(2, 3 * hop, 1)).astype(np.float32) * 0.3
+    jst = jtok.encoder_state_init(cfg.semantic_tokenizer, 2)
+    tst = ttok.encoder_state_init(tcfg.semantic_tokenizer, 2)
+    for f in range(3):
+        chunk = audio[:, f * hop:(f + 1) * hop]
+        jy, jst = jtok.encoder_apply_streaming_fused(
+            jp["semantic_encoder"], cfg.semantic_tokenizer, jnp.asarray(chunk), jst,
+            fused_packs=jpacks)
+        ty, tst = ttok.encoder_apply_streaming_fused(
+            tp["semantic_encoder"], tcfg.semantic_tokenizer, torch.tensor(chunk), tst,
+            fused_packs=tpacks)
+        scale = np.abs(np.asarray(jy)).max()
+        np.testing.assert_allclose(ty.numpy(), np.asarray(jy), atol=1e-4 * scale, rtol=0)
+
+
 def test_paths_outside_the_slice_raise(models):
-    """The plain pack exists now (the large-T stage kernel runs on it), but
-    the T <= 8 chain with a plain pack (ROADMAP B6) still raises."""
+    """The plain pack runs on the T <= 8 chain now (TPU kernel #6): through
+    the single-row entry point and the tokenizer's fused streaming, on the CPU
+    without a launch.  Packs of quantized weights still raise."""
     cfg, _, tp, tcfg = models
     blocks = tp["acoustic_decoder"]["stages"][0]
     plain = TFB.pack_stage(blocks)
     assert plain["w1"].shape == (len(blocks), blocks[0]["norm_w"].shape[0] + 8,
                                  blocks[0]["ffn1"]["w"].shape[1])
-    with pytest.raises(NotImplementedError, match="B6"):
-        TFB.fused_block_chain(plain, torch.zeros(1, 32), torch.zeros(len(blocks), 6, 32))
+    gen = torch.Generator().manual_seed(0)
+    x, ctx = torch.randn(1, 32, generator=gen), torch.randn(len(blocks), 6, 32, generator=gen)
+    before = TFB.fused_block_chain_plain.launches
+    y, new_ctx = TFB.fused_block_chain(plain, x, ctx)
+    y_ref, ctx_ref = TFB.fused_block_chain_plain_ref(plain, x[None], ctx[None])
+    assert torch.equal(y, y_ref[0]) and torch.equal(new_ctx, ctx_ref[0])
     packs = ttok.pack_decoder_stages(tp["acoustic_decoder"], tcfg.acoustic_tokenizer)
     st = ttok.decoder_state_init(tcfg.acoustic_tokenizer, 1)
-    with pytest.raises(NotImplementedError, match="B6"):
-        ttok.decoder_apply_streaming_fused(tp["acoustic_decoder"], tcfg.acoustic_tokenizer,
-                                           torch.zeros(1, 1, 8), st, fused_packs=packs)
+    out, _ = ttok.decoder_apply_streaming_fused(tp["acoustic_decoder"], tcfg.acoustic_tokenizer,
+                                                torch.zeros(1, 1, 8), st, fused_packs=packs)
+    assert out.shape == (1, cfg.speech_compress_ratio, 1) and torch.isfinite(out).all()
+    assert TFB.fused_block_chain_plain.launches == before  # CPU tensors: the plain version
     quantized = [dict(bp, ffn1={"w": {"qint8": torch.zeros(32, 128, dtype=torch.int8)},
                                 "b": None}) for bp in blocks]
     with pytest.raises(ValueError, match="unquantized"):

@@ -362,23 +362,31 @@ def test_pipeline_with_fused_stages_serves(modes):
 
 
 def test_plain_chain_packs_still_refused():
-    """Plain packs now exist (the stage kernel's), but where one meets the
-    T <= 8 chain (TPU kernel #6, ROADMAP B6) it raises rather than run."""
+    """Plain packs (the stage kernel's) now run where they meet the T <= 8
+    chain (TPU kernel #6): fused streaming with them equals the block-by-block
+    path, and `Engine(use_fused_vocoder/semantic)` builds them itself, also
+    beside the large-T stage packs."""
     cfg, _, tp = _params()
     tcfg = TC.tiny_config(vocab_size=320)
     packs = ttok.pack_decoder_stages(tp["acoustic_decoder"], tcfg.acoustic_tokenizer)
     assert set(packs) == {0, 1, 2} and all("w1" in p for p in packs.values())
-    st = ttok.decoder_state_init(tcfg.acoustic_tokenizer, 1)
-    with pytest.raises(NotImplementedError, match="B6"):
-        ttok.decoder_apply_streaming_fused(tp["acoustic_decoder"], tcfg.acoustic_tokenizer,
-                                           torch.zeros(1, 1, cfg.acoustic_vae_dim), st,
-                                           fused_packs=packs)
-    with pytest.raises(NotImplementedError, match="B6"):
-        TFB.fused_block_chain(packs[0], torch.zeros(1, packs[0]["vecs"].shape[2]),
-                              torch.zeros(packs[0]["vecs"].shape[0], 6,
-                                          packs[0]["vecs"].shape[2]))
+    z = torch.tensor(np.random.default_rng(3).normal(size=(1, 2, cfg.acoustic_vae_dim)),
+                     dtype=torch.float32)
+    st_f = st_p = ttok.decoder_state_init(tcfg.acoustic_tokenizer, 1)
+    for f in range(2):
+        got, st_f = ttok.decoder_apply_streaming_fused(
+            tp["acoustic_decoder"], tcfg.acoustic_tokenizer, z[:, f:f + 1], st_f,
+            fused_packs=packs)
+        want, st_p = ttok.decoder_apply_streaming(tp["acoustic_decoder"],
+                                                  tcfg.acoustic_tokenizer, z[:, f:f + 1], st_p)
+        scale = float(want.abs().max())
+        assert scale > 1e-2
+        torch.testing.assert_close(got, want, atol=1e-5 * scale, rtol=0)
     for kw in (dict(use_fused_vocoder=True), dict(use_fused_semantic=True),
                dict(use_fused_vocoder=True, use_fused_stages=True)):
-        with pytest.raises(NotImplementedError, match="B6"):
-            TG.Engine(tp, tcfg, TG.GenerationConfig(**GEN), max_steps=4, batch=1,
-                      prompt_len=8, device="cpu", **kw)
+        eng = TG.Engine(tp, tcfg, TG.GenerationConfig(**GEN), max_steps=4, batch=1,
+                        prompt_len=8, device="cpu", fused_stage_t_min=7, **kw)
+        for flag, key in (("use_fused_vocoder", "_vocoder_packs"),
+                          ("use_fused_semantic", "_semantic_packs")):
+            assert (key in eng.params) == bool(kw.get(flag))
+            assert all("w1" in p for p in eng.params.get(key, {}).values())

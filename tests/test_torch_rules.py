@@ -68,12 +68,25 @@ def test_entry_points_pin_fp32_matmuls_to_full_precision():
 @pytest.mark.parametrize("kw", [dict(quantize="int8"), dict(quantize_tokenizer="int4k"),
                                 dict(quantize_diffusion="int4k"), dict()])
 def test_pipeline_modes_outside_the_slice_raise(kw):
-    """The large-T fused stages (ROADMAP B4/B7) are in the port now and compose
-    with every quantized mode; flash prefill (B5) stays outside and raises."""
+    """The large-T fused stages (ROADMAP B4/B7) compose with every quantized
+    mode, and so does flash prefill (B5), which no longer raises: an engine
+    built with `use_flash_prefill=True` over each mode's params runs a
+    left-padded prefill to the dense prefill's first token and next embeds."""
     tts = VibeVoiceTTS.from_random(TC.tiny_config(vocab_size=320), dtype=torch.float32,
                                    device="cpu", use_fused_stages=True, **kw)
     eng = tts._engine(1, 8, 4)
     assert eng.use_fused_stages and "_vocoder_packs_large" in eng.params
-    with pytest.raises(NotImplementedError, match="ROADMAP B5"):
-        TG.Engine(tts.params, tts.cfg, _gen(), max_steps=4, batch=1, prompt_len=8,
-                  device="cpu", use_flash_prefill=True, **kw_engine(tts))
+    ids = torch.arange(20, 36, dtype=torch.int64).reshape(2, 8)
+    mask = torch.ones((2, 8), dtype=torch.int32)
+    mask[1, :3] = 0
+    sim = torch.zeros((2, 8), dtype=torch.bool)
+    outs = []
+    for flash in (True, False):
+        e = TG.Engine(tts.params, tts.cfg, _gen(), max_steps=4, batch=2, prompt_len=8,
+                      device="cpu", use_flash_prefill=flash, **kw_engine(tts))
+        assert e.use_flash_prefill == flash
+        state, out = e.prefill(ids, mask, sim, generator=torch.Generator().manual_seed(0))
+        outs.append((state.cur_embeds, out.token))
+    (emb_f, tok_f), (emb_d, tok_d) = outs
+    assert torch.isfinite(emb_f).all() and torch.equal(tok_f, tok_d)
+    torch.testing.assert_close(emb_f, emb_d, atol=1e-5, rtol=1e-5)

@@ -25,13 +25,16 @@ Where it differs from the JAX engine:
 
 The long-cache decode attention goes through the CUDA kernel
 `ops.decode_attention` (auto-on at 4096 slots or more, with the cache rounded
-up to a multiple of 2048 slots, as in the JAX engine).  Quantized params
-(`utils.quantize.quantize_model`) run as they are: int4 projections of at most
-128 rows take the `ops.int4_matmul` kernel, an int4 head pack in
-`params["_diffusion_head_packq"]` the fused head kernel, and with
-`use_fused_vocoder` / `use_fused_semantic` the small-T sigma-VAE stages the
-int4 chain kernel (`params["_vocoder_packs"]` / `["_semantic_packs"]`, which
-the caller injects: the pipeline's `quantize_tokenizer="int4k"` builds them).
+up to a multiple of 2048 slots, as in the JAX engine), and the prefill of a
+prompt of 1024 tokens or more through the flash prefill kernel
+`ops.flash_attention` (the JAX engine's auto rule; no [T, S] bias is built
+then).  Quantized params (`utils.quantize.quantize_model`) run as they are:
+int4 projections of at most 128 rows take the `ops.int4_matmul` kernel, an
+int4 head pack in `params["_diffusion_head_packq"]` the fused head kernel.
+With `use_fused_vocoder` / `use_fused_semantic` the small-T sigma-VAE stages
+run on the chain kernel (`params["_vocoder_packs"]` / `["_semantic_packs"]`:
+int4 packs where the caller injects them, as the pipeline's
+`quantize_tokenizer="int4k"` does, else plain packs built here).
 `use_fused_stages` puts the large-T stages of both sigma-VAE stacks on the
 fused stage kernels (`ops.fused_stage`, packs in
 `params["_vocoder_packs_large"]` / `["_semantic_packs_large"]`), with the JAX
@@ -160,16 +163,6 @@ class Engine:
                  kv_dtype: str = "model",
                  mesh=None,
                  device="cuda"):
-        for flag, key in ((use_fused_vocoder, "_vocoder_packs"),
-                          (use_fused_semantic, "_semantic_packs")):
-            if flag and key not in params:
-                # packed here they would be the bf16/fp32 chain's (TPU kernel #6)
-                raise NotImplementedError(
-                    f"{key} are not given: the bf16/fp32 fused Block1D chain is not "
-                    "ported yet (ROADMAP B6); pass int4 packs (quantize_tokenizer='int4k')")
-        if use_flash_prefill:  # None (auto) takes the dense prefill
-            raise NotImplementedError(
-                "flash prefill is not ported yet (ROADMAP B5)")
         if mesh is not None:
             raise NotImplementedError(
                 "tensor/data-parallel decode is not ported yet (ROADMAP A12)")
@@ -184,6 +177,10 @@ class Engine:
         # keep_audio=False drops the [B, max_steps, hop] waveform buffer;
         # streaming consumers get per-step chunks from StepOutput instead
         self.keep_audio = keep_audio
+        if use_flash_prefill is None:
+            # long prompts take the memory-linear flash prefill kernel
+            use_flash_prefill = prompt_len >= 1024 and cfg.decoder.head_dim % 128 == 0
+        self.use_flash_prefill = use_flash_prefill
         if use_flash_decode is None:
             # long caches: the decode kernel stops at each row's live length
             use_flash_decode = ((prompt_len + max_steps) >= 4096
@@ -216,6 +213,16 @@ class Engine:
         allowed = sorted(set(allowed))
         self.allowed_ids = torch.tensor(allowed, dtype=torch.int32, device=self.device)
         params = to_device(dict(params), self.device)
+        # chain packs already in the tree (the pipeline's int4 packs, or a JAX
+        # engine's through `weights.from_jax`) are kept; else plain packs of
+        # the weights as they are
+        if use_fused_vocoder and "_vocoder_packs" not in params:
+            params["_vocoder_packs"] = tokenizer.pack_decoder_stages(
+                params["acoustic_decoder"], cfg.acoustic_tokenizer)
+        if use_fused_semantic and "_semantic_packs" not in params:
+            params["_semantic_packs"] = tokenizer.pack_encoder_stages(
+                params["semantic_encoder"], cfg.semantic_tokenizer,
+                chunk_t=cfg.speech_compress_ratio)
         if use_fused_stages:
             # the JAX engine's batch policies: the transition convs fold at
             # B == 1 only, the tail never unless asked.  The row-lane layout,
@@ -409,12 +416,16 @@ class Engine:
         cache = qwen2.kv_cache_init(dec, 2 * b, self.cache_len, self.dtype,
                                     quantized=self.kv_quant, device=dev)
 
-        # positive prefill into rows [:B]
-        bias = torch.full((b, 1, t0, self.cache_len), -1e9, dtype=torch.float32, device=dev)
-        bias[:, :, :, :t0] = qwen2.causal_bias(attention_mask, t0)
+        # positive prefill into rows [:B]; the flash path attends the prompt's
+        # own k/v and needs no [B, 1, T, S] bias, so its memory stays linear in T
+        bias = None
+        if not self.use_flash_prefill:
+            bias = torch.full((b, 1, t0, self.cache_len), -1e9, dtype=torch.float32, device=dev)
+            bias[:, :, :, :t0] = qwen2.causal_bias(attention_mask, t0)
         pos = qwen2.positions_from_mask(attention_mask)
         hidden, cache = qwen2.forward(p["lm"], dec, embeds, pos, bias, cache=cache,
-                                      write_pos=0)
+                                      write_pos=0, pad_mask=attention_mask,
+                                      use_flash=self.use_flash_prefill)
         h_last = hidden[:, -1]
         del bias
 

@@ -9,7 +9,9 @@ int4 weights, including the int4 modes' fused `qkv` and `gateup` matrices.
 The KV cache is one preallocated `[L, B, S, KVH*D]` pair, written in place at
 one slot range per call (`write_pos`, a host int shared by every row, and
 `batch_offset` rows).  With `decode_ctx=(visible, lengths)` a one-token decode
-reads the cache through the split-K CUDA kernel `ops.decode_attention`; every
+reads the cache through the split-K CUDA kernel `ops.decode_attention`; with
+`use_flash` a prompt (T > 1) attends its own fresh k/v through the flash
+prefill kernel `ops.flash_attention` (memory linear in T, no bias); every
 other call attends densely with an additive fp32 bias.
 """
 from __future__ import annotations
@@ -21,6 +23,7 @@ import torch.nn.functional as F
 
 from ..configs import Qwen2Config
 from ..ops.decode_attention import decode_attention
+from ..ops.flash_attention import flash_attention_prefill
 from ..utils.quantize import mm
 from .norms import rms_norm
 
@@ -159,11 +162,14 @@ def _linear(x: torch.Tensor, p: Dict[str, Any]) -> torch.Tensor:
 def _layer(lp: Params, cfg: Qwen2Config, x: torch.Tensor, cos: torch.Tensor,
            sin: torch.Tensor, cache_full: Optional[Tuple[KVCache, int, int, int]],
            bias: Optional[torch.Tensor],
-           decode_ctx: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
+           decode_ctx: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+           pad_mask: Optional[torch.Tensor] = None, use_flash: bool = False) -> torch.Tensor:
     """One decoder layer.  With `cache_full=(cache, layer, write_pos, row_off)`
     the new k/v are written in place into the stacked cache at slots
     [write_pos, write_pos+T) of rows [row_off, row_off+B), and attention reads
-    this layer's cache."""
+    this layer's cache, except with `use_flash` and T > 1: then it spans
+    exactly the new k/v (in the model dtype, also over an int8 cache), causal,
+    with `pad_mask` [B, T] masking the left pads."""
     b, t, _ = x.shape
     nh, nkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
 
@@ -193,6 +199,11 @@ def _layer(lp: Params, cfg: Qwen2Config, x: torch.Tensor, cos: torch.Tensor,
         # aliased dynamic_update_slice)
         cache.k[li, rows, slots] = k2.to(cache.k.dtype)
         cache.v[li, rows, slots] = v2.to(cache.v.dtype)
+    if use_flash and t > 1:
+        # prefill: memory-linear attention over the fresh k/v
+        att = flash_attention_prefill(q, k, v.reshape(b, t, nkv, hd).contiguous(), pad_mask,
+                                      causal=True)
+    elif cache_full is not None:
         if decode_ctx is not None and t == 1:
             # long-cache decode: the CUDA kernel reads the layer straight out
             # of the stacked cache and stops at each row's live length
@@ -233,20 +244,24 @@ def forward(
     write_pos: Optional[int] = None,
     decode_ctx: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     batch_offset: int = 0,
+    pad_mask: Optional[torch.Tensor] = None,  # [B, T] int (1 = real token)
+    use_flash: bool = False,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Run the decoder stack.  With `cache`, keys/values are written at slot
     `write_pos` (one host int for every row: left-padded batching) into rows
     [batch_offset, batch_offset+B), in place, and attention spans the cache;
-    without, attention spans the inputs.  `attn_bias` may be None only on the
-    kernel path (`decode_ctx` with T == 1).  Prefill attends densely: flash
-    prefill is not ported yet (ROADMAP B5)."""
+    without, attention spans the inputs.  With `use_flash` and T > 1,
+    attention spans exactly the inputs' own k/v through the flash prefill
+    kernel, masked by `pad_mask`.  `attn_bias` may be None only on the kernel
+    paths (`decode_ctx` with T == 1, or `use_flash`)."""
     if cache is not None and not isinstance(write_pos, int):
         raise ValueError("write_pos must be a host int: one slot shared by every row")
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
     x = inputs_embeds
     for li, lp in enumerate(params["layers"]):
         cache_full = None if cache is None else (cache, li, write_pos, batch_offset)
-        x = _layer(lp, cfg, x, cos, sin, cache_full, attn_bias, decode_ctx=decode_ctx)
+        x = _layer(lp, cfg, x, cos, sin, cache_full, attn_bias, decode_ctx=decode_ctx,
+                   pad_mask=pad_mask, use_flash=use_flash)
     x = rms_norm(x, params["final_norm_w"], cfg.rms_norm_eps)
     return x, cache
 

@@ -12,13 +12,12 @@ Port of `vibevoice_tpu/models/tokenizer.py` (reference codec stack
 * Quantized weights (`utils.quantize.quantize_tokenizer_stack`): the FFNs go
   through `quantize.mm`, the transition convs take their int8 paths.
 * Fused streaming (`*_apply_streaming_fused`): the small-T stages (T <= 8
-  frames per 7.5 Hz frame) run as ONE int4 chain-kernel call per stage
-  (`ops.fused_blocks`, packs from `pack_*_stages(quant="int4")`), and the
-  large-T stages (`large_packs` from `pack_*_stages_large`) as ONE fused
-  stage-kernel call each (`ops.fused_stage`), optionally with the transition
-  conv in front and the decoder tail folded into the same call.  The bf16
-  chain packs of the small-T stages (ROADMAP B6) are not ported yet and
-  raise where they meet the chain.
+  frames per 7.5 Hz frame) run as ONE chain-kernel call per stage
+  (`ops.fused_blocks`: int4 packs from `pack_*_stages(quant="int4")`, plain
+  bf16/fp32 packs from `pack_*_stages()`), and the large-T stages
+  (`large_packs` from `pack_*_stages_large`) as ONE fused stage-kernel call
+  each (`ops.fused_stage`), optionally with the transition conv in front and
+  the decoder tail folded into the same call.
 """
 from __future__ import annotations
 
@@ -163,19 +162,17 @@ def _groups_of(cfg, dim: int) -> int:
 
 def _stage(params: Params, cfg, i: int, h: torch.Tensor, states: Optional[list],
            fused_packs=None, large_packs=None, tile_want: int = 400) -> torch.Tensor:
-    """Stage i's Block1D chain: through the int4 chain kernel when it has a
-    pack in `fused_packs`, through the large-T stage kernel when it has one in
-    `large_packs` (streaming only), else block by block; threads the
-    streaming states either way."""
+    """Stage i's Block1D chain: through the chain kernel when it has a pack
+    in `fused_packs` (int4 or plain; every batch row in one call), through the
+    large-T stage kernel when it has one in `large_packs` (streaming only),
+    else block by block; threads the streaming states either way."""
     blocks = params["stages"][i]
     n = len(blocks)
     if fused_packs and i in fused_packs:
         packed = fused_packs[i]
-        if "w1q" not in packed:
-            fb.refuse_plain_chain()  # a bf16/fp32 pack: the B6 kernel
+        run = fb.fused_block_chain_batched if "w1q" in packed else fb.fused_block_chain_plain
         ctx = torch.stack([states.pop(0).buf for _ in range(n)], dim=1)  # [B, N, 6, D]
-        h, new_ctx = fb.fused_block_chain_batched(packed, h.contiguous(), ctx.contiguous(),
-                                                  eps=cfg.layernorm_eps)
+        h, new_ctx = run(packed, h.contiguous(), ctx.contiguous(), eps=cfg.layernorm_eps)
         states.extend(ConvState(buf=new_ctx[:, j]) for j in range(n))
         return h
     if large_packs and i in large_packs:
@@ -262,21 +259,21 @@ def decoder_apply_streaming(params: Params, cfg, z: torch.Tensor, states):
 
 
 # ---------------------------------------------------------------------------
-# fused streaming (int4 chain kernel for the small-T stages)
+# fused streaming (chain kernels for the small-T stages, stage kernel for the large-T)
 # ---------------------------------------------------------------------------
 
 def _stage_pack(blocks, quant: Optional[str]):
     if quant == "int4":
         return fb.pack_stage_q(blocks)
-    # the bf16/fp32 chain pack: the chain refuses it (ROADMAP B6)
     return fb.pack_stage(blocks, dtype=blocks[0]["ffn1"]["w"].dtype)
 
 
 def pack_decoder_stages(params: Params, cfg: AcousticTokenizerConfig,
                         max_frames: int = 8, quant: Optional[str] = None):
     """Chain-kernel packs of the decoder stages whose per-frame T =
-    prod(ratios[:i]) is at most `max_frames` ({stage index: pack}).
-    quant="int4": nibble-packed FFN weights (`ops.fused_blocks.pack_stage_q`)."""
+    prod(ratios[:i]) is at most `max_frames` ({stage index: pack}): plain
+    packs in the weights' dtype (`ops.fused_blocks.pack_stage`), or with
+    quant="int4" nibble-packed FFN weights (`ops.fused_blocks.pack_stage_q`)."""
     depths = cfg.decoder_depths_resolved()
     strides = list(cfg.decoder_ratios)
     packs = {}
@@ -393,8 +390,8 @@ def pack_encoder_stages_large(params: Params, cfg, chunk_t: int, t_min: int = 12
 def decoder_apply_streaming_fused(params: Params, cfg: AcousticTokenizerConfig,
                                   z: torch.Tensor, states, fused_packs=None,
                                   large_packs=None, tile_want: int = 400):
-    """Streaming decode with the small-T stages on the int4 chain kernel
-    (`fused_packs`) and the large-T stages on the stage kernel
+    """Streaming decode with the small-T stages on the chain kernels
+    (`fused_packs`, int4 or plain) and the large-T stages on the stage kernel
     (`large_packs`); the same numerics as `decoder_apply_streaming` up to
     int4 weights and fp32 in-kernel rounding.  Returns (audio, new_states)."""
     depths = cfg.decoder_depths_resolved()

@@ -27,6 +27,7 @@ SOURCES: Dict[str, str] = {
     "fused_block_chain": "fused_block_chain.cu",
     "fused_head": "fused_head.cu",
     "fused_stage": "fused_stage.cu",
+    "flash_prefill": "flash_prefill.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

@@ -1,20 +1,27 @@
-"""Fused int4 Block1D chain for the small-T sigma-VAE stages: CUDA kernel and
-plain version.
+"""Fused Block1D chain for the small-T sigma-VAE stages: CUDA kernel and
+plain versions, over int4 packs and over plain bf16/fp32 packs.
 
-Port of `vibevoice_tpu/ops/fused_blocks.py` (int4 packs).  A tokenizer stage
-is a chain of N `Block1D`s (RMSNorm -> causal depthwise conv k=7 -> layer
-scale -> residual -> RMSNorm -> int4 FFN with exact GELU -> layer scale ->
-residual, ref modular_vibevoice_tokenizer.py:620-684).  At streaming decode a
-stage sees T <= 8 frames, and its weights dominate the bytes it moves.
+Port of `vibevoice_tpu/ops/fused_blocks.py`.  A tokenizer stage is a chain of
+N `Block1D`s (RMSNorm -> causal depthwise conv k=7 -> layer scale -> residual
+-> RMSNorm -> FFN with exact GELU -> layer scale -> residual, ref
+modular_vibevoice_tokenizer.py:620-684).  At streaming decode a stage sees
+T <= 8 frames, and its weights dominate the bytes it moves.
 
-`fused_block_chain_batched` replaces the TPU kernel
-`vibevoice_tpu/ops/fused_blocks.py:fused_block_chain_batched` (Pallas
-`_kernel_q`).  On CUDA tensors it runs the whole stage as ONE cooperative
-launch of `csrc/fused_block_chain.cu` (design and bound are described
-there); on CPU tensors it runs `fused_block_chain_batched_ref`, the plain
-version with the same signature, which is also the kernel's oracle.  The
-kernel uses the exact `erff` GELU, as the plain version does; the TPU kernel
-uses a rational erf (|err| < 1.5e-7).
+Two TPU kernels, one CUDA source (`csrc/fused_block_chain.cu`, design and
+bound described there), one cooperative launch per stage call:
+  * `fused_block_chain_batched` (int4 packs) replaces
+    `vibevoice_tpu/ops/fused_blocks.py:fused_block_chain_batched` (Pallas
+    `_kernel_q`); plain version `fused_block_chain_batched_ref`.
+  * `fused_block_chain_plain` (plain packs) replaces the plain-pack form of
+    `vibevoice_tpu/ops/fused_blocks.py:fused_block_chain` (Pallas `_kernel`),
+    which the JAX package vmaps over the batch rows; here the batch rides
+    inside the launch, so the weights stream once for all rows.  Plain
+    version `fused_block_chain_plain_ref`.
+Each wrapper launches its kernel on CUDA tensors (and counts the launch on
+its own `launches`) and runs its plain version on CPU tensors.
+`fused_block_chain` is the JAX package's single-row entry and dispatches on
+the pack.  The kernel uses the exact `erff` GELU, as the plain versions do;
+the TPU kernels use a rational erf (|err| < 1.5e-7).
 
 int4 pack of one stage (`pack_stage_q`; N blocks, dim D, hidden F):
   vecs [N, 8, D] fp32  rows 0 norm_w, 1 mixer_b, 2 gamma, 3 ffn_norm_w,
@@ -22,12 +29,9 @@ int4 pack of one stage (`pack_stage_q`; N blocks, dim D, hidden F):
   mixw [N, 8, D] fp32  rows 0..6 the depthwise taps, row 7 zero
   w1q  [N, D/2, F] int8, sb1 [N, 2, F] fp32 (row 0 ffn1 scale, row 1 ffn1 bias)
   w2q  [N, F/2, D] int8, s2 [N, 1, D] fp32
+Plain pack (`pack_stage`), all in the pack dtype: vecs and mixw as above,
+w1 [N, D+8, F] (row D the ffn1 bias, rows D+1.. zero), w2 [N, F, D].
 Streaming context: ctx [B, N, 6, D], the last 6 mixer inputs of each block.
-
-The bf16/fp32 pack (`pack_stage`; the large-T stage kernel of
-`ops/fused_stage.py` runs on it) is ported; its single-row T <= 8 kernel
-(`fused_block_chain` with such a pack, TPU kernel #6) is not yet (ROADMAP B6)
-and raises.
 """
 from __future__ import annotations
 
@@ -63,14 +67,6 @@ def row_group(batch: int, rows_per_item: int, d: int) -> int:
         raise ValueError(f"{rows_per_item} rows of width {d} exceed the kernel's "
                          f"shared-memory budget")
     return max(1, min(batch, _ROWS_FLOATS // (rows_per_item * d)))
-
-
-def refuse_plain_chain():
-    """A plain (bf16/fp32) pack met the T <= 8 chain: its single-row kernel
-    is not ported yet."""
-    raise NotImplementedError(
-        "the bf16/fp32 fused Block1D chain (TPU kernel #6, use_fused_vocoder with "
-        "plain packs) is not ported yet (ROADMAP B6)")
 
 
 def pack_stage(blocks: List[Dict], dtype=torch.float32) -> Dict[str, torch.Tensor]:
@@ -148,18 +144,17 @@ def _rms(x: torch.Tensor, eps: float) -> torch.Tensor:
     return x * torch.rsqrt((x * x).mean(dim=-1, keepdim=True) + eps)
 
 
-def fused_block_chain_batched_ref(packed, x: torch.Tensor, ctx: torch.Tensor,
-                                  eps: float = 1e-5) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch int4 chain, fp32 math as in the TPU kernel: x [B, T, D]
-    (T <= 8), ctx [B, N, 6, D] -> (y [B, T, D] in x's dtype, new ctx
-    [B, N, 6, D] in ctx's dtype)."""
+def _chain_ref(packed, x: torch.Tensor, ctx: torch.Tensor, eps: float,
+               ffn) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The chain in fp32 with the pack's vectors widened; `ffn(i, hn)` is
+    block i's FFN up to its output bias."""
     b, t, d = x.shape
     n = packed["vecs"].shape[0]
     h_x = x.float()
     new_ctx = []
     for i in range(n):
-        vecs = packed["vecs"][i]
-        taps = packed["mixw"][i, :7]
+        vecs = packed["vecs"][i].float()
+        taps = packed["mixw"][i, :7].float()
         c = ctx[:, i].float()                                  # [B, 6, D]
         h = _rms(h_x, eps) * vecs[0]
         full = torch.cat([c, h], dim=1)                        # [B, 6 + T, D]
@@ -169,39 +164,81 @@ def fused_block_chain_batched_ref(packed, x: torch.Tensor, ctx: torch.Tensor,
             m = m + full[:, k:k + t] * taps[k]
         y = h_x + vecs[2] * (m + vecs[1])
         hn = _rms(y, eps) * vecs[3]
-        a = (hn @ unpack_int4(packed["w1q"][i]).float()) * packed["sb1"][i, 0] \
-            + packed["sb1"][i, 1]
-        a = F.gelu(a, approximate="none")
-        acc = a @ unpack_int4(packed["w2q"][i]).float()
-        h_x = y + vecs[4] * (acc * packed["s2"][i, 0] + vecs[5])
+        h_x = y + vecs[4] * (ffn(i, hn) + vecs[5])
     return h_x.to(x.dtype), torch.stack(new_ctx, dim=1).to(ctx.dtype)
 
 
-def _check(packed, x, ctx):
+def fused_block_chain_batched_ref(packed, x: torch.Tensor, ctx: torch.Tensor,
+                                  eps: float = 1e-5) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch int4 chain, fp32 math as in the TPU kernel: x [B, T, D]
+    (T <= 8), ctx [B, N, 6, D] -> (y [B, T, D] in x's dtype, new ctx
+    [B, N, 6, D] in ctx's dtype)."""
+    def ffn(i, hn):
+        a = (hn @ unpack_int4(packed["w1q"][i]).float()) * packed["sb1"][i, 0] \
+            + packed["sb1"][i, 1]
+        a = F.gelu(a, approximate="none")
+        return (a @ unpack_int4(packed["w2q"][i]).float()) * packed["s2"][i, 0]
+    return _chain_ref(packed, x, ctx, eps, ffn)
+
+
+def fused_block_chain_plain_ref(packed, x: torch.Tensor, ctx: torch.Tensor,
+                                eps: float = 1e-5) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch chain over a plain pack, the TPU kernel's math in fp32
+    (the pack widened; ffn1's bias is row D of w1): x [B, T, D] (T <= 8), ctx
+    [B, N, 6, D] -> (y in x's dtype, new ctx in ctx's dtype)."""
+    d = x.shape[-1]
+
+    def ffn(i, hn):
+        w1 = packed["w1"][i].float()
+        a = F.gelu(hn @ w1[:d] + w1[d], approximate="none")
+        return a @ packed["w2"][i].float()
+    return _chain_ref(packed, x, ctx, eps, ffn)
+
+
+def _check(packed, x, ctx, want):
+    """Shapes, dtypes, devices and contiguity the kernel takes; `want` maps
+    each pack key to its (shape, allowed dtypes)."""
     b, t, d = x.shape
-    n, _, pd = packed["vecs"].shape
-    f = packed["w1q"].shape[2]
+    n = packed["vecs"].shape[0]
     if not 1 <= t <= 8:
         raise ValueError(f"the chain kernel takes 1..8 frames, got {t}")
-    if d % 2 or f % 2 or pd != d:
-        raise ValueError(f"the chain kernel takes even D and F matching the pack; "
-                         f"got D={d}, F={f}, pack D={pd}")
-    want = {"vecs": (n, 8, d), "mixw": (n, 8, d), "w1q": (n, d // 2, f),
-            "sb1": (n, 2, f), "w2q": (n, f // 2, d), "s2": (n, 1, d)}
-    for k, shape in want.items():
+    for k, (shape, dtypes) in want.items():
         if tuple(packed[k].shape) != shape:
             raise ValueError(f"pack {k} has shape {tuple(packed[k].shape)}, want {shape}")
-        if packed[k].dtype != (torch.int8 if k in ("w1q", "w2q") else torch.float32):
+        if packed[k].dtype not in dtypes:
             raise TypeError(f"pack {k} has dtype {packed[k].dtype}")
     if tuple(ctx.shape) != (b, n, CTX, d):
         raise ValueError(f"ctx {tuple(ctx.shape)} does not fit x {tuple(x.shape)} and {n} blocks")
     if x.dtype not in _DTYPE_CODES or ctx.dtype != x.dtype:
         raise TypeError(f"x and ctx must share float32 or bfloat16, got {x.dtype}/{ctx.dtype}")
-    for tns in [x, ctx, *packed.values()]:
+    for tns in [x, ctx, *(packed[k] for k in want)]:
         if tns.device != x.device:
             raise ValueError(f"all operands must be on {x.device}, one is on {tns.device}")
         if not tns.is_contiguous():
-            raise ValueError("fused_block_chain_batched operands must be contiguous")
+            raise ValueError("the chain's operands must be contiguous")
+
+
+def _launch(fn_name, x, ctx, pack_ptrs, n, f, eps, extra_codes=()):
+    """One cooperative launch of the chain kernel `fn_name` over x [B, T, D]:
+    allocates the outputs and the fp32 scratch, returns (y, new_ctx)."""
+    b, t, d = x.shape
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    tf, ntiles = ffn_tile(f, 2 * sms)  # two CTAs per SM co-reside
+    bg = row_group(b, t, d)
+    y = torch.empty_like(x)
+    new_ctx = torch.empty_like(ctx)
+    xg = torch.empty((b * t, d), dtype=torch.float32, device=x.device)
+    yg = torch.empty_like(xg)
+    part = torch.empty((ntiles, bg * t, d), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = getattr(_library(), fn_name)(
+            x.data_ptr(), ctx.data_ptr(), *pack_ptrs, y.data_ptr(), new_ctx.data_ptr(),
+            xg.data_ptr(), yg.data_ptr(), part.data_ptr(), b, t, d, f, n, bg, tf, ntiles,
+            float(eps), _DTYPE_CODES[x.dtype], *extra_codes,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn_name} kernel failed with code {rc}")
+    return y, new_ctx
 
 
 def fused_block_chain_batched(packed, x: torch.Tensor, ctx: torch.Tensor,
@@ -213,51 +250,72 @@ def fused_block_chain_batched(packed, x: torch.Tensor, ctx: torch.Tensor,
         return fused_block_chain_batched_ref(packed, x, ctx, eps)
     if x.device.type != "cuda":
         raise ValueError(f"fused_block_chain_batched runs on cuda or cpu, not {x.device}")
-    _check(packed, x, ctx)
     b, t, d = x.shape
-    n = packed["vecs"].shape[0]
+    n, _, pd = packed["vecs"].shape
     f = packed["w1q"].shape[2]
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    tf, ntiles = ffn_tile(f, 2 * sms)  # two CTAs per SM co-reside
-    bg = row_group(b, t, d)
-    y = torch.empty_like(x)
-    new_ctx = torch.empty_like(ctx)
-    xg = torch.empty((b * t, d), dtype=torch.float32, device=x.device)
-    yg = torch.empty_like(xg)
-    part = torch.empty((ntiles, bg * t, d), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        rc = _library().vv_fused_block_chain(
-            x.data_ptr(), ctx.data_ptr(), packed["vecs"].data_ptr(), packed["mixw"].data_ptr(),
-            packed["w1q"].data_ptr(), packed["sb1"].data_ptr(), packed["w2q"].data_ptr(),
-            packed["s2"].data_ptr(), y.data_ptr(), new_ctx.data_ptr(), xg.data_ptr(),
-            yg.data_ptr(), part.data_ptr(), b, t, d, f, n, bg, tf, ntiles, float(eps),
-            _DTYPE_CODES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"fused_block_chain kernel failed with code {rc}")
+    if d % 2 or f % 2 or pd != d:
+        raise ValueError(f"the chain kernel takes even D and F matching the pack; "
+                         f"got D={d}, F={f}, pack D={pd}")
+    fp32, i8 = (torch.float32,), (torch.int8,)
+    _check(packed, x, ctx, {"vecs": ((n, 8, d), fp32), "mixw": ((n, 8, d), fp32),
+                            "w1q": ((n, d // 2, f), i8), "sb1": ((n, 2, f), fp32),
+                            "w2q": ((n, f // 2, d), i8), "s2": ((n, 1, d), fp32)})
+    out = _launch("vv_fused_block_chain", x, ctx,
+                  [packed[k].data_ptr() for k in ("vecs", "mixw", "w1q", "sb1", "w2q", "s2")],
+                  n, f, eps)
     fused_block_chain_batched.launches += 1
-    return y, new_ctx
+    return out
 
 
 fused_block_chain_batched.launches = 0
 
 
+def fused_block_chain_plain(packed, x: torch.Tensor, ctx: torch.Tensor,
+                            eps: float = 1e-5) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain-pack (bf16/fp32) chain for a batch: x [B, T, D] (T <= 8), ctx
+    [B, N, 6, D] -> (y [B, T, D], new_ctx [B, N, 6, D]).  CUDA tensors launch
+    the kernel (one cooperative launch for all rows, counted once); CPU
+    tensors take `fused_block_chain_plain_ref`."""
+    if x.device.type == "cpu":
+        return fused_block_chain_plain_ref(packed, x, ctx, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_block_chain_plain runs on cuda or cpu, not {x.device}")
+    b, t, d = x.shape
+    n = packed["vecs"].shape[0]
+    f = packed["w1"].shape[2]
+    wdt = packed["w1"].dtype
+    if wdt not in _DTYPE_CODES:
+        raise TypeError(f"a plain pack holds float32 or bfloat16, got {wdt}")
+    _check(packed, x, ctx, {"vecs": ((n, 8, d), (wdt,)), "mixw": ((n, 8, d), (wdt,)),
+                            "w1": ((n, d + 8, f), (wdt,)), "w2": ((n, f, d), (wdt,))})
+    out = _launch("vv_fused_block_chain_plain", x, ctx,
+                  [packed[k].data_ptr() for k in ("vecs", "mixw", "w1", "w2")], n, f, eps,
+                  extra_codes=(_DTYPE_CODES[wdt],))
+    fused_block_chain_plain.launches += 1
+    return out
+
+
+fused_block_chain_plain.launches = 0
+
+
 def fused_block_chain(packed, x: torch.Tensor, ctx: torch.Tensor,
                       eps: float = 1e-5) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The chain for ONE batch row: x [T, D], ctx [N, 6, D].  int4 packs only:
-    a plain pack is the single-row bf16 kernel, not ported yet (ROADMAP B6)."""
-    if "w1q" not in packed:
-        refuse_plain_chain()
-    y, new_ctx = fused_block_chain_batched(packed, x[None], ctx[None], eps=eps)
+    """The chain for ONE batch row (the JAX package's entry): x [T, D], ctx
+    [N, 6, D] -> (y [T, D], new_ctx [N, 6, D]); an int4 pack goes through
+    `fused_block_chain_batched`, a plain one through `fused_block_chain_plain`."""
+    run = fused_block_chain_batched if "w1q" in packed else fused_block_chain_plain
+    y, new_ctx = run(packed, x[None], ctx[None], eps=eps)
     return y[0], new_ctx[0]
 
 
 def _library() -> ctypes.CDLL:
     lib = cuda_build.load("fused_block_chain")
-    fn = lib.vv_fused_block_chain
-    if fn.restype is not ctypes.c_int or not fn.argtypes:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 13 + [i] * 8 + [ctypes.c_float, i, p]
-        fn.restype = ctypes.c_int
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for fn, pointers, codes in ((lib.vv_fused_block_chain, 13, 1),
+                                (lib.vv_fused_block_chain_plain, 11, 2)):
+        if fn.restype is not ctypes.c_int or not fn.argtypes:
+            fn.argtypes = [p] * pointers + [i] * 8 + [ctypes.c_float] + [i] * codes + [p]
+            fn.restype = ctypes.c_int
     return lib
 
 
@@ -266,5 +324,6 @@ def pack_bytes(packed) -> int:
     return sum(t.numel() * t.element_size() for t in packed.values())
 
 
-__all__ = ["CTX", "ffn_tile", "row_group", "pack_stage", "refuse_plain_chain", "pack_stage_q",
-           "fused_block_chain", "fused_block_chain_batched", "fused_block_chain_batched_ref", "pack_bytes"]
+__all__ = ["CTX", "ffn_tile", "row_group", "pack_stage", "pack_stage_q", "fused_block_chain",
+           "fused_block_chain_batched", "fused_block_chain_batched_ref",
+           "fused_block_chain_plain", "fused_block_chain_plain_ref", "pack_bytes"]
