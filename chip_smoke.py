@@ -17,10 +17,11 @@ Phases, in order; any failure stops the run with a non-zero exit:
      carried), with the folded tail, and unfolded at B=2; the row-lane stage
      kernel at B=2, 4 and 32, each followed by the plain stage kernel on the
      same rows; flash prefill (bf16, H=12, KVH=2, D=128) at B=1 with T=1024
-     and 4096 and at B=2, T=1024 with one row left-padded by 333 tokens,
-     against its bound and SDPA; the plain-pack (bf16) chain at the four
-     packed stages of a step, B=1 and B=2, two chunks with the context
-     carried;
+     and 4096 and at B=2, T=1024 with one row left-padded by 333 tokens, and
+     at the 7B shape (H=28, KVH=4) with B=1, T=4096, against its bound and
+     SDPA; the plain-pack (bf16) chain at the four packed stages of a step,
+     B=1 and B=2, two chunks with the context carried; and, from the build
+     log, ptxas's registers and spills of the flash and int4_matmul kernels;
   3. the long-cache engine as `bench.py` drives it (1.5B, bf16, B=1, prompt
      256, 3840 steps -> a 4096-slot cache, so decode attention runs on the
      kernel): prefill, a 16-step warm-up chunk and two timed 32-step chunks;
@@ -76,6 +77,24 @@ QUANT_MODES = dict(quantize="int4", quantize_tokenizer="int4k", quantize_diffusi
 
 def emit(tag, **kw):
     print(json.dumps({"phase": tag, **kw}), flush=True)
+
+
+def ptxas_report(log: str):
+    """[{kernel, registers, spill_stores, spill_loads}] of each entry function
+    in one source's `nvcc -Xptxas -v` output."""
+    out, cur = [], None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            cur = {"kernel": ln.split("'")[1]}
+            out.append(cur)
+        elif cur is not None and "spill stores" in ln:
+            words = ln.replace(",", "").split()
+            cur["spill_stores"] = int(words[words.index("spill") - 2])
+            cur["spill_loads"] = int(words[-4])
+        elif cur is not None and "Used" in ln and "registers" in ln:
+            words = ln.replace(",", " ").split()
+            cur["registers"] = int(words[words.index("registers") - 1])
+    return out
 
 
 def card_line() -> str:
@@ -562,12 +581,14 @@ def measure_flash(q, k, v, mask):
 
 
 def phase_flash_kernel(dev):
-    """Flash prefill at the 1.5B attention shape (H=12, KVH=2, D=128), bf16."""
+    """Flash prefill at the 1.5B attention shape (H=12, KVH=2, D=128), bf16,
+    and at the 7B one (H=28, KVH=4: seven query heads per KV head)."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 7)
-    for b, t, pad in ((1, 1024, 0), (1, 4096, 0), (2, 1024, 333)):
-        r = measure_flash(*flash_inputs(b, t, pad, gen, dev))
-        emit("kernel_vs_plain", kernel="flash_attention_prefill", B=b, T=t, H=12, KVH=2, D=128,
-             left_pad=pad, **r)
+    for b, t, pad, h, kvh in ((1, 1024, 0, 12, 2), (1, 4096, 0, 12, 2), (2, 1024, 333, 12, 2),
+                              (1, 4096, 0, 28, 4)):
+        r = measure_flash(*flash_inputs(b, t, pad, gen, dev, h, kvh))
+        emit("kernel_vs_plain", kernel="flash_attention_prefill", B=b, T=t, H=h, KVH=kvh, D=128,
+             left_pad=pad, model="7B" if h == 28 else "1.5B", **r)
     torch.cuda.empty_cache()
 
 
@@ -1304,6 +1325,10 @@ def main() -> int:
     emit("build", seconds=build_s, sources=sorted(cuda_build.SOURCES.values()),
          ptxas=[ln.strip() for log in logs.values() for ln in log.splitlines()
                 if "registers" in ln or "spill" in ln][:24])
+
+    # the two kernels redesigned last: registers and spills as ptxas reports them
+    for name in ("flash_prefill", "int4_matmul"):
+        emit("ptxas", source=cuda_build.SOURCES[name], entries=ptxas_report(logs[name]))
 
     # 2. kernel against plain
     phase_kernels(dev)

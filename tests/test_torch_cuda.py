@@ -107,8 +107,11 @@ def _rel_tol(want):
 
 
 @pytest.mark.parametrize("group_size", [None, 128])
-@pytest.mark.parametrize("m,k,n", [(2, 1536, 2048), (2, 8960, 1536), (64, 1536, 1536)])
+@pytest.mark.parametrize("m,k,n", [(2, 1536, 2048), (2, 8960, 1536), (64, 1536, 1536),
+                                   (1, 1536, 1000), (128, 1536, 2048), (2, 1536, 17920)])
 def test_int4_matmul_kernel_matches_plain(cuda_device, group_size, m, k, n):
+    """The 1.5B projections at M=2, M=1 with N not a multiple of 16, and
+    M=64 / 128 (several CTAs of 16 rows each)."""
     from vibevoice_tpu_torch.ops import int4_matmul as im
     gen = torch.Generator(device=cuda_device).manual_seed(1)
     q = im.quantize_int4(torch.randn((k, n), generator=gen, device=cuda_device) * 0.02,
@@ -120,6 +123,28 @@ def test_int4_matmul_kernel_matches_plain(cuda_device, group_size, m, k, n):
     want = im.int4_matmul_ref(x, q["qint4"], q["scale4"])
     assert im.int4_matmul.launches == before + 1
     torch.testing.assert_close(got.float(), want.float(), atol=_rel_tol(want), rtol=0)
+
+
+@pytest.mark.parametrize("group_size", [None, 128])
+def test_int4_matmul_is_one_deterministic_launch(cuda_device, group_size):
+    """Two calls on the same inputs give the same bits (the K splits are added
+    in a fixed order, no float atomics), and a call is one kernel on the
+    device (the splits meet inside the launch)."""
+    from torch.profiler import ProfilerActivity, profile
+    from vibevoice_tpu_torch.ops import int4_matmul as im
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    q = im.quantize_int4(torch.randn((8960, 1536), generator=gen, device=cuda_device) * 0.02,
+                         group_size)
+    x = torch.randn((2, 8960), generator=gen, device=cuda_device).to(torch.bfloat16)
+    first = im.int4_matmul(x, q["qint4"], q["scale4"])  # builds and loads the library
+    assert im.plan(2, 8960, 1536)[1] > 1  # splits that meet in a cluster
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        second = im.int4_matmul(x, q["qint4"], q["scale4"])
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1 and "int4_matmul" in kernels[0], kernels
+    assert torch.equal(first, second)
 
 
 def _stage(d, n, gen, dev):
@@ -295,34 +320,41 @@ def test_fused_stage_kernels_match_plain(cuda_device, case):
         got_st, want_st = got[1:], want[1:]
 
 
-# flash prefill: (B, T, S, H, KVH, D, left pad of the last row, row_offset, dtype)
+# flash prefill: (B, T, S, H, KVH, D, left pad of the last row, row_offset, dtype,
+# causal)
 FLASH_CASES = {
-    "1.5b-pad": (2, 1024, 1024, 12, 2, 128, 333, None, torch.bfloat16),
-    "1.5b-shard": (2, 384, 1408, 12, 2, 128, 77, 1024, torch.bfloat16),
-    "d64-fp32": (2, 200, 200, 4, 2, 64, 37, None, torch.float32),
+    "1.5b-pad": (2, 1024, 1024, 12, 2, 128, 333, None, torch.bfloat16, True),
+    "1.5b-shard": (2, 384, 1408, 12, 2, 128, 77, 1024, torch.bfloat16, True),
+    "d64-fp32": (2, 200, 200, 4, 2, 64, 37, None, torch.float32, True),
+    "d64-bf16": (2, 300, 300, 4, 2, 64, 37, None, torch.bfloat16, True),
+    "7b-g7-pad": (2, 1000, 1000, 28, 4, 128, 333, None, torch.bfloat16, True),
+    "non-causal": (2, 300, 300, 12, 2, 128, 37, None, torch.bfloat16, False),
 }
 
 
 @pytest.mark.parametrize("case", list(FLASH_CASES))
 def test_flash_prefill_kernel_matches_plain(cuda_device, case):
-    """A left-padded row (a pad count that is not a tile multiple) and a
-    query shard (T != S) at a `row_offset`: the real rows within one rounding
-    step of the output's scale (bf16) or 1e-5 of it (fp32), every row finite,
-    the rows that see no key zero on both sides."""
+    """A left-padded row (a pad count that is not a tile multiple), a query
+    shard (T != S) at a `row_offset`, head_dim 64, the 7B grouping (G=7, not a
+    divisor of the 128-row tile) and a non-causal call: the rows that see a
+    key within one rounding step of the output's scale (bf16) or 1e-5 of it
+    (fp32), every row finite, the rows that see no key zero on both sides."""
     from vibevoice_tpu_torch.ops import flash_attention as fa
-    b, t, s, h, kvh, d, pad, off, dt = FLASH_CASES[case]
+    b, t, s, h, kvh, d, pad, off, dt, causal = FLASH_CASES[case]
     gen = torch.Generator(device=cuda_device).manual_seed(5)
     rnd = lambda *shape: (0.5 * torch.randn(shape, generator=gen, device=cuda_device)).to(dt)
     q, k, v = rnd(b, t, h, d), rnd(b, s, kvh, d), rnd(b, s, kvh, d)
     mask = torch.ones((b, s), dtype=torch.int32, device=cuda_device)
     mask[b - 1, :pad] = 0
     before = fa.flash_attention_prefill.launches
-    got = fa.flash_attention_prefill(q, k, v, mask, row_offset=off)
+    got = fa.flash_attention_prefill(q, k, v, mask, causal=causal, row_offset=off)
     torch.cuda.synchronize()
-    want = fa.flash_attention_prefill_ref(q, k, v, mask, row_offset=off)
+    want = fa.flash_attention_prefill_ref(q, k, v, mask, causal=causal, row_offset=off)
     assert fa.flash_attention_prefill.launches == before + 1
     assert torch.isfinite(got).all()
     real = mask[:, (off or 0) + torch.arange(t, device=cuda_device)] > 0
+    if not causal:  # every row sees every real key
+        real = torch.ones_like(real)
     tol = (2 ** -7 if dt == torch.bfloat16 else 1e-5) * float(want.float().abs().max())
     torch.testing.assert_close(got[real].float(), want[real].float(), atol=tol, rtol=0)
     assert not got[~real].any()

@@ -2,7 +2,7 @@
 package's, as tests/test_flash_attention.py checks the JAX kernel: the plain
 version against the JAX Pallas kernel (interpret mode on the CPU, 128-row
 blocks so that every case spans several query and key blocks) for GQA groups
-of 2 and 4, head dims 64 and 128, left pads of 0 and of a count that is not
+of 2, 4 and 7 (the 7B model's), head dims 64 and 128, left pads of 0 and of a count that is not
 a block multiple, and a query shard (T != S) at a `row_offset`."""
 import numpy as np
 import pytest
@@ -18,6 +18,7 @@ CASES = {
     "g4-d128-pad77": (320, 320, 8, 2, 128, 77, None),
     "g2-d128-pad130": (200, 200, 4, 2, 128, 130, None),
     "g4-d64-shard": (136, 392, 4, 1, 64, 50, 256),
+    "g7-d64-pad45": (200, 200, 14, 2, 64, 45, None),
 }
 
 

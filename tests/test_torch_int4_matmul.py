@@ -85,15 +85,33 @@ def test_mm_routes_by_rows_like_jax(lead):
 
 
 def test_plan_fills_the_card_and_fits_shared_memory():
-    """The kernel's grid at the 1.5B decode shapes: about 2 blocks per SM,
-    every split holding a byte row, the x slice within its staging buffer."""
+    """The kernel's grid (128-column tiles x K splits x passes of 16 rows): at
+    the 1.5B decode shapes (M=2) a CTA per SM or a full portable cluster of 8
+    splits per tile; every split holds a byte row and whole k16 steps; and a
+    pass's x slice (16 bf16 or 4 fp32 rows) fits the staging buffer."""
     for m, k, n in [(2, 1536, 2048), (2, 1536, 1536), (2, 1536, 17920), (2, 8960, 1536),
-                    (64, 1536, 1536), (128, 8960, 1536)]:
-        kbr, ksplit = TI.plan(m, k, n, 264)
-        blocks = -(-n // 256) * ksplit
-        assert (ksplit - 1) * kbr < k // 2 <= ksplit * kbr
-        assert 2 * m * kbr <= 6144
-        assert blocks >= 132, (m, k, n, blocks)
+                    (1, 1536, 1000), (64, 1536, 1536), (128, 1536, 2048), (128, 8960, 1536),
+                    (2, 1000, 96)]:
+        kbr, ksplit = TI.plan(m, k, n, 132)
+        ctas = -(-n // 128) * -(-m // 16) * ksplit
+        assert kbr % 8 == 0 and (ksplit - 1) * kbr < k // 2 <= ksplit * kbr, (m, k, n)
+        assert min(m, 16) * (2 * kbr + 8) * 2 <= 98304 and min(m, 4) * (2 * kbr + 4) * 4 <= 98304
+        assert 1 <= ksplit <= 8
+        if m <= 2 and k >= 1536:
+            assert ctas >= 132 or ksplit == 8, (m, k, n, ctas)
+
+
+@pytest.mark.parametrize("m,k,n", [(2, 18944, 3584), (128, 18944, 3584), (128, 37888, 64),
+                                   (5, 256, 96), (1, 64, 4)])
+def test_plan_keeps_the_splits_in_one_cluster(m, k, n):
+    """The splits of a column tile are one cluster: at most 16 CTAs (8 where
+    the x slice allows), for the 7B model's down projection (K=18944) too; a
+    K that would need more refuses the plan."""
+    kbr, ksplit = TI.plan(m, k, n, 132)
+    assert ksplit <= 16 and kbr <= TI.max_kbr(m)
+    assert (ksplit - 1) * kbr < k // 2 <= ksplit * kbr
+    with pytest.raises(ValueError, match="splits"):
+        TI.plan(128, 16 * 2 * (TI.max_kbr(128) + 8), 64, 132)
 
 
 def test_wrapper_raises_on_what_the_kernel_does_not_take():

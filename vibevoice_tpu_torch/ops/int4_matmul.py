@@ -15,22 +15,27 @@ group, each weight is multiplied by its scale in x's dtype before the dot.
 
 `int4_matmul` replaces the TPU kernel `vibevoice_tpu/ops/int4_matmul.py:
 int4_matmul` (Pallas `_kernel`).  On a CUDA tensor it launches the split-K
-GEMV of `csrc/int4_matmul.cu` (design and bound are described there); on a
-CPU tensor it runs `int4_matmul_ref`, the plain version with the same
-signature, which is also the kernel's oracle.
+GEMV of `csrc/int4_matmul.cu`, one launch per call whose K splits meet in
+a thread-block cluster (design and bound are described there); on a CPU
+tensor it runs `int4_matmul_ref`, the plain version with the same signature,
+which is also the kernel's oracle.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from . import cuda_build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_COLS = 256            # output columns per block (COLS in the source)
-_XS_FLOATS = 6144      # x slice staged in shared memory per block, fp32 (XS_FLOATS)
+_COLS = 128            # output columns per CTA (COLS in the source)
+_PASS_ROWS = 16        # rows of x per CTA (bf16; fp32 takes 4)
+_XS_BYTES = 98304      # a CTA's staged x slice, at most (XS_BYTES)
+_SPLITS = 8            # K splits the plan aims for at most: a portable cluster
+_MAX_SPLITS = 16       # the largest cluster the kernel launches
 _MAX_M = 128           # rows the kernel takes; larger M dequantizes (quantize.mm)
 # XLA folds `amax / 7.0` into a product with the fp32 reciprocal of 7; the
 # same product keeps the scales bit-equal to the JAX package's
@@ -106,16 +111,38 @@ def int4_matmul_ref(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor) 
     return (x.float() @ wq.float()).to(x.dtype)
 
 
-def plan(m: int, k: int, n: int, target_blocks: int = 264):
-    """(byte rows per split, splits) of the kernel's grid: enough blocks to
-    fill the card (about two per SM), at least 16 byte rows each, and an x
-    slice that fits the staged shared memory."""
+def max_kbr(m: int) -> int:
+    """Byte rows per split whose x slice fits shared memory: min(M, 16) bf16
+    rows or min(M, 4) fp32 rows of 2 * KBR values plus the row padding."""
+    bf16 = (_XS_BYTES // (2 * min(m, _PASS_ROWS)) - 8) // 2
+    fp32 = (_XS_BYTES // (4 * min(m, 4)) - 4) // 2
+    return min(bf16, fp32) // 8 * 8
+
+
+@functools.lru_cache(maxsize=None)
+def plan(m: int, k: int, n: int, sms: int = 132) -> Tuple[int, int]:
+    """(byte rows per split, splits) of the kernel's grid of 128-column tiles
+    x splits along K x passes of 16 rows: about two CTAs per SM with at most
+    8 splits (one portable cluster per tile), at most 16 where K needs them;
+    whole k16 steps (8 byte rows) per split."""
     kh = k // 2
-    tiles = -(-n // _COLS)
-    want = max(1, -(-target_blocks // tiles))
-    kbr = max(16, -(-kh // want))
-    kbr = max(1, min(kbr, kh, _XS_FLOATS // (2 * m)))
+    tiles = -(-n // _COLS) * -(-m // _PASS_ROWS)
+    want = max(1, min(-(-2 * sms // tiles), _SPLITS))
+    round8 = lambda v: -(-v // 8) * 8
+    kbr = min(max(8, round8(-(-kh // want))), max_kbr(m))  # more splits where x needs them
+    if -(-kh // kbr) > _MAX_SPLITS:
+        raise ValueError(f"K={k} needs more than {_MAX_SPLITS} splits of x slices that fit")
     return kbr, -(-kh // kbr)
+
+
+_SMS: Dict[int, int] = {}
+
+
+def _sms(device: torch.device) -> int:
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
 
 
 def _check(x, packed, scale):
@@ -155,12 +182,11 @@ def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor) -> t
     m, k = x.shape
     n = packed.shape[1]
     g = scale.shape[0]
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    kbr, ksplit = plan(m, k, n, 2 * sms)
+    sms = _sms(x.device)
+    kbr, ksplit = plan(m, k, n, sms)
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    part = torch.empty((ksplit, m, n), dtype=torch.float32, device=x.device)
     rc = _library().vv_int4_matmul(
-        x.data_ptr(), packed.data_ptr(), scale.data_ptr(), out.data_ptr(), part.data_ptr(),
+        x.data_ptr(), packed.data_ptr(), scale.data_ptr(), out.data_ptr(),
         m, k, n, g, kbr, ksplit, _DTYPE_CODES[x.dtype],
         torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
@@ -177,10 +203,10 @@ def _library() -> ctypes.CDLL:
     fn = lib.vv_int4_matmul
     if fn.restype is not ctypes.c_int or not fn.argtypes:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 5 + [i] * 7 + [p]
+        fn.argtypes = [p] * 4 + [i] * 7 + [p]
         fn.restype = ctypes.c_int
     return lib
 
 
 __all__ = ["pack_int4", "quantize_int4", "unpack_int4", "dequant_int4", "int4_matmul",
-           "int4_matmul_ref", "plan"]
+           "int4_matmul_ref", "plan", "max_kbr"]
