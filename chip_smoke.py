@@ -5,7 +5,7 @@
 
 Phases, in order; any failure stops the run with a non-zero exit:
   1. build every kernel of `vibevoice_tpu_torch/csrc/` (one nvcc per source,
-     all started together);
+     all started together), with ptxas's registers and spills of each;
   2. each kernel against its plain PyTorch version at the 1.5B shapes, with
      its time, the plain version's, the library yardstick's and the bound:
      decode attention (bf16 and int8 KV, layers 0 and 27, a partial and a full
@@ -18,10 +18,11 @@ Phases, in order; any failure stops the run with a non-zero exit:
      kernel at B=2, 4 and 32, each followed by the plain stage kernel on the
      same rows; flash prefill (bf16, H=12, KVH=2, D=128) at B=1 with T=1024
      and 4096 and at B=2, T=1024 with one row left-padded by 333 tokens, and
-     at the 7B shape (H=28, KVH=4) with B=1, T=4096, against its bound and
-     SDPA; the plain-pack (bf16) chain at the four packed stages of a step,
-     B=1 and B=2, two chunks with the context carried; and, from the build
-     log, ptxas's registers and spills of the flash and int4_matmul kernels;
+     at the 7B shape (H=28, KVH=4) with B=1, T=4096, each query row against
+     its own scale, at the CTA height it picks and at both (64 and 128
+     rows), against its bound and SDPA; the plain-pack (bf16) chain at the
+     four packed stages of a step, B=1 and B=2, two chunks with the context
+     carried;
   3. the long-cache engine as `bench.py` drives it (1.5B, bf16, B=1, prompt
      256, 3840 steps -> a 4096-slot cache, so decode attention runs on the
      kernel): prefill, a 16-step warm-up chunk and two timed 32-step chunks;
@@ -281,12 +282,36 @@ def measure_int4(x, weights):
     dense = [im.dequant_int4(w["qint4"], w["scale4"], x.dtype) for w in weights]
     lib_ms = cuda_ms(lambda i: torch.matmul(x, dense[i % n]), 2 * n)
     del dense
-    m, k = x.shape
-    cols = w0["qint4"].shape[1]
-    out_bytes = m * cols * x.element_size()
-    bms, by = bound(nbytes(x, w0["qint4"], w0["scale4"]) + out_bytes, 2 * m * k * cols)
+    bms, by = int4_bound(x, w0)
     return dict(max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                 bound_by=by, library_ms=lib_ms)
+
+
+def int4_bound(x, w):
+    """x, the packed weight and its scales read once, y written once, or
+    2*M*K*N flops."""
+    m, k = x.shape
+    cols = w["qint4"].shape[1]
+    return bound(nbytes(x, w["qint4"], w["scale4"]) + m * cols * x.element_size(),
+                 2 * m * k * cols)
+
+
+# int4_matmul's phase-2 cases: the 1.5B projections (K, N) at M=2, per
+# channel and per group of 128, then M=64 and 128
+INT4_SHAPES = {"qkv": (1536, 2048), "o": (1536, 1536), "gateup": (1536, 17920),
+               "down": (8960, 1536)}
+INT4_CASES = ([(name, 2, gs) for name in INT4_SHAPES for gs in (None, 128)]
+              + [("qkv", 64, None), ("qkv", 128, None), ("qkv", 128, 128)])
+
+
+def int4_inputs(name, m, gs, gen, dev):
+    """bf16 x [M, K] and copies of a random int4 weight of projection
+    `name` (enough to read twice what L2 holds per timing loop)."""
+    from vibevoice_tpu_torch.ops import int4_matmul as im
+    k, n = INT4_SHAPES[name]
+    weights = [im.quantize_int4(torch.randn((k, n), generator=gen, device=dev) * 0.02, gs)
+               for _ in range(copies_for(k * n // 2))]
+    return torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16), weights
 
 
 def chain_inputs(pack, b, t, gen, dev):
@@ -357,17 +382,10 @@ def phase_int4_kernels(dev):
     """The three int4 kernels against their plain versions at the 1.5B
     shapes, on random weights made from the seed."""
     from vibevoice_tpu_torch.ops import fused_blocks as fb, fused_head as fh
-    from vibevoice_tpu_torch.ops import int4_matmul as im
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
-    shapes = {"qkv": (1536, 2048), "o": (1536, 1536), "gateup": (1536, 17920),
-              "down": (8960, 1536)}
-    cases = [(name, 2, gs) for name in shapes for gs in (None, 128)]
-    cases += [("qkv", 64, None), ("qkv", 128, None), ("qkv", 128, 128)]
-    for name, m, gs in cases:
-        k, n = shapes[name]
-        weights = [im.quantize_int4(torch.randn((k, n), generator=gen, device=dev) * 0.02, gs)
-                   for _ in range(copies_for(k * n // 2))]
-        x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+    for name, m, gs in INT4_CASES:
+        x, weights = int4_inputs(name, m, gs, gen, dev)
+        k, n = INT4_SHAPES[name]
         emit("kernel_vs_plain", kernel="int4_matmul", proj=name, M=m, K=k, N=n,
              group_size=gs, **measure_int4(x, weights))
         del weights
@@ -537,6 +555,13 @@ def phase_stage_kernels(dev):
 # phase 2, the kernels of the long-prompt path: flash prefill, the plain chain
 # ---------------------------------------------------------------------------
 
+# flash prefill's phase-2 cases: (B, T, left pad of the last row, H, KVH);
+# the 1.5B attention shape, then the 7B one (seven query heads per KV head)
+FLASH_CASES = ((1, 1024, 0, 12, 2), (1, 4096, 0, 12, 2), (2, 1024, 333, 12, 2),
+               (1, 4096, 0, 28, 4))
+ROW_REL_TOL = 2 ** -7  # one bf16 rounding step of a row's own largest output
+
+
 def flash_inputs(b, t, pad, gen, dev, h=12, kvh=2, d=128):
     """bf16 q [B, T, H, D], k/v [B, T, KVH, D] and the pad mask, the last row
     left-padded by `pad` tokens."""
@@ -546,46 +571,83 @@ def flash_inputs(b, t, pad, gen, dev, h=12, kvh=2, d=128):
     return rnd(b, t, h, d), rnd(b, t, kvh, d), rnd(b, t, kvh, d), mask
 
 
-def measure_flash(q, k, v, mask):
-    """Flash prefill against its plain version on the real query rows (every
-    row must be finite), then the kernel's, the plain version's and SDPA's
-    times (causal, GQA; with the pad mask where a row is padded) and the
-    bound: the real rows' causal (row, key) pairs at 4*D*H flops each, or q,
-    k, v, the mask and the output once over HBM."""
-    import torch.nn.functional as F
-    from vibevoice_tpu_torch.ops import flash_attention as fa
-    got = fa.flash_attention_prefill(q, k, v, mask)
+def agree_rows(name, got, want, mask):
+    """Flash prefill's output against its plain version, row by row: every
+    row finite, each real query row (position, head) within one bf16 step of
+    its own largest output (a late row averages over thousands of keys and is
+    far smaller than the largest of all), the rows that see no key zero.
+    Returns (max abs error, worst row's error over its scale, median |want|
+    over the real rows)."""
     torch.cuda.synchronize()
     if not bool(torch.isfinite(got).all()):
-        raise RuntimeError("flash_attention_prefill kernel returned non-finite values")
-    want = fa.flash_attention_prefill_ref(q, k, v, mask)
+        raise RuntimeError(f"{name} kernel returned non-finite values")
     real = mask > 0
-    err, tol = agree("flash_attention_prefill", got[real], want[real])
-    ms = cuda_ms(lambda i: fa.flash_attention_prefill(q, k, v, mask), 20)
-    plain_ms = cuda_ms(lambda i: fa.flash_attention_prefill_ref(q, k, v, mask), 3)
-    b, t, h, d = q.shape
+    g, w = got[real].float(), want[real].float()          # [real positions, H, D]
+    err_row = (g - w).abs().amax(dim=-1)
+    scale_row = w.abs().amax(dim=-1)
+    worst = float((err_row / scale_row.clamp_min(1e-30)).max())
+    if not worst <= ROW_REL_TOL:
+        raise RuntimeError(f"{name} disagrees with its plain version: a row is off by {worst} "
+                           f"of its scale > {ROW_REL_TOL}")
+    if bool(got[~real].any()):
+        raise RuntimeError(f"{name}: a row that sees no key is not zero")
+    return float(err_row.max()), worst, float(w.abs().median())
+
+
+def flash_library(q, k, v, mask):
+    """One SDPA call computing the same function (causal, GQA; with the pad
+    mask where a row is padded)."""
+    import torch.nn.functional as F
+    t = q.shape[1]
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    real = mask > 0
     if bool(real.all()):
-        lib = lambda i: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                       enable_gqa=True)
-    else:
-        allowed = (torch.ones((t, t), dtype=torch.bool, device=q.device).tril()[None]
-                   & real[:, None, :])[:, None]
-        lib = lambda i: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=allowed,
-                                                       enable_gqa=True)
-    lib_ms = cuda_ms(lib, 20)
-    pairs = fa.attended_pairs(mask, t)
-    bms, by = bound(nbytes(q, k, v, mask) + nbytes(q), 4 * d * h * pairs)
-    return dict(max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                library_ms=lib_ms)
+        return lambda i: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                        enable_gqa=True)
+    allowed = (torch.ones((t, t), dtype=torch.bool, device=q.device).tril()[None]
+               & real[:, None, :])[:, None]
+    return lambda i: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=allowed,
+                                                    enable_gqa=True)
+
+
+def flash_bound(q, k, v, mask):
+    """The real rows' causal (row, key) pairs at 4*D*H flops each, or q, k,
+    v, the mask and the output once over HBM."""
+    from vibevoice_tpu_torch.ops import flash_attention as fa
+    _, t, h, d = q.shape
+    return bound(nbytes(q, k, v, mask) + nbytes(q), 4 * d * h * fa.attended_pairs(mask, t))
+
+
+def measure_flash(q, k, v, mask):
+    """Flash prefill against its plain version (`agree_rows`), then the
+    kernel's time at the CTA height it picks and at both heights, the plain
+    version's and SDPA's times, and the bound."""
+    from vibevoice_tpu_torch.ops import cuda_build, flash_attention as fa
+    want = fa.flash_attention_prefill_ref(q, k, v, mask)
+    err, worst, typical = agree_rows("flash_attention_prefill",
+                                     fa.flash_attention_prefill(q, k, v, mask), want, mask)
+    for rows in (64, 128):
+        agree_rows(f"flash_attention_prefill[{rows} rows]",
+                   fa.flash_attention_prefill_at(q, k, v, mask, rows), want, mask)
+    del want
+    ms = cuda_ms(lambda i: fa.flash_attention_prefill(q, k, v, mask), 20)
+    ms_at = {str(rows): cuda_ms(lambda i: fa.flash_attention_prefill_at(q, k, v, mask, rows), 20)
+             for rows in (64, 128)}
+    plain_ms = cuda_ms(lambda i: fa.flash_attention_prefill_ref(q, k, v, mask), 3)
+    lib_ms = cuda_ms(flash_library(q, k, v, mask), 20)
+    bms, by = flash_bound(q, k, v, mask)
+    b, t, h, _ = q.shape
+    rows = fa.cta_rows(b, t, h, k.shape[2], cuda_build.sm_count(q.device))
+    return dict(max_abs_err=err, worst_row_err_rel=worst, row_rel_tol=ROW_REL_TOL,
+                median_abs_want=typical, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                library_ms=lib_ms, cta_rows=rows, ms_at_cta_rows=ms_at)
 
 
 def phase_flash_kernel(dev):
     """Flash prefill at the 1.5B attention shape (H=12, KVH=2, D=128), bf16,
     and at the 7B one (H=28, KVH=4: seven query heads per KV head)."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 7)
-    for b, t, pad, h, kvh in ((1, 1024, 0, 12, 2), (1, 4096, 0, 12, 2), (2, 1024, 333, 12, 2),
-                              (1, 4096, 0, 28, 4)):
+    for b, t, pad, h, kvh in FLASH_CASES:
         r = measure_flash(*flash_inputs(b, t, pad, gen, dev, h, kvh))
         emit("kernel_vs_plain", kernel="flash_attention_prefill", B=b, T=t, H=h, KVH=kvh, D=128,
              left_pad=pad, model="7B" if h == 28 else "1.5B", **r)
@@ -1322,13 +1384,10 @@ def main() -> int:
 
     # 1. build
     build_s, logs = cuda_build.build_all()
-    emit("build", seconds=build_s, sources=sorted(cuda_build.SOURCES.values()),
-         ptxas=[ln.strip() for log in logs.values() for ln in log.splitlines()
-                if "registers" in ln or "spill" in ln][:24])
-
-    # the two kernels redesigned last: registers and spills as ptxas reports them
-    for name in ("flash_prefill", "int4_matmul"):
-        emit("ptxas", source=cuda_build.SOURCES[name], entries=ptxas_report(logs[name]))
+    emit("build", seconds=build_s, sources=sorted(cuda_build.SOURCES.values()))
+    # registers and spills of every entry function, as ptxas reports them
+    for name, log in logs.items():
+        emit("ptxas", source=cuda_build.SOURCES[name], entries=ptxas_report(log))
 
     # 2. kernel against plain
     phase_kernels(dev)

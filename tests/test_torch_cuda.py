@@ -321,14 +321,15 @@ def test_fused_stage_kernels_match_plain(cuda_device, case):
 
 
 # flash prefill: (B, T, S, H, KVH, D, left pad of the last row, row_offset, dtype,
-# causal)
+# causal, scale of q and k)
 FLASH_CASES = {
-    "1.5b-pad": (2, 1024, 1024, 12, 2, 128, 333, None, torch.bfloat16, True),
-    "1.5b-shard": (2, 384, 1408, 12, 2, 128, 77, 1024, torch.bfloat16, True),
-    "d64-fp32": (2, 200, 200, 4, 2, 64, 37, None, torch.float32, True),
-    "d64-bf16": (2, 300, 300, 4, 2, 64, 37, None, torch.bfloat16, True),
-    "7b-g7-pad": (2, 1000, 1000, 28, 4, 128, 333, None, torch.bfloat16, True),
-    "non-causal": (2, 300, 300, 12, 2, 128, 37, None, torch.bfloat16, False),
+    "1.5b-pad": (2, 1024, 1024, 12, 2, 128, 333, None, torch.bfloat16, True, 0.5),
+    "1.5b-shard": (2, 384, 1408, 12, 2, 128, 77, 1024, torch.bfloat16, True, 0.5),
+    "d64-fp32": (2, 200, 200, 4, 2, 64, 37, None, torch.float32, True, 0.5),
+    "d64-bf16": (2, 300, 300, 4, 2, 64, 37, None, torch.bfloat16, True, 0.5),
+    "7b-g7-pad": (2, 1000, 1000, 28, 4, 128, 333, None, torch.bfloat16, True, 0.5),
+    "non-causal": (2, 300, 300, 12, 2, 128, 37, None, torch.bfloat16, False, 0.5),
+    "1.5b-peaked": (1, 1024, 1024, 12, 2, 128, 0, None, torch.bfloat16, True, 2.0),
 }
 
 
@@ -336,28 +337,36 @@ FLASH_CASES = {
 def test_flash_prefill_kernel_matches_plain(cuda_device, case):
     """A left-padded row (a pad count that is not a tile multiple), a query
     shard (T != S) at a `row_offset`, head_dim 64, the 7B grouping (G=7, not a
-    divisor of the 128-row tile) and a non-causal call: the rows that see a
-    key within one rounding step of the output's scale (bf16) or 1e-5 of it
-    (fp32), every row finite, the rows that see no key zero on both sides."""
+    divisor of the 128-row tile), a non-causal call and a peaked softmax (q
+    and k at 2x, so that rows do not average thousands of keys): each row
+    that sees a key within one rounding step (bf16) or 1e-5 (fp32) of its own
+    largest output, every row finite, the rows that see no key zero on both
+    sides; bf16 at both CTA heights (64 and 128 query rows)."""
     from vibevoice_tpu_torch.ops import flash_attention as fa
-    b, t, s, h, kvh, d, pad, off, dt, causal = FLASH_CASES[case]
+    b, t, s, h, kvh, d, pad, off, dt, causal, sc = FLASH_CASES[case]
     gen = torch.Generator(device=cuda_device).manual_seed(5)
-    rnd = lambda *shape: (0.5 * torch.randn(shape, generator=gen, device=cuda_device)).to(dt)
-    q, k, v = rnd(b, t, h, d), rnd(b, s, kvh, d), rnd(b, s, kvh, d)
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=cuda_device)
+    q, k, v = (sc * rnd(b, t, h, d)).to(dt), (sc * rnd(b, s, kvh, d)).to(dt), \
+        (0.5 * rnd(b, s, kvh, d)).to(dt)
     mask = torch.ones((b, s), dtype=torch.int32, device=cuda_device)
     mask[b - 1, :pad] = 0
     before = fa.flash_attention_prefill.launches
-    got = fa.flash_attention_prefill(q, k, v, mask, causal=causal, row_offset=off)
+    runs = [fa.flash_attention_prefill(q, k, v, mask, causal=causal, row_offset=off)]
+    runs += [fa.flash_attention_prefill_at(q, k, v, mask, rows, causal=causal, row_offset=off)
+             for rows in ((64, 128) if dt == torch.bfloat16 else ())]
     torch.cuda.synchronize()
     want = fa.flash_attention_prefill_ref(q, k, v, mask, causal=causal, row_offset=off)
-    assert fa.flash_attention_prefill.launches == before + 1
-    assert torch.isfinite(got).all()
+    assert fa.flash_attention_prefill.launches == before + len(runs)
     real = mask[:, (off or 0) + torch.arange(t, device=cuda_device)] > 0
     if not causal:  # every row sees every real key
         real = torch.ones_like(real)
-    tol = (2 ** -7 if dt == torch.bfloat16 else 1e-5) * float(want.float().abs().max())
-    torch.testing.assert_close(got[real].float(), want[real].float(), atol=tol, rtol=0)
-    assert not got[~real].any()
+    w = want[real].float()
+    tol = (2 ** -7 if dt == torch.bfloat16 else 1e-5) * w.abs().amax(dim=-1, keepdim=True)
+    for got in runs:
+        assert torch.isfinite(got).all()
+        err = (got[real].float() - w).abs()
+        assert bool((err <= tol).all()), float((err / tol).max())
+        assert not got[~real].any()
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_attention_prefill(q[..., :32].contiguous(), k[..., :32].contiguous(),
                                    v[..., :32].contiguous(), mask)

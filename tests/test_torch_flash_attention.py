@@ -113,3 +113,20 @@ def test_kernel_refuses_what_it_does_not_take():
     TFA._check(q, kv, kv, mask)
     with pytest.raises(ValueError, match="cuda or cpu"):
         TFA.flash_attention_prefill(q.to("meta"), kv.to("meta"), kv.to("meta"), mask.to("meta"))
+
+
+@pytest.mark.parametrize("b,t,h,kvh,rows", [(1, 1024, 12, 2, 64), (1, 512, 12, 2, 64),
+                                            (1, 4096, 12, 2, 128), (2, 1024, 12, 2, 128),
+                                            (1, 1000, 28, 4, 128), (1, 4096, 28, 4, 128)])
+def test_cta_rows_give_every_sm_a_cta(b, t, h, kvh, rows):
+    """The bf16 kernel's CTA height on a 132-SM card: 128 rows where 128-row
+    tiles x KV heads x batch rows reach 132 CTAs, else 64 (twice the CTAs);
+    the fixed-height entry takes the plain version on the CPU too."""
+    assert TFA.cta_rows(b, t, h, kvh, 132) == rows
+    tiles = -(-t * (h // kvh) // rows)
+    assert tiles * kvh * b >= 132 or rows == 64
+    q, k, v, mask = (torch.tensor(x) for x in _inputs("g7-d64-pad45", seed=1))
+    before = TFA.flash_attention_prefill.launches
+    got = TFA.flash_attention_prefill_at(q, k, v, mask, rows)
+    assert TFA.flash_attention_prefill.launches == before
+    torch.testing.assert_close(got, TFA.flash_attention_prefill_ref(q, k, v, mask))

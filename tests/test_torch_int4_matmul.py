@@ -101,17 +101,17 @@ def test_plan_fills_the_card_and_fits_shared_memory():
             assert ctas >= 132 or ksplit == 8, (m, k, n, ctas)
 
 
-@pytest.mark.parametrize("m,k,n", [(2, 18944, 3584), (128, 18944, 3584), (128, 37888, 64),
-                                   (5, 256, 96), (1, 64, 4)])
+@pytest.mark.parametrize("m,k,n", [(2, 18944, 3584), (128, 18944, 3584),
+                                   (128, 16 * TI.max_kbr(128), 64), (5, 256, 96), (1, 64, 4)])
 def test_plan_keeps_the_splits_in_one_cluster(m, k, n):
-    """The splits of a column tile are one cluster: at most 16 CTAs (8 where
-    the x slice allows), for the 7B model's down projection (K=18944) too; a
-    K that would need more refuses the plan."""
+    """The splits of a column tile are one portable cluster of at most 8 CTAs,
+    for the 7B model's down projection (K=18944) too, and at the largest K
+    whose x slices fit 8 splits; a K that would need more refuses the plan."""
     kbr, ksplit = TI.plan(m, k, n, 132)
-    assert ksplit <= 16 and kbr <= TI.max_kbr(m)
+    assert ksplit <= 8 and kbr <= TI.max_kbr(m)
     assert (ksplit - 1) * kbr < k // 2 <= ksplit * kbr
     with pytest.raises(ValueError, match="splits"):
-        TI.plan(128, 16 * 2 * (TI.max_kbr(128) + 8), 64, 132)
+        TI.plan(128, 16 * (TI.max_kbr(128) + 8), 64, 132)
 
 
 def test_wrapper_raises_on_what_the_kernel_does_not_take():

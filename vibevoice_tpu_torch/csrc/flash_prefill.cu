@@ -19,18 +19,20 @@
 // Design (bf16).  The TPU kernel's grid walks (row, head, query block, key
 // block) in order and carries the softmax state in VMEM from one key block to
 // the next.  Here one CTA owns one (batch row, KV head, tile of 128 query
-// rows) and loops over the key tiles itself.  A query row is a (position,
-// head of the KV head's group) pair, rows ordered position-major, so the G
-// heads of a position sit side by side and every K/V tile in shared memory
-// serves all G of them.  The CTA is warp-specialised:
+// rows, or of 64 where 128-row tiles would leave SMs without a CTA) and
+// loops over the key tiles itself.  A query row is a (position, head of the
+// KV head's group) pair, rows ordered position-major, so the G heads of a
+// position sit side by side and every K/V tile in shared memory serves all
+// G of them.  The CTA is warp-specialised:
 //   * warpgroup 0, the producer, gives its registers up (setmaxnreg) and one
 //     warp keeps 128-key K and V tiles in flight with TMA
 //     (cp.async.bulk.tensor, a 4-D map (D, KVH, S, B), 128-byte swizzle) in a
 //     ring of two stages, completion on an mbarrier; with each tile it
 //     stages that tile's pad mask (and whether every key of it is real);
-//   * warpgroups 1 and 2, the consumers, each own 64 query rows.  Q is copied
-//     once with cp.async into the same swizzled layout (its rows are not one
-//     strided box: a position's heads are contiguous, positions H*D apart).
+//   * warpgroups 1 and 2 (1 alone in a 64-row tile), the consumers, each own
+//     64 query rows.  Q is copied once with cp.async into the same swizzled
+//     layout (its rows are not one strided box: a position's heads are
+//     contiguous, positions H*D apart).
 //     Per key tile: S = Q K^T by wgmma m64n128k16 (both from shared memory),
 //     the masks and the fp32 online softmax in registers (exp2, masked
 //     scores -inf against a finite running max, so they give exactly 0),
@@ -79,16 +81,14 @@ struct Args {
 // bf16: wgmma + TMA
 // ===========================================================================
 
-constexpr int NC = 2;                    // consumer warpgroups
-constexpr int THREADS_W = 128 * (NC + 1);
-constexpr int BM_W = 64 * NC;            // query rows (position, head) per CTA
+// NC consumer warpgroups (1 or 2) per CTA: 64 * NC query rows (position, head)
 constexpr int BN_W = 128;                // keys per tile
 constexpr int STAGES = 2;
 constexpr int PRODUCER_REGS = 24;
 constexpr int CONSUMER_REGS = 240;
 constexpr float LOG2E = 1.4426950408889634f;
 
-template <int D>
+template <int D, int NC>
 struct Layout {
   static constexpr int Q = 0;                               // [NC][D/64][64 rows][128 B]
   static constexpr int K = Q + NC * 64 * D * 2;             // [STAGES][D/64][BN rows][128 B]
@@ -265,11 +265,12 @@ __device__ __forceinline__ void cta_coords(int& tile, int& kvh, int& b, int KVH,
   b = bh / KVH;
 }
 
-template <int D>
-__global__ void __launch_bounds__(THREADS_W, 1)
+template <int D, int NC>
+__global__ void __launch_bounds__(128 * (NC + 1), 1)
     flash_wgmma_kernel(const __grid_constant__ CUtensorMap kmap,
                        const __grid_constant__ CUtensorMap vmap, const Args a) {
-  using L = Layout<D>;
+  using L = Layout<D, NC>;
+  constexpr int BM_W = 64 * NC;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -528,20 +529,20 @@ int make_kv_map(CUtensorMap* map, const void* ptr, int B, int S, int KVH, int D)
   return r == CUDA_SUCCESS ? 0 : -7;
 }
 
-template <int D>
+template <int D, int NC>
 int launch_wgmma(const Args& a, cudaStream_t stream) {
   CUtensorMap kmap, vmap;
   int rc = make_kv_map(&kmap, a.k, a.B, a.S, a.KVH, D);
   if (rc == 0) rc = make_kv_map(&vmap, a.v, a.B, a.S, a.KVH, D);
   if (rc != 0) return rc;
-  void (*kern)(CUtensorMap, CUtensorMap, Args) = flash_wgmma_kernel<D>;
+  void (*kern)(CUtensorMap, CUtensorMap, Args) = flash_wgmma_kernel<D, NC>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         Layout<D>::ALLOC);
+                                         Layout<D, NC>::ALLOC);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long rows = static_cast<long long>(a.T) * (a.H / a.KVH);
-  const long long tiles = (rows + BM_W - 1) / BM_W;
+  const long long tiles = (rows + 64 * NC - 1) / (64 * NC);
   const dim3 grid(static_cast<unsigned>(tiles * a.KVH * a.B));
-  kern<<<grid, THREADS_W, Layout<D>::ALLOC, stream>>>(kmap, vmap, a);
+  kern<<<grid, 128 * (NC + 1), Layout<D, NC>::ALLOC, stream>>>(kmap, vmap, a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -756,11 +757,14 @@ int launch_f32(const Args& a, cudaStream_t stream) {
 
 }  // namespace
 
+// `rows`: query rows per CTA of the bf16 kernel, 64 (one consumer
+// warpgroup) or 128 (two); the fp32 kernel takes 64 whatever it is.
 extern "C" int vv_flash_prefill(const void* q, const void* k, const void* v, const void* pad,
                                 void* out, int B, int T, int S, int H, int KVH, int D,
-                                int row_off, int causal, int dtype, void* stream) {
+                                int row_off, int causal, int rows, int dtype, void* stream) {
   if (B <= 0 || T <= 0 || S <= 0 || H <= 0 || KVH <= 0 || H % KVH || row_off < 0) return -1;
   if (D != 64 && D != 128) return -2;  // head dim not taken
+  if (rows != 64 && rows != 128) return -4;
   // the grid is one dimension of (query tile, KV head, row) CTAs
   if (static_cast<long long>(T) * (H / KVH) / BM_F * KVH * B >= (1LL << 31)) return -3;
   // the scale as the plain version has it: 1/sqrt(D) in double, rounded once
@@ -768,6 +772,9 @@ extern "C" int vv_flash_prefill(const void* q, const void* k, const void* v, con
          static_cast<float>(1.0 / std::sqrt(static_cast<double>(D)))};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return D == 64 ? launch_f32<64>(a, st) : launch_f32<128>(a, st);
-  if (dtype == 1) return D == 64 ? launch_wgmma<64>(a, st) : launch_wgmma<128>(a, st);
+  if (dtype == 1) {
+    if (rows == 64) return D == 64 ? launch_wgmma<64, 1>(a, st) : launch_wgmma<128, 1>(a, st);
+    return D == 64 ? launch_wgmma<64, 2>(a, st) : launch_wgmma<128, 2>(a, st);
+  }
   return -5;  // unsupported dtype
 }

@@ -28,8 +28,8 @@
 // x (the tiny references) takes CUDA-core FMAs over the same loads, 4 rows per
 // CTA.
 // The splits along K meet in the same launch: the splits of one column tile
-// (and pass of rows) are one thread-block cluster (cudaLaunchKernelEx with
-// the cluster attribute; more than 8 splits take the non-portable size).  The
+// (and pass of rows) are one thread-block cluster of at most 8, the portable
+// size (cudaLaunchKernelEx with the cluster attribute).  The
 // 4 warps' sums are added in shared memory in warp order; after a cluster
 // barrier each CTA adds, for its share of the tile's outputs, every split's
 // sums read from that CTA's shared memory (distributed shared memory) in
@@ -56,6 +56,7 @@ constexpr int NWARPS = THREADS / 32;
 constexpr int COLS = 128;        // output columns per CTA: 8 lane groups x 16, one per thread
 constexpr int BATCH = 4;         // steps whose loads a warp keeps in flight
 constexpr int XS_BYTES = 98304;  // the staged x slice (one pass's rows), at most
+constexpr int MAX_SPLITS = 8;    // K splits of a column tile: one portable cluster
 
 struct Args {
   const void* x;
@@ -412,18 +413,19 @@ __global__ void __launch_bounds__(THREADS) int4_matmul_kernel(const Args a) {
   // its share of the outputs, then waits until no CTA reads its own
   cg::cluster_group cluster = cg::this_cluster();
   cluster.sync();
-  const float* peer[16];
+  const float* peer[MAX_SPLITS];
 #pragma unroll
-  for (int q = 0; q < 16; ++q) peer[q] = q < a.ksplit ? cluster.map_shared_rank(red, q) : red;
+  for (int q = 0; q < MAX_SPLITS; ++q)
+    peer[q] = q < a.ksplit ? cluster.map_shared_rank(red, q) : red;
   for (int e = split * THREADS + threadIdx.x; e < rows * COLS; e += a.ksplit * THREADS) {
     const int r = e / COLS, c = c0 + e % COLS;  // e % COLS == threadIdx.x
     if (c >= a.N) continue;
-    float v[16];
+    float v[MAX_SPLITS];
 #pragma unroll
-    for (int q = 0; q < 16; ++q) v[q] = q < a.ksplit ? peer[q][e] : 0.f;
+    for (int q = 0; q < MAX_SPLITS; ++q) v[q] = q < a.ksplit ? peer[q][e] : 0.f;
     float sum = 0.f;
 #pragma unroll
-    for (int q = 0; q < 16; ++q) sum += v[q];
+    for (int q = 0; q < MAX_SPLITS; ++q) sum += v[q];
     finish<T>(a, m0 + r, c, sum, col_scale);
   }
   cluster.sync();
@@ -436,10 +438,6 @@ int launch(const Args& a, cudaStream_t stream) {
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  if (a.ksplit > 8) {  // clusters of up to 16 CTAs are not portable
-    cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   cudaLaunchConfig_t cfg = {};
@@ -462,14 +460,14 @@ int launch(const Args& a, cudaStream_t stream) {
 }  // namespace
 
 // KBR is a multiple of 8 and every split holds at least one byte row:
-// (ksplit - 1) * KBR < K / 2 <= ksplit * KBR, with at most 16 splits (one
-// cluster).  G scale rows: 1 (per channel) or K / gs (per group of an even gs).
+// (ksplit - 1) * KBR < K / 2 <= ksplit * KBR, with at most 8 splits (one
+// portable cluster).  G scale rows: 1 (per channel) or K / gs (per group of an even gs).
 extern "C" int vv_int4_matmul(const void* x, const void* packed, const void* scale, void* out,
                               int M, int K, int N, int G, int KBR, int ksplit, int dtype,
                               void* stream) {
   if (M <= 0 || M > 128 || K <= 0 || K % 2 || N <= 0 || G <= 0) return -1;
   if (KBR <= 0 || KBR % 8) return -2;
-  if (ksplit < 1 || ksplit > 16 || (ksplit - 1) * KBR >= K / 2 || ksplit * KBR < K / 2) return -3;
+  if (ksplit < 1 || ksplit > MAX_SPLITS || (ksplit - 1) * KBR >= K / 2 || ksplit * KBR < K / 2) return -3;
   const bool grouped = G > 1;
   if (grouped && (K % G || (K / G) % 2)) return -4;
   const size_t xs = dtype == 0 ? xs_bytes<float>(M, KBR) : xs_bytes<__nv_bfloat16>(M, KBR);

@@ -105,4 +105,16 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-__all__ = ["SOURCES", "build_all", "load", "build_dir"]
+_SMS: Dict[int, int] = {}
+
+
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA device, asked once per device."""
+    import torch
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
+
+
+__all__ = ["SOURCES", "build_all", "load", "build_dir", "sm_count"]

@@ -100,12 +100,37 @@ def _check(q, k, v, pad_mask):
                              "16-byte aligned")
 
 
+def cta_rows(b: int, t: int, h: int, kvh: int, sms: int) -> int:
+    """Query rows per CTA of the bf16 kernel: 128 (two consumer warpgroups)
+    where 128-row tiles give every SM a CTA, else 64 (one warpgroup, twice
+    the CTAs)."""
+    tiles = -(-t * (h // kvh) // 128)
+    return 128 if tiles * kvh * b >= sms else 64
+
+
 def flash_attention_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             pad_mask: torch.Tensor, causal: bool = True,
                             row_offset: Optional[int] = None) -> torch.Tensor:
     """Memory-linear prefill attention: [B, T, H, D] in q's dtype.  CUDA
-    tensors launch the kernel (one launch, counted); CPU tensors take
-    `flash_attention_prefill_ref`."""
+    tensors launch the kernel (one launch, counted), its CTA height chosen by
+    `cta_rows`; CPU tensors take `flash_attention_prefill_ref`."""
+    if q.device.type == "cpu":
+        return flash_attention_prefill_ref(q, k, v, pad_mask, causal, row_offset)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_prefill runs on cuda or cpu, not {q.device}")
+    _check(q, k, v, pad_mask)
+    b, t, h, _ = q.shape
+    rows = cta_rows(b, t, h, k.shape[2], cuda_build.sm_count(q.device))
+    return flash_attention_prefill_at(q, k, v, pad_mask, rows, causal, row_offset)
+
+
+def flash_attention_prefill_at(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                               pad_mask: torch.Tensor, rows: int, causal: bool = True,
+                               row_offset: Optional[int] = None) -> torch.Tensor:
+    """`flash_attention_prefill` at a CTA height of `rows` (64 or 128) query
+    rows, which the bf16 kernel takes and the fp32 one ignores: a way to time
+    the two heights against each other.  CUDA tensors launch the kernel (one
+    launch, counted); CPU tensors take `flash_attention_prefill_ref`."""
     if q.device.type == "cpu":
         return flash_attention_prefill_ref(q, k, v, pad_mask, causal, row_offset)
     if q.device.type != "cuda":
@@ -117,8 +142,8 @@ def flash_attention_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with torch.cuda.device(q.device):
         rc = _library().vv_flash_prefill(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), pad_mask.data_ptr(), out.data_ptr(),
-            b, t, s, h, kvh, d, _offset(row_offset), int(bool(causal)), _DTYPE_CODES[q.dtype],
-            torch.cuda.current_stream(q.device).cuda_stream)
+            b, t, s, h, kvh, d, _offset(row_offset), int(bool(causal)), int(rows),
+            _DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash_prefill kernel failed with code {rc}")
     flash_attention_prefill.launches += 1
@@ -133,7 +158,7 @@ def _library() -> ctypes.CDLL:
     fn = lib.vv_flash_prefill
     if fn.restype is not ctypes.c_int or not fn.argtypes:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 5 + [i] * 9 + [p]
+        fn.argtypes = [p] * 5 + [i] * 10 + [p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -151,4 +176,5 @@ def attended_pairs(pad_mask: torch.Tensor, t: int, causal: bool = True, row_offs
     return int((per_row * pad[:, idx]).sum())
 
 
-__all__ = ["flash_attention_prefill", "flash_attention_prefill_ref", "attended_pairs", "NEG_INF"]
+__all__ = ["flash_attention_prefill", "flash_attention_prefill_at", "flash_attention_prefill_ref",
+           "attended_pairs", "cta_rows", "NEG_INF"]

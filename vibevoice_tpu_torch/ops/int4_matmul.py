@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -34,8 +34,7 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _COLS = 128            # output columns per CTA (COLS in the source)
 _PASS_ROWS = 16        # rows of x per CTA (bf16; fp32 takes 4)
 _XS_BYTES = 98304      # a CTA's staged x slice, at most (XS_BYTES)
-_SPLITS = 8            # K splits the plan aims for at most: a portable cluster
-_MAX_SPLITS = 16       # the largest cluster the kernel launches
+_SPLITS = 8            # K splits of a column tile at most: one portable cluster
 _MAX_M = 128           # rows the kernel takes; larger M dequantizes (quantize.mm)
 # XLA folds `amax / 7.0` into a product with the fp32 reciprocal of 7; the
 # same product keeps the scales bit-equal to the JAX package's
@@ -123,26 +122,16 @@ def max_kbr(m: int) -> int:
 def plan(m: int, k: int, n: int, sms: int = 132) -> Tuple[int, int]:
     """(byte rows per split, splits) of the kernel's grid of 128-column tiles
     x splits along K x passes of 16 rows: about two CTAs per SM with at most
-    8 splits (one portable cluster per tile), at most 16 where K needs them;
-    whole k16 steps (8 byte rows) per split."""
+    8 splits (one portable cluster per tile), whole k16 steps (8 byte rows)
+    per split.  A K whose x slices need more splits is refused."""
     kh = k // 2
     tiles = -(-n // _COLS) * -(-m // _PASS_ROWS)
     want = max(1, min(-(-2 * sms // tiles), _SPLITS))
     round8 = lambda v: -(-v // 8) * 8
     kbr = min(max(8, round8(-(-kh // want))), max_kbr(m))  # more splits where x needs them
-    if -(-kh // kbr) > _MAX_SPLITS:
-        raise ValueError(f"K={k} needs more than {_MAX_SPLITS} splits of x slices that fit")
+    if -(-kh // kbr) > _SPLITS:
+        raise ValueError(f"K={k} needs more than {_SPLITS} splits of x slices that fit")
     return kbr, -(-kh // kbr)
-
-
-_SMS: Dict[int, int] = {}
-
-
-def _sms(device: torch.device) -> int:
-    idx = device.index if device.index is not None else torch.cuda.current_device()
-    if idx not in _SMS:
-        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
-    return _SMS[idx]
 
 
 def _check(x, packed, scale):
@@ -182,8 +171,7 @@ def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor) -> t
     m, k = x.shape
     n = packed.shape[1]
     g = scale.shape[0]
-    sms = _sms(x.device)
-    kbr, ksplit = plan(m, k, n, sms)
+    kbr, ksplit = plan(m, k, n, cuda_build.sm_count(x.device))
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     rc = _library().vv_int4_matmul(
         x.data_ptr(), packed.data_ptr(), scale.data_ptr(), out.data_ptr(),
