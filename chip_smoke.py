@@ -9,7 +9,9 @@ Phases, in order; any failure stops the run with a non-zero exit:
   2. each kernel against its plain PyTorch version at the 1.5B shapes, with
      its time, the plain version's, the library yardstick's and the bound:
      decode attention (bf16 and int8 KV, layers 0 and 27, a partial and a full
-     live length, a visibility mask with holes); int4_matmul at the four LM
+     live length, a visibility mask with holes; then ~340 live slots of 4096,
+     40 000 of 40 960 in bf16 and int8 KV and the 7B grouping H=28, KVH=4, each
+     with its share of the bound and two calls bit-equal); int4_matmul at the four LM
      projections with M=2 (per channel and with 128-row groups) and at M=64
      and M=128; the int4 Block1D chain at the 1.5B stage shapes with B=1 and
      B=4; the fused int4 head at N=2; the large-T stage kernel at the eight
@@ -215,6 +217,16 @@ def measure_attention(q, caches, vis, lengths, quant):
                 library_ms=lib_ms)
 
 
+# decode attention's phase-2 cases beyond the 1.5B S=4096/8192 grid of
+# `phase_kernels`: (cache slots, live slots of both rows, int8 KV, H, KVH,
+# layers, cache copies), each loop over copy x layer reading more than L2: the
+# engine's own live length (~340 of a 4096-slot cache), a 90-minute request
+# (40 000 live of 40 960) in bf16 and int8 KV, and the 7B grouping (G=7)
+ATTN_CASES = ((4096, 340, False, 12, 2, 28, 4), (40960, 40000, False, 12, 2, 4, 1),
+              (40960, 40000, True, 12, 2, 4, 1), (4096, 1500, False, 28, 4, 28, 1),
+              (40960, 40000, False, 28, 4, 2, 1))
+
+
 def phase_kernels(dev):
     gen = torch.Generator(device=dev).manual_seed(SEED)
     for s in (4096, 8192):
@@ -228,7 +240,25 @@ def phase_kernels(dev):
                     raise RuntimeError(f"decode_attention disagrees with its plain version: "
                                        f"{r['max_abs_err']} > {KERNEL_TOL}")
                 del caches
+    for s, live, quant, h, kvh, n_layers, copies in ATTN_CASES:
+        q, caches, vis, lengths = attention_inputs(s, [live, live], quant, copies, gen, dev,
+                                                   n_layers=n_layers, h=h, kvh=kvh)
+        r = measure_attention(q, caches, vis, lengths, quant)
+        k, v, ks, vs = caches[0]
+        stable = torch.equal(*(da_call(q, k, v, vis, lengths, ks, vs) for _ in range(2)))
+        emit("kernel_vs_plain", kernel="decode_attention", S=s, kv="int8" if quant else "bf16",
+             live=live, H=h, KVH=kvh, layers=n_layers, copies=copies, bit_stable=stable,
+             bound_share=r["bound_ms"] / r["ms"], tol=KERNEL_TOL, **r)
+        if not (r["max_abs_err"] <= KERNEL_TOL and stable):
+            raise RuntimeError(f"decode_attention at S={s} live={live}: error "
+                               f"{r['max_abs_err']} > {KERNEL_TOL} or two calls differ")
+        del caches, k, v, ks, vs
     torch.cuda.empty_cache()
+
+
+def da_call(q, k, v, vis, lengths, ks, vs):
+    from vibevoice_tpu_torch.ops import decode_attention as da
+    return da.decode_attention(q, k, v, k.shape[0] - 1, vis, lengths, ks, vs)
 
 
 # ---------------------------------------------------------------------------

@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
-"""Times this checkout's flash prefill and int4_matmul kernels beside those of
-another checkout of the port, in one process on one NVIDIA GPU, at the shapes
-of `chip_smoke.py` phase 2.
+"""Times this checkout's flash prefill, int4_matmul, decode attention and
+large-T stage kernels beside those of another checkout of the port, in one
+process on one NVIDIA GPU, at the shapes of `chip_smoke.py` phase 2.
 
-    python3 scripts/torch_kernel_compare.py OTHER_CHECKOUT
+    python3 scripts/torch_kernel_compare.py OTHER_CHECKOUT [KERNEL ...]
 
 OTHER_CHECKOUT is the root of another checkout (for example the parent
 commit, unpacked with `git archive`); its kernels build into its own
-`vibevoice_tpu_torch/_build/`.  The cases, inputs, checks, library yardstick
-(SDPA; `torch.matmul` on the dequantized bf16 weight) and bound are
-`chip_smoke.py`'s own.  Each case checks both kernels against this checkout's
+`vibevoice_tpu_torch/_build/`.  KERNEL names a subset of flash, int4,
+attention and stage (all by default).  The cases, inputs, checks, library
+yardstick (SDPA; `torch.matmul` on the dequantized bf16 weight) and bound are
+`chip_smoke.py`'s own; a stage case times the first of its two chunks.  Each case checks both kernels against this checkout's
 plain version on the same inputs, then times them in turns (other, this,
 this, other).  One JSON line per case, then the card's name and power limit.
 """
@@ -26,13 +27,20 @@ sys.path.insert(0, ROOT)
 
 import chip_smoke as cs  # noqa: E402
 from vibevoice_tpu_torch.ops import cuda_build  # noqa: E402
+from vibevoice_tpu_torch.ops import decode_attention as da  # noqa: E402
 from vibevoice_tpu_torch.ops import flash_attention as fa  # noqa: E402
+from vibevoice_tpu_torch.ops import fused_stage as fs  # noqa: E402
 from vibevoice_tpu_torch.ops import int4_matmul as im  # noqa: E402
+
+MODULES = {"flash": "flash_attention", "int4": "int4_matmul",
+           "attention": "decode_attention", "stage": "fused_stage"}
+SOURCES = {"flash": "flash_prefill", "int4": "int4_matmul",
+           "attention": "decode_attention", "stage": "fused_stage"}
 
 
 def load_other(root: str):
-    """The other checkout's `ops.flash_attention` and `ops.int4_matmul`, as a
-    package of another name."""
+    """The other checkout's ops modules ({kernel: module}), as a package of
+    another name."""
     name = "other_vibevoice_tpu_torch"
     pkg = os.path.join(os.path.abspath(root), "vibevoice_tpu_torch")
     spec = importlib.util.spec_from_file_location(name, os.path.join(pkg, "__init__.py"),
@@ -40,8 +48,7 @@ def load_other(root: str):
     mod = importlib.util.module_from_spec(spec)
     sys.modules[name] = mod
     spec.loader.exec_module(mod)
-    return (importlib.import_module(name + ".ops.flash_attention"),
-            importlib.import_module(name + ".ops.int4_matmul"))
+    return {k: importlib.import_module(f"{name}.ops.{m}") for k, m in MODULES.items()}
 
 
 def in_turns(other, this, iters):
@@ -106,20 +113,88 @@ def compare_int4(oim, dev, card):
     torch.cuda.empty_cache()
 
 
+def attention_cases():
+    """chip_smoke's decode-attention cases: its S=4096/8192 grid at two live
+    lengths, then `ATTN_CASES`; (S, live, int8 KV, H, KVH, layers, copies)."""
+    grid = [(s, live, quant, 12, 2, 28, 4) for s in (4096, 8192) for quant in (False, True)
+            for live in (1500, s)]
+    return grid + list(cs.ATTN_CASES)
+
+
+def compare_attention(oda, dev, card):
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED)
+    for s, live, quant, h, kvh, n_layers, copies in attention_cases():
+        q, caches, vis, lengths = cs.attention_inputs(s, [live, live], quant, copies, gen, dev,
+                                                      n_layers=n_layers, h=h, kvh=kvh)
+        k, v, ks, vs = caches[0]
+        want = da.decode_attention_ref(q, k, v, 0, vis, lengths, ks, vs)
+        errs = {nm: float((mod.decode_attention(q, k, v, 0, vis, lengths, ks, vs).float()
+                           - want.float()).abs().max())
+                for nm, mod in (("other", oda), ("this", da))}
+        if not errs["this"] <= cs.KERNEL_TOL:
+            raise RuntimeError(f"decode_attention disagrees with its plain version: {errs}")
+        slots = [(c, layer) for c in caches for layer in range(n_layers)]
+        run = lambda mod: (lambda i: mod.decode_attention(
+            q, *slots[i % len(slots)][0][:2], slots[i % len(slots)][1], vis, lengths,
+            *slots[i % len(slots)][0][2:]))
+        other_ms, this_ms = in_turns(run(oda), run(da), len(slots))
+        bms, by = cs.bound_ms(q, k, lengths, quant)
+        print(json.dumps({"kernel": "decode_attention", "S": s, "live": live,
+                          "kv": "int8" if quant else "bf16", "H": h, "KVH": kvh,
+                          "max_abs_err": errs, "other_ms": other_ms, "this_ms": this_ms,
+                          "bound_ms": bms, "bound_by": by, "card": card}), flush=True)
+        del caches, k, v, ks, vs, want
+    torch.cuda.empty_cache()
+
+
+def compare_stage(ofs, dev, card):
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED + 5)
+    for name, b, t, d, conv, head, r in cs.STAGE_CASES:
+        pack = cs.random_stage_pack(d, conv, head, r, gen, dev)
+        rowlane = cs.uses_rowlane(pack, b)
+        plain = fs.fused_stage_chain_rowlane_ref if rowlane else fs.fused_stage_chain_ref
+        xs, ctx, states = cs.stage_inputs(pack, b, t, gen, dev)
+        want = plain(pack, xs[0], ctx, **states)
+        errs = {}
+        for nm, mod in (("other", ofs), ("this", fs)):
+            got = mod.fused_stage_chain(pack, xs[0], ctx, **states)
+            errs[nm] = max(cs.agree(f"fused_stage_chain[{nm}][{j}]", g, w)[0]
+                           for j, (g, w) in enumerate(zip(got, want)))
+        nbytes, flops = fs.stage_work(pack, xs[0])
+        copies = [pack] + [cs.clone_pack(pack) for _ in range(min(63, cs.copies_for(nbytes) - 1))]
+        n = len(copies)
+        run = lambda mod: (lambda i: mod.fused_stage_chain(copies[i % n], xs[0], ctx, **states))
+        other_ms, this_ms = in_turns(run(ofs), run(fs), 2 * n)
+        bms, by = cs.bound(nbytes, flops)
+        print(json.dumps({"kernel": "fused_stage_chain" + ("_rowlane" if rowlane else ""),
+                          "stage": name, "B": b, "T": t, "D": d, "conv": conv, "head": head,
+                          "rows": r, "max_abs_err": errs, "other_ms": other_ms,
+                          "this_ms": this_ms, "bound_ms": bms, "bound_by": by,
+                          "card": card}), flush=True)
+        del copies, pack
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
-    if len(sys.argv) != 2:
+    if len(sys.argv) < 2 or not set(sys.argv[2:]) <= set(MODULES):
         print(__doc__, file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("torch_kernel_compare: needs an NVIDIA GPU", file=sys.stderr)
         return 2
-    ofa, oim = load_other(sys.argv[1])
-    cuda_build.build_all(["flash_prefill", "int4_matmul"])
-    ofa.cuda_build.build_all(["flash_prefill", "int4_matmul"])
+    kernels = sys.argv[2:] or list(MODULES)
+    other = load_other(sys.argv[1])
+    names = [SOURCES[k] for k in kernels]
+    cuda_build.build_all(names)
+    other["flash"].cuda_build.build_all(names)
     dev = torch.device("cuda")
     card = cs.card_line()
-    compare_flash(ofa, dev, card)
-    compare_int4(oim, dev, card)
+    run = {"flash": lambda: compare_flash(other["flash"], dev, card),
+           "int4": lambda: compare_int4(other["int4"], dev, card),
+           "attention": lambda: compare_attention(other["attention"], dev, card),
+           "stage": lambda: compare_stage(other["stage"], dev, card)}
+    for k in kernels:
+        run[k]()
     print(card, flush=True)
     return 0
 

@@ -6,13 +6,15 @@
 Builds an instrumented copy of `vibevoice_tpu_torch/csrc/fused_stage.cu` into
 the build directory: CTA 0 reads the `%globaltimer` at the kernel's start
 and after each grid barrier (and at its end), so the gap between two stamps
-is the slowest CTA's time in that phase plus the barrier.  The shipped source
+is the slowest CTA's time in that phase plus the barrier (for a phase that
+ends without a barrier, CTA 0's own time).  The shipped source
 is not touched; the copy runs in place of it for this process only.  For a
 few stage shapes of the 1.5B model (random bf16 weights from a seed) it
 prints one JSON line: the launch's device time (`chip_smoke.cuda_ms`), the
-grid size and the phase times in microseconds, in order: [conv,] then per
-block mixer / FFN / partial sums, then the output.  Last, the card's name
-and power limit.
+grid size and the phase times in microseconds with their names.  The stage
+kernel (`cluster_kernel`) has one phase per block ([conv,] block 0 .. N-1),
+the row-lane kernel (`stage_kernel`) per block mixer / FFN / partial sums,
+then the output.  Last, the card's name and power limit.
 """
 import ctypes
 import json
@@ -46,26 +48,42 @@ SHAPES = [("decoder 3", 1, 200, 256, ("up", 5, 10, 512), None),
           ("decoder 6 row-lane", 4, 3200, 32, None, 4)]
 
 
+def _stamped(src: str, kernel: str, end: str, start: str, barrier: str) -> str:
+    """`src` with stamps in the body of `kernel` (which runs up to `end`): at
+    `start`, after every `barrier` and after `end`'s last statement."""
+    for marker in (kernel, end, start, barrier):
+        if marker not in src:
+            raise RuntimeError(f"fused_stage.cu no longer has {marker!r}: update this script")
+    a = src.index(kernel)
+    b = src.index(end, a) + len(end)
+    body = (src[a:b].replace(start, start + "\n  int ns = 0;\n  STAMP")
+            .replace(barrier, barrier + "\n    STAMP"))
+    body = body[:-1] + "  __syncthreads();\n  STAMP\n}"
+    return src[:a] + body + src[b:]
+
+
 def instrumented_source() -> str:
     from vibevoice_tpu_torch.ops import cuda_build
     with open(os.path.join(cuda_build.CSRC_DIR, "fused_stage.cu")) as f:
         src = f.read()
     header = '#include "int4_common.cuh"'
-    kernel = "__global__ void __launch_bounds__(THREADS) stage_kernel"
-    for marker in (header, kernel, "extern __shared__ float sm[];", "grid.sync();",
-                   "phase_out<T>(p, sm);", "size_t smem_bytes"):
-        if marker not in src:
-            raise RuntimeError(f"fused_stage.cu no longer has {marker!r}: update this script")
-    start = src.index(kernel)
-    end = src.index("size_t smem_bytes", start)
-    body = src[start:end]
-    body = (body.replace("extern __shared__ float sm[];",
-                         "extern __shared__ float sm[];\n  int ns = 0;\n  STAMP")
-            .replace("grid.sync();", "grid.sync();\n    STAMP")
-            .replace("phase_out<T>(p, sm);", "phase_out<T>(p, sm);\n  __syncthreads();\n  STAMP"))
-    src = src[:start] + body + src[end:]
+    if header not in src:
+        raise RuntimeError(f"fused_stage.cu no longer has {header!r}: update this script")
+    src = _stamped(src, "__global__ void __launch_bounds__(THREADS) stage_kernel",
+                   "phase_out<T>(p, p.xb, sm);\n}", "extern __shared__ float sm[];",
+                   "grid.sync();")
+    src = _stamped(src, "__global__ void __launch_bounds__(THREADS) cluster_kernel",
+                   "reinterpret_cast<float*>(smc));\n}",
+                   "extern __shared__ __align__(16) unsigned char smc[];",
+                   "grid_barrier(p.bar);")
     return src.replace(header, f'#include "{os.path.join(cuda_build.CSRC_DIR, "int4_common.cuh")}"'
                        + STAMPS)
+
+
+def phase_names(conv, rowlane, n_blocks=3):
+    if rowlane:
+        return [f"{ph} {i}" for i in range(n_blocks) for ph in ("mixer", "ffn", "sum")] + ["out"]
+    return (["conv"] if conv else []) + [f"block {i}" for i in range(n_blocks)]
 
 
 def main() -> int:
@@ -95,10 +113,10 @@ def main() -> int:
         rc = lib.vv_stamps(ctypes.addressof(stamps))
         if rc:
             raise RuntimeError(f"reading the stamps failed with {rc}")
-        n_phases = (1 if conv else 0) + 3 * 3 + 1
-        ts = [stamps[i] for i in range(n_phases + 1)]
+        names = phase_names(conv, cs.uses_rowlane(pack, b))
+        ts = [stamps[i] for i in range(len(names) + 1)]
         print(json.dumps({"stage": name, "B": b, "T": t, "D": d, "conv": conv, "rows": r,
-                          "launch_us": 1e3 * ms, "grid": stamps[63],
+                          "launch_us": 1e3 * ms, "grid": stamps[63], "phases": names,
                           "phase_us": [(b_ - a_) / 1e3 for a_, b_ in zip(ts, ts[1:])]}),
               flush=True)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -25,6 +25,17 @@ def cuda_device():
     return G.resolve_device("cuda")
 
 
+def _device_kernels(fn):
+    """(fn's result, the names of the kernels one call of fn ran on the
+    device), by torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
 def _cache(n_layers, b, s, f, quant, gen, dev):
     k = torch.randn((n_layers, b, s, f), generator=gen, device=dev)
     v = torch.randn((n_layers, b, s, f), generator=gen, device=dev)
@@ -58,6 +69,84 @@ def test_decode_attention_kernel_matches_plain(cuda_device, quant):
         # taken in another order
         torch.testing.assert_close(got.float(), want.float(), atol=2e-3, rtol=0)
     assert da.decode_attention.launches == before + 2
+
+
+def _attention(dev, gen, s, lengths, quant, h, kvh, n_layers=2):
+    q = torch.randn((len(lengths), h, 128), generator=gen, device=dev).to(torch.bfloat16)
+    k, v, ks, vs = _cache(n_layers, len(lengths), s, kvh * 128, quant, gen, dev)
+    lengths = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    vis = (torch.arange(s, device=dev)[None] < lengths[:, None]).to(torch.int32)
+    return q, k, v, ks, vs, vis, lengths
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("case", ["7b-g7", "40k-live"])
+def test_decode_attention_7b_grouping_and_long_cache(cuda_device, case, quant):
+    """The 7B grouping (H=28, KVH=4, G=7) at S=4096, and a 90-minute request:
+    40 000 live slots of a 40 960-slot cache (a few layers)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    s, lengths, h, kvh = ((4096, [1500, 4096], 28, 4) if case == "7b-g7"
+                          else (40960, [40000, 40000], 12, 2))
+    q, k, v, ks, vs, vis, lengths = _attention(cuda_device, gen, s, lengths, quant, h, kvh)
+    vis[1, 1:40] = 0
+    for layer in (0, 1):
+        got = da.decode_attention(q, k, v, layer, vis, lengths, ks, vs)
+        torch.cuda.synchronize()
+        want = da.decode_attention_ref(q, k, v, layer, vis, lengths, ks, vs)
+        # bf16 P in P.V (2^-9 of each weight) and bf16 outputs (|out| < 0.5)
+        torch.testing.assert_close(got.float(), want.float(), atol=2e-3, rtol=0)
+
+
+def test_decode_attention_rows_that_see_nothing_are_zero(cuda_device):
+    """A row whose live length is 0, and one whose live slots are all
+    masked, return zeros; the other rows are unaffected."""
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    q, k, v, ks, vs, vis, lengths = _attention(cuda_device, gen, 4096, [0, 2000, 3000, 4096],
+                                               False, 12, 2)
+    vis[1] = 0
+    got = da.decode_attention(q, k, v, 1, vis, lengths)
+    torch.cuda.synchronize()
+    assert torch.count_nonzero(got[:2]) == 0
+    want = da.decode_attention_ref(q, k, v, 1, vis, lengths)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-3, rtol=0)
+
+
+def test_decode_attention_counters_reset_between_calls(cuda_device):
+    """Back-to-back calls with other live lengths (other numbers of splits
+    with work) on the cached workspace: each merges its own splits, so the
+    ticket counters are back at 0 after every call."""
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    q, k, v, ks, vs, vis, _ = _attention(cuda_device, gen, 4096, [4096, 4096], True, 12, 2)
+    for lens in ([4096, 100], [7, 4096], [0, 2000], [4096, 4096], [64, 65]):
+        lengths = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+        got = da.decode_attention(q, k, v, 0, vis, lengths, ks, vs)
+        want = da.decode_attention_ref(q, k, v, 0, vis, lengths, ks, vs)
+        # a row of a few slots averages few values, so its outputs reach 1-2:
+        # one bf16 step of the largest output, at least the 2e-3 of |out| < 0.5
+        tol = max(2e-3, 2 ** -7 * float(want.float().abs().max()))
+        torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
+    _, _, counters = da.workspace(cuda_device, torch.cuda.current_stream().cuda_stream, 2, 2,
+                                  da.plan(2, 2, 4096, torch.bfloat16,
+                                          torch.cuda.get_device_properties(0).multi_processor_count,
+                                          torch.int8),
+                                  6, 128)
+    assert not counters.any()
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_decode_attention_is_one_deterministic_launch(cuda_device, quant):
+    """A call is one kernel on the device (the splits meet in the last CTA of
+    each row and KV head), and two calls give the same bits (the partials are
+    merged in split order)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    q, k, v, ks, vs, vis, lengths = _attention(cuda_device, gen, 8192, [5000, 8192], quant,
+                                               12, 2)
+    first = da.decode_attention(q, k, v, 1, vis, lengths, ks, vs)  # builds the library
+    torch.cuda.synchronize()
+    second, kernels = _device_kernels(
+        lambda: da.decode_attention(q, k, v, 1, vis, lengths, ks, vs))
+    assert len(kernels) == 1 and "mma_kernel" in kernels[0], kernels
+    assert torch.equal(first, second)
 
 
 def test_engine_on_card_matches_cpu(cuda_device):
@@ -130,7 +219,6 @@ def test_int4_matmul_is_one_deterministic_launch(cuda_device, group_size):
     """Two calls on the same inputs give the same bits (the K splits are added
     in a fixed order, no float atomics), and a call is one kernel on the
     device (the splits meet inside the launch)."""
-    from torch.profiler import ProfilerActivity, profile
     from vibevoice_tpu_torch.ops import int4_matmul as im
     gen = torch.Generator(device=cuda_device).manual_seed(7)
     q = im.quantize_int4(torch.randn((8960, 1536), generator=gen, device=cuda_device) * 0.02,
@@ -139,10 +227,7 @@ def test_int4_matmul_is_one_deterministic_launch(cuda_device, group_size):
     first = im.int4_matmul(x, q["qint4"], q["scale4"])  # builds and loads the library
     assert im.plan(2, 8960, 1536)[1] > 1  # splits that meet in a cluster
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        second = im.int4_matmul(x, q["qint4"], q["scale4"])
-        torch.cuda.synchronize()
-    kernels = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    second, kernels = _device_kernels(lambda: im.int4_matmul(x, q["qint4"], q["scale4"]))
     assert len(kernels) == 1 and "int4_matmul" in kernels[0], kernels
     assert torch.equal(first, second)
 
@@ -264,9 +349,13 @@ STAGE_CASES = {
 
 
 def _stage_case(case, dev, gen):
-    from vibevoice_tpu_torch.ops import fused_stage as fs
-    b, t, d, n, conv, head, r = STAGE_CASES[case]
     dt = torch.float32 if case.endswith("fp32") else torch.bfloat16
+    return _stage_inputs(STAGE_CASES[case], dt, dev, gen)
+
+
+def _stage_inputs(spec, dt, dev, gen):
+    from vibevoice_tpu_torch.ops import fused_stage as fs
+    b, t, d, n, conv, head, r = spec
     rn = lambda *s: torch.randn(s, generator=gen, device=dev)
     blocks = _stage(d, n, gen, dev)
     pack = fs.pack_stage(blocks, dtype=dt)
@@ -318,6 +407,45 @@ def test_fused_stage_kernels_match_plain(cuda_device, case):
             tol = (1e-4 if g.dtype == torch.float32 else 2 ** -7) * float(w.float().abs().max())
             torch.testing.assert_close(g.float(), w.float(), atol=tol, rtol=0)
         got_st, want_st = got[1:], want[1:]
+
+
+# the eight folded B=1 stage calls of a 1.5B decode step with
+# `use_fused_stages` (3 blocks each): (stage T, D, fold conv (kind, s, k, cin))
+STEP_STAGES = {
+    "dec3": (200, 256, ("up", 5, 10, 512)), "dec4": (800, 128, ("up", 4, 8, 256)),
+    "dec5": (1600, 64, ("up", 2, 4, 128)), "dec6": (3200, 32, ("up", 2, 4, 64)),
+    "enc0": (3200, 32, ("down", 1, 7, 1)), "enc1": (1600, 64, ("down", 2, 4, 32)),
+    "enc2": (800, 128, ("down", 2, 4, 64)), "enc3": (200, 256, ("down", 4, 8, 128)),
+}
+
+
+@pytest.mark.parametrize("case", list(STEP_STAGES))
+def test_stage_kernel_step_shapes_one_deterministic_launch(cuda_device, case):
+    """The step's eight stage shapes over two chunks (states carried) against
+    the plain version; each call is one kernel on the device, and two calls
+    on the same inputs give the same bits (the FFN shares are added in rank
+    order)."""
+    from vibevoice_tpu_torch.ops import fused_stage as fs
+    t, d, conv = STEP_STAGES[case]
+    pack, xs, ctx, states = _stage_inputs((1, t, d, 3, conv, False, None), torch.bfloat16,
+                                          cuda_device,
+                                          torch.Generator(device=cuda_device).manual_seed(9))
+    st = (ctx, states["conv_state"])
+    want_st = st
+    for x in xs:
+        got = fs.fused_stage_chain(pack, x, st[0], conv_state=st[1])
+        want = fs.fused_stage_chain_ref(pack, x, want_st[0], conv_state=want_st[1])
+        for g, w in zip(got, want):
+            assert torch.isfinite(g).all()
+            torch.testing.assert_close(g.float(), w.float(), rtol=0,
+                                       atol=2 ** -7 * float(w.float().abs().max()))
+        st, want_st = got[1:], want[1:]
+    torch.cuda.synchronize()
+    again, kernels = _device_kernels(
+        lambda: fs.fused_stage_chain(pack, xs[1], ctx, conv_state=states["conv_state"]))
+    assert len(kernels) == 1 and "cluster_kernel" in kernels[0], kernels
+    first = fs.fused_stage_chain(pack, xs[1], ctx, conv_state=states["conv_state"])
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
 # flash prefill: (B, T, S, H, KVH, D, left pad of the last row, row_offset, dtype,

@@ -98,3 +98,41 @@ def test_kernel_argument_checks(bad):
         ks = ks[:, :, :4].contiguous()
     with pytest.raises((TypeError, ValueError)):
         tda._check(q, k, v, layer, vis, ln, ks, vs)
+
+
+@pytest.mark.parametrize("b,kvh,s,dtype,kv,want", [
+    (2, 2, 4096, torch.bfloat16, torch.bfloat16, 64),   # 1.5B engine, B=1: a split a tile
+    (2, 2, 40960, torch.bfloat16, torch.bfloat16, 66),  # two CTAs per SM over 4 pairs
+    (2, 2, 40960, torch.bfloat16, torch.int8, 99),      # int8 KV: three CTAs per SM
+    (2, 4, 40960, torch.bfloat16, torch.bfloat16, 33),  # 7B grouping, KVH=4
+    (1, 1, 100, torch.bfloat16, torch.int8, 2),         # never more splits than tiles
+    (2, 2, 4096, torch.float32, torch.float32, 32),     # fp32: one 128-slot split per CTA
+])
+def test_plan_depends_on_shapes_only(b, kvh, s, dtype, kv, want):
+    assert tda.plan(b, kvh, s, dtype, 132, kv) == want
+
+
+@pytest.mark.parametrize("length", [0, 1, 63, 64, 340, 1500, 4096, 40000, 40960])
+@pytest.mark.parametrize("n_splits", [1, 33, 66])
+def test_splits_cover_the_live_prefix(length, n_splits):
+    """The device's split rule: whole tiles, at most n_splits of them with
+    work, covering every live slot; a short prefix still spreads (340 live
+    slots: 6 CTAs per row and KV head)."""
+    per, n_active = tda.split_of(length, n_splits, 40960)
+    assert per % tda.TILE == 0 and 1 <= n_active <= n_splits
+    assert n_active * per >= length and (n_active - 1) * per < max(length, 1)
+    if n_splits == 66 and length == 340:
+        assert n_active == 6
+
+
+def test_workspace_is_cached_per_stream_and_shape():
+    dev = torch.device("cpu")
+    acc, ml, cnt = tda.workspace(dev, 7, 2, 2, 64, 6, 128)
+    # 64 splits and their 8 groups of 8 for each of the 4 (row, KV head) pairs
+    assert acc.shape == (4, 72, 6, 128) and ml.shape == (4, 72, 6, 2)
+    assert acc.dtype == ml.dtype == torch.float32
+    assert cnt.dtype == torch.int32 and cnt.shape == (4 * 9,) and not cnt.any()
+    again = tda.workspace(dev, 7, 2, 2, 64, 6, 128)
+    assert all(x is y for x, y in zip(again, (acc, ml, cnt)))
+    assert tda.workspace(dev, 8, 2, 2, 64, 6, 128)[0] is not acc
+    assert tda.workspace(dev, 7, 2, 4, 33, 7, 128)[0].shape == (8, 38, 7, 128)

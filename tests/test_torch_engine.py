@@ -127,3 +127,27 @@ def test_engine_rejects_modes_outside_the_slice():
                    use_flash_decode=True)
     assert on.cache_len == 4096
     assert not torch.is_tensor(on.cache_len)
+
+
+@pytest.mark.parametrize("variant", ["show_progress", "fused_stage_tile"])
+def test_engine_takes_the_reference_arguments(variant):
+    """`generate(show_progress=True)` (a tqdm bar) and `Engine(fused_stage_tile=…,
+    fused_stage_tile_semantic=…)` (the JAX kernel's T tiles, ignored) are taken
+    as the JAX engine takes them, and change neither tokens nor audio."""
+    _, _, tp = _params()
+    cfg, gen = TC.tiny_config(vocab_size=320), TG.GenerationConfig(**GEN)
+    ids, mask, sim, fmask, vl, noise = _inputs()
+    kw = dict(max_steps=STEPS, batch=B, prompt_len=T, inject_latent_noise=True, device="cpu",
+              use_fused_stages=True, fused_stage_t_min=7)
+    tiles = dict(fused_stage_tile=200, fused_stage_tile_semantic=100)
+    runs = []
+    for on in (False, True):
+        eng = TG.Engine(tp, cfg, gen, **kw, **(tiles if on and variant != "show_progress" else {}))
+        runs.append(TG.generate(eng, ids, mask, sim, speech_frame_masks=fmask, voice_latents=vl,
+                                latent_noise=noise,
+                                show_progress=on and variant == "show_progress"))
+    np.testing.assert_array_equal(runs[1].tokens, runs[0].tokens)
+    assert runs[1].steps == runs[0].steps
+    for a, w in zip(runs[1].audio, runs[0].audio):
+        assert w is not None and np.isfinite(w).all()
+        np.testing.assert_array_equal(a, w)

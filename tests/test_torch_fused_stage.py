@@ -390,3 +390,28 @@ def test_plain_chain_packs_still_refused():
                           ("use_fused_semantic", "_semantic_packs")):
             assert (key in eng.params) == bool(kw.get(flag))
             assert all("w1" in p for p in eng.params.get(key, {}).values())
+
+
+@pytest.mark.parametrize("f,dtype,want", [
+    (1024, torch.bfloat16, 8), (512, torch.bfloat16, 8),   # D=256, 128: 128 / 64 columns a CTA
+    (256, torch.bfloat16, 4), (128, torch.bfloat16, 2),    # D=64, 32
+    (16, torch.float32, 1), (32, torch.float32, 1), (200, torch.bfloat16, 1)])
+def test_cluster_size_splits_the_ffn_columns(f, dtype, want):
+    """The stage kernel's CTAs per cluster: at most the portable 8, FFN
+    column slices of at least 64 columns and of whole 16-byte vectors."""
+    c = TFS.cluster_size(f, dtype)
+    assert c == want and 1 <= c <= TFS.MAX_CLUSTER and f % c == 0
+    es = torch.finfo(dtype).bits // 8
+    assert c == 1 or (f // c >= TFS.CLUSTER_COLS and (f // c * es) % 16 == 0)
+
+
+def test_stage_scratch_is_cached_per_stream_and_size():
+    dev = torch.device("cpu")
+    buf = TFS.scratch(dev, 3, False, 800 * 128, 2 * 800 * 128, 8)
+    assert set(buf) == {"xg", "xb", "yg", "bar"}
+    assert buf["xg"].numel() == 2 * 800 * 128 and buf["xb"].numel() == 800 * 128
+    assert buf["bar"].dtype == torch.int32 and not buf["bar"].any()
+    assert TFS.scratch(dev, 3, False, 800 * 128, 2 * 800 * 128, 8) is buf
+    assert TFS.scratch(dev, 4, False, 800 * 128, 2 * 800 * 128, 8) is not buf
+    rl = TFS.scratch(dev, 3, True, 100, 0, 3)
+    assert set(rl) == {"yg", "xb", "hng", "part"} and rl["part"].numel() == 300

@@ -93,3 +93,19 @@ def _serve(tts):
         np.testing.assert_allclose(np.concatenate(chunks), res.audio[0], atol=0)
         assert np.isfinite(res.audio[0]).all() and np.abs(res.audio[0]).max() > 0
         assert metrics["audio_sec"] == 9 * hop / 24000.0
+
+
+def test_pipeline_generate_takes_show_progress():
+    """`VibeVoiceTTS.generate(show_progress=True)`, as the JAX pipeline and
+    `demo/inference_from_file.py` call it: the same tokens and audio as
+    without the bar."""
+    tts = VibeVoiceTTS.from_random(TC.tiny_config(vocab_size=320), dtype=torch.float32,
+                                   ddpm_steps=2, prompt_bucket=64, device="cpu")
+    script, n_voices = SCRIPTS[0]
+    voices = _voices(n_voices)
+    force_diffusion_engine(tts, script, voices, 8)
+    runs = [tts.generate(script, voices, max_new_tokens=8, show_progress=on)[0]
+            for on in (False, True)]
+    np.testing.assert_array_equal(runs[1].tokens, runs[0].tokens)
+    assert runs[0].audio[0] is not None and np.isfinite(runs[0].audio[0]).all()
+    np.testing.assert_array_equal(runs[1].audio[0], runs[0].audio[0])

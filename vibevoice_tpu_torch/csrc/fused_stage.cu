@@ -27,32 +27,60 @@
 //
 // Design: the TPU grid walks T-tiles in order and carries every block's conv
 // context in VMEM.  On Hopper, in order, one CTA would own the stage at B=1.
-// Here ONE cooperative launch spreads each phase over the grid, with grid
-// barriers between phases:
-//   P. (folded conv) the conv as a tiled product into `xg`: "up" x_in @ every
-//      tap's weight ([Ti, 2s*W], the overlap-add is left to phase A), "down"
-//      the strided windows of [context; x_in] @ the flattened [k*Cin, W]
-//      weight; CTA 0 copies the new down-conv context;
-//   then per block:
-//   A. items of RT rows: the block input of the rows and of the 6 rows
-//      before them (`xb`; block 0: x, or the conv's product plus bias and
-//      overlap) is normed, convolved with [ctx; h], and written as the
-//      residual to `yg` and the rounded FFN input to `hng`; the last item
-//      writes the new context (and, block 0, the new transposed-conv tail);
+// Here ONE launch spreads the stage over the card, and a grid barrier stands
+// only where a row tile needs rows of the tile before it.
+//
+// The stage (packs without a row-lane entry, `cluster_kernel`): each row tile
+// of R = 32 rows is owned by one thread-block cluster of C <= 8 CTAs (C from
+// the wrapper: F / C FFN columns per CTA):
+//   P. (folded conv) the conv as a tiled product into `xg` over the whole
+//      grid: "up" x_in @ every tap's weight ([Ti, 2s*W], the overlap-add is
+//      left to the first block's mixer), "down" the strided windows of
+//      [context; x_in] @ the flattened [k*Cin, W] weight; CTA 0 copies the
+//      new down-conv context;
 //   -- grid barrier --
-//   B. items of RB rows x FT FFN columns: gelu(hn @ w1[:, tile] + b1) stays
-//      in shared memory; a @ w2[tile, :] goes to the fp32 partials `part`;
-//   -- grid barrier --
-//   C. the whole grid adds the partials in tile order (no float atomics, the
-//      same result on every run) into the next block's input `xb`;
-//   -- grid barrier --
-//   O. items of RT rows write y in the activation dtype, or, with the folded
-//      tail, the waveform rows (one warp per row) and the new head context.
-// So results do not depend on the grid or on the JAX package's `tile_want`.
-// The products run as fp32 FMAs on the CUDA cores from 4x4 (conv: 1x4)
-// register tiles; every weight tile is staged through shared memory in
-// chunks of KC rows with 16-byte loads, so a thread waits for one load
-// latency per chunk rather than per row.  mma/wgmma are left for later.
+//   then per block and row tile, inside its cluster:
+//   A. CTA `rank` takes R / C of the tile's rows: their block input and that
+//      of the 6 rows before them (x, the conv's product plus bias and
+//      overlap, or the previous block's output) is normed, convolved with
+//      [ctx; h], and kept as the residual; the rounded FFN input goes to its
+//      shared memory; the CTA of the last row writes the new context (and,
+//      block 0, the new transposed-conv tail);
+//   -- cluster barrier: each CTA gathers the tile's FFN input from its peers
+//      through distributed shared memory --
+//   B. each CTA's F / C FFN columns: gelu(hn @ w1[:, cols] + b1) stays in
+//      shared memory, a @ w2[cols, :] is its share of the output, in shared
+//      memory too;
+//   -- cluster barrier --
+//   C. CTA `rank` adds its rows' C shares in rank order through distributed
+//      shared memory (no float atomics and no partials in device memory: the
+//      same result on every run) and writes the block's output rows (fp32,
+//      alternating between two buffers), or, for the last block, y;
+//   -- grid barrier between blocks: the next block's mixer reads the 6 rows
+//      before its tile from another cluster --
+//   O. only with the folded tail (which needs the hk - 1 rows before each
+//      tile): after one more grid barrier, items of RT rows write the
+//      waveform rows (one warp per row) and the new head context.
+// So a call makes N - 1 grid barriers, plus one for a folded conv and one for
+// the folded tail (a barrier per phase, as the row-lane kernel has, makes
+// 3N + 1), and its results depend on C (a function of the shape) but not on
+// the grid or on the JAX package's `tile_want`.  The products (`gemm`) stream their weights in chunks of GKC
+// rows through a ring of NSTAGE cp.async buffers (`Ring`), which starts
+// loading a tile's FFN weights before its mixer runs.  In bf16 they run on
+// mma.sync m16n8k16 (fp32 sums) where every depth is whole k16 steps; the
+// stem conv (cin = 1) and fp32 packs take exact fp32 FMAs.  The grid
+// barrier is a counter in device memory (the clusters are launched with
+// cudaLaunchKernelEx, never more than the card holds at once, which the
+// occupancy query gives).
+//
+// The row-lane layout (`stage_kernel`, TPU kernel #7, which folds nothing)
+// keeps a grid barrier per phase in one cooperative launch: per block A (items
+// of RT rows, into `yg` and `hng`), B (items of RB rows x FT FFN columns,
+// fp32 partials `part`), C (the whole grid adds the partials in tile order),
+// then O, with a grid barrier between phases; its RMSNorm group means go
+// through the `avg` product, and its products are fp32 FMAs from 4x4
+// register tiles, every weight tile staged through shared memory in chunks
+// of KC rows.
 //
 // Plain C interface, loaded with ctypes (`StageParams` mirrors the ctypes
 // structure in ops/fused_stage.py).  dtype codes: 0 float32, 1 bfloat16 (x,
@@ -63,6 +91,8 @@
 #include <cooperative_groups.h>
 
 #include <algorithm>
+#include <map>
+#include <tuple>
 
 #include "int4_common.cuh"
 
@@ -76,7 +106,6 @@ constexpr int CTX = 6;
 constexpr int RT = 32;   // rows per mixer / output item
 constexpr int RB = 64;   // rows per FFN item (16 row groups of 4)
 constexpr int FT = 64;   // FFN columns per item (16 column groups of 4)
-constexpr int RP = 16;   // output rows per conv item (16 row groups of 1)
 constexpr int NT = 64;   // columns per product tile
 constexpr int KC = 128;  // weight rows per shared-memory chunk
 constexpr int LB = 8;    // independent loads a thread has in flight before using them
@@ -104,7 +133,9 @@ struct StageParams {
   float* xb;    // [B*T, W] input of the next block
   float* hng;   // [B*T, W] rounded FFN input
   float* part;  // [nF][B*T, W] FFN partials
+  unsigned int* bar;  // the grid barrier's counter (0 before the first call)
   int B, T, W, F, NB, w1_stride, b1_stride, conv_kind, cs, ck, cin, hk, hnorm, dtype;
+  int C;  // CTAs per cluster: FFN column slices of a row tile
   float eps;
 };
 
@@ -173,14 +204,16 @@ __device__ void gemm_tile(const float* A, int lda, int K, const T* b, size_t ldb
 }
 
 // dst[e] = e < n ? src[e] : 0 for e < total (both multiples of 4, src 16-byte
-// aligned): LB float4 loads in flight per thread
+// aligned): LB float4 loads in flight per thread, from L2 (src was written in
+// this launch by other CTAs)
 __device__ __forceinline__ void copy_rows(float* dst, const float* src, int n, int total) {
   for (int e0 = 4 * threadIdx.x; e0 < total; e0 += 4 * THREADS * LB) {
     float4 v[LB];
 #pragma unroll
     for (int u = 0; u < LB; ++u) {
       const int e = e0 + 4 * THREADS * u;
-      v[u] = e < n ? *reinterpret_cast<const float4*>(src + e) : make_float4(0.f, 0.f, 0.f, 0.f);
+      v[u] = e < n ? __ldcg(reinterpret_cast<const float4*>(src + e))
+                   : make_float4(0.f, 0.f, 0.f, 0.f);
     }
 #pragma unroll
     for (int u = 0; u < LB; ++u) {
@@ -198,14 +231,14 @@ __device__ __forceinline__ float stage_input(const StageParams& p, size_t row, i
   const int W = p.W;
   if (p.conv_kind == 0) return vv::to_f(static_cast<const T*>(p.x)[row * W + d]);
   const float b = vv::to_f(static_cast<const T*>(p.conv_b)[d]);
-  if (p.conv_kind == 2) return p.xg[row * W + d] + b;
+  if (p.conv_kind == 2) return __ldcg(p.xg + row * W + d) + b;
   const int s = p.cs, tin = p.T / s;
   const size_t bb = row / p.T;
   const int t = static_cast<int>(row % p.T), i = t / s, j = t % s;
   const float* yi = p.xg + (bb * tin + i) * 2 * s * W;
-  const float prev = i > 0 ? yi[(s + j) * W + d - 2 * s * W]
+  const float prev = i > 0 ? __ldcg(yi + (s + j) * W + d - 2 * s * W)
                            : vv::to_f(static_cast<const T*>(p.conv_state)[(bb * s + j) * W + d]);
-  return (yi[j * W + d] + prev) + b;
+  return (__ldcg(yi + j * W + d) + prev) + b;
 }
 
 // ---- C: xb = residual + ffn_gamma * (FFN partials, in tile order, + ffn2_b)
@@ -242,42 +275,39 @@ __device__ void phase_sum(const StageParams& p, int nb) {
   }
 }
 
-// xs[j * W + d] = the input of block nb (`stage_input`, or `xb` of phase C)
-// at row lo + j of the batch row that starts at row0 (0 before the
-// sequence), for j < nrow
+// xs[j * W + d] = the input of block nb (`stage_input`, or the previous
+// block's output `src`) at row lo + j of the batch row that starts at row0 (0
+// before the sequence), for j < nrow
 template <typename T>
-__device__ void load_rows(const StageParams& p, int nb, size_t row0, int lo, int nrow, float* xs) {
+__device__ void load_rows(const StageParams& p, const float* src, int nb, size_t row0, int lo,
+                          int nrow, float* xs) {
   const int W = p.W, n = nrow * W;
-  if (nb > 0) {  // a plain copy of `xb`, 16-byte vectors
+  if (nb > 0) {  // a plain copy of the previous block's output, 16-byte vectors
     const int skip = max(0, -lo);
     for (int e = threadIdx.x; e < skip * W; e += THREADS) xs[e] = 0.f;
-    copy_rows(xs + skip * W, p.xb + (row0 + lo + skip) * W, n - skip * W, n - skip * W);
+    copy_rows(xs + skip * W, src + (row0 + lo + skip) * W, n - skip * W, n - skip * W);
     return;
   }
-  for (int e0 = threadIdx.x; e0 < n; e0 += 4 * THREADS) {
-    float v[4];
+  for (int e0 = threadIdx.x; e0 < n; e0 += LB * THREADS) {
+    float v[LB];
 #pragma unroll
-    for (int u = 0; u < 4; ++u) {
+    for (int u = 0; u < LB; ++u) {
       const int e = e0 + u * THREADS, t = lo + e / W;
       v[u] = e < n && t >= 0 ? stage_input<T>(p, row0 + t, e % W) : 0.f;
     }
 #pragma unroll
-    for (int u = 0; u < 4; ++u)
+    for (int u = 0; u < LB; ++u)
       if (e0 + u * THREADS < n) xs[e0 + u * THREADS] = v[u];
   }
 }
 
-// sc = 1 / sqrt(mean-square + eps) of buf's nrow (<= RB) rows: per row
-// (sc[j]) or, with the row-lane `avg`, per element: sc[j * W + d] from the
-// product (buf * buf) @ avg, tiled through `sq` ([RB][W]) and the chunk
-// buffer `bsf` (KC x NT fp32).  Block-wide.
+// sc[j * W + d] = 1 / sqrt(mean-square + eps) of buf's nrow (<= RB) rows
+// over each element's row-lane group: the product (buf * buf) @ avg, tiled
+// through `sq` ([RB][W]) and the chunk buffer `bsf` (KC x NT fp32).
+// Block-wide.
 __device__ void inv_rms(const StageParams& p, const float* buf, int nrow, float* sc, float* sq,
                         float* bsf) {
   const int W = p.W;
-  if (p.avg == nullptr) {
-    vv::row_rsqrt(buf, nrow, W, p.eps, sc);
-    return;
-  }
   for (int e = threadIdx.x; e < RB * W; e += THREADS) {
     const float v = e < nrow * W ? buf[e] : 0.f;
     sq[e] = v * v;
@@ -300,76 +330,6 @@ __device__ void inv_rms(const StageParams& p, const float* buf, int nrow, float*
   }
 }
 
-__device__ __forceinline__ float sc_at(const StageParams& p, const float* sc, int j, int d) {
-  return p.avg ? sc[j * p.W + d] : sc[j];
-}
-
-// ---- P: the folded transition conv's product ----
-template <typename T>
-__device__ void phase_conv(const StageParams& p, float* sm) {
-  const T* x = static_cast<const T*>(p.x);
-  const T* cw = static_cast<const T*>(p.conv_w);
-  const T* st = static_cast<const T*>(p.conv_state);
-  const int W = p.W, Tn = p.T, s = p.cs, k = p.ck, cin = p.cin;
-  const bool up = p.conv_kind == 1;
-  const int ctxlen = k - s;
-  const int tin = up ? Tn / s : Tn * s;
-  // up: rows are input frames, columns every tap's channels; down: rows are
-  // output rows, columns the channels
-  const int mrows = up ? tin : Tn, ncol = up ? 2 * s * W : W;
-  const int dtiles = (W + NT - 1) / NT, ntiles = (up ? 2 * s : 1) * dtiles;
-  const int mtiles = (mrows + RP - 1) / RP;
-  // A rows in shared memory: up x_in[m0 + r], down full[m0*s .. (m0+RP-1)*s + k)
-  const int arows = up ? RP : (RP - 1) * s + k, lda = up ? cin : s * cin;
-  float* As = sm;
-  T* bs = reinterpret_cast<T*>(As + (arows * cin + 3) / 4 * 4);
-  for (int it = blockIdx.x; it < p.B * mtiles * ntiles; it += gridDim.x) {
-    const int bb = it / (mtiles * ntiles), mt = (it / ntiles) % mtiles, nt = it % ntiles;
-    const int m0 = mt * RP, mr = min(RP, mrows - m0);
-    // a tile is NT channels of one tap
-    const int tap = nt / dtiles, d0 = (nt % dtiles) * NT, n0 = tap * W + d0;
-    const int nc = min(NT, W - d0);
-    const int f_lo = up ? m0 : m0 * s;
-    const int nin = arows * cin;
-    for (int e0 = threadIdx.x; e0 < nin; e0 += LB * THREADS) {
-      float v[LB];
-#pragma unroll
-      for (int u = 0; u < LB; ++u) {
-        const int e = e0 + u * THREADS, f = f_lo + e / cin, c = e % cin;
-        v[u] = 0.f;
-        if (e >= nin) continue;
-        if (up) {
-          if (f < tin) v[u] = vv::to_f(x[(static_cast<size_t>(bb) * tin + f) * cin + c]);
-        } else if (f < ctxlen) {
-          v[u] = vv::to_f(st[(static_cast<size_t>(bb) * ctxlen + f) * cin + c]);
-        } else if (f - ctxlen < tin) {
-          v[u] = vv::to_f(x[(static_cast<size_t>(bb) * tin + f - ctxlen) * cin + c]);
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < LB; ++u)
-        if (e0 + u * THREADS < nin) As[e0 + u * THREADS] = v[u];
-    }
-    float acc[1][4] = {{0.f, 0.f, 0.f, 0.f}};
-    gemm_tile<T, 1>(As, lda, up ? cin : k * cin, cw + static_cast<size_t>(tap) * cin * W + d0, W,
-                    nc, bs, acc);
-    const int r = threadIdx.x / 16, c0 = 4 * (threadIdx.x % 16);
-    if (r < mr && c0 < nc) {
-      float* out = p.xg + (static_cast<size_t>(bb) * mrows + m0 + r) * ncol + n0 + c0;
-      *reinterpret_cast<float4*>(out) = make_float4(acc[0][0], acc[0][1], acc[0][2], acc[0][3]);
-    }
-  }
-  if (!up && blockIdx.x == 0) {  // new context: the last k-s rows of [context; x_in]
-    T* out = static_cast<T*>(p.conv_out);
-    for (int e = threadIdx.x; e < p.B * ctxlen * cin; e += THREADS) {
-      const int bb = e / (ctxlen * cin), j = (e / cin) % ctxlen, c = e % cin;
-      const int f = tin + j;
-      out[e] = f < ctxlen ? st[(static_cast<size_t>(bb) * ctxlen + f) * cin + c]
-                          : x[(static_cast<size_t>(bb) * tin + f - ctxlen) * cin + c];
-    }
-  }
-}
-
 // ---- A: norm, context, mixer, second norm ----
 template <typename T>
 __device__ void phase_mixer(const StageParams& p, int nb, float* sm) {
@@ -381,9 +341,9 @@ __device__ void phase_mixer(const StageParams& p, int nb, float* sm) {
   float* vs = sm;                     // [11][W]: norm_w, mixer_b, gamma, ffn_norm_w, 7 taps
   float* xs = vs + 11 * W;            // [RT + 6][W] block input, then residual
   float* hs = xs + (RT + CTX) * W;    // [RT + 6][W] normed rows over [ctx; h]
-  float* sc = hs + (RT + CTX) * W;    // inverse RMS: [RT + 6] or, row-lane, [RT + 6][W]
-  float* sq = sc + (RT + CTX) * W;    // row-lane: [RB][W] squares
-  float* bsf = sq + RB * W;           // row-lane: [KC][NT] avg chunk
+  float* sc = hs + (RT + CTX) * W;    // [RT + 6][W] inverse RMS of each element's group
+  float* sq = sc + (RT + CTX) * W;    // [RB][W] squares
+  float* bsf = sq + RB * W;           // [KC][NT] avg chunk
   for (int e = threadIdx.x; e < 11 * W; e += THREADS)
     vs[e] = vv::to_f(e < 4 * W ? vec[e] : taps[e - 4 * W]);
   const int tiles = (Tn + RT - 1) / RT;
@@ -391,26 +351,20 @@ __device__ void phase_mixer(const StageParams& p, int nb, float* sm) {
     const int bb = it / tiles, t0 = (it % tiles) * RT, t1 = min(Tn, t0 + RT);
     const int lo = t0 - CTX, nrow = t1 - lo;
     const size_t row0 = static_cast<size_t>(bb) * Tn;
-    load_rows<T>(p, nb, row0, lo, nrow, xs);
+    load_rows<T>(p, p.xb, nb, row0, lo, nrow, xs);
     __syncthreads();
     inv_rms(p, xs, nrow, sc, sq, bsf);
     __syncthreads();
     const T* c_in = ctx_in + (static_cast<size_t>(bb) * NB + nb) * CTX * W;
     for (int e = threadIdx.x; e < nrow * W; e += THREADS) {
       const int j = e / W, d = e % W, t = lo + j;
-      hs[e] = t >= 0 ? xs[e] * sc_at(p, sc, j, d) * vs[d] : vv::to_f(c_in[(t + CTX) * W + d]);
+      hs[e] = t >= 0 ? xs[e] * sc[e] * vs[d] : vv::to_f(c_in[(t + CTX) * W + d]);
     }
     __syncthreads();
     if (t1 == Tn) {
       T* c_out = ctx_out + (static_cast<size_t>(bb) * NB + nb) * CTX * W;
       for (int e = threadIdx.x; e < CTX * W; e += THREADS)
         c_out[e] = vv::from_f<T>(hs[(Tn - CTX - lo) * W + e]);
-      if (nb == 0 && p.conv_kind == 1) {  // new transposed-conv tail: x[last] @ Wc[s+j]
-        const int s = p.cs, tin = Tn / s;
-        const float* yl = p.xg + (static_cast<size_t>(bb) * tin + tin - 1) * 2 * s * W;
-        T* tail = static_cast<T*>(p.conv_out) + static_cast<size_t>(bb) * s * W;
-        for (int e = threadIdx.x; e < s * W; e += THREADS) tail[e] = vv::from_f<T>(yl[s * W + e]);
-      }
     }
     float* ycur = p.yg + (row0 + t0) * W;
     for (int e = threadIdx.x; e < (t1 - t0) * W; e += THREADS) {
@@ -428,7 +382,7 @@ __device__ void phase_mixer(const StageParams& p, int nb, float* sm) {
     float* hn = p.hng + (row0 + t0) * W;
     for (int e = threadIdx.x; e < (t1 - t0) * W; e += THREADS) {
       const int r = e / W, d = e % W;
-      hn[e] = vv::round_to<T>(xs[(r + CTX) * W + d] * sc_at(p, sc, r, d) * vs[3 * W + d]);
+      hn[e] = vv::round_to<T>(xs[(r + CTX) * W + d] * sc[e] * vs[3 * W + d]);
     }
     __syncthreads();
   }
@@ -487,7 +441,7 @@ __device__ void phase_ffn(const StageParams& p, int nb, float* sm) {
 
 // ---- O: the stage output, or the folded tail ----
 template <typename T>
-__device__ void phase_out(const StageParams& p, float* sm) {
+__device__ void phase_out(const StageParams& p, const float* src, float* sm) {
   const int W = p.W, Tn = p.T, NB = p.NB, hk = p.hk, hc = hk ? hk - 1 : 0;
   T* y = static_cast<T*>(p.y);
   const int tiles = (Tn + RT - 1) / RT;
@@ -498,7 +452,7 @@ __device__ void phase_out(const StageParams& p, float* sm) {
     const int bb = it / tiles, t0 = (it % tiles) * RT, t1 = min(Tn, t0 + RT);
     const size_t row0 = static_cast<size_t>(bb) * Tn;
     const int lo = t0 - hc, nrow = t1 - lo;
-    load_rows<T>(p, NB, row0, lo, nrow, xs);
+    load_rows<T>(p, src, NB, row0, lo, nrow, xs);
     __syncthreads();
     if (!hk) {
       for (int e = threadIdx.x; e < (t1 - t0) * W; e += THREADS)
@@ -538,10 +492,6 @@ template <typename T>
 __global__ void __launch_bounds__(THREADS) stage_kernel(StageParams p) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ float sm[];
-  if (p.conv_kind) {
-    phase_conv<T>(p, sm);
-    grid.sync();
-  }
   for (int nb = 0; nb < p.NB; ++nb) {
     phase_mixer<T>(p, nb, sm);
     grid.sync();
@@ -550,56 +500,601 @@ __global__ void __launch_bounds__(THREADS) stage_kernel(StageParams p) {
     phase_sum<T>(p, nb);
     grid.sync();
   }
-  phase_out<T>(p, sm);
+  phase_out<T>(p, p.xb, sm);
+}
+
+// ======================================================================
+// The stage kernel proper (packs without a row-lane entry): one launch,
+// thread-block clusters over row tiles, one grid barrier per block.
+// ======================================================================
+
+constexpr int R = 32;          // rows per cluster tile (two m16 tiles)
+constexpr int GKC = 128;       // weight rows per cp.async chunk of a `Ring`
+constexpr int NSTAGE = 3;      // chunks in a `Ring`: two load while one is consumed
+constexpr int GNT = 64;        // columns per product tile
+constexpr int GNTP = GNT + 8;  // chunk row stride (elements): ldmatrix.trans without conflicts
+constexpr int MAX_C = 8;       // CTAs per cluster: the portable size
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+// 16 bytes global -> shared; with pred false nothing is read and the
+// destination is zero-filled
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(pred ? 16 : 0));
+}
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm4t(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+// c += a b for one 16x8 tile: a 16x16 bf16 (row), b 16x8 bf16 (col), c fp32
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Grid-wide barrier on a counter in device memory (the algorithm of
+// cooperative groups' grid.sync: block 0 adds 2^31 - (n - 1), the others 1,
+// so the counter's top bit flips once all have arrived and its low bits are
+// back to 0).  Every CTA of the grid is resident: the host sizes the grid by
+// the occupancy of the cluster launch.  A barrier that is not reached within
+// seconds traps rather than hanging the card.
+__device__ void grid_barrier(unsigned int* bar) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const unsigned int add = blockIdx.x == 0 ? 0x80000000u - (gridDim.x - 1) : 1u;
+    __threadfence();
+    const unsigned int old = atomicAdd(bar, add);
+    unsigned int cur;
+    long long spins = 0;
+    while (true) {
+      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(cur) : "l"(bar) : "memory");
+      if ((old ^ cur) & 0x80000000u) break;
+      if (++spins > (1LL << 26)) __trap();
+      __nanosleep(32);
+    }
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+// The weight chunks of up to two products (B_p: K_p x N_p, row stride ld_p,
+// 16-byte aligned rows), streamed in order, GKC rows x GNT columns at a time,
+// through a ring of NSTAGE cp.async buffers in shared memory: the ring runs
+// NSTAGE - 1 chunks ahead of the product that consumes them, so the first
+// chunks load before (or while) the product's A is made, and each chunk
+// waits behind NSTAGE - 2 others rather than on its own load.
+template <typename T>
+struct Ring {
+  const T* b0;
+  const T* b1;
+  size_t ld0, ld1;
+  int k0, k1, n0, n1, nk0, nk1, cnt0, cnt1;
+  T* bs;
+  int issued;
+
+  __device__ Ring(T* buf, const T* B0, size_t ldb0, int K0, int N0, const T* B1 = nullptr,
+                  size_t ldb1 = 0, int K1 = 0, int N1 = 0)
+      : b0(B0), b1(B1), ld0(ldb0), ld1(ldb1), k0(K0), k1(K1), n0(N0), n1(N1),
+        nk0((K0 + GKC - 1) / GKC), nk1((K1 + GKC - 1) / GKC),
+        cnt0(nk0 * ((N0 + GNT - 1) / GNT)), cnt1(B1 ? nk1 * ((N1 + GNT - 1) / GNT) : 0),
+        bs(buf), issued(0) {
+    for (int i = 0; i < NSTAGE - 1; ++i) issue();
+  }
+
+  __device__ T* slot(int q) const { return bs + (q % NSTAGE) * GKC * GNTP; }
+
+  // the next chunk's loads (none past the last chunk), committed as a group
+  __device__ void issue() {
+    constexpr int V = 16 / sizeof(T);  // elements per 16-byte vector
+    const int q = issued++;
+    if (q < cnt0 + cnt1) {
+      const bool second = q >= cnt0;
+      const int r = second ? q - cnt0 : q, nk = second ? nk1 : nk0;
+      const int K = second ? k1 : k0, N = second ? n1 : n0;
+      const T* B = second ? b1 : b0;
+      const size_t ldb = second ? ld1 : ld0;
+      const int kb = (r % nk) * GKC, nb = (r / nk) * GNT;
+      T* buf = slot(q);
+      for (int i = threadIdx.x; i < GKC * (GNT / V); i += THREADS) {
+        const int row = i / (GNT / V), c = i % (GNT / V), k = kb + row, n = nb + c * V;
+        const bool live = k < K && n < N;
+        cp_async16(buf + row * GNTP + c * V, live ? B + k * ldb + n : B, live);
+      }
+    }
+    cp_commit();
+  }
+};
+
+// Block-wide product of a 32-row tile with the ring's product `second`: for
+// every column tile of GNT columns of B, epi(r, c, sum_k A[r * lda + k] *
+// B[k][c]) for r < 32, c < N.  A (32 x K, type T) is in shared memory.  MMA:
+// bf16 mma.sync m16n8k16, fp32 sums (K a multiple of 16, A's rows 16-byte
+// aligned); warp w takes rows 16 (w / 4) .. +16 and columns 16 (w % 4) .. +16
+// of the tile.  Else exact fp32 FMAs: thread t takes rows 2 (t / 16) + {0, 1}
+// and columns 4 (t % 16) .. +4.
+template <typename T, bool MMA, typename Epi>
+__device__ void gemm(Ring<T>& ring, bool second, const T* A, int lda, Epi epi) {
+  const int K = second ? ring.k1 : ring.k0, N = second ? ring.n1 : ring.n0;
+  const int nk = second ? ring.nk1 : ring.nk0, cnt = second ? ring.cnt1 : ring.cnt0;
+  const int base = second ? ring.cnt0 : 0;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  float acc[2][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  for (int r = 0; r < cnt; ++r) {
+    const int kc = r % nk, k0 = kc * GKC, kn = min(GKC, K - k0), n0 = (r / nk) * GNT;
+    cp_wait<NSTAGE - 2>();  // this chunk has landed
+    __syncthreads();        // ... for every thread; the previous chunk is consumed
+    ring.issue();           // into the previous chunk's buffer
+    const T* buf = ring.slot(base + r);
+    if constexpr (MMA) {
+      const int mi = warp >> 2, nj = warp & 3;
+      for (int kk = 0; kk < kn; kk += 16) {
+        uint32_t a[4], b[4];
+        ldsm4(a, A + (16 * mi + (lane & 15)) * lda + k0 + kk + 8 * (lane >> 4));
+        ldsm4t(b, buf + (kk + (lane & 7) + 8 * ((lane >> 3) & 1)) * GNTP + 16 * nj +
+                      8 * (lane >> 4));
+        mma_bf16(acc[0], a, b[0], b[1]);
+        mma_bf16(acc[1], a, b[2], b[3]);
+      }
+    } else {
+      const int cgi = tid % 16, rg = tid / 16;
+      const T* a0 = A + 2 * rg * lda + k0;
+#pragma unroll 4
+      for (int k = 0; k < kn; ++k) {
+        const float4 w = lds4(buf + k * GNTP + 4 * cgi);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const float a = vv::to_f(a0[i * lda + k]);
+          acc[i][0] += a * w.x;
+          acc[i][1] += a * w.y;
+          acc[i][2] += a * w.z;
+          acc[i][3] += a * w.w;
+        }
+      }
+    }
+    if (kc == nk - 1) {
+      if constexpr (MMA) {
+        const int mi = warp >> 2, nj = warp & 3, g = lane / 4, t4 = lane % 4;
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int c = n0 + 16 * nj + 8 * j + 2 * t4 + (e & 1);
+            if (c < N) epi(16 * mi + g + 8 * (e >> 1), c, acc[j][e]);
+            acc[j][e] = 0.f;
+          }
+      } else {
+        const int cgi = tid % 16, rg = tid / 16;
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int c = n0 + 4 * cgi + j;
+            if (c < N) epi(2 * rg + i, c, acc[i][j]);
+            acc[i][j] = 0.f;
+          }
+      }
+    }
+  }
+  __syncthreads();  // the epilogue's writes are visible; the last buffer is consumed
+}
+
+// bytes of the conv phase's A tile (16-byte multiple): up R rows of cin + 8,
+// down the windows of R output rows back to back
+__host__ __device__ inline size_t conv_a_bytes(const StageParams& p, size_t tsize) {
+  const size_t n = p.conv_kind == 1 ? static_cast<size_t>(R) * (p.cin + 8)
+                                    : static_cast<size_t>((R - 1) * p.cs + p.ck) * p.cin;
+  return (n * tsize + 15) / 16 * 16;
+}
+
+// ---- the folded transition conv's product, over the whole grid ----
+template <typename T, bool MMA>
+__device__ void conv_phase(const StageParams& p, unsigned char* sm) {
+  const T* x = static_cast<const T*>(p.x);
+  const T* cw = static_cast<const T*>(p.conv_w);
+  const T* st = static_cast<const T*>(p.conv_state);
+  const int W = p.W, Tn = p.T, s = p.cs, k = p.ck, cin = p.cin;
+  const bool up = p.conv_kind == 1;
+  const int ctxlen = k - s;
+  const int tin = up ? Tn / s : Tn * s;
+  // up: rows are input frames, columns every tap's channels; down: rows are
+  // output rows, columns the channels
+  const int mrows = up ? tin : Tn, ncol = up ? 2 * s * W : W;
+  const int dtiles = (W + GNT - 1) / GNT, ntiles = (up ? 2 * s : 1) * dtiles;
+  const int mtiles = (mrows + R - 1) / R;
+  // A in shared memory: up x_in[m0 + r] (row stride cin + 8), down the
+  // windows full[m0*s .. (m0+R-1)*s + k) back to back (row r at r*s*cin)
+  const int arows = up ? R : (R - 1) * s + k, lda = up ? cin + 8 : s * cin;
+  const int nin = arows * cin;
+  T* As = reinterpret_cast<T*>(sm);
+  T* bs = reinterpret_cast<T*>(sm + conv_a_bytes(p, sizeof(T)));
+  for (int it = blockIdx.x; it < p.B * mtiles * ntiles; it += gridDim.x) {
+    const int bb = it / (mtiles * ntiles), mt = (it / ntiles) % mtiles, nt = it % ntiles;
+    const int m0 = mt * R, mr = min(R, mrows - m0);
+    const int tap = nt / dtiles, d0 = (nt % dtiles) * GNT, n0 = tap * W + d0;
+    const int f_lo = up ? m0 : m0 * s;
+    // the weight chunks start loading before A is staged
+    Ring<T> ring(bs, cw + static_cast<size_t>(up ? tap : 0) * cin * W + d0, W,
+                 up ? cin : k * cin, min(GNT, W - d0));
+    // A's frame r: x_in[m0 + r] (up), full[f_lo + r] = [context; x_in] (down);
+    // null past the input (zeros)
+    auto frame = [&](int r) -> const T* {
+      const int f = f_lo + r;
+      if (up) return f < tin ? x + (static_cast<size_t>(bb) * tin + f) * cin : nullptr;
+      if (f < ctxlen) return st + (static_cast<size_t>(bb) * ctxlen + f) * cin;
+      return f - ctxlen < tin ? x + (static_cast<size_t>(bb) * tin + f - ctxlen) * cin : nullptr;
+    };
+    constexpr int VE = 16 / sizeof(T);
+    if (cin % VE == 0) {  // 16-byte vectors, LB in flight per thread
+      const int vpr = cin / VE, nv = arows * vpr;
+      for (int e0 = threadIdx.x; e0 < nv; e0 += LB * THREADS) {
+        uint4 v[LB];
+#pragma unroll
+        for (int u = 0; u < LB; ++u) {
+          const int e = e0 + u * THREADS;
+          const T* src = e < nv ? frame(e / vpr) : nullptr;
+          v[u] = src ? __ldg(reinterpret_cast<const uint4*>(src + e % vpr * VE))
+                     : make_uint4(0u, 0u, 0u, 0u);
+        }
+#pragma unroll
+        for (int u = 0; u < LB; ++u) {
+          const int e = e0 + u * THREADS, r = e / vpr;
+          if (e < nv) *reinterpret_cast<uint4*>(As + r * (up ? lda : cin) + e % vpr * VE) = v[u];
+        }
+      }
+    } else {  // the stem (cin = 1): one element at a time
+      for (int e0 = threadIdx.x; e0 < nin; e0 += LB * THREADS) {
+        T v[LB];
+#pragma unroll
+        for (int u = 0; u < LB; ++u) {
+          const int e = e0 + u * THREADS;
+          const T* src = e < nin ? frame(e / cin) : nullptr;
+          v[u] = src ? src[e % cin] : vv::from_f<T>(0.f);
+        }
+#pragma unroll
+        for (int u = 0; u < LB; ++u) {
+          const int e = e0 + u * THREADS;
+          if (e < nin) As[up ? e / cin * lda + e % cin : e] = v[u];
+        }
+      }
+    }
+    __syncthreads();
+    float* out = p.xg + (static_cast<size_t>(bb) * mrows + m0) * ncol + n0;
+    gemm<T, MMA>(ring, false, As, lda, [&](int r, int c, float v) {
+      if (r < mr) out[static_cast<size_t>(r) * ncol + c] = v;
+    });
+  }
+  if (!up && blockIdx.x == 0) {  // new context: the last k-s rows of [context; x_in]
+    T* out = static_cast<T*>(p.conv_out);
+    for (int e = threadIdx.x; e < p.B * ctxlen * cin; e += THREADS) {
+      const int bb = e / (ctxlen * cin), j = (e / cin) % ctxlen, c = e % cin;
+      const int f = tin + j;
+      out[e] = f < ctxlen ? st[(static_cast<size_t>(bb) * ctxlen + f) * cin + c]
+                          : x[(static_cast<size_t>(bb) * tin + f - ctxlen) * cin + c];
+    }
+  }
+}
+
+// Shared memory of a cluster tile (byte offsets); the same in every CTA, so a
+// peer's buffer is this CTA's pointer mapped to the peer's rank.
+struct TileSmem {
+  int rpc;  // mixer rows per CTA: R / C
+  size_t vs, xs, hs, ys, sc, hn, A, a, part, bs, total;
+};
+
+__host__ __device__ inline size_t take(size_t& o, size_t bytes) {
+  const size_t at = o;
+  o += (bytes + 15) / 16 * 16;
+  return at;
+}
+
+__host__ __device__ inline TileSmem tile_smem(int W, int F, int C, int tsize) {
+  TileSmem L;
+  L.rpc = R / C;
+  size_t o = 0;
+  L.vs = take(o, 13 * W * sizeof(float));  // norm_w, mixer_b, gamma, ffn_norm_w, ffn_gamma, ffn2_b, 7 taps
+  L.xs = take(o, (L.rpc + CTX) * W * sizeof(float));  // block input rows (6 before mine)
+  L.hs = take(o, (L.rpc + CTX) * W * sizeof(float));  // normed rows over [ctx; h]
+  L.ys = take(o, L.rpc * W * sizeof(float));          // post-mixer residual of my rows
+  L.sc = take(o, (L.rpc + CTX) * sizeof(float));
+  L.hn = take(o, L.rpc * W * tsize);                   // my rows' FFN input (read by the peers)
+  L.A = take(o, R * (W + 8) * tsize);                  // the tile's FFN input
+  L.a = take(o, R * (F / C + 8) * tsize);              // gelu(...) of my FFN columns
+  L.part = take(o, R * W * sizeof(float));             // my FFN columns' share of the output (read by the peers)
+  L.bs = take(o, NSTAGE * GKC * GNTP * tsize);         // the weight ring
+  L.total = o;
+  return L;
+}
+
+// One block over one row tile [t0, t0 + R) of batch row bb, by the cluster.
+// CTA `rank` runs the mixer of rows [t0 + rank*rpc, +rpc) (the block input of
+// those rows and the 6 before them: x, the folded conv's product, or the
+// previous block's output `src`), the cluster gathers the tile's FFN input
+// through distributed shared memory, each CTA takes F / C FFN columns (both
+// products), and CTA `rank` adds its rows' C partials in rank order through
+// distributed shared memory: the block's output rows, written to `dst` (fp32)
+// or, for the last block without the folded tail, to y.
+template <typename T, bool MMA>
+__device__ void block_tile(const StageParams& p, int nb, int tile, const float* src, float* dst,
+                           bool to_y, bool peers_wait, unsigned char* sm, const TileSmem& L,
+                           cg::cluster_group& cl) {
+  constexpr int V = 16 / sizeof(T);
+  const int W = p.W, Tn = p.T, NB = p.NB, C = p.C, FC = p.F / C;
+  const int rank = static_cast<int>(cl.block_rank()), rpc = L.rpc;
+  const int tiles = (Tn + R - 1) / R;
+  const int bb = tile / tiles, t0 = (tile % tiles) * R, t1 = min(Tn, t0 + R);
+  const size_t row0 = static_cast<size_t>(bb) * Tn;
+  float* vs = reinterpret_cast<float*>(sm + L.vs);
+  float* xs = reinterpret_cast<float*>(sm + L.xs);
+  float* hs = reinterpret_cast<float*>(sm + L.hs);
+  float* ys = reinterpret_cast<float*>(sm + L.ys);
+  float* sc = reinterpret_cast<float*>(sm + L.sc);
+  T* hn = reinterpret_cast<T*>(sm + L.hn);
+  T* As = reinterpret_cast<T*>(sm + L.A);
+  T* as = reinterpret_cast<T*>(sm + L.a);
+  float* part = reinterpret_cast<float*>(sm + L.part);
+  T* bs = reinterpret_cast<T*>(sm + L.bs);
+  const int r0 = t0 + rank * rpc, r1 = min(t1, r0 + rpc), mine = max(0, r1 - r0);
+  // this CTA's FFN columns: both products' weight chunks start loading now,
+  // under the mixer
+  const int f0 = rank * FC;
+  const T* w1 = static_cast<const T*>(p.w1) + static_cast<size_t>(nb) * p.w1_stride + f0;
+  const T* b1 = static_cast<const T*>(p.b1) + static_cast<size_t>(nb) * p.b1_stride + f0;
+  const T* w2 = static_cast<const T*>(p.w2) + (static_cast<size_t>(nb) * p.F + f0) * W;
+  Ring<T> ring(bs, w1, p.F, W, FC, w2, W, FC, W);
+
+  if (mine > 0) {  // the mixer and the second norm of my rows
+    const int lo = r0 - CTX, nrow = r1 - lo, nctx = max(0, -lo);
+    load_rows<T>(p, src, nb, row0, lo, nrow, xs);
+    // the carried context stands for the rows before the sequence: loaded
+    // in the same round trip as the block input
+    const T* c_in = static_cast<const T*>(p.ctx) + (static_cast<size_t>(bb) * NB + nb) * CTX * W;
+    for (int e = threadIdx.x; e < nctx * W; e += THREADS) hs[e] = vv::to_f(c_in[(CTX - nctx) * W + e]);
+    __syncthreads();
+    vv::row_rsqrt(xs, nrow, W, p.eps, sc);
+    __syncthreads();
+    for (int e = nctx * W + threadIdx.x; e < nrow * W; e += THREADS)
+      hs[e] = xs[e] * sc[e / W] * vs[e % W];
+    __syncthreads();
+    if (r1 == Tn) {
+      T* c_out = static_cast<T*>(p.ctx_out) + (static_cast<size_t>(bb) * NB + nb) * CTX * W;
+      for (int e = threadIdx.x; e < CTX * W; e += THREADS)
+        c_out[e] = vv::from_f<T>(hs[(Tn - CTX - lo) * W + e]);
+      if (nb == 0 && p.conv_kind == 1) {  // new transposed-conv tail: x[last] @ Wc[s+j]
+        const int s = p.cs, tin = Tn / s;
+        const float* yl = p.xg + (static_cast<size_t>(bb) * tin + tin - 1) * 2 * s * W;
+        T* tail = static_cast<T*>(p.conv_out) + static_cast<size_t>(bb) * s * W;
+        for (int e = threadIdx.x; e < s * W; e += THREADS) tail[e] = vv::from_f<T>(yl[s * W + e]);
+      }
+    }
+    for (int e = threadIdx.x; e < mine * W; e += THREADS) {
+      const int r = e / W, d = e % W;
+      float m = vs[W + d];
+#pragma unroll
+      for (int k = 0; k < 7; ++k) m += hs[(r + k) * W + d] * vs[(6 + k) * W + d];
+      ys[e] = xs[(r + CTX) * W + d] + vs[2 * W + d] * m;
+    }
+    __syncthreads();
+    vv::row_rsqrt(ys, mine, W, p.eps, sc);
+    __syncthreads();
+    for (int e = threadIdx.x; e < mine * W; e += THREADS)
+      hn[e] = vv::from_f<T>(ys[e] * sc[e / W] * vs[3 * W + e % W]);
+  }
+  cl.sync();  // every rank's FFN input rows are ready
+  for (int e = threadIdx.x; e < R * W / V; e += THREADS) {
+    const int i = e / (W / V), c = e % (W / V);
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (t0 + i < t1)
+      v = *reinterpret_cast<const uint4*>(cl.map_shared_rank(hn, i / rpc) + (i % rpc) * W + c * V);
+    *reinterpret_cast<uint4*>(As + i * (W + 8) + c * V) = v;
+  }
+  __syncthreads();
+  // a = round(gelu(b1 + hn @ w1[:, f0:f0+FC]))
+  gemm<T, MMA>(ring, false, As, W + 8, [&](int r, int c, float v) {
+    as[r * (FC + 8) + c] = vv::from_f<T>(gelu(v + vv::to_f(b1[c])));
+  });
+  // part = a @ w2[f0:f0+FC, :]
+  gemm<T, MMA>(ring, true, as, FC + 8, [&](int r, int c, float v) { part[r * W + c] = v; });
+  cl.sync();  // every rank's partial is ready
+  if (mine > 0) {
+    const float* peer[MAX_C];
+#pragma unroll
+    for (int q = 0; q < MAX_C; ++q) peer[q] = q < C ? cl.map_shared_rank(part, q) : part;
+    for (int e = threadIdx.x; e < mine * W / 4; e += THREADS) {
+      const int r = e / (W / 4), d = 4 * (e % (W / 4)), i = rank * rpc + r;
+      float4 v[MAX_C];
+#pragma unroll
+      for (int q = 0; q < MAX_C; ++q)
+        v[q] = q < C ? *reinterpret_cast<const float4*>(peer[q] + i * W + d)
+                     : make_float4(0.f, 0.f, 0.f, 0.f);
+      float s[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int q = 0; q < MAX_C; ++q) {  // rank order: the same sums on every run
+        s[0] += v[q].x;
+        s[1] += v[q].y;
+        s[2] += v[q].z;
+        s[3] += v[q].w;
+      }
+      const size_t o = (row0 + r0 + r) * W + d;
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float x = ys[r * W + d + u] + vs[4 * W + d + u] * (s[u] + vs[5 * W + d + u]);
+        if (to_y)
+          static_cast<T*>(p.y)[o + u] = vv::from_f<T>(x);
+        else
+          dst[o + u] = x;
+      }
+    }
+  }
+  // the peers have read this CTA's partial and FFN input rows before the
+  // next tile overwrites them or the CTA exits (a grid barrier next does it)
+  if (peers_wait) cl.sync();
+}
+
+template <typename T, bool MMA>
+__global__ void __launch_bounds__(THREADS) cluster_kernel(StageParams p) {
+  extern __shared__ __align__(16) unsigned char smc[];
+  cg::cluster_group cl = cg::this_cluster();
+  const TileSmem L = tile_smem(p.W, p.F, p.C, sizeof(T));
+  if (p.conv_kind) {
+    conv_phase<T, MMA>(p, smc);
+    grid_barrier(p.bar);
+  }
+  const int W = p.W, ncl = gridDim.x / p.C, cid = blockIdx.x / p.C;
+  const int tiles = p.B * ((p.T + R - 1) / R);
+  float* vs = reinterpret_cast<float*>(smc + L.vs);
+  for (int nb = 0; nb < p.NB; ++nb) {
+    const T* vec = static_cast<const T*>(p.vecs) + static_cast<size_t>(nb) * 8 * W;
+    const T* taps = static_cast<const T*>(p.mixw) + static_cast<size_t>(nb) * 8 * W;
+    for (int e = threadIdx.x; e < 13 * W; e += THREADS)
+      vs[e] = vv::to_f(e < 6 * W ? vec[e] : taps[e - 6 * W]);
+    __syncthreads();
+    // block outputs alternate between xb and yg: a tile's mixer reads the 6
+    // rows before it from the previous block's output while other clusters
+    // already write this block's
+    const float* src = nb % 2 ? p.xb : p.yg;
+    float* dst = nb % 2 ? p.yg : p.xb;
+    const bool last = nb + 1 == p.NB;
+    for (int tile = cid; tile < tiles; tile += ncl)
+      block_tile<T, MMA>(p, nb, tile, src, dst, last && !p.hk,
+                         tile + ncl < tiles || (last && !p.hk), smc, L, cl);
+    if (!last || p.hk) grid_barrier(p.bar);
+  }
+  if (p.hk) phase_out<T>(p, p.NB % 2 ? p.xb : p.yg, reinterpret_cast<float*>(smc));
 }
 
 template <typename T>
 size_t smem_bytes(const StageParams& p) {
   const size_t W = p.W, chunk = KC * NT * sizeof(T);
-  size_t f = (11 + 2 * (RT + CTX)) * W + (p.avg ? (RT + CTX + RB) * W + KC * NT : RT + CTX);
-  size_t b = std::max(f * sizeof(float), (RB * W + RB * FT) * sizeof(float) + chunk);
-  if (p.conv_kind) {
-    const size_t rows = p.conv_kind == 1 ? RP : (RP - 1) * p.cs + p.ck;
-    b = std::max(b, (rows * p.cin + 3) / 4 * 4 * sizeof(float) + chunk);
-  }
-  if (p.hk) b = std::max(b, (RT + p.hk - 1) * (W + 1) * sizeof(float));
-  return b;
+  const size_t f = (11 + 2 * (RT + CTX)) * W + (RT + CTX + RB) * W + KC * NT;
+  return std::max(f * sizeof(float), (RB * W + RB * FT) * sizeof(float) + chunk);
 }
 
 int max_items(const StageParams& p) {
   const int tiles = p.B * ((p.T + RT - 1) / RT);
-  int n = std::max(tiles, p.B * ((p.T + RB - 1) / RB) * ((p.F + FT - 1) / FT));
-  const int dtiles = (p.W + NT - 1) / NT;
-  if (p.conv_kind == 1)
-    n = std::max(n, p.B * ((p.T / p.cs + RP - 1) / RP) * 2 * p.cs * dtiles);
-  if (p.conv_kind == 2) n = std::max(n, p.B * ((p.T + RP - 1) / RP) * dtiles);
-  return n;
+  return std::max(tiles, p.B * ((p.T + RB - 1) / RB) * ((p.F + FT - 1) / FT));
 }
 
+// The row-lane kernel: one cooperative launch over at most one CTA per SM
+// slot; the device's attributes and the kernel's occupancy are asked once
+// per device and shared-memory size.
 template <typename T>
-int launch(StageParams p, cudaStream_t stream) {
+int launch_rowlane(StageParams p, cudaStream_t stream) {
   void (*kern)(StageParams) = stage_kernel<T>;
   // every row of a weight chunk, a conv tile and the partials is whole
   // 16-byte vectors
   if ((p.W * sizeof(T)) % 16 || (p.F * sizeof(T)) % 16) return -2;
   const size_t smem = smem_bytes<T>(p);
   if (smem > 227 * 1024) return -5;
-  int dev = 0, sms = 0, coop = 0, per_sm = 0;
+  static std::map<std::pair<int, size_t>, int> slots;  // (device, smem) -> CTAs on the card
+  static size_t opted = 0;
+  int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, THREADS, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (!coop) return -10;       // the card cannot launch cooperatively
-  if (per_sm < 1) return -11;  // one CTA does not fit an SM
-  const int grid = std::max(1, std::min(max_items(p), sms * per_sm));
+  auto it = slots.find({dev, smem});
+  if (it == slots.end()) {
+    int sms = 0, coop = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+    if (err == cudaSuccess && smem > opted) {
+      err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(smem));
+      if (err == cudaSuccess) opted = smem;
+    }
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, THREADS, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (!coop) return -10;       // the card cannot launch cooperatively
+    if (per_sm < 1) return -11;  // one CTA does not fit an SM
+    it = slots.emplace(std::make_pair(dev, smem), sms * per_sm).first;
+  }
+  const int grid = std::max(1, std::min(max_items(p), it->second));
   void* args[] = {&p};
   return static_cast<int>(cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kern), dim3(grid),
                                                       dim3(THREADS), args, smem, stream));
+}
+
+template <typename T>
+size_t cluster_smem_bytes(const StageParams& p) {
+  size_t b = tile_smem(p.W, p.F, p.C, sizeof(T)).total;
+  if (p.conv_kind) b = std::max(b, conv_a_bytes(p, sizeof(T)) + NSTAGE * GKC * GNTP * sizeof(T));
+  if (p.hk) b = std::max(b, (RT + p.hk - 1) * (p.W + 1) * sizeof(float));
+  return b;
+}
+
+// The stage kernel: clusters of C CTAs, as many clusters as there are row
+// tiles (or conv items over C), at most as many as the card holds at once
+// (every CTA must be resident for the grid barriers); the occupancy is asked
+// once per device, shared-memory size and cluster size.
+template <typename T, bool MMA>
+int launch_cluster(StageParams p, cudaStream_t stream) {
+  void (*kern)(StageParams) = cluster_kernel<T, MMA>;
+  const size_t smem = cluster_smem_bytes<T>(p);
+  if (smem > 227 * 1024) return -5;
+  static std::map<std::tuple<int, size_t, int>, int> clusters;  // -> clusters on the card
+  static size_t opted = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchConfig_t cfg = {};
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  auto it = clusters.find({dev, smem, p.C});
+  if (it == clusters.end()) {
+    if (smem > opted) {
+      err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(smem));
+      if (err != cudaSuccess) return static_cast<int>(err);
+      opted = smem;
+    }
+    int n = 0;
+    cfg.gridDim = dim3(p.C);
+    err = cudaOccupancyMaxActiveClusters(&n, kern, &cfg);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (n < 1) return -11;  // one cluster does not fit the card
+    it = clusters.emplace(std::make_tuple(dev, smem, p.C), n).first;
+  }
+  // as many clusters as row tiles, or more where the folded conv has more
+  // work items than those clusters have CTAs
+  int want = p.B * ((p.T + R - 1) / R);
+  if (p.conv_kind) {
+    const bool up = p.conv_kind == 1;
+    const int mrows = up ? p.T / p.cs : p.T;
+    const int items = p.B * ((mrows + R - 1) / R) * (up ? 2 * p.cs : 1) * ((p.W + GNT - 1) / GNT);
+    want = std::max(want, (items + p.C - 1) / p.C);
+  }
+  cfg.gridDim = dim3(std::min(want, it->second) * p.C);
+  err = cudaLaunchKernelEx(&cfg, kern, p);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -614,7 +1109,24 @@ extern "C" int vv_fused_stage(const void* params, void* stream) {
     return -3;
   if (p.hk && (p.hk < 2 || p.hk - 1 > 8 || p.T < p.hk)) return -4;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (p.dtype == 0) return launch<float>(p, st);
-  if (p.dtype == 1) return launch<__nv_bfloat16>(p, st);
-  return -6;  // unsupported dtype
+  if (p.avg != nullptr) {  // the row-lane layout, which folds nothing
+    if (p.conv_kind || p.hk) return -3;
+    if (p.dtype == 0) return launch_rowlane<float>(p, st);
+    if (p.dtype == 1) return launch_rowlane<__nv_bfloat16>(p, st);
+    return -6;  // unsupported dtype
+  }
+  const size_t es = p.dtype == 0 ? 4 : 2;
+  // C FFN column slices of whole 16-byte vectors; rows of whole vectors
+  if (p.C < 1 || p.C > MAX_C || R % p.C || p.F % p.C || (p.F / p.C * es) % 16 ||
+      (p.W * es) % 16 || p.bar == nullptr)
+    return -2;
+  if (p.dtype == 0) return launch_cluster<float, false>(p, st);
+  if (p.dtype != 1) return -6;  // unsupported dtype
+  // tensor cores where every depth is whole k16 steps with 16-byte aligned A
+  // rows (every bf16 stage of the 1.5B stacks but the stem conv, cin = 1)
+  bool mma = p.W % 16 == 0 && (p.F / p.C) % 16 == 0;
+  if (p.conv_kind == 1) mma = mma && p.cin % 16 == 0;
+  if (p.conv_kind == 2) mma = mma && (p.ck * p.cin) % 16 == 0 && (p.cs * p.cin) % 8 == 0;
+  return mma ? launch_cluster<__nv_bfloat16, true>(p, st)
+             : launch_cluster<__nv_bfloat16, false>(p, st);
 }

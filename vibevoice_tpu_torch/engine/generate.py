@@ -156,6 +156,8 @@ class Engine:
                  use_fused_semantic: bool = False,
                  use_fused_stages: bool = False,
                  fused_stage_t_min: int = 128,
+                 fused_stage_tile: Optional[int] = None,
+                 fused_stage_tile_semantic: Optional[int] = None,
                  fused_stage_fold_conv: Optional[bool] = None,
                  fused_stage_fold_head: Optional[bool] = None,
                  fused_stage_rowlane: bool = False,
@@ -234,6 +236,9 @@ class Engine:
             # `weights.from_jax`) are kept; any pack is right at any batch (a
             # row-lane pack whose row group does not divide the batch runs the
             # plain stage kernel).
+            # `fused_stage_tile` / `fused_stage_tile_semantic` are the JAX
+            # kernel's T-tile targets: accepted and ignored, since the stage
+            # kernel does not tile T by them (as `tile_want`)
             if fused_stage_fold_conv is None:
                 fused_stage_fold_conv = batch == 1
             if fused_stage_fold_head is None:
@@ -542,6 +547,7 @@ def generate(
     stop_check_fn=None,
     check_every: int = 8,
     stream_chunk: int = 4,
+    show_progress: bool = False,
     on_step=None,
 ) -> GenerationResult:
     """Host-side loop (ref generate :328-710).  With a streamer, a
@@ -550,12 +556,20 @@ def generate(
     `check_every`-step chunks and only reads the finished flags between them.
 
     `on_step(out: StepOutput)` gets numpy views once per decode step — the
-    engine's emitted-frame clock."""
+    engine's emitted-frame clock.  `show_progress` shows a tqdm bar over the
+    decode steps where tqdm is installed."""
     state, out = engine.prefill(input_ids, attention_mask, speech_input_mask,
                                 speech_tensors, speech_frame_masks, generator,
                                 voice_latents, latent_noise)
     b = engine.batch
     steps_done = 1
+    bar = None
+    if show_progress:
+        try:
+            from tqdm import tqdm
+            bar = tqdm(total=engine.max_steps - 1, desc="Generating", ncols=100)
+        except ImportError:
+            pass
 
     def _feed(o: StepOutput):
         if on_step is not None:
@@ -579,11 +593,15 @@ def generate(
                 engine.max_steps - steps_done)
         state, outs = engine.decode_chunk(state, n)
         steps_done += n
+        if bar is not None:
+            bar.update(n)
         if per_step:
             outs_np = StepOutput(*(_np(x) for x in outs))  # one read for the chunk
             for i in range(n):
                 _feed(StepOutput(*(x[i] for x in outs_np)))
 
+    if bar is not None:
+        bar.close()
     if audio_streamer is not None:
         audio_streamer.end()
 

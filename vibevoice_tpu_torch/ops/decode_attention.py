@@ -2,10 +2,13 @@
 
 `decode_attention` replaces the TPU kernel
 `vibevoice_tpu/ops/decode_attention.py:decode_attention` (Pallas `_kernel`).
-On a CUDA tensor it launches the split-K kernel of `csrc/decode_attention.cu`
-(design and bound are described there: the live K/V prefix, plus scales, over
-3.35 TB/s); on a CPU tensor it runs `decode_attention_ref`, the plain PyTorch
-version with the same signature, which is also the kernel's oracle.
+On a CUDA tensor it makes ONE launch of `csrc/decode_attention.cu` (design and
+bound are described there: the live K/V prefix, plus scales, over 3.35 TB/s;
+splits sized on the device from `lengths`, merged by the last CTA of each
+(row, KV head)); on a CPU tensor it runs `decode_attention_ref`, the plain
+PyTorch version with the same signature, which is also the kernel's oracle.
+The kernel's workspace (fp32 partials and the ticket counters) is cached per
+device, stream and shape (`workspace`), so a call allocates only its output.
 
 Layout (the JAX package's): q [B, H, D]; k/v [L, B, S, KVH*D] (the whole
 stacked cache, read at `layer`); visible [B, S] int32; lengths [B] int32 with
@@ -16,13 +19,21 @@ one that sees none returns zeros.
 from __future__ import annotations
 
 import ctypes
+import functools
+
 import torch
 
 from . import cuda_build
 
 NEG_INF = -1e30
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-_CHUNK = 128  # cache slots per block of the split kernel (CHUNK in the source)
+TILE = 64    # cache slots per staged tile of the bf16 kernel (TILE in the source)
+CHUNK = 128  # cache slots per CTA of the fp32 kernel (CHUNK in the source)
+GROUP = 8    # splits merged together before their groups are (GROUP in the source)
+# CTAs per SM the tensor-core grid aims at, over all (row, KV head) pairs:
+# as many as an SM holds at once (bf16: two; int8, with its smaller ring and
+# register cap: three)
+SPLITS_PER_SM = {torch.bfloat16: 2, torch.int8: 3}
 
 
 def decode_attention_ref(q, k_full, v_full, layer: int, visible, lengths,
@@ -105,26 +116,67 @@ def decode_attention(q, k_full, v_full, layer: int, visible, lengths,
     b, h, d = q.shape
     n_layers, _, s, f = k_full.shape
     kvh = f // d
-    n_chunks = -(-s // _CHUNK)
-    # the partials live on the launch stream: the caching allocator hands
-    # their memory to no other stream's work before the kernels have run
+    n_splits = plan(b, kvh, s, q.dtype, cuda_build.sm_count(q.device), k_full.dtype)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    part_acc, part_ml, counters = workspace(q.device, stream, b, kvh, n_splits, h // kvh, d)
     out = torch.empty_like(q)
-    part_acc = torch.empty((b, h, n_chunks, d), dtype=torch.float32, device=q.device)
-    part_ml = torch.empty((b, h, n_chunks, 2), dtype=torch.float32, device=q.device)
-    lib = _library()
     quant = k_scale is not None
-    rc = lib.vv_decode_attention(
+    rc = _library().vv_decode_attention(
         q.data_ptr(), k_full.data_ptr(), v_full.data_ptr(),
         k_scale.data_ptr() if quant else None, v_scale.data_ptr() if quant else None,
         visible.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        part_acc.data_ptr(), part_ml.data_ptr(),
-        b, h, kvh, d, s, n_layers, layer, n_chunks,
-        _DTYPE_CODES[q.dtype], _DTYPE_CODES[k_full.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
+        part_acc.data_ptr(), part_ml.data_ptr(), counters.data_ptr(),
+        b, h, kvh, d, s, n_layers, layer, n_splits,
+        _DTYPE_CODES[q.dtype], _DTYPE_CODES[k_full.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"decode_attention kernel failed with code {rc}")
     decode_attention.launches += 1
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def plan(b: int, kvh: int, s: int, q_dtype: torch.dtype, sms: int,
+         kv_dtype: torch.dtype = torch.bfloat16) -> int:
+    """Splits per (row, KV head) of the kernel's grid, a function of the
+    shapes alone (the live length is read on the device).  bf16 q: enough
+    that the B*KVH pairs give about SPLITS_PER_SM[kv_dtype] CTAs per SM, at
+    most one per 64-slot tile of the cache; fp32: one per 128-slot chunk."""
+    if q_dtype == torch.float32:
+        return -(-s // CHUNK)
+    return max(1, min(-(-s // TILE), -(-SPLITS_PER_SM[kv_dtype] * sms // (b * kvh))))
+
+
+def split_of(length: int, n_splits: int, s: int):
+    """(split length, splits with work) that the bf16 kernel computes on the
+    device for a row of `length` live slots (`split_range` in the source):
+    the live prefix over n_splits, rounded up to whole 64-slot tiles; at
+    least one split, so a row with no live slot still writes its zeros."""
+    length = min(max(length, 0), s)
+    per = max(TILE, -(-length // (n_splits * TILE)) * TILE)
+    return per, max(1, -(-length // per))
+
+
+_WORKSPACE = {}
+
+
+def workspace(device, stream: int, b: int, kvh: int, n_splits: int, g: int, d: int):
+    """The kernel's workspace, made once per device, stream and shape: with
+    groups = ceil(n_splits / GROUP), the fp32 partials of the splits and then
+    of their groups, part_acc [B*KVH, n_splits + groups, G, D] and part_ml
+    [B*KVH, n_splits + groups, G, 2], and the int32 ticket counters
+    [B*KVH * (1 + groups)] (per row and KV head, then per group).  The
+    counters start at 0 and every call leaves them at 0; calls on one stream
+    run in order, so they share the buffers safely."""
+    key = (str(device), stream, b, kvh, n_splits, g, d)
+    ws = _WORKSPACE.get(key)
+    if ws is None:
+        f32 = dict(dtype=torch.float32, device=device)
+        n = n_splits + -(-n_splits // GROUP)
+        ws = (torch.empty((b * kvh, n, g, d), **f32), torch.empty((b * kvh, n, g, 2), **f32),
+              torch.zeros((b * kvh * (1 + -(-n_splits // GROUP)),), dtype=torch.int32,
+                          device=device))
+        _WORKSPACE[key] = ws
+    return ws
 
 
 decode_attention.launches = 0
@@ -135,7 +187,7 @@ def _library() -> ctypes.CDLL:
     fn = lib.vv_decode_attention
     if fn.restype is not ctypes.c_int or not fn.argtypes:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 10 + [i] * 10 + [p]
+        fn.argtypes = [p] * 11 + [i] * 10 + [p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -152,4 +204,6 @@ def live_bytes(q, k_full, lengths, quant: bool) -> int:
     return 2 * q.numel() * q.element_size() + kv + scales + live * 4 + b * 4
 
 
-__all__ = ["decode_attention", "decode_attention_ref", "live_bytes", "NEG_INF"]
+__all__ = ["decode_attention", "decode_attention_ref", "live_bytes", "plan", "split_of",
+           "workspace",
+           "NEG_INF"]

@@ -26,8 +26,11 @@ block-diagonal kron(I_R, W) FFN weights and RMSNorm group means taken through
 the `avg` matmul.  `fused_stage_chain` dispatches to it for packs with a
 "rowlane" entry and no folds, as the JAX package does.
 
-On CUDA tensors each wrapper makes ONE cooperative launch of
-`csrc/fused_stage.cu` (design and bound there); on CPU tensors it runs the
+On CUDA tensors each wrapper makes ONE launch of `csrc/fused_stage.cu`
+(design and bound there: the stage as clusters over row tiles with one grid
+barrier per block, the row-lane form as one cooperative launch of phases),
+with its scratch cached per device, stream and size (`scratch`); on CPU
+tensors it runs the
 plain version (`fused_stage_chain_ref`, `fused_stage_chain_rowlane_ref`),
 which works over the whole T at once with the TPU kernel's numerics: fp32
 RMSNorm and residuals, matmul inputs rounded to the pack dtype with fp32
@@ -49,7 +52,7 @@ from . import cuda_build
 from .fused_blocks import CTX, pack_stage
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-FT = 64  # FFN columns per work item of the kernel (csrc/fused_stage.cu)
+FT = 64  # FFN columns per work item of the row-lane kernel (csrc/fused_stage.cu)
 
 
 class ConvPack:
@@ -314,9 +317,48 @@ def fused_stage_chain_rowlane_ref(packed, x: torch.Tensor, ctx: torch.Tensor,
 
 _PTRS = ("x", "ctx", "conv_state", "head_state", "vecs", "mixw", "w1", "b1", "w2", "avg",
          "conv_w", "conv_b", "head_w", "y", "ctx_out", "conv_out", "head_out", "xg", "yg",
-         "xb", "hng", "part")
+         "xb", "hng", "part", "bar")
 _INTS = ("B", "T", "W", "F", "NB", "w1_stride", "b1_stride", "conv_kind", "cs", "ck", "cin",
-         "hk", "hnorm", "dtype")
+         "hk", "hnorm", "dtype", "C")
+MAX_CLUSTER = 8  # CTAs per cluster of the stage kernel: the portable size
+CLUSTER_COLS = 64  # fewest FFN columns a CTA of a cluster takes
+
+
+def cluster_size(f: int, dtype: torch.dtype) -> int:
+    """CTAs per cluster of the stage kernel for an FFN of width f: the most
+    (at most 8) that split the FFN columns into slices of at least 64 columns
+    and of whole 16-byte vectors.  The kernel adds the slices' shares in rank
+    order, so the result depends on this (a function of the shape), never on
+    the grid."""
+    es = torch.finfo(dtype).bits // 8
+    for c in (8, 4, 2):
+        if f % c == 0 and f // c >= CLUSTER_COLS and (f // c * es) % 16 == 0:
+            return c
+    return 1
+
+
+_SCRATCH: Dict[tuple, Dict[str, torch.Tensor]] = {}
+
+
+def scratch(device, stream: int, rowlane: bool, n_el: int, n_conv: int, n_f: int):
+    """The kernel's fp32 scratch, made once per device, stream and size.  The
+    stage kernel: `xg` (the folded conv's product, n_conv floats), `xb` and
+    `yg` (the blocks' outputs, alternating), `bar` (its grid barrier's
+    counter: 0 at first, and every call leaves its low bits 0).  The row-lane
+    kernel: `yg`, `xb`, `hng` and `part` (n_f FFN tiles of partials).  Calls
+    on one stream run in order, so they share it safely."""
+    key = (str(device), stream, rowlane, n_el, n_conv, n_f)
+    buf = _SCRATCH.get(key)
+    if buf is None:
+        f32 = dict(dtype=torch.float32, device=device)
+        buf = {"yg": torch.empty(n_el, **f32), "xb": torch.empty(n_el, **f32)}
+        if rowlane:
+            buf.update(hng=torch.empty(n_el, **f32), part=torch.empty(n_f * n_el, **f32))
+        else:
+            buf.update(xg=torch.empty(max(1, n_conv), **f32),
+                       bar=torch.zeros(1, dtype=torch.int32, device=device))
+        _SCRATCH[key] = buf
+    return buf
 
 
 class _Params(ctypes.Structure):
@@ -327,7 +369,7 @@ class _Params(ctypes.Structure):
 
 def _launch(name, p, x, ctx, eps, conv=None, hp=None, conv_state=None, head_state=None,
             rowlane=False):
-    """One cooperative launch on x [B, T', *] whose stage rows have width W."""
+    """One launch on x [B, T', *] whose stage rows have width W."""
     vecs, w1, w2 = p["vecs"], p["w1"], p["w2"]
     n, _, w = vecs.shape
     f = w2.shape[1]
@@ -385,14 +427,10 @@ def _launch(name, p, x, ctx, eps, conv=None, hp=None, conv_state=None, head_stat
     if hp is not None:
         head_out = torch.empty_like(head_state)
     n_el = bsz * t * w
-    n_f = -(-f // FT)
-    f32 = dict(dtype=torch.float32, device=dev)
     # the folded conv's product: "up" every tap's channels per input frame
     n_conv = 0 if conv is None else (2 * n_el if conv.kind == "up" else n_el)
-    scratch = {"xg": torch.empty(max(1, n_conv), **f32),
-               "yg": torch.empty(n_el, **f32), "xb": torch.empty(n_el, **f32),
-               "hng": torch.empty(n_el, **f32),
-               "part": torch.empty(n_f * n_el, **f32)}
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    buf = scratch(dev, stream, rowlane, n_el, n_conv, -(-f // FT))
     es = w1.element_size()
     ptr = lambda v: 0 if v is None else v.data_ptr()
     args = _Params(
@@ -403,15 +441,15 @@ def _launch(name, p, x, ctx, eps, conv=None, hp=None, conv_state=None, head_stat
         conv_w=ptr(conv.w) if conv is not None else 0,
         conv_b=ptr(conv.b) if conv is not None else 0, head_w=ptr(head_w), y=ptr(y),
         ctx_out=ptr(ctx_out), conv_out=ptr(conv_out), head_out=ptr(head_out),
-        **{k: ptr(v) for k, v in scratch.items()},
+        **{k: ptr(v) for k, v in buf.items()},
         B=bsz, T=t, W=w, F=f, NB=n, w1_stride=w1.shape[1] * f, b1_stride=f if rowlane else
         (w + 8) * f, conv_kind=0 if conv is None else (1 if conv.kind == "up" else 2),
         cs=conv.s if conv is not None else 0, ck=conv.k if conv is not None else 0,
         cin=conv.cin if conv is not None else 0, hk=hk,
-        hnorm=int(hp is not None and hp.has_norm), dtype=_DTYPE_CODES[dt], eps=float(eps))
+        hnorm=int(hp is not None and hp.has_norm), dtype=_DTYPE_CODES[dt],
+        C=1 if rowlane else cluster_size(f, dt), eps=float(eps))
     with torch.cuda.device(dev):
-        rc = _library().vv_fused_stage(ctypes.byref(args),
-                                       torch.cuda.current_stream(dev).cuda_stream)
+        rc = _library().vv_fused_stage(ctypes.byref(args), stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel failed with code {rc}")
     out = (y, ctx_out)
@@ -523,4 +561,4 @@ def stage_work(packed, x: torch.Tensor):
 __all__ = ["ConvPack", "HeadPack", "pack_stage", "pack_stage_rowlane", "pack_up_conv",
            "pack_down_conv", "pack_head", "rowlane_rows", "fused_stage_chain",
            "fused_stage_chain_ref", "fused_stage_chain_rowlane",
-           "fused_stage_chain_rowlane_ref", "stage_work"]
+           "fused_stage_chain_rowlane_ref", "stage_work", "cluster_size", "scratch"]

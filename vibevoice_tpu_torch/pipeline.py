@@ -168,9 +168,10 @@ class VibeVoiceTTS:
     # ------------------------------------------------------------------
     def generate(self, script, voice_samples=None, max_new_tokens: Optional[int] = None,
                  seed: int = 0, audio_streamer: Optional[AudioStreamer] = None,
-                 stop_check_fn=None, on_step=None):
+                 stop_check_fn=None, show_progress: bool = False, on_step=None):
         """script: str | list[str]; voice_samples: paths or arrays (or nested
-        per-script lists).  Returns (GenerationResult, timing metrics)."""
+        per-script lists).  Returns (GenerationResult, timing metrics);
+        `show_progress` shows a tqdm bar over the decode steps."""
         if not self.keep_audio and audio_streamer is None:
             raise ValueError(
                 "keep_audio=False discards the buffered waveform — attach an "
@@ -205,7 +206,8 @@ class VibeVoiceTTS:
                          speech_frame_masks=enc.speech_masks,
                          generator=torch.Generator(device=self.device).manual_seed(seed),
                          audio_streamer=audio_streamer,
-                         stop_check_fn=stop_check_fn, on_step=on_step)
+                         stop_check_fn=stop_check_fn, show_progress=show_progress,
+                         on_step=on_step)
         wall = time.perf_counter() - t_start
         audio_sec = sum(0 if a is None else len(a) / 24000.0 for a in res.audio)
         metrics = {"wall_s": wall, "audio_sec": audio_sec,
