@@ -363,14 +363,25 @@ def measure_chain(packs, x, ctx):
     y_ref, ctx_ref = ref(packs[0], x, ctx)
     err, tol = agree(name, y, y_ref)
     err_c, tol_c = agree(f"{name}[ctx]", new_ctx, ctx_ref)
+    if not plain:  # sums in a fixed order: a second call gives the same bits
+        y2, ctx2 = run(packs[0], x, ctx)
+        if not (torch.equal(y, y2) and torch.equal(new_ctx, ctx2)):
+            raise RuntimeError(f"{name}: two calls on the same inputs differ")
     n = len(packs)
     ms = cuda_ms(lambda i: run(packs[i % n], x, ctx), 2 * n)
     plain_ms = cuda_ms(lambda i: ref(packs[i % n], x, ctx), min(n, 4))
-    b, t, d = x.shape
-    nb, f = packs[0]["vecs"].shape[0], packs[0]["w1" if plain else "w1q"].shape[2]
-    bms, by = bound(fb.pack_bytes(packs[0]) + 2 * nbytes(x, ctx), 4 * b * t * d * f * nb)
+    bms, by = chain_bound(packs[0], x, ctx)
     return dict(max_abs_err=max(err, err_c), tol=min(tol, tol_c), ms=ms, plain_ms=plain_ms,
                 bound_ms=bms, bound_by=by, library_ms=None)
+
+
+def chain_bound(pack, x, ctx):
+    """The pack, x and ctx read once, y and the new ctx written once, or
+    4*rows*D*F flops per block."""
+    from vibevoice_tpu_torch.ops import fused_blocks as fb
+    b, t, d = x.shape
+    nb, f = pack["vecs"].shape[0], pack["w1" if "w1q" not in pack else "w1q"].shape[2]
+    return bound(fb.pack_bytes(pack) + 2 * nbytes(x, ctx), 4 * b * t * d * f * nb)
 
 
 def head_inputs(pack, n, lat, gen, dev):
@@ -399,6 +410,12 @@ def measure_head(packs, x, mods, fmod, fl, eps=1e-5):
                 bound_by=by, library_ms=None)
 
 
+# the int4 chain's phase-2 cases (D, blocks, T, B): the four 1.5B stages are
+# two shapes (decoder 0 / encoder 6: D=2048, 8 blocks, T=1; decoder 1 /
+# encoder 5: D=1024, 3 blocks, T=8), plus B=4
+CHAIN_CASES = ((2048, 8, 1, 1), (1024, 3, 8, 1), (1024, 3, 8, 4))
+
+
 def random_stage(d, n, gen, dev):
     r = lambda *shape: torch.randn(shape, generator=gen, device=dev)
     return [{"norm_w": 1 + 0.1 * r(d), "mixer": {"w": 0.2 * r(7, 1, d), "b": 0.1 * r(d)},
@@ -419,9 +436,7 @@ def phase_int4_kernels(dev):
         emit("kernel_vs_plain", kernel="int4_matmul", proj=name, M=m, K=k, N=n,
              group_size=gs, **measure_int4(x, weights))
         del weights
-    # the four 1.5B stages are two shapes (decoder 0 / encoder 6: D=2048, 8
-    # blocks, T=1; decoder 1 / encoder 5: D=1024, 3 blocks, T=8), plus B=4
-    for d, nblk, t, b in ((2048, 8, 1, 1), (1024, 3, 8, 1), (1024, 3, 8, 4)):
+    for d, nblk, t, b in CHAIN_CASES:
         packs = [fb.pack_stage_q(random_stage(d, nblk, gen, dev))
                  for _ in range(copies_for(nblk * d * 4 * d))]
         x, ctx = chain_inputs(packs[0], b, t, gen, dev)

@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
-"""Times this checkout's flash prefill, int4_matmul, decode attention and
-large-T stage kernels beside those of another checkout of the port, in one
-process on one NVIDIA GPU, at the shapes of `chip_smoke.py` phase 2.
+"""Times this checkout's flash prefill, int4_matmul, decode attention,
+large-T stage and int4 small-T chain kernels beside those of another checkout
+of the port, in one process on one NVIDIA GPU, at the shapes of
+`chip_smoke.py` phase 2.
 
     python3 scripts/torch_kernel_compare.py OTHER_CHECKOUT [KERNEL ...]
 
 OTHER_CHECKOUT is the root of another checkout (for example the parent
 commit, unpacked with `git archive`); its kernels build into its own
 `vibevoice_tpu_torch/_build/`.  KERNEL names a subset of flash, int4,
-attention and stage (all by default).  The cases, inputs, checks, library
+attention, stage and chain (all by default).  The cases, inputs, checks, library
 yardstick (SDPA; `torch.matmul` on the dequantized bf16 weight) and bound are
 `chip_smoke.py`'s own; a stage case times the first of its two chunks.  Each case checks both kernels against this checkout's
 plain version on the same inputs, then times them in turns (other, this,
@@ -33,14 +34,14 @@ from vibevoice_tpu_torch.ops import fused_stage as fs  # noqa: E402
 from vibevoice_tpu_torch.ops import int4_matmul as im  # noqa: E402
 
 MODULES = {"flash": "flash_attention", "int4": "int4_matmul",
-           "attention": "decode_attention", "stage": "fused_stage"}
+           "attention": "decode_attention", "stage": "fused_stage", "chain": "fused_blocks"}
 SOURCES = {"flash": "flash_prefill", "int4": "int4_matmul",
-           "attention": "decode_attention", "stage": "fused_stage"}
+           "attention": "decode_attention", "stage": "fused_stage", "chain": "fused_block_chain"}
 
 
-def load_other(root: str):
-    """The other checkout's ops modules ({kernel: module}), as a package of
-    another name."""
+def load_other(root: str, modules=None):
+    """The other checkout's ops modules ({name: module}; by default those of
+    MODULES, by kernel), as a package of another name."""
     name = "other_vibevoice_tpu_torch"
     pkg = os.path.join(os.path.abspath(root), "vibevoice_tpu_torch")
     spec = importlib.util.spec_from_file_location(name, os.path.join(pkg, "__init__.py"),
@@ -48,6 +49,8 @@ def load_other(root: str):
     mod = importlib.util.module_from_spec(spec)
     sys.modules[name] = mod
     spec.loader.exec_module(mod)
+    if modules is not None:
+        return {m: importlib.import_module(f"{name}.ops.{m}") for m in modules}
     return {k: importlib.import_module(f"{name}.ops.{m}") for k, m in MODULES.items()}
 
 
@@ -175,6 +178,36 @@ def compare_stage(ofs, dev, card):
     torch.cuda.empty_cache()
 
 
+def compare_chain(ofb, dev, card):
+    """The int4 Block1D chain at chip_smoke's chain cases, each over pack
+    copies that exceed L2, both kernels checked against this checkout's
+    plain version and for two calls bit-equal."""
+    from vibevoice_tpu_torch.ops import fused_blocks as fb
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED + 3)
+    for d, nblk, t, b in cs.CHAIN_CASES:
+        packs = [fb.pack_stage_q(cs.random_stage(d, nblk, gen, dev))
+                 for _ in range(cs.copies_for(nblk * d * 4 * d))]
+        x, ctx = cs.chain_inputs(packs[0], b, t, gen, dev)
+        want = fb.fused_block_chain_batched_ref(packs[0], x, ctx)
+        errs, equal = {}, {}
+        for nm, mod in (("other", ofb), ("this", fb)):
+            got = mod.fused_block_chain_batched(packs[0], x, ctx)
+            again = mod.fused_block_chain_batched(packs[0], x, ctx)
+            errs[nm] = max(cs.agree(f"fused_block_chain_batched[{nm}]", g, w)[0]
+                           for g, w in zip(got, want))
+            equal[nm] = all(torch.equal(g, a) for g, a in zip(got, again))
+        n = len(packs)
+        run = lambda mod: (lambda i: mod.fused_block_chain_batched(packs[i % n], x, ctx))
+        other_ms, this_ms = in_turns(run(ofb), run(fb), 2 * n)
+        bms, by = cs.chain_bound(packs[0], x, ctx)
+        print(json.dumps({"kernel": "fused_block_chain_batched", "D": d, "F": 4 * d,
+                          "blocks": nblk, "T": t, "B": b, "max_abs_err": errs,
+                          "two_calls_equal": equal, "other_ms": other_ms, "this_ms": this_ms,
+                          "bound_ms": bms, "bound_by": by, "card": card}), flush=True)
+        del packs, want
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if len(sys.argv) < 2 or not set(sys.argv[2:]) <= set(MODULES):
         print(__doc__, file=sys.stderr)
@@ -192,7 +225,8 @@ def main() -> int:
     run = {"flash": lambda: compare_flash(other["flash"], dev, card),
            "int4": lambda: compare_int4(other["int4"], dev, card),
            "attention": lambda: compare_attention(other["attention"], dev, card),
-           "stage": lambda: compare_stage(other["stage"], dev, card)}
+           "stage": lambda: compare_stage(other["stage"], dev, card),
+           "chain": lambda: compare_chain(other["chain"], dev, card)}
     for k in kernels:
         run[k]()
     print(card, flush=True)

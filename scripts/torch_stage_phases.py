@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Where the time of one fused-stage launch goes, phase by phase, on one NVIDIA GPU.
+"""Where the time of one fused-stage or small-T chain launch goes, phase by
+phase, on one NVIDIA GPU.
 
-    python3 scripts/torch_stage_phases.py
+    python3 scripts/torch_stage_phases.py [stage] [chain] [--other OTHER_CHECKOUT]
 
 Builds an instrumented copy of `vibevoice_tpu_torch/csrc/fused_stage.cu` into
 the build directory: CTA 0 reads the `%globaltimer` at the kernel's start
@@ -14,7 +15,18 @@ prints one JSON line: the launch's device time (`chip_smoke.cuda_ms`), the
 grid size and the phase times in microseconds with their names.  The stage
 kernel (`cluster_kernel`) has one phase per block ([conv,] block 0 .. N-1),
 the row-lane kernel (`stage_kernel`) per block mixer / FFN / partial sums,
-then the output.  Last, the card's name and power limit.
+then the output.
+
+`chain` does the same for the int4 Block1D chain
+(`csrc/fused_block_chain.cu`, `fused_block_chain_batched`) at the 1.5B
+model's two small-T stage shapes (D=2048, 8 blocks, T=1; D=1024, 3 blocks,
+T=8) at B=1 and at B=4, stamping after each of the kernel's grid barriers:
+the cooperative `chain_kernel` of earlier checkouts syncs the grid twice per
+block (mixer and FFN tiles / partial sums), the cluster kernel once (one
+phase per block and row group).  With `--other`, the chain of that checkout
+(for example the parent commit, unpacked with `git archive`) is stamped and
+timed instead, through its own wrapper, into its own build directory.  Both
+by default; last, the card's name and power limit.
 """
 import ctypes
 import json
@@ -48,12 +60,27 @@ SHAPES = [("decoder 3", 1, 200, 256, ("up", 5, 10, 512), None),
           ("decoder 6 row-lane", 4, 3200, 32, None, 4)]
 
 
-def _stamped(src: str, kernel: str, end: str, start: str, barrier: str) -> str:
+# the int4 chain kernel of a checkout, as (kernel, end, start, barrier,
+# barriers per block): this tree's cluster kernel, then the cooperative one
+CHAIN_KERNELS = [
+    ("__global__ void __launch_bounds__(NT, 1) chain_q_kernel",
+     "cl.sync();  // x of the next block is whole in every CTA of the cluster\n  }\n}",
+     "extern __shared__ __align__(16) unsigned char smc[];", "grid_barrier(a.bar);", 1),
+    ("__global__ void __launch_bounds__(THREADS) chain_kernel",
+     "      grid.sync();\n    }\n  }\n}", "extern __shared__ float sm[];", "grid.sync();", 2),
+]
+# (name, B, T, D, blocks): the 1.5B small-T stages, and B=4
+CHAIN_SHAPES = [("decoder 0 / encoder 6", 1, 1, 2048, 8), ("decoder 1 / encoder 5", 1, 8, 1024, 3),
+                ("decoder 1, B=4", 4, 8, 1024, 3)]
+
+
+def _stamped(src: str, kernel: str, end: str, start: str, barrier: str,
+             what: str = "fused_stage.cu") -> str:
     """`src` with stamps in the body of `kernel` (which runs up to `end`): at
     `start`, after every `barrier` and after `end`'s last statement."""
     for marker in (kernel, end, start, barrier):
         if marker not in src:
-            raise RuntimeError(f"fused_stage.cu no longer has {marker!r}: update this script")
+            raise RuntimeError(f"{what} no longer has {marker!r}: update this script")
     a = src.index(kernel)
     b = src.index(end, a) + len(end)
     body = (src[a:b].replace(start, start + "\n  int ns = 0;\n  STAMP")
@@ -62,13 +89,17 @@ def _stamped(src: str, kernel: str, end: str, start: str, barrier: str) -> str:
     return src[:a] + body + src[b:]
 
 
+def _with_stamps(src: str, csrc: str, what: str) -> str:
+    header = '#include "int4_common.cuh"'
+    if header not in src:
+        raise RuntimeError(f"{what} no longer has {header!r}: update this script")
+    return src.replace(header, f'#include "{os.path.join(csrc, "int4_common.cuh")}"' + STAMPS)
+
+
 def instrumented_source() -> str:
     from vibevoice_tpu_torch.ops import cuda_build
     with open(os.path.join(cuda_build.CSRC_DIR, "fused_stage.cu")) as f:
         src = f.read()
-    header = '#include "int4_common.cuh"'
-    if header not in src:
-        raise RuntimeError(f"fused_stage.cu no longer has {header!r}: update this script")
     src = _stamped(src, "__global__ void __launch_bounds__(THREADS) stage_kernel",
                    "phase_out<T>(p, p.xb, sm);\n}", "extern __shared__ float sm[];",
                    "grid.sync();")
@@ -76,8 +107,43 @@ def instrumented_source() -> str:
                    "reinterpret_cast<float*>(smc));\n}",
                    "extern __shared__ __align__(16) unsigned char smc[];",
                    "grid_barrier(p.bar);")
-    return src.replace(header, f'#include "{os.path.join(cuda_build.CSRC_DIR, "int4_common.cuh")}"'
-                       + STAMPS)
+    return _with_stamps(src, cuda_build.CSRC_DIR, "fused_stage.cu")
+
+
+def instrumented_chain(csrc: str):
+    """(`fused_block_chain.cu` of the checkout whose csrc/ is `csrc`, stamped
+    in its int4 chain kernel; that kernel's grid barriers per block)."""
+    with open(os.path.join(csrc, "fused_block_chain.cu")) as f:
+        src = f.read()
+    for kernel, end, start, barrier, per_block in CHAIN_KERNELS:
+        if kernel in src:
+            src = _stamped(src, kernel, end, start, barrier, "fused_block_chain.cu")
+            return _with_stamps(src, csrc, "fused_block_chain.cu"), per_block
+    raise RuntimeError("fused_block_chain.cu has no chain kernel this script knows")
+
+
+def _stamped_library(cuda_build, name: str, src: str, loader):
+    """Point `cuda_build` at the stamped copy `src` of kernel `name` and load
+    it with `loader` (the wrapper module's own `_library`)."""
+    os.makedirs(cuda_build.build_dir(), exist_ok=True)
+    path = os.path.join(cuda_build.build_dir(), f"{name}_stamped.cu")
+    with open(path, "w") as f:
+        f.write(src)
+    cuda_build.SOURCES[name] = os.path.relpath(path, cuda_build.CSRC_DIR)
+    lib = loader()
+    lib.vv_stamps.argtypes = [ctypes.c_void_p]
+    return lib
+
+
+def read_stamps(lib, n: int):
+    """(the first n + 1 stamps' gaps in µs, the grid size) of the last launch."""
+    torch.cuda.synchronize()
+    stamps = (ctypes.c_ulonglong * 64)()
+    rc = lib.vv_stamps(ctypes.addressof(stamps))
+    if rc:
+        raise RuntimeError(f"reading the stamps failed with {rc}")
+    ts = [stamps[i] for i in range(n + 1)]
+    return [(b - a) / 1e3 for a, b in zip(ts, ts[1:])], stamps[63]
 
 
 def phase_names(conv, rowlane, n_blocks=3):
@@ -86,39 +152,86 @@ def phase_names(conv, rowlane, n_blocks=3):
     return (["conv"] if conv else []) + [f"block {i}" for i in range(n_blocks)]
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("torch_stage_phases: no CUDA device", file=sys.stderr)
-        return 2
+def stage_phases(dev):
     import chip_smoke as cs
-    from vibevoice_tpu_torch.engine.generate import resolve_device
     from vibevoice_tpu_torch.ops import cuda_build, fused_stage as fs
-    os.makedirs(cuda_build.build_dir(), exist_ok=True)
-    path = os.path.join(cuda_build.build_dir(), "fused_stage_stamped.cu")
-    with open(path, "w") as f:
-        f.write(instrumented_source())
-    cuda_build.SOURCES["fused_stage"] = os.path.relpath(path, cuda_build.CSRC_DIR)
-    lib = fs._library()
-    lib.vv_stamps.argtypes = [ctypes.c_void_p]
-    stamps = (ctypes.c_ulonglong * 64)()
-
-    dev = resolve_device("cuda")
+    lib = _stamped_library(cuda_build, "fused_stage", instrumented_source(), fs._library)
     gen = torch.Generator(device=dev).manual_seed(cs.SEED)
     for name, b, t, d, conv, r in SHAPES:
         pack = cs.random_stage_pack(d, conv, False, r, gen, dev)
         xs, ctx, states = cs.stage_inputs(pack, b, t, gen, dev)
         ms = cs.cuda_ms(lambda i: fs.fused_stage_chain(pack, xs[0], ctx, **states), 20)
         fs.fused_stage_chain(pack, xs[0], ctx, **states)  # the launch whose stamps are read
-        torch.cuda.synchronize()
-        rc = lib.vv_stamps(ctypes.addressof(stamps))
-        if rc:
-            raise RuntimeError(f"reading the stamps failed with {rc}")
         names = phase_names(conv, cs.uses_rowlane(pack, b))
-        ts = [stamps[i] for i in range(len(names) + 1)]
+        us, grid = read_stamps(lib, len(names))
         print(json.dumps({"stage": name, "B": b, "T": t, "D": d, "conv": conv, "rows": r,
-                          "launch_us": 1e3 * ms, "grid": stamps[63], "phases": names,
-                          "phase_us": [(b_ - a_) / 1e3 for a_, b_ in zip(ts, ts[1:])]}),
-              flush=True)
+                          "launch_us": 1e3 * ms, "grid": grid, "phases": names,
+                          "phase_us": us}), flush=True)
+
+
+def chain_phases(dev, other):
+    """The int4 chain's phases at CHAIN_SHAPES, of this checkout or of the
+    checkout at `other`; each launch checked against this checkout's plain
+    version first."""
+    import chip_smoke as cs
+    from vibevoice_tpu_torch.ops import cuda_build, fused_blocks as fb
+    if other:
+        from torch_kernel_compare import load_other
+        ofb = load_other(other, ["fused_blocks"])["fused_blocks"]
+        ocb = sys.modules[ofb.__name__.rsplit(".", 1)[0] + ".cuda_build"]
+    else:
+        ofb, ocb = fb, cuda_build
+    src, per_block = instrumented_chain(ocb.CSRC_DIR)
+    lib = _stamped_library(ocb, "fused_block_chain", src, ofb._library)
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED + 3)
+    for name, b, t, d, nblk in CHAIN_SHAPES:
+        packs = [fb.pack_stage_q(cs.random_stage(d, nblk, gen, dev))
+                 for _ in range(cs.copies_for(nblk * d * 4 * d))]
+        x, ctx = cs.chain_inputs(packs[0], b, t, gen, dev)
+        got = ofb.fused_block_chain_batched(packs[0], x, ctx)
+        want = fb.fused_block_chain_batched_ref(packs[0], x, ctx)
+        err = max(cs.agree("fused_block_chain_batched", g, w)[0] for g, w in zip(got, want))
+        n = len(packs)
+        ms = cs.cuda_ms(lambda i: ofb.fused_block_chain_batched(packs[i % n], x, ctx), 2 * n)
+        ofb.fused_block_chain_batched(packs[1 % n], x, ctx)  # the launch whose stamps are read
+        groups = -(-b // ofb_items(ofb, x, 4 * d))
+        names = [f"group {g} block {i}" + (f" {ph}" if per_block > 1 else "")
+                 for g in range(groups) for i in range(nblk)
+                 for ph in (("mixer+ffn", "sum") if per_block > 1 else ("",))]
+        us, grid = read_stamps(lib, len(names) + 1)
+        print(json.dumps({"chain": name, "checkout": other or "this", "B": b, "T": t, "D": d,
+                          "F": 4 * d, "blocks": nblk, "max_abs_err": err, "launch_us": 1e3 * ms,
+                          "grid": grid, "barriers_per_block": per_block,
+                          "phases": names + ["end"], "phase_us": us}), flush=True)
+        del packs
+
+
+def ofb_items(ofb, x, f):
+    """Batch items per row group of a checkout's int4 chain at x [B, T, D]."""
+    if hasattr(ofb, "plan_for"):
+        return ofb.plan_for(x, f).bg
+    return ofb.row_group(*x.shape)
+
+
+def main() -> int:
+    args = sys.argv[1:]
+    other = None
+    if "--other" in args:
+        i = args.index("--other")
+        other = args[i + 1]
+        del args[i:i + 2]
+    if not set(args) <= {"stage", "chain"}:
+        print(__doc__, file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("torch_stage_phases: no CUDA device", file=sys.stderr)
+        return 2
+    from vibevoice_tpu_torch.engine.generate import resolve_device
+    dev = resolve_device("cuda")
+    if "stage" in (args or ["stage"]) and other is None:
+        stage_phases(dev)
+    if "chain" in (args or ["chain"]):
+        chain_phases(dev, other)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True, timeout=60)
     print(card.stdout.strip(), flush=True)

@@ -259,6 +259,67 @@ def test_fused_block_chain_kernel_matches_plain(cuda_device, b, t, d, n):
     torch.testing.assert_close(new_ctx.float(), ctx_ref.float(), atol=_rel_tol(ctx_ref), rtol=0)
 
 
+def _chain_inputs(b, t, d, n, gen, dev):
+    x = (0.5 * torch.randn((b, t, d), generator=gen, device=dev)).to(torch.bfloat16)
+    ctx = (0.5 * torch.randn((b, n, 6, d), generator=gen, device=dev)).to(torch.bfloat16)
+    return x, ctx
+
+
+@pytest.mark.parametrize("b,t,d,n", [(1, 1, 2048, 8), (1, 8, 1024, 3), (4, 8, 1024, 3)])
+def test_fused_block_chain_is_one_deterministic_launch(cuda_device, b, t, d, n):
+    """Every sum of the int4 chain runs in a fixed order: two calls on the
+    same inputs give the same bits, each one kernel on the device."""
+    from vibevoice_tpu_torch.ops import fused_blocks as fb
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    pack = fb.pack_stage_q(_stage(d, n, gen, cuda_device))
+    x, ctx = _chain_inputs(b, t, d, n, gen, cuda_device)
+    first = fb.fused_block_chain_batched(pack, x, ctx)  # builds and loads the library
+    torch.cuda.synchronize()
+    second, kernels = _device_kernels(lambda: fb.fused_block_chain_batched(pack, x, ctx))
+    assert len(kernels) == 1 and "chain_q_kernel" in kernels[0], kernels
+    assert all(torch.equal(a, b_) for a, b_ in zip(first, second))
+
+
+@pytest.mark.parametrize("b,t,d,n", [(1, 8, 1024, 3), (2, 5, 8, 2)])
+def test_fused_block_chain_streams_context(cuda_device, b, t, d, n):
+    """Three chunks with the new context carried into the next, against the
+    plain version carried the same way."""
+    from vibevoice_tpu_torch.ops import fused_blocks as fb
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    pack = fb.pack_stage_q(_stage(d, n, gen, cuda_device))
+    got_c = want_c = _chain_inputs(b, t, d, n, gen, cuda_device)[1]
+    for _ in range(3):
+        x = _chain_inputs(b, t, d, n, gen, cuda_device)[0]
+        y, got_c = fb.fused_block_chain_batched(pack, x, got_c)
+        torch.cuda.synchronize()
+        y_ref, want_c = fb.fused_block_chain_batched_ref(pack, x, want_c)
+        torch.testing.assert_close(y.float(), y_ref.float(), atol=_rel_tol(y_ref), rtol=0)
+        torch.testing.assert_close(got_c.float(), want_c.float(), atol=_rel_tol(want_c), rtol=0)
+        got_c = want_c  # each chunk from the same context, so errors do not compound
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,t,d,n", [(3, 5, 24, 2), (2, 3, 352, 2), (5, 8, 1024, 1)])
+def test_fused_block_chain_ragged_shapes(cuda_device, dtype, b, t, d, n):
+    """Widths that do not fill a cluster evenly: D=24 (3 of a rank's D
+    columns, 4-byte W1 copies, byte copies of W2), D=352 (F=1408 on 118 CTAs
+    of 12 columns: the last cluster part idle, 16-byte W2 copies), and B=5
+    T=8 in three row groups, in bf16 and fp32."""
+    from vibevoice_tpu_torch.ops import fused_blocks as fb
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    pack = fb.pack_stage_q(_stage(d, n, gen, cuda_device))
+    x, ctx = (v.to(dtype) for v in _chain_inputs(b, t, d, n, gen, cuda_device))
+    y, new_ctx = fb.fused_block_chain_batched(pack, x, ctx)
+    torch.cuda.synchronize()
+    y_ref, ctx_ref = fb.fused_block_chain_batched_ref(pack, x, ctx)
+    assert y.dtype == dtype and bool(torch.isfinite(y).all())
+    # bf16: one rounding step of the largest value; fp32: sums in another order
+    scale = 2 ** -7 if dtype == torch.bfloat16 else 1e-5
+    for g, w in ((y, y_ref), (new_ctx, ctx_ref)):
+        torch.testing.assert_close(g.float(), w.float(), atol=scale * float(w.float().abs().max()),
+                                   rtol=0)
+
+
 @pytest.mark.parametrize("n,h,f", [(2, 1536, 4608), (6, 64, 192)])
 def test_fused_head_kernel_matches_plain(cuda_device, n, h, f):
     from vibevoice_tpu_torch.ops import fused_head as fh

@@ -268,3 +268,38 @@ def test_tiles_and_row_groups():
     assert TFB.row_group(64, 8, 1024) == 5
     with pytest.raises(ValueError, match="budget"):
         TFB.row_group(1, 8, 8192)
+
+
+# (B, T, D, F): the 1.5B stages, B=4, and ragged shapes that leave ranks of a
+# cluster without FFN columns or D columns
+_PLAN_SHAPES = [(1, 1, 2048, 8192), (1, 8, 1024, 4096), (4, 8, 1024, 4096), (3, 5, 24, 96),
+                (2, 3, 352, 1408), (5, 8, 1024, 4096), (1, 1, 4, 16)]
+
+
+@pytest.mark.parametrize("clusters", [15, 16, 30])
+@pytest.mark.parametrize("b,t,d,f", _PLAN_SHAPES)
+def test_chain_plan_invariants(b, t, d, f, clusters):
+    """The int4 chain kernel's launch plan: FFN columns in whole packed words
+    covering F once, no more clusters than the card holds nor than get
+    columns, row groups of at most 16 rows that fit shared memory."""
+    p = TFB.chain_plan(b, t, d, f, clusters)
+    assert p.tf % 4 == 0 and p.tf >= 4
+    assert (p.tiles - 1) * p.tf < f <= p.tiles * p.tf
+    assert p.clusters == -(-p.tiles // TFB.CLUSTER) <= clusters
+    assert 1 <= p.bg <= b and p.bg * t <= 16
+    assert p.smem == TFB.chain_smem(d, p.tf, p.bg * t) <= 227 * 1024
+    groups = -(-b // p.bg)
+    assert -(-b // groups) == p.bg  # balanced: no group is more than one item short
+
+
+def test_chain_plan_at_the_h100_shapes():
+    """On an H100 (15 clusters of 8 CTAs hold at once at 1 CTA per SM): the
+    D=2048 stage on 114 CTAs of 72 columns, the D=1024 stages on 114 of 36,
+    B=4 T=8 in two row groups of 16 rows; a width whose slices do not fit
+    shared memory is refused."""
+    assert TFB.chain_plan(1, 1, 2048, 8192, 15) == (72, 114, 15, 1, 168208)
+    assert TFB.chain_plan(1, 8, 1024, 4096, 15)[:4] == (36, 114, 15, 1)
+    assert TFB.chain_plan(4, 8, 1024, 4096, 15)[:4] == (36, 114, 15, 2)
+    assert TFB.chain_plan(3, 5, 24, 96, 15)[:4] == (4, 24, 3, 3)
+    with pytest.raises(ValueError, match="shared memory"):
+        TFB.chain_plan(1, 1, 8192, 32768, 15)

@@ -21,13 +21,49 @@
 // Bound: the stage's rows are few (B*T), so each weight value feeds 2*B*T
 // flops: the least time is the weight bytes over 3.35 TB/s -- about 134 MB
 // (int4) or 538 MB (bf16) for the 1.5B model's D=2048 stages and 12.6 MB /
-// 50 MB for its D=1024 stages.
+// 50 MB for its D=1024 stages.  At 1-32 rows a block's weights (16.8 MB or
+// 4.2 MB int4) take 1-5 us to stream, so the latency of every grid-wide step
+// between blocks counts as much as the bytes.
 //
-// Design: the TPU kernel is one pallas_call whose grid runs in order and
-// carries the activation in VMEM from block to block (the plain one once per
-// batch row, under vmap).  Hopper runs blocks in parallel, so this is ONE
-// cooperative launch (about two CTAs per SM) with grid-wide barriers between
-// phases, for every Block1D:
+// The TPU kernel is one pallas_call whose grid runs in order and carries the
+// activation in VMEM from block to block (the plain one once per batch row,
+// under vmap).  Hopper runs blocks in parallel, so each pack has one launch
+// that keeps the activation on chip and syncs the grid between blocks.
+//
+// int4 packs (`chain_q_kernel`): one launch of clusters of C = 8 CTAs (the
+// portable size; `cudaLaunchKernelEx` with the cluster attribute), one CTA
+// per SM, at most as many clusters as the card holds at once (every CTA must
+// be resident for the grid barrier).  CTA k owns FFN columns
+// [k*TF, (k+1)*TF) of every block (TF a multiple of 4, the whole width over
+// the grid).  Its slices of W1 ([D/2, TF] bytes) and W2 ([TF/2, D] bytes) are
+// fetched into shared memory by cp.async (16-byte vectors where the widths
+// allow; W1's rows 4 or 8 where TF is not a multiple of 16) a block ahead: W1 of block
+// n+1 while block n's down-projection runs, W2 of block n+1 while its
+// shares are summed, the grid syncs and block n+1's mixer runs.  Per block:
+//   1. every CTA computes the norm / mixer / second norm of all rows of the
+//      row group from its own copy of x in shared memory (the CTAs' copies
+//      are equal to the bit); cluster 0 writes the new context;
+//   2. up-projection of the CTA's columns (fp32 FMAs against nibbles made
+//      fp32 exactly by prmt + a float subtract; k split over the threads,
+//      the splits added in order), scale, bias, exact GELU, in shared memory;
+//      the down-projection gives the CTA's share [rows, D] of the FFN output;
+//   3. cluster barrier; rank q adds the C shares of its D/C columns in rank
+//      order through distributed shared memory and writes them as the
+//      cluster's fp32 partial (buffer n % 2 of the cached workspace);
+//   4. the grid barrier (a counter in the workspace), the only one of the
+//      block;
+//   5. rank q of every cluster adds the clusters' partials of its columns in
+//      cluster order, applies scale, bias, layer scale and residual, and
+//      stores x for the next block into the shared memory of every CTA of
+//      its cluster; a cluster barrier.  Cluster 0 writes y after the last.
+// The partials alternate between two buffers: block n+2 writes buffer n % 2
+// only after every CTA has passed block n+1's barrier, so none overwrites
+// partials a slower CTA still reads.  Every sum runs in a fixed order, so two
+// calls give the same bits.  Batches whose rows do not fit shared memory
+// (at most 16 rows) run as row groups, one after another, in the launch.
+//
+// Plain packs (`chain_kernel`, PR 4's design): one cooperative launch (about
+// two CTAs per SM) with grid-wide barriers between phases, for every Block1D:
 //   A. every CTA recomputes the norm / mixer / second norm for all rows of
 //      the row group into shared memory (at most 8*B rows of D fp32 -- cheap
 //      next to the weights); CTA 0 also writes the new context and y;
@@ -43,7 +79,6 @@
 // for all B rows at once, where the TPU's vmapped plain kernel reads them once
 // per row.  Batches whose rows do not fit the shared-memory budget are cut
 // into row groups inside the launch (the TPU kernel's _CHAIN_GROUP_BUDGET).
-// wgmma/TMA are left for a later version.
 //
 // Plain C interface, loaded with ctypes; dtype codes: 0 float32, 1 bfloat16
 // (x, ctx, y and the new ctx share one; a plain pack has its own).  Returns
@@ -52,6 +87,7 @@
 
 #include <cooperative_groups.h>
 
+#include <set>
 #include <type_traits>
 
 #include "int4_common.cuh"
@@ -368,24 +404,596 @@ int check_sizes(int B, int T, int D, int F, int NB, int bg, int TF, int ntiles) 
   return 0;
 }
 
+// ---- the int4 chain: one cluster launch, one grid barrier per block ----
+
+constexpr int NT = 256;       // threads of a CTA of chain_q_kernel
+constexpr int NW = NT / 32;
+constexpr int RP = 8;         // rows per register pass
+constexpr int MAX_C = 8;      // CTAs per cluster: the portable size
+constexpr int RED_BATCH = 16; // partials of one element a thread has in flight
+
+struct QArgs {
+  const void* x;
+  const void* ctx;
+  const float* vecs;  // [N, 8, D]
+  const float* mixw;  // [N, 8, D]
+  const int8_t* w1;   // [N, D/2, F]
+  const float* sb1;   // [N, 2, F]
+  const int8_t* w2;   // [N, F/2, D]
+  const float* s2;    // [N, 1, D]
+  void* y;
+  void* ctx_out;
+  float* part;        // [2][ncl][bg*T][D]: the clusters' partials, by block parity
+  unsigned int* bar;  // the grid barrier's counter
+  int B, T, D, F, NB, bg, TF, ncl, tiles, C;
+  float eps;
+};
+
+// Byte offsets of chain_q_kernel's shared memory, for `rows` rows per group
+// (`ops/fused_blocks.py:chain_smem` mirrors the total).
+struct QLayout {
+  size_t w1, w2, xs, hb, as, red, nrm, total;
+};
+
+__host__ __device__ inline size_t up16(size_t v) { return (v + 15) & ~static_cast<size_t>(15); }
+
+__host__ __device__ inline QLayout q_layout(int D, int TF, int rows) {
+  QLayout L;
+  const size_t Dp = up16(D), nkl = NT / (TF / 4);
+  const size_t rp = rows < RP ? rows : RP;
+  size_t o = 0;
+  L.w1 = o;   o += up16(static_cast<size_t>(D / 2) * TF);  // W1 slice [D/2][TF] bytes
+  L.w2 = o;   o += up16(static_cast<size_t>(TF / 2) * Dp); // W2 slice [TF/2][Dp] bytes
+  L.xs = o;   o += up16(sizeof(float) * rows * D);         // x, then y, then next x
+  L.hb = o;   o += up16(sizeof(float) * rows * D);         // h, then hn, then the share
+  L.as = o;   o += up16(sizeof(float) * rows * TF);        // gelu activations
+  L.red = o;  o += up16(sizeof(float) * nkl * rp * TF);    // up-projection k splits
+  L.nrm = o;  o += up16(sizeof(float) * (NW + 1) * rows);  // norm partials, row scales
+  L.total = o;
+  return L;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+// all but the newest group of this thread's copies have landed
+__device__ __forceinline__ void cp_wait_but_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b, uint32_t sel) {
+  uint32_t r;
+  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(sel));
+  return r;
+}
+
+// The 8 signed nibbles of 4 packed bytes as fp32, exactly: byte j gives
+// lo[j] (weight row 2i) and hi[j] (row 2i + 1).  nibble ^ 8 (its value + 8)
+// goes into the low byte of 2^23 (prmt), and 2^23 + 8 is subtracted: no
+// int-to-float conversion (quarter rate).
+__device__ __forceinline__ void nibbles_f32(uint32_t w, float (&lo)[4], float (&hi)[4]) {
+  const uint32_t l = (w & 0x0F0F0F0Fu) ^ 0x08080808u;
+  const uint32_t h = ((w >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    lo[j] = __uint_as_float(prmt(l, 0x4B000000u, 0x7540u + j)) - 8388616.f;
+    hi[j] = __uint_as_float(prmt(h, 0x4B000000u, 0x7540u + j)) - 8388616.f;
+  }
+}
+
+// Grid-wide barrier on a counter in device memory (the algorithm of
+// cooperative groups' grid.sync: block 0 adds 2^31 - (n - 1), the others 1,
+// so the counter's top bit flips once all have arrived and its low bits are
+// back to 0).  Every CTA of the grid is resident: the grid is sized by the
+// occupancy of the cluster launch.  A barrier that is not reached within
+// seconds traps rather than hanging the card.
+__device__ void grid_barrier(unsigned int* bar) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const unsigned int add = blockIdx.x == 0 ? 0x80000000u - (gridDim.x - 1) : 1u;
+    __threadfence();
+    const unsigned int old = atomicAdd(bar, add);
+    unsigned int cur;
+    long long spins = 0;
+    while (true) {
+      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(cur) : "l"(bar) : "memory");
+      if ((old ^ cur) & 0x80000000u) break;
+      if (++spins > (1LL << 26)) __trap();
+      __nanosleep(32);
+    }
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+// The CTA's slices of block nb's weights into shared memory: W1 byte rows
+// [0, D/2) x columns [f0, f0 + TF) as [D/2][TF], W2 byte rows
+// [f0/2, (f0 + TF)/2) as [TF/2][Dp]; columns or rows past F read as 0.
+// cp.async (committed by the caller) in vectors of `vw` bytes (W1: 16, 8 or
+// 4, the widest that divides F and TF; W2: one contiguous run of 16-byte
+// vectors where D is a multiple of 16); vw = 0: plain byte copies.
+__device__ __forceinline__ void cp_async(void* dst, const void* src, int vw, bool live) {
+  const uint32_t d = smem_u32(dst), n = live ? vw : 0;
+  if (vw == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(n)
+                 : "memory");
+  else if (vw == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d), "l"(src), "r"(n)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(n)
+                 : "memory");
+}
+
+__device__ void fetch_w1(const QArgs& a, int nb, int f0, unsigned char* dst, int vw) {
+  const int D2 = a.D / 2, F = a.F, TF = a.TF;
+  const int8_t* src = a.w1 + static_cast<size_t>(nb) * D2 * F + f0;
+  if (vw) {
+    const int vpr = TF / vw;
+    for (int v = threadIdx.x; v < D2 * vpr; v += NT) {
+      const int i = v / vpr, c = (v % vpr) * vw;
+      const bool live = f0 + c < F;
+      cp_async(dst + static_cast<size_t>(i) * TF + c,
+               live ? src + static_cast<size_t>(i) * F + c : src, vw, live);
+    }
+  } else {
+    for (int e = threadIdx.x; e < D2 * TF; e += NT) {
+      const int i = e / TF, c = e % TF;
+      dst[e] = f0 + c < F ? static_cast<unsigned char>(src[static_cast<size_t>(i) * F + c]) : 0;
+    }
+  }
+}
+
+__device__ void fetch_w2(const QArgs& a, int nb, int f0, unsigned char* dst) {
+  const int D = a.D, F2 = a.F / 2, R = a.TF / 2, r0 = f0 / 2;
+  const int Dp = static_cast<int>(up16(D));
+  const int8_t* src = a.w2 + (static_cast<size_t>(nb) * F2 + r0) * D;
+  if (D % 16 == 0) {  // Dp == D: the slice is one contiguous run of R rows
+    const int vpr = D / 16;
+    for (int v = threadIdx.x; v < R * vpr; v += NT) {
+      const bool live = r0 + v / vpr < F2;
+      cp_async(dst + static_cast<size_t>(v) * 16, live ? src + static_cast<size_t>(v) * 16 : src,
+               16, live);
+    }
+  } else {
+    for (int e = threadIdx.x; e < R * Dp; e += NT) {
+      const int i = e / Dp, d = e % Dp;
+      dst[e] = r0 + i < F2 && d < D ? static_cast<unsigned char>(src[static_cast<size_t>(i) * D + d])
+                                    : 0;
+    }
+  }
+}
+
+// rs[r] = 1 / sqrt(mean(buf[r, :]^2) + eps) for r < rows, by the whole CTA;
+// the warps' sums meet in warp order, so every CTA gets the same bits.
+__device__ void row_scales(const float* buf, int rows, int D, float eps, float* nrm, float* rs) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int r = 0; r < rows; ++r) {
+    float s = 0.f;
+    for (int d = threadIdx.x; d < D; d += NT) {
+      const float v = buf[r * D + d];
+      s += v * v;
+    }
+    s = vv::warp_sum(s);
+    if (lane == 0) nrm[warp * rows + r] = s;
+  }
+  __syncthreads();
+  if (threadIdx.x < rows) {
+    float t = 0.f;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) t += nrm[w * rows + threadIdx.x];
+    rs[threadIdx.x] = 1.f / sqrtf(t / D + eps);
+  }
+  __syncthreads();
+}
+
+// as[r][c] = gelu((hn[r] @ W1[:, f0 + c]) * s1 + b1) for r < rows, c < TF
+// (0 past F).  Thread (cw, kl) takes packed word cw (4 columns) of byte rows
+// kl, kl + nkl, ...; the nkl k splits meet in `red` and are added in order.
+__device__ void up_proj(const QArgs& a, int nb, int f0, const unsigned char* w1s,
+                        const float* hn, int rows, int rp, float* red, float* as) {
+  const int D = a.D, TF = a.TF, cgw = TF / 4, nkl = NT / cgw;
+  const int cw = threadIdx.x % cgw, kl = threadIdx.x / cgw;
+  const float* s1 = a.sb1 + static_cast<size_t>(nb) * 2 * a.F;
+  const float* b1 = s1 + a.F;
+  for (int m0 = 0; m0 < rows; m0 += RP) {
+    const int rr = min(RP, rows - m0);
+    if (kl < nkl) {
+      float acc[RP][4];
+#pragma unroll
+      for (int r = 0; r < RP; ++r)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[r][j] = 0.f;
+      const float* x0 = hn + m0 * D;
+#pragma unroll 4
+      for (int i = kl; i < D / 2; i += nkl) {
+        float lo[4], hi[4];
+        nibbles_f32(*reinterpret_cast<const uint32_t*>(w1s + static_cast<size_t>(i) * TF + 4 * cw),
+                    lo, hi);
+#pragma unroll
+        for (int r = 0; r < RP; ++r) {
+          if (r < rr) {
+            const float2 xv = *reinterpret_cast<const float2*>(x0 + r * D + 2 * i);
+#pragma unroll
+            for (int j = 0; j < 4; ++j) acc[r][j] = fmaf(xv.y, hi[j], fmaf(xv.x, lo[j], acc[r][j]));
+          }
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < RP; ++r)
+        if (r < rr)
+          *reinterpret_cast<float4*>(red + (kl * rp + r) * TF + 4 * cw) =
+              make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+    }
+    __syncthreads();
+    for (int e = threadIdx.x; e < rr * TF; e += NT) {
+      const int r = e / TF, c = e % TF;
+      float s = 0.f;
+#pragma unroll 8
+      for (int l = 0; l < nkl; ++l) s += red[(l * rp + r) * TF + c];
+      float v = 0.f;
+      if (f0 + c < a.F) {
+        v = s * s1[f0 + c] + b1[f0 + c];
+        v = 0.5f * v * (1.f + erff(v * 0.7071067811865476f));
+      }
+      as[(m0 + r) * TF + c] = v;
+    }
+    __syncthreads();
+  }
+}
+
+// share[r][d] = sum over c < TF of as[r][c] * W2[f0 + c][d] for r < rows,
+// d < D; thread cw takes packed word cw (4 columns) over every byte row of
+// the slice.
+__device__ void down_proj(const QArgs& a, const unsigned char* w2s, const float* as, int rows,
+                          float* share) {
+  const int D = a.D, TF = a.TF, Dp = static_cast<int>(up16(D));
+  for (int cw = threadIdx.x; 4 * cw < D; cw += NT) {
+    for (int m0 = 0; m0 < rows; m0 += RP) {
+      const int rr = min(RP, rows - m0);
+      float acc[RP][4];
+#pragma unroll
+      for (int r = 0; r < RP; ++r)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[r][j] = 0.f;
+      const float* a0 = as + m0 * TF;
+#pragma unroll 4
+      for (int i = 0; i < TF / 2; ++i) {
+        float lo[4], hi[4];
+        nibbles_f32(*reinterpret_cast<const uint32_t*>(w2s + static_cast<size_t>(i) * Dp + 4 * cw),
+                    lo, hi);
+#pragma unroll
+        for (int r = 0; r < RP; ++r) {
+          if (r < rr) {
+            const float2 av = *reinterpret_cast<const float2*>(a0 + r * TF + 2 * i);
+#pragma unroll
+            for (int j = 0; j < 4; ++j) acc[r][j] = fmaf(av.y, hi[j], fmaf(av.x, lo[j], acc[r][j]));
+          }
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < RP; ++r) {
+        if (r >= rr) continue;
+        float* dst = share + (m0 + r) * D + 4 * cw;
+        if (D % 4 == 0) {
+          *reinterpret_cast<float4*>(dst) = make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+        } else {
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (4 * cw + j < D) dst[j] = acc[r][j];
+        }
+      }
+    }
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void ld_v(float (&v)[V], const float* p) {
+  if constexpr (V == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
+  } else {
+    v[0] = *p;
+  }
+}
+template <int V>
+__device__ __forceinline__ void ldcg_v(float (&v)[V], const float* p) {  // not through L1
+  if constexpr (V == 4) {
+    const float4 t = __ldcg(reinterpret_cast<const float4*>(p));
+    v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
+  } else {
+    v[0] = __ldcg(p);
+  }
+}
+template <int V>
+__device__ __forceinline__ void st_v(float* p, const float (&v)[V]) {
+  if constexpr (V == 4)
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  else
+    *p = v[0];
+}
+
+// Step 3 of a block, for V-wide column groups (V = 4 where D is a multiple
+// of 4): rank q of the cluster adds its ranks' shares (in `hb`) of the
+// rank's columns in rank order and writes them as the cluster's partial.
+template <int V>
+__device__ void cluster_partial(const QArgs& a, cg::cluster_group& cl, int step, float* hb,
+                                int rows, int rows_max) {
+  const int D = a.D, C = a.C, rank = static_cast<int>(cl.block_rank());
+  const int cid = blockIdx.x / C, nv = D / V;
+  const int u0 = rank * nv / C, wu = (rank + 1) * nv / C - u0;
+  const size_t slab = static_cast<size_t>(rows_max) * D;
+  float* part = a.part + (static_cast<size_t>(step % 2) * a.ncl + cid) * slab;
+  cl.sync();  // every rank's share is in its shared memory
+  for (int e = threadIdx.x; e < rows * wu; e += NT) {
+    const int off = (e / wu) * D + (u0 + e % wu) * V;
+    float s[V], v[MAX_C][V];
+#pragma unroll
+    for (int j = 0; j < V; ++j) s[j] = 0.f;
+#pragma unroll
+    for (int p = 0; p < MAX_C; ++p)
+      if (p < C && cid * C + p < a.tiles) ld_v<V>(v[p], cl.map_shared_rank(hb, p) + off);
+#pragma unroll
+    for (int p = 0; p < MAX_C; ++p)
+      if (p < C && cid * C + p < a.tiles)
+#pragma unroll
+        for (int j = 0; j < V; ++j) s[j] += v[p][j];
+    st_v<V>(part + off, s);
+  }
+}
+
+// Step 5 of a block: rank q of every cluster adds the clusters' partials of
+// its columns in cluster order and stores x = y + g2 * (sum * s2 + b2) into
+// `xs` of every CTA of its cluster; cluster 0 also into y after the group's
+// last block.
+template <typename T, int V>
+__device__ void next_x(const QArgs& a, cg::cluster_group& cl, int nb, int step, float* xs,
+                       int rows, int rows_max, size_t base, bool last) {
+  const int D = a.D, C = a.C, rank = static_cast<int>(cl.block_rank());
+  const int cid = blockIdx.x / C, nv = D / V;
+  const int u0 = rank * nv / C, wu = (rank + 1) * nv / C - u0;
+  const size_t slab = static_cast<size_t>(rows_max) * D;
+  const float* part = a.part + static_cast<size_t>(step % 2) * a.ncl * slab;
+  const float* g2 = a.vecs + (static_cast<size_t>(nb) * 8 + 4) * D;
+  const float* b2 = g2 + D;
+  const float* sc2 = a.s2 + static_cast<size_t>(nb) * D;
+  const bool out = last && cid == 0;
+  T* y_out = static_cast<T*>(a.y);
+  for (int e = threadIdx.x; e < rows * wu; e += NT) {
+    const int d0 = (u0 + e % wu) * V, off = (e / wu) * D + d0;
+    float s[V], v[RED_BATCH][V];
+#pragma unroll
+    for (int j = 0; j < V; ++j) s[j] = 0.f;
+    for (int k0 = 0; k0 < a.ncl; k0 += RED_BATCH) {
+#pragma unroll
+      for (int u = 0; u < RED_BATCH; ++u)
+        if (k0 + u < a.ncl) ldcg_v<V>(v[u], part + (k0 + u) * slab + off);
+#pragma unroll
+      for (int u = 0; u < RED_BATCH; ++u)
+        if (k0 + u < a.ncl)
+#pragma unroll
+          for (int j = 0; j < V; ++j) s[j] += v[u][j];
+    }
+    float x[V];
+#pragma unroll
+    for (int j = 0; j < V; ++j)
+      x[j] = xs[off + j] + g2[d0 + j] * (s[j] * sc2[d0 + j] + b2[d0 + j]);
+#pragma unroll
+    for (int p = 0; p < MAX_C; ++p)
+      if (p < C) st_v<V>(cl.map_shared_rank(xs, p) + off, x);
+    if (out)
+#pragma unroll
+      for (int j = 0; j < V; ++j) y_out[base + off + j] = vv::from_f<T>(x[j]);
+  }
+}
+
+// Step 1 of a block: xs holds x [rows][D]; leaves y in xs and hn in hb, and
+// (cluster 0, the rank's columns) the block's new context in ctx_out.
+template <typename T>
+__device__ void mixer(const QArgs& a, cg::cluster_group& cl, int nb, int b0, int nbg, float* xs,
+                      float* hb, float* nrm, float* rs) {
+  const int D = a.D, Tn = a.T, NB = a.NB, C = a.C, rows = nbg * Tn;
+  const float* vec = a.vecs + static_cast<size_t>(nb) * 8 * D;
+  const float* taps = a.mixw + static_cast<size_t>(nb) * 8 * D;
+  const T* ctx_in = static_cast<const T*>(a.ctx);
+  row_scales(xs, rows, D, a.eps, nrm, rs);
+  for (int e = threadIdx.x; e < rows * D; e += NT) hb[e] = xs[e] * rs[e / D] * vec[e % D];
+  __syncthreads();
+  if (blockIdx.x < C) {  // cluster 0: the new context, the last 6 rows of [ctx; h]
+    const int rank = static_cast<int>(cl.block_rank());
+    const int c0 = rank * D / C, w = (rank + 1) * D / C - c0;
+    T* ctx_out = static_cast<T*>(a.ctx_out);
+    for (int e = threadIdx.x; e < nbg * CTX * w; e += NT) {
+      const int bl = e / (CTX * w), j = (e / w) % CTX, d = c0 + e % w;
+      const int src = j + Tn;
+      const size_t cbase = (static_cast<size_t>(b0 + bl) * NB + nb) * CTX;
+      const float v = src < CTX ? vv::to_f(ctx_in[(cbase + src) * D + d])
+                                : hb[(bl * Tn + src - CTX) * D + d];
+      ctx_out[(cbase + j) * D + d] = vv::from_f<T>(v);
+    }
+  }
+  for (int e = threadIdx.x; e < nbg * D; e += NT) {
+    const int bl = e / D, d = e % D;
+    const T* cb = ctx_in + (static_cast<size_t>(b0 + bl) * NB + nb) * CTX * D + d;
+    float tap[7];
+#pragma unroll
+    for (int k = 0; k < 7; ++k) tap[k] = taps[k * D + d];
+    const float g = vec[2 * D + d], mb = vec[D + d];
+    for (int t = 0; t < Tn; ++t) {
+      float acc = 0.f;
+#pragma unroll
+      for (int k = 0; k < 7; ++k) {
+        const int j = t + k;
+        const float src = j < CTX ? vv::to_f(cb[static_cast<size_t>(j) * D])
+                                  : hb[(bl * Tn + j - CTX) * D + d];
+        acc = acc + src * tap[k];
+      }
+      const int r = bl * Tn + t;
+      xs[r * D + d] = xs[r * D + d] + g * (acc + mb);
+    }
+  }
+  __syncthreads();
+  row_scales(xs, rows, D, a.eps, nrm, rs);
+  for (int e = threadIdx.x; e < rows * D; e += NT) hb[e] = xs[e] * rs[e / D] * vec[3 * D + e % D];
+  __syncthreads();
+}
+
+template <typename T>
+__global__ void __launch_bounds__(NT, 1) chain_q_kernel(QArgs a) {
+  extern __shared__ __align__(16) unsigned char smc[];
+  cg::cluster_group cl = cg::this_cluster();
+  const int D = a.D, Tn = a.T, NB = a.NB, rows_max = a.bg * Tn;
+  const QLayout L = q_layout(D, a.TF, rows_max);
+  unsigned char* w1s = smc + L.w1;
+  unsigned char* w2s = smc + L.w2;
+  float* xs = reinterpret_cast<float*>(smc + L.xs);
+  float* hb = reinterpret_cast<float*>(smc + L.hb);
+  float* as = reinterpret_cast<float*>(smc + L.as);
+  float* red = reinterpret_cast<float*>(smc + L.red);
+  float* nrm = reinterpret_cast<float*>(smc + L.nrm);
+  float* rs = nrm + NW * rows_max;
+  const T* x_in = static_cast<const T*>(a.x);
+  const bool has_tile = blockIdx.x < a.tiles;
+  int vw = 0;  // W1's copy vectors: the widest that divides F and TF
+  for (int w = 16; w >= 4 && !vw; w /= 2)
+    if (a.F % w == 0 && a.TF % w == 0) vw = w;
+  const int f0 = blockIdx.x * a.TF, rp = min(RP, rows_max);
+  const int steps = (a.B + a.bg - 1) / a.bg * NB;
+  if (has_tile) {
+    fetch_w1(a, 0, f0, w1s, vw);
+    cp_commit();
+    fetch_w2(a, 0, f0, w2s);
+    cp_commit();
+  }
+  for (int step = 0; step < steps; ++step) {
+    const int nb = step % NB, b0 = step / NB * a.bg;
+    const int nbg = min(a.bg, a.B - b0), rows = nbg * Tn;
+    const size_t base = static_cast<size_t>(b0) * Tn * D;
+    const bool more = step + 1 < steps;
+    if (nb == 0) {
+      for (int e = threadIdx.x; e < rows * D; e += NT) xs[e] = vv::to_f(x_in[base + e]);
+      __syncthreads();
+    }
+    mixer<T>(a, cl, nb, b0, nbg, xs, hb, nrm, rs);
+    if (has_tile) {
+      cp_wait_but_one();  // this block's W1 slice
+      __syncthreads();
+      up_proj(a, nb, f0, w1s, hb, rows, rp, red, as);
+      if (more) fetch_w1(a, (step + 1) % NB, f0, w1s, vw);
+      cp_commit();
+      cp_wait_but_one();  // this block's W2 slice
+      __syncthreads();
+      down_proj(a, w2s, as, rows, hb);
+      __syncthreads();
+      if (more) fetch_w2(a, (step + 1) % NB, f0, w2s);
+      cp_commit();
+    }
+    if (D % 4 == 0)
+      cluster_partial<4>(a, cl, step, hb, rows, rows_max);
+    else
+      cluster_partial<1>(a, cl, step, hb, rows, rows_max);
+    grid_barrier(a.bar);  // the block's only grid-wide barrier
+    if (D % 4 == 0)
+      next_x<T, 4>(a, cl, nb, step, xs, rows, rows_max, base, nb == NB - 1);
+    else
+      next_x<T, 1>(a, cl, nb, step, xs, rows, rows_max, base, nb == NB - 1);
+    cl.sync();  // x of the next block is whole in every CTA of the cluster
+  }
+}
+
+// Raises chain_q_kernel's shared-memory limit, once per device.
+int q_opt_in() {
+  static std::set<int> opted;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (!opted.count(dev)) {
+    void (*kerns[2])(QArgs) = {chain_q_kernel<float>, chain_q_kernel<__nv_bfloat16>};
+    for (auto k : kerns) {
+      err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, 227 * 1024);
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    opted.insert(dev);
+  }
+  return 0;
+}
+
+// chain_q_kernel<T>'s launch configuration: grid `ctas`, clusters of C
+cudaLaunchConfig_t q_config(int ctas, int C, size_t smem, cudaStream_t stream,
+                            cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(ctas);
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// Clusters of C CTAs of chain_q_kernel<T> that the card holds at once with
+// `smem` bytes of shared memory each, into *out (0 if none).
+template <typename T>
+int q_clusters(size_t smem, int C, int* out) {
+  if (const int rc = q_opt_in()) return rc;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = q_config(C, C, smem, nullptr, attr);
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(out, chain_q_kernel<T>, &cfg));
+}
+
+template <typename T>
+int launch_q(const QArgs& a, size_t smem, cudaStream_t stream) {
+  if (const int rc = q_opt_in()) return rc;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = q_config(a.ncl * a.C, a.C, smem, stream, attr);
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, chain_q_kernel<T>, a);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
+// The int4 chain's clusters of C CTAs that the card holds at once with
+// `smem` bytes of shared memory per CTA, into *out (the launch's grid may not
+// exceed them: its grid barrier needs every CTA resident).
+extern "C" int vv_fused_block_chain_clusters(long long smem, int C, int dtype, int* out) {
+  if (C < 1 || C > MAX_C || smem <= 0 || smem > 227 * 1024) return -4;
+  if (dtype == 0) return q_clusters<float>(static_cast<size_t>(smem), C, out);
+  if (dtype == 1) return q_clusters<__nv_bfloat16>(static_cast<size_t>(smem), C, out);
+  return -5;  // unsupported dtype
+}
+
+// The int4 chain (TPU kernel `fused_block_chain_batched`): ncl clusters of C
+// CTAs, CTA k on FFN columns [k*TF, (k+1)*TF); bg batch items per row group;
+// `part` the workspace of 2 * ncl * bg * T * D floats, `bar` the barrier's
+// counter (0 before the first launch; every launch leaves its low bits 0).
 extern "C" int vv_fused_block_chain(const void* x, const void* ctx, const void* vecs,
                                     const void* mixw, const void* w1q, const void* sb1,
                                     const void* w2q, const void* s2, void* y, void* ctx_out,
-                                    void* xg, void* yg, void* part, int B, int T, int D, int F,
-                                    int NB, int bg, int TF, int ntiles, float eps, int dtype,
+                                    void* part, void* bar, int B, int T, int D, int F, int NB,
+                                    int bg, int TF, int ncl, int C, float eps, int dtype,
                                     void* stream) {
-  if (const int rc = check_sizes(B, T, D, F, NB, bg, TF, ntiles)) return rc;
-  if (D % 2 || F % 2) return -1;
-  ChainArgs a{x, ctx, vecs, mixw, w1q, static_cast<const float*>(sb1), w2q,
-              static_cast<const float*>(s2), y, ctx_out, static_cast<float*>(xg),
-              static_cast<float*>(yg), static_cast<float*>(part), B, T, D, F, NB, bg, TF, ntiles,
-              eps};
-  if (smem_bytes(a) > 227 * 1024) return -4;
+  if (B <= 0 || T <= 0 || T > 8 || NB <= 0 || D <= 0 || F <= 0 || D % 2 || F % 2) return -1;
+  if (bg <= 0 || bg > B || TF <= 0 || TF % 4 || TF > 4 * NT || C < 1 || C > MAX_C ||
+      part == nullptr || bar == nullptr)
+    return -2;
+  const int tiles = (F + TF - 1) / TF;
+  if (ncl != (tiles + C - 1) / C) return -3;
+  const size_t smem = q_layout(D, TF, bg * T).total;
+  if (smem > 227 * 1024) return -4;
+  QArgs a{x, ctx, static_cast<const float*>(vecs), static_cast<const float*>(mixw),
+          static_cast<const int8_t*>(w1q), static_cast<const float*>(sb1),
+          static_cast<const int8_t*>(w2q), static_cast<const float*>(s2), y, ctx_out,
+          static_cast<float*>(part), static_cast<unsigned int*>(bar), B, T, D, F, NB, bg, TF,
+          ncl, tiles, C, eps};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float, int8_t>(a, st);
-  if (dtype == 1) return launch<__nv_bfloat16, int8_t>(a, st);
+  if (dtype == 0) return launch_q<float>(a, smem, st);
+  if (dtype == 1) return launch_q<__nv_bfloat16>(a, smem, st);
   return -5;  // unsupported dtype
 }
 

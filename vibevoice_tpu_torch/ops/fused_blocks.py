@@ -8,15 +8,18 @@ modular_vibevoice_tokenizer.py:620-684).  At streaming decode a stage sees
 T <= 8 frames, and its weights dominate the bytes it moves.
 
 Two TPU kernels, one CUDA source (`csrc/fused_block_chain.cu`, design and
-bound described there), one cooperative launch per stage call:
+bound described there), one launch per stage call:
   * `fused_block_chain_batched` (int4 packs) replaces
     `vibevoice_tpu/ops/fused_blocks.py:fused_block_chain_batched` (Pallas
-    `_kernel_q`); plain version `fused_block_chain_batched_ref`.
+    `_kernel_q`); plain version `fused_block_chain_batched_ref`.  One cluster
+    launch (`chain_plan`), one grid barrier per block, its workspace cached
+    per device, stream and shape (`workspace`).
   * `fused_block_chain_plain` (plain packs) replaces the plain-pack form of
     `vibevoice_tpu/ops/fused_blocks.py:fused_block_chain` (Pallas `_kernel`),
     which the JAX package vmaps over the batch rows; here the batch rides
-    inside the launch, so the weights stream once for all rows.  Plain
-    version `fused_block_chain_plain_ref`.
+    inside the launch, so the weights stream once for all rows.  One
+    cooperative launch (`ffn_tile`, `row_group`).  Plain version
+    `fused_block_chain_plain_ref`.
 Each wrapper launches its kernel on CUDA tensors (and counts the launch on
 its own `launches`) and runs its plain version on CPU tensors.
 `fused_block_chain` is the JAX package's single-row entry and dispatches on
@@ -36,7 +39,7 @@ Streaming context: ctx [B, N, 6, D], the last 6 mixer inputs of each block.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, Tuple
+from typing import Dict, List, NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -49,6 +52,13 @@ CTX = 6  # depthwise kernel 7 -> 6 context rows
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ROWS_FLOATS = 40960  # activation rows kept in shared memory per row group (fp32)
 _MAX_TILE = 64        # FFN columns per tile
+
+# the int4 chain's cluster kernel (`chain_q_kernel`)
+CLUSTER = 8           # CTAs per cluster: the portable size
+_Q_ROWS = 16          # rows per row group, at most
+_Q_THREADS = 256      # threads per CTA
+_Q_RP = 8             # rows per register pass
+_SMEM_MAX = 227 * 1024
 
 
 def ffn_tile(f: int, n_ctas: int) -> Tuple[int, int]:
@@ -67,6 +77,44 @@ def row_group(batch: int, rows_per_item: int, d: int) -> int:
         raise ValueError(f"{rows_per_item} rows of width {d} exceed the kernel's "
                          f"shared-memory budget")
     return max(1, min(batch, _ROWS_FLOATS // (rows_per_item * d)))
+
+
+def chain_smem(d: int, tf: int, rows: int) -> int:
+    """Shared memory of one CTA of the int4 chain kernel (`q_layout` in
+    csrc/fused_block_chain.cu): the W1 and W2 slices, x and h [rows, d]
+    fp32, the activations [rows, tf], the up-projection's k splits and the
+    norms' partials."""
+    up = lambda v: -(-v // 16) * 16
+    nkl = _Q_THREADS // (tf // 4)
+    return (up(d // 2 * tf) + up(tf // 2 * up(d)) + 2 * up(4 * rows * d) + up(4 * rows * tf)
+            + up(4 * nkl * min(_Q_RP, rows) * tf) + up(4 * (_Q_THREADS // 32 + 1) * rows))
+
+
+class ChainPlan(NamedTuple):
+    tf: int        # FFN columns per CTA, a multiple of 4
+    tiles: int     # CTAs that get columns
+    clusters: int  # clusters launched
+    bg: int        # batch items per row group
+    smem: int      # shared memory per CTA, bytes
+
+
+def chain_plan(b: int, t: int, d: int, f: int, clusters: int) -> ChainPlan:
+    """The int4 chain kernel's launch for x [b, t, d] and FFN width f on a
+    card that holds `clusters` clusters of CLUSTER CTAs at once: the FFN
+    width spread over all their CTAs in columns of whole packed words (4
+    columns), only the clusters that get columns launched; row groups of at
+    most 16 rows, as many batch items as fit shared memory, balanced."""
+    tf = -(-(-(-f // (clusters * CLUSTER))) // 4) * 4
+    tiles = -(-f // tf)
+    per = max(1, min(b, _Q_ROWS // t))
+    while per > 1 and chain_smem(d, tf, per * t) > _SMEM_MAX:
+        per -= 1
+    bg = -(-b // -(-b // per))
+    smem = chain_smem(d, tf, bg * t)
+    if smem > _SMEM_MAX:
+        raise ValueError(f"the int4 chain kernel does not fit shared memory at D={d}, F={f}, "
+                         f"T={t} ({smem} bytes on {clusters} clusters)")
+    return ChainPlan(tf, tiles, -(-tiles // CLUSTER), bg, smem)
 
 
 def pack_stage(blocks: List[Dict], dtype=torch.float32) -> Dict[str, torch.Tensor]:
@@ -219,8 +267,9 @@ def _check(packed, x, ctx, want):
 
 
 def _launch(fn_name, x, ctx, pack_ptrs, n, f, eps, extra_codes=()):
-    """One cooperative launch of the chain kernel `fn_name` over x [B, T, D]:
-    allocates the outputs and the fp32 scratch, returns (y, new_ctx)."""
+    """One cooperative launch of the plain-pack chain kernel `fn_name` over
+    x [B, T, D]: allocates the outputs and the fp32 scratch, returns (y,
+    new_ctx)."""
     b, t, d = x.shape
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     tf, ntiles = ffn_tile(f, 2 * sms)  # two CTAs per SM co-reside
@@ -241,11 +290,63 @@ def _launch(fn_name, x, ctx, pack_ptrs, n, f, eps, extra_codes=()):
     return y, new_ctx
 
 
+_PLANS: Dict[tuple, ChainPlan] = {}
+
+
+def plan_for(x: torch.Tensor, f: int) -> ChainPlan:
+    """`chain_plan` for x on its card, made once per device, dtype and shape:
+    the clusters that fit the card at once, asked of the CUDA runtime, are
+    at most one CTA per SM; fewer clusters widen the columns per CTA and so
+    its shared memory, so the question is asked again until the plan fits."""
+    b, t, d = x.shape
+    key = (str(x.device), x.dtype, b, t, d, f)
+    plan = _PLANS.get(key)
+    if plan is None:
+        lib = _library()
+        ncl = max(1, cuda_build.sm_count(x.device) // CLUSTER)
+        fit = ctypes.c_int(0)
+        with torch.cuda.device(x.device):
+            for _ in range(8):
+                plan = chain_plan(b, t, d, f, ncl)
+                rc = lib.vv_fused_block_chain_clusters(plan.smem, CLUSTER,
+                                                       _DTYPE_CODES[x.dtype], ctypes.byref(fit))
+                if rc != 0:
+                    raise RuntimeError(f"vv_fused_block_chain_clusters failed with code {rc}")
+                if fit.value >= plan.clusters:
+                    break
+                if fit.value < 1:
+                    raise RuntimeError(f"one cluster of the int4 chain kernel ({plan.smem} bytes "
+                                       f"of shared memory a CTA) does not fit {x.device}")
+                ncl = fit.value
+            else:
+                raise RuntimeError("no launch of the int4 chain kernel fits the card")
+        _PLANS[key] = plan
+    return plan
+
+
+_WORKSPACE: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def workspace(device, stream: int, clusters: int, rows: int, d: int):
+    """The int4 chain kernel's workspace, made once per device, stream and
+    shape: the clusters' fp32 partials [2, clusters, rows, d] (two buffers,
+    by block parity) and the grid barrier's int32 counter (0 at first; every
+    launch leaves its low bits 0).  Calls on one stream run in order, so they
+    share it safely."""
+    key = (str(device), stream, clusters, rows, d)
+    ws = _WORKSPACE.get(key)
+    if ws is None:
+        ws = (torch.empty(2 * clusters * rows * d, dtype=torch.float32, device=device),
+              torch.zeros(1, dtype=torch.int32, device=device))
+        _WORKSPACE[key] = ws
+    return ws
+
+
 def fused_block_chain_batched(packed, x: torch.Tensor, ctx: torch.Tensor,
                               eps: float = 1e-5) -> Tuple[torch.Tensor, torch.Tensor]:
     """int4-pack chain for a batch: x [B, T, D] (T <= 8), ctx [B, N, 6, D] ->
     (y [B, T, D], new_ctx [B, N, 6, D]).  CUDA tensors launch the kernel (one
-    cooperative launch, counted once); CPU tensors take the plain version."""
+    cluster launch, counted once); CPU tensors take the plain version."""
     if x.device.type == "cpu":
         return fused_block_chain_batched_ref(packed, x, ctx, eps)
     if x.device.type != "cuda":
@@ -260,11 +361,23 @@ def fused_block_chain_batched(packed, x: torch.Tensor, ctx: torch.Tensor,
     _check(packed, x, ctx, {"vecs": ((n, 8, d), fp32), "mixw": ((n, 8, d), fp32),
                             "w1q": ((n, d // 2, f), i8), "sb1": ((n, 2, f), fp32),
                             "w2q": ((n, f // 2, d), i8), "s2": ((n, 1, d), fp32)})
-    out = _launch("vv_fused_block_chain", x, ctx,
-                  [packed[k].data_ptr() for k in ("vecs", "mixw", "w1q", "sb1", "w2q", "s2")],
-                  n, f, eps)
+    keys = ("vecs", "mixw", "w1q", "sb1", "w2q", "s2")
+    if any(packed[k].data_ptr() % 16 for k in keys):
+        raise ValueError("the chain kernel's pack tensors must be 16-byte aligned")
+    plan = plan_for(x, f)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    part, bar = workspace(x.device, stream, plan.clusters, plan.bg * t, d)
+    y = torch.empty_like(x)
+    new_ctx = torch.empty_like(ctx)
+    with torch.cuda.device(x.device):
+        rc = _library().vv_fused_block_chain(
+            x.data_ptr(), ctx.data_ptr(), *(packed[k].data_ptr() for k in keys), y.data_ptr(),
+            new_ctx.data_ptr(), part.data_ptr(), bar.data_ptr(), b, t, d, f, n, plan.bg,
+            plan.tf, plan.clusters, CLUSTER, float(eps), _DTYPE_CODES[x.dtype], stream)
+    if rc != 0:
+        raise RuntimeError(f"vv_fused_block_chain kernel failed with code {rc}")
     fused_block_chain_batched.launches += 1
-    return out
+    return y, new_ctx
 
 
 fused_block_chain_batched.launches = 0
@@ -310,11 +423,13 @@ def fused_block_chain(packed, x: torch.Tensor, ctx: torch.Tensor,
 
 def _library() -> ctypes.CDLL:
     lib = cuda_build.load("fused_block_chain")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    for fn, pointers, codes in ((lib.vv_fused_block_chain, 13, 1),
-                                (lib.vv_fused_block_chain_plain, 11, 2)):
+    p, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    for fn, args in ((lib.vv_fused_block_chain, [p] * 12 + [i] * 9 + [fl, i, p]),
+                     (lib.vv_fused_block_chain_plain, [p] * 11 + [i] * 8 + [fl, i, i, p]),
+                     (lib.vv_fused_block_chain_clusters,
+                      [ctypes.c_longlong, i, i, ctypes.POINTER(i)])):
         if fn.restype is not ctypes.c_int or not fn.argtypes:
-            fn.argtypes = [p] * pointers + [i] * 8 + [ctypes.c_float] + [i] * codes + [p]
+            fn.argtypes = args
             fn.restype = ctypes.c_int
     return lib
 
@@ -324,6 +439,7 @@ def pack_bytes(packed) -> int:
     return sum(t.numel() * t.element_size() for t in packed.values())
 
 
-__all__ = ["CTX", "ffn_tile", "row_group", "pack_stage", "pack_stage_q", "fused_block_chain",
+__all__ = ["CTX", "ffn_tile", "row_group", "chain_plan", "chain_smem", "plan_for",
+           "workspace", "pack_stage", "pack_stage_q", "fused_block_chain",
            "fused_block_chain_batched", "fused_block_chain_batched_ref",
            "fused_block_chain_plain", "fused_block_chain_plain_ref", "pack_bytes"]
