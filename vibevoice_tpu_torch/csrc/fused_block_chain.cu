@@ -411,6 +411,9 @@ constexpr int NW = NT / 32;
 constexpr int RP = 8;         // rows per register pass
 constexpr int MAX_C = 8;      // CTAs per cluster: the portable size
 constexpr int RED_BATCH = 16; // partials of one element a thread has in flight
+// per-block vectors a CTA keeps for its rank's columns: norm_w, mixer_b,
+// gamma, ffn_norm_w, ffn_gamma, ffn2_b, the 7 taps, s2
+constexpr int NVEC = 14;
 
 struct QArgs {
   const void* x;
@@ -429,26 +432,39 @@ struct QArgs {
   float eps;
 };
 
-// Byte offsets of chain_q_kernel's shared memory, for `rows` rows per group
-// (`ops/fused_blocks.py:chain_smem` mirrors the total).
+// Rank q of a cluster owns the V-wide column groups [q*nv/C, (q+1)*nv/C) of
+// nv = D/V (V = 4 where D is a multiple of 4): its mixer columns, and the
+// columns whose sums it adds.
+__host__ __device__ inline int q_vec(int D) { return D % 4 == 0 ? 4 : 1; }
+__host__ __device__ inline int q_wmax(int D, int C) {
+  const int V = q_vec(D), nv = D / V;
+  return (nv + C - 1) / C * V;
+}
+
+// Byte offsets of chain_q_kernel's shared memory for row groups of bg items
+// of T rows (`ops/fused_blocks.py:chain_smem` mirrors the total).
 struct QLayout {
-  size_t w1, w2, xs, hb, as, red, nrm, total;
+  size_t w1, w2, xs, hb, as, red, nrm, vs, cs, sb, total;
 };
 
 __host__ __device__ inline size_t up16(size_t v) { return (v + 15) & ~static_cast<size_t>(15); }
 
-__host__ __device__ inline QLayout q_layout(int D, int TF, int rows) {
+__host__ __device__ inline QLayout q_layout(int D, int TF, int bg, int T, int C) {
   QLayout L;
-  const size_t Dp = up16(D), nkl = NT / (TF / 4);
-  const size_t rp = rows < RP ? rows : RP;
+  const size_t rows = static_cast<size_t>(bg) * T, Dp = up16(D), nkl = NT / (TF / 4);
+  const size_t rp = rows < RP ? rows : RP, wmax = q_wmax(D, C);
   size_t o = 0;
   L.w1 = o;   o += up16(static_cast<size_t>(D / 2) * TF);  // W1 slice [D/2][TF] bytes
   L.w2 = o;   o += up16(static_cast<size_t>(TF / 2) * Dp); // W2 slice [TF/2][Dp] bytes
-  L.xs = o;   o += up16(sizeof(float) * rows * D);         // x, then y, then next x
+  L.xs = o;   o += up16(sizeof(float) * rows * D);         // x, then y (own columns)
   L.hb = o;   o += up16(sizeof(float) * rows * D);         // h, then hn, then the share
   L.as = o;   o += up16(sizeof(float) * rows * TF);        // gelu activations
   L.red = o;  o += up16(sizeof(float) * nkl * rp * TF);    // up-projection k splits
-  L.nrm = o;  o += up16(sizeof(float) * (NW + 1) * rows);  // norm partials, row scales
+  // warp partials [NW][rows], two exchanges [MAX_C][rows], row scales [rows]
+  L.nrm = o;  o += up16(sizeof(float) * (NW + 2 * MAX_C + 1) * rows);
+  L.vs = o;   o += up16(sizeof(float) * 2 * NVEC * wmax);  // vectors, by block parity
+  L.cs = o;   o += up16(sizeof(float) * 2 * bg * 6 * wmax); // ctx rows (x's dtype), by parity
+  L.sb = o;   o += up16(sizeof(float) * 2 * 2 * TF);       // ffn1 scale and bias, by parity
   L.total = o;
   return L;
 }
@@ -457,9 +473,10 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 __device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-// all but the newest group of this thread's copies have landed
-__device__ __forceinline__ void cp_wait_but_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+// all but the newest N groups of this thread's copies have landed
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 __device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b, uint32_t sel) {
@@ -507,14 +524,11 @@ __device__ void grid_barrier(unsigned int* bar) {
   __syncthreads();
 }
 
-// The CTA's slices of block nb's weights into shared memory: W1 byte rows
-// [0, D/2) x columns [f0, f0 + TF) as [D/2][TF], W2 byte rows
-// [f0/2, (f0 + TF)/2) as [TF/2][Dp]; columns or rows past F read as 0.
-// cp.async (committed by the caller) in vectors of `vw` bytes (W1: 16, 8 or
-// 4, the widest that divides F and TF; W2: one contiguous run of 16-byte
-// vectors where D is a multiple of 16); vw = 0: plain byte copies.
+// Global -> shared copies, asynchronous (cp.async, committed by the
+// caller) in vectors of 16, 8 or 4 bytes, the widest the addresses and sizes
+// allow; plain byte copies otherwise.
 __device__ __forceinline__ void cp_async(void* dst, const void* src, int vw, bool live) {
-  const uint32_t d = smem_u32(dst), n = live ? vw : 0;
+  const uint32_t d = smem_u32(dst), n = live ? vw : 0;  // n = 0: zeros
   if (vw == 16)
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(n)
                  : "memory");
@@ -526,53 +540,106 @@ __device__ __forceinline__ void cp_async(void* dst, const void* src, int vw, boo
                  : "memory");
 }
 
+// nrows rows of `bytes` bytes from src (row stride sstride bytes) to dst
+// (dstride); bytes at or past `live` of a row read 0.  Block-wide.
+__device__ void copy_rows(void* dst_, size_t dstride, const void* src_, size_t sstride, int nrows,
+                          int bytes, int live) {
+  unsigned char* dst = static_cast<unsigned char*>(dst_);
+  const unsigned char* src = static_cast<const unsigned char*>(src_);
+  live = max(0, min(live, bytes));
+  const size_t al = reinterpret_cast<uintptr_t>(src) | sstride | smem_u32(dst) | dstride |
+                    static_cast<size_t>(bytes) | static_cast<size_t>(live);
+  int vw = 16;
+  while (vw >= 4 && al % vw) vw /= 2;
+  if (vw < 4) {
+    for (int e = threadIdx.x; e < nrows * bytes; e += NT) {
+      const int r = e / bytes, c = e % bytes;
+      dst[r * dstride + c] = c < live ? src[r * sstride + c] : 0;
+    }
+    return;
+  }
+  const int per = bytes / vw;
+  for (int e = threadIdx.x; e < nrows * per; e += NT) {
+    const int r = e / per, c = (e % per) * vw;
+    cp_async(dst + r * dstride + c, c < live ? src + r * sstride + c : src, vw, c < live);
+  }
+}
+
+// The CTA's slices of block nb's weights: W1 byte rows [0, D/2) x columns
+// [f0, f0 + TF) as [D/2][TF], W2 byte rows [f0/2, (f0 + TF)/2) as
+// [TF/2][Dp]; columns or rows past F read as 0.  W1 in vectors of `vw`
+// bytes (16, 8 or 4: the widest that divides F and TF), W2 in 16-byte
+// vectors of one contiguous run where D is a multiple of 16; a thread keeps
+// one vector column of W1, so the loops divide nothing.
 __device__ void fetch_w1(const QArgs& a, int nb, int f0, unsigned char* dst, int vw) {
   const int D2 = a.D / 2, F = a.F, TF = a.TF;
   const int8_t* src = a.w1 + static_cast<size_t>(nb) * D2 * F + f0;
   if (vw) {
-    const int vpr = TF / vw;
-    for (int v = threadIdx.x; v < D2 * vpr; v += NT) {
-      const int i = v / vpr, c = (v % vpr) * vw;
-      const bool live = f0 + c < F;
-      cp_async(dst + static_cast<size_t>(i) * TF + c,
-               live ? src + static_cast<size_t>(i) * F + c : src, vw, live);
-    }
+    const int vpr = TF / vw, step = NT / vpr;
+    const int c = (threadIdx.x % vpr) * vw;
+    const bool live = f0 + c < F;
+    if (threadIdx.x / vpr < step)
+      for (int i = threadIdx.x / vpr; i < D2; i += step)
+        cp_async(dst + static_cast<size_t>(i) * TF + c,
+                 live ? src + static_cast<size_t>(i) * F + c : src, vw, live);
   } else {
-    for (int e = threadIdx.x; e < D2 * TF; e += NT) {
-      const int i = e / TF, c = e % TF;
-      dst[e] = f0 + c < F ? static_cast<unsigned char>(src[static_cast<size_t>(i) * F + c]) : 0;
-    }
+    copy_rows(dst, TF, src, F, D2, TF, F - f0);
   }
 }
 
 __device__ void fetch_w2(const QArgs& a, int nb, int f0, unsigned char* dst) {
   const int D = a.D, F2 = a.F / 2, R = a.TF / 2, r0 = f0 / 2;
-  const int Dp = static_cast<int>(up16(D));
   const int8_t* src = a.w2 + (static_cast<size_t>(nb) * F2 + r0) * D;
-  if (D % 16 == 0) {  // Dp == D: the slice is one contiguous run of R rows
-    const int vpr = D / 16;
-    for (int v = threadIdx.x; v < R * vpr; v += NT) {
-      const bool live = r0 + v / vpr < F2;
-      cp_async(dst + static_cast<size_t>(v) * 16, live ? src + static_cast<size_t>(v) * 16 : src,
-               16, live);
-    }
+  if (D % 16 == 0) {  // the slice is one contiguous run of R rows
+    const int n = R * D / 16, nlive = max(0, min(R, F2 - r0)) * D / 16;
+    for (int v = threadIdx.x; v < n; v += NT)
+      cp_async(dst + static_cast<size_t>(v) * 16, v < nlive ? src + static_cast<size_t>(v) * 16 : src,
+               16, v < nlive);
   } else {
-    for (int e = threadIdx.x; e < R * Dp; e += NT) {
-      const int i = e / Dp, d = e % Dp;
-      dst[e] = r0 + i < F2 && d < D ? static_cast<unsigned char>(src[static_cast<size_t>(i) * D + d])
-                                    : 0;
-    }
+    const int Dp = static_cast<int>(up16(D));
+    for (int i = 0; i < R; ++i)
+      copy_rows(dst + static_cast<size_t>(i) * Dp, Dp, src + static_cast<size_t>(i) * D, D, 1, Dp,
+                r0 + i < F2 ? D : 0);
   }
 }
 
-// rs[r] = 1 / sqrt(mean(buf[r, :]^2) + eps) for r < rows, by the whole CTA;
-// the warps' sums meet in warp order, so every CTA gets the same bits.
-__device__ void row_scales(const float* buf, int rows, int D, float eps, float* nrm, float* rs) {
+// The small operands of step `step` (block nb of its row group) into the
+// buffers of the step's parity: the rank's columns [c0, c0 + w) of the block's
+// vectors (vs [NVEC][wmax]) and of the group's context rows (cs [bg][6][wmax]
+// in x's dtype), and the CTA's ffn1 scale and bias (sb [2][TF], 0 past F).
+template <typename T>
+__device__ void fetch_small(const QArgs& a, int step, int f0, bool has_tile, int c0, int w,
+                            int wmax, float* vs, unsigned char* cs, float* sb) {
+  const int D = a.D, NB = a.NB, nb = step % NB, b0 = step / NB * a.bg;
+  const int nbg = min(a.bg, a.B - b0), par = step % 2;
+  const size_t rs = static_cast<size_t>(D) * sizeof(float), ws = wmax * sizeof(float);
+  float* v = vs + par * NVEC * wmax;
+  copy_rows(v, ws, a.vecs + static_cast<size_t>(nb) * 8 * D + c0, rs, 6, w * 4, w * 4);
+  copy_rows(v + 6 * wmax, ws, a.mixw + static_cast<size_t>(nb) * 8 * D + c0, rs, 7, w * 4, w * 4);
+  copy_rows(v + 13 * wmax, ws, a.s2 + static_cast<size_t>(nb) * D + c0, rs, 1, w * 4, w * 4);
+  const T* ctx = static_cast<const T*>(a.ctx);
+  for (int bl = 0; bl < nbg; ++bl)
+    copy_rows(cs + ((par * a.bg + bl) * CTX * wmax) * sizeof(T), wmax * sizeof(T),
+              ctx + ((static_cast<size_t>(b0 + bl) * NB + nb) * CTX) * D + c0, D * sizeof(T), CTX,
+              w * sizeof(T), w * sizeof(T));
+  if (has_tile)
+    copy_rows(sb + par * 2 * a.TF, a.TF * sizeof(float), a.sb1 + static_cast<size_t>(nb) * 2 * a.F + f0,
+              a.F * sizeof(float), 2, a.TF * 4, (a.F - f0) * 4);
+}
+
+// rs[r] = 1 / sqrt(mean(buf[r, :]^2) + eps) for r < rows, where this CTA
+// holds its rank's columns [c0, c0 + w) of buf: the rank's sums of squares
+// (its warps' sums added in warp order) go into slot `rank` of every cluster
+// peer's exchange `xch`, and after a cluster barrier each CTA adds the C
+// slots in rank order, so every CTA of the grid gets the same bits.
+__device__ void cluster_rms(cg::cluster_group& cl, const float* buf, int rows, int D, int c0,
+                            int w, float eps, float* nrm, float* xch, float* rs) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int C = static_cast<int>(cl.num_blocks()), rank = static_cast<int>(cl.block_rank());
   for (int r = 0; r < rows; ++r) {
     float s = 0.f;
-    for (int d = threadIdx.x; d < D; d += NT) {
-      const float v = buf[r * D + d];
+    for (int c = threadIdx.x; c < w; c += NT) {
+      const float v = buf[r * D + c0 + c];
       s += v * v;
     }
     s = vv::warp_sum(s);
@@ -582,49 +649,68 @@ __device__ void row_scales(const float* buf, int rows, int D, float eps, float* 
   if (threadIdx.x < rows) {
     float t = 0.f;
 #pragma unroll
-    for (int w = 0; w < NW; ++w) t += nrm[w * rows + threadIdx.x];
+    for (int k = 0; k < NW; ++k) t += nrm[k * rows + threadIdx.x];
+    for (int p = 0; p < C; ++p) cl.map_shared_rank(xch, p)[rank * rows + threadIdx.x] = t;
+  }
+  cl.sync();
+  if (threadIdx.x < rows) {
+    float t = 0.f;
+    for (int p = 0; p < C; ++p) t += xch[p * rows + threadIdx.x];
     rs[threadIdx.x] = 1.f / sqrtf(t / D + eps);
   }
   __syncthreads();
 }
 
+// One register pass of R rows (R <= RP, a compile-time count, so no
+// predicated FMAs for absent rows) of the up-projection: thread (cw, kl)'s
+// sums over byte rows kl, kl + nkl, ... of packed word cw, into `red`.
+template <int R>
+__device__ __forceinline__ void up_pass(const unsigned char* w1s, const float* x0, int D, int TF,
+                                        int cw, int kl, int nkl, int rp, float* red) {
+  float acc[R][4];
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[r][j] = 0.f;
+#pragma unroll 4
+  for (int i = kl; i < D / 2; i += nkl) {
+    float lo[4], hi[4];
+    nibbles_f32(*reinterpret_cast<const uint32_t*>(w1s + static_cast<size_t>(i) * TF + 4 * cw), lo,
+                hi);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const float2 xv = *reinterpret_cast<const float2*>(x0 + r * D + 2 * i);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[r][j] = fmaf(xv.y, hi[j], fmaf(xv.x, lo[j], acc[r][j]));
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+    *reinterpret_cast<float4*>(red + (kl * rp + r) * TF + 4 * cw) =
+        make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+}
+
 // as[r][c] = gelu((hn[r] @ W1[:, f0 + c]) * s1 + b1) for r < rows, c < TF
-// (0 past F).  Thread (cw, kl) takes packed word cw (4 columns) of byte rows
+// (0 past F; s1 and b1 in sb [2][TF]).  Thread (cw, kl) takes packed word cw (4 columns) of byte rows
 // kl, kl + nkl, ...; the nkl k splits meet in `red` and are added in order.
-__device__ void up_proj(const QArgs& a, int nb, int f0, const unsigned char* w1s,
-                        const float* hn, int rows, int rp, float* red, float* as) {
+__device__ void up_proj(const QArgs& a, int f0, const unsigned char* w1s, const float* hn,
+                        int rows, int rp, const float* sb, float* red, float* as) {
   const int D = a.D, TF = a.TF, cgw = TF / 4, nkl = NT / cgw;
   const int cw = threadIdx.x % cgw, kl = threadIdx.x / cgw;
-  const float* s1 = a.sb1 + static_cast<size_t>(nb) * 2 * a.F;
-  const float* b1 = s1 + a.F;
   for (int m0 = 0; m0 < rows; m0 += RP) {
     const int rr = min(RP, rows - m0);
     if (kl < nkl) {
-      float acc[RP][4];
-#pragma unroll
-      for (int r = 0; r < RP; ++r)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[r][j] = 0.f;
       const float* x0 = hn + m0 * D;
-#pragma unroll 4
-      for (int i = kl; i < D / 2; i += nkl) {
-        float lo[4], hi[4];
-        nibbles_f32(*reinterpret_cast<const uint32_t*>(w1s + static_cast<size_t>(i) * TF + 4 * cw),
-                    lo, hi);
-#pragma unroll
-        for (int r = 0; r < RP; ++r) {
-          if (r < rr) {
-            const float2 xv = *reinterpret_cast<const float2*>(x0 + r * D + 2 * i);
-#pragma unroll
-            for (int j = 0; j < 4; ++j) acc[r][j] = fmaf(xv.y, hi[j], fmaf(xv.x, lo[j], acc[r][j]));
-          }
-        }
+      switch (rr) {
+        case 1: up_pass<1>(w1s, x0, D, TF, cw, kl, nkl, rp, red); break;
+        case 2: up_pass<2>(w1s, x0, D, TF, cw, kl, nkl, rp, red); break;
+        case 3: up_pass<3>(w1s, x0, D, TF, cw, kl, nkl, rp, red); break;
+        case 4: up_pass<4>(w1s, x0, D, TF, cw, kl, nkl, rp, red); break;
+        case 5: up_pass<5>(w1s, x0, D, TF, cw, kl, nkl, rp, red); break;
+        case 6: up_pass<6>(w1s, x0, D, TF, cw, kl, nkl, rp, red); break;
+        case 7: up_pass<7>(w1s, x0, D, TF, cw, kl, nkl, rp, red); break;
+        default: up_pass<8>(w1s, x0, D, TF, cw, kl, nkl, rp, red); break;
       }
-#pragma unroll
-      for (int r = 0; r < RP; ++r)
-        if (r < rr)
-          *reinterpret_cast<float4*>(red + (kl * rp + r) * TF + 4 * cw) =
-              make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
     }
     __syncthreads();
     for (int e = threadIdx.x; e < rr * TF; e += NT) {
@@ -634,12 +720,47 @@ __device__ void up_proj(const QArgs& a, int nb, int f0, const unsigned char* w1s
       for (int l = 0; l < nkl; ++l) s += red[(l * rp + r) * TF + c];
       float v = 0.f;
       if (f0 + c < a.F) {
-        v = s * s1[f0 + c] + b1[f0 + c];
+        v = s * sb[c] + sb[TF + c];
         v = 0.5f * v * (1.f + erff(v * 0.7071067811865476f));
       }
       as[(m0 + r) * TF + c] = v;
     }
     __syncthreads();
+  }
+}
+
+// One register pass of R rows of the down-projection for packed word cw:
+// share[r][4cw .. 4cw + 3] over every byte row of the W2 slice.
+template <int R>
+__device__ __forceinline__ void down_pass(const unsigned char* w2s, const float* a0, int D, int Dp,
+                                          int TF, int cw, float* share) {
+  float acc[R][4];
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[r][j] = 0.f;
+#pragma unroll 4
+  for (int i = 0; i < TF / 2; ++i) {
+    float lo[4], hi[4];
+    nibbles_f32(*reinterpret_cast<const uint32_t*>(w2s + static_cast<size_t>(i) * Dp + 4 * cw), lo,
+                hi);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const float2 av = *reinterpret_cast<const float2*>(a0 + r * TF + 2 * i);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[r][j] = fmaf(av.y, hi[j], fmaf(av.x, lo[j], acc[r][j]));
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    float* dst = share + r * D + 4 * cw;
+    if (D % 4 == 0) {
+      *reinterpret_cast<float4*>(dst) = make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (4 * cw + j < D) dst[j] = acc[r][j];
+    }
   }
 }
 
@@ -651,38 +772,17 @@ __device__ void down_proj(const QArgs& a, const unsigned char* w2s, const float*
   const int D = a.D, TF = a.TF, Dp = static_cast<int>(up16(D));
   for (int cw = threadIdx.x; 4 * cw < D; cw += NT) {
     for (int m0 = 0; m0 < rows; m0 += RP) {
-      const int rr = min(RP, rows - m0);
-      float acc[RP][4];
-#pragma unroll
-      for (int r = 0; r < RP; ++r)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[r][j] = 0.f;
       const float* a0 = as + m0 * TF;
-#pragma unroll 4
-      for (int i = 0; i < TF / 2; ++i) {
-        float lo[4], hi[4];
-        nibbles_f32(*reinterpret_cast<const uint32_t*>(w2s + static_cast<size_t>(i) * Dp + 4 * cw),
-                    lo, hi);
-#pragma unroll
-        for (int r = 0; r < RP; ++r) {
-          if (r < rr) {
-            const float2 av = *reinterpret_cast<const float2*>(a0 + r * TF + 2 * i);
-#pragma unroll
-            for (int j = 0; j < 4; ++j) acc[r][j] = fmaf(av.y, hi[j], fmaf(av.x, lo[j], acc[r][j]));
-          }
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < RP; ++r) {
-        if (r >= rr) continue;
-        float* dst = share + (m0 + r) * D + 4 * cw;
-        if (D % 4 == 0) {
-          *reinterpret_cast<float4*>(dst) = make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
-        } else {
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            if (4 * cw + j < D) dst[j] = acc[r][j];
-        }
+      float* sh = share + m0 * D;
+      switch (min(RP, rows - m0)) {
+        case 1: down_pass<1>(w2s, a0, D, Dp, TF, cw, sh); break;
+        case 2: down_pass<2>(w2s, a0, D, Dp, TF, cw, sh); break;
+        case 3: down_pass<3>(w2s, a0, D, Dp, TF, cw, sh); break;
+        case 4: down_pass<4>(w2s, a0, D, Dp, TF, cw, sh); break;
+        case 5: down_pass<5>(w2s, a0, D, Dp, TF, cw, sh); break;
+        case 6: down_pass<6>(w2s, a0, D, Dp, TF, cw, sh); break;
+        case 7: down_pass<7>(w2s, a0, D, Dp, TF, cw, sh); break;
+        default: down_pass<8>(w2s, a0, D, Dp, TF, cw, sh); break;
       }
     }
   }
@@ -714,9 +814,9 @@ __device__ __forceinline__ void st_v(float* p, const float (&v)[V]) {
     *p = v[0];
 }
 
-// Step 3 of a block, for V-wide column groups (V = 4 where D is a multiple
-// of 4): rank q of the cluster adds its ranks' shares (in `hb`) of the
-// rank's columns in rank order and writes them as the cluster's partial.
+// Step 3 of a block, for V-wide column groups: rank q of the cluster adds
+// its ranks' shares (in `hb`) of the rank's columns in rank order and writes
+// them as the cluster's partial.
 template <int V>
 __device__ void cluster_partial(const QArgs& a, cg::cluster_group& cl, int step, float* hb,
                                 int rows, int rows_max) {
@@ -744,163 +844,193 @@ __device__ void cluster_partial(const QArgs& a, cg::cluster_group& cl, int step,
 }
 
 // Step 5 of a block: rank q of every cluster adds the clusters' partials of
-// its columns in cluster order and stores x = y + g2 * (sum * s2 + b2) into
-// `xs` of every CTA of its cluster; cluster 0 also into y after the group's
-// last block.
+// its columns in cluster order and keeps x = y + g2 * (sum * s2 + b2) for
+// them in `xs`; cluster 0 also writes them to y after the group's last block.
 template <typename T, int V>
-__device__ void next_x(const QArgs& a, cg::cluster_group& cl, int nb, int step, float* xs,
-                       int rows, int rows_max, size_t base, bool last) {
+__device__ void next_x(const QArgs& a, cg::cluster_group& cl, int step, const float* v, int wmax,
+                       float* xs, int rows, int rows_max, size_t base, bool last) {
   const int D = a.D, C = a.C, rank = static_cast<int>(cl.block_rank());
   const int cid = blockIdx.x / C, nv = D / V;
   const int u0 = rank * nv / C, wu = (rank + 1) * nv / C - u0;
   const size_t slab = static_cast<size_t>(rows_max) * D;
   const float* part = a.part + static_cast<size_t>(step % 2) * a.ncl * slab;
-  const float* g2 = a.vecs + (static_cast<size_t>(nb) * 8 + 4) * D;
-  const float* b2 = g2 + D;
-  const float* sc2 = a.s2 + static_cast<size_t>(nb) * D;
   const bool out = last && cid == 0;
   T* y_out = static_cast<T*>(a.y);
   for (int e = threadIdx.x; e < rows * wu; e += NT) {
-    const int d0 = (u0 + e % wu) * V, off = (e / wu) * D + d0;
-    float s[V], v[RED_BATCH][V];
+    const int c = (e % wu) * V, off = (e / wu) * D + u0 * V + c;
+    float s[V], p[RED_BATCH][V];
 #pragma unroll
     for (int j = 0; j < V; ++j) s[j] = 0.f;
     for (int k0 = 0; k0 < a.ncl; k0 += RED_BATCH) {
 #pragma unroll
       for (int u = 0; u < RED_BATCH; ++u)
-        if (k0 + u < a.ncl) ldcg_v<V>(v[u], part + (k0 + u) * slab + off);
+        if (k0 + u < a.ncl) ldcg_v<V>(p[u], part + (k0 + u) * slab + off);
 #pragma unroll
       for (int u = 0; u < RED_BATCH; ++u)
         if (k0 + u < a.ncl)
 #pragma unroll
-          for (int j = 0; j < V; ++j) s[j] += v[u][j];
+          for (int j = 0; j < V; ++j) s[j] += p[u][j];
     }
     float x[V];
 #pragma unroll
     for (int j = 0; j < V; ++j)
-      x[j] = xs[off + j] + g2[d0 + j] * (s[j] * sc2[d0 + j] + b2[d0 + j]);
-#pragma unroll
-    for (int p = 0; p < MAX_C; ++p)
-      if (p < C) st_v<V>(cl.map_shared_rank(xs, p) + off, x);
+      x[j] = xs[off + j] + v[4 * wmax + c + j] * (s[j] * v[13 * wmax + c + j] + v[5 * wmax + c + j]);
+    st_v<V>(xs + off, x);
     if (out)
 #pragma unroll
       for (int j = 0; j < V; ++j) y_out[base + off + j] = vv::from_f<T>(x[j]);
   }
 }
 
-// Step 1 of a block: xs holds x [rows][D]; leaves y in xs and hn in hb, and
-// (cluster 0, the rank's columns) the block's new context in ctx_out.
+// Step 1 of a block, on the rank's columns [c0, c0 + w) (vectors in v, the
+// group's context rows in cs): h = rmsnorm(x) * norm_w, the new context
+// (cluster 0), y = x + gamma * (conv + mixer_b) in xs, and hn = rmsnorm(y) *
+// ffn_norm_w stored into every CTA of the cluster, so each holds all of hn
+// in hb after the last cluster barrier.
 template <typename T>
-__device__ void mixer(const QArgs& a, cg::cluster_group& cl, int nb, int b0, int nbg, float* xs,
-                      float* hb, float* nrm, float* rs) {
+__device__ void mixer(const QArgs& a, cg::cluster_group& cl, int nb, int b0, int nbg, int c0,
+                      int w, const float* v, const T* cs, int wmax, float* xs, float* hb,
+                      float* nrm, float* xch, float* rs) {
   const int D = a.D, Tn = a.T, NB = a.NB, C = a.C, rows = nbg * Tn;
-  const float* vec = a.vecs + static_cast<size_t>(nb) * 8 * D;
-  const float* taps = a.mixw + static_cast<size_t>(nb) * 8 * D;
-  const T* ctx_in = static_cast<const T*>(a.ctx);
-  row_scales(xs, rows, D, a.eps, nrm, rs);
-  for (int e = threadIdx.x; e < rows * D; e += NT) hb[e] = xs[e] * rs[e / D] * vec[e % D];
+  const int rows_max = a.bg * Tn;
+  cluster_rms(cl, xs, rows, D, c0, w, a.eps, nrm, xch, rs);
+  for (int e = threadIdx.x; e < rows * w; e += NT) {
+    const int r = e / w, c = e % w;
+    hb[r * D + c0 + c] = xs[r * D + c0 + c] * rs[r] * v[c];
+  }
   __syncthreads();
   if (blockIdx.x < C) {  // cluster 0: the new context, the last 6 rows of [ctx; h]
-    const int rank = static_cast<int>(cl.block_rank());
-    const int c0 = rank * D / C, w = (rank + 1) * D / C - c0;
     T* ctx_out = static_cast<T*>(a.ctx_out);
     for (int e = threadIdx.x; e < nbg * CTX * w; e += NT) {
-      const int bl = e / (CTX * w), j = (e / w) % CTX, d = c0 + e % w;
+      const int bl = e / (CTX * w), j = (e / w) % CTX, c = e % w;
       const int src = j + Tn;
       const size_t cbase = (static_cast<size_t>(b0 + bl) * NB + nb) * CTX;
-      const float v = src < CTX ? vv::to_f(ctx_in[(cbase + src) * D + d])
-                                : hb[(bl * Tn + src - CTX) * D + d];
-      ctx_out[(cbase + j) * D + d] = vv::from_f<T>(v);
+      const float val = src < CTX ? vv::to_f(cs[(bl * CTX + src) * wmax + c])
+                                  : hb[(bl * Tn + src - CTX) * D + c0 + c];
+      ctx_out[(cbase + j) * D + c0 + c] = vv::from_f<T>(val);
     }
   }
-  for (int e = threadIdx.x; e < nbg * D; e += NT) {
-    const int bl = e / D, d = e % D;
-    const T* cb = ctx_in + (static_cast<size_t>(b0 + bl) * NB + nb) * CTX * D + d;
+  for (int e = threadIdx.x; e < nbg * w; e += NT) {
+    const int bl = e / w, c = e % w;
     float tap[7];
 #pragma unroll
-    for (int k = 0; k < 7; ++k) tap[k] = taps[k * D + d];
-    const float g = vec[2 * D + d], mb = vec[D + d];
+    for (int k = 0; k < 7; ++k) tap[k] = v[(6 + k) * wmax + c];
+    const float g = v[2 * wmax + c], mb = v[wmax + c];
     for (int t = 0; t < Tn; ++t) {
       float acc = 0.f;
 #pragma unroll
       for (int k = 0; k < 7; ++k) {
         const int j = t + k;
-        const float src = j < CTX ? vv::to_f(cb[static_cast<size_t>(j) * D])
-                                  : hb[(bl * Tn + j - CTX) * D + d];
+        const float src = j < CTX ? vv::to_f(cs[(bl * CTX + j) * wmax + c])
+                                  : hb[(bl * Tn + j - CTX) * D + c0 + c];
         acc = acc + src * tap[k];
       }
       const int r = bl * Tn + t;
-      xs[r * D + d] = xs[r * D + d] + g * (acc + mb);
+      xs[r * D + c0 + c] = xs[r * D + c0 + c] + g * (acc + mb);
     }
   }
   __syncthreads();
-  row_scales(xs, rows, D, a.eps, nrm, rs);
-  for (int e = threadIdx.x; e < rows * D; e += NT) hb[e] = xs[e] * rs[e / D] * vec[3 * D + e % D];
-  __syncthreads();
+  cluster_rms(cl, xs, rows, D, c0, w, a.eps, nrm, xch + MAX_C * rows_max, rs);
+  if (w % 4 == 0 && c0 % 4 == 0 && D % 4 == 0) {  // 16-byte stores to the peers
+    const int w4 = w / 4;
+    for (int e = threadIdx.x; e < rows * w4; e += NT) {
+      const int r = e / w4, c = 4 * (e % w4), o = r * D + c0 + c;
+      const float4 y = *reinterpret_cast<const float4*>(xs + o);
+      const float4 g = *reinterpret_cast<const float4*>(v + 3 * wmax + c);
+      const float4 hn = make_float4(y.x * rs[r] * g.x, y.y * rs[r] * g.y, y.z * rs[r] * g.z,
+                                    y.w * rs[r] * g.w);
+      for (int p = 0; p < C; ++p) *reinterpret_cast<float4*>(cl.map_shared_rank(hb, p) + o) = hn;
+    }
+  } else {
+    for (int e = threadIdx.x; e < rows * w; e += NT) {
+      const int r = e / w, c = e % w, o = r * D + c0 + c;
+      const float hn = xs[o] * rs[r] * v[3 * wmax + c];
+      for (int p = 0; p < C; ++p) cl.map_shared_rank(hb, p)[o] = hn;
+    }
+  }
+  cl.sync();  // hn is whole in every CTA of the cluster
 }
 
 template <typename T>
 __global__ void __launch_bounds__(NT, 1) chain_q_kernel(QArgs a) {
   extern __shared__ __align__(16) unsigned char smc[];
   cg::cluster_group cl = cg::this_cluster();
-  const int D = a.D, Tn = a.T, NB = a.NB, rows_max = a.bg * Tn;
-  const QLayout L = q_layout(D, a.TF, rows_max);
+  const int D = a.D, Tn = a.T, NB = a.NB, C = a.C, rows_max = a.bg * Tn;
+  const QLayout L = q_layout(D, a.TF, a.bg, Tn, C);
   unsigned char* w1s = smc + L.w1;
   unsigned char* w2s = smc + L.w2;
   float* xs = reinterpret_cast<float*>(smc + L.xs);
   float* hb = reinterpret_cast<float*>(smc + L.hb);
   float* as = reinterpret_cast<float*>(smc + L.as);
   float* red = reinterpret_cast<float*>(smc + L.red);
-  float* nrm = reinterpret_cast<float*>(smc + L.nrm);
-  float* rs = nrm + NW * rows_max;
+  float* nrm = reinterpret_cast<float*>(smc + L.nrm);  // then the exchanges, then rs
+  float* xch = nrm + NW * rows_max;
+  float* rs = xch + 2 * MAX_C * rows_max;
+  float* vs = reinterpret_cast<float*>(smc + L.vs);
+  unsigned char* cs = smc + L.cs;
+  float* sb = reinterpret_cast<float*>(smc + L.sb);
   const T* x_in = static_cast<const T*>(a.x);
+  const int V = q_vec(D), nv = D / V, rank = static_cast<int>(cl.block_rank());
+  const int c0 = rank * nv / C * V, w = ((rank + 1) * nv / C) * V - c0, wmax = q_wmax(D, C);
   const bool has_tile = blockIdx.x < a.tiles;
   int vw = 0;  // W1's copy vectors: the widest that divides F and TF
-  for (int w = 16; w >= 4 && !vw; w /= 2)
-    if (a.F % w == 0 && a.TF % w == 0) vw = w;
+  for (int k = 16; k >= 4 && !vw; k /= 2)
+    if (a.F % k == 0 && a.TF % k == 0) vw = k;
   const int f0 = blockIdx.x * a.TF, rp = min(RP, rows_max);
   const int steps = (a.B + a.bg - 1) / a.bg * NB;
-  if (has_tile) {
-    fetch_w1(a, 0, f0, w1s, vw);
-    cp_commit();
-    fetch_w2(a, 0, f0, w2s);
-    cp_commit();
-  }
+  // copies in flight, in groups: the small operands of a step one step ahead,
+  // W1 and W2 one block ahead
+  fetch_small<T>(a, 0, f0, has_tile, c0, w, wmax, vs, cs, sb);
+  cp_commit();
+  if (has_tile) fetch_w1(a, 0, f0, w1s, vw);
+  cp_commit();
+  if (has_tile) fetch_w2(a, 0, f0, w2s);
+  cp_commit();
   for (int step = 0; step < steps; ++step) {
-    const int nb = step % NB, b0 = step / NB * a.bg;
+    const int nb = step % NB, b0 = step / NB * a.bg, par = step % 2;
     const int nbg = min(a.bg, a.B - b0), rows = nbg * Tn;
     const size_t base = static_cast<size_t>(b0) * Tn * D;
     const bool more = step + 1 < steps;
-    if (nb == 0) {
-      for (int e = threadIdx.x; e < rows * D; e += NT) xs[e] = vv::to_f(x_in[base + e]);
-      __syncthreads();
-    }
-    mixer<T>(a, cl, nb, b0, nbg, xs, hb, nrm, rs);
-    if (has_tile) {
-      cp_wait_but_one();  // this block's W1 slice
-      __syncthreads();
-      up_proj(a, nb, f0, w1s, hb, rows, rp, red, as);
-      if (more) fetch_w1(a, (step + 1) % NB, f0, w1s, vw);
-      cp_commit();
-      cp_wait_but_one();  // this block's W2 slice
-      __syncthreads();
-      down_proj(a, w2s, as, rows, hb);
-      __syncthreads();
-      if (more) fetch_w2(a, (step + 1) % NB, f0, w2s);
-      cp_commit();
-    }
-    if (D % 4 == 0)
+    const float* v = vs + par * NVEC * wmax;
+    // every thread is done with the last step (its small operands, which
+    // the next copies overwrite, and its columns of xs)
+    __syncthreads();
+    if (more) fetch_small<T>(a, step + 1, f0, has_tile, c0, w, wmax, vs, cs, sb);
+    cp_commit();
+    cp_wait<3>();  // this step's small operands
+    if (nb == 0)
+      for (int e = threadIdx.x; e < rows * w; e += NT) {
+        const int o = (e / w) * D + c0 + e % w;
+        xs[o] = vv::to_f(x_in[base + o]);
+      }
+    __syncthreads();
+    mixer<T>(a, cl, nb, b0, nbg, c0, w, v,
+             reinterpret_cast<const T*>(cs + par * a.bg * CTX * wmax * sizeof(T)), wmax, xs, hb,
+             nrm, xch, rs);
+    cp_wait<2>();  // this block's W1 slice
+    __syncthreads();
+    if (has_tile) up_proj(a, f0, w1s, hb, rows, rp, sb + par * 2 * a.TF, red, as);
+    if (more && has_tile) fetch_w1(a, (step + 1) % NB, f0, w1s, vw);
+    cp_commit();
+    cp_wait<2>();  // this block's W2 slice
+    __syncthreads();
+    if (has_tile) down_proj(a, w2s, as, rows, hb);
+    __syncthreads();
+    if (more && has_tile) fetch_w2(a, (step + 1) % NB, f0, w2s);
+    cp_commit();
+    if (V == 4)
       cluster_partial<4>(a, cl, step, hb, rows, rows_max);
     else
       cluster_partial<1>(a, cl, step, hb, rows, rows_max);
     grid_barrier(a.bar);  // the block's only grid-wide barrier
-    if (D % 4 == 0)
-      next_x<T, 4>(a, cl, nb, step, xs, rows, rows_max, base, nb == NB - 1);
+    if (V == 4)
+      next_x<T, 4>(a, cl, step, v, wmax, xs, rows, rows_max, base, nb == NB - 1);
     else
-      next_x<T, 1>(a, cl, nb, step, xs, rows, rows_max, base, nb == NB - 1);
-    cl.sync();  // x of the next block is whole in every CTA of the cluster
+      next_x<T, 1>(a, cl, step, v, wmax, xs, rows, rows_max, base, nb == NB - 1);
   }
+  cl.sync();  // no peer reads this CTA's shared memory after it exits
 }
+
 
 // Raises chain_q_kernel's shared-memory limit, once per device.
 int q_opt_in() {
@@ -984,7 +1114,7 @@ extern "C" int vv_fused_block_chain(const void* x, const void* ctx, const void* 
     return -2;
   const int tiles = (F + TF - 1) / TF;
   if (ncl != (tiles + C - 1) / C) return -3;
-  const size_t smem = q_layout(D, TF, bg * T).total;
+  const size_t smem = q_layout(D, TF, bg, T, C).total;
   if (smem > 227 * 1024) return -4;
   QArgs a{x, ctx, static_cast<const float*>(vecs), static_cast<const float*>(mixw),
           static_cast<const int8_t*>(w1q), static_cast<const float*>(sb1),

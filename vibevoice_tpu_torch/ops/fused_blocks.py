@@ -79,15 +79,19 @@ def row_group(batch: int, rows_per_item: int, d: int) -> int:
     return max(1, min(batch, _ROWS_FLOATS // (rows_per_item * d)))
 
 
-def chain_smem(d: int, tf: int, rows: int) -> int:
+def chain_smem(d: int, tf: int, bg: int, t: int) -> int:
     """Shared memory of one CTA of the int4 chain kernel (`q_layout` in
-    csrc/fused_block_chain.cu): the W1 and W2 slices, x and h [rows, d]
-    fp32, the activations [rows, tf], the up-projection's k splits and the
-    norms' partials."""
+    csrc/fused_block_chain.cu) for row groups of bg items of t rows: the W1
+    and W2 slices, x and h [rows, d] fp32, the activations [rows, tf], the
+    up-projection's k splits, the norms' partials and exchanges, and the
+    rank's vectors, context rows and ffn1 scale and bias, two of each."""
     up = lambda v: -(-v // 16) * 16
-    nkl = _Q_THREADS // (tf // 4)
+    rows, nkl = bg * t, _Q_THREADS // (tf // 4)
+    vec = 4 if d % 4 == 0 else 1
+    wmax = -(-(d // vec) // CLUSTER) * vec
     return (up(d // 2 * tf) + up(tf // 2 * up(d)) + 2 * up(4 * rows * d) + up(4 * rows * tf)
-            + up(4 * nkl * min(_Q_RP, rows) * tf) + up(4 * (_Q_THREADS // 32 + 1) * rows))
+            + up(4 * nkl * min(_Q_RP, rows) * tf) + up(4 * (_Q_THREADS // 32 + 2 * CLUSTER + 1) * rows)
+            + up(4 * 2 * 14 * wmax) + up(4 * 2 * bg * 6 * wmax) + up(4 * 4 * tf))
 
 
 class ChainPlan(NamedTuple):
@@ -107,10 +111,10 @@ def chain_plan(b: int, t: int, d: int, f: int, clusters: int) -> ChainPlan:
     tf = -(-(-(-f // (clusters * CLUSTER))) // 4) * 4
     tiles = -(-f // tf)
     per = max(1, min(b, _Q_ROWS // t))
-    while per > 1 and chain_smem(d, tf, per * t) > _SMEM_MAX:
+    while per > 1 and chain_smem(d, tf, per, t) > _SMEM_MAX:
         per -= 1
     bg = -(-b // -(-b // per))
-    smem = chain_smem(d, tf, bg * t)
+    smem = chain_smem(d, tf, bg, t)
     if smem > _SMEM_MAX:
         raise ValueError(f"the int4 chain kernel does not fit shared memory at D={d}, F={f}, "
                          f"T={t} ({smem} bytes on {clusters} clusters)")
