@@ -63,9 +63,9 @@ SHAPES = [("decoder 3", 1, 200, 256, ("up", 5, 10, 512), None),
 # the int4 chain kernel of a checkout, as (kernel, end, start, barrier,
 # barriers per block): this tree's cluster kernel, then the cooperative one
 CHAIN_KERNELS = [
-    ("__global__ void __launch_bounds__(NT, 1) chain_q_kernel",
-     "cl.sync();  // x of the next block is whole in every CTA of the cluster\n  }\n}",
-     "extern __shared__ __align__(16) unsigned char smc[];", "grid_barrier(a.bar);", 1),
+    ("__global__ void __launch_bounds__(NT, 1)\n    chain_q_kernel",
+     "  cl.sync();  // no peer reads this CTA's shared memory after it exits\n}",
+     "extern __shared__ __align__(128) unsigned char smem_raw[];", "grid_barrier(a.bar, side);", 1),
     ("__global__ void __launch_bounds__(THREADS) chain_kernel",
      "      grid.sync();\n    }\n  }\n}", "extern __shared__ float sm[];", "grid.sync();", 2),
 ]

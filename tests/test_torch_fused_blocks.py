@@ -283,23 +283,25 @@ def test_chain_plan_invariants(b, t, d, f, clusters):
     covering F once, no more clusters than the card holds nor than get
     columns, row groups of at most 16 rows that fit shared memory."""
     p = TFB.chain_plan(b, t, d, f, clusters)
-    assert p.tf % 4 == 0 and p.tf >= 4
+    assert p.tf % (16 if d % 16 == 0 and f % 16 == 0 else 4) == 0 and p.tf >= 4
     assert (p.tiles - 1) * p.tf < f <= p.tiles * p.tf
     assert p.clusters == -(-p.tiles // TFB.CLUSTER) <= clusters
     assert 1 <= p.bg <= b and p.bg * t <= 16
-    assert p.smem == TFB.chain_smem(d, p.tf, p.bg * t) <= 227 * 1024
+    assert p.smem == TFB.chain_smem(d, p.tf, p.bg, t) <= 227 * 1024
     groups = -(-b // p.bg)
     assert -(-b // groups) == p.bg  # balanced: no group is more than one item short
 
 
 def test_chain_plan_at_the_h100_shapes():
     """On an H100 (15 clusters of 8 CTAs hold at once at 1 CTA per SM): the
-    D=2048 stage on 114 CTAs of 72 columns, the D=1024 stages on 114 of 36,
-    B=4 T=8 in two row groups of 16 rows; a width whose slices do not fit
-    shared memory is refused."""
-    assert TFB.chain_plan(1, 1, 2048, 8192, 15) == (72, 114, 15, 1, 168208)
-    assert TFB.chain_plan(1, 8, 1024, 4096, 15)[:4] == (36, 114, 15, 1)
-    assert TFB.chain_plan(4, 8, 1024, 4096, 15)[:4] == (36, 114, 15, 2)
+    D=2048 stage on 103 CTAs of 80 columns (whole 16-byte columns of W1, the
+    tensor map's unit), the D=1024 stages on 86 of 48, B=4 T=8 in two row
+    groups of 16 rows; a width whose columns are not whole 16-byte vectors in
+    4-column words; a width whose slices do not fit shared memory is
+    refused."""
+    assert TFB.chain_plan(1, 1, 2048, 8192, 15) == (80, 103, 13, 1, 219728)
+    assert TFB.chain_plan(1, 8, 1024, 4096, 15)[:4] == (48, 86, 11, 1)
+    assert TFB.chain_plan(4, 8, 1024, 4096, 15)[:4] == (48, 86, 11, 2)
     assert TFB.chain_plan(3, 5, 24, 96, 15)[:4] == (4, 24, 3, 3)
     with pytest.raises(ValueError, match="shared memory"):
         TFB.chain_plan(1, 1, 8192, 32768, 15)

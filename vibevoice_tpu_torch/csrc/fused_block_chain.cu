@@ -86,8 +86,12 @@
 // error of the launch.
 
 #include <cooperative_groups.h>
+#include <cuda.h>
 
+#include <cstring>
+#include <map>
 #include <set>
+#include <tuple>
 #include <type_traits>
 
 #include "int4_common.cuh"
@@ -429,6 +433,7 @@ struct QArgs {
   float* part;        // [2][ncl][bg*T][D]: the clusters' partials, by block parity
   unsigned int* bar;  // the grid barrier's counter
   int B, T, D, F, NB, bg, TF, ncl, tiles, C;
+  int br;             // W1 rows per tensor-map box; 0: no tensor map (cp.async)
   float eps;
 };
 
@@ -444,7 +449,7 @@ __host__ __device__ inline int q_wmax(int D, int C) {
 // Byte offsets of chain_q_kernel's shared memory for row groups of bg items
 // of T rows (`ops/fused_blocks.py:chain_smem` mirrors the total).
 struct QLayout {
-  size_t w1, w2, xs, hb, as, red, nrm, vs, cs, sb, total;
+  size_t w1, w2, hb, xs, as, red, nrm, vs, cs, sb, mb, total;
 };
 
 __host__ __device__ inline size_t up16(size_t v) { return (v + 15) & ~static_cast<size_t>(15); }
@@ -456,16 +461,17 @@ __host__ __device__ inline QLayout q_layout(int D, int TF, int bg, int T, int C)
   size_t o = 0;
   L.w1 = o;   o += up16(static_cast<size_t>(D / 2) * TF);  // W1 slice [D/2][TF] bytes
   L.w2 = o;   o += up16(static_cast<size_t>(TF / 2) * Dp); // W2 slice [TF/2][Dp] bytes
-  L.xs = o;   o += up16(sizeof(float) * rows * D);         // x, then y (own columns)
-  L.hb = o;   o += up16(sizeof(float) * rows * D);         // h, then hn, then the share
+  L.hb = o;   o += up16(sizeof(float) * rows * D);         // h, then ffn input, then the share
+  L.xs = o;   o += up16(sizeof(float) * rows * wmax);      // x, then y, of the rank's columns
   L.as = o;   o += up16(sizeof(float) * rows * TF);        // gelu activations
   L.red = o;  o += up16(sizeof(float) * nkl * rp * TF);    // up-projection k splits
-  // warp partials [NW][rows], two exchanges [MAX_C][rows], row scales [rows]
-  L.nrm = o;  o += up16(sizeof(float) * (NW + 2 * MAX_C + 1) * rows);
-  L.vs = o;   o += up16(sizeof(float) * 2 * NVEC * wmax);  // vectors, by block parity
+  // warp partials [NW][rows], two exchanges [MAX_C][rows], two row scales
+  L.nrm = o;  o += up16(sizeof(float) * (NW + 2 * MAX_C + 2) * rows);
+  L.vs = o;   o += up16(sizeof(float) * 2 * NVEC * wmax);  // vectors, by step parity
   L.cs = o;   o += up16(sizeof(float) * 2 * bg * 6 * wmax); // ctx rows (x's dtype), by parity
   L.sb = o;   o += up16(sizeof(float) * 2 * 2 * TF);       // ffn1 scale and bias, by parity
-  L.total = o;
+  L.mb = o;   o += 4 * sizeof(uint64_t);                   // mbarriers: W1, W2, small x 2
+  L.total = o + 128;  // the base is aligned up to 128 bytes (the tensor map's boxes)
   return L;
 }
 
@@ -477,6 +483,50 @@ __device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_grou
 template <int N>
 __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+// shared-memory reads of the generic proxy before the async proxy's writes
+__device__ __forceinline__ void fence_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// `bytes` (a multiple of 16) global -> shared by the bulk-copy engine,
+// completing on `bar`
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+// a box of the 2-D tensor map at (column x, row y) -> shared, completing on `bar`
+__device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map, int x, int y,
+                                        uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(bar)
+      : "memory");
 }
 
 __device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b, uint32_t sel) {
@@ -504,9 +554,13 @@ __device__ __forceinline__ void nibbles_f32(uint32_t w, float (&lo)[4], float (&
 // so the counter's top bit flips once all have arrived and its low bits are
 // back to 0).  Every CTA of the grid is resident: the grid is sized by the
 // occupancy of the cluster launch.  A barrier that is not reached within
-// seconds traps rather than hanging the card.
-__device__ void grid_barrier(unsigned int* bar) {
+// seconds traps rather than hanging the card.  While thread 0 waits, the
+// other warps run `side` (copies whose issue may stall on the copy engine's
+// queue, which then costs no phase its time).
+template <typename Side>
+__device__ void grid_barrier(unsigned int* bar, Side side) {
   __syncthreads();
+  if (threadIdx.x >= 32) side();
   if (threadIdx.x == 0) {
     const unsigned int add = blockIdx.x == 0 ? 0x80000000u - (gridDim.x - 1) : 1u;
     __threadfence();
@@ -524,9 +578,10 @@ __device__ void grid_barrier(unsigned int* bar) {
   __syncthreads();
 }
 
-// Global -> shared copies, asynchronous (cp.async, committed by the
-// caller) in vectors of 16, 8 or 4 bytes, the widest the addresses and sizes
-// allow; plain byte copies otherwise.
+// Global -> shared copies of the widths the tensor map and the bulk-copy
+// engine do not take: cp.async (committed by the caller) in vectors of 16, 8
+// or 4 bytes, the widest the addresses and sizes allow, plain byte copies
+// otherwise.
 __device__ __forceinline__ void cp_async(void* dst, const void* src, int vw, bool live) {
   const uint32_t d = smem_u32(dst), n = live ? vw : 0;  // n = 0: zeros
   if (vw == 16)
@@ -566,80 +621,135 @@ __device__ void copy_rows(void* dst_, size_t dstride, const void* src_, size_t s
 }
 
 // The CTA's slices of block nb's weights: W1 byte rows [0, D/2) x columns
-// [f0, f0 + TF) as [D/2][TF], W2 byte rows [f0/2, (f0 + TF)/2) as
-// [TF/2][Dp]; columns or rows past F read as 0.  W1 in vectors of `vw`
-// bytes (16, 8 or 4: the widest that divides F and TF), W2 in 16-byte
-// vectors of one contiguous run where D is a multiple of 16; a thread keeps
-// one vector column of W1, so the loops divide nothing.
-__device__ void fetch_w1(const QArgs& a, int nb, int f0, unsigned char* dst, int vw) {
+// [f0, f0 + TF) as [D/2][TF] and W2 byte rows [f0/2, (f0 + TF)/2) as
+// [TF/2][Dp], columns or rows past F 0 (W2's past F left as they are where
+// the bulk-copy engine copies: the activations that meet them are 0).  With
+// a tensor map (a.br > 0: D and TF multiples of 16), thread 0 asks the
+// tensor-memory accelerator for W1 in boxes of [br rows][TF] and the
+// bulk-copy engine for W2's contiguous run, completing on `bar`; the threads
+// issue nothing and stall on nothing.  Otherwise cp.async by every thread.
+__device__ void fetch_w1(const QArgs& a, const CUtensorMap* map, int nb, int f0,
+                         unsigned char* dst, uint32_t bar) {
   const int D2 = a.D / 2, F = a.F, TF = a.TF;
-  const int8_t* src = a.w1 + static_cast<size_t>(nb) * D2 * F + f0;
-  if (vw) {
-    const int vpr = TF / vw, step = NT / vpr;
-    const int c = (threadIdx.x % vpr) * vw;
-    const bool live = f0 + c < F;
-    if (threadIdx.x / vpr < step)
-      for (int i = threadIdx.x / vpr; i < D2; i += step)
-        cp_async(dst + static_cast<size_t>(i) * TF + c,
-                 live ? src + static_cast<size_t>(i) * F + c : src, vw, live);
-  } else {
-    copy_rows(dst, TF, src, F, D2, TF, F - f0);
+  if (a.br) {
+    if (threadIdx.x == 0) {
+      fence_async();
+      mbar_expect(bar, static_cast<uint32_t>(D2) * TF);
+      for (int j = 0; j < D2; j += a.br)
+        tma_box(dst + static_cast<size_t>(j) * TF, map, f0, nb * D2 + j, bar);
+    }
+    return;
   }
+  const int8_t* src = a.w1 + static_cast<size_t>(nb) * D2 * F + f0;
+  copy_rows(dst, TF, src, F, D2, TF, F - f0);
 }
 
-__device__ void fetch_w2(const QArgs& a, int nb, int f0, unsigned char* dst) {
+// With the engines (a.br > 0) thread `lead` alone issues W2's copy, in one
+// request; otherwise every thread of the CTA takes part.
+__device__ void fetch_w2(const QArgs& a, int nb, int f0, unsigned char* dst, uint32_t bar,
+                         int lead) {
   const int D = a.D, F2 = a.F / 2, R = a.TF / 2, r0 = f0 / 2;
   const int8_t* src = a.w2 + (static_cast<size_t>(nb) * F2 + r0) * D;
-  if (D % 16 == 0) {  // the slice is one contiguous run of R rows
-    const int n = R * D / 16, nlive = max(0, min(R, F2 - r0)) * D / 16;
-    for (int v = threadIdx.x; v < n; v += NT)
-      cp_async(dst + static_cast<size_t>(v) * 16, v < nlive ? src + static_cast<size_t>(v) * 16 : src,
-               16, v < nlive);
-  } else {
-    const int Dp = static_cast<int>(up16(D));
-    for (int i = 0; i < R; ++i)
-      copy_rows(dst + static_cast<size_t>(i) * Dp, Dp, src + static_cast<size_t>(i) * D, D, 1, Dp,
-                r0 + i < F2 ? D : 0);
+  const int live = max(0, min(R, F2 - r0));
+  if (a.br) {
+    if (threadIdx.x == lead) {
+      fence_async();
+      const uint32_t bytes = static_cast<uint32_t>(live) * D;
+      mbar_expect(bar, bytes);
+      bulk_copy(dst, src, bytes, bar);
+    }
+    return;
   }
+  const int Dp = static_cast<int>(up16(D));
+  for (int i = 0; i < R; ++i)
+    copy_rows(dst + static_cast<size_t>(i) * Dp, Dp, src + static_cast<size_t>(i) * D, D, 1, Dp,
+              i < live ? D : 0);
 }
 
 // The small operands of step `step` (block nb of its row group) into the
 // buffers of the step's parity: the rank's columns [c0, c0 + w) of the block's
 // vectors (vs [NVEC][wmax]) and of the group's context rows (cs [bg][6][wmax]
-// in x's dtype), and the CTA's ffn1 scale and bias (sb [2][TF], 0 past F).
+// in x's dtype), and the CTA's ffn1 scale and bias (sb [2][TF]).  `bulk`:
+// every row is whole 16-byte vectors, and warp 0 hands them to the bulk-copy
+// engine, completing on `bar`; otherwise copy_rows.
 template <typename T>
 __device__ void fetch_small(const QArgs& a, int step, int f0, bool has_tile, int c0, int w,
-                            int wmax, float* vs, unsigned char* cs, float* sb) {
+                            int wmax, float* vs, unsigned char* cs, float* sb, bool bulk,
+                            uint32_t bar) {
   const int D = a.D, NB = a.NB, nb = step % NB, b0 = step / NB * a.bg;
   const int nbg = min(a.bg, a.B - b0), par = step % 2;
-  const size_t rs = static_cast<size_t>(D) * sizeof(float), ws = wmax * sizeof(float);
+  const int live = has_tile ? max(0, min(a.TF, a.F - f0)) : 0;
   float* v = vs + par * NVEC * wmax;
-  copy_rows(v, ws, a.vecs + static_cast<size_t>(nb) * 8 * D + c0, rs, 6, w * 4, w * 4);
-  copy_rows(v + 6 * wmax, ws, a.mixw + static_cast<size_t>(nb) * 8 * D + c0, rs, 7, w * 4, w * 4);
-  copy_rows(v + 13 * wmax, ws, a.s2 + static_cast<size_t>(nb) * D + c0, rs, 1, w * 4, w * 4);
+  unsigned char* c = cs + par * a.bg * CTX * wmax * sizeof(T);
+  float* s = sb + par * 2 * a.TF;
   const T* ctx = static_cast<const T*>(a.ctx);
-  for (int bl = 0; bl < nbg; ++bl)
-    copy_rows(cs + ((par * a.bg + bl) * CTX * wmax) * sizeof(T), wmax * sizeof(T),
-              ctx + ((static_cast<size_t>(b0 + bl) * NB + nb) * CTX) * D + c0, D * sizeof(T), CTX,
-              w * sizeof(T), w * sizeof(T));
-  if (has_tile)
-    copy_rows(sb + par * 2 * a.TF, a.TF * sizeof(float), a.sb1 + static_cast<size_t>(nb) * 2 * a.F + f0,
-              a.F * sizeof(float), 2, a.TF * 4, (a.F - f0) * 4);
+  // row k: vecs rows 0-5, taps 0-6, s2; then the context rows; then s1, b1
+  auto row = [&](int k, void*& dst, const void*& src, int& bytes) {
+    if (k < 14) {
+      dst = v + k * wmax;
+      src = k < 6 ? a.vecs + (static_cast<size_t>(nb) * 8 + k) * D + c0
+                  : k < 13 ? a.mixw + (static_cast<size_t>(nb) * 8 + k - 6) * D + c0
+                           : a.s2 + static_cast<size_t>(nb) * D + c0;
+      bytes = w * 4;
+    } else if (k < 14 + CTX * nbg) {
+      const int bl = (k - 14) / CTX, j = (k - 14) % CTX;
+      dst = c + ((bl * CTX + j) * wmax) * sizeof(T);
+      src = ctx + ((static_cast<size_t>(b0 + bl) * NB + nb) * CTX + j) * D + c0;
+      bytes = w * sizeof(T);
+    } else {
+      const int j = k - 14 - CTX * nbg;
+      dst = s + j * a.TF;
+      src = a.sb1 + (static_cast<size_t>(nb) * 2 + j) * a.F + f0;
+      bytes = live * 4;
+    }
+  };
+  const int nrows = 14 + CTX * nbg + (live ? 2 : 0);
+  if (bulk) {
+    if (threadIdx.x < 32) {
+      uint32_t total = 0;
+      for (int k = 0; k < nrows; ++k) {
+        void* dst;
+        const void* src;
+        int bytes;
+        row(k, dst, src, bytes);
+        total += bytes;
+      }
+      if (threadIdx.x == 0) {
+        fence_async();
+        mbar_expect(bar, total);
+      }
+      __syncwarp();
+      for (int k = threadIdx.x; k < nrows; k += 32) {
+        void* dst;
+        const void* src;
+        int bytes;
+        row(k, dst, src, bytes);
+        if (bytes) bulk_copy(dst, src, bytes, bar);
+      }
+    }
+    return;
+  }
+  for (int k = 0; k < nrows; ++k) {
+    void* dst;
+    const void* src;
+    int bytes;
+    row(k, dst, src, bytes);
+    copy_rows(dst, 0, src, 0, 1, bytes, bytes);
+  }
 }
 
-// rs[r] = 1 / sqrt(mean(buf[r, :]^2) + eps) for r < rows, where this CTA
-// holds its rank's columns [c0, c0 + w) of buf: the rank's sums of squares
-// (its warps' sums added in warp order) go into slot `rank` of every cluster
-// peer's exchange `xch`, and after a cluster barrier each CTA adds the C
-// slots in rank order, so every CTA of the grid gets the same bits.
-__device__ void cluster_rms(cg::cluster_group& cl, const float* buf, int rows, int D, int c0,
-                            int w, float eps, float* nrm, float* xch, float* rs) {
+// This rank's sum of squares over its columns of each row r < rows of `buf`
+// ([rows][ld]; its warps' sums added in warp order), into slot `rank` of
+// every cluster peer's exchange `xch`.  The caller syncs the cluster, then
+// calls row_scales.
+__device__ void rank_sumsq(cg::cluster_group& cl, const float* buf, int ld, int rows, int w,
+                           float* nrm, float* xch) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int C = static_cast<int>(cl.num_blocks()), rank = static_cast<int>(cl.block_rank());
   for (int r = 0; r < rows; ++r) {
     float s = 0.f;
     for (int c = threadIdx.x; c < w; c += NT) {
-      const float v = buf[r * D + c0 + c];
+      const float v = buf[r * ld + c];
       s += v * v;
     }
     s = vv::warp_sum(s);
@@ -652,7 +762,11 @@ __device__ void cluster_rms(cg::cluster_group& cl, const float* buf, int rows, i
     for (int k = 0; k < NW; ++k) t += nrm[k * rows + threadIdx.x];
     for (int p = 0; p < C; ++p) cl.map_shared_rank(xch, p)[rank * rows + threadIdx.x] = t;
   }
-  cl.sync();
+}
+
+// rs[r] = 1 / sqrt(mean over the row + eps), the C ranks' sums added in rank
+// order, so every CTA of the grid gets the same bits.
+__device__ void row_scales(int C, const float* xch, int rows, int D, float eps, float* rs) {
   if (threadIdx.x < rows) {
     float t = 0.f;
     for (int p = 0; p < C; ++p) t += xch[p * rows + threadIdx.x];
@@ -672,7 +786,8 @@ __device__ __forceinline__ void up_pass(const unsigned char* w1s, const float* x
   for (int r = 0; r < R; ++r)
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[r][j] = 0.f;
-#pragma unroll 4
+  constexpr int U = R > 4 ? 2 : 4;  // byte rows in flight, within the register budget
+#pragma unroll U
   for (int i = kl; i < D / 2; i += nkl) {
     float lo[4], hi[4];
     nibbles_f32(*reinterpret_cast<const uint32_t*>(w1s + static_cast<size_t>(i) * TF + 4 * cw), lo,
@@ -690,11 +805,14 @@ __device__ __forceinline__ void up_pass(const unsigned char* w1s, const float* x
         make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
 }
 
-// as[r][c] = gelu((hn[r] @ W1[:, f0 + c]) * s1 + b1) for r < rows, c < TF
-// (0 past F; s1 and b1 in sb [2][TF]).  Thread (cw, kl) takes packed word cw (4 columns) of byte rows
-// kl, kl + nkl, ...; the nkl k splits meet in `red` and are added in order.
+// as[r][c] = gelu((hn[r] @ W1[:, f0 + c]) * rs2[r] * s1 + b1) for r < rows,
+// c < TF (0 past F; s1 and b1 in sb [2][TF]): hn is the FFN input before
+// its row scale rs2, which multiplies the product instead.  Thread (cw, kl)
+// takes packed word cw (4 columns) of byte rows kl, kl + nkl, ...; the nkl k
+// splits meet in `red` and are added in order.
 __device__ void up_proj(const QArgs& a, int f0, const unsigned char* w1s, const float* hn,
-                        int rows, int rp, const float* sb, float* red, float* as) {
+                        const float* rs2, int rows, int rp, const float* sb, float* red,
+                        float* as) {
   const int D = a.D, TF = a.TF, cgw = TF / 4, nkl = NT / cgw;
   const int cw = threadIdx.x % cgw, kl = threadIdx.x / cgw;
   for (int m0 = 0; m0 < rows; m0 += RP) {
@@ -720,7 +838,7 @@ __device__ void up_proj(const QArgs& a, int f0, const unsigned char* w1s, const 
       for (int l = 0; l < nkl; ++l) s += red[(l * rp + r) * TF + c];
       float v = 0.f;
       if (f0 + c < a.F) {
-        v = s * sb[c] + sb[TF + c];
+        v = s * rs2[m0 + r] * sb[c] + sb[TF + c];
         v = 0.5f * v * (1.f + erff(v * 0.7071067811865476f));
       }
       as[(m0 + r) * TF + c] = v;
@@ -739,7 +857,8 @@ __device__ __forceinline__ void down_pass(const unsigned char* w2s, const float*
   for (int r = 0; r < R; ++r)
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[r][j] = 0.f;
-#pragma unroll 4
+  constexpr int U = R > 4 ? 2 : 4;
+#pragma unroll U
   for (int i = 0; i < TF / 2; ++i) {
     float lo[4], hi[4];
     nibbles_f32(*reinterpret_cast<const uint32_t*>(w2s + static_cast<size_t>(i) * Dp + 4 * cw), lo,
@@ -845,7 +964,8 @@ __device__ void cluster_partial(const QArgs& a, cg::cluster_group& cl, int step,
 
 // Step 5 of a block: rank q of every cluster adds the clusters' partials of
 // its columns in cluster order and keeps x = y + g2 * (sum * s2 + b2) for
-// them in `xs`; cluster 0 also writes them to y after the group's last block.
+// them in xs ([rows][wmax]); cluster 0 also writes them to y after the
+// group's last block.
 template <typename T, int V>
 __device__ void next_x(const QArgs& a, cg::cluster_group& cl, int step, const float* v, int wmax,
                        float* xs, int rows, int rows_max, size_t base, bool last) {
@@ -857,7 +977,7 @@ __device__ void next_x(const QArgs& a, cg::cluster_group& cl, int step, const fl
   const bool out = last && cid == 0;
   T* y_out = static_cast<T*>(a.y);
   for (int e = threadIdx.x; e < rows * wu; e += NT) {
-    const int c = (e % wu) * V, off = (e / wu) * D + u0 * V + c;
+    const int r = e / wu, c = (e % wu) * V, off = r * D + u0 * V + c;
     float s[V], p[RED_BATCH][V];
 #pragma unroll
     for (int j = 0; j < V; ++j) s[j] = 0.f;
@@ -872,31 +992,35 @@ __device__ void next_x(const QArgs& a, cg::cluster_group& cl, int step, const fl
           for (int j = 0; j < V; ++j) s[j] += p[u][j];
     }
     float x[V];
+    float* xr = xs + r * wmax + c;
 #pragma unroll
     for (int j = 0; j < V; ++j)
-      x[j] = xs[off + j] + v[4 * wmax + c + j] * (s[j] * v[13 * wmax + c + j] + v[5 * wmax + c + j]);
-    st_v<V>(xs + off, x);
+      x[j] = xr[j] + v[4 * wmax + c + j] * (s[j] * v[13 * wmax + c + j] + v[5 * wmax + c + j]);
+    st_v<V>(xr, x);
     if (out)
 #pragma unroll
       for (int j = 0; j < V; ++j) y_out[base + off + j] = vv::from_f<T>(x[j]);
   }
 }
 
-// Step 1 of a block, on the rank's columns [c0, c0 + w) (vectors in v, the
-// group's context rows in cs): h = rmsnorm(x) * norm_w, the new context
-// (cluster 0), y = x + gamma * (conv + mixer_b) in xs, and hn = rmsnorm(y) *
-// ffn_norm_w stored into every CTA of the cluster, so each holds all of hn
-// in hb after the last cluster barrier.
+// Step 1 of a block, on the rank's columns [c0, c0 + w) (x and then y in xs
+// [rows][wmax], vectors in v, the group's context rows in cs): h =
+// rmsnorm(x) * norm_w, the new context (cluster 0), y = x + gamma * (conv +
+// mixer_b), and the FFN input y * ffn_norm_w stored into hb of every CTA of
+// the cluster with this rank's sums of squares of y, so that after the
+// second cluster barrier each CTA holds all of it and its row scales rs2.
 template <typename T>
 __device__ void mixer(const QArgs& a, cg::cluster_group& cl, int nb, int b0, int nbg, int c0,
                       int w, const float* v, const T* cs, int wmax, float* xs, float* hb,
-                      float* nrm, float* xch, float* rs) {
+                      float* nrm, float* xch, float* rs1, float* rs2) {
   const int D = a.D, Tn = a.T, NB = a.NB, C = a.C, rows = nbg * Tn;
-  const int rows_max = a.bg * Tn;
-  cluster_rms(cl, xs, rows, D, c0, w, a.eps, nrm, xch, rs);
+  float* xch2 = xch + MAX_C * a.bg * Tn;
+  rank_sumsq(cl, xs, wmax, rows, w, nrm, xch);
+  cl.sync();
+  row_scales(C, xch, rows, D, a.eps, rs1);
   for (int e = threadIdx.x; e < rows * w; e += NT) {
     const int r = e / w, c = e % w;
-    hb[r * D + c0 + c] = xs[r * D + c0 + c] * rs[r] * v[c];
+    hb[r * D + c0 + c] = xs[r * wmax + c] * rs1[r] * v[c];
   }
   __syncthreads();
   if (blockIdx.x < C) {  // cluster 0: the new context, the last 6 rows of [ctx; h]
@@ -925,66 +1049,76 @@ __device__ void mixer(const QArgs& a, cg::cluster_group& cl, int nb, int b0, int
                                   : hb[(bl * Tn + j - CTX) * D + c0 + c];
         acc = acc + src * tap[k];
       }
-      const int r = bl * Tn + t;
-      xs[r * D + c0 + c] = xs[r * D + c0 + c] + g * (acc + mb);
+      float* y = xs + (bl * Tn + t) * wmax + c;
+      *y = *y + g * (acc + mb);
     }
   }
   __syncthreads();
-  cluster_rms(cl, xs, rows, D, c0, w, a.eps, nrm, xch + MAX_C * rows_max, rs);
+  rank_sumsq(cl, xs, wmax, rows, w, nrm, xch2);
   if (w % 4 == 0 && c0 % 4 == 0 && D % 4 == 0) {  // 16-byte stores to the peers
     const int w4 = w / 4;
     for (int e = threadIdx.x; e < rows * w4; e += NT) {
       const int r = e / w4, c = 4 * (e % w4), o = r * D + c0 + c;
-      const float4 y = *reinterpret_cast<const float4*>(xs + o);
+      const float4 y = *reinterpret_cast<const float4*>(xs + r * wmax + c);
       const float4 g = *reinterpret_cast<const float4*>(v + 3 * wmax + c);
-      const float4 hn = make_float4(y.x * rs[r] * g.x, y.y * rs[r] * g.y, y.z * rs[r] * g.z,
-                                    y.w * rs[r] * g.w);
-      for (int p = 0; p < C; ++p) *reinterpret_cast<float4*>(cl.map_shared_rank(hb, p) + o) = hn;
+      const float4 u = make_float4(y.x * g.x, y.y * g.y, y.z * g.z, y.w * g.w);
+      for (int p = 0; p < C; ++p) *reinterpret_cast<float4*>(cl.map_shared_rank(hb, p) + o) = u;
     }
   } else {
     for (int e = threadIdx.x; e < rows * w; e += NT) {
-      const int r = e / w, c = e % w, o = r * D + c0 + c;
-      const float hn = xs[o] * rs[r] * v[3 * wmax + c];
-      for (int p = 0; p < C; ++p) cl.map_shared_rank(hb, p)[o] = hn;
+      const int r = e / w, c = e % w;
+      const float u = xs[r * wmax + c] * v[3 * wmax + c];
+      for (int p = 0; p < C; ++p) cl.map_shared_rank(hb, p)[r * D + c0 + c] = u;
     }
   }
-  cl.sync();  // hn is whole in every CTA of the cluster
+  cl.sync();  // the FFN input is whole in every CTA of the cluster, and the sums of squares
+  row_scales(C, xch2, rows, D, a.eps, rs2);
 }
 
 template <typename T>
-__global__ void __launch_bounds__(NT, 1) chain_q_kernel(QArgs a) {
-  extern __shared__ __align__(16) unsigned char smc[];
+__global__ void __launch_bounds__(NT, 1)
+    chain_q_kernel(const __grid_constant__ CUtensorMap w1map, const QArgs a) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* smc = smem_raw + ((128 - (smem_u32(smem_raw) & 127)) & 127);
   cg::cluster_group cl = cg::this_cluster();
   const int D = a.D, Tn = a.T, NB = a.NB, C = a.C, rows_max = a.bg * Tn;
   const QLayout L = q_layout(D, a.TF, a.bg, Tn, C);
   unsigned char* w1s = smc + L.w1;
   unsigned char* w2s = smc + L.w2;
-  float* xs = reinterpret_cast<float*>(smc + L.xs);
   float* hb = reinterpret_cast<float*>(smc + L.hb);
+  float* xs = reinterpret_cast<float*>(smc + L.xs);
   float* as = reinterpret_cast<float*>(smc + L.as);
   float* red = reinterpret_cast<float*>(smc + L.red);
-  float* nrm = reinterpret_cast<float*>(smc + L.nrm);  // then the exchanges, then rs
+  float* nrm = reinterpret_cast<float*>(smc + L.nrm);  // then the exchanges, then rs1, rs2
   float* xch = nrm + NW * rows_max;
-  float* rs = xch + 2 * MAX_C * rows_max;
+  float* rs1 = xch + 2 * MAX_C * rows_max;
+  float* rs2 = rs1 + rows_max;
   float* vs = reinterpret_cast<float*>(smc + L.vs);
   unsigned char* cs = smc + L.cs;
   float* sb = reinterpret_cast<float*>(smc + L.sb);
+  const uint32_t mb = smem_u32(smc + L.mb);  // W1, W2, small (even steps), small (odd)
   const T* x_in = static_cast<const T*>(a.x);
   const int V = q_vec(D), nv = D / V, rank = static_cast<int>(cl.block_rank());
   const int c0 = rank * nv / C * V, w = ((rank + 1) * nv / C) * V - c0, wmax = q_wmax(D, C);
   const bool has_tile = blockIdx.x < a.tiles;
-  int vw = 0;  // W1's copy vectors: the widest that divides F and TF
-  for (int k = 16; k >= 4 && !vw; k /= 2)
-    if (a.F % k == 0 && a.TF % k == 0) vw = k;
+  const int es = static_cast<int>(sizeof(T));
+  const bool bulk = a.br && (w * es) % 16 == 0 && (c0 * es) % 16 == 0 && (wmax * es) % 16 == 0 &&
+                    (D * es) % 16 == 0 && reinterpret_cast<uintptr_t>(a.ctx) % 16 == 0;
   const int f0 = blockIdx.x * a.TF, rp = min(RP, rows_max);
   const int steps = (a.B + a.bg - 1) / a.bg * NB;
-  // copies in flight, in groups: the small operands of a step one step ahead,
-  // W1 and W2 one block ahead
-  fetch_small<T>(a, 0, f0, has_tile, c0, w, wmax, vs, cs, sb);
+  if (threadIdx.x == 0) {
+    for (int k = 0; k < 4; ++k) mbar_init(mb + 8 * k);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // copies in flight, in cp.async groups (and on the mbarriers where the
+  // engines copy): the small operands of a step one step ahead, W1 and W2 one
+  // block ahead
+  fetch_small<T>(a, 0, f0, has_tile, c0, w, wmax, vs, cs, sb, bulk, mb + 16);
   cp_commit();
-  if (has_tile) fetch_w1(a, 0, f0, w1s, vw);
+  if (has_tile) fetch_w1(a, &w1map, 0, f0, w1s, mb);
   cp_commit();
-  if (has_tile) fetch_w2(a, 0, f0, w2s);
+  if (has_tile) fetch_w2(a, 0, f0, w2s, mb + 8, 0);
   cp_commit();
   for (int step = 0; step < steps; ++step) {
     const int nb = step % NB, b0 = step / NB * a.bg, par = step % 2;
@@ -995,34 +1129,44 @@ __global__ void __launch_bounds__(NT, 1) chain_q_kernel(QArgs a) {
     // every thread is done with the last step (its small operands, which
     // the next copies overwrite, and its columns of xs)
     __syncthreads();
-    if (more) fetch_small<T>(a, step + 1, f0, has_tile, c0, w, wmax, vs, cs, sb);
+    if (more)
+      fetch_small<T>(a, step + 1, f0, has_tile, c0, w, wmax, vs, cs, sb, bulk,
+                     mb + 16 + 8 * (1 - par));
     cp_commit();
     cp_wait<3>();  // this step's small operands
+    if (bulk) mbar_wait(mb + 16 + 8 * par, (step >> 1) & 1);
     if (nb == 0)
       for (int e = threadIdx.x; e < rows * w; e += NT) {
-        const int o = (e / w) * D + c0 + e % w;
-        xs[o] = vv::to_f(x_in[base + o]);
+        const int r = e / w, c = e % w;
+        xs[r * wmax + c] = vv::to_f(x_in[base + static_cast<size_t>(r) * D + c0 + c]);
       }
     __syncthreads();
     mixer<T>(a, cl, nb, b0, nbg, c0, w, v,
              reinterpret_cast<const T*>(cs + par * a.bg * CTX * wmax * sizeof(T)), wmax, xs, hb,
-             nrm, xch, rs);
+             nrm, xch, rs1, rs2);
     cp_wait<2>();  // this block's W1 slice
+    if (has_tile && a.br) mbar_wait(mb, step & 1);
     __syncthreads();
-    if (has_tile) up_proj(a, f0, w1s, hb, rows, rp, sb + par * 2 * a.TF, red, as);
-    if (more && has_tile) fetch_w1(a, (step + 1) % NB, f0, w1s, vw);
+    if (has_tile) up_proj(a, f0, w1s, hb, rs2, rows, rp, sb + par * 2 * a.TF, red, as);
+    if (more && has_tile) fetch_w1(a, &w1map, (step + 1) % NB, f0, w1s, mb);
     cp_commit();
     cp_wait<2>();  // this block's W2 slice
+    if (has_tile && a.br) mbar_wait(mb + 8, step & 1);
     __syncthreads();
     if (has_tile) down_proj(a, w2s, as, rows, hb);
     __syncthreads();
-    if (more && has_tile) fetch_w2(a, (step + 1) % NB, f0, w2s);
+    // the next block's W2: cp.async by every thread here, or one request to
+    // the bulk-copy engine, issued by warp 1 while the grid barrier waits
+    if (more && has_tile && !a.br) fetch_w2(a, (step + 1) % NB, f0, w2s, mb + 8, 0);
     cp_commit();
     if (V == 4)
       cluster_partial<4>(a, cl, step, hb, rows, rows_max);
     else
       cluster_partial<1>(a, cl, step, hb, rows, rows_max);
-    grid_barrier(a.bar);  // the block's only grid-wide barrier
+    auto side = [&] {
+      if (more && has_tile && a.br) fetch_w2(a, (step + 1) % NB, f0, w2s, mb + 8, 32);
+    };
+    grid_barrier(a.bar, side);  // the block's only grid-wide barrier
     if (V == 4)
       next_x<T, 4>(a, cl, step, v, wmax, xs, rows, rows_max, base, nb == NB - 1);
     else
@@ -1031,6 +1175,63 @@ __global__ void __launch_bounds__(NT, 1) chain_q_kernel(QArgs a) {
   cl.sync();  // no peer reads this CTA's shared memory after it exits
 }
 
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_fn() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &q);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// W1 rows per tensor-map box: the most (at most 256, the box limit) that
+// divide D/2, so every box lies within one block's W1; 0 where the tensor
+// map does not apply (rows of W1 or the slice not whole 16-byte vectors, or
+// a slice wider than a box).
+int q_box_rows(int D, int F, int TF) {
+  if (D % 16 || F % 16 || TF % 16 || TF > 256) return 0;
+  int br = D / 2 < 256 ? D / 2 : 256;
+  while ((D / 2) % br) --br;
+  return br;
+}
+
+// w1q [N, D/2, F] as a 2-D map of N*D/2 rows of F bytes, boxes [br][TF];
+// columns past F read as zeros.  The map is cached per pack and shape.
+int q_w1_map(CUtensorMap* map, const QArgs& a) {
+  static std::map<std::tuple<const void*, int, int, int, int, int>, CUtensorMap> maps;
+  const auto key = std::make_tuple(static_cast<const void*>(a.w1), a.NB, a.D, a.F, a.TF, a.br);
+  auto it = maps.find(key);
+  if (it == maps.end()) {
+    EncodeTiled enc = encode_fn();
+    if (enc == nullptr) return -6;
+    const cuuint64_t dims[2] = {static_cast<cuuint64_t>(a.F),
+                                static_cast<cuuint64_t>(a.NB) * (a.D / 2)};
+    const cuuint64_t strides[1] = {static_cast<cuuint64_t>(a.F)};
+    const cuuint32_t box[2] = {static_cast<cuuint32_t>(a.TF), static_cast<cuuint32_t>(a.br)};
+    const cuuint32_t estr[2] = {1, 1};
+    CUtensorMap m;
+    const CUresult r = enc(&m, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
+                           const_cast<int8_t*>(a.w1), dims, strides, box, estr,
+                           CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                           CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    if (r != CUDA_SUCCESS) return -7;
+    it = maps.emplace(key, m).first;
+  }
+  *map = it->second;
+  return 0;
+}
 
 // Raises chain_q_kernel's shared-memory limit, once per device.
 int q_opt_in() {
@@ -1039,7 +1240,7 @@ int q_opt_in() {
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (!opted.count(dev)) {
-    void (*kerns[2])(QArgs) = {chain_q_kernel<float>, chain_q_kernel<__nv_bfloat16>};
+    void (*kerns[2])(CUtensorMap, QArgs) = {chain_q_kernel<float>, chain_q_kernel<__nv_bfloat16>};
     for (auto k : kerns) {
       err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, 227 * 1024);
       if (err != cudaSuccess) return static_cast<int>(err);
@@ -1079,9 +1280,13 @@ int q_clusters(size_t smem, int C, int* out) {
 template <typename T>
 int launch_q(const QArgs& a, size_t smem, cudaStream_t stream) {
   if (const int rc = q_opt_in()) return rc;
+  CUtensorMap map;
+  memset(&map, 0, sizeof(map));
+  if (a.br)
+    if (const int rc = q_w1_map(&map, a)) return rc;
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg = q_config(a.ncl * a.C, a.C, smem, stream, attr);
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, chain_q_kernel<T>, a);
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, chain_q_kernel<T>, map, a);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1120,7 +1325,7 @@ extern "C" int vv_fused_block_chain(const void* x, const void* ctx, const void* 
           static_cast<const int8_t*>(w1q), static_cast<const float*>(sb1),
           static_cast<const int8_t*>(w2q), static_cast<const float*>(s2), y, ctx_out,
           static_cast<float*>(part), static_cast<unsigned int*>(bar), B, T, D, F, NB, bg, TF,
-          ncl, tiles, C, eps};
+          ncl, tiles, C, q_box_rows(D, F, TF), eps};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_q<float>(a, smem, st);
   if (dtype == 1) return launch_q<__nv_bfloat16>(a, smem, st);

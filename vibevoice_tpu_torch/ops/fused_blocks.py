@@ -82,20 +82,22 @@ def row_group(batch: int, rows_per_item: int, d: int) -> int:
 def chain_smem(d: int, tf: int, bg: int, t: int) -> int:
     """Shared memory of one CTA of the int4 chain kernel (`q_layout` in
     csrc/fused_block_chain.cu) for row groups of bg items of t rows: the W1
-    and W2 slices, x and h [rows, d] fp32, the activations [rows, tf], the
-    up-projection's k splits, the norms' partials and exchanges, and the
-    rank's vectors, context rows and ffn1 scale and bias, two of each."""
+    and W2 slices, the FFN input [rows, d] fp32, x of the rank's columns, the
+    activations [rows, tf], the up-projection's k splits, the norms' partials
+    and exchanges, two of each of the rank's vectors, context rows and ffn1
+    scale and bias, the mbarriers, and 128 bytes to align the base."""
     up = lambda v: -(-v // 16) * 16
     rows, nkl = bg * t, _Q_THREADS // (tf // 4)
     vec = 4 if d % 4 == 0 else 1
     wmax = -(-(d // vec) // CLUSTER) * vec
-    return (up(d // 2 * tf) + up(tf // 2 * up(d)) + 2 * up(4 * rows * d) + up(4 * rows * tf)
-            + up(4 * nkl * min(_Q_RP, rows) * tf) + up(4 * (_Q_THREADS // 32 + 2 * CLUSTER + 1) * rows)
-            + up(4 * 2 * 14 * wmax) + up(4 * 2 * bg * 6 * wmax) + up(4 * 4 * tf))
+    return (up(d // 2 * tf) + up(tf // 2 * up(d)) + up(4 * rows * d) + up(4 * rows * wmax)
+            + up(4 * rows * tf) + up(4 * nkl * min(_Q_RP, rows) * tf)
+            + up(4 * (_Q_THREADS // 32 + 2 * CLUSTER + 2) * rows) + up(4 * 2 * 14 * wmax)
+            + up(4 * 2 * bg * 6 * wmax) + up(4 * 4 * tf) + 32 + 128)
 
 
 class ChainPlan(NamedTuple):
-    tf: int        # FFN columns per CTA, a multiple of 4
+    tf: int        # FFN columns per CTA, a multiple of 16 (or of 4)
     tiles: int     # CTAs that get columns
     clusters: int  # clusters launched
     bg: int        # batch items per row group
@@ -105,10 +107,13 @@ class ChainPlan(NamedTuple):
 def chain_plan(b: int, t: int, d: int, f: int, clusters: int) -> ChainPlan:
     """The int4 chain kernel's launch for x [b, t, d] and FFN width f on a
     card that holds `clusters` clusters of CLUSTER CTAs at once: the FFN
-    width spread over all their CTAs in columns of whole packed words (4
-    columns), only the clusters that get columns launched; row groups of at
-    most 16 rows, as many batch items as fit shared memory, balanced."""
-    tf = -(-(-(-f // (clusters * CLUSTER))) // 4) * 4
+    width spread over all their CTAs in columns of whole 16-byte vectors of
+    W1 (16 columns; the tensor map's unit) where D and F are multiples of 16,
+    else of whole packed words (4 columns), only the clusters that get
+    columns launched; row groups of at most 16 rows, as many batch items as
+    fit shared memory, balanced."""
+    unit = 16 if d % 16 == 0 and f % 16 == 0 else 4
+    tf = -(-(-(-f // (clusters * CLUSTER))) // unit) * unit
     tiles = -(-f // tf)
     per = max(1, min(b, _Q_ROWS // t))
     while per > 1 and chain_smem(d, tf, per, t) > _SMEM_MAX:
