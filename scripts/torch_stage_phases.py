@@ -65,7 +65,7 @@ SHAPES = [("decoder 3", 1, 200, 256, ("up", 5, 10, 512), None),
 CHAIN_KERNELS = [
     ("__global__ void __launch_bounds__(NT, 1)\n    chain_q_kernel",
      "  cl.sync();  // no peer reads this CTA's shared memory after it exits\n}",
-     "extern __shared__ __align__(128) unsigned char smem_raw[];", "grid_barrier(a.bar, side);", 1),
+     "extern __shared__ __align__(128) unsigned char smem_raw[];", "grid_barrier(a.bar);", 1),
     ("__global__ void __launch_bounds__(THREADS) chain_kernel",
      "      grid.sync();\n    }\n  }\n}", "extern __shared__ float sm[];", "grid.sync();", 2),
 ]

@@ -446,6 +446,9 @@ __host__ __device__ inline int q_wmax(int D, int C) {
   return (nv + C - 1) / C * V;
 }
 
+// 32-column chunks of a rank's columns
+__host__ __device__ inline int q_chunks(int D, int C) { return (q_wmax(D, C) + 31) / 32; }
+
 // Byte offsets of chain_q_kernel's shared memory for row groups of bg items
 // of T rows (`ops/fused_blocks.py:chain_smem` mirrors the total).
 struct QLayout {
@@ -465,8 +468,8 @@ __host__ __device__ inline QLayout q_layout(int D, int TF, int bg, int T, int C)
   L.xs = o;   o += up16(sizeof(float) * rows * wmax);      // x, then y, of the rank's columns
   L.as = o;   o += up16(sizeof(float) * rows * TF);        // gelu activations
   L.red = o;  o += up16(sizeof(float) * nkl * rp * TF);    // up-projection k splits
-  // warp partials [NW][rows], two exchanges [MAX_C][rows], two row scales
-  L.nrm = o;  o += up16(sizeof(float) * (NW + 2 * MAX_C + 2) * rows);
+  // 32-column sums [rows][q_chunks], two exchanges [MAX_C][rows], two row scales
+  L.nrm = o;  o += up16(sizeof(float) * (q_chunks(D, C) + 2 * MAX_C + 2) * rows);
   L.vs = o;   o += up16(sizeof(float) * 2 * NVEC * wmax);  // vectors, by step parity
   L.cs = o;   o += up16(sizeof(float) * 2 * bg * 6 * wmax); // ctx rows (x's dtype), by parity
   L.sb = o;   o += up16(sizeof(float) * 2 * 2 * TF);       // ffn1 scale and bias, by parity
@@ -554,13 +557,9 @@ __device__ __forceinline__ void nibbles_f32(uint32_t w, float (&lo)[4], float (&
 // so the counter's top bit flips once all have arrived and its low bits are
 // back to 0).  Every CTA of the grid is resident: the grid is sized by the
 // occupancy of the cluster launch.  A barrier that is not reached within
-// seconds traps rather than hanging the card.  While thread 0 waits, the
-// other warps run `side` (copies whose issue may stall on the copy engine's
-// queue, which then costs no phase its time).
-template <typename Side>
-__device__ void grid_barrier(unsigned int* bar, Side side) {
+// seconds traps rather than hanging the card.
+__device__ void grid_barrier(unsigned int* bar) {
   __syncthreads();
-  if (threadIdx.x >= 32) side();
   if (threadIdx.x == 0) {
     const unsigned int add = blockIdx.x == 0 ? 0x80000000u - (gridDim.x - 1) : 1u;
     __threadfence();
@@ -644,15 +643,12 @@ __device__ void fetch_w1(const QArgs& a, const CUtensorMap* map, int nb, int f0,
   copy_rows(dst, TF, src, F, D2, TF, F - f0);
 }
 
-// With the engines (a.br > 0) thread `lead` alone issues W2's copy, in one
-// request; otherwise every thread of the CTA takes part.
-__device__ void fetch_w2(const QArgs& a, int nb, int f0, unsigned char* dst, uint32_t bar,
-                         int lead) {
+__device__ void fetch_w2(const QArgs& a, int nb, int f0, unsigned char* dst, uint32_t bar) {
   const int D = a.D, F2 = a.F / 2, R = a.TF / 2, r0 = f0 / 2;
   const int8_t* src = a.w2 + (static_cast<size_t>(nb) * F2 + r0) * D;
   const int live = max(0, min(R, F2 - r0));
   if (a.br) {
-    if (threadIdx.x == lead) {
+    if (threadIdx.x == 0) {
       fence_async();
       const uint32_t bytes = static_cast<uint32_t>(live) * D;
       mbar_expect(bar, bytes);
@@ -739,27 +735,26 @@ __device__ void fetch_small(const QArgs& a, int step, int f0, bool has_tile, int
 }
 
 // This rank's sum of squares over its columns of each row r < rows of `buf`
-// ([rows][ld]; its warps' sums added in warp order), into slot `rank` of
+// ([rows][ld]; sums over 32 columns, added in column order), into slot `rank` of
 // every cluster peer's exchange `xch`.  The caller syncs the cluster, then
 // calls row_scales.
 __device__ void rank_sumsq(cg::cluster_group& cl, const float* buf, int ld, int rows, int w,
                            float* nrm, float* xch) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int C = static_cast<int>(cl.num_blocks()), rank = static_cast<int>(cl.block_rank());
-  for (int r = 0; r < rows; ++r) {
-    float s = 0.f;
-    for (int c = threadIdx.x; c < w; c += NT) {
-      const float v = buf[r * ld + c];
-      s += v * v;
-    }
-    s = vv::warp_sum(s);
-    if (lane == 0) nrm[warp * rows + r] = s;
+  // the warps take chunks of 32 columns of one row (the last of a row
+  // short), every row's chunks in order; nrm holds one sum per chunk
+  const int per = (w + 31) / 32;
+  for (int k = warp; k < rows * per; k += NW) {
+    const int r = k / per, c = (k % per) * 32 + lane;
+    const float v = c < w ? buf[r * ld + c] : 0.f;
+    const float s = vv::warp_sum(v * v);
+    if (lane == 0) nrm[k] = s;
   }
   __syncthreads();
   if (threadIdx.x < rows) {
     float t = 0.f;
-#pragma unroll
-    for (int k = 0; k < NW; ++k) t += nrm[k * rows + threadIdx.x];
+    for (int k = 0; k < per; ++k) t += nrm[threadIdx.x * per + k];
     for (int p = 0; p < C; ++p) cl.map_shared_rank(xch, p)[rank * rows + threadIdx.x] = t;
   }
 }
@@ -1034,24 +1029,17 @@ __device__ void mixer(const QArgs& a, cg::cluster_group& cl, int nb, int b0, int
       ctx_out[(cbase + j) * D + c0 + c] = vv::from_f<T>(val);
     }
   }
-  for (int e = threadIdx.x; e < nbg * w; e += NT) {
-    const int bl = e / w, c = e % w;
-    float tap[7];
+  for (int e = threadIdx.x; e < rows * w; e += NT) {  // one (frame, column) each
+    const int r = e / w, c = e % w, bl = r / Tn, t = r % Tn;
+    float acc = 0.f;
 #pragma unroll
-    for (int k = 0; k < 7; ++k) tap[k] = v[(6 + k) * wmax + c];
-    const float g = v[2 * wmax + c], mb = v[wmax + c];
-    for (int t = 0; t < Tn; ++t) {
-      float acc = 0.f;
-#pragma unroll
-      for (int k = 0; k < 7; ++k) {
-        const int j = t + k;
-        const float src = j < CTX ? vv::to_f(cs[(bl * CTX + j) * wmax + c])
-                                  : hb[(bl * Tn + j - CTX) * D + c0 + c];
-        acc = acc + src * tap[k];
-      }
-      float* y = xs + (bl * Tn + t) * wmax + c;
-      *y = *y + g * (acc + mb);
+    for (int k = 0; k < 7; ++k) {
+      const int j = t + k;
+      const float src = j < CTX ? vv::to_f(cs[(bl * CTX + j) * wmax + c])
+                                : hb[(bl * Tn + j - CTX) * D + c0 + c];
+      acc = acc + src * v[(6 + k) * wmax + c];
     }
+    xs[r * wmax + c] = xs[r * wmax + c] + v[2 * wmax + c] * (acc + v[wmax + c]);
   }
   __syncthreads();
   rank_sumsq(cl, xs, wmax, rows, w, nrm, xch2);
@@ -1090,7 +1078,7 @@ __global__ void __launch_bounds__(NT, 1)
   float* as = reinterpret_cast<float*>(smc + L.as);
   float* red = reinterpret_cast<float*>(smc + L.red);
   float* nrm = reinterpret_cast<float*>(smc + L.nrm);  // then the exchanges, then rs1, rs2
-  float* xch = nrm + NW * rows_max;
+  float* xch = nrm + q_chunks(D, C) * rows_max;
   float* rs1 = xch + 2 * MAX_C * rows_max;
   float* rs2 = rs1 + rows_max;
   float* vs = reinterpret_cast<float*>(smc + L.vs);
@@ -1118,7 +1106,7 @@ __global__ void __launch_bounds__(NT, 1)
   cp_commit();
   if (has_tile) fetch_w1(a, &w1map, 0, f0, w1s, mb);
   cp_commit();
-  if (has_tile) fetch_w2(a, 0, f0, w2s, mb + 8, 0);
+  if (has_tile) fetch_w2(a, 0, f0, w2s, mb + 8);
   cp_commit();
   for (int step = 0; step < steps; ++step) {
     const int nb = step % NB, b0 = step / NB * a.bg, par = step % 2;
@@ -1155,18 +1143,13 @@ __global__ void __launch_bounds__(NT, 1)
     __syncthreads();
     if (has_tile) down_proj(a, w2s, as, rows, hb);
     __syncthreads();
-    // the next block's W2: cp.async by every thread here, or one request to
-    // the bulk-copy engine, issued by warp 1 while the grid barrier waits
-    if (more && has_tile && !a.br) fetch_w2(a, (step + 1) % NB, f0, w2s, mb + 8, 0);
+    if (more && has_tile) fetch_w2(a, (step + 1) % NB, f0, w2s, mb + 8);
     cp_commit();
     if (V == 4)
       cluster_partial<4>(a, cl, step, hb, rows, rows_max);
     else
       cluster_partial<1>(a, cl, step, hb, rows, rows_max);
-    auto side = [&] {
-      if (more && has_tile && a.br) fetch_w2(a, (step + 1) % NB, f0, w2s, mb + 8, 32);
-    };
-    grid_barrier(a.bar, side);  // the block's only grid-wide barrier
+    grid_barrier(a.bar);  // the block's only grid-wide barrier
     if (V == 4)
       next_x<T, 4>(a, cl, step, v, wmax, xs, rows, rows_max, base, nb == NB - 1);
     else

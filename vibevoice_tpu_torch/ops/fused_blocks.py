@@ -92,7 +92,7 @@ def chain_smem(d: int, tf: int, bg: int, t: int) -> int:
     wmax = -(-(d // vec) // CLUSTER) * vec
     return (up(d // 2 * tf) + up(tf // 2 * up(d)) + up(4 * rows * d) + up(4 * rows * wmax)
             + up(4 * rows * tf) + up(4 * nkl * min(_Q_RP, rows) * tf)
-            + up(4 * (_Q_THREADS // 32 + 2 * CLUSTER + 2) * rows) + up(4 * 2 * 14 * wmax)
+            + up(4 * (-(-wmax // 32) + 2 * CLUSTER + 2) * rows) + up(4 * 2 * 14 * wmax)
             + up(4 * 2 * bg * 6 * wmax) + up(4 * 4 * tf) + 32 + 128)
 
 
