@@ -14,7 +14,7 @@ Phases, in order; any failure stops the run with a non-zero exit:
      with its share of the bound and two calls bit-equal); int4_matmul at the four LM
      projections with M=2 (per channel and with 128-row groups) and at M=64
      and M=128; the int4 Block1D chain at the 1.5B stage shapes with B=1 and
-     B=4; the fused int4 head at N=2; the large-T stage kernel at the eight
+     B=4, two calls bit-equal; the fused int4 head at N=2; the large-T stage kernel at the eight
      folded B=1 stage calls of a 1.5B decode step (two chunks each, states
      carried), with the folded tail, and unfolded at B=2; the row-lane stage
      kernel at B=2, 4 and 32, each followed by the plain stage kernel on the

@@ -2,7 +2,7 @@
 """Where the time of one fused-stage or small-T chain launch goes, phase by
 phase, on one NVIDIA GPU.
 
-    python3 scripts/torch_stage_phases.py [stage] [chain] [--other OTHER_CHECKOUT]
+    python3 scripts/torch_stage_phases.py [stage] [chain] [chain-fine] [--other OTHER_CHECKOUT]
 
 Builds an instrumented copy of `vibevoice_tpu_torch/csrc/fused_stage.cu` into
 the build directory: CTA 0 reads the `%globaltimer` at the kernel's start
@@ -25,8 +25,13 @@ the cooperative `chain_kernel` of earlier checkouts syncs the grid twice per
 block (mixer and FFN tiles / partial sums), the cluster kernel once (one
 phase per block and row group).  With `--other`, the chain of that checkout
 (for example the parent commit, unpacked with `git archive`) is stamped and
-timed instead, through its own wrapper, into its own build directory.  Both
-by default; last, the card's name and power limit.
+timed instead, through its own wrapper, into its own build directory.
+`chain-fine` stamps this checkout's cluster kernel six times per block,
+each stamp after a barrier of the CTA's threads: after the mixer (with the
+step's small copies), the up-projection, the down-projection, the cluster's
+partial (with the next W2's request), the grid barrier and the sums of the
+partials.  `stage` and `chain` by default; last, the card's name and power
+limit.
 """
 import ctypes
 import json
@@ -47,6 +52,7 @@ __device__ __forceinline__ unsigned long long global_ns() {
   return t;
 }
 #define STAMP if (blockIdx.x == 0 && threadIdx.x == 0) { g_stamps[ns++] = global_ns(); g_stamps[63] = gridDim.x; }
+#define FSTAMP { __syncthreads(); STAMP }
 extern "C" int vv_stamps(unsigned long long* out) {
   return static_cast<int>(cudaMemcpyFromSymbol(out, g_stamps, sizeof(g_stamps)));
 }
@@ -69,6 +75,16 @@ CHAIN_KERNELS = [
     ("__global__ void __launch_bounds__(THREADS) chain_kernel",
      "      grid.sync();\n    }\n  }\n}", "extern __shared__ float sm[];", "grid.sync();", 2),
 ]
+# the statements of the cluster kernel's step after which `chain-fine`
+# stamps, and the phases they end
+FINE_MARKS = [("             nrm, xch, rs1, rs2);", "mixer"),
+              ("    if (has_tile) up_proj(a, f0, w1s, hb, rs2, rows, rp, sb + par * 2 * a.TF, red, as);",
+               "up"),
+              ("    if (has_tile) down_proj(a, w2s, as, rows, hb);", "down"),
+              ("      cluster_partial<1>(a, cl, step, hb, rows, rows_max);", "partial"),
+              ("    grid_barrier(a.bar);  // the block's only grid-wide barrier", "barrier"),
+              ("      next_x<T, 1>(a, cl, step, v, wmax, xs, rows, rows_max, base, nb == NB - 1);",
+               "next_x")]
 # (name, B, T, D, blocks): the 1.5B small-T stages, and B=4
 CHAIN_SHAPES = [("decoder 0 / encoder 6", 1, 1, 2048, 8), ("decoder 1 / encoder 5", 1, 8, 1024, 3),
                 ("decoder 1, B=4", 4, 8, 1024, 3)]
@@ -110,11 +126,21 @@ def instrumented_source() -> str:
     return _with_stamps(src, cuda_build.CSRC_DIR, "fused_stage.cu")
 
 
-def instrumented_chain(csrc: str):
+def instrumented_chain(csrc: str, fine: bool = False):
     """(`fused_block_chain.cu` of the checkout whose csrc/ is `csrc`, stamped
-    in its int4 chain kernel; that kernel's grid barriers per block)."""
+    in its int4 chain kernel; that kernel's stamps per block)."""
     with open(os.path.join(csrc, "fused_block_chain.cu")) as f:
         src = f.read()
+    if fine:
+        kernel, end, start = CHAIN_KERNELS[0][:3]
+        a = src.index(kernel)
+        b = src.index(end, a)
+        body = src[a:b].replace(start, start + "\n  int ns = 0;\n  STAMP")
+        for mark, _ in FINE_MARKS:
+            if mark not in body:
+                raise RuntimeError(f"fused_block_chain.cu no longer has {mark!r}: update this script")
+            body = body.replace(mark, mark + "\n    FSTAMP")
+        return _with_stamps(src[:a] + body + src[b:], csrc, "fused_block_chain.cu"), len(FINE_MARKS)
     for kernel, end, start, barrier, per_block in CHAIN_KERNELS:
         if kernel in src:
             src = _stamped(src, kernel, end, start, barrier, "fused_block_chain.cu")
@@ -169,10 +195,10 @@ def stage_phases(dev):
                           "phase_us": us}), flush=True)
 
 
-def chain_phases(dev, other):
+def chain_phases(dev, other, fine=False):
     """The int4 chain's phases at CHAIN_SHAPES, of this checkout or of the
-    checkout at `other`; each launch checked against this checkout's plain
-    version first."""
+    checkout at `other` (or, `fine`, this checkout's within each block);
+    each launch checked against this checkout's plain version first."""
     import chip_smoke as cs
     from vibevoice_tpu_torch.ops import cuda_build, fused_blocks as fb
     if other:
@@ -181,7 +207,7 @@ def chain_phases(dev, other):
         ocb = sys.modules[ofb.__name__.rsplit(".", 1)[0] + ".cuda_build"]
     else:
         ofb, ocb = fb, cuda_build
-    src, per_block = instrumented_chain(ocb.CSRC_DIR)
+    src, per_block = instrumented_chain(ocb.CSRC_DIR, fine)
     lib = _stamped_library(ocb, "fused_block_chain", src, ofb._library)
     gen = torch.Generator(device=dev).manual_seed(cs.SEED + 3)
     for name, b, t, d, nblk in CHAIN_SHAPES:
@@ -195,14 +221,16 @@ def chain_phases(dev, other):
         ms = cs.cuda_ms(lambda i: ofb.fused_block_chain_batched(packs[i % n], x, ctx), 2 * n)
         ofb.fused_block_chain_batched(packs[1 % n], x, ctx)  # the launch whose stamps are read
         groups = -(-b // ofb_items(ofb, x, 4 * d))
-        names = [f"group {g} block {i}" + (f" {ph}" if per_block > 1 else "")
-                 for g in range(groups) for i in range(nblk)
-                 for ph in (("mixer+ffn", "sum") if per_block > 1 else ("",))]
-        us, grid = read_stamps(lib, len(names) + 1)
+        phases = ([ph for _, ph in FINE_MARKS] if fine
+                  else ("mixer+ffn", "sum") if per_block > 1 else ("",))
+        names = [f"group {g} block {i} {ph}".rstrip() for g in range(groups) for i in range(nblk)
+                 for ph in phases]
+        us, grid = read_stamps(lib, len(names) + (0 if fine else 1))
         print(json.dumps({"chain": name, "checkout": other or "this", "B": b, "T": t, "D": d,
                           "F": 4 * d, "blocks": nblk, "max_abs_err": err, "launch_us": 1e3 * ms,
                           "grid": grid, "barriers_per_block": per_block,
-                          "phases": names + ["end"], "phase_us": us}), flush=True)
+                          "phases": names + ([] if fine else ["end"]), "phase_us": us}),
+              flush=True)
         del packs
 
 
@@ -220,7 +248,7 @@ def main() -> int:
         i = args.index("--other")
         other = args[i + 1]
         del args[i:i + 2]
-    if not set(args) <= {"stage", "chain"}:
+    if not set(args) <= {"stage", "chain", "chain-fine"}:
         print(__doc__, file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -232,6 +260,8 @@ def main() -> int:
         stage_phases(dev)
     if "chain" in (args or ["chain"]):
         chain_phases(dev, other)
+    if "chain-fine" in args:
+        chain_phases(dev, None, fine=True)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True, timeout=60)
     print(card.stdout.strip(), flush=True)

@@ -275,7 +275,10 @@ def test_fused_block_chain_is_one_deterministic_launch(cuda_device, b, t, d, n):
     x, ctx = _chain_inputs(b, t, d, n, gen, cuda_device)
     first = fb.fused_block_chain_batched(pack, x, ctx)  # builds and loads the library
     torch.cuda.synchronize()
-    second, kernels = _device_kernels(lambda: fb.fused_block_chain_batched(pack, x, ctx))
+    for _ in range(2):  # a trace that caught no device event at all is taken again
+        second, kernels = _device_kernels(lambda: fb.fused_block_chain_batched(pack, x, ctx))
+        if kernels:
+            break
     assert len(kernels) == 1 and "chain_q_kernel" in kernels[0], kernels
     assert all(torch.equal(a, b_) for a, b_ in zip(first, second))
 

@@ -34,28 +34,35 @@
 // portable size; `cudaLaunchKernelEx` with the cluster attribute), one CTA
 // per SM, at most as many clusters as the card holds at once (every CTA must
 // be resident for the grid barrier).  CTA k owns FFN columns
-// [k*TF, (k+1)*TF) of every block (TF a multiple of 4, the whole width over
-// the grid).  Its slices of W1 ([D/2, TF] bytes) and W2 ([TF/2, D] bytes) are
-// fetched into shared memory by cp.async (16-byte vectors where the widths
-// allow; W1's rows 4 or 8 where TF is not a multiple of 16) a block ahead: W1 of block
-// n+1 while block n's down-projection runs, W2 of block n+1 while its
-// shares are summed, the grid syncs and block n+1's mixer runs.  Per block:
-//   1. every CTA computes the norm / mixer / second norm of all rows of the
-//      row group from its own copy of x in shared memory (the CTAs' copies
-//      are equal to the bit); cluster 0 writes the new context;
+// [k*TF, (k+1)*TF) of every block (TF a multiple of 16 where D and F are, the
+// whole width over the grid); rank q of a cluster owns D/C of the D columns.
+// The CTA's slices of W1 ([D/2, TF] bytes, boxes of a 2-D tensor map) and
+// W2 ([TF/2, D], one bulk copy) come into shared memory a block ahead, W1
+// while the last block's down-projection runs, W2 while its shares are
+// summed, the grid syncs and the next mixer runs; the rank's per-block
+// vectors and context rows come by bulk copies a step ahead.  A thread that
+// issues a copy waits as long as the bytes ahead of it in the engines' queue
+// take, so one thread issues each, at a point where the copy's wait costs
+// least.  Other widths take cp.async.  Per block:
+//   1. mixer on the rank's columns: the rows' sums of squares of x go to
+//      every CTA of the cluster (cluster barrier), h = rmsnorm(x) * norm_w,
+//      the new context (cluster 0), y = x + gamma * (conv + mixer_b), and
+//      y * ffn_norm_w with y's sums of squares stored into every CTA of the
+//      cluster (cluster barrier): each CTA holds the whole FFN input and its
+//      row scales;
 //   2. up-projection of the CTA's columns (fp32 FMAs against nibbles made
 //      fp32 exactly by prmt + a float subtract; k split over the threads,
-//      the splits added in order), scale, bias, exact GELU, in shared memory;
-//      the down-projection gives the CTA's share [rows, D] of the FFN output;
-//   3. cluster barrier; rank q adds the C shares of its D/C columns in rank
+//      the splits added in order), times the row scale, scale, bias, exact
+//      GELU, in shared memory; the down-projection gives the CTA's share
+//      [rows, D] of the FFN output;
+//   3. cluster barrier; rank q adds the C shares of its columns in rank
 //      order through distributed shared memory and writes them as the
 //      cluster's fp32 partial (buffer n % 2 of the cached workspace);
 //   4. the grid barrier (a counter in the workspace), the only one of the
 //      block;
 //   5. rank q of every cluster adds the clusters' partials of its columns in
-//      cluster order, applies scale, bias, layer scale and residual, and
-//      stores x for the next block into the shared memory of every CTA of
-//      its cluster; a cluster barrier.  Cluster 0 writes y after the last.
+//      cluster order and applies scale, bias, layer scale and residual: x of
+//      the next block.  Cluster 0 writes y after the last.
 // The partials alternate between two buffers: block n+2 writes buffer n % 2
 // only after every CTA has passed block n+1's barrier, so none overwrites
 // partials a slower CTA still reads.  Every sum runs in a fixed order, so two
@@ -625,8 +632,8 @@ __device__ void copy_rows(void* dst_, size_t dstride, const void* src_, size_t s
 // the bulk-copy engine copies: the activations that meet them are 0).  With
 // a tensor map (a.br > 0: D and TF multiples of 16), thread 0 asks the
 // tensor-memory accelerator for W1 in boxes of [br rows][TF] and the
-// bulk-copy engine for W2's contiguous run, completing on `bar`; the threads
-// issue nothing and stall on nothing.  Otherwise cp.async by every thread.
+// bulk-copy engine for W2's contiguous run, completing on `bar`.  Otherwise
+// cp.async by every thread.
 __device__ void fetch_w1(const QArgs& a, const CUtensorMap* map, int nb, int f0,
                          unsigned char* dst, uint32_t bar) {
   const int D2 = a.D / 2, F = a.F, TF = a.TF;
