@@ -69,7 +69,7 @@
 // calls give the same bits.  Batches whose rows do not fit shared memory
 // (at most 16 rows) run as row groups, one after another, in the launch.
 //
-// Plain packs (`chain_kernel`, PR 4's design): one cooperative launch (about
+// Plain packs (`chain_kernel`): one cooperative launch (about
 // two CTAs per SM) with grid-wide barriers between phases, for every Block1D:
 //   A. every CTA recomputes the norm / mixer / second norm for all rows of
 //      the row group into shared memory (at most 8*B rows of D fp32 -- cheap
