@@ -14,10 +14,11 @@ Phases, in order; any failure stops the run with a non-zero exit:
      with its share of the bound and two calls bit-equal); int4_matmul at the four LM
      projections with M=2 (per channel and with 128-row groups) and at M=64
      and M=128; the int4 Block1D chain at the 1.5B stage shapes with B=1 and
-     B=4, two calls bit-equal; the fused int4 head at N=2; the large-T stage kernel at the eight
-     folded B=1 stage calls of a 1.5B decode step (two chunks each, states
-     carried), with the folded tail, and unfolded at B=2; the row-lane stage
-     kernel at B=2, 4 and 32, each followed by the plain stage kernel on the
+     B=4, two calls bit-equal; the fused int4 head at N=2, two calls
+     bit-equal; the large-T stage kernel at the eight folded B=1 stage
+     calls of a 1.5B decode step (two chunks each, states carried), with
+     the folded tail, and unfolded at B=2; the row-lane stage kernel at B=2,
+     4 and 32, each followed by the plain stage kernel on the
      same rows; flash prefill (bf16, H=12, KVH=2, D=128) at B=1 with T=1024
      and 4096 and at B=2, T=1024 with one row left-padded by 333 tokens, and
      at the 7B shape (H=28, KVH=4) with B=1, T=4096, each query row against
@@ -393,21 +394,32 @@ def head_inputs(pack, n, lat, gen, dev):
 
 
 def measure_head(packs, x, mods, fmod, fl, eps=1e-5):
-    """The fused int4 head step over pack copies (per call)."""
+    """The fused int4 head step over pack copies (per call); two calls on the
+    same inputs must give the same bits (sums in a fixed order)."""
     from vibevoice_tpu_torch.ops import fused_head as fh
-    err, tol = agree("fused_head", fh.fused_head_solver_step(packs[0], x, mods, fmod, fl, eps),
+    got = fh.fused_head_solver_step(packs[0], x, mods, fmod, fl, eps)
+    err, tol = agree("fused_head", got,
                      fh.fused_head_solver_step_ref(packs[0], x, mods, fmod, fl, eps))
+    if not torch.equal(got, fh.fused_head_solver_step(packs[0], x, mods, fmod, fl, eps)):
+        raise RuntimeError("fused_head: two calls on the same inputs differ")
     n = len(packs)
     ms = cuda_ms(lambda i: fh.fused_head_solver_step(packs[i % n], x, mods, fmod, fl, eps), 2 * n)
     plain_ms = cuda_ms(lambda i: fh.fused_head_solver_step_ref(packs[i % n], x, mods, fmod, fl,
                                                                eps), min(n, 4))
-    rows, h = x.shape
-    nl, f = packs[0]["norms"].shape[0], packs[0]["wgq"].shape[2]
-    bms, by = bound(fh.pack_bytes(packs[0]) + nbytes(x, mods, fmod, fl)
-                    + rows * fl.shape[1] * x.element_size(),
-                    6 * rows * h * f * nl + 2 * rows * h * fl.shape[1])
+    bms, by = head_bound(packs[0], x, mods, fmod, fl)
     return dict(max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                 bound_by=by, library_ms=None)
+
+
+def head_bound(pack, x, mods, fmod, fl):
+    """The pack, x, the modulations and the final linear read once, the
+    output written once, or 6*N*H*F flops per layer and 2*N*H*latent."""
+    from vibevoice_tpu_torch.ops import fused_head as fh
+    rows, h = x.shape
+    nl, f = pack["norms"].shape[0], pack["wgq"].shape[2]
+    return bound(fh.pack_bytes(pack) + nbytes(x, mods, fmod, fl)
+                 + rows * fl.shape[1] * x.element_size(),
+                 6 * rows * h * f * nl + 2 * rows * h * fl.shape[1])
 
 
 # the int4 chain's phase-2 cases (D, blocks, T, B): the four 1.5B stages are
@@ -423,6 +435,13 @@ def random_stage(d, n, gen, dev):
              "ffn1": {"w": 0.02 * r(d, 4 * d), "b": 0.1 * r(4 * d)},
              "ffn2": {"w": 0.02 * r(4 * d, d), "b": 0.1 * r(d)}, "ffn_gamma": 0.3 * r(d)}
             for _ in range(n)]
+
+
+def random_head(h, f, gen, dev):
+    """A 4-layer head's FFN weights and norms at width h, FFN width f."""
+    r = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    return {"layers": [{"norm_w": 1 + 0.1 * r(h), "gate": 0.03 * r(h, f), "up": 0.03 * r(h, f),
+                        "down": 0.03 * r(f, h)} for _ in range(4)]}
 
 
 def phase_int4_kernels(dev):
@@ -444,10 +463,8 @@ def phase_int4_kernels(dev):
              **measure_chain(packs, x, ctx))
         del packs
     h, f = 1536, 4608
-    r = lambda *shape: torch.randn(shape, generator=gen, device=dev)
-    packs = [fh.pack_head_solver_q({"layers": [
-        {"norm_w": 1 + 0.1 * r(h), "gate": 0.03 * r(h, f), "up": 0.03 * r(h, f),
-         "down": 0.03 * r(f, h)} for _ in range(4)]}) for _ in range(copies_for(6 * h * f))]
+    packs = [fh.pack_head_solver_q(random_head(h, f, gen, dev))
+             for _ in range(copies_for(6 * h * f))]
     emit("kernel_vs_plain", kernel="fused_head_solver_step", N=2, H=h, F=f, layers=4,
          **measure_head(packs, *head_inputs(packs[0], 2, 64, gen, dev)))
     del packs

@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
 """Times this checkout's flash prefill, int4_matmul, decode attention,
-large-T stage and int4 small-T chain kernels beside those of another checkout
-of the port, in one process on one NVIDIA GPU, at the shapes of
-`chip_smoke.py` phase 2.
+large-T stage, int4 small-T chain and int4 diffusion-head kernels beside those
+of another checkout of the port, in one process on one NVIDIA GPU, at the
+shapes of `chip_smoke.py` phase 2.
 
     python3 scripts/torch_kernel_compare.py OTHER_CHECKOUT [KERNEL ...]
 
 OTHER_CHECKOUT is the root of another checkout (for example the parent
 commit, unpacked with `git archive`); its kernels build into its own
 `vibevoice_tpu_torch/_build/`.  KERNEL names a subset of flash, int4,
-attention, stage and chain (all by default).  The cases, inputs, checks, library
+attention, stage, chain and head (all by default); head runs the solver step
+at the 1.5B head with N=2 and N=8 and at the 7B head with N=2.  The cases, inputs, checks, library
 yardstick (SDPA; `torch.matmul` on the dequantized bf16 weight) and bound are
 `chip_smoke.py`'s own; a stage case times the first of its two chunks.  Each case checks both kernels against this checkout's
 plain version on the same inputs, then times them in turns (other, this,
@@ -34,9 +35,11 @@ from vibevoice_tpu_torch.ops import fused_stage as fs  # noqa: E402
 from vibevoice_tpu_torch.ops import int4_matmul as im  # noqa: E402
 
 MODULES = {"flash": "flash_attention", "int4": "int4_matmul",
-           "attention": "decode_attention", "stage": "fused_stage", "chain": "fused_blocks"}
+           "attention": "decode_attention", "stage": "fused_stage", "chain": "fused_blocks",
+           "head": "fused_head"}
 SOURCES = {"flash": "flash_prefill", "int4": "int4_matmul",
-           "attention": "decode_attention", "stage": "fused_stage", "chain": "fused_block_chain"}
+           "attention": "decode_attention", "stage": "fused_stage", "chain": "fused_block_chain",
+           "head": "fused_head"}
 
 
 def load_other(root: str, modules=None):
@@ -181,7 +184,8 @@ def compare_stage(ofs, dev, card):
 def compare_chain(ofb, dev, card):
     """The int4 Block1D chain at chip_smoke's chain cases, each over pack
     copies that exceed L2, both kernels checked against this checkout's
-    plain version and for two calls bit-equal."""
+    plain version and for two calls bit-equal, and the two checkouts'
+    outputs compared bit for bit."""
     from vibevoice_tpu_torch.ops import fused_blocks as fb
     gen = torch.Generator(device=dev).manual_seed(cs.SEED + 3)
     for d, nblk, t, b in cs.CHAIN_CASES:
@@ -189,21 +193,58 @@ def compare_chain(ofb, dev, card):
                  for _ in range(cs.copies_for(nblk * d * 4 * d))]
         x, ctx = cs.chain_inputs(packs[0], b, t, gen, dev)
         want = fb.fused_block_chain_batched_ref(packs[0], x, ctx)
-        errs, equal = {}, {}
+        errs, equal, outs = {}, {}, {}
         for nm, mod in (("other", ofb), ("this", fb)):
-            got = mod.fused_block_chain_batched(packs[0], x, ctx)
+            outs[nm] = got = mod.fused_block_chain_batched(packs[0], x, ctx)
             again = mod.fused_block_chain_batched(packs[0], x, ctx)
             errs[nm] = max(cs.agree(f"fused_block_chain_batched[{nm}]", g, w)[0]
                            for g, w in zip(got, want))
             equal[nm] = all(torch.equal(g, a) for g, a in zip(got, again))
+        same = all(torch.equal(g, o) for g, o in zip(outs["this"], outs["other"]))
         n = len(packs)
         run = lambda mod: (lambda i: mod.fused_block_chain_batched(packs[i % n], x, ctx))
         other_ms, this_ms = in_turns(run(ofb), run(fb), 2 * n)
         bms, by = cs.chain_bound(packs[0], x, ctx)
         print(json.dumps({"kernel": "fused_block_chain_batched", "D": d, "F": 4 * d,
                           "blocks": nblk, "T": t, "B": b, "max_abs_err": errs,
-                          "two_calls_equal": equal, "other_ms": other_ms, "this_ms": this_ms,
-                          "bound_ms": bms, "bound_by": by, "card": card}), flush=True)
+                          "two_calls_equal": equal, "equal_to_other": same, "other_ms": other_ms,
+                          "this_ms": this_ms, "bound_ms": bms, "bound_by": by, "card": card}),
+              flush=True)
+        del packs, want, outs
+    torch.cuda.empty_cache()
+
+
+# (N, H, F) of the head cases: the 1.5B head at B=1 and B=4, the 7B head at B=1
+HEAD_CASES = ((2, 1536, 4608), (8, 1536, 4608), (2, 3584, 10752))
+
+
+def compare_head(ofh, dev, card):
+    """The int4 head solver step at HEAD_CASES on chip_smoke's inputs (4
+    layers, latent 64, bf16), over pack copies that exceed L2, both kernels
+    checked against this checkout's plain version and for two calls
+    bit-equal."""
+    from vibevoice_tpu_torch.ops import fused_head as fh
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED + 3)
+    for n, h, f in HEAD_CASES:
+        packs = [fh.pack_head_solver_q(cs.random_head(h, f, gen, dev))
+                 for _ in range(cs.copies_for(6 * h * f))]
+        x, mods, fmod, fl = cs.head_inputs(packs[0], n, 64, gen, dev)
+        want = fh.fused_head_solver_step_ref(packs[0], x, mods, fmod, fl, 1e-5)
+        errs, equal = {}, {}
+        for nm, mod in (("other", ofh), ("this", fh)):
+            got = mod.fused_head_solver_step(packs[0], x, mods, fmod, fl, 1e-5)
+            errs[nm] = cs.agree(f"fused_head_solver_step[{nm}]", got, want)[0]
+            equal[nm] = torch.equal(got, mod.fused_head_solver_step(packs[0], x, mods, fmod, fl,
+                                                                    1e-5))
+        k = len(packs)
+        run = lambda mod: (lambda i: mod.fused_head_solver_step(packs[i % k], x, mods, fmod, fl,
+                                                                1e-5))
+        other_ms, this_ms = in_turns(run(ofh), run(fh), 2 * k)
+        bms, by = cs.head_bound(packs[0], x, mods, fmod, fl)
+        print(json.dumps({"kernel": "fused_head_solver_step", "N": n, "H": h, "F": f, "layers": 4,
+                          "max_abs_err": errs, "two_calls_equal": equal, "other_ms": other_ms,
+                          "this_ms": this_ms, "bound_ms": bms, "bound_by": by, "card": card}),
+              flush=True)
         del packs, want
     torch.cuda.empty_cache()
 
@@ -226,7 +267,8 @@ def main() -> int:
            "int4": lambda: compare_int4(other["int4"], dev, card),
            "attention": lambda: compare_attention(other["attention"], dev, card),
            "stage": lambda: compare_stage(other["stage"], dev, card),
-           "chain": lambda: compare_chain(other["chain"], dev, card)}
+           "chain": lambda: compare_chain(other["chain"], dev, card),
+           "head": lambda: compare_head(other["head"], dev, card)}
     for k in kernels:
         run[k]()
     print(card, flush=True)

@@ -2,7 +2,7 @@
 """Where the time of one fused-stage or small-T chain launch goes, phase by
 phase, on one NVIDIA GPU.
 
-    python3 scripts/torch_stage_phases.py [stage] [chain] [chain-fine] [--other OTHER_CHECKOUT]
+    python3 scripts/torch_stage_phases.py [stage] [chain] [chain-fine] [head] [--other DIR]
 
 Builds an instrumented copy of `vibevoice_tpu_torch/csrc/fused_stage.cu` into
 the build directory: CTA 0 reads the `%globaltimer` at the kernel's start
@@ -30,12 +30,18 @@ timed instead, through its own wrapper, into its own build directory.
 each stamp after a barrier of the CTA's threads: after the mixer (with the
 step's small copies), the up-projection, the down-projection, the cluster's
 partial (with the next W2's request), the grid barrier and the sums of the
-partials.  `stage` and `chain` by default; last, the card's name and power
-limit.
+partials.  `head` stamps the int4 diffusion-head kernel (`csrc/fused_head.cu`)
+seven times per layer, after: the norm and its two cluster exchanges (with
+the layer's small copies), the up-projection, the down-projection, the
+cluster's partial, the grid barrier, the sums of the partials, and the final
+layer (cluster 0, after the last layer; a stamp alone elsewhere), at the
+1.5B head with N=2 and N=8 and the 7B head with N=2.  `stage` and `chain` by
+default; last, the card's name and power limit.
 """
 import ctypes
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -106,10 +112,30 @@ def _stamped(src: str, kernel: str, end: str, start: str, barrier: str,
 
 
 def _with_stamps(src: str, csrc: str, what: str) -> str:
-    header = '#include "int4_common.cuh"'
-    if header not in src:
-        raise RuntimeError(f"{what} no longer has {header!r}: update this script")
-    return src.replace(header, f'#include "{os.path.join(csrc, "int4_common.cuh")}"' + STAMPS)
+    """`src` with its csrc/ headers included by absolute path (the copy is
+    built elsewhere) and the stamp helpers after the last of them."""
+    includes = re.findall(r'#include "(\w+\.cuh)"\n', src)
+    if "int4_common.cuh" not in includes:
+        raise RuntimeError(f"{what} no longer includes int4_common.cuh: update this script")
+    for name in includes:
+        line = f'#include "{name}"\n'
+        src = src.replace(line, f'#include "{os.path.join(csrc, name)}"\n'
+                          + (STAMPS if name == includes[-1] else ""))
+    return src
+
+
+def _fine_stamped(src: str, kernel: str, end: str, start: str, marks, what: str) -> str:
+    """`src` with a stamp at `start` of `kernel`'s body (which runs up to
+    `end`) and one after each of `marks`, each behind a barrier of the CTA's
+    threads."""
+    a = src.index(kernel)
+    b = src.index(end, a)
+    body = src[a:b].replace(start, start + "\n  int ns = 0;\n  STAMP")
+    for mark, _ in marks:
+        if mark not in body:
+            raise RuntimeError(f"{what} no longer has {mark!r}: update this script")
+        body = body.replace(mark, mark + "\n    FSTAMP")
+    return src[:a] + body + src[b:]
 
 
 def instrumented_source() -> str:
@@ -132,15 +158,8 @@ def instrumented_chain(csrc: str, fine: bool = False):
     with open(os.path.join(csrc, "fused_block_chain.cu")) as f:
         src = f.read()
     if fine:
-        kernel, end, start = CHAIN_KERNELS[0][:3]
-        a = src.index(kernel)
-        b = src.index(end, a)
-        body = src[a:b].replace(start, start + "\n  int ns = 0;\n  STAMP")
-        for mark, _ in FINE_MARKS:
-            if mark not in body:
-                raise RuntimeError(f"fused_block_chain.cu no longer has {mark!r}: update this script")
-            body = body.replace(mark, mark + "\n    FSTAMP")
-        return _with_stamps(src[:a] + body + src[b:], csrc, "fused_block_chain.cu"), len(FINE_MARKS)
+        src = _fine_stamped(src, *CHAIN_KERNELS[0][:3], FINE_MARKS, "fused_block_chain.cu")
+        return _with_stamps(src, csrc, "fused_block_chain.cu"), len(FINE_MARKS)
     for kernel, end, start, barrier, per_block in CHAIN_KERNELS:
         if kernel in src:
             src = _stamped(src, kernel, end, start, barrier, "fused_block_chain.cu")
@@ -234,6 +253,54 @@ def chain_phases(dev, other, fine=False):
         del packs
 
 
+# the head kernel (`head_q_kernel`): its body and the statements of a layer
+# after which `head` stamps, and the phases they end
+HEAD_KERNEL = ("__global__ void __launch_bounds__(NT, 1)\n    head_q_kernel",
+               "  cl.sync();  // no peer reads this CTA's shared memory after it exits\n}",
+               "extern __shared__ __align__(128) unsigned char smem_raw[];")
+HEAD_MARKS = [("    norm_h<T>(a, cl, nr, c0, w, wmax, xs, md, fv, nrm, xch, rs, hb);", "norm"),
+              ("                                    sgv, suv, red, as);\n      });", "up"),
+              ("mb_w2, as, hb);\n      });", "down"),
+              ("    cluster_partial(a, cl, step, hb, nr, c0, w);", "partial"),
+              ("    grid_barrier(a.bar);  // the layer's only grid-wide barrier", "barrier"),
+              ("    if (l < L - 1 || cid == 0) next_x<T>(a, step, nr, c0, w, wmax, md, fv + wmax, xs);",
+               "sums"),
+              ("      final_layer<T>(a, cl, n0, nr, w, c0, wmax, xs, sh, nrm, red, hb);", "final")]
+
+
+def head_phases(dev):
+    """The int4 head solver step's phases per layer at the compare script's
+    head cases (4 layers, latent 64, bf16), each launch checked against the
+    plain version first."""
+    import chip_smoke as cs
+    from torch_kernel_compare import HEAD_CASES
+    from vibevoice_tpu_torch.ops import cuda_build, fused_head as fh
+    with open(os.path.join(cuda_build.CSRC_DIR, "fused_head.cu")) as f:
+        src = _fine_stamped(f.read(), *HEAD_KERNEL, HEAD_MARKS, "fused_head.cu")
+    lib = _stamped_library(cuda_build, "fused_head",
+                           _with_stamps(src, cuda_build.CSRC_DIR, "fused_head.cu"), fh._library)
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED + 3)
+    for n, h, f in HEAD_CASES:
+        packs = [fh.pack_head_solver_q(cs.random_head(h, f, gen, dev))
+                 for _ in range(cs.copies_for(6 * h * f))]
+        x, mods, fmod, fl = cs.head_inputs(packs[0], n, 64, gen, dev)
+        err = cs.agree("fused_head_solver_step", fh.fused_head_solver_step(packs[0], x, mods, fmod,
+                                                                           fl, 1e-5),
+                       fh.fused_head_solver_step_ref(packs[0], x, mods, fmod, fl, 1e-5))[0]
+        k = len(packs)
+        ms = cs.cuda_ms(lambda i: fh.fused_head_solver_step(packs[i % k], x, mods, fmod, fl, 1e-5),
+                        2 * k)
+        fh.fused_head_solver_step(packs[1 % k], x, mods, fmod, fl, 1e-5)  # the stamped launch
+        plan = fh.plan_for(x, f, 64)
+        names = [f"group {g} layer {i} {ph}" for g in range(-(-n // plan.rows)) for i in range(4)
+                 for _, ph in HEAD_MARKS]
+        us, grid = read_stamps(lib, len(names))
+        print(json.dumps({"head": f"N={n} H={h} F={f}", "layers": 4, "max_abs_err": err,
+                          "launch_us": 1e3 * ms, "grid": grid, "plan": plan._asdict(),
+                          "phases": names, "phase_us": us}), flush=True)
+        del packs
+
+
 def ofb_items(ofb, x, f):
     """Batch items per row group of a checkout's int4 chain at x [B, T, D]."""
     if hasattr(ofb, "plan_for"):
@@ -248,7 +315,7 @@ def main() -> int:
         i = args.index("--other")
         other = args[i + 1]
         del args[i:i + 2]
-    if not set(args) <= {"stage", "chain", "chain-fine"}:
+    if not set(args) <= {"stage", "chain", "chain-fine", "head"}:
         print(__doc__, file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -262,6 +329,8 @@ def main() -> int:
         chain_phases(dev, other)
     if "chain-fine" in args:
         chain_phases(dev, None, fine=True)
+    if "head" in args:
+        head_phases(dev)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True, timeout=60)
     print(card.stdout.strip(), flush=True)

@@ -323,24 +323,67 @@ def test_fused_block_chain_ragged_shapes(cuda_device, dtype, b, t, d, n):
                                    rtol=0)
 
 
-@pytest.mark.parametrize("n,h,f", [(2, 1536, 4608), (6, 64, 192)])
-def test_fused_head_kernel_matches_plain(cuda_device, n, h, f):
+def _head_case(n, h, f, dtype, dev, seed=3):
     from vibevoice_tpu_torch.ops import fused_head as fh
-    dev = cuda_device
-    gen = torch.Generator(device=dev).manual_seed(3)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     r = lambda *s: torch.randn(s, generator=gen, device=dev)
     head = {"layers": [{"norm_w": 1 + 0.1 * r(h), "gate": 0.03 * r(h, f), "up": 0.03 * r(h, f),
                         "down": 0.03 * r(f, h)} for _ in range(4)]}
     pack = fh.pack_head_solver_q(head)
-    bf = torch.bfloat16
-    x, mods = r(n, h).to(bf), (0.3 * r(4, n, 3 * h)).to(bf)
-    fmod, fl = (0.3 * r(n, 2 * h)).to(bf), (0.05 * r(h, 64)).to(bf)
+    x, mods = r(n, h).to(dtype), (0.3 * r(4, n, 3 * h)).to(dtype)
+    fmod, fl = (0.3 * r(n, 2 * h)).to(dtype), (0.05 * r(h, 64)).to(dtype)
+    return pack, x, mods, fmod, fl
+
+
+# (N, H, F): the 1.5B head at B=1 and B=4, the 7B head, a ragged small one,
+# and N=12 at 1.5B in two row groups (8 + 4 rows)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n,h,f", [(2, 1536, 4608), (8, 1536, 4608), (2, 3584, 10752),
+                                   (6, 64, 192), (12, 1536, 4608)])
+def test_fused_head_kernel_matches_plain(cuda_device, n, h, f, dtype):
+    from vibevoice_tpu_torch.ops import fused_head as fh
+    pack, x, mods, fmod, fl = _head_case(n, h, f, dtype, cuda_device)
     before = fh.fused_head_solver_step.launches
     got = fh.fused_head_solver_step(pack, x, mods, fmod, fl, 1e-5)
     torch.cuda.synchronize()
     want = fh.fused_head_solver_step_ref(pack, x, mods, fmod, fl, 1e-5)
     assert fh.fused_head_solver_step.launches == before + 1
+    assert got.dtype == dtype and got.shape == want.shape
     torch.testing.assert_close(got.float(), want.float(), atol=_rel_tol(want), rtol=0)
+
+
+def test_fused_head_two_calls_equal(cuda_device):
+    """The sums run in a fixed order (shares in rank order, partials in
+    cluster order): two calls on the same inputs give the same bits."""
+    from vibevoice_tpu_torch.ops import fused_head as fh
+    pack, x, mods, fmod, fl = _head_case(2, 1536, 4608, torch.bfloat16, cuda_device)
+    a = fh.fused_head_solver_step(pack, x, mods, fmod, fl, 1e-5)
+    b = fh.fused_head_solver_step(pack, x, mods, fmod, fl, 1e-5)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+def test_fused_head_replays_in_a_cuda_graph(cuda_device):
+    """The kernel captured in a CUDA graph and replayed three times gives the
+    eager call's bits: the grid barrier's counter and the cached workspace
+    survive replay."""
+    from vibevoice_tpu_torch.ops import fused_head as fh
+    pack, x, mods, fmod, fl = _head_case(2, 1536, 4608, torch.bfloat16, cuda_device)
+    want = fh.fused_head_solver_step(pack, x, mods, fmod, fl, 1e-5)
+    stream = torch.cuda.Stream(cuda_device)
+    stream.wait_stream(torch.cuda.current_stream(cuda_device))
+    with torch.cuda.stream(stream):  # the capture stream's workspace, made eagerly
+        fh.fused_head_solver_step(pack, x, mods, fmod, fl, 1e-5)
+    torch.cuda.current_stream(cuda_device).wait_stream(stream)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        got = fh.fused_head_solver_step(pack, x, mods, fmod, fl, 1e-5)
+    for _ in range(3):
+        got.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
 
 
 def test_quantized_engine_on_card_matches_cpu(cuda_device):

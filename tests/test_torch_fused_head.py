@@ -109,3 +109,48 @@ def test_pack_rejects_quantized_heads():
     head["layers"] = [dict(lp, gateup=lp["gate"]) for lp in head["layers"]]
     with pytest.raises(ValueError, match="unquantized"):
         TFH.pack_head_solver_q(head)
+
+
+# (H, F): the 1.5B head, the 7B head, the tiny one
+_PLAN_SHAPES = [(1536, 4608), (3584, 10752), (64, 192)]
+
+
+@pytest.mark.parametrize("n", [2, 8, 128])
+@pytest.mark.parametrize("h,f", _PLAN_SHAPES)
+def test_head_plan_invariants(h, f, n):
+    """The head kernel's launch plan on an H100 (132 SMs, 15 clusters of 8):
+    every F column owned by exactly one CTA in 8-column units (whole packed
+    words, whole wd rows; the boxes cover them in 16-byte units), no more
+    clusters than the card holds, shared memory within 227 KB, the rings
+    within a layer's chunks (at least two stages where a layer has two), and
+    row groups of at most 8 rows that cover N."""
+    p = TFH.head_plan(n, h, f, 132, 15)
+    assert p.tf % 8 == 0 and 8 <= p.tf and TFH.box_width(p.tf) <= 256
+    assert all((k * p.tf) % 16 + p.tf <= TFH.box_width(p.tf) for k in range(p.tiles))
+    owned = np.zeros(f, np.int64)
+    for k in range(p.tiles):
+        owned[k * p.tf:(k + 1) * p.tf] += 1
+    assert (owned == 1).all()
+    assert p.clusters == -(-p.tiles // TFH.CLUSTER) <= 15
+    assert p.smem == TFH.head_smem(h, p.tf, p.rows, p.kb, p.ring, p.r2, p.ring2) <= 227 * 1024
+    nk, n2 = h // 2 // p.kb, p.tf // 2 // p.r2
+    assert p.kb <= 256 and nk * p.kb == h // 2 and min(2, nk) <= p.ring <= nk
+    assert n2 * p.r2 == p.tf // 2 and min(2, n2) <= p.ring2 <= n2
+    groups = -(-n // p.rows)
+    assert 1 <= p.rows <= 8 and (groups - 1) * p.rows < n <= groups * p.rows
+
+
+def test_head_plan_at_the_h100_shapes():
+    """1.5B at N=2: 116 CTAs of 40 columns with a whole layer's slice in
+    flight (gate/up in 3 boxes of 256 packed rows, wd in one run); N=8 in one
+    row group; 7B: 112 CTAs of 96 columns, the slice streamed through
+    two-stage rings; widths that are not 16-column units are refused."""
+    p = TFH.head_plan(2, 1536, 4608, 132, 15)
+    assert (p.tf, p.tiles, p.clusters, p.rows) == (40, 116, 15, 2)
+    assert (p.kb, p.ring, p.r2, p.ring2) == (256, 3, 20, 1)
+    assert TFH.head_plan(8, 1536, 4608, 132, 15).rows == 8
+    p = TFH.head_plan(2, 3584, 10752, 132, 15)
+    assert (p.tf, p.tiles, p.clusters) == (96, 112, 14)
+    assert p.ring == 2 and p.ring2 >= 2 and 2 * p.kb * p.tf * p.ring < 3584 // 2 * p.tf * 2
+    with pytest.raises(ValueError, match="multiples of 16"):
+        TFH.head_plan(2, 1544, 4608, 132, 15)

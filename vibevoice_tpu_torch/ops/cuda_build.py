@@ -117,4 +117,24 @@ def sm_count(device) -> int:
     return _SMS[idx]
 
 
-__all__ = ["SOURCES", "build_all", "load", "build_dir", "sm_count"]
+def fitting_plan(device, make_plan, clusters_that_fit, what: str):
+    """The launch plan of a kernel whose clusters of 8 CTAs must all be
+    resident at once (its grid barrier waits for every CTA): `make_plan(n)`
+    plans for n clusters, at most one CTA per SM; `clusters_that_fit(smem)`
+    asks the CUDA runtime how many clusters fit with `smem` bytes of shared
+    memory a CTA.  Fewer clusters widen the columns per CTA and so its shared
+    memory, so the question is asked again until the plan fits."""
+    ncl = max(1, sm_count(device) // 8)
+    for _ in range(8):
+        plan = make_plan(ncl)
+        fit = clusters_that_fit(plan.smem)
+        if fit >= plan.clusters:
+            return plan
+        if fit < 1:
+            raise RuntimeError(f"one cluster of {what} ({plan.smem} bytes of shared memory a CTA) "
+                               f"does not fit {device}")
+        ncl = fit
+    raise RuntimeError(f"no launch of {what} fits the card")
+
+
+__all__ = ["SOURCES", "build_all", "load", "build_dir", "sm_count", "fitting_plan"]

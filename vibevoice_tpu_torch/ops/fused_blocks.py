@@ -303,32 +303,25 @@ _PLANS: Dict[tuple, ChainPlan] = {}
 
 
 def plan_for(x: torch.Tensor, f: int) -> ChainPlan:
-    """`chain_plan` for x on its card, made once per device, dtype and shape:
-    the clusters that fit the card at once, asked of the CUDA runtime, are
-    at most one CTA per SM; fewer clusters widen the columns per CTA and so
-    its shared memory, so the question is asked again until the plan fits."""
+    """`chain_plan` for x on its card, made once per device, dtype and shape,
+    for the clusters that fit the card at once (`cuda_build.fitting_plan`)."""
     b, t, d = x.shape
     key = (str(x.device), x.dtype, b, t, d, f)
     plan = _PLANS.get(key)
     if plan is None:
         lib = _library()
-        ncl = max(1, cuda_build.sm_count(x.device) // CLUSTER)
-        fit = ctypes.c_int(0)
+
+        def fit(smem):
+            out = ctypes.c_int(0)
+            rc = lib.vv_fused_block_chain_clusters(smem, CLUSTER, _DTYPE_CODES[x.dtype],
+                                                   ctypes.byref(out))
+            if rc != 0:
+                raise RuntimeError(f"vv_fused_block_chain_clusters failed with code {rc}")
+            return out.value
+
         with torch.cuda.device(x.device):
-            for _ in range(8):
-                plan = chain_plan(b, t, d, f, ncl)
-                rc = lib.vv_fused_block_chain_clusters(plan.smem, CLUSTER,
-                                                       _DTYPE_CODES[x.dtype], ctypes.byref(fit))
-                if rc != 0:
-                    raise RuntimeError(f"vv_fused_block_chain_clusters failed with code {rc}")
-                if fit.value >= plan.clusters:
-                    break
-                if fit.value < 1:
-                    raise RuntimeError(f"one cluster of the int4 chain kernel ({plan.smem} bytes "
-                                       f"of shared memory a CTA) does not fit {x.device}")
-                ncl = fit.value
-            else:
-                raise RuntimeError("no launch of the int4 chain kernel fits the card")
+            plan = cuda_build.fitting_plan(x.device, lambda n: chain_plan(b, t, d, f, n), fit,
+                                           "the int4 chain kernel")
         _PLANS[key] = plan
     return plan
 
