@@ -25,7 +25,7 @@ Phases, in order; any failure stops the run with a non-zero exit:
      its own scale, at the CTA height it picks and at both (64 and 128
      rows), against its bound and SDPA; the plain-pack (bf16) chain at the
      four packed stages of a step, B=1 and B=2, two chunks with the context
-     carried;
+     carried, two calls bit-equal, with its share of the bound;
   3. the long-cache engine as `bench.py` drives it (1.5B, bf16, B=1, prompt
      256, 3840 steps -> a 4096-slot cache, so decode attention runs on the
      kernel): prefill, a 16-step warm-up chunk and two timed 32-step chunks;
@@ -354,7 +354,9 @@ def chain_inputs(pack, b, t, gen, dev):
 
 def measure_chain(packs, x, ctx):
     """A chain kernel over pack copies of one stage shape (per call): the int4
-    chain for int4 packs, the plain-pack chain for plain ones."""
+    chain for int4 packs, the plain-pack chain for plain ones; two calls on
+    the same inputs must give the same bits (sums in a fixed order).  Its
+    error, times, bound and share of the bound."""
     from vibevoice_tpu_torch.ops import fused_blocks as fb
     plain = "w1q" not in packs[0]
     run = fb.fused_block_chain_plain if plain else fb.fused_block_chain_batched
@@ -364,16 +366,16 @@ def measure_chain(packs, x, ctx):
     y_ref, ctx_ref = ref(packs[0], x, ctx)
     err, tol = agree(name, y, y_ref)
     err_c, tol_c = agree(f"{name}[ctx]", new_ctx, ctx_ref)
-    if not plain:  # sums in a fixed order: a second call gives the same bits
-        y2, ctx2 = run(packs[0], x, ctx)
-        if not (torch.equal(y, y2) and torch.equal(new_ctx, ctx2)):
-            raise RuntimeError(f"{name}: two calls on the same inputs differ")
+    y2, ctx2 = run(packs[0], x, ctx)  # sums in a fixed order: a second call gives the same bits
+    if not (torch.equal(y, y2) and torch.equal(new_ctx, ctx2)):
+        raise RuntimeError(f"{name}: two calls on the same inputs differ")
     n = len(packs)
     ms = cuda_ms(lambda i: run(packs[i % n], x, ctx), 2 * n)
     plain_ms = cuda_ms(lambda i: ref(packs[i % n], x, ctx), min(n, 4))
     bms, by = chain_bound(packs[0], x, ctx)
     return dict(max_abs_err=max(err, err_c), tol=min(tol, tol_c), ms=ms, plain_ms=plain_ms,
-                bound_ms=bms, bound_by=by, library_ms=None)
+                bound_ms=bms, bound_by=by, library_ms=None, bit_stable=True,
+                bound_share=bms / ms)
 
 
 def chain_bound(pack, x, ctx):
@@ -721,8 +723,9 @@ def phase_plain_chain(dev):
     packs of random weights; two per shape: decoder 0 / encoder 6 at D=2048,
     8 blocks, T=1; decoder 1 / encoder 5 at D=1024, 3 blocks, T=8), B=1 and
     B=2: each pack over two chunks with the context carried on both sides,
-    then the time per call rotating over the shape's two packs (each pair is
-    over 100 MB, twice L2)."""
+    then two calls bit-equal and the time per call rotating over the shape's
+    two packs (each pair is over 100 MB, twice L2), with its share of the
+    bound."""
     from vibevoice_tpu_torch.ops import fused_blocks as fb
     gen = torch.Generator(device=dev).manual_seed(SEED + 8)
     for (d, nblk, t), stages in (((2048, 8, 1), ("decoder 0", "encoder 6")),

@@ -1,16 +1,17 @@
 #!/usr/bin/env python3
 """Times this checkout's flash prefill, int4_matmul, decode attention,
-large-T stage, int4 small-T chain and int4 diffusion-head kernels beside those
-of another checkout of the port, in one process on one NVIDIA GPU, at the
-shapes of `chip_smoke.py` phase 2.
+large-T stage, int4 and plain-pack small-T chain and int4 diffusion-head
+kernels beside those of another checkout of the port, in one process on one
+NVIDIA GPU, at the shapes of `chip_smoke.py` phase 2.
 
     python3 scripts/torch_kernel_compare.py OTHER_CHECKOUT [KERNEL ...]
 
 OTHER_CHECKOUT is the root of another checkout (for example the parent
 commit, unpacked with `git archive`); its kernels build into its own
 `vibevoice_tpu_torch/_build/`.  KERNEL names a subset of flash, int4,
-attention, stage, chain and head (all by default); head runs the solver step
-at the 1.5B head with N=2 and N=8 and at the 7B head with N=2.  The cases, inputs, checks, library
+attention, stage, chain, plain and head (all by default); head runs the
+solver step at the 1.5B head with N=2 and N=8 and at the 7B head with N=2;
+plain runs the plain-pack (bf16) chain at `PLAIN_CASES`.  The cases, inputs, checks, library
 yardstick (SDPA; `torch.matmul` on the dequantized bf16 weight) and bound are
 `chip_smoke.py`'s own; a stage case times the first of its two chunks.  Each case checks both kernels against this checkout's
 plain version on the same inputs, then times them in turns (other, this,
@@ -36,10 +37,10 @@ from vibevoice_tpu_torch.ops import int4_matmul as im  # noqa: E402
 
 MODULES = {"flash": "flash_attention", "int4": "int4_matmul",
            "attention": "decode_attention", "stage": "fused_stage", "chain": "fused_blocks",
-           "head": "fused_head"}
+           "plain": "fused_blocks", "head": "fused_head"}
 SOURCES = {"flash": "flash_prefill", "int4": "int4_matmul",
            "attention": "decode_attention", "stage": "fused_stage", "chain": "fused_block_chain",
-           "head": "fused_head"}
+           "plain": "fused_block_chain", "head": "fused_head"}
 
 
 def load_other(root: str, modules=None):
@@ -214,6 +215,44 @@ def compare_chain(ofb, dev, card):
     torch.cuda.empty_cache()
 
 
+# the plain chain's cases (D, blocks, T, B): the step's two stage shapes
+# (decoder 0 / encoder 6; decoder 1 / encoder 5) at B=1 and B=2, bf16 packs
+PLAIN_CASES = ((2048, 8, 1, 1), (2048, 8, 1, 2), (1024, 3, 8, 1), (1024, 3, 8, 2))
+
+
+def compare_plain(ofb, dev, card):
+    """The plain-pack (bf16) chain at PLAIN_CASES, each over pack copies that
+    exceed L2, both kernels checked against this checkout's plain version and
+    for two calls bit-equal, and the two checkouts' outputs compared bit for
+    bit."""
+    from vibevoice_tpu_torch.ops import fused_blocks as fb
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED + 8)
+    for d, nblk, t, b in PLAIN_CASES:
+        packs = [fb.pack_stage(cs.random_stage(d, nblk, gen, dev), dtype=torch.bfloat16)
+                 for _ in range(cs.copies_for(2 * nblk * d * 4 * d * 2))]
+        x, ctx = cs.chain_inputs(packs[0], b, t, gen, dev)
+        want = fb.fused_block_chain_plain_ref(packs[0], x, ctx)
+        errs, equal, outs = {}, {}, {}
+        for nm, mod in (("other", ofb), ("this", fb)):
+            outs[nm] = got = mod.fused_block_chain_plain(packs[0], x, ctx)
+            again = mod.fused_block_chain_plain(packs[0], x, ctx)
+            errs[nm] = max(cs.agree(f"fused_block_chain[{nm}]", g, w)[0]
+                           for g, w in zip(got, want))
+            equal[nm] = all(torch.equal(g, a) for g, a in zip(got, again))
+        same = all(torch.equal(g, o) for g, o in zip(outs["this"], outs["other"]))
+        n = len(packs)
+        run = lambda mod: (lambda i: mod.fused_block_chain_plain(packs[i % n], x, ctx))
+        other_ms, this_ms = in_turns(run(ofb), run(fb), 2 * n)
+        bms, by = cs.chain_bound(packs[0], x, ctx)
+        print(json.dumps({"kernel": "fused_block_chain", "pack": "bf16", "D": d, "F": 4 * d,
+                          "blocks": nblk, "T": t, "B": b, "max_abs_err": errs,
+                          "two_calls_equal": equal, "equal_to_other": same, "other_ms": other_ms,
+                          "this_ms": this_ms, "bound_ms": bms, "bound_by": by,
+                          "bound_share": [bms / ms for ms in this_ms], "card": card}), flush=True)
+        del packs, want, outs
+    torch.cuda.empty_cache()
+
+
 # (N, H, F) of the head cases: the 1.5B head at B=1 and B=4, the 7B head at B=1
 HEAD_CASES = ((2, 1536, 4608), (8, 1536, 4608), (2, 3584, 10752))
 
@@ -258,7 +297,7 @@ def main() -> int:
         return 2
     kernels = sys.argv[2:] or list(MODULES)
     other = load_other(sys.argv[1])
-    names = [SOURCES[k] for k in kernels]
+    names = list(dict.fromkeys(SOURCES[k] for k in kernels))
     cuda_build.build_all(names)
     other["flash"].cuda_build.build_all(names)
     dev = torch.device("cuda")
@@ -268,6 +307,7 @@ def main() -> int:
            "attention": lambda: compare_attention(other["attention"], dev, card),
            "stage": lambda: compare_stage(other["stage"], dev, card),
            "chain": lambda: compare_chain(other["chain"], dev, card),
+           "plain": lambda: compare_plain(other["plain"], dev, card),
            "head": lambda: compare_head(other["head"], dev, card)}
     for k in kernels:
         run[k]()

@@ -2,7 +2,7 @@
 """Where the time of the PyTorch port's decode step goes, on one NVIDIA GPU.
 
     python3 scripts/torch_profile_step.py [--steps 8] [--kv model|int8] [--quant int4|int4f]
-                                          [--stages]
+                                          [--stages] [--chain]
 
 Builds the long-cache engine that `chip_smoke.py` phase 3 drives (1.5B,
 random bf16 weights, B=1, prompt 256, 3840 steps -> a 4096-slot cache, 5-step
@@ -10,7 +10,10 @@ sde-dpmsolver++, cfg 1.3, forced diffusion); with `--quant` the weights first
 go through `VibeVoiceTTS(quantize=..., quantize_tokenizer="int4k",
 quantize_diffusion="int4k")`, as in `chip_smoke.py` phase 5; `--stages` turns
 on `use_fused_stages` (the large-T sigma-VAE stages on the fused stage
-kernel, the transition convs folded at B=1).  It warms the engine up, then
+kernel, the transition convs folded at B=1); `--chain` turns on
+`use_fused_vocoder` / `use_fused_semantic` on the bf16 weights (the small-T
+stages on the plain-pack chain kernel, as `chip_smoke.py`'s long-prompt
+engine runs them).  It warms the engine up, then
 traces
 `--steps` decode steps with `torch.profiler`.  Prints JSON lines: the host
 wall time per step, the device's busy time per step (the union of its kernel
@@ -76,6 +79,8 @@ def main() -> int:
     ap.add_argument("--kv", default="model", choices=["model", "int8"])
     ap.add_argument("--quant", default=None, choices=["int4", "int4f"])
     ap.add_argument("--stages", action="store_true", help="use_fused_stages=True")
+    ap.add_argument("--chain", action="store_true",
+                    help="use_fused_vocoder/use_fused_semantic on plain packs")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_profile_step: no CUDA device", file=sys.stderr)
@@ -101,7 +106,9 @@ def main() -> int:
         speech_start_id=151652, speech_end_id=151653, speech_diffusion_id=151654,
         eos_id=151643, cfg_scale=1.3, ddpm_steps=5, algorithm_type="sde-dpmsolver++",
         force_diffusion=True, max_length_times=64.0)
-    fused = args.quant is not None
+    if args.chain and args.quant:
+        raise SystemExit("--chain runs the plain packs of unquantized weights; drop --quant")
+    fused = args.quant is not None or args.chain
     eng = G.Engine(params, cfg, gen, max_steps=3840, batch=1, prompt_len=256,
                    dtype=torch.bfloat16, kv_dtype=args.kv, device=dev,
                    use_fused_vocoder=fused, use_fused_semantic=fused,
@@ -128,6 +135,7 @@ def main() -> int:
     intervals = [(e.time_range.start, e.time_range.end) for e in kernels]
     busy_us = _busy_us(intervals)
     print(json.dumps({"kv": args.kv, "quant": args.quant, "fused_stages": args.stages,
+                      "plain_chain": args.chain,
                       "steps": n, "cache_slots": eng.cache_len,
                       "wall_ms_per_step": 1e3 * wall / n,
                       "device_busy_ms_per_step": busy_us / 1e3 / n,

@@ -2,7 +2,7 @@
 """Where the time of one fused-stage or small-T chain launch goes, phase by
 phase, on one NVIDIA GPU.
 
-    python3 scripts/torch_stage_phases.py [stage] [chain] [chain-fine] [head] [--other DIR]
+    python3 scripts/torch_stage_phases.py [stage] [chain] [chain-fine] [plain] [head] [--other DIR]
 
 Builds an instrumented copy of `vibevoice_tpu_torch/csrc/fused_stage.cu` into
 the build directory: CTA 0 reads the `%globaltimer` at the kernel's start
@@ -30,7 +30,11 @@ timed instead, through its own wrapper, into its own build directory.
 each stamp after a barrier of the CTA's threads: after the mixer (with the
 step's small copies), the up-projection, the down-projection, the cluster's
 partial (with the next W2's request), the grid barrier and the sums of the
-partials.  `head` stamps the int4 diffusion-head kernel (`csrc/fused_head.cu`)
+partials.  `plain` stamps the plain-pack chain (`chain_p_kernel`,
+`fused_block_chain_plain`, bf16 packs) six times per block in the same
+places (the up- and down-projection each with their ring's waits and
+refills) at the two small-T stage shapes with B=1 and at D=1024 with B=2.
+`head` stamps the int4 diffusion-head kernel (`csrc/fused_head.cu`)
 seven times per layer, after: the norm and its two cluster exchanges (with
 the layer's small copies), the up-projection, the down-projection, the
 cluster's partial, the grid barrier, the sums of the partials, and the final
@@ -89,8 +93,8 @@ FINE_MARKS = [("             nrm, xch, rs1, rs2);", "mixer"),
               ("    if (has_tile) down_proj(a, w2s, as, rows, hb);", "down"),
               ("      cluster_partial<1>(a, cl, step, hb, rows, rows_max);", "partial"),
               ("    grid_barrier(a.bar);  // the block's only grid-wide barrier", "barrier"),
-              ("      next_x<T, 1>(a, cl, step, v, wmax, xs, rows, rows_max, base, nb == NB - 1);",
-               "next_x")]
+              ("      next_x<T, int8_t, 1>(a, cl, step, v, wmax, xs, rows, rows_max, base, "
+               "nb == NB - 1);", "next_x")]
 # (name, B, T, D, blocks): the 1.5B small-T stages, and B=4
 CHAIN_SHAPES = [("decoder 0 / encoder 6", 1, 1, 2048, 8), ("decoder 1 / encoder 5", 1, 8, 1024, 3),
                 ("decoder 1, B=4", 4, 8, 1024, 3)]
@@ -169,7 +173,9 @@ def instrumented_chain(csrc: str, fine: bool = False):
 
 def _stamped_library(cuda_build, name: str, src: str, loader):
     """Point `cuda_build` at the stamped copy `src` of kernel `name` and load
-    it with `loader` (the wrapper module's own `_library`)."""
+    it with `loader` (the wrapper module's own `_library`), in place of a
+    library of that name this process loaded before."""
+    cuda_build._LIBS.pop(name, None)
     os.makedirs(cuda_build.build_dir(), exist_ok=True)
     path = os.path.join(cuda_build.build_dir(), f"{name}_stamped.cu")
     with open(path, "w") as f:
@@ -253,6 +259,56 @@ def chain_phases(dev, other, fine=False):
         del packs
 
 
+# the plain chain kernel (`chain_p_kernel`): its body and the statements of a
+# block after which `plain` stamps, and the phases they end
+PLAIN_KERNEL = ("__global__ void __launch_bounds__(NT, 1)\n    chain_p_kernel",
+                "  cl.sync();  // no peer reads this CTA's shared memory after it exits\n}",
+                "extern __shared__ __align__(128) unsigned char smem_raw[];")
+PLAIN_MARKS = [("                nrm, xch, rs1, rs2);", "mixer"),
+               ("                         sb + par * a.TF, rows, red, as);", "up"),
+               ("        down_proj_p<NR, W>(a, step, steps, f0, w2r, L.w2_stage, mb2, as, hb);",
+                "down"),
+               ("      cluster_partial<1>(a, cl, step, hb, rows, rows_max);", "partial"),
+               ("    grid_barrier(a.bar);  // the block's only grid-wide barrier", "barrier"),
+               ("      next_x<T, W, 1>(a, cl, step, v, wmax, xs, rows, rows_max, base, nb == NB - 1);",
+                "next_x")]
+# (name, B, T, D, blocks): the 1.5B small-T stages, and B=2
+PLAIN_SHAPES = [("decoder 0 / encoder 6", 1, 1, 2048, 8), ("decoder 1 / encoder 5", 1, 8, 1024, 3),
+                ("decoder 1, B=2", 2, 8, 1024, 3)]
+
+
+def plain_phases(dev):
+    """The plain-pack chain's phases per block at PLAIN_SHAPES (bf16 packs),
+    each launch checked against the plain version first."""
+    import chip_smoke as cs
+    from vibevoice_tpu_torch.ops import cuda_build, fused_blocks as fb
+    with open(os.path.join(cuda_build.CSRC_DIR, "fused_block_chain.cu")) as f:
+        src = _fine_stamped(f.read(), *PLAIN_KERNEL, PLAIN_MARKS, "fused_block_chain.cu")
+    lib = _stamped_library(cuda_build, "fused_block_chain",
+                           _with_stamps(src, cuda_build.CSRC_DIR, "fused_block_chain.cu"),
+                           fb._library)
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED + 8)
+    for name, b, t, d, nblk in PLAIN_SHAPES:
+        packs = [fb.pack_stage(cs.random_stage(d, nblk, gen, dev), dtype=torch.bfloat16)
+                 for _ in range(cs.copies_for(2 * nblk * d * 4 * d * 2))]
+        x, ctx = cs.chain_inputs(packs[0], b, t, gen, dev)
+        got = fb.fused_block_chain_plain(packs[0], x, ctx)
+        want = fb.fused_block_chain_plain_ref(packs[0], x, ctx)
+        err = max(cs.agree("fused_block_chain", g, w)[0] for g, w in zip(got, want))
+        n = len(packs)
+        ms = cs.cuda_ms(lambda i: fb.fused_block_chain_plain(packs[i % n], x, ctx), 2 * n)
+        fb.fused_block_chain_plain(packs[1 % n], x, ctx)  # the launch whose stamps are read
+        plan = fb.plan_for(x, 4 * d, torch.bfloat16)
+        names = [f"group {g} block {i} {ph}" for g in range(-(-b // plan.bg)) for i in range(nblk)
+                 for _, ph in PLAIN_MARKS]
+        us, grid = read_stamps(lib, len(names))
+        print(json.dumps({"plain_chain": name, "B": b, "T": t, "D": d, "F": 4 * d,
+                          "blocks": nblk, "max_abs_err": err, "launch_us": 1e3 * ms,
+                          "grid": grid, "plan": plan._asdict(), "phases": names,
+                          "phase_us": us}), flush=True)
+        del packs
+
+
 # the head kernel (`head_q_kernel`): its body and the statements of a layer
 # after which `head` stamps, and the phases they end
 HEAD_KERNEL = ("__global__ void __launch_bounds__(NT, 1)\n    head_q_kernel",
@@ -315,7 +371,7 @@ def main() -> int:
         i = args.index("--other")
         other = args[i + 1]
         del args[i:i + 2]
-    if not set(args) <= {"stage", "chain", "chain-fine", "head"}:
+    if not set(args) <= {"stage", "chain", "chain-fine", "plain", "head"}:
         print(__doc__, file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -329,6 +385,8 @@ def main() -> int:
         chain_phases(dev, other)
     if "chain-fine" in args:
         chain_phases(dev, None, fine=True)
+    if "plain" in args:
+        plain_phases(dev)
     if "head" in args:
         head_phases(dev)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

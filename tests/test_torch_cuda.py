@@ -25,15 +25,51 @@ def cuda_device():
     return G.resolve_device("cuda")
 
 
+def _graph_nodes(graph):
+    """The names of the nodes of a CUDA graph captured with keep_graph=True,
+    through the driver: a kernel node by its function's name, any other node
+    by its type."""
+    import ctypes
+    cu = ctypes.CDLL("libcuda.so.1")
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    assert cu.cuGraphGetNodes(handle, None, ctypes.byref(n)) == 0
+    nodes = (ctypes.c_void_p * n.value)()
+    assert cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n)) == 0
+    names = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        assert cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) == 0
+        if kind.value != 0:  # CU_GRAPH_NODE_TYPE_KERNEL is 0
+            names.append(f"graph node of type {kind.value}")
+            continue
+        params = (ctypes.c_byte * 256)()  # CUDA_KERNEL_NODE_PARAMS_v2: the function first
+        assert cu.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node), params) == 0
+        name = ctypes.c_char_p()
+        func = ctypes.c_void_p.from_buffer(params).value
+        assert cu.cuFuncGetName(ctypes.byref(name), ctypes.c_void_p(func)) == 0
+        names.append(name.value.decode())
+    return names
+
+
 def _device_kernels(fn):
-    """(fn's result, the names of the kernels one call of fn ran on the
-    device), by torch.profiler."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    """(fn's result, the names of what one call of fn ran on the device).  fn
+    runs once on a side stream (which makes the wrappers' workspaces of that
+    stream), then once more captured in a CUDA graph that is never replayed:
+    the graph's nodes are the kernels (and copies or fills) of one call.
+    torch.profiler is not used: on the H100's card image (torch 2.11) its
+    traces lost every device kernel at random points of a process, after
+    other work on the card."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
         out = fn()
-        torch.cuda.synchronize()
-    return out, [e.name for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA]
+    torch.cuda.current_stream().wait_stream(stream)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, stream=stream):
+        fn()
+    return out, _graph_nodes(graph)
 
 
 def _cache(n_layers, b, s, f, quant, gen, dev):
@@ -275,10 +311,7 @@ def test_fused_block_chain_is_one_deterministic_launch(cuda_device, b, t, d, n):
     x, ctx = _chain_inputs(b, t, d, n, gen, cuda_device)
     first = fb.fused_block_chain_batched(pack, x, ctx)  # builds and loads the library
     torch.cuda.synchronize()
-    for _ in range(2):  # a trace that caught no device event at all is taken again
-        second, kernels = _device_kernels(lambda: fb.fused_block_chain_batched(pack, x, ctx))
-        if kernels:
-            break
+    second, kernels = _device_kernels(lambda: fb.fused_block_chain_batched(pack, x, ctx))
     assert len(kernels) == 1 and "chain_q_kernel" in kernels[0], kernels
     assert all(torch.equal(a, b_) for a, b_ in zip(first, second))
 
@@ -607,11 +640,19 @@ def test_flash_prefill_kernel_matches_plain(cuda_device, case):
                                    v[..., :32].contiguous(), mask)
 
 
+# the plain chain's cases (B, T, D, blocks): the step's four stages are two
+# shapes (decoder 0 / encoder 6: D=2048, 8 blocks, T=1; decoder 1 / encoder 5:
+# D=1024, 3 blocks, T=8), at B=1, 2 and 4, and a tiny ragged one
+PLAIN_CHAIN_CASES = [(1, 1, 2048, 8), (2, 1, 2048, 8), (4, 1, 2048, 8), (1, 8, 1024, 3),
+                     (2, 8, 1024, 3), (4, 8, 1024, 3), (3, 5, 8, 2)]
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("b,t,d,n", [(1, 1, 2048, 8), (2, 8, 1024, 3), (3, 5, 8, 2)])
+@pytest.mark.parametrize("b,t,d,n", PLAIN_CHAIN_CASES)
 def test_plain_chain_kernel_matches_plain(cuda_device, dtype, b, t, d, n):
-    """The plain-pack chain at the 1.5B stage shapes and a tiny ragged one,
-    bf16 and fp32 packs, over two chunks with the context carried."""
+    """The plain-pack chain at the 1.5B stage shapes at B=1, 2 and 4 and a
+    tiny ragged one, bf16 and fp32 packs, over two chunks with the context
+    carried."""
     from vibevoice_tpu_torch.ops import fused_blocks as fb
     gen = torch.Generator(device=cuda_device).manual_seed(6)
     pack = fb.pack_stage(_stage(d, n, gen, cuda_device), dtype=dtype)
@@ -629,6 +670,73 @@ def test_plain_chain_kernel_matches_plain(cuda_device, dtype, b, t, d, n):
             # another order through n blocks
             tol = (2 ** -7 if dtype == torch.bfloat16 else 1e-5) * float(w.float().abs().max())
             torch.testing.assert_close(g.float(), w.float(), atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,t,d,n", [(3, 5, 24, 2), (3, 5, 36, 2), (2, 3, 352, 2), (5, 8, 1024, 1),
+                                     (1, 1, 4, 1)])
+def test_plain_chain_ragged_shapes(cuda_device, dtype, b, t, d, n):
+    """Widths that do not fill the card evenly: D=24 (ranks of a cluster
+    without D columns), D=36 (bf16 rows that are not whole 16-byte vectors:
+    cp.async into the rings), D=352 (F=1408 on 88 CTAs of 16 columns: the
+    last cluster part idle), B=5 T=8 in three row groups, and D=4; bf16 and
+    fp32, against the plain version at its stated tolerance."""
+    from vibevoice_tpu_torch.ops import fused_blocks as fb
+    gen = torch.Generator(device=cuda_device).manual_seed(10)
+    pack = fb.pack_stage(_stage(d, n, gen, cuda_device), dtype=dtype)
+    x, ctx = (v.to(dtype) for v in _chain_inputs(b, t, d, n, gen, cuda_device))
+    y, new_ctx = fb.fused_block_chain_plain(pack, x, ctx)
+    torch.cuda.synchronize()
+    y_ref, ctx_ref = fb.fused_block_chain_plain_ref(pack, x, ctx)
+    assert y.dtype == dtype and bool(torch.isfinite(y).all())
+    # bf16: one rounding step of the largest value; fp32: sums in another order
+    scale = 2 ** -7 if dtype == torch.bfloat16 else 1e-5
+    for g, w in ((y, y_ref), (new_ctx, ctx_ref)):
+        torch.testing.assert_close(g.float(), w.float(), atol=scale * float(w.float().abs().max()),
+                                   rtol=0)
+
+
+def _plain_chain_case(dev, b, t, d, n, seed=7):
+    from vibevoice_tpu_torch.ops import fused_blocks as fb
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    pack = fb.pack_stage(_stage(d, n, gen, dev), dtype=torch.bfloat16)
+    return (pack, *_chain_inputs(b, t, d, n, gen, dev))
+
+
+@pytest.mark.parametrize("b,t,d,n", [(1, 1, 2048, 8), (1, 8, 1024, 3), (4, 8, 1024, 3)])
+def test_plain_chain_is_one_deterministic_launch(cuda_device, b, t, d, n):
+    """Every sum of the plain chain runs in a fixed order: two calls on the
+    same inputs give the same bits, each one kernel on the device."""
+    from vibevoice_tpu_torch.ops import fused_blocks as fb
+    pack, x, ctx = _plain_chain_case(cuda_device, b, t, d, n)
+    first = fb.fused_block_chain_plain(pack, x, ctx)  # builds and loads the library
+    second, kernels = _device_kernels(lambda: fb.fused_block_chain_plain(pack, x, ctx))
+    assert len(kernels) == 1 and "chain_p_kernel" in kernels[0], kernels
+    assert all(torch.equal(a, b_) for a, b_ in zip(first, second))
+
+
+def test_plain_chain_replays_in_a_cuda_graph(cuda_device):
+    """The plain chain captured in a CUDA graph and replayed three times
+    gives the eager call's bits: the grid barrier's counter and the cached
+    workspace survive replay."""
+    from vibevoice_tpu_torch.ops import fused_blocks as fb
+    pack, x, ctx = _plain_chain_case(cuda_device, 1, 8, 1024, 3)
+    want = fb.fused_block_chain_plain(pack, x, ctx)
+    stream = torch.cuda.Stream(cuda_device)
+    stream.wait_stream(torch.cuda.current_stream(cuda_device))
+    with torch.cuda.stream(stream):  # the capture stream's workspace, made eagerly
+        fb.fused_block_chain_plain(pack, x, ctx)
+    torch.cuda.current_stream(cuda_device).wait_stream(stream)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        got = fb.fused_block_chain_plain(pack, x, ctx)
+    for _ in range(3):
+        for g in got:
+            g.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
 def test_flash_prefill_and_plain_chain_engine_on_card_matches_cpu(cuda_device):

@@ -256,20 +256,6 @@ def test_paths_outside_the_slice_raise(models):
         TFB.pack_stage(quantized)
 
 
-def test_tiles_and_row_groups():
-    """The kernel's FFN tiles (about one per SM, 4-column multiples, at most
-    64 wide) and row groups (the shared-memory budget) at the 1.5B shapes."""
-    assert TFB.ffn_tile(8192, 132) == (64, 128)
-    assert TFB.ffn_tile(4096, 132) == (32, 128)
-    assert TFB.ffn_tile(4608, 132) == (36, 128)
-    assert TFB.ffn_tile(32, 132) == (4, 8)
-    assert TFB.row_group(1, 1, 2048) == 1
-    assert TFB.row_group(4, 8, 1024) == 4
-    assert TFB.row_group(64, 8, 1024) == 5
-    with pytest.raises(ValueError, match="budget"):
-        TFB.row_group(1, 8, 8192)
-
-
 # (B, T, D, F): the 1.5B stages, B=4, and ragged shapes that leave ranks of a
 # cluster without FFN columns or D columns
 _PLAN_SHAPES = [(1, 1, 2048, 8192), (1, 8, 1024, 4096), (4, 8, 1024, 4096), (3, 5, 24, 96),
@@ -305,3 +291,61 @@ def test_chain_plan_at_the_h100_shapes():
     assert TFB.chain_plan(3, 5, 24, 96, 15)[:4] == (4, 24, 3, 3)
     with pytest.raises(ValueError, match="shared memory"):
         TFB.chain_plan(1, 1, 8192, 32768, 15)
+
+
+# (B, T, D, F): the 1.5B plain stages at B=1, 2 and 4, a row group count that
+# does not divide B, and ragged shapes: ranks of a cluster without D columns
+# (D=24), widths that are not whole 16-byte vectors in bf16 (D=36, cp.async),
+# clusters part idle (D=352), and the smallest width
+_PLAIN_SHAPES = [(1, 1, 2048, 8192), (2, 1, 2048, 8192), (4, 1, 2048, 8192),
+                 (1, 8, 1024, 4096), (2, 8, 1024, 4096), (4, 8, 1024, 4096), (5, 8, 1024, 4096),
+                 (3, 5, 24, 96), (3, 5, 36, 144), (2, 3, 352, 1408), (1, 1, 4, 16)]
+
+
+@pytest.mark.parametrize("es", [2, 4])
+@pytest.mark.parametrize("clusters", [15, 16, 30])
+@pytest.mark.parametrize("b,t,d,f", _PLAIN_SHAPES)
+def test_plain_plan_invariants(b, t, d, f, clusters, es):
+    """The plain chain kernel's launch plan (bf16 and fp32 packs): FFN
+    columns in whole 16-byte units of W1 where every row of w1 and w2 is
+    whole 16-byte vectors (else in 4-column units), covering F once and
+    spread over all the card's CTAs; no more clusters than the card holds
+    nor than get columns; row groups of at most 16 rows, balanced; W1 boxes
+    and W2 runs whole rows of 4 that divide the block's D rows and the CTA's
+    columns, boxes within the tensor map's limits; two ring stages or more
+    each, all inside shared memory."""
+    p = TFB.plain_plan(b, t, d, f, es, clusters)
+    maps = (d * es) % 16 == 0 and (f * es) % 16 == 0
+    unit = 16 // es if maps else 4
+    assert p.tf % unit == 0 and (p.tiles - 1) * p.tf < f <= p.tiles * p.tf
+    assert p.tf - unit < f / (clusters * TFB.CLUSTER) <= p.tf  # spread over every CTA
+    assert p.clusters == -(-p.tiles // TFB.CLUSTER) <= clusters
+    assert 1 <= p.bg <= b and p.bg * t <= 16
+    assert -(-b // -(-b // p.bg)) == p.bg  # balanced: no group is more than one item short
+    assert d % p.kb == 0 and p.kb % 4 == 0 and p.kb <= 256
+    assert p.tf % p.r2 == 0 and p.r2 % 4 == 0
+    if maps:
+        assert p.tf <= 256 and (p.tf * es) % 16 == 0
+    assert p.ring >= 2 and p.ring2 >= 2
+    assert p.smem == TFB.plain_smem(d, p.tf, p.bg, t, es, p.kb, p.ring, p.r2, p.ring2)
+    assert p.smem <= 227 * 1024
+
+
+def test_plain_plan_at_the_h100_shapes():
+    """On an H100 (15 clusters of 8 CTAs): the D=2048 stage in bf16 on 114
+    CTAs of 72 columns (9 16-byte units), W1 in boxes of 256 rows (36 KB)
+    through 2 stages and W2 in runs of 12 rows (48 KB) through 2; the D=1024
+    stages on 103 CTAs of 40 with a W1 ring of 3 boxes of 256 rows and a W2
+    ring of 2 runs of 20 rows, B=4 T=8 in two row groups of 16 rows; fp32
+    packs in 4-column units; a width that is not whole 16-byte vectors in
+    4-column units; widths the kernel does not take, or whose rows do not
+    fit shared memory, are refused."""
+    assert TFB.plain_plan(1, 1, 2048, 8192, 2, 15) == (72, 114, 15, 1, 256, 2, 12, 2, 212768)
+    assert TFB.plain_plan(1, 8, 1024, 4096, 2, 15) == (40, 103, 13, 1, 256, 3, 20, 2, 227864)
+    assert TFB.plain_plan(4, 8, 1024, 4096, 2, 15)[:4] == (40, 103, 13, 2)
+    assert TFB.plain_plan(1, 1, 2048, 8192, 4, 15)[:7] == (72, 114, 15, 1, 128, 2, 4)
+    assert TFB.plain_plan(3, 5, 36, 144, 2, 15)[:4] == (4, 36, 5, 3)
+    with pytest.raises(ValueError, match="multiples of 4"):
+        TFB.plain_plan(1, 1, 30, 120, 2, 15)
+    with pytest.raises(ValueError, match="shared memory"):
+        TFB.plain_plan(16, 8, 4096, 16384, 4, 15)

@@ -1,9 +1,9 @@
 // Hopper helpers shared by the cluster kernels (fused_block_chain.cu's
-// chain_q_kernel, fused_head.cu): mbarriers, the bulk-copy engine, boxes of a
-// 2-D tensor map, cp.async, a grid-wide barrier inside a cluster launch, the
-// exact fp32 nibbles of packed int4 bytes, rows' RMS scales summed over a
-// cluster's ranks, and the tensor-map encoder reached through the runtime (no
-// -lcuda).
+// chain_q_kernel and chain_p_kernel, fused_head.cu): mbarriers, the bulk-copy
+// engine, boxes of a 2-D tensor map, cp.async (also completing on an
+// mbarrier), a grid-wide barrier inside a cluster launch, the exact fp32
+// nibbles of packed int4 bytes, rows' RMS scales summed over a cluster's
+// ranks, and the tensor-map encoder reached through the runtime (no -lcuda).
 #pragma once
 
 #include <cooperative_groups.h>
@@ -27,8 +27,10 @@ __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-__device__ __forceinline__ void mbar_init(uint32_t bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
+// an mbarrier whose phase completes after `count` arrivals (and the bytes
+// they expect)
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count = 1) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
 }
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   asm volatile(
@@ -159,6 +161,12 @@ __device__ __forceinline__ void cp_async(void* dst, const void* src, int vw, boo
                  : "memory");
 }
 
+// One arrival on `bar` once every cp.async this thread has issued so far has
+// landed (the mbarrier counts one arrival per thread that calls this).
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
+}
+
 // (Block-wide, NW warps.)  This rank's sum of squares over its columns of each row r < rows of `buf`
 // ([rows][ld]; sums over 32 columns, added in column order), into slot `rank` of
 // every cluster peer's exchange `xch`.  The caller syncs the cluster, then
@@ -217,22 +225,28 @@ inline EncodeTiled encode_fn() {
   return fn;
 }
 
-// A 2-D tensor map of uint8 over `base` ([rows][cols] bytes, row stride
-// `cols`), boxes of [box_rows][box_cols]; reads past the edges give zeros.
-// Returns 0, -6 if the driver has no encoder, -7 if it refuses the map.
-inline int encode_u8_2d(CUtensorMap* map, const void* base, uint64_t cols, uint64_t rows,
-                        uint32_t box_cols, uint32_t box_rows) {
+// A 2-D tensor map over `base`: [rows][cols] elements of `type` (`esize`
+// bytes each), row stride `cols` elements, boxes of [box_rows][box_cols]
+// elements; reads past the edges give zeros.  Returns 0, -6 if the driver has
+// no encoder, -7 if it refuses the map.
+inline int encode_2d(CUtensorMap* map, CUtensorMapDataType type, uint32_t esize, const void* base,
+                     uint64_t cols, uint64_t rows, uint32_t box_cols, uint32_t box_rows) {
   EncodeTiled enc = encode_fn();
   if (enc == nullptr) return -6;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * esize};
   const cuuint32_t box[2] = {box_cols, box_rows};
   const cuuint32_t estr[2] = {1, 1};
-  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims,
-                         strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                         CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const CUresult r = enc(map, type, 2, const_cast<void*>(base), dims, strides, box, estr,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : -7;
+}
+
+// encode_2d over bytes ([rows][cols] of uint8)
+inline int encode_u8_2d(CUtensorMap* map, const void* base, uint64_t cols, uint64_t rows,
+                        uint32_t box_cols, uint32_t box_rows) {
+  return encode_2d(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, base, cols, rows, box_cols, box_rows);
 }
 
 }  // namespace vv

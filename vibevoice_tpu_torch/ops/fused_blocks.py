@@ -17,8 +17,9 @@ bound described there), one launch per stage call:
   * `fused_block_chain_plain` (plain packs) replaces the plain-pack form of
     `vibevoice_tpu/ops/fused_blocks.py:fused_block_chain` (Pallas `_kernel`),
     which the JAX package vmaps over the batch rows; here the batch rides
-    inside the launch, so the weights stream once for all rows.  One
-    cooperative launch (`ffn_tile`, `row_group`).  Plain version
+    inside the launch, so the weights stream once for all rows.  One cluster
+    launch (`plain_plan`: the weight slices stream through two rings), one
+    grid barrier per block, the same workspace.  Plain version
     `fused_block_chain_plain_ref`.
 Each wrapper launches its kernel on CUDA tensors (and counts the launch on
 its own `launches`) and runs its plain version on CPU tensors.
@@ -50,33 +51,19 @@ from .int4_matmul import quantize_int4, unpack_int4
 CTX = 6  # depthwise kernel 7 -> 6 context rows
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_ROWS_FLOATS = 40960  # activation rows kept in shared memory per row group (fp32)
-_MAX_TILE = 64        # FFN columns per tile
 
-# the int4 chain's cluster kernel (`chain_q_kernel`)
+# the cluster kernels (`chain_q_kernel`, int4; `chain_p_kernel`, plain)
 CLUSTER = 8           # CTAs per cluster: the portable size
 _Q_ROWS = 16          # rows per row group, at most
 _Q_THREADS = 256      # threads per CTA
 _Q_RP = 8             # rows per register pass
 _SMEM_MAX = 227 * 1024
+_BOX = 256            # the tensor map's box limit, in rows and in columns
+_STAGE_MAX = 49152    # bytes of a plain ring stage, at most (where the slice allows)
 
 
-def ffn_tile(f: int, n_ctas: int) -> Tuple[int, int]:
-    """(tile width, tiles) of an FFN of width f: about one tile per CTA of
-    the cooperative grid, a multiple of 4 columns (one packed word per
-    thread), at most 64."""
-    tf = -(-f // max(1, n_ctas))
-    tf = max(4, min(_MAX_TILE, -(-tf // 4) * 4))
-    return tf, -(-f // tf)
-
-
-def row_group(batch: int, rows_per_item: int, d: int) -> int:
-    """Batch items per row group: as many as keep [rows, d] fp32 activations
-    inside the kernel's shared-memory budget."""
-    if rows_per_item * d > _ROWS_FLOATS:
-        raise ValueError(f"{rows_per_item} rows of width {d} exceed the kernel's "
-                         f"shared-memory budget")
-    return max(1, min(batch, _ROWS_FLOATS // (rows_per_item * d)))
+def _up(v: int, m: int = 16) -> int:
+    return -(-v // m) * m
 
 
 def chain_smem(d: int, tf: int, bg: int, t: int) -> int:
@@ -86,14 +73,13 @@ def chain_smem(d: int, tf: int, bg: int, t: int) -> int:
     activations [rows, tf], the up-projection's k splits, the norms' partials
     and exchanges, two of each of the rank's vectors, context rows and ffn1
     scale and bias, the mbarriers, and 128 bytes to align the base."""
-    up = lambda v: -(-v // 16) * 16
     rows, nkl = bg * t, _Q_THREADS // (tf // 4)
     vec = 4 if d % 4 == 0 else 1
     wmax = -(-(d // vec) // CLUSTER) * vec
-    return (up(d // 2 * tf) + up(tf // 2 * up(d)) + up(4 * rows * d) + up(4 * rows * wmax)
-            + up(4 * rows * tf) + up(4 * nkl * min(_Q_RP, rows) * tf)
-            + up(4 * (-(-wmax // 32) + 2 * CLUSTER + 2) * rows) + up(4 * 2 * 14 * wmax)
-            + up(4 * 2 * bg * 6 * wmax) + up(4 * 4 * tf) + 32 + 128)
+    return (_up(d // 2 * tf) + _up(tf // 2 * _up(d)) + _up(4 * rows * d) + _up(4 * rows * wmax)
+            + _up(4 * rows * tf) + _up(4 * nkl * min(_Q_RP, rows) * tf)
+            + _up(4 * (-(-wmax // 32) + 2 * CLUSTER + 2) * rows) + _up(4 * 2 * 14 * wmax)
+            + _up(4 * 2 * bg * 6 * wmax) + _up(4 * 4 * tf) + 32 + 128)
 
 
 class ChainPlan(NamedTuple):
@@ -124,6 +110,84 @@ def chain_plan(b: int, t: int, d: int, f: int, clusters: int) -> ChainPlan:
         raise ValueError(f"the int4 chain kernel does not fit shared memory at D={d}, F={f}, "
                          f"T={t} ({smem} bytes on {clusters} clusters)")
     return ChainPlan(tf, tiles, -(-tiles // CLUSTER), bg, smem)
+
+
+def plain_smem(d: int, tf: int, bg: int, t: int, es: int, kb: int, ring: int, r2: int,
+               ring2: int) -> int:
+    """Shared memory of one CTA of the plain chain kernel (`p_layout` in
+    csrc/fused_block_chain.cu) for row groups of bg items of t rows and pack
+    elements of `es` bytes: the W1 ring (`ring` boxes of kb rows of tf
+    columns), the W2 ring (`ring2` runs of r2 rows of d), the FFN input and
+    the activations for the register passes' rows (the rows rounded up to a
+    power of two), x of the rank's columns, the up-projection's k splits, the
+    norms' partials and exchanges, two of each of the rank's vectors (pack
+    dtype), context rows and b1 slice, the mbarriers, and 128 bytes to align
+    the base."""
+    rows = bg * t
+    big = 1 << (rows - 1).bit_length()
+    wmax = -(-(d // 4) // CLUSTER) * 4  # d is a multiple of 4
+    nkl = _Q_THREADS // (tf // 4)
+    return (ring * _up(kb * tf * es, 128) + ring2 * _up(r2 * d * es, 128) + _up(4 * big * d)
+            + _up(4 * rows * wmax) + _up(4 * big * tf) + _up(4 * nkl * min(_Q_RP, big) * tf)
+            + _up(4 * (-(-wmax // 32) + 2 * CLUSTER + 2) * rows) + _up(es * 2 * 14 * wmax)
+            + _up(4 * 2 * bg * 6 * wmax) + _up(es * 2 * tf) + 8 * (ring + ring2 + 2) + 128)
+
+
+class PlainPlan(NamedTuple):
+    tf: int        # FFN columns per CTA: whole 16-byte units (or multiples of 4)
+    tiles: int     # CTAs that get columns
+    clusters: int  # clusters launched
+    bg: int        # batch items per row group
+    kb: int        # W1 rows per tensor-map box (a ring stage)
+    ring: int      # W1 ring stages
+    r2: int        # W2 rows per bulk copy (a ring stage)
+    ring2: int     # W2 ring stages
+    smem: int      # shared memory per CTA, bytes
+
+
+def plain_plan(b: int, t: int, d: int, f: int, es: int, clusters: int) -> PlainPlan:
+    """The plain chain kernel's launch for x [b, t, d], FFN width f and pack
+    elements of `es` bytes on a card that holds `clusters` clusters of
+    CLUSTER CTAs at once: the FFN width spread over all their CTAs in
+    16-byte units of W1 (8 bf16 or 4 fp32 columns; the tensor map's unit)
+    where every row of w1 and w2 is whole 16-byte vectors, else in 4-column
+    units (cp.async), only the clusters that get columns launched; row groups
+    of at most 16 rows, as many batch items as fit shared memory, balanced;
+    W1 in boxes of the most rows (a multiple of 4 that divides d, at most 256)
+    and W2 in runs of the most rows (a multiple of 4 that divides tf), each
+    of at most 48 KB (less where two stages a ring would not fit); the two
+    rings share what shared memory is left evenly, at least 2 and at most
+    two blocks' chunks each."""
+    if d % 4 or f % 4:
+        raise ValueError(f"the plain chain kernel takes D and F in multiples of 4, "
+                         f"got D={d}, F={f}")
+    unit = 16 // es if (d * es) % 16 == 0 and (f * es) % 16 == 0 else 4
+    tf = _up(-(-f // (clusters * CLUSTER)), unit)
+    tiles = -(-f // tf)
+    kbs = [k for k in range(min(_BOX, d), 0, -1) if d % k == 0 and k % 4 == 0]
+    r2s = [r for r in range(tf, 0, -1) if tf % r == 0 and r % 4 == 0]
+    per = max(1, min(b, _Q_ROWS // t))
+    while per > 1 and plain_smem(d, tf, per, t, es, kbs[-1], 2, r2s[-1], 2) > _SMEM_MAX:
+        per -= 1
+    bg = -(-b // -(-b // per))
+    cap = _STAGE_MAX
+    while True:  # the largest stages under `cap` of which two a ring fit
+        kb = next((k for k in kbs if k * tf * es <= cap), kbs[-1])
+        r2 = next((r for r in r2s if r * d * es <= cap), r2s[-1])
+        s1, s2 = _up(kb * tf * es, 128) + 8, _up(r2 * d * es, 128) + 8  # a stage, its mbarrier
+        left = _SMEM_MAX - plain_smem(d, tf, bg, t, es, kb, 0, r2, 0)
+        if left >= 2 * (s1 + s2):
+            break
+        if kb == kbs[-1] and r2 == r2s[-1]:
+            raise ValueError(f"the plain chain kernel does not fit shared memory at D={d}, "
+                             f"F={f}, T={t} ({left} bytes left for the rings on {clusters} "
+                             f"clusters)")
+        cap = cap * 3 // 4
+    # at most two blocks' chunks a ring
+    ring = max(2, min(left // 2 // s1, (left - 2 * s2) // s1, 2 * (d // kb)))
+    ring2 = max(2, min((left - ring * s1) // s2, 2 * (tf // r2)))
+    return PlainPlan(tf, tiles, -(-tiles // CLUSTER), bg, kb, ring, r2, ring2,
+                     plain_smem(d, tf, bg, t, es, kb, ring, r2, ring2))
 
 
 def pack_stage(blocks: List[Dict], dtype=torch.float32) -> Dict[str, torch.Tensor]:
@@ -275,53 +339,38 @@ def _check(packed, x, ctx, want):
             raise ValueError("the chain's operands must be contiguous")
 
 
-def _launch(fn_name, x, ctx, pack_ptrs, n, f, eps, extra_codes=()):
-    """One cooperative launch of the plain-pack chain kernel `fn_name` over
-    x [B, T, D]: allocates the outputs and the fp32 scratch, returns (y,
-    new_ctx)."""
+_PLANS: Dict[tuple, tuple] = {}
+
+
+def plan_for(x: torch.Tensor, f: int, wdtype=None):
+    """The launch plan for x on its card, made once per device, dtype and
+    shape, for the clusters that fit the card at once
+    (`cuda_build.fitting_plan`): `chain_plan` for an int4 pack (`wdtype`
+    None), `plain_plan` for a plain pack of dtype `wdtype`."""
     b, t, d = x.shape
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    tf, ntiles = ffn_tile(f, 2 * sms)  # two CTAs per SM co-reside
-    bg = row_group(b, t, d)
-    y = torch.empty_like(x)
-    new_ctx = torch.empty_like(ctx)
-    xg = torch.empty((b * t, d), dtype=torch.float32, device=x.device)
-    yg = torch.empty_like(xg)
-    part = torch.empty((ntiles, bg * t, d), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        rc = getattr(_library(), fn_name)(
-            x.data_ptr(), ctx.data_ptr(), *pack_ptrs, y.data_ptr(), new_ctx.data_ptr(),
-            xg.data_ptr(), yg.data_ptr(), part.data_ptr(), b, t, d, f, n, bg, tf, ntiles,
-            float(eps), _DTYPE_CODES[x.dtype], *extra_codes,
-            torch.cuda.current_stream(x.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"{fn_name} kernel failed with code {rc}")
-    return y, new_ctx
-
-
-_PLANS: Dict[tuple, ChainPlan] = {}
-
-
-def plan_for(x: torch.Tensor, f: int) -> ChainPlan:
-    """`chain_plan` for x on its card, made once per device, dtype and shape,
-    for the clusters that fit the card at once (`cuda_build.fitting_plan`)."""
-    b, t, d = x.shape
-    key = (str(x.device), x.dtype, b, t, d, f)
+    key = (str(x.device), x.dtype, wdtype, b, t, d, f)
     plan = _PLANS.get(key)
     if plan is None:
         lib = _library()
+        code = _DTYPE_CODES[x.dtype]
+        if wdtype is None:
+            make, what = (lambda n: chain_plan(b, t, d, f, n)), "the int4 chain kernel"
+            ask = lambda smem, out: lib.vv_fused_block_chain_clusters(smem, CLUSTER, code, out)
+        else:
+            es = torch.empty((), dtype=wdtype).element_size()
+            make, what = (lambda n: plain_plan(b, t, d, f, es, n)), "the plain chain kernel"
+            ask = lambda smem, out: lib.vv_fused_block_chain_plain_clusters(
+                smem, code, _DTYPE_CODES[wdtype], out)
 
         def fit(smem):
             out = ctypes.c_int(0)
-            rc = lib.vv_fused_block_chain_clusters(smem, CLUSTER, _DTYPE_CODES[x.dtype],
-                                                   ctypes.byref(out))
+            rc = ask(smem, ctypes.byref(out))
             if rc != 0:
-                raise RuntimeError(f"vv_fused_block_chain_clusters failed with code {rc}")
+                raise RuntimeError(f"asking the clusters of {what} failed with code {rc}")
             return out.value
 
         with torch.cuda.device(x.device):
-            plan = cuda_build.fitting_plan(x.device, lambda n: chain_plan(b, t, d, f, n), fit,
-                                           "the int4 chain kernel")
+            plan = cuda_build.fitting_plan(x.device, make, fit, what)
         _PLANS[key] = plan
     return plan
 
@@ -330,7 +379,7 @@ _WORKSPACE: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 def workspace(device, stream: int, clusters: int, rows: int, d: int):
-    """The int4 chain kernel's workspace, made once per device, stream and
+    """The chain kernels' workspace, made once per device, stream and
     shape: the clusters' fp32 partials [2, clusters, rows, d] (two buffers,
     by block parity) and the grid barrier's int32 counter (0 at first; every
     launch leaves its low bits 0).  Calls on one stream run in order, so they
@@ -389,8 +438,8 @@ def fused_block_chain_plain(packed, x: torch.Tensor, ctx: torch.Tensor,
                             eps: float = 1e-5) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain-pack (bf16/fp32) chain for a batch: x [B, T, D] (T <= 8), ctx
     [B, N, 6, D] -> (y [B, T, D], new_ctx [B, N, 6, D]).  CUDA tensors launch
-    the kernel (one cooperative launch for all rows, counted once); CPU
-    tensors take `fused_block_chain_plain_ref`."""
+    the kernel (one cluster launch for all rows, counted once; D and F
+    multiples of 4); CPU tensors take `fused_block_chain_plain_ref`."""
     if x.device.type == "cpu":
         return fused_block_chain_plain_ref(packed, x, ctx, eps)
     if x.device.type != "cuda":
@@ -403,11 +452,22 @@ def fused_block_chain_plain(packed, x: torch.Tensor, ctx: torch.Tensor,
         raise TypeError(f"a plain pack holds float32 or bfloat16, got {wdt}")
     _check(packed, x, ctx, {"vecs": ((n, 8, d), (wdt,)), "mixw": ((n, 8, d), (wdt,)),
                             "w1": ((n, d + 8, f), (wdt,)), "w2": ((n, f, d), (wdt,))})
-    out = _launch("vv_fused_block_chain_plain", x, ctx,
-                  [packed[k].data_ptr() for k in ("vecs", "mixw", "w1", "w2")], n, f, eps,
-                  extra_codes=(_DTYPE_CODES[wdt],))
+    plan = plan_for(x, f, wdt)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    part, bar = workspace(x.device, stream, plan.clusters, plan.bg * t, d)
+    y = torch.empty_like(x)
+    new_ctx = torch.empty_like(ctx)
+    with torch.cuda.device(x.device):
+        rc = _library().vv_fused_block_chain_plain(
+            x.data_ptr(), ctx.data_ptr(), *(packed[k].data_ptr() for k in ("vecs", "mixw", "w1",
+                                                                           "w2")),
+            y.data_ptr(), new_ctx.data_ptr(), part.data_ptr(), bar.data_ptr(), b, t, d, f, n,
+            plan.bg, plan.tf, plan.clusters, plan.kb, plan.ring, plan.r2, plan.ring2, float(eps),
+            _DTYPE_CODES[x.dtype], _DTYPE_CODES[wdt], stream)
+    if rc != 0:
+        raise RuntimeError(f"vv_fused_block_chain_plain kernel failed with code {rc}")
     fused_block_chain_plain.launches += 1
-    return out
+    return y, new_ctx
 
 
 fused_block_chain_plain.launches = 0
@@ -427,8 +487,10 @@ def _library() -> ctypes.CDLL:
     lib = cuda_build.load("fused_block_chain")
     p, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for fn, args in ((lib.vv_fused_block_chain, [p] * 12 + [i] * 9 + [fl, i, p]),
-                     (lib.vv_fused_block_chain_plain, [p] * 11 + [i] * 8 + [fl, i, i, p]),
+                     (lib.vv_fused_block_chain_plain, [p] * 10 + [i] * 12 + [fl, i, i, p]),
                      (lib.vv_fused_block_chain_clusters,
+                      [ctypes.c_longlong, i, i, ctypes.POINTER(i)]),
+                     (lib.vv_fused_block_chain_plain_clusters,
                       [ctypes.c_longlong, i, i, ctypes.POINTER(i)])):
         if fn.restype is not ctypes.c_int or not fn.argtypes:
             fn.argtypes = args
@@ -441,7 +503,7 @@ def pack_bytes(packed) -> int:
     return sum(t.numel() * t.element_size() for t in packed.values())
 
 
-__all__ = ["CTX", "ffn_tile", "row_group", "chain_plan", "chain_smem", "plan_for",
+__all__ = ["CTX", "chain_plan", "chain_smem", "plain_plan", "plain_smem", "plan_for",
            "workspace", "pack_stage", "pack_stage_q", "fused_block_chain",
            "fused_block_chain_batched", "fused_block_chain_batched_ref",
            "fused_block_chain_plain", "fused_block_chain_plain_ref", "pack_bytes"]
