@@ -30,8 +30,11 @@ Phases, in order; any failure stops the run with a non-zero exit:
      256, 3840 steps -> a 4096-slot cache, so decode attention runs on the
      kernel): prefill, a 16-step warm-up chunk and two timed 32-step chunks;
   4. the same engine with `kv_dtype="int8"` for 8 + 8 steps, then at B=2 with
-     `use_fused_stages=True` for 8 + 16 steps, by default (eight stage-kernel
-     calls per step) and with `fused_stage_rowlane=True` (4 + 4 row-lane);
+     `use_fused_stages=True` for 8 + 16 steps, in turns with
+     `fused_stage_rowlane=False` (eight stage-kernel calls per step), by
+     default (4 + 4 row-lane), by default and off again, the codec half of a
+     step of each kind captured in a CUDA graph (nodes, device time per
+     replay);
      then the long-prompt engine: a 4096-token prompt (flash prefill by the
      auto rule, 28 launches) with `use_fused_vocoder` / `use_fused_semantic`
      on plain bf16 packs (4 chain launches per step), prefill and 8 + 16
@@ -52,7 +55,7 @@ Phases, in order; any failure stops the run with a non-zero exit:
   7. a tiny model on the card against the same model on the CPU (plain
      versions), as the reference on a small input: bf16-free fp32, plain and
      in the int4 modes (group scales, int8 tokenizer stages), and with
-     `use_fused_stages=True` at B=1 (folds) and B=2 (row-lane, asked for),
+     `use_fused_stages=True` at B=1 (folds) and B=2 (row-lane, the default),
      and with flash prefill forced on (B=2, one row left-padded) and the
      plain chain, at head_dim 128 (`tiny_config(hidden_size=512)`).
 
@@ -542,14 +545,15 @@ def uses_rowlane(pack, batch) -> bool:
     return r > 1 and batch % r == 0
 
 
-def measure_stage(pack, b, t, gen, dev):
+def measure_stage(pack, b, t, gen, dev, inputs=None):
     """A stage kernel over two chunks (each chunk's returned states feed the
     next call, on either side) against its plain version, then its time over
-    pack copies that exceed L2, the plain version's and the bound (per call)."""
+    pack copies that exceed L2, the plain version's and the bound (per call).
+    `inputs` (`stage_inputs`'s) are drawn from `gen` unless given."""
     from vibevoice_tpu_torch.ops import fused_stage as fs
     rowlane = uses_rowlane(pack, b)
     plain = fs.fused_stage_chain_rowlane_ref if rowlane else fs.fused_stage_chain_ref
-    xs, ctx, states = stage_inputs(pack, b, t, gen, dev)
+    xs, ctx, states = inputs or stage_inputs(pack, b, t, gen, dev)
     names = list(states)
     got_st = want_st = (ctx, *states.values())
     err, tol = 0.0, 1.0  # the output closest to its tolerance
@@ -597,21 +601,30 @@ def random_stage_pack(d, conv, head, r, gen, dev):
 def phase_stage_kernels(dev):
     """Both stage kernels against their plain versions at the 1.5B stage
     shapes in bf16, on random weights made from the seed.  Each row-lane case
-    is followed by the plain stage kernel on the same rows (the pack without
-    its row-lane entry), the two readings the engine's row-lane policy rests
-    on."""
+    is followed by the plain stage kernel on the same rows and inputs (the
+    pack without its row-lane entry), the two readings the engine's row-lane
+    policy rests on; the row-lane line says whether its outputs are bit-equal
+    to the stage kernel's."""
+    from vibevoice_tpu_torch.ops import fused_stage as fs
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
     for name, b, t, d, conv, head, r in STAGE_CASES:
         pack = random_stage_pack(d, conv, head, r, gen, dev)
+        inputs = stage_inputs(pack, b, t, gen, dev)
+        same_rows = {k: v for k, v in pack.items() if k != "rowlane"}
+        extra = {}
+        if r:
+            xs, ctx, states = inputs
+            got = fs.fused_stage_chain(pack, xs[0], ctx, **states)
+            want = fs.fused_stage_chain(same_rows, xs[0], ctx, **states)
+            extra["bit_equal_to_stage_kernel"] = all(torch.equal(g, w) for g, w in zip(got, want))
         emit("kernel_vs_plain",
              kernel="fused_stage_chain_rowlane" if uses_rowlane(pack, b) else "fused_stage_chain",
-             stage=name, B=b, T=t, D=d, blocks=3, conv=conv, head=head, rows=r,
-             **measure_stage(pack, b, t, gen, dev))
+             stage=name, B=b, T=t, D=d, blocks=3, conv=conv, head=head, rows=r, **extra,
+             **measure_stage(pack, b, t, gen, dev, inputs))
         if r:
-            same_rows = {k: v for k, v in pack.items() if k != "rowlane"}
             emit("kernel_vs_plain", kernel="fused_stage_chain", stage=name, B=b, T=t, D=d,
                  blocks=3, conv=conv, head=head, rows=None, same_rows_as_rowlane=r,
-                 **measure_stage(same_rows, b, t, gen, dev))
+                 **measure_stage(same_rows, b, t, gen, dev, inputs))
     torch.cuda.empty_cache()
 
 
@@ -835,12 +848,13 @@ def expected_launches(cfg, quant, eng):
 
 
 def run_engine(params, cfg, dev, kv_dtype, warm_steps, timed_chunks, card, quant=None,
-               batch=1, stages=False, want_stages=None, rowlane=False, prompt_len=256,
+               batch=1, stages=False, want_stages=None, rowlane=None, prompt_len=256,
                max_steps=3840, chain=False):
     """Prefill, a warm-up chunk and the timed chunks of the long-cache engine;
     asserts every kernel's launches against `expected_launches` (and, with
     `use_fused_stages`, the stage kernels' per-step counts against
-    `want_stages`; `rowlane` asks for the row-lane layout).  The small-T
+    `want_stages`; `rowlane` turns the row-lane layout on or off, None leaves
+    the engine's rule).  The small-T
     chains are on with `quant` (the pipeline's int4 packs in `params`) or
     `chain` (plain packs, built by the engine).  Returns (launches of the
     whole run by kernel, the final state, the engine)."""
@@ -896,7 +910,8 @@ def run_engine(params, cfg, dev, kv_dtype, warm_steps, timed_chunks, card, quant
     frames = sum(c["frames"] for c in chunks)
     wall = sum(c["wall_s"] for c in chunks)
     emit("engine", kv=kv_dtype, quant=quant, batch=batch, fused_stages=stages,
-         rowlane=rowlane, prompt_len=prompt_len, flash_prefill=eng.use_flash_prefill,
+         rowlane=uses_rowlane_any(eng), prompt_len=prompt_len,
+         flash_prefill=eng.use_flash_prefill,
          codec_launches=codec_launches(eng), cache_slots=eng.cache_len, prefill_s=prefill_s,
          decode_steps=steps, prefill_launches=prefill_launches, kernel_launches=launches,
          launches_per_step={k: (launches[k] - prefill_launches[k]) / steps for k in launches},
@@ -904,6 +919,86 @@ def run_engine(params, cfg, dev, kv_dtype, warm_steps, timed_chunks, card, quant
          audio_s_per_s=(frames * hop / 24000.0 / wall) if frames else None,
          audio_absmax=float(audio.abs().max()), card=card)
     return launches, state, eng
+
+
+def graph_kernels(graph):
+    """The names of the nodes of a CUDA graph captured with keep_graph=True,
+    read through libcuda: a kernel node by its function's name, any other
+    node by its type."""
+    import ctypes
+    cu = ctypes.CDLL("libcuda.so.1")
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    if cu.cuGraphGetNodes(handle, None, ctypes.byref(n)):
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    if cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n)):
+        raise RuntimeError("cuGraphGetNodes failed")
+    names = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        if cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)):
+            raise RuntimeError("cuGraphNodeGetType failed")
+        if kind.value != 0:  # CU_GRAPH_NODE_TYPE_KERNEL is 0
+            names.append(f"graph node of type {kind.value}")
+            continue
+        params = (ctypes.c_byte * 256)()  # CUDA_KERNEL_NODE_PARAMS_v2: the function first
+        name = ctypes.c_char_p()
+        if (cu.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node), params)
+                or cu.cuFuncGetName(ctypes.byref(name),
+                                    ctypes.c_void_p(ctypes.c_void_p.from_buffer(params).value))):
+            raise RuntimeError("reading a kernel node failed")
+        names.append(name.value.decode())
+    return names
+
+
+def codec_graph(eng, state, dev, card):
+    """The codec half of one decode step of `eng` at its batch (the acoustic
+    decoder on one latent frame a row and the semantic encoder on its
+    samples, from `state`'s streaming states: every stage and chain call of
+    the step) captured in a CUDA graph: its nodes and its device time per
+    replay.  The whole step holds host reads and is not captured yet
+    (ROADMAP A5b)."""
+    from vibevoice_tpu_torch.models import tokenizer as tok
+    p, cfg = eng.params, eng.cfg
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    latent = torch.randn((eng.batch, 1, cfg.acoustic_vae_dim), generator=gen,
+                         device=dev).to(torch.bfloat16)
+
+    def codec():
+        chunk, _ = tok.decoder_apply_streaming_fused(
+            p["acoustic_decoder"], cfg.acoustic_tokenizer, latent, state.acoustic_state,
+            fused_packs=p.get("_vocoder_packs"), large_packs=p.get("_vocoder_packs_large"))
+        return tok.encoder_apply_streaming_fused(
+            p["semantic_encoder"], cfg.semantic_tokenizer, chunk, state.semantic_state,
+            fused_packs=p.get("_semantic_packs"), large_packs=p.get("_semantic_packs_large"))[0]
+
+    stream = torch.cuda.Stream(dev)
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(stream):  # the kernels' scratch of the capture stream
+        want = codec()
+    torch.cuda.current_stream(dev).wait_stream(stream)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, stream=stream):
+        got = codec()
+    names = graph_kernels(graph)
+    graph.instantiate()
+    ms = cuda_ms(lambda i: graph.replay(), 20)
+    agree("codec graph replay", got, want)
+    kinds = {}
+    for nm in names:
+        key = next((k for k in ("cluster_kernel", "chain_p_kernel", "chain_q_kernel")
+                    if k in nm), "other")
+        kinds[key] = kinds.get(key, 0) + 1
+    emit("codec_graph", batch=eng.batch, rowlane=uses_rowlane_any(eng), nodes=len(names),
+         nodes_by_kind=kinds, device_ms=ms, card=card)
+
+
+def uses_rowlane_any(eng) -> bool:
+    return any(uses_rowlane(pk, eng.batch) for key in ("_vocoder_packs_large",
+                                                        "_semantic_packs_large")
+               for pk in (eng.params.get(key) or {}).values())
 
 
 def attention_operands(state, batch, dev):
@@ -1354,7 +1449,7 @@ def phase_reference(dev, quant=False, stages=False, b=2, flash_chain=False):
     the card runs every int4 kernel (the tiny stacks' unpacked stages take int8
     FFNs) and the CPU their plain versions.  With `stages` the engines run
     `use_fused_stages=True, fused_stage_t_min=7` (the tiny stacks' T >= 7
-    stages: folded convs at b=1, the row-lane layout, asked for, at b=2).
+    stages: folded convs at b=1, the row-lane layout, by default, at b=2).
     With `flash_chain` the model has head_dim 128 (hidden 512, 4 heads) and
     the engines run flash prefill, forced on, and the small-T chains on plain
     fp32 packs."""
@@ -1392,7 +1487,7 @@ def phase_reference(dev, quant=False, stages=False, b=2, flash_chain=False):
                        use_fused_vocoder=quant or flash_chain,
                        use_fused_semantic=quant or flash_chain,
                        use_fused_stages=stages, fused_stage_t_min=7,
-                       fused_stage_rowlane=stages and b > 1, use_flash_prefill=flash_chain)
+                       use_flash_prefill=flash_chain)
         for c in counters.values():
             c.launches = 0
         out[str(where)] = (G.generate(eng, ids, mask, sim, latent_noise=noise),
@@ -1480,17 +1575,36 @@ def main() -> int:
                kernel_entry("decode_attention[int8 KV]", *runs["int8"], True, dev,
                             cfg.decoder)]
     del runs
-    # the large-T stages at B=2: 8 stage calls per step by default, and 4
-    # stage calls and 4 row-lane calls with the row-lane layout asked for
-    _, state, _ = run_engine(
-        params, cfg, dev, "model", 8, (16,), card, batch=2, stages=True,
-        want_stages={"fused_stage_chain": 8, "fused_stage_chain_rowlane": 0})
-    del state
-    launches, state, eng_b2 = run_engine(
-        params, cfg, dev, "model", 8, (16,), card, batch=2, stages=True,
-        want_stages={"fused_stage_chain": 4, "fused_stage_chain_rowlane": 4}, rowlane=True)
-    stage_runs = {"fused_stage_chain_rowlane": (eng_b2, launches["fused_stage_chain_rowlane"])}
-    del state
+    # the large-T stages at B=2, in turns: the row-lane layout turned off (8
+    # stage calls per step), by default (the JAX engine's rule: 4 stage calls
+    # and 4 row-lane calls) twice, off again; the first of each also replays
+    # the codec half of a step from a CUDA graph
+    stage_runs, graphed = {}, set()
+    for rowlane in (False, None, None, False):
+        want = ({"fused_stage_chain": 8, "fused_stage_chain_rowlane": 0} if rowlane is False
+                else {"fused_stage_chain": 4, "fused_stage_chain_rowlane": 4})
+        launches, state, eng = run_engine(params, cfg, dev, "model", 8, (16,), card, batch=2,
+                                          stages=True, want_stages=want, rowlane=rowlane)
+        if rowlane not in graphed:
+            graphed.add(rowlane)
+            codec_graph(eng, state, dev, card)
+            if rowlane is None:
+                stage_runs["fused_stage_chain_rowlane"] = (eng, launches["fused_stage_chain_rowlane"])
+        del state, eng
+    # the stage calls per step that the engine's packs give at B=4 and B=32,
+    # by default and with the row-lane layout off (packed, not run)
+    from vibevoice_tpu_torch.engine import generate as G
+    for b in (4, 32):
+        for rowlane in (None, False):
+            eng = G.Engine(params, cfg, bench_gen(G), max_steps=16, batch=b, prompt_len=256,
+                           dtype=torch.bfloat16, device=dev, use_fused_stages=True,
+                           fused_stage_rowlane=rowlane)
+            per_step = stage_launches(eng)
+            if (per_step["fused_stage_chain_rowlane"] > 0) != (rowlane is None):
+                raise RuntimeError(f"B={b}: the row-lane rule gives {per_step}")
+            emit("stage_policy", batch=b, rowlane=uses_rowlane_any(eng),
+                 launches_per_step=per_step)
+            del eng
     # the long-prompt path: flash prefill and the plain-pack chains
     launches, eng_long = phase_long_prompt(params, cfg, dev, card)
     entries += long_prompt_entries(eng_long, launches, cfg, dev)
@@ -1516,7 +1630,7 @@ def main() -> int:
             stage_runs["fused_stage_chain"] = (eng, launches["fused_stage_chain"])
             del state, eng
             entries += stage_entries(stage_runs, cfg, dev)
-            del stage_runs, eng_b2
+            del stage_runs
         del qparams
         torch.cuda.empty_cache()
     del params

@@ -13,9 +13,10 @@ attention, stage, chain, plain and head (all by default); head runs the
 solver step at the 1.5B head with N=2 and N=8 and at the 7B head with N=2;
 plain runs the plain-pack (bf16) chain at `PLAIN_CASES`.  The cases, inputs, checks, library
 yardstick (SDPA; `torch.matmul` on the dequantized bf16 weight) and bound are
-`chip_smoke.py`'s own; a stage case times the first of its two chunks.  Each case checks both kernels against this checkout's
-plain version on the same inputs, then times them in turns (other, this,
-this, other).  One JSON line per case, then the card's name and power limit.
+`chip_smoke.py`'s own; a stage case times the first of its two chunks, and
+a row-lane case also both checkouts' stage kernels on the same rows.  Each
+case checks both kernels against this checkout's plain version on the same
+inputs, then times them in turns (other, this, this, other).  One JSON line per case, then the card's name and power limit.
 """
 import importlib
 import importlib.util
@@ -155,6 +156,13 @@ def compare_attention(oda, dev, card):
 
 
 def compare_stage(ofs, dev, card):
+    """The stage kernels at `chip_smoke.STAGE_CASES`, over pack copies that
+    exceed L2, both checkouts checked against this checkout's plain version
+    and their outputs compared bit for bit.  A row-lane case also runs this
+    checkout's stage kernel on the same rows (the pack without its row-lane
+    entry) and the other checkout's: this checkout's outputs against the
+    row-lane kernel's, bit for bit, and the four kernels' times in turns
+    (row-lane other, this, stage kernel this, other, then back)."""
     gen = torch.Generator(device=dev).manual_seed(cs.SEED + 5)
     for name, b, t, d, conv, head, r in cs.STAGE_CASES:
         pack = cs.random_stage_pack(d, conv, head, r, gen, dev)
@@ -162,22 +170,36 @@ def compare_stage(ofs, dev, card):
         plain = fs.fused_stage_chain_rowlane_ref if rowlane else fs.fused_stage_chain_ref
         xs, ctx, states = cs.stage_inputs(pack, b, t, gen, dev)
         want = plain(pack, xs[0], ctx, **states)
-        errs = {}
+        errs, outs = {}, {}
         for nm, mod in (("other", ofs), ("this", fs)):
-            got = mod.fused_stage_chain(pack, xs[0], ctx, **states)
+            outs[nm] = got = mod.fused_stage_chain(pack, xs[0], ctx, **states)
             errs[nm] = max(cs.agree(f"fused_stage_chain[{nm}][{j}]", g, w)[0]
                            for j, (g, w) in enumerate(zip(got, want)))
+        same = all(torch.equal(g, o) for g, o in zip(outs["this"], outs["other"]))
         nbytes, flops = fs.stage_work(pack, xs[0])
         copies = [pack] + [cs.clone_pack(pack) for _ in range(min(63, cs.copies_for(nbytes) - 1))]
         n = len(copies)
-        run = lambda mod: (lambda i: mod.fused_stage_chain(copies[i % n], xs[0], ctx, **states))
-        other_ms, this_ms = in_turns(run(ofs), run(fs), 2 * n)
+        run = lambda mod, cp=copies: (
+            lambda i: mod.fused_stage_chain(cp[i % n], xs[0], ctx, **states))
+        line = {}
+        if rowlane:
+            rows = [{k: v for k, v in c.items() if k != "rowlane"} for c in copies]
+            line["equal_to_stage_kernel"] = all(
+                torch.equal(g, w) for g, w in zip(outs["this"], fs.fused_stage_chain(
+                    rows[0], xs[0], ctx, **states)))
+            # in turns: row-lane other, this; stage kernel this, other; and back
+            order = [run(ofs), run(fs), run(fs, rows), run(ofs, rows)]
+            ms = [cs.cuda_ms(f, 2 * n) for f in order + order[::-1]]
+            other_ms, this_ms = [ms[0], ms[7]], [ms[1], ms[6]]
+            line["stage_kernel_ms"], line["other_stage_kernel_ms"] = [ms[2], ms[5]], [ms[3], ms[4]]
+        else:
+            other_ms, this_ms = in_turns(run(ofs), run(fs), 2 * n)
         bms, by = cs.bound(nbytes, flops)
         print(json.dumps({"kernel": "fused_stage_chain" + ("_rowlane" if rowlane else ""),
                           "stage": name, "B": b, "T": t, "D": d, "conv": conv, "head": head,
-                          "rows": r, "max_abs_err": errs, "other_ms": other_ms,
-                          "this_ms": this_ms, "bound_ms": bms, "bound_by": by,
-                          "card": card}), flush=True)
+                          "rows": r, "max_abs_err": errs, "equal_to_other": same,
+                          "other_ms": other_ms, "this_ms": this_ms, **line, "bound_ms": bms,
+                          "bound_by": by, "card": card}), flush=True)
         del copies, pack
     torch.cuda.empty_cache()
 

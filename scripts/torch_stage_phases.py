@@ -12,10 +12,11 @@ ends without a barrier, CTA 0's own time).  The shipped source
 is not touched; the copy runs in place of it for this process only.  For a
 few stage shapes of the 1.5B model (random bf16 weights from a seed) it
 prints one JSON line: the launch's device time (`chip_smoke.cuda_ms`), the
-grid size and the phase times in microseconds with their names.  The stage
-kernel (`cluster_kernel`) has one phase per block ([conv,] block 0 .. N-1),
-the row-lane kernel (`stage_kernel`) per block mixer / FFN / partial sums,
-then the output.
+grid size and the phase times in microseconds with their names; a row-lane
+shape, then the stage kernel on the same rows (the pack without its row-lane
+entry).  The stage
+kernel (`cluster_kernel`, also the row-lane form's) has one phase per block
+([conv,] block 0 .. N-1).
 
 `chain` does the same for the int4 Block1D chain
 (`csrc/fused_block_chain.cu`, `fused_block_chain_batched`) at the 1.5B
@@ -73,6 +74,8 @@ SHAPES = [("decoder 3", 1, 200, 256, ("up", 5, 10, 512), None),
           ("decoder 6", 1, 3200, 32, ("up", 2, 4, 64), None),
           ("encoder 0", 1, 3200, 32, ("down", 1, 7, 1), None),
           ("encoder 3", 1, 200, 256, ("down", 4, 8, 128), None),
+          ("decoder 6 row-lane", 2, 3200, 32, None, 2),
+          ("decoder 5 row-lane", 2, 1600, 64, None, 2),
           ("decoder 6 row-lane", 4, 3200, 32, None, 4)]
 
 
@@ -87,11 +90,11 @@ CHAIN_KERNELS = [
 ]
 # the statements of the cluster kernel's step after which `chain-fine`
 # stamps, and the phases they end
-FINE_MARKS = [("             nrm, xch, rs1, rs2);", "mixer"),
+FINE_MARKS = [("             nrm, xch, rs1, rs2, D);", "mixer"),
               ("    if (has_tile) up_proj(a, f0, w1s, hb, rs2, rows, rp, sb + par * 2 * a.TF, red, as);",
                "up"),
               ("    if (has_tile) down_proj(a, w2s, as, rows, hb);", "down"),
-              ("      cluster_partial<1>(a, cl, step, hb, rows, rows_max);", "partial"),
+              ("      cluster_partial<1>(a, cl, step, hb, D, rows, rows_max);", "partial"),
               ("    grid_barrier(a.bar);  // the block's only grid-wide barrier", "barrier"),
               ("      next_x<T, int8_t, 1>(a, cl, step, v, wmax, xs, rows, rows_max, base, "
                "nb == NB - 1);", "next_x")]
@@ -146,9 +149,6 @@ def instrumented_source() -> str:
     from vibevoice_tpu_torch.ops import cuda_build
     with open(os.path.join(cuda_build.CSRC_DIR, "fused_stage.cu")) as f:
         src = f.read()
-    src = _stamped(src, "__global__ void __launch_bounds__(THREADS) stage_kernel",
-                   "phase_out<T>(p, p.xb, sm);\n}", "extern __shared__ float sm[];",
-                   "grid.sync();")
     src = _stamped(src, "__global__ void __launch_bounds__(THREADS) cluster_kernel",
                    "reinterpret_cast<float*>(smc));\n}",
                    "extern __shared__ __align__(16) unsigned char smc[];",
@@ -197,9 +197,7 @@ def read_stamps(lib, n: int):
     return [(b - a) / 1e3 for a, b in zip(ts, ts[1:])], stamps[63]
 
 
-def phase_names(conv, rowlane, n_blocks=3):
-    if rowlane:
-        return [f"{ph} {i}" for i in range(n_blocks) for ph in ("mixer", "ffn", "sum")] + ["out"]
+def phase_names(conv, n_blocks=3):
     return (["conv"] if conv else []) + [f"block {i}" for i in range(n_blocks)]
 
 
@@ -211,13 +209,15 @@ def stage_phases(dev):
     for name, b, t, d, conv, r in SHAPES:
         pack = cs.random_stage_pack(d, conv, False, r, gen, dev)
         xs, ctx, states = cs.stage_inputs(pack, b, t, gen, dev)
-        ms = cs.cuda_ms(lambda i: fs.fused_stage_chain(pack, xs[0], ctx, **states), 20)
-        fs.fused_stage_chain(pack, xs[0], ctx, **states)  # the launch whose stamps are read
-        names = phase_names(conv, cs.uses_rowlane(pack, b))
-        us, grid = read_stamps(lib, len(names))
-        print(json.dumps({"stage": name, "B": b, "T": t, "D": d, "conv": conv, "rows": r,
-                          "launch_us": 1e3 * ms, "grid": grid, "phases": names,
-                          "phase_us": us}), flush=True)
+        # a row-lane shape, then the stage kernel on the same rows
+        for pk in [pack] + ([{k: v for k, v in pack.items() if k != "rowlane"}] if r else []):
+            ms = cs.cuda_ms(lambda i: fs.fused_stage_chain(pk, xs[0], ctx, **states), 20)
+            fs.fused_stage_chain(pk, xs[0], ctx, **states)  # the launch whose stamps are read
+            names = phase_names(conv)
+            us, grid = read_stamps(lib, len(names))
+            print(json.dumps({"stage": name, "B": b, "T": t, "D": d, "conv": conv,
+                              "rows": r if pk is pack else None, "launch_us": 1e3 * ms,
+                              "grid": grid, "phases": names, "phase_us": us}), flush=True)
 
 
 def chain_phases(dev, other, fine=False):
@@ -264,11 +264,11 @@ def chain_phases(dev, other, fine=False):
 PLAIN_KERNEL = ("__global__ void __launch_bounds__(NT, 1)\n    chain_p_kernel",
                 "  cl.sync();  // no peer reads this CTA's shared memory after it exits\n}",
                 "extern __shared__ __align__(128) unsigned char smem_raw[];")
-PLAIN_MARKS = [("                nrm, xch, rs1, rs2);", "mixer"),
+PLAIN_MARKS = [("                nrm, xch, rs1, rs2, Dp);", "mixer"),
                ("                         sb + par * a.TF, rows, red, as);", "up"),
                ("        down_proj_p<NR, W>(a, step, steps, f0, w2r, L.w2_stage, mb2, as, hb);",
                 "down"),
-               ("      cluster_partial<1>(a, cl, step, hb, rows, rows_max);", "partial"),
+               ("      cluster_partial<1>(a, cl, step, hb, Dp, rows, rows_max);", "partial"),
                ("    grid_barrier(a.bar);  // the block's only grid-wide barrier", "barrier"),
                ("      next_x<T, W, 1>(a, cl, step, v, wmax, xs, rows, rows_max, base, nb == NB - 1);",
                 "next_x")]

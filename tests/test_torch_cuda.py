@@ -25,33 +25,6 @@ def cuda_device():
     return G.resolve_device("cuda")
 
 
-def _graph_nodes(graph):
-    """The names of the nodes of a CUDA graph captured with keep_graph=True,
-    through the driver: a kernel node by its function's name, any other node
-    by its type."""
-    import ctypes
-    cu = ctypes.CDLL("libcuda.so.1")
-    handle = ctypes.c_void_p(graph.raw_cuda_graph())
-    n = ctypes.c_size_t(0)
-    assert cu.cuGraphGetNodes(handle, None, ctypes.byref(n)) == 0
-    nodes = (ctypes.c_void_p * n.value)()
-    assert cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n)) == 0
-    names = []
-    for node in nodes:
-        kind = ctypes.c_int(-1)
-        assert cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) == 0
-        if kind.value != 0:  # CU_GRAPH_NODE_TYPE_KERNEL is 0
-            names.append(f"graph node of type {kind.value}")
-            continue
-        params = (ctypes.c_byte * 256)()  # CUDA_KERNEL_NODE_PARAMS_v2: the function first
-        assert cu.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node), params) == 0
-        name = ctypes.c_char_p()
-        func = ctypes.c_void_p.from_buffer(params).value
-        assert cu.cuFuncGetName(ctypes.byref(name), ctypes.c_void_p(func)) == 0
-        names.append(name.value.decode())
-    return names
-
-
 def _device_kernels(fn):
     """(fn's result, the names of what one call of fn ran on the device).  fn
     runs once on a side stream (which makes the wrappers' workspaces of that
@@ -69,7 +42,8 @@ def _device_kernels(fn):
     graph = torch.cuda.CUDAGraph(keep_graph=True)
     with torch.cuda.graph(graph, stream=stream):
         fn()
-    return out, _graph_nodes(graph)
+    from chip_smoke import graph_kernels
+    return out, graph_kernels(graph)
 
 
 def _cache(n_layers, b, s, f, quant, gen, dev):
@@ -472,7 +446,9 @@ def test_quantized_engine_on_card_matches_cpu(cuda_device):
 
 
 # the large-T stage kernels: (B, stage T, D, blocks, fold conv (kind, s, k, cin),
-# fold head, row-lane R); the 1.5B stage shapes (some cut in T) and tiny fp32 ones
+# fold head, row-lane R); the 1.5B stage shapes (some cut in T), tiny fp32 ones,
+# and rows that are not whole 16-byte vectors (bf16 D=4, fp32 D=6: the
+# kernel's narrow copies)
 STAGE_CASES = {
     "dec3-up": (1, 200, 256, 3, ("up", 5, 10, 512), False, None),
     "dec6-up": (1, 800, 32, 3, ("up", 2, 4, 64), False, None),
@@ -485,7 +461,12 @@ STAGE_CASES = {
     "rowlane-d64": (4, 400, 64, 2, None, False, 2),
     "tiny-up-fp32": (1, 16, 4, 1, ("up", 2, 4, 8), True, None),
     "tiny-rowlane-fp32": (2, 8, 8, 1, None, False, 2),
+    "rowlane-d4": (2, 64, 4, 2, None, False, 2),
+    "narrow-d4": (2, 64, 4, 2, None, False, None),
+    "narrow-d6-fp32": (2, 64, 6, 2, None, False, None),
+    "narrow-up-head-d6-fp32": (1, 16, 6, 1, ("up", 2, 4, 8), True, None),
 }
+ROWLANE_CASES = [c for c, spec in STAGE_CASES.items() if spec[6]]
 
 
 def _stage_case(case, dev, gen):
@@ -547,6 +528,69 @@ def test_fused_stage_kernels_match_plain(cuda_device, case):
             tol = (1e-4 if g.dtype == torch.float32 else 2 ** -7) * float(w.float().abs().max())
             torch.testing.assert_close(g.float(), w.float(), atol=tol, rtol=0)
         got_st, want_st = got[1:], want[1:]
+
+
+def _without_rowlane(pack):
+    return {k: v for k, v in pack.items() if k != "rowlane"}
+
+
+@pytest.mark.parametrize("case", ROWLANE_CASES)
+def test_rowlane_kernel_equals_stage_kernel_on_the_same_rows(cuda_device, case):
+    """The row-lane kernel reads each batch item's diagonal blocks and takes
+    each row's norm over its own D channels: the stage kernel's products and
+    sums in the same order, so its outputs are bit-equal to the stage
+    kernel's on the pack without its row-lane entry, over two chunks."""
+    from vibevoice_tpu_torch.ops import fused_stage as fs
+    gen = torch.Generator(device=cuda_device).manual_seed(12)
+    pack, xs, ctx, _ = _stage_case(case, cuda_device, gen)
+    plain_pack = _without_rowlane(pack)
+    got_c = want_c = ctx
+    for x in xs:
+        before = (fs.fused_stage_chain_rowlane.launches, fs.fused_stage_chain.launches)
+        got = fs.fused_stage_chain(pack, x, got_c)
+        assert (fs.fused_stage_chain_rowlane.launches, fs.fused_stage_chain.launches) == (
+            before[0] + 1, before[1])
+        want = fs.fused_stage_chain(plain_pack, x, want_c)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+        got_c, want_c = got[1], want[1]
+
+
+@pytest.mark.parametrize("case", ["rowlane-r2", "rowlane-r4", "rowlane-d4"])
+def test_rowlane_kernel_is_one_deterministic_launch(cuda_device, case):
+    """A row-lane call is one `cluster_kernel` launch on the device, with no
+    copy or relayout kernel around it, and two calls give the same bits."""
+    from vibevoice_tpu_torch.ops import fused_stage as fs
+    gen = torch.Generator(device=cuda_device).manual_seed(13)
+    pack, xs, ctx, _ = _stage_case(case, cuda_device, gen)
+    first = fs.fused_stage_chain(pack, xs[0], ctx)
+    second, kernels = _device_kernels(lambda: fs.fused_stage_chain(pack, xs[0], ctx))
+    assert len(kernels) == 1 and "cluster_kernel" in kernels[0], kernels
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_rowlane_kernel_replays_in_a_cuda_graph(cuda_device):
+    """The row-lane call captured in a CUDA graph and replayed three times
+    gives the eager call's bits: the grid barrier's counter and the cached
+    scratch survive replay."""
+    from vibevoice_tpu_torch.ops import fused_stage as fs
+    gen = torch.Generator(device=cuda_device).manual_seed(14)
+    pack, xs, ctx, _ = _stage_case("rowlane-r4", cuda_device, gen)
+    want = fs.fused_stage_chain(pack, xs[0], ctx)
+    stream = torch.cuda.Stream(cuda_device)
+    stream.wait_stream(torch.cuda.current_stream(cuda_device))
+    with torch.cuda.stream(stream):  # the capture stream's scratch, made eagerly
+        fs.fused_stage_chain(pack, xs[0], ctx)
+    torch.cuda.current_stream(cuda_device).wait_stream(stream)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        got = fs.fused_stage_chain(pack, xs[0], ctx)
+    for _ in range(3):
+        for g in got:
+            g.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
 # the eight folded B=1 stage calls of a 1.5B decode step with
@@ -674,13 +718,15 @@ def test_plain_chain_kernel_matches_plain(cuda_device, dtype, b, t, d, n):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("b,t,d,n", [(3, 5, 24, 2), (3, 5, 36, 2), (2, 3, 352, 2), (5, 8, 1024, 1),
-                                     (1, 1, 4, 1)])
+                                     (1, 1, 4, 1), (1, 8, 6, 2), (2, 3, 3, 2)])
 def test_plain_chain_ragged_shapes(cuda_device, dtype, b, t, d, n):
     """Widths that do not fill the card evenly: D=24 (ranks of a cluster
     without D columns), D=36 (bf16 rows that are not whole 16-byte vectors:
     cp.async into the rings), D=352 (F=1408 on 88 CTAs of 16 columns: the
-    last cluster part idle), B=5 T=8 in three row groups, and D=4; bf16 and
-    fp32, against the plain version at its stated tolerance."""
+    last cluster part idle), B=5 T=8 in three row groups, D=4, and D not a
+    multiple of 4 (D=6, F=24 of `tiny_config(n_filters=3)`; D=3, F=12: the
+    depth padded to 4 with zeros); bf16 and fp32, against the plain version
+    at its stated tolerance."""
     from vibevoice_tpu_torch.ops import fused_blocks as fb
     gen = torch.Generator(device=cuda_device).manual_seed(10)
     pack = fb.pack_stage(_stage(d, n, gen, cuda_device), dtype=dtype)

@@ -296,10 +296,12 @@ def test_chain_plan_at_the_h100_shapes():
 # (B, T, D, F): the 1.5B plain stages at B=1, 2 and 4, a row group count that
 # does not divide B, and ragged shapes: ranks of a cluster without D columns
 # (D=24), widths that are not whole 16-byte vectors in bf16 (D=36, cp.async),
-# clusters part idle (D=352), and the smallest width
+# clusters part idle (D=352), the smallest width, and D or F not multiples of
+# 4 (`tiny_config(n_filters=3)`'s D=6 and D=3, D=30, an odd F)
 _PLAIN_SHAPES = [(1, 1, 2048, 8192), (2, 1, 2048, 8192), (4, 1, 2048, 8192),
                  (1, 8, 1024, 4096), (2, 8, 1024, 4096), (4, 8, 1024, 4096), (5, 8, 1024, 4096),
-                 (3, 5, 24, 96), (3, 5, 36, 144), (2, 3, 352, 1408), (1, 1, 4, 16)]
+                 (3, 5, 24, 96), (3, 5, 36, 144), (2, 3, 352, 1408), (1, 1, 4, 16),
+                 (1, 8, 6, 24), (2, 3, 3, 12), (1, 1, 30, 120), (2, 3, 5, 7)]
 
 
 @pytest.mark.parametrize("es", [2, 4])
@@ -311,9 +313,10 @@ def test_plain_plan_invariants(b, t, d, f, clusters, es):
     whole 16-byte vectors (else in 4-column units), covering F once and
     spread over all the card's CTAs; no more clusters than the card holds
     nor than get columns; row groups of at most 16 rows, balanced; W1 boxes
-    and W2 runs whole rows of 4 that divide the block's D rows and the CTA's
-    columns, boxes within the tensor map's limits; two ring stages or more
-    each, all inside shared memory."""
+    and W2 runs whole rows of 4 that divide the block's D rows (D rounded up
+    to 4: the kernel pads a ragged D with zeros) and the CTA's columns, boxes
+    within the tensor map's limits; two ring stages or more each, all inside
+    shared memory."""
     p = TFB.plain_plan(b, t, d, f, es, clusters)
     maps = (d * es) % 16 == 0 and (f * es) % 16 == 0
     unit = 16 // es if maps else 4
@@ -322,7 +325,7 @@ def test_plain_plan_invariants(b, t, d, f, clusters, es):
     assert p.clusters == -(-p.tiles // TFB.CLUSTER) <= clusters
     assert 1 <= p.bg <= b and p.bg * t <= 16
     assert -(-b // -(-b // p.bg)) == p.bg  # balanced: no group is more than one item short
-    assert d % p.kb == 0 and p.kb % 4 == 0 and p.kb <= 256
+    assert -(-d // 4) * 4 % p.kb == 0 and p.kb % 4 == 0 and p.kb <= 256
     assert p.tf % p.r2 == 0 and p.r2 % 4 == 0
     if maps:
         assert p.tf <= 256 and (p.tf * es) % 16 == 0
@@ -338,14 +341,15 @@ def test_plain_plan_at_the_h100_shapes():
     stages on 103 CTAs of 40 with a W1 ring of 3 boxes of 256 rows and a W2
     ring of 2 runs of 20 rows, B=4 T=8 in two row groups of 16 rows; fp32
     packs in 4-column units; a width that is not whole 16-byte vectors in
-    4-column units; widths the kernel does not take, or whose rows do not
-    fit shared memory, are refused."""
+    4-column units; D or F not multiples of 4 (D=6, F=24 of
+    `tiny_config(n_filters=3)`; D=30) plan on D rounded up to 4; widths
+    whose rows do not fit shared memory are refused."""
     assert TFB.plain_plan(1, 1, 2048, 8192, 2, 15) == (72, 114, 15, 1, 256, 2, 12, 2, 212768)
     assert TFB.plain_plan(1, 8, 1024, 4096, 2, 15) == (40, 103, 13, 1, 256, 3, 20, 2, 227864)
     assert TFB.plain_plan(4, 8, 1024, 4096, 2, 15)[:4] == (40, 103, 13, 2)
     assert TFB.plain_plan(1, 1, 2048, 8192, 4, 15)[:7] == (72, 114, 15, 1, 128, 2, 4)
     assert TFB.plain_plan(3, 5, 36, 144, 2, 15)[:4] == (4, 36, 5, 3)
-    with pytest.raises(ValueError, match="multiples of 4"):
-        TFB.plain_plan(1, 1, 30, 120, 2, 15)
+    assert TFB.plain_plan(1, 8, 6, 24, 2, 15)[:7] == (4, 6, 1, 1, 8, 2, 4)
+    assert TFB.plain_plan(1, 1, 30, 120, 2, 15)[:7] == (4, 30, 4, 1, 32, 2, 4)
     with pytest.raises(ValueError, match="shared memory"):
         TFB.plain_plan(16, 8, 4096, 16384, 4, 15)

@@ -244,10 +244,10 @@ def test_rowlane_rows_policy():
 
 
 def test_engine_auto_policies():
-    """Folds iff B == 1 and the tail never unless asked, as in the JAX
-    engine; the row-lane layout only when asked (the JAX engine's 2 <= B <= 4
-    and B >= 32 rule is slower on the card), then at any B > 1."""
-    _, _, tp = _params()
+    """Folds iff B == 1 and the tail never unless asked, and the row-lane
+    layout at 2 <= B <= 4 and B >= 32 unless asked otherwise: the JAX
+    engine's rules, on both engines."""
+    cfg, jp, tp = _params()
     tcfg = TC.tiny_config(vocab_size=320)
     gen = TG.GenerationConfig(**GEN)
 
@@ -255,18 +255,22 @@ def test_engine_auto_policies():
         return TG.Engine(tp, tcfg, gen, max_steps=2, batch=b, prompt_len=16, device="cpu",
                          use_fused_stages=True, fused_stage_t_min=7, **kw)
 
+    def build_jax(b):
+        return JG.Engine(jp, cfg, JG.GenerationConfig(**GEN), max_steps=2, batch=b,
+                         prompt_len=16, use_fused_stages=True, fused_stage_t_min=7)
+
+    has = lambda eng, key, what: any(what in p for p in eng.params[key].values())
     e1, e8 = build(1), build(8)
     for key in ("_vocoder_packs_large", "_semantic_packs_large"):
-        assert any("conv" in p for p in e1.params[key].values())
-        assert not any("conv" in p for p in e8.params[key].values())
+        assert has(e1, key, "conv") and not has(e8, key, "conv")
         for b in (1, 2, 4, 8, 32):
             eng = e1 if b == 1 else e8 if b == 8 else build(b)
-            assert not any("rowlane" in p for p in eng.params[key].values())
+            assert has(eng, key, "rowlane") == (2 <= b <= 4 or b >= 32)
+            assert has(eng, key, "rowlane") == has(build_jax(b), key, "rowlane")
         for b in (2, 4, 8, 32):
-            eng = build(b, fused_stage_rowlane=True)
-            assert any("rowlane" in p for p in eng.params[key].values())
-        assert not any("rowlane" in p
-                       for p in build(1, fused_stage_rowlane=True).params[key].values())
+            assert has(build(b, fused_stage_rowlane=True), key, "rowlane")
+            assert not has(build(b, fused_stage_rowlane=False), key, "rowlane")
+        assert not has(build(1, fused_stage_rowlane=True), key, "rowlane")
     assert not any("head" in p for p in e1.params["_vocoder_packs_large"].values())
     e1h = build(1, fused_stage_fold_head=True)
     assert any("head" in p for p in e1h.params["_vocoder_packs_large"].values())
@@ -313,12 +317,12 @@ def test_engine_fused_stages_matches_jax(b, fold_head):
 
 
 def test_engine_b2_default_policy_matches_jax():
-    """At B=2 with the default policies the JAX engine takes the row-lane
-    layout and the port the plain stage kernel: the same tokens and audio."""
+    """At B=2 with the default policies both engines take the row-lane
+    layout: the same tokens and audio."""
     je, te = _engine_pair(2, *_params())
     for key in ("_vocoder_packs_large", "_semantic_packs_large"):
         assert any("rowlane" in p for p in je.params[key].values())
-        assert te.params[key] and not any("rowlane" in p for p in te.params[key].values())
+        assert any("rowlane" in p for p in te.params[key].values())
     _assert_runs_match(je, te, 2)
 
 
@@ -406,12 +410,92 @@ def test_cluster_size_splits_the_ffn_columns(f, dtype, want):
 
 
 def test_stage_scratch_is_cached_per_stream_and_size():
+    """One scratch per device, stream and size, for the stage kernel and its
+    row-lane form alike (the row-lane form keeps no scratch of its own)."""
     dev = torch.device("cpu")
-    buf = TFS.scratch(dev, 3, False, 800 * 128, 2 * 800 * 128, 8)
+    buf = TFS.scratch(dev, 3, 800 * 128, 2 * 800 * 128)
     assert set(buf) == {"xg", "xb", "yg", "bar"}
     assert buf["xg"].numel() == 2 * 800 * 128 and buf["xb"].numel() == 800 * 128
     assert buf["bar"].dtype == torch.int32 and not buf["bar"].any()
-    assert TFS.scratch(dev, 3, False, 800 * 128, 2 * 800 * 128, 8) is buf
-    assert TFS.scratch(dev, 4, False, 800 * 128, 2 * 800 * 128, 8) is not buf
-    rl = TFS.scratch(dev, 3, True, 100, 0, 3)
-    assert set(rl) == {"yg", "xb", "hng", "part"} and rl["part"].numel() == 300
+    assert TFS.scratch(dev, 3, 800 * 128, 2 * 800 * 128) is buf
+    assert TFS.scratch(dev, 4, 800 * 128, 2 * 800 * 128) is not buf
+    rl = TFS.scratch(dev, 3, 100, 0)
+    assert set(rl) == {"xg", "xb", "yg", "bar"} and rl["yg"].numel() == 100
+
+
+def _flat_view(t, shape, ld, offset):
+    """What the kernel reads of a pack tensor: `shape` elements from its
+    flat storage at `offset`, rows `ld` apart."""
+    strides = (ld, 1) if len(shape) == 2 else (1,)
+    return t.reshape(-1).as_strided(shape, strides, offset)
+
+
+@pytest.mark.parametrize("r", [1, 2, 4])
+def test_stage_layout_reads_each_lane_groups_blocks(r):
+    """`stage_layout`'s strides and lane offsets, applied to the flat pack
+    as the kernel applies them for batch item bb (lane group bb % r), give
+    that lane group's slices of the pack (its vectors and the diagonal
+    blocks of w1, b1 and w2), which equal the plain pack's vectors, w1 rows,
+    bias row and w2."""
+    d, n = 8, 3
+    blocks = from_jax(_blocks(d, n, seed=6))
+    base = TFS.pack_stage(blocks)
+    f = base["w2"].shape[1]
+    pack = base if r == 1 else TFS.pack_stage_rowlane(blocks, r)
+    lay = TFS.stage_layout(d, f, r)
+    assert lay["lanes"] == r
+    # a plain pack's b1 is row D of w1, which the wrapper passes as b1's base
+    b1, b1_at = (base["w1"], d * f) if r == 1 else (pack["b1"], 0)
+    for nb in range(n):
+        for bb in range(2 * r):
+            g = bb % lay["lanes"]
+            cols, fcols = slice(g * d, (g + 1) * d), slice(g * f, (g + 1) * f)
+            at = lambda k: nb * lay[f"{k}_stride"] + g * lay[f"{k}_lane"]
+            vec_at = nb * 8 * lay["vec_ld"] + g * lay["vec_lane"]
+            views = {
+                "vecs": (_flat_view(pack["vecs"], (8, d), lay["vec_ld"], vec_at),
+                         pack["vecs"][nb, :, cols], base["vecs"][nb]),
+                "mixw": (_flat_view(pack["mixw"], (8, d), lay["vec_ld"], vec_at),
+                         pack["mixw"][nb, :, cols], base["mixw"][nb]),
+                "w1": (_flat_view(pack["w1"], (d, f), lay["w1_ld"], at("w1")),
+                       pack["w1"][nb, cols, fcols] if r > 1 else pack["w1"][nb, :d],
+                       base["w1"][nb, :d]),
+                "b1": (_flat_view(b1, (f,), 1, b1_at + at("b1")),
+                       pack["b1"][nb, 0, fcols] if r > 1 else pack["w1"][nb, d],
+                       base["w1"][nb, d]),
+                "w2": (_flat_view(pack["w2"], (f, d), lay["w2_ld"], at("w2")),
+                       pack["w2"][nb, fcols, cols] if r > 1 else pack["w2"][nb],
+                       base["w2"][nb]),
+            }
+            for k, (read, sliced, plain) in views.items():
+                assert torch.equal(read, sliced) and torch.equal(read, plain), (k, nb, bb)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("r", [2, 4])
+def test_rowlane_packs_are_block_diagonal(r, dtype):
+    """The row-lane packs of the port and of the JAX package (carried by
+    `weights.from_jax`): the off-diagonal blocks of w1 and w2 are exact
+    zeros, and lane group g's diagonal blocks, bias columns and vectors
+    equal the plain pack's w1 rows, bias row, w2 and vectors.  So the row-lane
+    kernel, which reads only the diagonal blocks, computes what the whole
+    block-diagonal product computes."""
+    d, n = 16, 2
+    blocks = _blocks(d, n, seed=9)
+    td, jd = getattr(torch, dtype), getattr(jnp, dtype)
+    base = TFS.pack_stage(from_jax(blocks), dtype=td)
+    f = base["w2"].shape[1]
+    packs = {"port": TFS.pack_stage_rowlane(from_jax(blocks), r, dtype=td),
+             "jax": from_jax(to_np(JFS.pack_stage_rowlane(_j(blocks), r, dtype=jd)))}
+    for who, rl in packs.items():
+        assert rl["w1"].dtype == td and rl["avg"].dtype == torch.float32, who
+        for g in range(r):
+            cols, fcols = slice(g * d, (g + 1) * d), slice(g * f, (g + 1) * f)
+            assert torch.equal(rl["w1"][:, cols, fcols], base["w1"][:, :d]), (who, g)
+            assert torch.equal(rl["b1"][:, 0, fcols], base["w1"][:, d]), (who, g)
+            assert torch.equal(rl["w2"][:, fcols, cols], base["w2"]), (who, g)
+            assert torch.equal(rl["vecs"][:, :, cols], base["vecs"]), (who, g)
+            assert torch.equal(rl["mixw"][:, :, cols], base["mixw"]), (who, g)
+        # everything off the diagonal blocks is an exact zero
+        diag1 = torch.block_diag(*[torch.ones(d, f)] * r).bool()
+        assert (rl["w1"][:, ~diag1] == 0).all() and (rl["w2"][:, ~diag1.T] == 0).all(), who

@@ -86,7 +86,11 @@
 // exactly (a bf16 is the top half of its fp32), four rows and four columns a
 // thread at a time; a row group's rows are rounded up to a power of two for
 // the register passes.  Widths that are not whole 16-byte vectors take
-// cp.async by every thread, completing on the same mbarriers.
+// cp.async by every thread (in the widest of 16, 8, 4 or 1 bytes that the
+// rows allow), completing on the same mbarriers; a D that is not a multiple
+// of 4 is padded to Dp = D rounded up to 4 in shared memory (the FFN input's
+// and W2's rows, zeros past D, and W1's rows past D read 0), and FFN rows
+// past F read 0, so the 4-wide FMAs take any width.
 //
 // Plain C interface, loaded with ctypes; dtype codes: 0 float32, 1 bfloat16
 // (x, ctx, y and the new ctx share one; a plain pack has its own).  Returns
@@ -532,11 +536,11 @@ __device__ __forceinline__ void st_v(float* p, const float (&v)[V]) {
 }
 
 // Step 3 of a block, for V-wide column groups: rank q of the cluster adds
-// its ranks' shares (in `hb`) of the rank's columns in rank order and writes
-// them as the cluster's partial.
+// its ranks' shares (in `hb`, row stride hd) of the rank's columns in rank
+// order and writes them as the cluster's partial.
 template <int V>
 __device__ void cluster_partial(const QArgs& a, cg::cluster_group& cl, int step, float* hb,
-                                int rows, int rows_max) {
+                                int hd, int rows, int rows_max) {
   const int D = a.D, C = a.C, rank = static_cast<int>(cl.block_rank());
   const int cid = blockIdx.x / C, nv = D / V;
   const int u0 = rank * nv / C, wu = (rank + 1) * nv / C - u0;
@@ -544,13 +548,13 @@ __device__ void cluster_partial(const QArgs& a, cg::cluster_group& cl, int step,
   float* part = a.part + (static_cast<size_t>(step % 2) * a.ncl + cid) * slab;
   cl.sync();  // every rank's share is in its shared memory
   for (int e = threadIdx.x; e < rows * wu; e += NT) {
-    const int off = (e / wu) * D + (u0 + e % wu) * V;
+    const int off = (e / wu) * D + (u0 + e % wu) * V, hoff = (e / wu) * hd + (u0 + e % wu) * V;
     float s[V], v[MAX_C][V];
 #pragma unroll
     for (int j = 0; j < V; ++j) s[j] = 0.f;
 #pragma unroll
     for (int p = 0; p < MAX_C; ++p)
-      if (p < C && cid * C + p < a.tiles) ld_v<V>(v[p], cl.map_shared_rank(hb, p) + off);
+      if (p < C && cid * C + p < a.tiles) ld_v<V>(v[p], cl.map_shared_rank(hb, p) + hoff);
 #pragma unroll
     for (int p = 0; p < MAX_C; ++p)
       if (p < C && cid * C + p < a.tiles)
@@ -612,11 +616,12 @@ __device__ void next_x(const QArgs& a, cg::cluster_group& cl, int step,
 // mixer_b), and the FFN input y * ffn_norm_w stored into hb of every CTA of
 // the cluster with this rank's sums of squares of y, so that after the
 // second cluster barrier each CTA holds all of it and its row scales rs2.
-// The vectors are V: fp32 (int4 pack) or the plain pack's dtype.
+// The vectors are V: fp32 (int4 pack) or the plain pack's dtype; hb's rows
+// are hd >= D floats apart.
 template <typename T, typename V>
 __device__ void mixer(const QArgs& a, cg::cluster_group& cl, int nb, int b0, int nbg, int c0,
                       int w, const V* v, const T* cs, int wmax, float* xs, float* hb,
-                      float* nrm, float* xch, float* rs1, float* rs2) {
+                      float* nrm, float* xch, float* rs1, float* rs2, int hd) {
   const int D = a.D, Tn = a.T, NB = a.NB, C = a.C, rows = nbg * Tn;
   float* xch2 = xch + MAX_C * a.bg * Tn;
   rank_sumsq<NW>(cl, xs, wmax, rows, w, nrm, xch);
@@ -624,7 +629,7 @@ __device__ void mixer(const QArgs& a, cg::cluster_group& cl, int nb, int b0, int
   row_scales(C, xch, rows, D, a.eps, rs1);
   for (int e = threadIdx.x; e < rows * w; e += NT) {
     const int r = e / w, c = e % w;
-    hb[r * D + c0 + c] = xs[r * wmax + c] * rs1[r] * vv::to_f(v[c]);
+    hb[r * hd + c0 + c] = xs[r * wmax + c] * rs1[r] * vv::to_f(v[c]);
   }
   __syncthreads();
   if (blockIdx.x < C) {  // cluster 0: the new context, the last 6 rows of [ctx; h]
@@ -634,7 +639,7 @@ __device__ void mixer(const QArgs& a, cg::cluster_group& cl, int nb, int b0, int
       const int src = j + Tn;
       const size_t cbase = (static_cast<size_t>(b0 + bl) * NB + nb) * CTX;
       const float val = src < CTX ? vv::to_f(cs[(bl * CTX + src) * wmax + c])
-                                  : hb[(bl * Tn + src - CTX) * D + c0 + c];
+                                  : hb[(bl * Tn + src - CTX) * hd + c0 + c];
       ctx_out[(cbase + j) * D + c0 + c] = vv::from_f<T>(val);
     }
   }
@@ -645,7 +650,7 @@ __device__ void mixer(const QArgs& a, cg::cluster_group& cl, int nb, int b0, int
     for (int k = 0; k < 7; ++k) {
       const int j = t + k;
       const float src = j < CTX ? vv::to_f(cs[(bl * CTX + j) * wmax + c])
-                                : hb[(bl * Tn + j - CTX) * D + c0 + c];
+                                : hb[(bl * Tn + j - CTX) * hd + c0 + c];
       acc = acc + src * vv::to_f(v[(6 + k) * wmax + c]);
     }
     xs[r * wmax + c] =
@@ -656,7 +661,7 @@ __device__ void mixer(const QArgs& a, cg::cluster_group& cl, int nb, int b0, int
   if (w % 4 == 0 && c0 % 4 == 0 && D % 4 == 0) {  // 16-byte stores to the peers
     const int w4 = w / 4;
     for (int e = threadIdx.x; e < rows * w4; e += NT) {
-      const int r = e / w4, c = 4 * (e % w4), o = r * D + c0 + c;
+      const int r = e / w4, c = 4 * (e % w4), o = r * hd + c0 + c;
       const float4 y = *reinterpret_cast<const float4*>(xs + r * wmax + c);
       const float4 g = ld4f(v + 3 * wmax + c);
       const float4 u = make_float4(y.x * g.x, y.y * g.y, y.z * g.z, y.w * g.w);
@@ -666,7 +671,7 @@ __device__ void mixer(const QArgs& a, cg::cluster_group& cl, int nb, int b0, int
     for (int e = threadIdx.x; e < rows * w; e += NT) {
       const int r = e / w, c = e % w;
       const float u = xs[r * wmax + c] * vv::to_f(v[3 * wmax + c]);
-      for (int p = 0; p < C; ++p) cl.map_shared_rank(hb, p)[r * D + c0 + c] = u;
+      for (int p = 0; p < C; ++p) cl.map_shared_rank(hb, p)[r * hd + c0 + c] = u;
     }
   }
   cl.sync();  // the FFN input is whole in every CTA of the cluster, and the sums of squares
@@ -741,7 +746,7 @@ __global__ void __launch_bounds__(NT, 1)
     __syncthreads();
     mixer<T, float>(a, cl, nb, b0, nbg, c0, w, v,
              reinterpret_cast<const T*>(cs + par * a.bg * CTX * wmax * sizeof(T)), wmax, xs, hb,
-             nrm, xch, rs1, rs2);
+             nrm, xch, rs1, rs2, D);
     cp_wait<2>();  // this block's W1 slice
     if (has_tile && a.br) mbar_wait(mb, step & 1);
     __syncthreads();
@@ -756,9 +761,9 @@ __global__ void __launch_bounds__(NT, 1)
     if (more && has_tile) fetch_w2(a, (step + 1) % NB, f0, w2s, mb + 8);
     cp_commit();
     if (V == 4)
-      cluster_partial<4>(a, cl, step, hb, rows, rows_max);
+      cluster_partial<4>(a, cl, step, hb, D, rows, rows_max);
     else
-      cluster_partial<1>(a, cl, step, hb, rows, rows_max);
+      cluster_partial<1>(a, cl, step, hb, D, rows, rows_max);
     grid_barrier(a.bar);  // the block's only grid-wide barrier
     if (V == 4)
       next_x<T, int8_t, 4>(a, cl, step, v, wmax, xs, rows, rows_max, base, nb == NB - 1);
@@ -781,6 +786,10 @@ __host__ __device__ inline int p_rows(int rows) {
   return r;
 }
 
+// The plain chain's padded depth: D rounded up to a multiple of 4 (the FMAs'
+// width), the row length of the FFN input, the share and the W2 ring
+__host__ __device__ inline int p_depth(int D) { return (D + 3) & ~3; }
+
 // Byte offsets of chain_p_kernel's shared memory for row groups of bg items
 // of T rows, pack elements of `es` bytes (`ops/fused_blocks.py:plain_smem`
 // mirrors the total).
@@ -792,13 +801,13 @@ __host__ __device__ inline PLayout p_layout(int D, int TF, int bg, int T, int C,
                                             int ring, int r2, int ring2) {
   PLayout L;
   const size_t rows = static_cast<size_t>(bg) * T, R = p_rows(static_cast<int>(rows));
-  const size_t wmax = q_wmax(D, C), nkl = NT / (TF / 4), rp = R < RP ? R : RP;
+  const size_t wmax = q_wmax(D, C), nkl = NT / (TF / 4), rp = R < RP ? R : RP, Dp = p_depth(D);
   size_t o = 0;
   L.w1_stage = up128(static_cast<size_t>(kb) * TF * es);
   L.w1 = o;   o += ring * L.w1_stage;                     // W1 boxes [kb][TF]
-  L.w2_stage = up128(static_cast<size_t>(r2) * D * es);
-  L.w2 = o;   o += ring2 * L.w2_stage;                    // W2 runs [r2][D]
-  L.hb = o;   o += up16(sizeof(float) * R * D);           // h, then ffn input, then the share
+  L.w2_stage = up128(static_cast<size_t>(r2) * Dp * es);
+  L.w2 = o;   o += ring2 * L.w2_stage;                    // W2 runs [r2][Dp]
+  L.hb = o;   o += up16(sizeof(float) * R * Dp);          // h, then ffn input, then the share
   L.xs = o;   o += up16(sizeof(float) * rows * wmax);     // x, then y, of the rank's columns
   L.as = o;   o += up16(sizeof(float) * R * TF);          // gelu activations
   L.red = o;  o += up16(sizeof(float) * nkl * rp * TF);   // up-projection k splits
@@ -811,15 +820,15 @@ __host__ __device__ inline PLayout p_layout(int D, int TF, int bg, int T, int C,
   return L;
 }
 
-// W1 chunk c (step c / nk, box c % nk of the block's D rows) of the CTA's
+// W1 chunk c (step c / nk, box c % nk of the block's Dp rows) of the CTA's
 // columns into stage c % ring: with the tensor map, one box [kb][TF] asked
 // for by the calling thread; otherwise cp.async by every thread, each
-// arriving on the stage's mbarrier once its copies land.  Columns past F read
-// 0.
+// arriving on the stage's mbarrier once its copies land.  Columns past F and
+// rows past D read 0.
 template <typename W>
 __device__ void issue_w1(const QArgs& a, const CUtensorMap* map, int c, int nk, int f0,
                          unsigned char* ring, size_t stage_b, uint32_t mb) {
-  const int stage = c % a.ring, y = (c / nk) % a.NB * (a.D + 8) + c % nk * a.kb;
+  const int k0 = c % nk * a.kb, y = (c / nk) % a.NB * (a.D + 8) + k0, stage = c % a.ring;
   unsigned char* dst = ring + stage * stage_b;
   const uint32_t bar = mb + 8 * stage;
   const int rb = a.TF * static_cast<int>(sizeof(W));
@@ -829,16 +838,19 @@ __device__ void issue_w1(const QArgs& a, const CUtensorMap* map, int c, int nk, 
     tma_box(dst, map, f0, y, bar, vv::evict_first_policy());  // read once per call
     return;
   }
-  copy_rows(dst, rb, static_cast<const W*>(a.w1) + static_cast<size_t>(y) * a.F + f0,
-            static_cast<size_t>(a.F) * sizeof(W), a.kb, rb,
+  const int rows = min(a.kb, a.D - k0);  // the rest are Dp's padding: zeros
+  const W* src = static_cast<const W*>(a.w1) + static_cast<size_t>(y) * a.F + f0;
+  copy_rows(dst, rb, src, static_cast<size_t>(a.F) * sizeof(W), rows, rb,
             max(0, a.F - f0) * static_cast<int>(sizeof(W)));
+  copy_rows(dst + static_cast<size_t>(rows) * rb, rb, src, 0, a.kb - rows, rb, 0);
   vv::cp_async_arrive(bar);
 }
 
 // W2 chunk c (step c / n2, run c % n2 of the CTA's TF rows) into stage
-// c % ring2: its rows inside F, contiguous, by one bulk copy asked for by the
-// calling thread, or by cp.async as issue_w1.  Rows past F are not copied
-// (nor read).
+// c % ring2 as rows of Dp: its rows inside F, contiguous, by one bulk copy
+// asked for by the calling thread, or by cp.async as issue_w1 (columns past
+// D, and rows past F up to the next multiple of 4, read 0).  Other rows past
+// F are not copied (nor read).
 template <typename W>
 __device__ void issue_w2(const QArgs& a, int c, int n2, int f0, unsigned char* ring,
                          size_t stage_b, uint32_t mb) {
@@ -847,14 +859,20 @@ __device__ void issue_w2(const QArgs& a, int c, int n2, int f0, unsigned char* r
   const W* src = static_cast<const W*>(a.w2) + (static_cast<size_t>(nb) * a.F + r0) * a.D;
   unsigned char* dst = ring + stage * stage_b;
   const uint32_t bar = mb + 8 * stage;
-  const uint32_t bytes = static_cast<uint32_t>(live) * a.D * sizeof(W);
   if (a.maps) {
+    const uint32_t bytes = static_cast<uint32_t>(live) * a.D * sizeof(W);
     fence_async();
     mbar_expect(bar, bytes);
     if (bytes) bulk_copy(dst, src, bytes, bar, vv::evict_first_policy());
     return;
   }
-  copy_rows(dst, 0, src, 0, 1, static_cast<int>(bytes), static_cast<int>(bytes));
+  const int es = static_cast<int>(sizeof(W)), rb = p_depth(a.D) * es;
+  if (rb == a.D * es)  // the run's rows back to back, as one
+    copy_rows(dst, 0, src, 0, 1, live * rb, live * rb);
+  else
+    copy_rows(dst, rb, src, static_cast<size_t>(a.D) * es, live, rb, a.D * es);
+  copy_rows(dst + static_cast<size_t>(live) * rb, rb, src, 0, min(a.r2, (live + 3) & ~3) - live,
+            rb, 0);
   vv::cp_async_arrive(bar);
 }
 
@@ -882,8 +900,8 @@ __device__ __forceinline__ void with_p_rows(int nr, Fn fn) {
 }
 
 // as[r][c] = gelu((hn[r] @ W1[:, f0 + c]) * rs2[r] + b1[c]) for r < nr, c < TF
-// (0 past F): hn is the FFN input before its row scale rs2, which multiplies
-// the product instead.  Thread (cw, kl) takes columns 4cw..4cw+3 of the rows
+// (0 past F): hn ([R][Dp], zeros past D) is the FFN input before its row
+// scale rs2, which multiplies the product instead.  Thread (cw, kl) takes columns 4cw..4cw+3 of the rows
 // 4kl..4kl+3, 4(kl + nkl).., of each W1 box of the step, waiting for it on
 // its stage's mbarrier; after every thread is done with a stage, the issuer
 // refills it with chunk c + ring.  R register rows (rows past nr are
@@ -893,7 +911,7 @@ template <int R, typename W>
 __device__ void up_proj_p(const QArgs& a, const CUtensorMap* map, int step, int steps, int f0,
                           unsigned char* ring, size_t stage_b, uint32_t mb, const float* hb,
                           const float* rs2, const W* b1, int nr, float* red, float* as) {
-  const int D = a.D, TF = a.TF, kb = a.kb, nk = D / kb, cgw = TF / 4, nkl = NT / cgw;
+  const int D = p_depth(a.D), TF = a.TF, kb = a.kb, nk = D / kb, cgw = TF / 4, nkl = NT / cgw;
   const int cw = threadIdx.x % cgw, kl = threadIdx.x / cgw;
   const bool issuer = !a.maps || threadIdx.x == ISSUER;
   float acc[R][4];
@@ -952,18 +970,19 @@ __device__ void up_proj_p(const QArgs& a, const CUtensorMap* map, int step, int 
   }
 }
 
-// share [R][D] (in hb) = as @ the CTA's W2 rows, run by run of the W2 ring:
+// share [R][Dp] (in hb) = as @ the CTA's W2 rows, run by run of the W2 ring:
 // thread cw takes columns 4cw..4cw+3 of every row of a run, four rows at a
 // time, its sums carried in the share; after every thread is done with a
 // stage, the issuer refills it with chunk c + ring2.
 template <int R, typename W>
 __device__ void down_proj_p(const QArgs& a, int step, int steps, int f0, unsigned char* ring,
                             size_t stage_b, uint32_t mb, const float* as, float* share) {
-  const int D = a.D, TF = a.TF, r2 = a.r2, n2 = TF / r2;
+  const int D = p_depth(a.D), TF = a.TF, r2 = a.r2, n2 = TF / r2;
   const bool issuer = !a.maps || threadIdx.x == ISSUER;
   for (int j = 0; j < n2; ++j) {
     const int c = step * n2 + j, stage = c % a.ring2;
-    const int live = max(0, min(r2, a.F - (f0 + j * r2)));  // a multiple of 4
+    // the run's rows inside F, up to a multiple of 4 (rows past F: zeros)
+    const int live = (max(0, min(r2, a.F - (f0 + j * r2))) + 3) & ~3;
     mbar_wait(mb + 8 * stage, (c / a.ring2) & 1);
     const W* ws = reinterpret_cast<const W*>(ring + stage * stage_b);
     const float* a0 = as + j * r2;
@@ -999,8 +1018,7 @@ __device__ void down_proj_p(const QArgs& a, int step, int steps, int f0, unsigne
   }
 }
 
-// T: x's dtype; W: the plain pack's (float or __nv_bfloat16).  D and F are
-// multiples of 4.
+// T: x's dtype; W: the plain pack's (float or __nv_bfloat16).
 template <typename T, typename W>
 __global__ void __launch_bounds__(NT, 1)
     chain_p_kernel(const __grid_constant__ CUtensorMap w1map, const QArgs a) {
@@ -1032,7 +1050,7 @@ __global__ void __launch_bounds__(NT, 1)
   const bool bulk = a.maps && (w * es) % 16 == 0 && (c0 * es) % 16 == 0 &&
                     (wmax * es) % 16 == 0 && (D * es) % 16 == 0 &&
                     reinterpret_cast<uintptr_t>(a.ctx) % 16 == 0;
-  const int f0 = blockIdx.x * a.TF, nk = D / a.kb, n2 = a.TF / a.r2;
+  const int Dp = p_depth(D), f0 = blockIdx.x * a.TF, nk = Dp / a.kb, n2 = a.TF / a.r2;
   const int steps = (a.B + a.bg - 1) / a.bg * NB;
   if (threadIdx.x == 0) {
     // a ring stage completes on one arrival with the bytes of its copy, or
@@ -1042,6 +1060,8 @@ __global__ void __launch_bounds__(NT, 1)
     mbar_init(mbs + 8);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  if (Dp != D)  // the FFN input's padding columns stay 0
+    for (int e = threadIdx.x; e < p_rows(rows_max) * Dp; e += NT) hb[e] = 0.f;
   __syncthreads();
   if (bulk) fetch_small<T, W>(a, 0, f0, has_tile, c0, w, wmax, vs, cs, sb, true, mbs);
   __syncthreads();  // the small copies queue ahead of the weights
@@ -1077,7 +1097,7 @@ __global__ void __launch_bounds__(NT, 1)
     __syncthreads();
     mixer<T, W>(a, cl, nb, b0, nbg, c0, w, v,
                 reinterpret_cast<const T*>(cs + par * a.bg * CTX * wmax * sizeof(T)), wmax, xs, hb,
-                nrm, xch, rs1, rs2);
+                nrm, xch, rs1, rs2, Dp);
     if (has_tile)
       with_p_rows(rows, [&](auto R) {
         constexpr int NR = decltype(R)::value;
@@ -1086,9 +1106,9 @@ __global__ void __launch_bounds__(NT, 1)
         down_proj_p<NR, W>(a, step, steps, f0, w2r, L.w2_stage, mb2, as, hb);
       });
     if (V == 4)
-      cluster_partial<4>(a, cl, step, hb, rows, rows_max);
+      cluster_partial<4>(a, cl, step, hb, Dp, rows, rows_max);
     else
-      cluster_partial<1>(a, cl, step, hb, rows, rows_max);
+      cluster_partial<1>(a, cl, step, hb, Dp, rows, rows_max);
     grid_barrier(a.bar);  // the block's only grid-wide barrier
     if (V == 4)
       next_x<T, W, 4>(a, cl, step, v, wmax, xs, rows, rows_max, base, nb == NB - 1);
@@ -1310,8 +1330,7 @@ extern "C" int vv_fused_block_chain_plain_clusters(long long smem, int dtype, in
 }
 
 // The plain-pack chain (TPU kernel `fused_block_chain`): vecs/mixw [N, 8, D],
-// w1 [N, D+8, F], w2 [N, F, D], all of dtype code `wdtype`, D and F multiples
-// of 4; ncl clusters of 8 CTAs, CTA k on FFN columns [k*TF, (k+1)*TF); bg
+// w1 [N, D+8, F], w2 [N, F, D], all of dtype code `wdtype`; ncl clusters of 8 CTAs, CTA k on FFN columns [k*TF, (k+1)*TF); bg
 // batch items per row group; W1 in boxes of kb rows through a ring of `ring`
 // stages, W2 in runs of r2 rows through `ring2`; `part` and `bar` the
 // workspace, as for vv_fused_block_chain.  The weights come by tensor map and
@@ -1323,13 +1342,14 @@ extern "C" int vv_fused_block_chain_plain(const void* x, const void* ctx, const 
                                           int T, int D, int F, int NB, int bg, int TF, int ncl,
                                           int kb, int ring, int r2, int ring2, float eps,
                                           int dtype, int wdtype, void* stream) {
-  if (B <= 0 || T <= 0 || T > 8 || NB <= 0 || D <= 0 || F <= 0 || D % 4 || F % 4) return -1;
+  if (B <= 0 || T <= 0 || T > 8 || NB <= 0 || D <= 0 || F <= 0) return -1;
   if (bg <= 0 || bg > B || bg * T > 16 || TF <= 0 || TF % 4 || TF > 4 * NT || part == nullptr ||
       bar == nullptr)
     return -2;
   const int tiles = (F + TF - 1) / TF;
   if (ncl != (tiles + MAX_C - 1) / MAX_C) return -3;
-  if (kb <= 0 || kb % 4 || D % kb || r2 <= 0 || r2 % 4 || TF % r2 || ring < 1 || ring2 < 1)
+  if (kb <= 0 || kb % 4 || p_depth(D) % kb || r2 <= 0 || r2 % 4 || TF % r2 || ring < 1 ||
+      ring2 < 1)
     return -8;
   const int es = wdtype == 0 ? 4 : 2;
   const size_t smem = p_layout(D, TF, bg, T, MAX_C, es, kb, ring, r2, ring2).total;

@@ -2,10 +2,9 @@
 // transition conv and decoder tail), for Hopper (sm_90a).
 //
 // Replaces the TPU kernels `vibevoice_tpu/ops/fused_stage.py:fused_stage_chain`
-// (Pallas `_make_kernel`) and `_fused_stage_chain_rowlane` (`_make_kernel_rowlane`).
-// For x [B, T, W] (the row-lane form is the same call on [G, T, R*D], with
-// block-diagonal FFN weights, a separate ffn1 bias and RMSNorm group means
-// through `avg` [W, W]) and per-block contexts ctx [B, N, 6, W], each block:
+// (Pallas `_make_kernel`) and `_fused_stage_chain_rowlane`
+// (`_make_kernel_rowlane`).  For x [B, T, W] and per-block contexts ctx [B, N,
+// 6, W], each block:
 //   h  = rmsnorm(x) * norm_w;  new ctx = last 6 rows of [ctx; h]
 //   x  = x + gamma * (mixer_b + causal depthwise conv k=7 over [ctx; h])
 //   hn = round(rmsnorm(x) * ffn_norm_w)
@@ -20,6 +19,20 @@
 // head_w[0] over [head ctx (hk-1 rows); x], y[t] = sum_tap hh[t-hk+1+tap] .
 // head_w[1+tap] -> y [B, T, 1].
 //
+// The row-lane form (TPU kernel #7) computes the same blocks from a row-lane
+// pack (vecs/mixw [N, 8, R*W], w1 kron(I_R, W1) [N, R*W, R*F], b1 [N, 1,
+// R*F], w2 kron(I_R, W2) [N, R*F, R*W]).  The TPU kernel lays R batch rows
+// side by side in its 128 vector lanes ([G, T, R*W], relayouts outside its
+// pallas_call) and takes the norms' group means through an `avg` product; a
+// Hopper SM has no lanes to fill, so here batch item bb reads x, ctx, y and
+// the new ctx in their own [B, ...] layouts and only lane group r = bb % R of
+// the pack: its vectors and the diagonal blocks of w1, b1 and w2 (the pack's
+// strides and per-lane offsets `*_ld`, `*_lane`, from the wrapper; the
+// off-diagonal blocks are zeros and never read), with each row's mean over
+// its own W channels.  So a row-lane call is the stage kernel below on the
+// diagonal blocks: the same products and sums in the same order, bit-equal to
+// it on the pack without its row-lane entry.
+//
 // Bound: a stage moves a few MB at most (decoder stage 3 at 1.5B: 3.2 MB of
 // block weights and 2.6 MB of up-conv weight in bf16) and computes 0.2-0.7
 // GFLOP, so on this card the least time is 0.2-2 us: the kernel is bound by
@@ -28,11 +41,9 @@
 // Design: the TPU grid walks T-tiles in order and carries every block's conv
 // context in VMEM.  On Hopper, in order, one CTA would own the stage at B=1.
 // Here ONE launch spreads the stage over the card, and a grid barrier stands
-// only where a row tile needs rows of the tile before it.
-//
-// The stage (packs without a row-lane entry, `cluster_kernel`): each row tile
-// of R = 32 rows is owned by one thread-block cluster of C <= 8 CTAs (C from
-// the wrapper: F / C FFN columns per CTA):
+// only where a row tile needs rows of the tile before it.  Each row tile of
+// R = 32 rows is owned by one thread-block cluster of C <= 8 CTAs (C from the
+// wrapper: F / C FFN columns per CTA):
 //   P. (folded conv) the conv as a tiled product into `xg` over the whole
 //      grid: "up" x_in @ every tap's weight ([Ti, 2s*W], the overlap-add is
 //      left to the first block's mixer), "down" the strided windows of
@@ -62,31 +73,25 @@
 //      tile): after one more grid barrier, items of RT rows write the
 //      waveform rows (one warp per row) and the new head context.
 // So a call makes N - 1 grid barriers, plus one for a folded conv and one for
-// the folded tail (a barrier per phase, as the row-lane kernel has, makes
-// 3N + 1), and its results depend on C (a function of the shape) but not on
-// the grid or on the JAX package's `tile_want`.  The products (`gemm`) stream their weights in chunks of GKC
-// rows through a ring of NSTAGE cp.async buffers (`Ring`), which starts
-// loading a tile's FFN weights before its mixer runs.  In bf16 they run on
-// mma.sync m16n8k16 (fp32 sums) where every depth is whole k16 steps; the
-// stem conv (cin = 1) and fp32 packs take exact fp32 FMAs.  The grid
-// barrier is a counter in device memory (the clusters are launched with
-// cudaLaunchKernelEx, never more than the card holds at once, which the
-// occupancy query gives).
-//
-// The row-lane layout (`stage_kernel`, TPU kernel #7, which folds nothing)
-// keeps a grid barrier per phase in one cooperative launch: per block A (items
-// of RT rows, into `yg` and `hng`), B (items of RB rows x FT FFN columns,
-// fp32 partials `part`), C (the whole grid adds the partials in tile order),
-// then O, with a grid barrier between phases; its RMSNorm group means go
-// through the `avg` product, and its products are fp32 FMAs from 4x4
-// register tiles, every weight tile staged through shared memory in chunks
-// of KC rows.
+// the folded tail, and its results depend on C (a function of the shape) but
+// not on the grid or on the JAX package's `tile_want`.  The products (`gemm`)
+// stream their weights in chunks of GKC rows through a ring of NSTAGE
+// cp.async buffers (`Ring`), which starts loading a tile's FFN weights before
+// its mixer runs.  In bf16 they run on mma.sync m16n8k16 (fp32 sums) where
+// every depth is whole k16 steps; the stem conv (cin = 1), fp32 packs and
+// other widths take exact fp32 FMAs.  Rows, FFN slices and per-lane weight
+// offsets that are whole 16-byte vectors move as 16-byte vectors; otherwise
+// (`NARROW`: e.g. bf16 W = 4, fp32 W = 6) the same kernel copies weights by
+// cp.async of 8 or 4 bytes (bf16 rows of an odd length: 2-byte loads) and
+// moves rows element by element.  The grid barrier is a counter in device
+// memory (the clusters are launched with cudaLaunchKernelEx, never more than
+// the card holds at once, which the occupancy query gives).
 //
 // Plain C interface, loaded with ctypes (`StageParams` mirrors the ctypes
 // structure in ops/fused_stage.py).  dtype codes: 0 float32, 1 bfloat16 (x,
-// ctx, the states, the pack and the conv pack share it; avg and head_w are
-// fp32).  Returns 0, a negative code for arguments or a card it does not
-// take, or the CUDA error of the launch.
+// ctx, the states, the pack and the conv pack share it; head_w is fp32).
+// Returns 0, a negative code for arguments or a card it does not take, or
+// the CUDA error of the launch.
 
 #include <cooperative_groups.h>
 
@@ -103,11 +108,7 @@ namespace {
 using vv::THREADS;
 using vv::WARPS;
 constexpr int CTX = 6;
-constexpr int RT = 32;   // rows per mixer / output item
-constexpr int RB = 64;   // rows per FFN item (16 row groups of 4)
-constexpr int FT = 64;   // FFN columns per item (16 column groups of 4)
-constexpr int NT = 64;   // columns per product tile
-constexpr int KC = 128;  // weight rows per shared-memory chunk
+constexpr int RT = 32;   // rows per output item of the folded tail
 constexpr int LB = 8;    // independent loads a thread has in flight before using them
 
 struct StageParams {
@@ -120,7 +121,6 @@ struct StageParams {
   const void* w1;
   const void* b1;
   const void* w2;
-  const float* avg;     // row-lane group means, or null
   const void* conv_w;   // [k, cin, W]
   const void* conv_b;   // [1, W]
   const float* head_w;  // [hk + 1, W]
@@ -129,13 +129,16 @@ struct StageParams {
   void* conv_out;
   void* head_out;
   float* xg;    // folded conv product: up [B*T/s, 2s*W], down [B*T, W]
-  float* yg;    // [B*T, W] post-mixer residual
-  float* xb;    // [B*T, W] input of the next block
-  float* hng;   // [B*T, W] rounded FFN input
-  float* part;  // [nF][B*T, W] FFN partials
+  float* yg;    // [B*T, W] block outputs, alternating with xb
+  float* xb;    // [B*T, W]
   unsigned int* bar;  // the grid barrier's counter (0 before the first call)
-  int B, T, W, F, NB, w1_stride, b1_stride, conv_kind, cs, ck, cin, hk, hnorm, dtype;
+  int B, T, W, F, NB, conv_kind, cs, ck, cin, hk, hnorm, dtype;
   int C;  // CTAs per cluster: FFN column slices of a row tile
+  // The pack's layout (elements): block strides of w1, b1 and w2; row strides
+  // of vecs/mixw, w1 and w2; batch item bb reads lane group bb % lanes, at
+  // these offsets times the lane (a plain pack: 1 lane)
+  int w1_stride, b1_stride, w2_stride, vec_ld, w1_ld, w2_ld;
+  int lanes, vec_lane, w1_lane, b1_lane, w2_lane;
   float eps;
 };
 
@@ -155,70 +158,36 @@ __device__ __forceinline__ float4 lds4(const __nv_bfloat16* p) {
   return make_float4(a.x, a.y, b.x, b.y);
 }
 
-// acc[i][j] += sum_{k < K} A[(RR*rg + i) * lda + k] * B[k][4*cg + j] for the
-// thread's RR rows (rg = tid / 16) and 4 columns (cg = tid % 16).  A is fp32
-// in shared memory; B (K x ncols, row stride ldb, 16-byte aligned rows,
-// ncols <= NT a multiple of the 16-byte vector) is in device memory and goes
-// through the shared buffer `bs` (KC x NT) a chunk at a time.  Block-wide.
-template <typename T, int RR>
-__device__ void gemm_tile(const float* A, int lda, int K, const T* b, size_t ldb, int ncols,
-                          T* bs, float (&acc)[RR][4]) {
-  constexpr int V = 16 / sizeof(T);  // elements per 16-byte vector
-  const int vpr = ncols / V;
-  const int cg = threadIdx.x % 16, rg = threadIdx.x / 16;
-  for (int k0 = 0; k0 < K; k0 += KC) {
-    const int kc = min(KC, K - k0), nv = kc * vpr;
-    __syncthreads();  // the previous chunk is consumed
-    for (int v0 = threadIdx.x; v0 < nv; v0 += LB * THREADS) {
-      uint4 u[LB];
+// dst[e] = src[e] for e < n, from L2 (src was written in this launch by other
+// CTAs), LB loads in flight per thread: float4 (n a multiple of 4, src
+// 16-byte aligned), or (NARROW) one float each
+template <bool NARROW>
+__device__ __forceinline__ void copy_rows(float* dst, const float* src, int n) {
+  constexpr int V = NARROW ? 1 : 4;
+  for (int e0 = V * threadIdx.x; e0 < n; e0 += V * THREADS * LB) {
+    if constexpr (NARROW) {
+      float v[LB];
 #pragma unroll
-      for (int q = 0; q < LB; ++q) {
-        const int v = v0 + q * THREADS;
-        if (v < nv)
-          u[q] = __ldg(reinterpret_cast<const uint4*>(b + (k0 + v / vpr) * ldb + v % vpr * V));
+      for (int u = 0; u < LB; ++u) {
+        const int e = e0 + THREADS * u;
+        v[u] = e < n ? __ldcg(src + e) : 0.f;
       }
 #pragma unroll
-      for (int q = 0; q < LB; ++q) {
-        const int v = v0 + q * THREADS;
-        if (v < nv) *reinterpret_cast<uint4*>(bs + v / vpr * NT + v % vpr * V) = u[q];
+      for (int u = 0; u < LB; ++u)
+        if (e0 + THREADS * u < n) dst[e0 + THREADS * u] = v[u];
+    } else {
+      float4 v[LB];
+#pragma unroll
+      for (int u = 0; u < LB; ++u) {
+        const int e = e0 + 4 * THREADS * u;
+        v[u] = e < n ? __ldcg(reinterpret_cast<const float4*>(src + e))
+                     : make_float4(0.f, 0.f, 0.f, 0.f);
       }
-    }
-    __syncthreads();
-    if (4 * cg < ncols) {
-      const float* a0 = A + RR * rg * lda + k0;
-#pragma unroll 4
-      for (int k = 0; k < kc; ++k) {
-        const float4 w = lds4(bs + k * NT + 4 * cg);
 #pragma unroll
-        for (int i = 0; i < RR; ++i) {
-          const float a = a0[i * lda + k];
-          acc[i][0] += a * w.x;
-          acc[i][1] += a * w.y;
-          acc[i][2] += a * w.z;
-          acc[i][3] += a * w.w;
-        }
+      for (int u = 0; u < LB; ++u) {
+        const int e = e0 + 4 * THREADS * u;
+        if (e < n) *reinterpret_cast<float4*>(dst + e) = v[u];
       }
-    }
-  }
-  __syncthreads();
-}
-
-// dst[e] = e < n ? src[e] : 0 for e < total (both multiples of 4, src 16-byte
-// aligned): LB float4 loads in flight per thread, from L2 (src was written in
-// this launch by other CTAs)
-__device__ __forceinline__ void copy_rows(float* dst, const float* src, int n, int total) {
-  for (int e0 = 4 * threadIdx.x; e0 < total; e0 += 4 * THREADS * LB) {
-    float4 v[LB];
-#pragma unroll
-    for (int u = 0; u < LB; ++u) {
-      const int e = e0 + 4 * THREADS * u;
-      v[u] = e < n ? __ldcg(reinterpret_cast<const float4*>(src + e))
-                   : make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-#pragma unroll
-    for (int u = 0; u < LB; ++u) {
-      const int e = e0 + 4 * THREADS * u;
-      if (e < total) *reinterpret_cast<float4*>(dst + e) = v[u];
     }
   }
 }
@@ -241,51 +210,17 @@ __device__ __forceinline__ float stage_input(const StageParams& p, size_t row, i
   return (__ldcg(yi + j * W + d) + prev) + b;
 }
 
-// ---- C: xb = residual + ffn_gamma * (FFN partials, in tile order, + ffn2_b)
-// over the whole grid; 4 elements per thread and LB partials each in flight
-template <typename T>
-__device__ void phase_sum(const StageParams& p, int nb) {
-  const int W = p.W, nf = (p.F + FT - 1) / FT;
-  const T* vec = static_cast<const T*>(p.vecs) + static_cast<size_t>(nb) * 8 * W;
-  const size_t n_el = static_cast<size_t>(p.B) * p.T * W;
-  const size_t step = static_cast<size_t>(gridDim.x) * THREADS;
-  for (size_t e0 = blockIdx.x * THREADS + threadIdx.x; e0 < n_el; e0 += 4 * step) {
-    float s[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int f0 = 0; f0 < nf; f0 += LB / 2) {
-      float v[4][LB / 2];
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-#pragma unroll
-        for (int q = 0; q < LB / 2; ++q)
-          v[u][q] = e0 + u * step < n_el && f0 + q < nf ? p.part[(f0 + q) * n_el + e0 + u * step]
-                                                        : 0.f;
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-#pragma unroll
-        for (int q = 0; q < LB / 2; ++q) s[u] += v[u][q];
-    }
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const size_t e = e0 + u * step;
-      if (e < n_el) {
-        const int d = static_cast<int>(e % W);
-        p.xb[e] = p.yg[e] + vv::to_f(vec[4 * W + d]) * (s[u] + vv::to_f(vec[5 * W + d]));
-      }
-    }
-  }
-}
-
 // xs[j * W + d] = the input of block nb (`stage_input`, or the previous
 // block's output `src`) at row lo + j of the batch row that starts at row0 (0
 // before the sequence), for j < nrow
-template <typename T>
+template <typename T, bool NARROW>
 __device__ void load_rows(const StageParams& p, const float* src, int nb, size_t row0, int lo,
                           int nrow, float* xs) {
   const int W = p.W, n = nrow * W;
-  if (nb > 0) {  // a plain copy of the previous block's output, 16-byte vectors
+  if (nb > 0) {  // a plain copy of the previous block's output
     const int skip = max(0, -lo);
     for (int e = threadIdx.x; e < skip * W; e += THREADS) xs[e] = 0.f;
-    copy_rows(xs + skip * W, src + (row0 + lo + skip) * W, n - skip * W, n - skip * W);
+    copy_rows<NARROW>(xs + skip * W, src + (row0 + lo + skip) * W, n - skip * W);
     return;
   }
   for (int e0 = threadIdx.x; e0 < n; e0 += LB * THREADS) {
@@ -301,148 +236,10 @@ __device__ void load_rows(const StageParams& p, const float* src, int nb, size_t
   }
 }
 
-// sc[j * W + d] = 1 / sqrt(mean-square + eps) of buf's nrow (<= RB) rows
-// over each element's row-lane group: the product (buf * buf) @ avg, tiled
-// through `sq` ([RB][W]) and the chunk buffer `bsf` (KC x NT fp32).
-// Block-wide.
-__device__ void inv_rms(const StageParams& p, const float* buf, int nrow, float* sc, float* sq,
-                        float* bsf) {
-  const int W = p.W;
-  for (int e = threadIdx.x; e < RB * W; e += THREADS) {
-    const float v = e < nrow * W ? buf[e] : 0.f;
-    sq[e] = v * v;
-  }
-  const int c0 = 4 * (threadIdx.x % 16), rg = threadIdx.x / 16;
-  for (int d0 = 0; d0 < W; d0 += NT) {
-    const int nc = min(NT, W - d0);
-    float acc[4][4] = {};
-    gemm_tile<float, 4>(sq, W, W, p.avg + d0, W, nc, bsf, acc);  // syncs before reading sq
-    if (c0 < nc) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = 4 * rg + i;
-        if (r < nrow) {
-#pragma unroll
-          for (int j = 0; j < 4; ++j) sc[r * W + d0 + c0 + j] = 1.f / sqrtf(acc[i][j] + p.eps);
-        }
-      }
-    }
-  }
-}
-
-// ---- A: norm, context, mixer, second norm ----
-template <typename T>
-__device__ void phase_mixer(const StageParams& p, int nb, float* sm) {
-  const int W = p.W, Tn = p.T, NB = p.NB;
-  const T* vec = static_cast<const T*>(p.vecs) + static_cast<size_t>(nb) * 8 * W;
-  const T* taps = static_cast<const T*>(p.mixw) + static_cast<size_t>(nb) * 8 * W;
-  const T* ctx_in = static_cast<const T*>(p.ctx);
-  T* ctx_out = static_cast<T*>(p.ctx_out);
-  float* vs = sm;                     // [11][W]: norm_w, mixer_b, gamma, ffn_norm_w, 7 taps
-  float* xs = vs + 11 * W;            // [RT + 6][W] block input, then residual
-  float* hs = xs + (RT + CTX) * W;    // [RT + 6][W] normed rows over [ctx; h]
-  float* sc = hs + (RT + CTX) * W;    // [RT + 6][W] inverse RMS of each element's group
-  float* sq = sc + (RT + CTX) * W;    // [RB][W] squares
-  float* bsf = sq + RB * W;           // [KC][NT] avg chunk
-  for (int e = threadIdx.x; e < 11 * W; e += THREADS)
-    vs[e] = vv::to_f(e < 4 * W ? vec[e] : taps[e - 4 * W]);
-  const int tiles = (Tn + RT - 1) / RT;
-  for (int it = blockIdx.x; it < p.B * tiles; it += gridDim.x) {
-    const int bb = it / tiles, t0 = (it % tiles) * RT, t1 = min(Tn, t0 + RT);
-    const int lo = t0 - CTX, nrow = t1 - lo;
-    const size_t row0 = static_cast<size_t>(bb) * Tn;
-    load_rows<T>(p, p.xb, nb, row0, lo, nrow, xs);
-    __syncthreads();
-    inv_rms(p, xs, nrow, sc, sq, bsf);
-    __syncthreads();
-    const T* c_in = ctx_in + (static_cast<size_t>(bb) * NB + nb) * CTX * W;
-    for (int e = threadIdx.x; e < nrow * W; e += THREADS) {
-      const int j = e / W, d = e % W, t = lo + j;
-      hs[e] = t >= 0 ? xs[e] * sc[e] * vs[d] : vv::to_f(c_in[(t + CTX) * W + d]);
-    }
-    __syncthreads();
-    if (t1 == Tn) {
-      T* c_out = ctx_out + (static_cast<size_t>(bb) * NB + nb) * CTX * W;
-      for (int e = threadIdx.x; e < CTX * W; e += THREADS)
-        c_out[e] = vv::from_f<T>(hs[(Tn - CTX - lo) * W + e]);
-    }
-    float* ycur = p.yg + (row0 + t0) * W;
-    for (int e = threadIdx.x; e < (t1 - t0) * W; e += THREADS) {
-      const int r = e / W, d = e % W;
-      float m = vs[W + d];
-#pragma unroll
-      for (int k = 0; k < 7; ++k) m += hs[(r + k) * W + d] * vs[(4 + k) * W + d];
-      const float yv = xs[(r + CTX) * W + d] + vs[2 * W + d] * m;
-      xs[(r + CTX) * W + d] = yv;
-      ycur[e] = yv;
-    }
-    __syncthreads();
-    inv_rms(p, xs + CTX * W, t1 - t0, sc, sq, bsf);
-    __syncthreads();
-    float* hn = p.hng + (row0 + t0) * W;
-    for (int e = threadIdx.x; e < (t1 - t0) * W; e += THREADS) {
-      const int r = e / W, d = e % W;
-      hn[e] = vv::round_to<T>(xs[(r + CTX) * W + d] * sc[e] * vs[3 * W + d]);
-    }
-    __syncthreads();
-  }
-}
-
-// ---- B: FFN items ----
-template <typename T>
-__device__ void phase_ffn(const StageParams& p, int nb, float* sm) {
-  const int W = p.W, F = p.F, Tn = p.T;
-  const int nf_tiles = (F + FT - 1) / FT, rtiles = (Tn + RB - 1) / RB;
-  const T* w1 = static_cast<const T*>(p.w1) + static_cast<size_t>(nb) * p.w1_stride;
-  const T* b1 = static_cast<const T*>(p.b1) + static_cast<size_t>(nb) * p.b1_stride;
-  const T* w2 = static_cast<const T*>(p.w2) + static_cast<size_t>(nb) * F * W;
-  const size_t n_el = static_cast<size_t>(p.B) * Tn * W;
-  float* hb = sm;             // [RB][W]
-  float* as = hb + RB * W;    // [RB][FT]
-  T* bs = reinterpret_cast<T*>(as + RB * FT);  // [KC][NT] weight chunk
-  const int cg = threadIdx.x % 16, rg = threadIdx.x / 16, c0 = 4 * cg;
-  for (int it = blockIdx.x; it < p.B * rtiles * nf_tiles; it += gridDim.x) {
-    const int bb = it / (rtiles * nf_tiles), rt = (it / nf_tiles) % rtiles, ft = it % nf_tiles;
-    const int r0 = rt * RB, nr = min(RB, Tn - r0), f0 = ft * FT, nf = min(FT, F - f0);
-    const size_t row0 = static_cast<size_t>(bb) * Tn + r0;
-    copy_rows(hb, p.hng + row0 * W, nr * W, RB * W);
-    float acc[4][4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float b = c0 + j < nf ? vv::to_f(b1[f0 + c0 + j]) : 0.f;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[i][j] = b;
-    }
-    // a = gelu(b1 + hn @ w1[:, f0:f0+nf])  (gemm_tile syncs before reading hb)
-    gemm_tile<T, 4>(hb, W, W, w1 + f0, F, nf, bs, acc);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        as[(4 * rg + i) * FT + c0 + j] = c0 + j < nf ? vv::round_to<T>(gelu(acc[i][j])) : 0.f;
-    // part[ft][row][d0 + c] = a @ w2[f0:f0+nf, d0 + c], NT channels at a time
-    float* out = p.part + ft * n_el + row0 * W;
-    for (int d0 = 0; d0 < W; d0 += NT) {
-      const int nc = min(NT, W - d0);
-      float acc2[4][4] = {};
-      gemm_tile<T, 4>(as, FT, nf, w2 + static_cast<size_t>(f0) * W + d0, W, nc, bs, acc2);
-      if (c0 < nc) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int r = 4 * rg + i;
-          if (r < nr)
-            *reinterpret_cast<float4*>(out + static_cast<size_t>(r) * W + d0 + c0) =
-                make_float4(acc2[i][0], acc2[i][1], acc2[i][2], acc2[i][3]);
-        }
-      }
-    }
-  }
-}
-
-// ---- O: the stage output, or the folded tail ----
-template <typename T>
+// ---- O: the folded tail ----
+template <typename T, bool NARROW>
 __device__ void phase_out(const StageParams& p, const float* src, float* sm) {
-  const int W = p.W, Tn = p.T, NB = p.NB, hk = p.hk, hc = hk ? hk - 1 : 0;
+  const int W = p.W, Tn = p.T, NB = p.NB, hk = p.hk, hc = hk - 1;
   T* y = static_cast<T*>(p.y);
   const int tiles = (Tn + RT - 1) / RT;
   float* xs = sm;                    // [RT + hc][W]
@@ -452,14 +249,8 @@ __device__ void phase_out(const StageParams& p, const float* src, float* sm) {
     const int bb = it / tiles, t0 = (it % tiles) * RT, t1 = min(Tn, t0 + RT);
     const size_t row0 = static_cast<size_t>(bb) * Tn;
     const int lo = t0 - hc, nrow = t1 - lo;
-    load_rows<T>(p, src, NB, row0, lo, nrow, xs);
+    load_rows<T, NARROW>(p, src, NB, row0, lo, nrow, xs);
     __syncthreads();
-    if (!hk) {
-      for (int e = threadIdx.x; e < (t1 - t0) * W; e += THREADS)
-        y[(row0 + t0) * W + e] = vv::from_f<T>(xs[e]);
-      __syncthreads();
-      continue;
-    }
     if (p.hnorm) vv::row_rsqrt(xs, nrow, W, p.eps, sc);
     __syncthreads();
     const T* hst = static_cast<const T*>(p.head_state) + static_cast<size_t>(bb) * hc * W;
@@ -488,21 +279,6 @@ __device__ void phase_out(const StageParams& p, const float* src, float* sm) {
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS) stage_kernel(StageParams p) {
-  cg::grid_group grid = cg::this_grid();
-  extern __shared__ float sm[];
-  for (int nb = 0; nb < p.NB; ++nb) {
-    phase_mixer<T>(p, nb, sm);
-    grid.sync();
-    phase_ffn<T>(p, nb, sm);
-    grid.sync();
-    phase_sum<T>(p, nb);
-    grid.sync();
-  }
-  phase_out<T>(p, p.xb, sm);
-}
-
 // ======================================================================
 // The stage kernel proper (packs without a row-lane entry): one launch,
 // thread-block clusters over row tiles, one grid barrier per block.
@@ -523,6 +299,15 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
                "r"(pred ? 16 : 0));
+}
+// 8 or 4 bytes global -> shared (`bytes`), zero-filled where pred is false
+__device__ __forceinline__ void cp_async_small(void* dst, const void* src, int bytes, bool pred) {
+  if (bytes == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+                 "r"(pred ? 8 : 0));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+                 "r"(pred ? 4 : 0));
 }
 __device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 template <int N>
@@ -574,27 +359,30 @@ __device__ void grid_barrier(unsigned int* bar) {
   __syncthreads();
 }
 
-// The weight chunks of up to two products (B_p: K_p x N_p, row stride ld_p,
-// 16-byte aligned rows), streamed in order, GKC rows x GNT columns at a time,
-// through a ring of NSTAGE cp.async buffers in shared memory: the ring runs
-// NSTAGE - 1 chunks ahead of the product that consumes them, so the first
-// chunks load before (or while) the product's A is made, and each chunk
-// waits behind NSTAGE - 2 others rather than on its own load.
-template <typename T>
+// The weight chunks of up to two products (B_p: K_p x N_p, row stride ld_p),
+// streamed in order, GKC rows x GNT columns at a time, through a ring of
+// NSTAGE cp.async buffers in shared memory: the ring runs NSTAGE - 1 chunks
+// ahead of the product that consumes them, so the first chunks load before
+// (or while) the product's A is made, and each chunk waits behind NSTAGE - 2
+// others rather than on its own load.  Copies of 16 bytes, or (NARROW) of
+// `unit` bytes: 8 or 4 by cp.async, 2 (bf16 rows of an odd length) by plain
+// loads and stores; every row, row stride and column count of B is whole
+// copies.
+template <typename T, bool NARROW>
 struct Ring {
   const T* b0;
   const T* b1;
   size_t ld0, ld1;
   int k0, k1, n0, n1, nk0, nk1, cnt0, cnt1;
   T* bs;
-  int issued;
+  int issued, unit;
 
-  __device__ Ring(T* buf, const T* B0, size_t ldb0, int K0, int N0, const T* B1 = nullptr,
-                  size_t ldb1 = 0, int K1 = 0, int N1 = 0)
+  __device__ Ring(T* buf, int unit_bytes, const T* B0, size_t ldb0, int K0, int N0,
+                  const T* B1 = nullptr, size_t ldb1 = 0, int K1 = 0, int N1 = 0)
       : b0(B0), b1(B1), ld0(ldb0), ld1(ldb1), k0(K0), k1(K1), n0(N0), n1(N1),
         nk0((K0 + GKC - 1) / GKC), nk1((K1 + GKC - 1) / GKC),
         cnt0(nk0 * ((N0 + GNT - 1) / GNT)), cnt1(B1 ? nk1 * ((N1 + GNT - 1) / GNT) : 0),
-        bs(buf), issued(0) {
+        bs(buf), issued(0), unit(NARROW ? unit_bytes : 16) {
     for (int i = 0; i < NSTAGE - 1; ++i) issue();
   }
 
@@ -602,7 +390,6 @@ struct Ring {
 
   // the next chunk's loads (none past the last chunk), committed as a group
   __device__ void issue() {
-    constexpr int V = 16 / sizeof(T);  // elements per 16-byte vector
     const int q = issued++;
     if (q < cnt0 + cnt1) {
       const bool second = q >= cnt0;
@@ -612,10 +399,19 @@ struct Ring {
       const size_t ldb = second ? ld1 : ld0;
       const int kb = (r % nk) * GKC, nb = (r / nk) * GNT;
       T* buf = slot(q);
-      for (int i = threadIdx.x; i < GKC * (GNT / V); i += THREADS) {
-        const int row = i / (GNT / V), c = i % (GNT / V), k = kb + row, n = nb + c * V;
+      const int V = NARROW ? unit / static_cast<int>(sizeof(T)) : 16 / sizeof(T);
+      const int per = GNT / V;  // copies per chunk row
+      for (int i = threadIdx.x; i < GKC * per; i += THREADS) {
+        const int row = i / per, c = i % per, k = kb + row, n = nb + c * V;
         const bool live = k < K && n < N;
-        cp_async16(buf + row * GNTP + c * V, live ? B + k * ldb + n : B, live);
+        T* dst = buf + row * GNTP + c * V;
+        const T* src = live ? B + k * ldb + n : B;
+        if constexpr (!NARROW)
+          cp_async16(dst, src, live);
+        else if (V * sizeof(T) >= 4)
+          cp_async_small(dst, src, unit, live);
+        else
+          *dst = live ? *src : vv::from_f<T>(0.f);
       }
     }
     cp_commit();
@@ -629,8 +425,8 @@ struct Ring {
 // aligned); warp w takes rows 16 (w / 4) .. +16 and columns 16 (w % 4) .. +16
 // of the tile.  Else exact fp32 FMAs: thread t takes rows 2 (t / 16) + {0, 1}
 // and columns 4 (t % 16) .. +4.
-template <typename T, bool MMA, typename Epi>
-__device__ void gemm(Ring<T>& ring, bool second, const T* A, int lda, Epi epi) {
+template <typename T, bool MMA, typename RingT, typename Epi>
+__device__ void gemm(RingT& ring, bool second, const T* A, int lda, Epi epi) {
   const int K = second ? ring.k1 : ring.k0, N = second ? ring.n1 : ring.n0;
   const int nk = second ? ring.nk1 : ring.nk0, cnt = second ? ring.cnt1 : ring.cnt0;
   const int base = second ? ring.cnt0 : 0;
@@ -708,8 +504,8 @@ __host__ __device__ inline size_t conv_a_bytes(const StageParams& p, size_t tsiz
 }
 
 // ---- the folded transition conv's product, over the whole grid ----
-template <typename T, bool MMA>
-__device__ void conv_phase(const StageParams& p, unsigned char* sm) {
+template <typename T, bool MMA, bool NARROW>
+__device__ void conv_phase(const StageParams& p, unsigned char* sm, int unit) {
   const T* x = static_cast<const T*>(p.x);
   const T* cw = static_cast<const T*>(p.conv_w);
   const T* st = static_cast<const T*>(p.conv_state);
@@ -734,8 +530,8 @@ __device__ void conv_phase(const StageParams& p, unsigned char* sm) {
     const int tap = nt / dtiles, d0 = (nt % dtiles) * GNT, n0 = tap * W + d0;
     const int f_lo = up ? m0 : m0 * s;
     // the weight chunks start loading before A is staged
-    Ring<T> ring(bs, cw + static_cast<size_t>(up ? tap : 0) * cin * W + d0, W,
-                 up ? cin : k * cin, min(GNT, W - d0));
+    Ring<T, NARROW> ring(bs, unit, cw + static_cast<size_t>(up ? tap : 0) * cin * W + d0, W,
+                         up ? cin : k * cin, min(GNT, W - d0));
     // A's frame r: x_in[m0 + r] (up), full[f_lo + r] = [context; x_in] (down);
     // null past the input (zeros)
     auto frame = [&](int r) -> const T* {
@@ -808,11 +604,12 @@ __host__ __device__ inline size_t take(size_t& o, size_t bytes) {
   return at;
 }
 
-__host__ __device__ inline TileSmem tile_smem(int W, int F, int C, int tsize) {
+__host__ __device__ inline TileSmem tile_smem(int W, int F, int C, int tsize, int lanes) {
   TileSmem L;
   L.rpc = R / C;
   size_t o = 0;
-  L.vs = take(o, 13 * W * sizeof(float));  // norm_w, mixer_b, gamma, ffn_norm_w, ffn_gamma, ffn2_b, 7 taps
+  // per lane group: norm_w, mixer_b, gamma, ffn_norm_w, ffn_gamma, ffn2_b, 7 taps
+  L.vs = take(o, 13 * W * lanes * sizeof(float));
   L.xs = take(o, (L.rpc + CTX) * W * sizeof(float));  // block input rows (6 before mine)
   L.hs = take(o, (L.rpc + CTX) * W * sizeof(float));  // normed rows over [ctx; h]
   L.ys = take(o, L.rpc * W * sizeof(float));          // post-mixer residual of my rows
@@ -833,18 +630,21 @@ __host__ __device__ inline TileSmem tile_smem(int W, int F, int C, int tsize) {
 // through distributed shared memory, each CTA takes F / C FFN columns (both
 // products), and CTA `rank` adds its rows' C partials in rank order through
 // distributed shared memory: the block's output rows, written to `dst` (fp32)
-// or, for the last block without the folded tail, to y.
-template <typename T, bool MMA>
+// or, for the last block without the folded tail, to y.  The weights and
+// vectors are those of the batch row's lane group (`lanes`).
+// NARROW: rows that are not whole 16-byte vectors move element by element.
+template <typename T, bool MMA, bool NARROW>
 __device__ void block_tile(const StageParams& p, int nb, int tile, const float* src, float* dst,
                            bool to_y, bool peers_wait, unsigned char* sm, const TileSmem& L,
-                           cg::cluster_group& cl) {
+                           cg::cluster_group& cl, int unit) {
   constexpr int V = 16 / sizeof(T);
   const int W = p.W, Tn = p.T, NB = p.NB, C = p.C, FC = p.F / C;
   const int rank = static_cast<int>(cl.block_rank()), rpc = L.rpc;
   const int tiles = (Tn + R - 1) / R;
   const int bb = tile / tiles, t0 = (tile % tiles) * R, t1 = min(Tn, t0 + R);
   const size_t row0 = static_cast<size_t>(bb) * Tn;
-  float* vs = reinterpret_cast<float*>(sm + L.vs);
+  const int lane = bb % p.lanes;
+  const float* vs = reinterpret_cast<float*>(sm + L.vs) + lane * 13 * W;
   float* xs = reinterpret_cast<float*>(sm + L.xs);
   float* hs = reinterpret_cast<float*>(sm + L.hs);
   float* ys = reinterpret_cast<float*>(sm + L.ys);
@@ -855,17 +655,20 @@ __device__ void block_tile(const StageParams& p, int nb, int tile, const float* 
   float* part = reinterpret_cast<float*>(sm + L.part);
   T* bs = reinterpret_cast<T*>(sm + L.bs);
   const int r0 = t0 + rank * rpc, r1 = min(t1, r0 + rpc), mine = max(0, r1 - r0);
-  // this CTA's FFN columns: both products' weight chunks start loading now,
-  // under the mixer
+  // this CTA's FFN columns of the row's lane group: both products' weight
+  // chunks start loading now, under the mixer
   const int f0 = rank * FC;
-  const T* w1 = static_cast<const T*>(p.w1) + static_cast<size_t>(nb) * p.w1_stride + f0;
-  const T* b1 = static_cast<const T*>(p.b1) + static_cast<size_t>(nb) * p.b1_stride + f0;
-  const T* w2 = static_cast<const T*>(p.w2) + (static_cast<size_t>(nb) * p.F + f0) * W;
-  Ring<T> ring(bs, w1, p.F, W, FC, w2, W, FC, W);
+  const T* w1 = static_cast<const T*>(p.w1) + static_cast<size_t>(nb) * p.w1_stride +
+                static_cast<size_t>(lane) * p.w1_lane + f0;
+  const T* b1 = static_cast<const T*>(p.b1) + static_cast<size_t>(nb) * p.b1_stride +
+                static_cast<size_t>(lane) * p.b1_lane + f0;
+  const T* w2 = static_cast<const T*>(p.w2) + static_cast<size_t>(nb) * p.w2_stride +
+                static_cast<size_t>(lane) * p.w2_lane + static_cast<size_t>(f0) * p.w2_ld;
+  Ring<T, NARROW> ring(bs, unit, w1, p.w1_ld, W, FC, w2, p.w2_ld, FC, W);
 
   if (mine > 0) {  // the mixer and the second norm of my rows
     const int lo = r0 - CTX, nrow = r1 - lo, nctx = max(0, -lo);
-    load_rows<T>(p, src, nb, row0, lo, nrow, xs);
+    load_rows<T, NARROW>(p, src, nb, row0, lo, nrow, xs);
     // the carried context stands for the rows before the sequence: loaded
     // in the same round trip as the block input
     const T* c_in = static_cast<const T*>(p.ctx) + (static_cast<size_t>(bb) * NB + nb) * CTX * W;
@@ -901,12 +704,21 @@ __device__ void block_tile(const StageParams& p, int nb, int tile, const float* 
       hn[e] = vv::from_f<T>(ys[e] * sc[e / W] * vs[3 * W + e % W]);
   }
   cl.sync();  // every rank's FFN input rows are ready
-  for (int e = threadIdx.x; e < R * W / V; e += THREADS) {
-    const int i = e / (W / V), c = e % (W / V);
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (t0 + i < t1)
-      v = *reinterpret_cast<const uint4*>(cl.map_shared_rank(hn, i / rpc) + (i % rpc) * W + c * V);
-    *reinterpret_cast<uint4*>(As + i * (W + 8) + c * V) = v;
+  if constexpr (NARROW) {
+    for (int e = threadIdx.x; e < R * W; e += THREADS) {
+      const int i = e / W, c = e % W;
+      As[i * (W + 8) + c] = t0 + i < t1 ? cl.map_shared_rank(hn, i / rpc)[(i % rpc) * W + c]
+                                        : vv::from_f<T>(0.f);
+    }
+  } else {
+    for (int e = threadIdx.x; e < R * W / V; e += THREADS) {
+      const int i = e / (W / V), c = e % (W / V);
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (t0 + i < t1)
+        v = *reinterpret_cast<const uint4*>(cl.map_shared_rank(hn, i / rpc) + (i % rpc) * W +
+                                            c * V);
+      *reinterpret_cast<uint4*>(As + i * (W + 8) + c * V) = v;
+    }
   }
   __syncthreads();
   // a = round(gelu(b1 + hn @ w1[:, f0:f0+FC]))
@@ -917,27 +729,34 @@ __device__ void block_tile(const StageParams& p, int nb, int tile, const float* 
   gemm<T, MMA>(ring, true, as, FC + 8, [&](int r, int c, float v) { part[r * W + c] = v; });
   cl.sync();  // every rank's partial is ready
   if (mine > 0) {
+    // U consecutive channels a thread: 4 as one float4, or (NARROW) 1
+    constexpr int U = NARROW ? 1 : 4;
     const float* peer[MAX_C];
 #pragma unroll
     for (int q = 0; q < MAX_C; ++q) peer[q] = q < C ? cl.map_shared_rank(part, q) : part;
-    for (int e = threadIdx.x; e < mine * W / 4; e += THREADS) {
-      const int r = e / (W / 4), d = 4 * (e % (W / 4)), i = rank * rpc + r;
-      float4 v[MAX_C];
+    for (int e = threadIdx.x; e < mine * W / U; e += THREADS) {
+      const int r = e / (W / U), d = U * (e % (W / U)), i = rank * rpc + r;
+      float v[MAX_C][U];
 #pragma unroll
-      for (int q = 0; q < MAX_C; ++q)
-        v[q] = q < C ? *reinterpret_cast<const float4*>(peer[q] + i * W + d)
-                     : make_float4(0.f, 0.f, 0.f, 0.f);
-      float s[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-      for (int q = 0; q < MAX_C; ++q) {  // rank order: the same sums on every run
-        s[0] += v[q].x;
-        s[1] += v[q].y;
-        s[2] += v[q].z;
-        s[3] += v[q].w;
+      for (int q = 0; q < MAX_C; ++q) {
+        if constexpr (NARROW) {
+          v[q][0] = q < C ? peer[q][i * W + d] : 0.f;
+        } else {
+          const float4 t = q < C ? *reinterpret_cast<const float4*>(peer[q] + i * W + d)
+                                 : make_float4(0.f, 0.f, 0.f, 0.f);
+          v[q][0] = t.x, v[q][1] = t.y, v[q][2] = t.z, v[q][3] = t.w;
+        }
       }
+      float s[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) s[u] = 0.f;
+#pragma unroll
+      for (int q = 0; q < MAX_C; ++q)  // rank order: the same sums on every run
+#pragma unroll
+        for (int u = 0; u < U; ++u) s[u] += v[q][u];
       const size_t o = (row0 + r0 + r) * W + d;
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
+      for (int u = 0; u < U; ++u) {
         const float x = ys[r * W + d + u] + vs[4 * W + d + u] * (s[u] + vs[5 * W + d + u]);
         if (to_y)
           static_cast<T*>(p.y)[o + u] = vv::from_f<T>(x);
@@ -951,23 +770,55 @@ __device__ void block_tile(const StageParams& p, int nb, int tile, const float* 
   if (peers_wait) cl.sync();
 }
 
-template <typename T, bool MMA>
+// vs[lane][13][W] = the block's vectors (rows 0-5 of vecs) and taps (rows 0-6
+// of mixw) of every lane group, fp32: 16-byte loads (NARROW: one element
+// each), one round trip for most shapes
+template <typename T, bool NARROW>
+__device__ void load_vecs(const StageParams& p, int nb, float* vs) {
+  constexpr int V = NARROW ? 1 : 16 / sizeof(T);  // elements a load
+  const int W = p.W, wv = W / V, n = 13 * p.lanes * wv;
+  const T* vec = static_cast<const T*>(p.vecs) + static_cast<size_t>(nb) * 8 * p.vec_ld;
+  const T* taps = static_cast<const T*>(p.mixw) + static_cast<size_t>(nb) * 8 * p.vec_ld;
+  for (int e = threadIdx.x; e < n; e += THREADS) {
+    const int row = e / wv, c = e % wv * V, lane = row / 13, k = row % 13;
+    const T* src = (k < 6 ? vec + k * p.vec_ld : taps + (k - 6) * p.vec_ld) + lane * p.vec_lane + c;
+    float* dst = vs + row * W + c;
+    if constexpr (NARROW) {
+      *dst = vv::to_f(*src);
+    } else {
+      const uint4 u = __ldg(reinterpret_cast<const uint4*>(src));
+      const T* t = reinterpret_cast<const T*>(&u);
+#pragma unroll
+      for (int j = 0; j < V; ++j) dst[j] = vv::to_f(t[j]);
+    }
+  }
+}
+
+// A multiple of the byte alignment that every row, row stride, block and
+// lane offset and column slice of the weights shares (the pack's tensors are
+// 16-byte aligned): 16-byte copies where it is a multiple of 16, else
+// (NARROW) copies of the largest of 8, 4 and 2 bytes that divides it
+__host__ __device__ inline int weight_bytes(const StageParams& p, int es) {
+  return (p.W | p.F / p.C | p.w1_ld | p.w2_ld | p.w1_stride | p.w2_stride | p.w1_lane |
+          p.w2_lane) * es;
+}
+
+template <typename T, bool MMA, bool NARROW>
 __global__ void __launch_bounds__(THREADS) cluster_kernel(StageParams p) {
   extern __shared__ __align__(16) unsigned char smc[];
   cg::cluster_group cl = cg::this_cluster();
-  const TileSmem L = tile_smem(p.W, p.F, p.C, sizeof(T));
+  const TileSmem L = tile_smem(p.W, p.F, p.C, sizeof(T), p.lanes);
+  const int bytes = weight_bytes(p, sizeof(T));
+  const int unit = NARROW ? (bytes % 8 == 0 ? 8 : bytes % 4 == 0 ? 4 : 2) : 16;
   if (p.conv_kind) {
-    conv_phase<T, MMA>(p, smc);
+    conv_phase<T, MMA, NARROW>(p, smc, unit);
     grid_barrier(p.bar);
   }
-  const int W = p.W, ncl = gridDim.x / p.C, cid = blockIdx.x / p.C;
+  const int ncl = gridDim.x / p.C, cid = blockIdx.x / p.C;
   const int tiles = p.B * ((p.T + R - 1) / R);
   float* vs = reinterpret_cast<float*>(smc + L.vs);
   for (int nb = 0; nb < p.NB; ++nb) {
-    const T* vec = static_cast<const T*>(p.vecs) + static_cast<size_t>(nb) * 8 * W;
-    const T* taps = static_cast<const T*>(p.mixw) + static_cast<size_t>(nb) * 8 * W;
-    for (int e = threadIdx.x; e < 13 * W; e += THREADS)
-      vs[e] = vv::to_f(e < 6 * W ? vec[e] : taps[e - 6 * W]);
+    load_vecs<T, NARROW>(p, nb, vs);
     __syncthreads();
     // block outputs alternate between xb and yg: a tile's mixer reads the 6
     // rows before it from the previous block's output while other clusters
@@ -976,67 +827,16 @@ __global__ void __launch_bounds__(THREADS) cluster_kernel(StageParams p) {
     float* dst = nb % 2 ? p.yg : p.xb;
     const bool last = nb + 1 == p.NB;
     for (int tile = cid; tile < tiles; tile += ncl)
-      block_tile<T, MMA>(p, nb, tile, src, dst, last && !p.hk,
-                         tile + ncl < tiles || (last && !p.hk), smc, L, cl);
+      block_tile<T, MMA, NARROW>(p, nb, tile, src, dst, last && !p.hk,
+                                 tile + ncl < tiles || (last && !p.hk), smc, L, cl, unit);
     if (!last || p.hk) grid_barrier(p.bar);
   }
-  if (p.hk) phase_out<T>(p, p.NB % 2 ? p.xb : p.yg, reinterpret_cast<float*>(smc));
-}
-
-template <typename T>
-size_t smem_bytes(const StageParams& p) {
-  const size_t W = p.W, chunk = KC * NT * sizeof(T);
-  const size_t f = (11 + 2 * (RT + CTX)) * W + (RT + CTX + RB) * W + KC * NT;
-  return std::max(f * sizeof(float), (RB * W + RB * FT) * sizeof(float) + chunk);
-}
-
-int max_items(const StageParams& p) {
-  const int tiles = p.B * ((p.T + RT - 1) / RT);
-  return std::max(tiles, p.B * ((p.T + RB - 1) / RB) * ((p.F + FT - 1) / FT));
-}
-
-// The row-lane kernel: one cooperative launch over at most one CTA per SM
-// slot; the device's attributes and the kernel's occupancy are asked once
-// per device and shared-memory size.
-template <typename T>
-int launch_rowlane(StageParams p, cudaStream_t stream) {
-  void (*kern)(StageParams) = stage_kernel<T>;
-  // every row of a weight chunk, a conv tile and the partials is whole
-  // 16-byte vectors
-  if ((p.W * sizeof(T)) % 16 || (p.F * sizeof(T)) % 16) return -2;
-  const size_t smem = smem_bytes<T>(p);
-  if (smem > 227 * 1024) return -5;
-  static std::map<std::pair<int, size_t>, int> slots;  // (device, smem) -> CTAs on the card
-  static size_t opted = 0;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  auto it = slots.find({dev, smem});
-  if (it == slots.end()) {
-    int sms = 0, coop = 0, per_sm = 0;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-    if (err == cudaSuccess && smem > opted) {
-      err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 static_cast<int>(smem));
-      if (err == cudaSuccess) opted = smem;
-    }
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, THREADS, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (!coop) return -10;       // the card cannot launch cooperatively
-    if (per_sm < 1) return -11;  // one CTA does not fit an SM
-    it = slots.emplace(std::make_pair(dev, smem), sms * per_sm).first;
-  }
-  const int grid = std::max(1, std::min(max_items(p), it->second));
-  void* args[] = {&p};
-  return static_cast<int>(cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kern), dim3(grid),
-                                                      dim3(THREADS), args, smem, stream));
+  if (p.hk) phase_out<T, NARROW>(p, p.NB % 2 ? p.xb : p.yg, reinterpret_cast<float*>(smc));
 }
 
 template <typename T>
 size_t cluster_smem_bytes(const StageParams& p) {
-  size_t b = tile_smem(p.W, p.F, p.C, sizeof(T)).total;
+  size_t b = tile_smem(p.W, p.F, p.C, sizeof(T), p.lanes).total;
   if (p.conv_kind) b = std::max(b, conv_a_bytes(p, sizeof(T)) + NSTAGE * GKC * GNTP * sizeof(T));
   if (p.hk) b = std::max(b, (RT + p.hk - 1) * (p.W + 1) * sizeof(float));
   return b;
@@ -1046,9 +846,9 @@ size_t cluster_smem_bytes(const StageParams& p) {
 // tiles (or conv items over C), at most as many as the card holds at once
 // (every CTA must be resident for the grid barriers); the occupancy is asked
 // once per device, shared-memory size and cluster size.
-template <typename T, bool MMA>
+template <typename T, bool MMA, bool NARROW>
 int launch_cluster(StageParams p, cudaStream_t stream) {
-  void (*kern)(StageParams) = cluster_kernel<T, MMA>;
+  void (*kern)(StageParams) = cluster_kernel<T, MMA, NARROW>;
   const size_t smem = cluster_smem_bytes<T>(p);
   if (smem > 227 * 1024) return -5;
   static std::map<std::tuple<int, size_t, int>, int> clusters;  // -> clusters on the card
@@ -1108,25 +908,23 @@ extern "C" int vv_fused_stage(const void* params, void* stream) {
   if (p.conv_kind == 2 && (p.cs <= 0 || p.ck <= p.cs || p.T * p.cs < p.ck - p.cs || p.cin <= 0))
     return -3;
   if (p.hk && (p.hk < 2 || p.hk - 1 > 8 || p.T < p.hk)) return -4;
+  // a row-lane pack (lanes > 1) folds nothing; C FFN column slices of a tile
+  if (p.lanes < 1 || (p.lanes > 1 && (p.conv_kind || p.hk))) return -3;
+  if (p.C < 1 || p.C > MAX_C || R % p.C || p.F % p.C || p.bar == nullptr) return -2;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (p.avg != nullptr) {  // the row-lane layout, which folds nothing
-    if (p.conv_kind || p.hk) return -3;
-    if (p.dtype == 0) return launch_rowlane<float>(p, st);
-    if (p.dtype == 1) return launch_rowlane<__nv_bfloat16>(p, st);
-    return -6;  // unsupported dtype
-  }
-  const size_t es = p.dtype == 0 ? 4 : 2;
-  // C FFN column slices of whole 16-byte vectors; rows of whole vectors
-  if (p.C < 1 || p.C > MAX_C || R % p.C || p.F % p.C || (p.F / p.C * es) % 16 ||
-      (p.W * es) % 16 || p.bar == nullptr)
-    return -2;
-  if (p.dtype == 0) return launch_cluster<float, false>(p, st);
+  const int es = p.dtype == 0 ? 4 : 2;
+  // rows, FFN slices, strides and lane offsets of whole 16-byte vectors, or
+  // the narrow copies
+  const bool wide = weight_bytes(p, es) % 16 == 0;
+  if (p.dtype == 0)
+    return wide ? launch_cluster<float, false, false>(p, st) : launch_cluster<float, false, true>(p, st);
   if (p.dtype != 1) return -6;  // unsupported dtype
+  if (!wide) return launch_cluster<__nv_bfloat16, false, true>(p, st);
   // tensor cores where every depth is whole k16 steps with 16-byte aligned A
   // rows (every bf16 stage of the 1.5B stacks but the stem conv, cin = 1)
   bool mma = p.W % 16 == 0 && (p.F / p.C) % 16 == 0;
   if (p.conv_kind == 1) mma = mma && p.cin % 16 == 0;
   if (p.conv_kind == 2) mma = mma && (p.ck * p.cin) % 16 == 0 && (p.cs * p.cin) % 8 == 0;
-  return mma ? launch_cluster<__nv_bfloat16, true>(p, st)
-             : launch_cluster<__nv_bfloat16, false>(p, st);
+  return mma ? launch_cluster<__nv_bfloat16, true, false>(p, st)
+             : launch_cluster<__nv_bfloat16, false, false>(p, st);
 }

@@ -38,7 +38,7 @@ int4 packs where the caller injects them, as the pipeline's
 `use_fused_stages` puts the large-T stages of both sigma-VAE stacks on the
 fused stage kernels (`ops.fused_stage`, packs in
 `params["_vocoder_packs_large"]` / `["_semantic_packs_large"]`), with the JAX
-engine's batch policies for the folds; the row-lane layout only when asked.
+engine's batch policies for the folds and the row-lane layout.
 """
 from __future__ import annotations
 
@@ -160,7 +160,7 @@ class Engine:
                  fused_stage_tile_semantic: Optional[int] = None,
                  fused_stage_fold_conv: Optional[bool] = None,
                  fused_stage_fold_head: Optional[bool] = None,
-                 fused_stage_rowlane: bool = False,
+                 fused_stage_rowlane: Optional[bool] = None,
                  keep_audio: bool = True,
                  kv_dtype: str = "model",
                  mesh=None,
@@ -227,11 +227,12 @@ class Engine:
                 chunk_t=cfg.speech_compress_ratio)
         if use_fused_stages:
             # the JAX engine's batch policies: the transition convs fold at
-            # B == 1 only, the tail never unless asked.  The row-lane layout,
-            # which the JAX engine turns on at 2 <= B <= 4 and B >= 32, stays
-            # off unless asked: on the H100 the plain stage kernel on the same
-            # rows takes 0.31-0.53 of its time at B = 2, 4 and 32
-            # (`chip_smoke.py` phase 2, PERF.md).
+            # B == 1 only, the tail never unless asked, and the row-lane packs
+            # at 2 <= B <= 4 and B >= 32.  On the H100 a row-lane call is the
+            # stage kernel reading each row's diagonal blocks: bit-equal to
+            # the plain stage kernel on the same rows and as fast within a
+            # few percent at B = 2, 4 and 32 (`chip_smoke.py` phase 2,
+            # PERF.md), so the JAX rule costs nothing here.
             # Packs already in the tree (e.g. a JAX engine's, through
             # `weights.from_jax`) are kept; any pack is right at any batch (a
             # row-lane pack whose row group does not divide the batch runs the
@@ -243,6 +244,8 @@ class Engine:
                 fused_stage_fold_conv = batch == 1
             if fused_stage_fold_head is None:
                 fused_stage_fold_head = False
+            if fused_stage_rowlane is None:
+                fused_stage_rowlane = 2 <= batch <= 4 or batch >= 32
             rl_batch = batch if (fused_stage_rowlane and batch > 1) else 0
             if "_vocoder_packs_large" not in params:
                 params["_vocoder_packs_large"] = tokenizer.pack_decoder_stages_large(

@@ -122,12 +122,14 @@ def plain_smem(d: int, tf: int, bg: int, t: int, es: int, kb: int, ring: int, r2
     power of two), x of the rank's columns, the up-projection's k splits, the
     norms' partials and exchanges, two of each of the rank's vectors (pack
     dtype), context rows and b1 slice, the mbarriers, and 128 bytes to align
-    the base."""
+    the base.  The FFN input's and W2's rows are d rounded up to 4 long."""
     rows = bg * t
     big = 1 << (rows - 1).bit_length()
-    wmax = -(-(d // 4) // CLUSTER) * 4  # d is a multiple of 4
+    dp = _up(d, 4)
+    vec = 4 if d % 4 == 0 else 1
+    wmax = -(-(d // vec) // CLUSTER) * vec
     nkl = _Q_THREADS // (tf // 4)
-    return (ring * _up(kb * tf * es, 128) + ring2 * _up(r2 * d * es, 128) + _up(4 * big * d)
+    return (ring * _up(kb * tf * es, 128) + ring2 * _up(r2 * dp * es, 128) + _up(4 * big * dp)
             + _up(4 * rows * wmax) + _up(4 * big * tf) + _up(4 * nkl * min(_Q_RP, big) * tf)
             + _up(4 * (-(-wmax // 32) + 2 * CLUSTER + 2) * rows) + _up(es * 2 * 14 * wmax)
             + _up(4 * 2 * bg * 6 * wmax) + _up(es * 2 * tf) + 8 * (ring + ring2 + 2) + 128)
@@ -151,20 +153,20 @@ def plain_plan(b: int, t: int, d: int, f: int, es: int, clusters: int) -> PlainP
     CLUSTER CTAs at once: the FFN width spread over all their CTAs in
     16-byte units of W1 (8 bf16 or 4 fp32 columns; the tensor map's unit)
     where every row of w1 and w2 is whole 16-byte vectors, else in 4-column
-    units (cp.async), only the clusters that get columns launched; row groups
-    of at most 16 rows, as many batch items as fit shared memory, balanced;
-    W1 in boxes of the most rows (a multiple of 4 that divides d, at most 256)
-    and W2 in runs of the most rows (a multiple of 4 that divides tf), each
-    of at most 48 KB (less where two stages a ring would not fit); the two
-    rings share what shared memory is left evenly, at least 2 and at most
-    two blocks' chunks each."""
-    if d % 4 or f % 4:
-        raise ValueError(f"the plain chain kernel takes D and F in multiples of 4, "
-                         f"got D={d}, F={f}")
+    units (the FMAs' width; cp.async copies of the widest of 16, 8, 4 or 1
+    bytes the rows allow), only the clusters that get columns launched; row
+    groups of at most 16 rows, as many batch items as fit shared memory,
+    balanced; W1 in boxes of the most rows (a multiple of 4 that divides d
+    rounded up to 4, at most 256) and W2 in runs of the most rows (a multiple
+    of 4 that divides tf), each of at most 48 KB (less where two stages a
+    ring would not fit); the two rings share what shared memory is left
+    evenly, at least 2 and at most two blocks' chunks each.  Any d and f
+    plan, unless their rows do not fit shared memory."""
+    dp = _up(d, 4)
     unit = 16 // es if (d * es) % 16 == 0 and (f * es) % 16 == 0 else 4
     tf = _up(-(-f // (clusters * CLUSTER)), unit)
     tiles = -(-f // tf)
-    kbs = [k for k in range(min(_BOX, d), 0, -1) if d % k == 0 and k % 4 == 0]
+    kbs = [k for k in range(min(_BOX, dp), 0, -1) if dp % k == 0 and k % 4 == 0]
     r2s = [r for r in range(tf, 0, -1) if tf % r == 0 and r % 4 == 0]
     per = max(1, min(b, _Q_ROWS // t))
     while per > 1 and plain_smem(d, tf, per, t, es, kbs[-1], 2, r2s[-1], 2) > _SMEM_MAX:
@@ -173,8 +175,8 @@ def plain_plan(b: int, t: int, d: int, f: int, es: int, clusters: int) -> PlainP
     cap = _STAGE_MAX
     while True:  # the largest stages under `cap` of which two a ring fit
         kb = next((k for k in kbs if k * tf * es <= cap), kbs[-1])
-        r2 = next((r for r in r2s if r * d * es <= cap), r2s[-1])
-        s1, s2 = _up(kb * tf * es, 128) + 8, _up(r2 * d * es, 128) + 8  # a stage, its mbarrier
+        r2 = next((r for r in r2s if r * dp * es <= cap), r2s[-1])
+        s1, s2 = _up(kb * tf * es, 128) + 8, _up(r2 * dp * es, 128) + 8  # a stage, its mbarrier
         left = _SMEM_MAX - plain_smem(d, tf, bg, t, es, kb, 0, r2, 0)
         if left >= 2 * (s1 + s2):
             break
@@ -184,7 +186,7 @@ def plain_plan(b: int, t: int, d: int, f: int, es: int, clusters: int) -> PlainP
                              f"clusters)")
         cap = cap * 3 // 4
     # at most two blocks' chunks a ring
-    ring = max(2, min(left // 2 // s1, (left - 2 * s2) // s1, 2 * (d // kb)))
+    ring = max(2, min(left // 2 // s1, (left - 2 * s2) // s1, 2 * (dp // kb)))
     ring2 = max(2, min((left - ring * s1) // s2, 2 * (tf // r2)))
     return PlainPlan(tf, tiles, -(-tiles // CLUSTER), bg, kb, ring, r2, ring2,
                      plain_smem(d, tf, bg, t, es, kb, ring, r2, ring2))
@@ -438,8 +440,8 @@ def fused_block_chain_plain(packed, x: torch.Tensor, ctx: torch.Tensor,
                             eps: float = 1e-5) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain-pack (bf16/fp32) chain for a batch: x [B, T, D] (T <= 8), ctx
     [B, N, 6, D] -> (y [B, T, D], new_ctx [B, N, 6, D]).  CUDA tensors launch
-    the kernel (one cluster launch for all rows, counted once; D and F
-    multiples of 4); CPU tensors take `fused_block_chain_plain_ref`."""
+    the kernel (one cluster launch for all rows, counted once); CPU tensors
+    take `fused_block_chain_plain_ref`."""
     if x.device.type == "cpu":
         return fused_block_chain_plain_ref(packed, x, ctx, eps)
     if x.device.type != "cuda":

@@ -20,22 +20,29 @@ inside the same launch:
 
 `fused_stage_chain` replaces TPU kernel #4 (`fused_stage_chain`, Pallas
 `_make_kernel`); `fused_stage_chain_rowlane` replaces #7
-(`_fused_stage_chain_rowlane`, `_make_kernel_rowlane`): the same stage on a
-[G, T, R*D] layout (R batch rows side by side in the channel dim), with
-block-diagonal kron(I_R, W) FFN weights and RMSNorm group means taken through
-the `avg` matmul.  `fused_stage_chain` dispatches to it for packs with a
-"rowlane" entry and no folds, as the JAX package does.
+(`_fused_stage_chain_rowlane`, `_make_kernel_rowlane`): the same stage from a
+row-lane pack, which the TPU kernel runs on a [G, T, R*D] layout (R batch
+rows side by side in its vector lanes), with block-diagonal kron(I_R, W) FFN
+weights and RMSNorm group means taken through the `avg` matmul.
+`fused_stage_chain` dispatches to it for packs with a "rowlane" entry and no
+folds, as the JAX package does.
 
 On CUDA tensors each wrapper makes ONE launch of `csrc/fused_stage.cu`
-(design and bound there: the stage as clusters over row tiles with one grid
-barrier per block, the row-lane form as one cooperative launch of phases),
-with its scratch cached per device, stream and size (`scratch`); on CPU
-tensors it runs the
-plain version (`fused_stage_chain_ref`, `fused_stage_chain_rowlane_ref`),
-which works over the whole T at once with the TPU kernel's numerics: fp32
-RMSNorm and residuals, matmul inputs rounded to the pack dtype with fp32
-accumulation, the ffn1 bias through the augmented all-ones column.  Both use
-the exact `erf` GELU; the TPU kernel's rational erf differs by < 1.5e-7.
+(design and bound there: clusters over row tiles with one grid barrier per
+block), with its scratch cached per device, stream and size (`scratch`).  The
+row-lane form is the same kernel reading each batch item's own lane group
+of the pack (`stage_layout`: its vectors and the diagonal blocks of w1, b1
+and w2) on x and ctx as they are, with each row's norm over its own D
+channels: no relayout, and bit-equal to the stage kernel on the pack without
+its row-lane entry.  On CPU tensors each wrapper runs its plain version
+(`fused_stage_chain_ref`, `fused_stage_chain_rowlane_ref`), which works over
+the whole T at once with the TPU kernel's numerics: fp32 RMSNorm and
+residuals, matmul inputs rounded to the pack dtype with fp32 accumulation,
+the ffn1 bias through the augmented all-ones column (the row-lane form: the
+[G, T, R*D] relayouts, its `avg` group means and block-diagonal weights, as
+the TPU kernel).  Both use the exact `erf` GELU; the TPU kernel's rational
+erf differs by < 1.5e-7.  The kernel's row-lane means (sum of squares times
+1/D) and the plain version's `avg` product differ only in fp32 rounding.
 
 `tile_want` stays in the signatures for the JAX package's callers and is
 ignored: neither the CUDA kernel nor the plain version tiles T by it.
@@ -52,7 +59,6 @@ from . import cuda_build
 from .fused_blocks import CTX, pack_stage
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-FT = 64  # FFN columns per work item of the row-lane kernel (csrc/fused_stage.cu)
 
 
 class ConvPack:
@@ -315,11 +321,12 @@ def fused_stage_chain_rowlane_ref(packed, x: torch.Tensor, ctx: torch.Tensor,
 # CUDA wrappers
 # ---------------------------------------------------------------------------
 
-_PTRS = ("x", "ctx", "conv_state", "head_state", "vecs", "mixw", "w1", "b1", "w2", "avg",
-         "conv_w", "conv_b", "head_w", "y", "ctx_out", "conv_out", "head_out", "xg", "yg",
-         "xb", "hng", "part", "bar")
-_INTS = ("B", "T", "W", "F", "NB", "w1_stride", "b1_stride", "conv_kind", "cs", "ck", "cin",
-         "hk", "hnorm", "dtype", "C")
+_PTRS = ("x", "ctx", "conv_state", "head_state", "vecs", "mixw", "w1", "b1", "w2", "conv_w",
+         "conv_b", "head_w", "y", "ctx_out", "conv_out", "head_out", "xg", "yg", "xb", "bar")
+_LAYOUT = ("w1_stride", "b1_stride", "w2_stride", "vec_ld", "w1_ld", "w2_ld", "lanes",
+           "vec_lane", "w1_lane", "b1_lane", "w2_lane")
+_INTS = ("B", "T", "W", "F", "NB", "conv_kind", "cs", "ck", "cin", "hk", "hnorm", "dtype",
+         "C") + _LAYOUT
 MAX_CLUSTER = 8  # CTAs per cluster of the stage kernel: the portable size
 CLUSTER_COLS = 64  # fewest FFN columns a CTA of a cluster takes
 
@@ -337,26 +344,41 @@ def cluster_size(f: int, dtype: torch.dtype) -> int:
     return 1
 
 
+def stage_layout(d: int, f: int, r: int = 1) -> Dict[str, int]:
+    """How the kernel finds a batch item's weights in a stage pack of width
+    d and FFN width f, in elements: the block strides of w1, b1 and w2
+    (`*_stride`), the row strides of vecs/mixw, w1 and w2 (`*_ld`) and the
+    lane offsets (`*_lane`): batch item bb reads lane group g = bb % r, which
+    starts g lane offsets after group 0.  A plain pack (r = 1): w1 [N, D+8,
+    F] with b1 its row D, w2 [N, F, D].  A row-lane pack of r lanes:
+    vecs/mixw [N, 8, r*D], w1 [N, r*D, r*F], b1 [N, 1, r*F], w2 [N, r*F,
+    r*D], whose lane group g is columns g*D.. of the vectors, the diagonal
+    block [g*D.., g*F..] of w1, columns g*F.. of b1 and the block [g*F..,
+    g*D..] of w2."""
+    if r == 1:
+        return dict(w1_stride=(d + 8) * f, b1_stride=(d + 8) * f, w2_stride=f * d, vec_ld=d,
+                    w1_ld=f, w2_ld=d, lanes=1, vec_lane=0, w1_lane=0, b1_lane=0, w2_lane=0)
+    rd, rf = r * d, r * f
+    return dict(w1_stride=rd * rf, b1_stride=rf, w2_stride=rf * rd, vec_ld=rd, w1_ld=rf,
+                w2_ld=rd, lanes=r, vec_lane=d, w1_lane=d * rf + f, b1_lane=f, w2_lane=f * rd + d)
+
+
 _SCRATCH: Dict[tuple, Dict[str, torch.Tensor]] = {}
 
 
-def scratch(device, stream: int, rowlane: bool, n_el: int, n_conv: int, n_f: int):
-    """The kernel's fp32 scratch, made once per device, stream and size.  The
-    stage kernel: `xg` (the folded conv's product, n_conv floats), `xb` and
-    `yg` (the blocks' outputs, alternating), `bar` (its grid barrier's
-    counter: 0 at first, and every call leaves its low bits 0).  The row-lane
-    kernel: `yg`, `xb`, `hng` and `part` (n_f FFN tiles of partials).  Calls
-    on one stream run in order, so they share it safely."""
-    key = (str(device), stream, rowlane, n_el, n_conv, n_f)
+def scratch(device, stream: int, n_el: int, n_conv: int):
+    """The kernel's scratch, made once per device, stream and size: `xg`
+    (the folded conv's product, n_conv floats), `xb` and `yg` (the blocks'
+    fp32 outputs, alternating), `bar` (its grid barrier's counter: 0 at
+    first, and every call leaves its low bits 0).  Calls on one stream run
+    in order, so they share it safely."""
+    key = (str(device), stream, n_el, n_conv)
     buf = _SCRATCH.get(key)
     if buf is None:
         f32 = dict(dtype=torch.float32, device=device)
-        buf = {"yg": torch.empty(n_el, **f32), "xb": torch.empty(n_el, **f32)}
-        if rowlane:
-            buf.update(hng=torch.empty(n_el, **f32), part=torch.empty(n_f * n_el, **f32))
-        else:
-            buf.update(xg=torch.empty(max(1, n_conv), **f32),
-                       bar=torch.zeros(1, dtype=torch.int32, device=device))
+        buf = {"yg": torch.empty(n_el, **f32), "xb": torch.empty(n_el, **f32),
+               "xg": torch.empty(max(1, n_conv), **f32),
+               "bar": torch.zeros(1, dtype=torch.int32, device=device)}
         _SCRATCH[key] = buf
     return buf
 
@@ -367,25 +389,21 @@ class _Params(ctypes.Structure):
                 + [("eps", ctypes.c_float)])
 
 
-def _launch(name, p, x, ctx, eps, conv=None, hp=None, conv_state=None, head_state=None,
-            rowlane=False):
-    """One launch on x [B, T', *] whose stage rows have width W."""
+def _launch(name, p, x, ctx, eps, conv=None, hp=None, conv_state=None, head_state=None, r=1):
+    """One launch on x [B, T', *] whose stage rows have width W; `p` is a
+    plain pack, or (r > 1) a row-lane pack of r lanes."""
     vecs, w1, w2 = p["vecs"], p["w1"], p["w2"]
-    n, _, w = vecs.shape
-    f = w2.shape[1]
+    n, _, rw = vecs.shape
+    w, f = rw // r, w2.shape[1] // r
     bsz = x.shape[0]
     t = _stage_rows({"conv": conv}, x)
     dt, dev = x.dtype, x.device
     if dt not in _DTYPE_CODES:
         raise TypeError(f"{name} takes float32 or bfloat16, got {dt}")
-    vec = 16 // x.element_size()  # the kernel moves rows as 16-byte vectors
-    if w % vec or f % vec:
-        raise ValueError(f"{name} takes {dt} widths that are multiples of {vec}, "
-                         f"got W={w}, F={f}")
-    want = {"vecs": (n, 8, w), "mixw": (n, 8, w), "w2": (n, f, w),
-            "w1": (n, w, f) if rowlane else (n, w + 8, f)}
-    if rowlane:
-        want.update(b1=(n, 1, f), avg=(w, w))
+    want = {"vecs": (n, 8, r * w), "mixw": (n, 8, r * w), "w2": (n, r * f, r * w),
+            "w1": (n, r * w, r * f) if r > 1 else (n, w + 8, f)}
+    if r > 1:
+        want["b1"] = (n, 1, r * f)
     head_w = None
     if hp is not None:
         head_w = hp.w.float().contiguous()
@@ -404,6 +422,7 @@ def _launch(name, p, x, ctx, eps, conv=None, hp=None, conv_state=None, head_stat
         want["head_state"] = (bsz, hp.k - 1, w)
         head_state = head_state.to(dt)
         tensors.update(head_state=head_state)
+    want["x"] = (bsz, x.shape[1], conv.cin if conv is not None else w)
     want["ctx"] = (bsz, n, CTX, w)
     for k, shape in want.items():
         if tuple(tensors[k].shape) != shape:
@@ -413,7 +432,7 @@ def _launch(name, p, x, ctx, eps, conv=None, hp=None, conv_state=None, head_stat
             raise ValueError(f"{name}: {k} is on {tns.device}, x on {dev}")
         if not tns.is_contiguous():
             raise ValueError(f"{name}: {k} must be contiguous")
-        if tns.dtype != (torch.float32 if k == "avg" else dt):
+        if tns.dtype != dt:
             raise TypeError(f"{name}: {k} has dtype {tns.dtype}, want {dt}")
         if tns.data_ptr() % 16:
             raise ValueError(f"{name}: {k} must be 16-byte aligned")
@@ -430,24 +449,23 @@ def _launch(name, p, x, ctx, eps, conv=None, hp=None, conv_state=None, head_stat
     # the folded conv's product: "up" every tap's channels per input frame
     n_conv = 0 if conv is None else (2 * n_el if conv.kind == "up" else n_el)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    buf = scratch(dev, stream, rowlane, n_el, n_conv, -(-f // FT))
-    es = w1.element_size()
+    buf = scratch(dev, stream, n_el, n_conv)
     ptr = lambda v: 0 if v is None else v.data_ptr()
+    # a plain pack's b1 is row D of w1
+    b1 = ptr(p["b1"]) if r > 1 else w1.data_ptr() + w * f * w1.element_size()
     args = _Params(
         x=ptr(x), ctx=ptr(ctx), conv_state=ptr(conv_state), head_state=ptr(head_state),
-        vecs=ptr(vecs), mixw=ptr(p["mixw"]), w1=ptr(w1),
-        b1=ptr(p["b1"]) if rowlane else w1.data_ptr() + w * f * es, w2=ptr(w2),
-        avg=ptr(p["avg"]) if rowlane else 0,
+        vecs=ptr(vecs), mixw=ptr(p["mixw"]), w1=ptr(w1), b1=b1, w2=ptr(w2),
         conv_w=ptr(conv.w) if conv is not None else 0,
         conv_b=ptr(conv.b) if conv is not None else 0, head_w=ptr(head_w), y=ptr(y),
         ctx_out=ptr(ctx_out), conv_out=ptr(conv_out), head_out=ptr(head_out),
         **{k: ptr(v) for k, v in buf.items()},
-        B=bsz, T=t, W=w, F=f, NB=n, w1_stride=w1.shape[1] * f, b1_stride=f if rowlane else
-        (w + 8) * f, conv_kind=0 if conv is None else (1 if conv.kind == "up" else 2),
+        B=bsz, T=t, W=w, F=f, NB=n,
+        conv_kind=0 if conv is None else (1 if conv.kind == "up" else 2),
         cs=conv.s if conv is not None else 0, ck=conv.k if conv is not None else 0,
         cin=conv.cin if conv is not None else 0, hk=hk,
         hnorm=int(hp is not None and hp.has_norm), dtype=_DTYPE_CODES[dt],
-        C=1 if rowlane else cluster_size(f, dt), eps=float(eps))
+        C=cluster_size(f, dt), eps=float(eps), **stage_layout(w, f, r))
     with torch.cuda.device(dev):
         rc = _library().vv_fused_stage(ctypes.byref(args), stream)
     if rc != 0:
@@ -497,8 +515,9 @@ fused_stage_chain.launches = 0
 def fused_stage_chain_rowlane(packed, x: torch.Tensor, ctx: torch.Tensor, eps: float = 1e-5,
                               tile_want: int = 400):
     """The row-lane stage (no folds): x [B, T, D], ctx [B, N, 6, D] with B a
-    multiple of the pack's row group R -> (y, new_ctx).  The [G, T, R*D]
-    relayouts are plain PyTorch around the kernel; CPU tensors take
+    multiple of the pack's row group R -> (y, new_ctx).  CUDA tensors launch
+    the kernel on x and ctx as they are (item bb reads lane group bb % R of
+    the row-lane pack; counted once per call); CPU tensors take
     `fused_stage_chain_rowlane_ref`."""
     r = _rowlane_rows(packed)
     if r < 2 or x.shape[0] % r:
@@ -508,11 +527,10 @@ def fused_stage_chain_rowlane(packed, x: torch.Tensor, ctx: torch.Tensor, eps: f
         return fused_stage_chain_rowlane_ref(packed, x, ctx, eps, tile_want)
     if x.device.type != "cuda":
         raise ValueError(f"fused_stage_chain_rowlane runs on cuda or cpu, not {x.device}")
-    xr, cr = _to_lanes(x, ctx, r)
-    y, new_ctx = _launch("fused_stage_chain_rowlane", packed["rowlane"], xr, cr, eps,
-                         rowlane=True)
+    out = _launch("fused_stage_chain_rowlane", packed["rowlane"], x.contiguous(), ctx.contiguous(),
+                  eps, r=r)
     fused_stage_chain_rowlane.launches += 1
-    return _from_lanes(y, new_ctx, r)
+    return out
 
 
 fused_stage_chain_rowlane.launches = 0
@@ -561,4 +579,5 @@ def stage_work(packed, x: torch.Tensor):
 __all__ = ["ConvPack", "HeadPack", "pack_stage", "pack_stage_rowlane", "pack_up_conv",
            "pack_down_conv", "pack_head", "rowlane_rows", "fused_stage_chain",
            "fused_stage_chain_ref", "fused_stage_chain_rowlane",
-           "fused_stage_chain_rowlane_ref", "stage_work", "cluster_size", "scratch"]
+           "fused_stage_chain_rowlane_ref", "stage_work", "cluster_size", "stage_layout",
+           "scratch"]
