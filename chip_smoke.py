@@ -28,13 +28,19 @@ Phases, in order; any failure stops the run with a non-zero exit:
      carried, two calls bit-equal, with its share of the bound;
   3. the long-cache engine as `bench.py` drives it (1.5B, bf16, B=1, prompt
      256, 3840 steps -> a 4096-slot cache, so decode attention runs on the
-     kernel): prefill, a 16-step warm-up chunk and two timed 32-step chunks;
+     kernel): prefill, a 16-step warm-up chunk and two timed 32-step chunks.
+     Every engine run of phases 3-5 goes in turns eager, graph, graph, eager:
+     `Engine(eager=True)` launches each step from the host, the default
+     engine replays its decode step from the CUDA graph it captured in its
+     first chunk (the second graph turn is a second request on the same
+     graph); a graph turn also gives the capture's seconds, the graph's
+     kernel nodes by kernel (held against one step's launches) and its
+     device time per replay;
   4. the same engine with `kv_dtype="int8"` for 8 + 8 steps, then at B=2 with
-     `use_fused_stages=True` for 8 + 16 steps, in turns with
-     `fused_stage_rowlane=False` (eight stage-kernel calls per step), by
-     default (4 + 4 row-lane), by default and off again, the codec half of a
-     step of each kind captured in a CUDA graph (nodes, device time per
-     replay);
+     `use_fused_stages=True` for 8 + 16 steps, with
+     `fused_stage_rowlane=False` (eight stage-kernel calls per step) and by
+     default (4 + 4 row-lane), the codec half of a step of each kind also
+     captured alone in a CUDA graph (nodes, device time per replay);
      then the long-prompt engine: a 4096-token prompt (flash prefill by the
      auto rule, 28 launches) with `use_fused_vocoder` / `use_fused_semantic`
      on plain bf16 packs (4 chain launches per step), prefill and 8 + 16
@@ -51,7 +57,7 @@ Phases, in order; any failure stops the run with a non-zero exit:
   6. `VibeVoiceTTS.from_random(vibevoice_1_5b())` serving three scripts (one
      with two speakers) with a streamer, each stopped after 24 steps, in bf16
      and then in the quantized configuration, which also serves one script
-     with `use_fused_stages=True`;
+     with `use_fused_stages=True`, every engine decoding through its graph;
   7. a tiny model on the card against the same model on the CPU (plain
      versions), as the reference on a small input: bf16-free fp32, plain and
      in the int4 modes (group scales, int8 tokenizer stages), and with
@@ -68,6 +74,7 @@ import os
 import subprocess
 import sys
 import time
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
@@ -847,78 +854,145 @@ def expected_launches(cfg, quant, eng):
     return prefill, step
 
 
+# each engine run: an eager request, two requests on the graph engine (the
+# first captures its step), an eager request again
+TURNS = ("eager", "graph", "graph", "eager")
+
+
+class Run(NamedTuple):
+    """What `run_engine` hands on: the wrappers' launches by kernel in the
+    graph engine's first turn (the prefill, the warm-up step and the
+    captured step), the launches that ran on the device in that turn (the
+    prefill's, then one step's per executed step), the last turn's final
+    state and the graph engine."""
+    launches: dict
+    device_launches: dict
+    state: Any
+    eng: Any
+
+
 def run_engine(params, cfg, dev, kv_dtype, warm_steps, timed_chunks, card, quant=None,
                batch=1, stages=False, want_stages=None, rowlane=None, prompt_len=256,
                max_steps=3840, chain=False):
-    """Prefill, a warm-up chunk and the timed chunks of the long-cache engine;
-    asserts every kernel's launches against `expected_launches` (and, with
-    `use_fused_stages`, the stage kernels' per-step counts against
-    `want_stages`; `rowlane` turns the row-lane layout on or off, None leaves
-    the engine's rule).  The small-T
+    """The long-cache engine in TURNS: an eager engine (`Engine(eager=True)`:
+    every step launched from the host) and a graph engine (the captured step,
+    replayed; built on the eager engine's params and packs), each turn a
+    request of its own: prefill, a warm-up chunk and the timed chunks.  A
+    graph engine's second turn is a second request on the same graph.
+
+    Launch checks against `expected_launches` (and, with `use_fused_stages`,
+    the stage kernels' per-step counts against `want_stages`; `rowlane`
+    turns the row-lane layout on or off, None leaves the engine's rule): an
+    eager turn counts every kernel's launches per step; a graph turn counts
+    the prefill's through the wrappers, plus the warm-up step's and the
+    captured step's in the turn that captures, and nothing per replay, and
+    the captured step's kernel nodes equal the per-step counts.  The small-T
     chains are on with `quant` (the pipeline's int4 packs in `params`) or
-    `chain` (plain packs, built by the engine).  Returns (launches of the
-    whole run by kernel, the final state, the engine)."""
+    `chain` (plain packs, built by the engine).  Emits one `engine` line per
+    turn (a graph turn with its nodes by kernel and the device ms of one
+    replay) and one `engine_turns` line."""
     from vibevoice_tpu_torch.engine import generate as G
     fused = quant is not None or chain
-    eng = G.Engine(params, cfg, bench_gen(G), max_steps=max_steps, batch=batch,
-                   prompt_len=prompt_len, dtype=torch.bfloat16, kv_dtype=kv_dtype, device=dev,
-                   use_fused_vocoder=fused, use_fused_semantic=fused, use_fused_stages=stages,
-                   fused_stage_rowlane=rowlane)
+    kw = dict(max_steps=max_steps, batch=batch, prompt_len=prompt_len, dtype=torch.bfloat16,
+              kv_dtype=kv_dtype, device=dev, use_fused_vocoder=fused, use_fused_semantic=fused,
+              use_fused_stages=stages, fused_stage_rowlane=rowlane)
+    eager = G.Engine(params, cfg, bench_gen(G), eager=True, **kw)
+    eng = G.Engine(eager.params, cfg, bench_gen(G), **kw)  # the eager engine's packs
+    engines = {"eager": eager, "graph": eng}
     if stages and stage_launches(eng) != want_stages:
         raise RuntimeError(f"stage packs give {stage_launches(eng)} launches per step, "
                            f"want {want_stages}")
     if not (eng.use_flash_decode and eng.cache_len >= 4096):
         raise RuntimeError(f"engine is off the long-cache path: cache {eng.cache_len}")
+    want_prefill, want_step = expected_launches(cfg, quant, eng)
+    steps = warm_steps + sum(timed_chunks)
     ids = np.random.default_rng(SEED).integers(0, 1000, (batch, prompt_len)).astype(np.int32)
     mask = np.ones((batch, prompt_len), np.int32)
     sim = np.zeros((batch, prompt_len), bool)
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-
-    counters = kernel_counters()
-    for c in counters.values():
-        c.launches = 0
-    t0 = time.perf_counter()
-    state, _ = eng.prefill(ids, mask, sim, generator=gen)
-    torch.cuda.synchronize()
-    prefill_s = time.perf_counter() - t0
-    prefill_launches = {k: c.launches for k, c in counters.items()}
-    state, _ = eng.decode_chunk(state, warm_steps)
-    f_prev = int(state.frames.sum())
-    chunks = []
-    for n in timed_chunks:
-        t0 = time.perf_counter()
-        state, _ = eng.decode_chunk(state, n)
-        f_now = int(state.frames.sum())  # waits for the device
-        dt = time.perf_counter() - t0
-        chunks.append({"steps": n, "frames": f_now - f_prev, "wall_s": dt})
-        f_prev = f_now
-    launches = {k: c.launches for k, c in counters.items()}
-    steps = warm_steps + sum(timed_chunks)
-
-    want_prefill, want_step = expected_launches(cfg, quant, eng)
-    want = {k: want_prefill[k] + steps * want_step[k] for k in counters}
-    if prefill_launches != want_prefill or launches != want:
-        raise RuntimeError(f"kernel launches: prefill {prefill_launches} (want {want_prefill}),"
-                           f" run {launches} (want {want}) over {steps} decode steps")
-    emitted = state.emitted[:, : state.step]
-    audio = state.audio[:, : state.step]
-    if not bool(emitted.all()):
-        raise RuntimeError("a forced-diffusion step emitted no frame")
-    if not bool(torch.isfinite(audio).all()) or float(audio.abs().max()) == 0.0:
-        raise RuntimeError("engine audio is not finite or is all zero")
     hop = cfg.speech_compress_ratio
-    frames = sum(c["frames"] for c in chunks)
-    wall = sum(c["wall_s"] for c in chunks)
-    emit("engine", kv=kv_dtype, quant=quant, batch=batch, fused_stages=stages,
-         rowlane=uses_rowlane_any(eng), prompt_len=prompt_len,
-         flash_prefill=eng.use_flash_prefill,
-         codec_launches=codec_launches(eng), cache_slots=eng.cache_len, prefill_s=prefill_s,
-         decode_steps=steps, prefill_launches=prefill_launches, kernel_launches=launches,
-         launches_per_step={k: (launches[k] - prefill_launches[k]) / steps for k in launches},
-         chunks=chunks, ms_per_frame=(1e3 * wall / frames) if frames else None,
-         audio_s_per_s=(frames * hop / 24000.0 / wall) if frames else None,
-         audio_absmax=float(audio.abs().max()), card=card)
-    return launches, state, eng
+    counters = kernel_counters()
+    summary = {mode: {"ms_per_frame": [], "audio_s_per_s": []} for mode in engines}
+    run = None
+    for mode in TURNS:
+        e = engines[mode]
+        captures = mode == "graph" and e.graph is None
+        replays0 = e.replays
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        state, _ = e.prefill(ids, mask, sim, generator=gen)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        prefill_launches = {k: c.launches for k, c in counters.items()}
+        state, _ = e.decode_chunk(state, warm_steps)
+        f_prev = int(state.frames.sum())
+        chunks = []
+        for n in timed_chunks:
+            t0 = time.perf_counter()
+            state, _ = e.decode_chunk(state, n)
+            f_now = int(state.frames.sum())  # waits for the device
+            dt = time.perf_counter() - t0
+            chunks.append({"steps": n, "frames": f_now - f_prev, "wall_s": dt})
+            f_prev = f_now
+        launches = {k: c.launches for k, c in counters.items()}
+
+        # through the wrappers: every step eagerly; with the graph the
+        # warm-up step and the captured one, in the turn that captures
+        wrapped = steps if mode == "eager" else (2 if captures else 0)
+        want = {k: want_prefill[k] + wrapped * want_step[k] for k in counters}
+        if prefill_launches != want_prefill or launches != want:
+            raise RuntimeError(f"{mode} kernel launches: prefill {prefill_launches} (want "
+                               f"{want_prefill}), run {launches} (want {want}) over {steps} "
+                               "decode steps")
+        graph_info = {}
+        if mode == "graph":
+            if e.replays - replays0 != steps - captures:
+                raise RuntimeError(f"{e.replays - replays0} replays for {steps} steps")
+            nodes, other = graph_launches(e.graph)
+            if nodes != merge_stages(want_step):
+                raise RuntimeError(f"the captured step's kernel nodes {nodes} differ from "
+                                   f"the step's launches {merge_stages(want_step)}")
+            graph_info = dict(graph_nodes=nodes, graph_other_nodes=other,
+                              capture_s=e.capture_s if captures else None)
+        emitted = state.emitted[:, : state.host_step]
+        audio = state.audio[:, : state.host_step]
+        if not bool(emitted.all()):
+            raise RuntimeError("a forced-diffusion step emitted no frame")
+        if not bool(torch.isfinite(audio).all()) or float(audio.abs().max()) == 0.0:
+            raise RuntimeError("engine audio is not finite or is all zero")
+        if mode == "graph":
+            # after the checks: each replay advances the state by a step
+            graph_info["device_ms_per_replay"] = cuda_ms(lambda i: e.graph.replay(), 10)
+        frames = sum(c["frames"] for c in chunks)
+        wall = sum(c["wall_s"] for c in chunks)
+        ms = (1e3 * wall / frames) if frames else None
+        aps = (frames * hop / 24000.0 / wall) if frames else None
+        summary[mode]["ms_per_frame"].append(ms)
+        summary[mode]["audio_s_per_s"].append(aps)
+        if mode == "graph":
+            for k in ("capture_s", "graph_nodes", "device_ms_per_replay"):
+                if graph_info.get(k) is not None:
+                    summary[mode].setdefault(k, []).append(graph_info[k])
+        emit("engine", mode=mode, kv=kv_dtype, quant=quant, batch=batch, fused_stages=stages,
+             rowlane=uses_rowlane_any(eng), prompt_len=prompt_len,
+             flash_prefill=eng.use_flash_prefill,
+             codec_launches=codec_launches(eng), cache_slots=eng.cache_len, prefill_s=prefill_s,
+             decode_steps=steps, prefill_launches=prefill_launches, kernel_launches=launches,
+             launches_per_step=want_step, chunks=chunks, ms_per_frame=ms, audio_s_per_s=aps,
+             audio_absmax=float(audio.abs().max()), **graph_info, card=card)
+        if captures:
+            # executed on the device: the prefill's, the warm-up step's and
+            # one step's per replay
+            run = Run(launches, {k: want_prefill[k] + steps * want_step[k] for k in counters},
+                      state, e)
+        elif mode == "graph":
+            run = run._replace(state=state)
+    emit("engine_turns", kv=kv_dtype, quant=quant, batch=batch, fused_stages=stages,
+         rowlane=uses_rowlane_any(eng), prompt_len=prompt_len, turns=TURNS, **summary,
+         card=card)
+    del eager, engines
+    return run
 
 
 def graph_kernels(graph):
@@ -952,13 +1026,49 @@ def graph_kernels(graph):
     return names
 
 
+# the kernels' entry functions (by the identifier in their mangled symbol,
+# which carries its length) -> the wrapper whose counter counts their launches;
+# the row-lane stage call is the stage kernel on the row-lane pack, so
+# `cluster_kernel` nodes count under fused_stage_chain (see `merge_stages`)
+NODE_KERNELS = (("flash_wgmma_kernel", "flash_attention_prefill"),
+                ("flash_f32_kernel", "flash_attention_prefill"),
+                ("mma_kernel", "decode_attention"), ("f32_kernel", "decode_attention"),
+                ("int4_matmul_kernel", "int4_matmul"),
+                ("chain_q_kernel", "fused_block_chain_batched"),
+                ("chain_p_kernel", "fused_block_chain"),
+                ("head_q_kernel", "fused_head_solver_step"),
+                ("cluster_kernel", "fused_stage_chain"))
+
+
+def graph_launches(graph):
+    """{counter name: kernel nodes} of a graph captured with keep_graph=True
+    (`graph_kernels`), every counter of `kernel_counters` present, the two
+    stage counters merged (`merge_stages`); and the count of other nodes."""
+    out = merge_stages(dict.fromkeys(kernel_counters(), 0))
+    other = 0
+    for name in graph_kernels(graph):
+        key = next((k for fn, k in NODE_KERNELS if f"{len(fn)}{fn}" in name), None)
+        if key is None:
+            other += 1
+        else:
+            out[key] += 1
+    return out, other
+
+
+def merge_stages(launches):
+    """Launch counts by wrapper with the row-lane stage calls added to the
+    stage kernel's: one kernel function serves both."""
+    out = dict(launches)
+    out["fused_stage_chain"] += out.pop("fused_stage_chain_rowlane")
+    return out
+
+
 def codec_graph(eng, state, dev, card):
     """The codec half of one decode step of `eng` at its batch (the acoustic
     decoder on one latent frame a row and the semantic encoder on its
     samples, from `state`'s streaming states: every stage and chain call of
     the step) captured in a CUDA graph: its nodes and its device time per
-    replay.  The whole step holds host reads and is not captured yet
-    (ROADMAP A5b)."""
+    replay: the codec's share of the engine's captured step."""
     from vibevoice_tpu_torch.models import tokenizer as tok
     p, cfg = eng.params, eng.cfg
     gen = torch.Generator(device=dev).manual_seed(SEED + 9)
@@ -1003,9 +1113,10 @@ def uses_rowlane_any(eng) -> bool:
 
 def attention_operands(state, batch, dev):
     """The decode step's own visibility and lengths, for the kernels line."""
-    lengths = torch.full((2 * batch,), state.write_pos + 1, dtype=torch.int32, device=dev)
+    wp = int(state.write_pos)
+    lengths = torch.full((2 * batch,), wp + 1, dtype=torch.int32, device=dev)
     vis = state.visible.clone()
-    vis[:, state.write_pos] = 1
+    vis[:, wp] = 1
     return vis, lengths
 
 
@@ -1237,13 +1348,12 @@ def phase_long_prompt(params, cfg, dev, card):
     per step and 4 in the prefill).  Then the same prompt's prefill through
     the dense path beside the flash one, in turns (dense, flash, flash,
     dense): times, peak memory and the last hidden state; and a 16 384-token
-    flash prefill with its peak memory.  Returns (launches of the main run,
-    its engine)."""
+    flash prefill with its peak memory.  Returns the main run (`Run`)."""
     from vibevoice_tpu_torch.engine import generate as G
     n_layers = cfg.decoder.num_hidden_layers
-    launches, state, eng = run_engine(params, cfg, dev, "model", 8, (16,), card,
-                                      prompt_len=PROMPT_LONG, max_steps=64, chain=True)
-    del state
+    run = run_engine(params, cfg, dev, "model", 8, (16,), card, prompt_len=PROMPT_LONG,
+                     max_steps=64, chain=True)
+    launches, eng = run.launches, run.eng
     if not (eng.use_flash_prefill and launches["flash_attention_prefill"] == n_layers
             and codec_launches(eng)["fused_block_chain"] == 4):
         raise RuntimeError(f"the long-prompt engine is off its path: {launches}")
@@ -1294,7 +1404,7 @@ def phase_long_prompt(params, cfg, dev, card):
          card=card)
     del e16
     torch.cuda.empty_cache()
-    return launches, eng
+    return run
 
 
 def long_prompt_entries(eng, launches, cfg, dev):
@@ -1387,6 +1497,7 @@ def phase_pipeline(dev, card, quant=None):
             raise RuntimeError(f"pipeline engine is off the long-cache path: {eng.cache_len}")
         streamer = AudioStreamer(batch_size=1)
         seen = []
+        captures = eng.graph is None
         for c in counters.values():
             c.launches = 0
         res, metrics = tts.generate(script, vs, max_new_tokens=max_new, seed=i,
@@ -1402,12 +1513,17 @@ def phase_pipeline(dev, card, quant=None):
             raise RuntimeError(f"request {i}: streamed chunks differ from the buffered audio")
         if len(audio) != res.steps * hop or res.steps < stop_after:
             raise RuntimeError(f"request {i}: {res.steps} steps, {len(audio)} samples")
-        want = {k: want_prefill[k] + (res.steps - 1) * want_step[k] for k in counters}
-        if launches != want:
-            raise RuntimeError(f"request {i}: launches {launches}, want {want} for "
-                               f"{res.steps - 1} decode steps")
+        # through the wrappers: the prefill, and the warm-up and captured
+        # steps where this request captured the engine's step; the graph
+        # holds one step's launches and the replays count nowhere
+        want = {k: want_prefill[k] + (2 if captures else 0) * want_step[k] for k in counters}
+        nodes, _ = graph_launches(eng.graph)
+        if launches != want or nodes != merge_stages(want_step):
+            raise RuntimeError(f"request {i}: launches {launches}, want {want}; graph nodes "
+                               f"{nodes}, want {merge_stages(want_step)}")
         emit("pipeline", quant=quant, fused_stages=stages, request=i, speakers=len(vs),
-             prompt_bucket=eng.prompt_len,
+             prompt_bucket=eng.prompt_len, captured=captures, capture_s=eng.capture_s,
+             graph_nodes=nodes,
              cache_slots=eng.cache_len, steps=res.steps, kernel_launches=launches,
              setup_s=setup_s if i == 0 else None, wall_s=metrics["wall_s"],
              audio_sec=metrics["audio_sec"], rtf=metrics["rtf"], card=card)
@@ -1495,18 +1611,25 @@ def phase_reference(dev, quant=False, stages=False, b=2, flash_chain=False):
     (ref, cpu_launches), (got, gpu_launches) = out["cpu"], out[str(dev)]
     n_layers = cfg.decoder.num_hidden_layers
     # every step diffuses: 3 + 3 packed stages, 3 solver steps and the
-    # stage kernels once per large-T pack each; flash prefill once per layer
-    want = {"decode_attention": n_layers * (steps - 1),
-            "int4_matmul": 4 * n_layers * steps if quant else 0,
-            "fused_block_chain_batched": 6 * steps if quant else 0,
-            "fused_head_solver_step": 3 * steps if quant else 0,
-            "flash_attention_prefill": n_layers if flash_chain else 0,
-            "fused_block_chain": 6 * steps if flash_chain else 0,
-            **{k: n * steps for k, n in stage_launches(eng).items()}}
+    # stage kernels once per large-T pack each; flash prefill once per layer.
+    # The card decodes through the captured step: the prefill's step 0, the
+    # warm-up step and the captured one go through the wrappers, and the
+    # graph holds one step
+    step = {"decode_attention": n_layers,
+            "int4_matmul": 4 * n_layers if quant else 0,
+            "fused_block_chain_batched": 6 if quant else 0,
+            "fused_head_solver_step": 3 if quant else 0,
+            "flash_attention_prefill": 0,
+            "fused_block_chain": 6 if flash_chain else 0,
+            **stage_launches(eng)}
+    pre = dict(step, decode_attention=0, flash_attention_prefill=n_layers if flash_chain else 0)
+    want = {k: pre[k] + 2 * n for k, n in step.items()}
     if stages and sum(stage_launches(eng).values()) != 4:
         raise RuntimeError(f"tiny engine stage packs: {stage_launches(eng)}")
-    if any(cpu_launches.values()) or gpu_launches != want:
-        raise RuntimeError(f"launches: cpu {cpu_launches}, gpu {gpu_launches}, want {want}")
+    nodes, _ = graph_launches(eng.graph)
+    if any(cpu_launches.values()) or gpu_launches != want or nodes != merge_stages(step):
+        raise RuntimeError(f"launches: cpu {cpu_launches}, gpu {gpu_launches}, want {want}; "
+                           f"graph nodes {nodes}, want {merge_stages(step)}")
     if not np.array_equal(got.tokens, ref.tokens):
         raise RuntimeError(f"tokens differ: {got.tokens} vs {ref.tokens}")
     a, w = np.concatenate(got.audio), np.concatenate(ref.audio)
@@ -1565,32 +1688,35 @@ def main() -> int:
     params["speech_bias_factor"] = torch.tensor(0.0, device=dev)
     torch.cuda.synchronize()
     emit("init", model="vibevoice_1_5b", dtype="bf16", seconds=time.perf_counter() - t0)
-    runs = {}
+    runs, device_launches = {}, {}
     for kv, warm, chunks in (("model", 16, (32, 32)), ("int8", 8, (8,))):
-        launches, state, _ = run_engine(params, cfg, dev, kv, warm, chunks, card)
-        vis, lengths = attention_operands(state, 1, dev)
-        runs[kv] = (launches["decode_attention"], state.cache, vis, lengths)
-        del state
+        r = run_engine(params, cfg, dev, kv, warm, chunks, card)
+        vis, lengths = attention_operands(r.state, 1, dev)
+        runs[kv] = (r.launches["decode_attention"], r.state.cache, vis, lengths)
+        device_launches["decode_attention" + ("[int8 KV]" if kv == "int8" else "")] = \
+            r.device_launches["decode_attention"]
+        del r
     entries = [kernel_entry("decode_attention", *runs["model"], False, dev, cfg.decoder),
                kernel_entry("decode_attention[int8 KV]", *runs["int8"], True, dev,
                             cfg.decoder)]
     del runs
-    # the large-T stages at B=2, in turns: the row-lane layout turned off (8
-    # stage calls per step), by default (the JAX engine's rule: 4 stage calls
-    # and 4 row-lane calls) twice, off again; the first of each also replays
-    # the codec half of a step from a CUDA graph
-    stage_runs, graphed = {}, set()
-    for rowlane in (False, None, None, False):
+    # the large-T stages at B=2: the row-lane layout turned off (8 stage calls
+    # per step), then by default (the JAX engine's rule: 4 stage calls and 4
+    # row-lane calls), each in turns eager, graph, graph, eager; each also
+    # replays the codec half of a step from a CUDA graph of its own
+    stage_runs = {}
+    for rowlane in (False, None):
         want = ({"fused_stage_chain": 8, "fused_stage_chain_rowlane": 0} if rowlane is False
                 else {"fused_stage_chain": 4, "fused_stage_chain_rowlane": 4})
-        launches, state, eng = run_engine(params, cfg, dev, "model", 8, (16,), card, batch=2,
-                                          stages=True, want_stages=want, rowlane=rowlane)
-        if rowlane not in graphed:
-            graphed.add(rowlane)
-            codec_graph(eng, state, dev, card)
-            if rowlane is None:
-                stage_runs["fused_stage_chain_rowlane"] = (eng, launches["fused_stage_chain_rowlane"])
-        del state, eng
+        r = run_engine(params, cfg, dev, "model", 8, (16,), card, batch=2, stages=True,
+                       want_stages=want, rowlane=rowlane)
+        codec_graph(r.eng, r.state, dev, card)
+        if rowlane is None:
+            stage_runs["fused_stage_chain_rowlane"] = (
+                r.eng, r.launches["fused_stage_chain_rowlane"])
+            device_launches["fused_stage_chain_rowlane"] = \
+                r.device_launches["fused_stage_chain_rowlane"]
+        del r
     # the stage calls per step that the engine's packs give at B=4 and B=32,
     # by default and with the row-lane layout off (packed, not run)
     from vibevoice_tpu_torch.engine import generate as G
@@ -1606,9 +1732,11 @@ def main() -> int:
                  launches_per_step=per_step)
             del eng
     # the long-prompt path: flash prefill and the plain-pack chains
-    launches, eng_long = phase_long_prompt(params, cfg, dev, card)
-    entries += long_prompt_entries(eng_long, launches, cfg, dev)
-    del eng_long
+    r = phase_long_prompt(params, cfg, dev, card)
+    entries += long_prompt_entries(r.eng, r.launches, cfg, dev)
+    for k in ("flash_attention_prefill", "fused_block_chain"):
+        device_launches[k] = r.device_launches[k]
+    del r
     torch.cuda.empty_cache()
 
     # 5. the quantized engine on the same weights: int4, int4 with the large-T
@@ -1620,17 +1748,20 @@ def main() -> int:
         torch.cuda.synchronize()
         emit("quantize", modes=dict(QUANT_MODES, quantize=quant),
              seconds=time.perf_counter() - t0)
-        launches, state, _ = run_engine(qparams, cfg, dev, "model", warm, chunks, card, quant)
-        del state
+        r = run_engine(qparams, cfg, dev, "model", warm, chunks, card, quant)
         if quant == "int4":
-            entries += quant_entries(qparams, cfg, launches, dev)
-            launches, state, eng = run_engine(
+            entries += quant_entries(qparams, cfg, r.launches, dev)
+            for k in ("int4_matmul", "fused_block_chain_batched", "fused_head_solver_step"):
+                device_launches[k] = r.device_launches[k]
+            del r
+            r = run_engine(
                 qparams, cfg, dev, "model", warm, chunks, card, quant, stages=True,
                 want_stages={"fused_stage_chain": 8, "fused_stage_chain_rowlane": 0})
-            stage_runs["fused_stage_chain"] = (eng, launches["fused_stage_chain"])
-            del state, eng
+            stage_runs["fused_stage_chain"] = (r.eng, r.launches["fused_stage_chain"])
+            device_launches["fused_stage_chain"] = r.device_launches["fused_stage_chain"]
             entries += stage_entries(stage_runs, cfg, dev)
             del stage_runs
+        del r
         del qparams
         torch.cuda.empty_cache()
     del params
@@ -1648,6 +1779,10 @@ def main() -> int:
     phase_reference(dev, flash_chain=True)
 
     emit("done", seconds=time.perf_counter() - t_start)
+    # beside the wrappers' count of the main path's run (the prefill, the
+    # warm-up step and the captured one), the launches that ran on the device
+    for e in entries:
+        e["device_launches"] = device_launches[e["name"]]
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -13,9 +13,10 @@ on `use_fused_stages` (the large-T sigma-VAE stages on the fused stage
 kernel, the transition convs folded at B=1); `--chain` turns on
 `use_fused_vocoder` / `use_fused_semantic` on the bf16 weights (the small-T
 stages on the plain-pack chain kernel, as `chip_smoke.py`'s long-prompt
-engine runs them).  It warms the engine up, then
-traces
-`--steps` decode steps with `torch.profiler`.  Prints JSON lines: the host
+engine runs them).  The engine runs its step eagerly (`Engine(eager=True)`):
+the parts of the step are told apart by host-side ranges, which a replay of
+the captured step does not pass through.  It warms the engine up, then
+traces `--steps` decode steps with `torch.profiler`.  Prints JSON lines: the host
 wall time per step, the device's busy time per step (the union of its kernel
 intervals) and its idle share, the launches per step, the device time of each
 part of the step (LM, diffusion head, acoustic decoder, semantic encoder;
@@ -112,7 +113,7 @@ def main() -> int:
     eng = G.Engine(params, cfg, gen, max_steps=3840, batch=1, prompt_len=256,
                    dtype=torch.bfloat16, kv_dtype=args.kv, device=dev,
                    use_fused_vocoder=fused, use_fused_semantic=fused,
-                   use_fused_stages=args.stages)
+                   use_fused_stages=args.stages, eager=True)
     ids = np.random.default_rng(0).integers(0, 1000, (1, 256)).astype(np.int32)
     state, _ = eng.prefill(ids, np.ones((1, 256), np.int32), np.zeros((1, 256), bool))
     state, _ = eng.decode_chunk(state, 8)

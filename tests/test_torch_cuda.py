@@ -46,6 +46,13 @@ def _device_kernels(fn):
     return out, graph_kernels(graph)
 
 
+def _graph_nodes(eng):
+    """Kernel nodes by wrapper of an engine's captured decode step."""
+    from chip_smoke import graph_launches
+    assert eng.graph is not None, "the engine decoded without its captured step"
+    return graph_launches(eng.graph)[0]
+
+
 def _cache(n_layers, b, s, f, quant, gen, dev):
     k = torch.randn((n_layers, b, s, f), generator=gen, device=dev)
     v = torch.randn((n_layers, b, s, f), generator=gen, device=dev)
@@ -192,7 +199,12 @@ def test_engine_on_card_matches_cpu(cuda_device):
                       da.decode_attention.launches - before)
     (ref, cpu_launches), (got, card_launches) = runs["cpu"], runs["card"]
     assert cpu_launches == 0
-    assert card_launches == cfg.decoder.num_hidden_layers * (steps - 1)
+    # the card decodes through the captured step: the warm-up step and the
+    # capture call the wrapper, the replays do not; the graph holds one
+    # launch per layer
+    n_layers = cfg.decoder.num_hidden_layers
+    assert card_launches == 2 * n_layers
+    assert _graph_nodes(eng)["decode_attention"] == n_layers
     np.testing.assert_array_equal(got.tokens, ref.tokens)
     a, w = np.concatenate(got.audio), np.concatenate(ref.audio)
     assert np.isfinite(a).all() and np.abs(w).max() > 0
@@ -437,8 +449,13 @@ def test_quantized_engine_on_card_matches_cpu(cuda_device):
     assert cpu_launches == [0, 0, 0]
     n_layers = cfg.decoder.num_hidden_layers
     # prefill's negative-stream forward (M=B) and every decode step run 4 int4
-    # GEMVs per layer; every step diffuses: 4 chain stages, 3 solver steps
-    assert card_launches == [4 * n_layers * steps, 6 * steps, 3 * steps]
+    # GEMVs per layer; every step diffuses: 4 chain stages, 3 solver steps.
+    # Through the wrappers: the prefill, the warm-up step and the captured
+    # one; the graph holds one step's launches
+    assert card_launches == [3 * 4 * n_layers, 3 * 6, 3 * 3]
+    nodes = _graph_nodes(eng)
+    assert [nodes[k] for k in ("int4_matmul", "fused_block_chain_batched",
+                               "fused_head_solver_step")] == [4 * n_layers, 6, 3]
     np.testing.assert_array_equal(got.tokens, ref.tokens)
     a, w = np.concatenate(got.audio), np.concatenate(ref.audio)
     assert np.isfinite(a).all() and np.abs(w).max() > 0
@@ -827,9 +844,170 @@ def test_flash_prefill_and_plain_chain_engine_on_card_matches_cpu(cuda_device):
         runs[name] = (res, [c.launches - n for c, n in zip(counters, before)])
     (ref, cpu_launches), (got, card_launches) = runs["cpu"], runs["card"]
     assert cpu_launches == [0, 0]
-    # flash once per layer in the prefill; 3 + 3 chain stages per diffusing step
-    assert card_launches == [cfg.decoder.num_hidden_layers, 6 * steps]
+    # flash once per layer in the prefill; 3 + 3 chain stages per diffusing
+    # step, through the wrapper in the prefill, the warm-up step and the
+    # captured one
+    assert card_launches == [cfg.decoder.num_hidden_layers, 3 * 6]
+    nodes = _graph_nodes(eng)
+    assert (nodes["flash_attention_prefill"], nodes["fused_block_chain"]) == (0, 6)
     np.testing.assert_array_equal(got.tokens, ref.tokens)
     a, w = np.concatenate(got.audio), np.concatenate(ref.audio)
     assert np.isfinite(a).all() and np.abs(w).max() > 0
     np.testing.assert_allclose(a, w, atol=1e-3 * np.abs(w).max(), rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# the compiled decode step: captured once per engine, replayed by decode_chunk
+# ---------------------------------------------------------------------------
+
+GRAPH_CASES = ("plain", "int4", "stages-b2", "plain-chain")
+GRAPH_STEPS, GRAPH_CHUNKS = 24, (4, 5)  # a warm-up step and 3 replays, then 5
+
+
+def _graph_engines(case, dev, **gen_kw):
+    """An eager engine and a graph engine (sharing the eager one's params and
+    packs) on a tiny fp32 model (head_dim 64), B=2, injected x_T: decode
+    attention alone (plain), the int4 modes (B2, B3, B8), the fused stages
+    at B=2 (B4 and the row-lane B7), or the plain chains (B6)."""
+    from chip_smoke import _live_audio_path
+    from vibevoice_tpu_torch.pipeline import VibeVoiceTTS
+    from vibevoice_tpu_torch.processor.text_tokenizer import ByteFallbackTokenizer
+    cfg = tiny_config(hidden_size=256, vocab_size=320)
+    gen = torch.Generator().manual_seed(0)
+    params = V.init_model(cfg, generator=gen)
+    _live_audio_path(params, gen)
+    kw = dict(use_flash_decode=True, inject_latent_noise=not gen_kw)
+    t = 40
+    if case == "int4":
+        params = VibeVoiceTTS(params, cfg, ByteFallbackTokenizer(), dtype=torch.float32,
+                              device="cpu", quantize="int4", int4_group_size=32,
+                              quantize_tokenizer="int4k", quantize_diffusion="int4k",
+                              tokenizer_min_dim=4).params
+        kw.update(use_fused_vocoder=True, use_fused_semantic=True)
+        t = 72  # a 144-row prompt: prefill takes the dequantized route
+    elif case == "stages-b2":
+        kw.update(use_fused_stages=True, fused_stage_t_min=7)
+    elif case == "plain-chain":
+        kw.update(use_fused_vocoder=True, use_fused_semantic=True)
+    gcfg = G.GenerationConfig(speech_start_id=258, speech_end_id=259, speech_diffusion_id=260,
+                              eos_id=256, ddpm_steps=3, force_diffusion=True,
+                              max_length_times=64.0, **gen_kw)
+    eager = G.Engine(params, cfg, gcfg, max_steps=GRAPH_STEPS, batch=2, prompt_len=t,
+                     device=dev, eager=True, **kw)
+    graph = G.Engine(eager.params, cfg, gcfg, max_steps=GRAPH_STEPS, batch=2, prompt_len=t,
+                     device=dev, **kw)
+    return eager, graph
+
+
+def _graph_request(eng, seed):
+    """One request: prefill and decode_chunk of GRAPH_CHUNKS steps.  Returns
+    the stacked step outputs (the prefill's step 0 first), the final state's
+    buffers (copies), and each call's launches by wrapper."""
+    from chip_smoke import kernel_counters
+    counters = kernel_counters()
+
+    def snap():
+        return {k: c.launches for k, c in counters.items()}
+
+    rng = np.random.default_rng(seed)
+    b, t = eng.batch, eng.prompt_len
+    ids = rng.integers(0, 250, (b, t)).astype(np.int32)
+    mask = np.ones((b, t), np.int32)
+    mask[b - 1, :9] = 0
+    sim = np.zeros((b, t), bool)
+    noise = rng.normal(size=(GRAPH_STEPS, b, eng.cfg.acoustic_vae_dim)).astype(np.float32)
+    calls = []
+    before = snap()
+    state, out = eng.prefill(ids, mask, sim, latent_noise=noise,
+                             generator=torch.Generator(eng.device).manual_seed(seed))
+    calls.append({k: v - before[k] for k, v in snap().items()})
+    outs = [G.StepOutput(*(x[None] for x in out))]
+    for n in GRAPH_CHUNKS:
+        before = snap()
+        state, o = eng.decode_chunk(state, n)
+        calls.append({k: v - before[k] for k, v in snap().items()})
+        outs.append(o)
+    torch.cuda.synchronize()
+    final = {k: getattr(state, k).clone() for k in ("tokens", "emitted", "audio", "frames",
+                                                     "finished", "reach_max")}
+    return G.StepOutput(*(torch.cat(x) for x in zip(*outs))), final, calls
+
+
+_GRAPH_RUNS = {}
+
+
+def _graph_runs(case, dev):
+    """Two requests (seeds 0 and 1) on each engine of `case`, cached per case:
+    {"eager"|"graph": [(outputs, final buffers, launches per call)] * 2},
+    and the graph engine."""
+    if case not in _GRAPH_RUNS:
+        eager, graph = _graph_engines(case, dev)
+        runs = {"eager": [_graph_request(eager, s) for s in (0, 1)], "graph": []}
+        runs["graph"].append(_graph_request(graph, 0))
+        first = graph.graph
+        runs["graph"].append(_graph_request(graph, 1))
+        assert graph.graph is first, "the second request captured the step again"
+        _GRAPH_RUNS[case] = (runs, graph)
+    return _GRAPH_RUNS[case]
+
+
+def _assert_bit_equal(got, want):
+    (go, gf, _), (wo, wf, _) = got, want
+    for name, g, w in zip(G.StepOutput._fields, go, wo):
+        assert torch.equal(g, w), (name, float((g.float() - w.float()).abs().max()))
+    for k in wf:
+        assert torch.equal(gf[k], wf[k]), k
+    assert bool(wo.emitted.all()) and float(wf["audio"].abs().max()) > 0
+
+
+@pytest.mark.parametrize("case", GRAPH_CASES)
+def test_graph_step_matches_eager_step(cuda_device, case):
+    """The captured step replayed 8 times (a warm-up step, then chunks of 4
+    and 5 steps) gives the eager step's tokens, emitted and finished flags
+    and audio, bit-equal: the same kernels on the same inputs."""
+    runs, graph = _graph_runs(case, cuda_device)
+    _assert_bit_equal(runs["graph"][0], runs["eager"][0])
+    assert graph.capture_s is not None and graph.replays >= 8
+
+
+@pytest.mark.parametrize("case", GRAPH_CASES)
+def test_graph_nodes_equal_step_launches(cuda_device, case):
+    """Each kernel's nodes in the captured step equal its launches in one
+    eager step; through the wrappers the graph engine launches twice a
+    step's count in its first chunk (the warm-up step and the capture) and
+    nothing in the replays."""
+    from chip_smoke import merge_stages
+    runs, graph = _graph_runs(case, cuda_device)
+    (_, _, eager_calls), (_, _, graph_calls) = runs["eager"][0], runs["graph"][0]
+    per_step = {k: v // GRAPH_CHUNKS[0] for k, v in eager_calls[1].items()}
+    assert eager_calls[1] == {k: GRAPH_CHUNKS[0] * v for k, v in per_step.items()}
+    assert eager_calls[2] == {k: GRAPH_CHUNKS[1] * v for k, v in per_step.items()}
+    assert graph_calls[0] == eager_calls[0]  # the prefill
+    assert graph_calls[1] == {k: 2 * v for k, v in per_step.items()}
+    assert not any(graph_calls[2].values())
+    assert _graph_nodes(graph) == merge_stages(per_step)
+    want = {"plain": "decode_attention", "int4": "fused_head_solver_step",
+            "stages-b2": "fused_stage_chain_rowlane", "plain-chain": "fused_block_chain"}
+    assert per_step["decode_attention"] > 0 and per_step[want[case]] > 0
+
+
+@pytest.mark.parametrize("case", GRAPH_CASES)
+def test_graph_serves_a_second_request(cuda_device, case):
+    """A second request on the same engine: its prefill writes into the
+    graph's static buffers, no capture happens, and the replays match the
+    eager engine's second request bit for bit."""
+    runs, _ = _graph_runs(case, cuda_device)
+    _assert_bit_equal(runs["graph"][1], runs["eager"][1])
+    assert not any(v for call in runs["graph"][1][2][1:] for v in call.values())
+
+
+def test_graph_draws_the_generators_noise(cuda_device):
+    """sde-dpmsolver++ with x_T drawn from the request's generator (no
+    injected noise): the graph's registered generator draws, replay by
+    replay, the noise the eager step draws from the same seed, and a
+    second request with the same seed draws it again."""
+    eager, graph = _graph_engines("plain", cuda_device, algorithm_type="sde-dpmsolver++")
+    want = _graph_request(eager, 0)
+    _assert_bit_equal(_graph_request(graph, 0), want)
+    _assert_bit_equal(_graph_request(graph, 0), want)
+    assert not torch.equal(want[0].audio_chunk[1], want[0].audio_chunk[2])

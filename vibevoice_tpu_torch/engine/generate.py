@@ -12,16 +12,30 @@ one KV cache [L, 2B, S, KVH*D]; which slots each stream attends is carried by
 a visibility mask, so the speech_start reset of the negative stream and its
 lazy start are mask rewrites, never cache copies.
 
+The compiled step (the JAX engine's `jax.jit` of `_step_impl` / `_chunk_impl`):
+on a CUDA device the first `decode_chunk` after a prefill runs one step on a
+side stream (the warm-up, which also makes the kernels' per-stream workspaces)
+and captures the next in a `torch.cuda.CUDAGraph` over the engine's static
+state buffers; every later step of every request of the engine is a replay of
+that one graph.  The step reads nothing back from the device: `write_pos` and
+`step` are 0-d int32 device tensors (the KV, audio, emitted and token writes
+are index copies at them), and the diffusion branch runs on every step, its
+outputs merged per row by `is_diff` (the captured form of `lax.cond`).  The
+host keeps its own mirror of the step count (`GenState.host_step`) for the
+cache-full check and `generate`.  `Engine(eager=True)` runs the same step
+eagerly on the card (the counterpart of `jax.disable_jit`, for comparisons);
+on the CPU `decode_chunk` always runs it eagerly.
+
 Where it differs from the JAX engine:
-  * PyTorch runs eagerly: no jit, no donation, `scan` is a Python loop, and
-    `lax.cond` is a Python `if` on whether any sample diffuses this step
-    (one small device-to-host read per step).
-  * The KV cache, the visibility mask and the audio/emitted/token buffers are
-    updated in place (the JAX engine's donated, aliased updates); a `GenState`
-    handed to `step` must not be reused afterwards.
-  * The slot clock `write_pos` and the step counter are host ints.
+  * No donation: the KV cache, the visibility mask and the audio/emitted/token
+    buffers are updated in place (the JAX engine's donated, aliased updates); a
+    `GenState` handed to `step` must not be reused afterwards.  On the card the
+    graph's static buffers hold the state, so an engine serves one request at
+    a time: a new `prefill` takes them over.
   * Random draws come from one `torch.Generator` carried in the state; they
-    differ from JAX's keys, so parity tests inject `latent_noise`.
+    differ from JAX's keys, so parity tests inject `latent_noise`.  Since the
+    diffusion branch runs on every step, the generator advances on steps
+    where no row diffuses too.
 
 The long-cache decode attention goes through the CUDA kernel
 `ops.decode_attention` (auto-on at 4096 slots or more, with the cache rounded
@@ -43,6 +57,7 @@ engine's batch policies for the folds and the row-lane layout.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any, Dict, List, NamedTuple, Optional
 
 import numpy as np
@@ -107,7 +122,7 @@ class GenState(NamedTuple):
     # write at the shared slot clock `write_pos`
     cache: qwen2.KVCache        # [L, 2B, S, KVH*D]
     visible: torch.Tensor       # [2B, S] int32
-    write_pos: int              # next slot (both streams)
+    write_pos: torch.Tensor     # 0-d int32 next slot (both streams)
     pos_positions: torch.Tensor  # [B] int32 next rope position (positive)
     neg_first_slot: torch.Tensor  # [B] int32 slot of the first committed negative entry
     neg_positions: torch.Tensor  # [B] int32 next rope position (negative)
@@ -115,7 +130,7 @@ class GenState(NamedTuple):
     cur_embeds: torch.Tensor    # [B, H] next LM input
     finished: torch.Tensor      # [B] bool
     reach_max: torch.Tensor     # [B] bool
-    step: int                   # decode steps completed
+    step: torch.Tensor          # 0-d int32 decode steps completed
     max_step_per_sample: torch.Tensor  # [B] int32
     acoustic_state: List[Any]
     semantic_state: List[Any]
@@ -125,6 +140,7 @@ class GenState(NamedTuple):
     tokens: torch.Tensor        # [B, max_steps] int32
     rng: torch.Generator
     latent_noise: torch.Tensor  # [F, B, latent] injected x_T per frame (parity tests)
+    host_step: int              # the host's mirror of `step`, never read from the device
 
 
 def select_token(logits: torch.Tensor, generator: Optional[torch.Generator],
@@ -142,6 +158,35 @@ def _where_state(mask: torch.Tensor, new: list, old: list) -> list:
     def sel(n, o):
         return torch.where(mask.reshape((-1,) + (1,) * (n.dim() - 1)), n, o)
     return [type(o)(*(sel(a, b) for a, b in zip(n, o))) for n, o in zip(new, old)]
+
+
+def _leaves(state: GenState) -> List[torch.Tensor]:
+    """The tensors of a state, in field order (the generator and the host
+    mirror left out)."""
+    out: List[torch.Tensor] = []
+
+    def walk(x):
+        if torch.is_tensor(x):
+            out.append(x)
+        elif isinstance(x, (list, tuple)):
+            for y in x:
+                walk(y)
+
+    for name in GenState._fields:
+        if name not in ("rng", "host_step"):
+            walk(getattr(state, name))
+    return out
+
+
+def _copy_into(dst: GenState, src: GenState):
+    """Copy every tensor of `src` into the same tensor of `dst` (skipping the
+    ones that are already the same tensor)."""
+    for d, s in zip(_leaves(dst), _leaves(src), strict=True):
+        if s is not d:
+            if s.shape != d.shape:
+                raise ValueError(f"state tensor of shape {tuple(s.shape)} does not fit the "
+                                 f"engine's buffer of shape {tuple(d.shape)}")
+            d.copy_(s)
 
 
 class Engine:
@@ -164,7 +209,11 @@ class Engine:
                  keep_audio: bool = True,
                  kv_dtype: str = "model",
                  mesh=None,
-                 device="cuda"):
+                 device="cuda",
+                 eager: bool = False):
+        """`eager=True` runs `decode_chunk` step by step on the card rather
+        than replaying the captured step (the counterpart of
+        `jax.disable_jit`); on the CPU it always runs so."""
         if mesh is not None:
             raise NotImplementedError(
                 "tensor/data-parallel decode is not ported yet (ROADMAP A12)")
@@ -209,6 +258,18 @@ class Engine:
         )
         self.tables = ds.make_tables(self.solver_cfg)
         self.sched = ds.set_timesteps(self.solver_cfg, self.tables, gen.ddpm_steps)
+        # on the device once: a host-to-device copy cannot be captured
+        self.timesteps = torch.as_tensor(self.sched.timesteps, device=self.device)
+        # the compiled step (CUDA only): the graph, the capture's seconds, the
+        # replays so far, its static state and outputs, and the generator it
+        # draws from
+        self.use_graph = self.device.type == "cuda" and not eager
+        self.graph = None
+        self.capture_s = None
+        self.replays = 0
+        self._static: Optional[GenState] = None
+        self._graph_out: Optional[StepOutput] = None
+        self._rng: Optional[torch.Generator] = None
         allowed = [gen.speech_start_id, gen.speech_end_id, gen.speech_diffusion_id, gen.eos_id]
         if gen.bos_id is not None:
             allowed.append(gen.bos_id)
@@ -263,8 +324,9 @@ class Engine:
 
     # ------------------------------------------------------------------
     def _post_lm(self, state: GenState, h_t: torch.Tensor, h_neg: torch.Tensor,
-                 neg_slot: int):
-        """Everything after the LM forward for one step.
+                 neg_slot: torch.Tensor):
+        """Everything after the LM forward for one step; `neg_slot` is the 0-d
+        int32 slot this step wrote.
 
         The negative stream starts lazily: its first KV entry is committed at
         a sample's FIRST diffusion step, from the current input embeds at rope
@@ -307,66 +369,66 @@ class Engine:
             visible[b:] = torch.where(do_reset[:, None], reset_vis, visible[b:])
 
         # ---- diffusion branch (latent -> audio -> semantic -> embeds) ----
-        if bool(is_diff.any()):
-            if self.inject_latent_noise:
-                # frame index clamped at the last row, like JAX's gather
-                f_idx = state.frames.long().clamp(max=state.latent_noise.shape[0] - 1)
-                x_init = state.latent_noise[f_idx, torch.arange(b, device=dev)].to(h_t.dtype)
-            else:
-                x_init = torch.randn((b, cfg.acoustic_vae_dim), generator=state.rng,
-                                     dtype=h_t.dtype, device=dev)
-            sde_gen = state.rng if gen.algorithm_type.startswith("sde") else None
-            latent = vibevoice.sample_speech_latents(
-                p, cfg, self.solver_cfg, self.sched, h_t, h_neg, gen.cfg_scale, x_init,
-                sde_generator=sde_gen)
-            scaled = vibevoice.unscale_latents(p, latent)
-            if self.use_fused_vocoder or self.use_fused_stages:
-                chunk, ac_new = tokenizer.decoder_apply_streaming_fused(
-                    p["acoustic_decoder"], cfg.acoustic_tokenizer, scaled[:, None, :],
-                    acoustic_state, fused_packs=p.get("_vocoder_packs"),
-                    large_packs=p.get("_vocoder_packs_large"))
-            else:
-                chunk, ac_new = tokenizer.decoder_apply_streaming(
-                    p["acoustic_decoder"], cfg.acoustic_tokenizer, scaled[:, None, :],
-                    acoustic_state)
-            if self.use_fused_semantic or self.use_fused_stages:
-                sem, sem_new = tokenizer.encoder_apply_streaming_fused(
-                    p["semantic_encoder"], cfg.semantic_tokenizer, chunk, semantic_state,
-                    fused_packs=p.get("_semantic_packs"),
-                    large_packs=p.get("_semantic_packs_large"))
-            else:
-                sem, sem_new = tokenizer.encoder_apply_streaming(
-                    p["semantic_encoder"], cfg.semantic_tokenizer, chunk, semantic_state)
-            diff_embeds = (connectors.apply(p["acoustic_connector"], latent)
-                           + connectors.apply(p["semantic_connector"], sem[:, 0]))
-            chunk = chunk[:, :, 0]
-            # diffusing samples take the new streaming states
-            acoustic_state = _where_state(is_diff, ac_new, acoustic_state)
-            semantic_state = _where_state(is_diff, sem_new, semantic_state)
+        # runs on every step, for every row, and merges by is_diff: the JAX
+        # engine's lax.cond without a host read (rows that do not diffuse
+        # keep their streaming states; on a step where no row diffuses the
+        # chunk is zero, as the skipped branch gives it)
+        if self.inject_latent_noise:
+            # frame index clamped at the last row, like JAX's gather
+            f_idx = state.frames.long().clamp(max=state.latent_noise.shape[0] - 1)
+            x_init = state.latent_noise[f_idx, torch.arange(b, device=dev)].to(h_t.dtype)
         else:
-            chunk = torch.zeros((b, self.hop), dtype=h_t.dtype, device=dev)
-            diff_embeds = torch.zeros((b, cfg.decoder.hidden_size), dtype=h_t.dtype,
-                                      device=dev)
+            x_init = torch.randn((b, cfg.acoustic_vae_dim), generator=state.rng,
+                                 dtype=h_t.dtype, device=dev)
+        sde_gen = state.rng if gen.algorithm_type.startswith("sde") else None
+        latent = vibevoice.sample_speech_latents(
+            p, cfg, self.solver_cfg, self.sched, h_t, h_neg, gen.cfg_scale, x_init,
+            sde_generator=sde_gen, timesteps=self.timesteps)
+        scaled = vibevoice.unscale_latents(p, latent)
+        if self.use_fused_vocoder or self.use_fused_stages:
+            chunk, ac_new = tokenizer.decoder_apply_streaming_fused(
+                p["acoustic_decoder"], cfg.acoustic_tokenizer, scaled[:, None, :],
+                acoustic_state, fused_packs=p.get("_vocoder_packs"),
+                large_packs=p.get("_vocoder_packs_large"))
+        else:
+            chunk, ac_new = tokenizer.decoder_apply_streaming(
+                p["acoustic_decoder"], cfg.acoustic_tokenizer, scaled[:, None, :],
+                acoustic_state)
+        if self.use_fused_semantic or self.use_fused_stages:
+            sem, sem_new = tokenizer.encoder_apply_streaming_fused(
+                p["semantic_encoder"], cfg.semantic_tokenizer, chunk, semantic_state,
+                fused_packs=p.get("_semantic_packs"),
+                large_packs=p.get("_semantic_packs_large"))
+        else:
+            sem, sem_new = tokenizer.encoder_apply_streaming(
+                p["semantic_encoder"], cfg.semantic_tokenizer, chunk, semantic_state)
+        diff_embeds = (connectors.apply(p["acoustic_connector"], latent)
+                       + connectors.apply(p["semantic_connector"], sem[:, 0]))
+        chunk = torch.where(is_diff.any(), chunk[:, :, 0], 0.0)
+        acoustic_state = _where_state(is_diff, ac_new, acoustic_state)
+        semantic_state = _where_state(is_diff, sem_new, semantic_state)
 
         # negative bookkeeping: refresh mode commits this step's slot only on
         # diffusion steps; stale mode commits every step
         commit = is_diff if gen.refresh_negative else ~finished
-        visible[b:, neg_slot] = torch.where(commit, 1, visible[b:, neg_slot])
-        neg_first_slot = torch.where(commit & ~state.neg_started,
-                                     torch.full_like(state.neg_first_slot, neg_slot),
+        ns = neg_slot.long().reshape(1)
+        neg_vis = visible[b:]
+        neg_vis.index_copy_(1, ns, torch.where(commit[:, None], 1, neg_vis.index_select(1, ns)))
+        neg_first_slot = torch.where(commit & ~state.neg_started, neg_slot,
                                      state.neg_first_slot)
         neg_positions = state.neg_positions + commit.to(torch.int32)
         neg_started = state.neg_started | commit
 
-        # per-step slot writes: audio/emitted clamp at the last slot (the JAX
-        # engine's dynamic_update_slice), tokens past the end are dropped (its
-        # scatter)
-        slot = min(step, self.max_steps - 1)
+        # per-step slot writes at the device step: audio/emitted clamp at the
+        # last slot (the JAX engine's dynamic_update_slice), a token past the
+        # end keeps the old value (its scatter drops it)
+        slot = step.clamp(max=self.max_steps - 1).long().reshape(1)
         if self.keep_audio:
-            state.audio[:, slot] = torch.where(is_diff[:, None], chunk, 0.0).float()
-        state.emitted[:, slot] = is_diff
-        if step < self.max_steps:
-            state.tokens[:, step] = next_tok
+            state.audio.index_copy_(1, slot, torch.where(is_diff[:, None], chunk, 0.0)
+                                    .float()[:, None])
+        state.emitted.index_copy_(1, slot, is_diff[:, None])
+        state.tokens.index_copy_(1, slot, torch.where(
+            step < self.max_steps, next_tok, state.tokens.index_select(1, slot)[:, 0])[:, None])
         frames = state.frames + is_diff.to(torch.int32)
 
         # next input embeds (ref :582-690)
@@ -377,7 +439,7 @@ class Engine:
             visible=visible, neg_first_slot=neg_first_slot, neg_positions=neg_positions,
             neg_started=neg_started, cur_embeds=cur_embeds, finished=finished,
             reach_max=reach_max, step=step + 1, acoustic_state=acoustic_state,
-            semantic_state=semantic_state, frames=frames)
+            semantic_state=semantic_state, frames=frames, host_step=state.host_step + 1)
         return new_state, StepOutput(token=next_tok, audio_chunk=chunk, emitted=is_diff,
                                      finished=finished)
 
@@ -420,9 +482,16 @@ class Engine:
             order = torch.argsort((~valid).to(torch.int32), stable=True)
             embeds = vibevoice.splice_speech_embeds(embeds, flat[order], speech_input_mask)
 
-        # ONE unified-cache allocation (rows [:B] positive, [B:] negative)
-        cache = qwen2.kv_cache_init(dec, 2 * b, self.cache_len, self.dtype,
-                                    quantized=self.kv_quant, device=dev)
+        # ONE unified-cache allocation (rows [:B] positive, [B:] negative);
+        # once the step is captured, the graph's own cache, zeroed
+        if self._static is not None:
+            cache = self._static.cache
+            for buf in cache:
+                if buf is not None:
+                    buf.zero_()
+        else:
+            cache = qwen2.kv_cache_init(dec, 2 * b, self.cache_len, self.dtype,
+                                        quantized=self.kv_quant, device=dev)
 
         # positive prefill into rows [:B]; the flash path attends the prompt's
         # own k/v and needs no [B, 1, T, S] bias, so its memory stays linear in T
@@ -459,7 +528,8 @@ class Engine:
             return torch.zeros(shape, dtype=dtype, device=dev)
 
         state = GenState(
-            cache=cache, visible=visible, write_pos=t0,
+            cache=cache, visible=visible, write_pos=torch.full((), t0, dtype=torch.int32,
+                                                               device=dev),
             pos_positions=init_len.clone(),
             neg_first_slot=zeros((b,), torch.int32),
             neg_positions=zeros((b,), torch.int32),
@@ -467,7 +537,7 @@ class Engine:
             cur_embeds=ss_embed[:, 0],
             finished=zeros((b,), torch.bool),
             reach_max=zeros((b,), torch.bool),
-            step=0, max_step_per_sample=max_steps_ps,
+            step=zeros((), torch.int32), max_step_per_sample=max_steps_ps,
             acoustic_state=tokenizer.decoder_state_init(cfg.acoustic_tokenizer, b, self.dtype,
                                                         device=dev),
             semantic_state=tokenizer.encoder_state_init(cfg.semantic_tokenizer, b, self.dtype,
@@ -477,50 +547,132 @@ class Engine:
             emitted=zeros((b, self.max_steps), torch.bool),
             tokens=zeros((b, self.max_steps), torch.int32),
             rng=generator,
-            latent_noise=(t(latent_noise) if latent_noise is not None
+            latent_noise=(t(latent_noise).clone() if latent_noise is not None
                           else zeros((1, b, cfg.acoustic_vae_dim), self.dtype)),
+            host_step=0,
         )
         # at step 0 the negative stream's "just-written" kv is the slot-0 pre-seed
-        return self._post_lm(state, h_last, h_neg0[:, 0], neg_slot=0)
+        return self._post_lm(state, h_last, h_neg0[:, 0], neg_slot=zeros((), torch.int32))
 
     # ------------------------------------------------------------------
-    @torch.no_grad()
-    def step(self, state: GenState):
-        """One decode step: a combined [2B] forward over the unified cache.
-        Both streams write this step's kv at slot `write_pos`; the negative
-        stream's history is carried by the visibility mask."""
+    def _step(self, state: GenState):
+        """One decode step, safe to capture: a combined [2B] forward over the
+        unified cache.  Both streams write this step's kv at slot
+        `write_pos`; the negative stream's history is carried by the
+        visibility mask."""
         p, cfg = self.params, self.cfg
         b = state.cur_embeds.shape[0]
         wp = state.write_pos
-        if wp >= self.cache_len:
-            raise RuntimeError(f"KV cache full ({self.cache_len} slots)")
+        slot = wp.long().reshape(1)
 
         # each row sees its committed history plus the slot written now
         vis_step = state.visible.clone()
-        vis_step[:, wp] = 1
+        vis_step.index_fill_(1, slot, 1)
 
         embeds2 = torch.cat([state.cur_embeds, state.cur_embeds], dim=0)[:, None, :]
         positions2 = torch.cat([state.pos_positions, state.neg_positions])[:, None]
 
         decode_ctx, bias = None, None
         if self.use_flash_decode:
-            lengths = torch.full((2 * b,), wp + 1, dtype=torch.int32, device=self.device)
-            decode_ctx = (vis_step, lengths)
+            decode_ctx = (vis_step, (wp + 1).repeat(2 * b))
         else:
             bias = qwen2.decode_bias(vis_step)
         hidden, _ = qwen2.forward(p["lm"], cfg.decoder, embeds2, positions2, bias,
                                   cache=state.cache, write_pos=wp, decode_ctx=decode_ctx)
-        state.visible[:b, wp] = 1
+        state.visible[:b].index_fill_(1, slot, 1)
         state = state._replace(write_pos=wp + 1, pos_positions=state.pos_positions + 1)
         return self._post_lm(state, hidden[:b, 0], hidden[b:, 0], neg_slot=wp)
 
+    def _check_room(self, state: GenState, n: int):
+        """Raise unless the cache holds `n` more steps (from the host mirror)."""
+        last = self.prompt_len + state.host_step - 1 + n - 1  # the last step's write_pos
+        if last >= self.cache_len:
+            raise RuntimeError(f"KV cache full ({self.cache_len} slots)")
+
+    @torch.no_grad()
+    def step(self, state: GenState):
+        """One decode step (on the card a replay of the captured step, unless
+        the engine is `eager`)."""
+        if self.use_graph:
+            state, outs = self.decode_chunk(state, 1)
+            return state, StepOutput(*(x[0] for x in outs))
+        self._check_room(state, 1)
+        return self._step(state)
+
+    @torch.no_grad()
     def decode_chunk(self, state: GenState, n: int):
-        """`n` steps; the outputs are stacked on a leading [n] axis."""
-        outs = []
-        for _ in range(n):
-            state, out = self.step(state)
-            outs.append(out)
-        return state, StepOutput(*(torch.stack(xs) for xs in zip(*outs)))
+        """`n` steps; the outputs are stacked on a leading [n] axis.  On the
+        card each step is a replay of the captured step (the first call after
+        the engine's first prefill captures it), with no read from the
+        device."""
+        if not self.use_graph:
+            outs = []
+            for _ in range(n):
+                state, out = self.step(state)
+                outs.append(out)
+            return state, StepOutput(*(torch.stack(xs) for xs in zip(*outs)))
+        self._check_room(state, n)
+        b, dev = self.batch, self.device
+        outs = StepOutput(
+            token=torch.empty((n, b), dtype=torch.int32, device=dev),
+            audio_chunk=torch.empty((n, b, self.hop), dtype=self.dtype, device=dev),
+            emitted=torch.empty((n, b), dtype=torch.bool, device=dev),
+            finished=torch.empty((n, b), dtype=torch.bool, device=dev))
+        static = self._bind(state)
+        first = 0
+        if self.graph is None:
+            self._capture(static, outs)
+            first = 1
+        for i in range(first, n):
+            self.graph.replay()
+            self.replays += 1
+            for dst, src in zip(outs, self._graph_out):
+                dst[i].copy_(src)
+        return static._replace(host_step=state.host_step + n), outs
+
+    def _bind(self, state: GenState) -> GenState:
+        """The engine's static state holding `state`: its tensors become the
+        static buffers on the first call, and are copied into them on a later
+        request's first call; the state's generator is copied into the one
+        the graph draws from."""
+        if self._rng is None:
+            self._rng = torch.Generator(device=self.device)
+        if state.rng is not self._rng:
+            self._rng.set_state(state.rng.get_state())
+            state = state._replace(rng=self._rng)
+        if self._static is None:
+            self._static = state
+        elif state.visible is not self._static.visible:
+            _copy_into(self._static, state)
+        return self._static
+
+    def _step_into(self, static: GenState) -> StepOutput:
+        """One step whose new state is copied back into `static`: the body
+        of the graph."""
+        new, out = self._step(static)
+        _copy_into(static, new)
+        return out
+
+    def _capture(self, static: GenState, outs: StepOutput):
+        """Warm one step up on a side stream (a real step, written to step 0
+        of `outs`), then capture one step in a CUDA graph on that stream,
+        with the state's generator registered so each replay draws anew.  A
+        failure raises: there is no eager fallback."""
+        dev = self.device
+        stream = torch.cuda.Stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            for dst, src in zip(outs, self._step_into(static)):
+                dst[0].copy_(src)
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        t0 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        graph.register_generator_state(self._rng)
+        with torch.cuda.graph(graph, stream=stream):
+            out = self._step_into(static)
+        graph.instantiate()
+        self.capture_s = time.perf_counter() - t0
+        self.graph, self._graph_out = graph, out
 
 
 class GenerationResult(NamedTuple):
@@ -585,12 +737,15 @@ def generate(
         if o.finished.any():
             audio_streamer.end(np.nonzero(o.finished)[0])
 
-    _feed(StepOutput(*(_np(x) for x in out)))
+    out_np = StepOutput(*(_np(x) for x in out))
+    _feed(out_np)
+    finished = out_np.finished
     per_step = audio_streamer is not None or stop_check_fn is not None or on_step is not None
+    # one read from the device per chunk: its outputs, or its finished flags
     while steps_done < engine.max_steps:
         if per_step and stop_check_fn is not None and stop_check_fn():
             break
-        if bool(state.finished.all()):
+        if finished.all():
             break
         n = min(max(1, stream_chunk) if per_step else check_every,
                 engine.max_steps - steps_done)
@@ -599,9 +754,12 @@ def generate(
         if bar is not None:
             bar.update(n)
         if per_step:
-            outs_np = StepOutput(*(_np(x) for x in outs))  # one read for the chunk
+            outs_np = StepOutput(*(_np(x) for x in outs))
             for i in range(n):
                 _feed(StepOutput(*(x[i] for x in outs_np)))
+            finished = outs_np.finished[-1]
+        else:
+            finished = _np(state.finished)
 
     if bar is not None:
         bar.close()
@@ -615,7 +773,7 @@ def generate(
                  for i in range(b)]
     else:
         audio = [None] * b  # streaming consumers got the chunks already
-    tokens = _np(state.tokens)[:, : min(state.step, engine.max_steps)]
+    tokens = _np(state.tokens)[:, : min(state.host_step, engine.max_steps)]
     return GenerationResult(tokens=tokens, audio=audio, reach_max=_np(state.reach_max),
                             steps=steps_done)
 

@@ -7,8 +7,8 @@ projection goes through `utils.quantize.mm`, so a layer may hold plain, int8 or
 int4 weights, including the int4 modes' fused `qkv` and `gateup` matrices.
 
 The KV cache is one preallocated `[L, B, S, KVH*D]` pair, written in place at
-one slot range per call (`write_pos`, a host int shared by every row, and
-`batch_offset` rows).  With `decode_ctx=(visible, lengths)` a one-token decode
+one slot range per call (`write_pos`, shared by every row: a host int, or a 0-d
+int32 device tensor as the decode step passes it, and `batch_offset` rows).  With `decode_ctx=(visible, lengths)` a one-token decode
 reads the cache through the split-K CUDA kernel `ops.decode_attention`; with
 `use_flash` a prompt (T > 1) attends its own fresh k/v through the flash
 prefill kernel `ops.flash_attention` (memory linear in T, no bias); every
@@ -189,16 +189,22 @@ def _layer(lp: Params, cfg: Qwen2Config, x: torch.Tensor, cos: torch.Tensor,
         k2 = k.reshape(b, t, nkv * hd)
         v2 = v
         rows = slice(row_off, row_off + b)
-        slots = slice(pos, pos + t)
         if quant:
             k2, k_sc = _quantize_slots(k2)
             v2, v_sc = _quantize_slots(v2)
-            cache.k_scale[li, rows, :, slots] = k_sc[:, None, :]
-            cache.v_scale[li, rows, :, slots] = v_sc[:, None, :]
         # in-place slot write into the stacked cache (the JAX package's
-        # aliased dynamic_update_slice)
-        cache.k[li, rows, slots] = k2.to(cache.k.dtype)
-        cache.v[li, rows, slots] = v2.to(cache.v.dtype)
+        # aliased dynamic_update_slice); a device position's start is
+        # clamped so the write fits, as dynamic_update_slice clamps a traced
+        # start
+        if isinstance(pos, int):
+            idx = torch.arange(pos, pos + t, device=x.device)
+        else:
+            idx = pos.clamp(0, cache.k.shape[2] - t).long() + torch.arange(t, device=x.device)
+        if quant:
+            cache.k_scale[li, rows].index_copy_(2, idx, k_sc[:, None, :].expand(b, 8, t))
+            cache.v_scale[li, rows].index_copy_(2, idx, v_sc[:, None, :].expand(b, 8, t))
+        cache.k[li, rows].index_copy_(1, idx, k2.to(cache.k.dtype))
+        cache.v[li, rows].index_copy_(1, idx, v2.to(cache.v.dtype))
     if use_flash and t > 1:
         # prefill: memory-linear attention over the fresh k/v
         att = flash_attention_prefill(q, k, v.reshape(b, t, nkv, hd).contiguous(), pad_mask,
@@ -241,21 +247,26 @@ def forward(
     positions: torch.Tensor,              # [B, T] rope positions
     attn_bias: Optional[torch.Tensor],    # [B, 1, T, S] additive fp32 bias
     cache: Optional[KVCache] = None,
-    write_pos: Optional[int] = None,
+    write_pos=None,                       # host int or 0-d int32 device tensor
     decode_ctx: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     batch_offset: int = 0,
     pad_mask: Optional[torch.Tensor] = None,  # [B, T] int (1 = real token)
     use_flash: bool = False,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Run the decoder stack.  With `cache`, keys/values are written at slot
-    `write_pos` (one host int for every row: left-padded batching) into rows
-    [batch_offset, batch_offset+B), in place, and attention spans the cache;
+    `write_pos` (one slot for every row: left-padded batching; a host int, or
+    a 0-d integer tensor on the cache's device, which a captured decode step
+    needs) into rows [batch_offset, batch_offset+B), in place, and attention
+    spans the cache;
     without, attention spans the inputs.  With `use_flash` and T > 1,
     attention spans exactly the inputs' own k/v through the flash prefill
     kernel, masked by `pad_mask`.  `attn_bias` may be None only on the kernel
     paths (`decode_ctx` with T == 1, or `use_flash`)."""
-    if cache is not None and not isinstance(write_pos, int):
-        raise ValueError("write_pos must be a host int: one slot shared by every row")
+    if cache is not None and not (isinstance(write_pos, int) or (
+            torch.is_tensor(write_pos) and write_pos.dim() == 0
+            and not write_pos.is_floating_point())):
+        raise ValueError("write_pos must be a host int or a 0-d integer tensor: one slot "
+                         "shared by every row")
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
     x = inputs_embeds
     for li, lp in enumerate(params["layers"]):

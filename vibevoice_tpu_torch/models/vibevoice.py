@@ -89,6 +89,7 @@ def sample_speech_latents(
     x_init: torch.Tensor,         # [N, latent] initial noise
     step_noise: Optional[torch.Tensor] = None,  # [steps, N, latent] for SDE solvers
     sde_generator: Optional[torch.Generator] = None,  # draws SDE noise per step
+    timesteps: Optional[torch.Tensor] = None,  # sched.timesteps on the device
 ) -> torch.Tensor:
     """DPM-Solver sampling with classifier-free guidance (ref
     `sample_speech_tokens`, modeling_vibevoice_inference.py:712-725): each
@@ -102,7 +103,8 @@ def sample_speech_latents(
     head = params["diffusion_head"]
     cond2 = torch.cat([condition, neg_condition], dim=0)
     state = ds.init_state(solver_cfg, tuple(x_init.shape), device=x_init.device)
-    timesteps = torch.as_tensor(sched.timesteps, device=condition.device)
+    if timesteps is None:
+        timesteps = torch.as_tensor(sched.timesteps, device=condition.device)
     layer_mods, final_mod = diffusion_head.precompute_modulations(
         head, dh_cfg, cond2, timesteps)
     packq = params.get("_diffusion_head_packq")

@@ -219,8 +219,10 @@ class VibeVoiceTTS:
              prompt_buckets: Optional[Sequence[int]] = None,
              max_new_tokens: Sequence[int] = (256,)) -> List[tuple]:
         """Build the serving engines for a shape grid and run one dummy
-        prefill + 1-step decode on each (builds the kernels and warms the
-        allocator before the first request).  Returns the warmed engine keys."""
+        prefill + 1-step decode on each: builds the kernels and, on the card,
+        captures each engine's decode step in its CUDA graph (as the JAX
+        `warm` compiles) before the first request.  Returns the warmed engine
+        keys."""
         warmed = []
         for b in batch_sizes:
             for p in (prompt_buckets or [self.prompt_bucket]):
