@@ -18,8 +18,8 @@ Phases, in order; any failure stops the run with a non-zero exit:
      bit-equal; the large-T stage kernel at the eight folded B=1 stage
      calls of a 1.5B decode step (two chunks each, states carried), with
      the folded tail, and unfolded at B=2; the row-lane stage kernel at B=2,
-     4 and 32, each followed by the plain stage kernel on the
-     same rows; flash prefill (bf16, H=12, KVH=2, D=128) at B=1 with T=1024
+     3 (three lane groups), 4 and 32, each followed by the plain stage kernel
+     on the same rows and required bit-equal to it; flash prefill (bf16, H=12, KVH=2, D=128) at B=1 with T=1024
      and 4096 and at B=2, T=1024 with one row left-padded by 333 tokens, and
      at the 7B shape (H=28, KVH=4) with B=1, T=4096, each query row against
      its own scale, at the CTA height it picks and at both (64 and 128
@@ -63,10 +63,31 @@ Phases, in order; any failure stops the run with a non-zero exit:
      in the int4 modes (group scales, int8 tokenizer stages), and with
      `use_fused_stages=True` at B=1 (folds) and B=2 (row-lane, the default),
      and with flash prefill forced on (B=2, one row left-padded) and the
-     plain chain, at head_dim 128 (`tiny_config(hidden_size=512)`).
+     plain chain, at head_dim 128 (`tiny_config(hidden_size=512)`);
+  8. the serving deployment: a full-width 1.5B bf16 checkpoint (random,
+     from the seed, with a live audio path) written in the reference's names
+     as two safetensors shards with an index, `config.json` and
+     `preprocessor_config.json`, by the smoke's own writer; loaded bit-equal
+     to its source (`utils.checkpoint.load_hf_checkpoint`) and through
+     `VibeVoiceTTS.from_pretrained` in int4 + int4k + head int4k with the
+     fused stages; forced-diffusion engines of 64 steps on decode attention
+     for the batches below, warmed (each step captured) but for B=3; then
+     `TTSServer` (max_batch 4, max_wait_ms 500, demo/voices presets) serving
+     client threads: one request alone, a batch of 4, a batch of 3 (its
+     engine captured on the worker thread under traffic; one request
+     streamed with buffer_sec 0.5), the same 3 through /tts, a four-speaker
+     request past 1024 prompt tokens (flash prefill), one request alone
+     again, /metrics and /healthz.  Every response is a mono 24 kHz PCM16
+     WAV of 64 x 3200 samples, not silent, equal to `tts.generate` of the
+     same batch and seed after the server stops; the stream equals its
+     request through /tts and its first bytes leave before its batch ends;
+     each engine was captured once, its graph's kernel nodes one eager
+     step's launches.
 
 Weights are random, made from a seed.  Prints one JSON line per measurement,
-then the `kernels` line, the card's name and power limit, and as the last line
+then the `kernels` line (each kernel also with its launches while phase 8
+served: through its wrapper, and on the device with each graph replay's
+nodes), the card's name and power limit, and as the last line
 `{"ok": true, "device": {...}}`.  Exits non-zero without a GPU.
 """
 import json
@@ -503,6 +524,7 @@ STAGE_CASES = [
     ("decoder 3", 2, 200, 256, None, False, None),
     ("decoder 6", 2, 3200, 32, None, False, 2),
     ("decoder 5", 2, 1600, 64, None, False, 2),
+    ("decoder 6", 3, 3200, 32, None, False, 3),
     ("decoder 6", 4, 3200, 32, None, False, 4),
     ("decoder 5", 4, 1600, 64, None, False, 2),
     ("decoder 6", 32, 3200, 32, None, False, 4),
@@ -624,6 +646,9 @@ def phase_stage_kernels(dev):
             got = fs.fused_stage_chain(pack, xs[0], ctx, **states)
             want = fs.fused_stage_chain(same_rows, xs[0], ctx, **states)
             extra["bit_equal_to_stage_kernel"] = all(torch.equal(g, w) for g, w in zip(got, want))
+            if not extra["bit_equal_to_stage_kernel"]:
+                raise RuntimeError(f"row-lane {name} B={b} R={r} differs from the stage kernel "
+                                   "on the same rows")
         emit("kernel_vs_plain",
              kernel="fused_stage_chain_rowlane" if uses_rowlane(pack, b) else "fused_stage_chain",
              stage=name, B=b, T=t, D=d, blocks=3, conv=conv, head=head, rows=r, **extra,
@@ -1434,14 +1459,16 @@ def long_prompt_entries(eng, launches, cfg, dev):
 # phase 6: the pipeline
 # ---------------------------------------------------------------------------
 
-def register_forced_engine(tts, G, script, voices, max_new_tokens):
+def register_forced_engine(tts, G, script, voices, max_new_tokens, **engine_kw):
     """A force_diffusion engine under the key `generate` will ask for (random
     weights almost never pick the diffusion token by themselves), with the
     int4 chain on when the pipeline holds its packs, and the large-T stage
-    kernels with the pipeline's `use_fused_stages`."""
-    t0 = tts.processor(script, voices).input_ids.shape[1]
+    kernels with the pipeline's `use_fused_stages`.  `script` is one script
+    (`voices` its voices) or a batch of them (`voices` one list per script);
+    `engine_kw` goes to the engine."""
+    b, t0 = tts.processor(script, voices).input_ids.shape
     bucket = max(tts.prompt_bucket, -(-t0 // tts.prompt_bucket) * tts.prompt_bucket)
-    key = (1, bucket, max_new_tokens)
+    key = (b, bucket, max_new_tokens)
     if key not in tts._engines:
         gen = G.GenerationConfig(
             speech_start_id=tts.tokenizer.speech_start_id,
@@ -1451,10 +1478,10 @@ def register_forced_engine(tts, G, script, voices, max_new_tokens):
             algorithm_type=tts.algorithm_type, force_diffusion=True, max_length_times=64.0)
         chain = tts._chain_packs is not None
         tts._engines[key] = G.Engine(tts.params, tts.cfg, gen, max_steps=max_new_tokens,
-                                     batch=1, prompt_len=bucket, dtype=tts.dtype,
+                                     batch=b, prompt_len=bucket, dtype=tts.dtype,
                                      device=tts.device, use_fused_vocoder=chain,
                                      use_fused_semantic=chain,
-                                     use_fused_stages=tts.use_fused_stages)
+                                     use_fused_stages=tts.use_fused_stages, **engine_kw)
     return tts._engines[key]
 
 
@@ -1550,12 +1577,14 @@ def _live_audio_path(params, gen):
     for name in ("acoustic_decoder", "semantic_encoder"):
         params[name] = boost(params[name])
     head = params["diffusion_head"]
+    rnd = lambda w: (torch.randn(w.shape, generator=gen, device=gen.device) * 0.05).to(w)
     for lp in head["layers"]:
-        lp["ada_w"] = torch.randn(lp["ada_w"].shape, generator=gen) * 0.05
+        lp["ada_w"] = rnd(lp["ada_w"])
     for k in ("final_ada_w", "final_linear"):
-        head[k] = torch.randn(head[k].shape, generator=gen) * 0.05
-    params["speech_scaling_factor"] = torch.tensor(0.8)
-    params["speech_bias_factor"] = torch.tensor(0.1)
+        head[k] = rnd(head[k])
+    dev = head["final_linear"].device
+    params["speech_scaling_factor"] = torch.tensor(0.8, device=dev)
+    params["speech_bias_factor"] = torch.tensor(0.1, device=dev)
 
 
 def phase_reference(dev, quant=False, stages=False, b=2, flash_chain=False):
@@ -1643,6 +1672,522 @@ def phase_reference(dev, quant=False, stages=False, b=2, flash_chain=False):
          kernel_launches=gpu_launches, audio_max_abs_err=err, audio_absmax=scale, tol=tol)
     if not (scale > 0 and err <= tol):
         raise RuntimeError(f"card and CPU disagree: {err} > {tol}")
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the serving deployment
+# ---------------------------------------------------------------------------
+
+# torch dtype -> safetensors dtype, for the smoke's own checkpoint writer
+ST_DTYPES = {torch.bfloat16: "BF16", torch.float16: "F16", torch.float32: "F32"}
+
+
+def flat_from_params(p):
+    """The smoke's own inverse of `utils.checkpoint.params_from_flat`: a
+    params tree -> {reference name: tensor} in the reference's layouts
+    (linear [out, in], conv [Cout, Cin, K], transposed conv [Cin, Cout, K])."""
+    out = {}
+
+    def wb(name, node, kind):
+        w = node["w"]
+        out[f"{name}.weight"] = {"lin": lambda: w.t(), "conv": lambda: w.permute(2, 1, 0),
+                                 "convt": lambda: w.permute(0, 2, 1)}[kind]().contiguous()
+        if node.get("b") is not None:
+            out[f"{name}.bias"] = node["b"]
+
+    def stack(prefix, st):
+        if "up" in st:
+            for i, c in enumerate(st["up"]):
+                wb(f"{prefix}.upsample_layers.{i}.0." + ("conv.conv" if i == 0 else
+                                                          "convtr.convtr"), c,
+                   "conv" if i == 0 else "convt")
+        else:
+            for i, c in enumerate(st["down"]):
+                wb(f"{prefix}.downsample_layers.{i}.0.conv.conv", c, "conv")
+        for i, blocks in enumerate(st["stages"]):
+            for j, bp in enumerate(blocks):
+                base = f"{prefix}.stages.{i}.{j}"
+                out[f"{base}.norm.weight"] = bp["norm_w"]
+                wb(f"{base}.mixer.conv.conv.conv", bp["mixer"], "conv")
+                out[f"{base}.gamma"] = bp["gamma"]
+                out[f"{base}.ffn_norm.weight"] = bp["ffn_norm_w"]
+                wb(f"{base}.ffn.linear1", bp["ffn1"], "lin")
+                wb(f"{base}.ffn.linear2", bp["ffn2"], "lin")
+                out[f"{base}.ffn_gamma"] = bp["ffn_gamma"]
+        if st["final_norm_w"] is not None:
+            out[f"{prefix}.norm.weight"] = st["final_norm_w"]
+        wb(f"{prefix}.head.conv.conv", st["head"], "conv")
+
+    lm = "model.language_model"
+    out[f"{lm}.embed_tokens.weight"] = p["lm"]["embed"]
+    out[f"{lm}.norm.weight"] = p["lm"]["final_norm_w"]
+    for i, lp in enumerate(p["lm"]["layers"]):
+        b = f"{lm}.layers.{i}"
+        out[f"{b}.input_layernorm.weight"] = lp["input_norm_w"]
+        out[f"{b}.post_attention_layernorm.weight"] = lp["post_norm_w"]
+        for n in "qkvo":
+            wb(f"{b}.self_attn.{n}_proj", lp[n], "lin")
+        for n in ("gate", "up", "down"):
+            out[f"{b}.mlp.{n}_proj.weight"] = lp[n].t().contiguous()
+    stack("model.acoustic_tokenizer.encoder", p["acoustic_encoder"])
+    stack("model.acoustic_tokenizer.decoder", p["acoustic_decoder"])
+    stack("model.semantic_tokenizer.encoder", p["semantic_encoder"])
+    for name in ("acoustic_connector", "semantic_connector"):
+        wb(f"model.{name}.fc1", p[name]["fc1"], "lin")
+        wb(f"model.{name}.fc2", p[name]["fc2"], "lin")
+        out[f"model.{name}.norm.weight"] = p[name]["norm_w"]
+    h, hp = "model.prediction_head", p["diffusion_head"]
+    for ref, ours in (("noisy_images_proj", "noisy_proj"), ("cond_proj", "cond_proj"),
+                      ("t_embedder.mlp.0", "t_mlp1"), ("t_embedder.mlp.2", "t_mlp2"),
+                      ("final_layer.adaLN_modulation.1", "final_ada_w"),
+                      ("final_layer.linear", "final_linear")):
+        out[f"{h}.{ref}.weight"] = hp[ours].t().contiguous()
+    for i, lp in enumerate(hp["layers"]):
+        out[f"{h}.layers.{i}.adaLN_modulation.1.weight"] = lp["ada_w"].t().contiguous()
+        out[f"{h}.layers.{i}.norm.weight"] = lp["norm_w"]
+        for n in ("gate", "up", "down"):
+            out[f"{h}.layers.{i}.ffn.{n}_proj.weight"] = lp[n].t().contiguous()
+    out["model.speech_scaling_factor"] = p["speech_scaling_factor"]
+    out["model.speech_bias_factor"] = p["speech_bias_factor"]
+    if p["lm_head"] is not None:
+        out["lm_head.weight"] = p["lm_head"].t().contiguous()
+    return out
+
+
+def write_safetensors(path, tensors) -> int:
+    """The smoke's own safetensors writer (the card's machine has no
+    `safetensors`): an 8-byte little-endian header length, the JSON header
+    (padded to 8 bytes), then each tensor's bytes in order.  Returns the
+    file's size."""
+    import struct
+    header, off = {"__metadata__": {"format": "pt"}}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": ST_DTYPES[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [off, off + n]}
+        off += n
+    h = json.dumps(header).encode()
+    h += b" " * (-len(h) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(h)) + h)
+        for t in tensors.values():
+            f.write(t.detach().reshape(-1).view(torch.uint8).cpu().numpy().data)
+    return 8 + len(h) + off
+
+
+def hf_config(cfg) -> dict:
+    """The config in the HF schema that `configs.config_from_json` reads."""
+    import dataclasses
+    d = dataclasses.asdict(cfg)
+    return {"acoustic_tokenizer_config": d["acoustic_tokenizer"],
+            "semantic_tokenizer_config": d["semantic_tokenizer"],
+            "diffusion_head_config": d["diffusion_head"], "decoder_config": d["decoder"],
+            "acoustic_vae_dim": d["acoustic_vae_dim"], "semantic_vae_dim": d["semantic_vae_dim"]}
+
+
+def write_checkpoint(path, params, cfg) -> int:
+    """`params` as an HF-format checkpoint directory: two shards split by
+    bytes, `model.safetensors.index.json`, `config.json` and
+    `preprocessor_config.json`.  Raises first if the disk lacks the room.
+    Returns the shards' bytes."""
+    import shutil
+    flat = flat_from_params(params)
+    need = sum(nbytes(t) for t in flat.values())
+    free = shutil.disk_usage(path).free
+    if free < need + (64 << 20):
+        raise RuntimeError(f"the checkpoint needs {need} bytes (+64 MiB), {free} are free "
+                           f"under {path}")
+    names, half, acc, weight_map, total = list(flat), need / 2, 0, {}, 0
+    shards = ([], [])
+    for n in names:
+        shards[acc >= half].append(n)
+        acc += nbytes(flat[n])
+    for i, part in enumerate(shards):
+        fname = f"model-{i + 1:05d}-of-00002.safetensors"
+        total += write_safetensors(os.path.join(path, fname), {n: flat[n] for n in part})
+        weight_map.update(dict.fromkeys(part, fname))
+    with open(os.path.join(path, "model.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {"total_size": need}, "weight_map": weight_map}, f)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(hf_config(cfg), f)
+    with open(os.path.join(path, "preprocessor_config.json"), "w") as f:
+        json.dump({"processor_class": "VibeVoiceProcessor", "speech_tok_compress_ratio":
+                   cfg.speech_compress_ratio, "db_normalize": True,
+                   "audio_processor": {"sampling_rate": 24000, "target_dB_FS": -25}}, f)
+    return total
+
+
+def tree_leaves(tree, path="params"):
+    """[(path, leaf)] of a params tree, None leaves included."""
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items() for x in tree_leaves(v, f"{path}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree) for x in tree_leaves(v, f"{path}/{i}")]
+    return [(path, tree)]
+
+
+def assert_bit_equal_trees(got, want):
+    g, w = tree_leaves(got), tree_leaves(want)
+    if [p for p, _ in g] != [p for p, _ in w]:
+        raise RuntimeError("the loaded tree's structure differs from the source's")
+    for (path, a), (_, b) in zip(g, w):
+        if (a is None) != (b is None) or (a is not None and (
+                a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a, b))):
+            raise RuntimeError(f"{path}: the loaded leaf differs from the source's")
+
+
+def load_presets(root):
+    """demo/voices/*.wav through the port's `load_audio`, named as the serving
+    CLI names them (en-Alice_woman.wav -> en-Alice)."""
+    from vibevoice_tpu_torch.processor.audio import load_audio
+    d = os.path.join(root, "demo", "voices")
+    return {f.split("_")[0]: load_audio(os.path.join(d, f))
+            for f in sorted(os.listdir(d)) if f.endswith(".wav")}
+
+
+class RecordingTTS:
+    """The pipeline as the server's worker sees it, recording each batch
+    (its scripts in queue order, voices, seed, streamed or not, and the
+    worker's clock around `generate`).  The host clock only: it runs on the
+    worker thread beside the pipeline's CUDA work."""
+
+    def __init__(self, tts):
+        self.tts, self.batches = tts, []
+
+    def generate(self, scripts, voices, max_new_tokens=None, seed=0, audio_streamer=None):
+        rec = {"scripts": list(scripts), "voices": voices, "seed": seed,
+               "stream": audio_streamer is not None, "t_start": time.perf_counter()}
+        kw = {} if audio_streamer is None else {"audio_streamer": audio_streamer}
+        res, metrics = self.tts.generate(scripts, voices, max_new_tokens=max_new_tokens,
+                                         seed=seed, **kw)
+        rec.update(t_end=time.perf_counter(), metrics=metrics)
+        self.batches.append(rec)
+        return res, metrics
+
+
+def http_request(port, path, body, stream=False):
+    """One request from a client thread (no CUDA call): {status, body (the
+    WAV, or the streamed PCM after its header), t_send, t_first (the first
+    PCM bytes), t_done}."""
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    t_send = time.perf_counter()
+    conn.request("POST", path, body=json.dumps(body).encode(),
+                 headers={"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    out = {"status": resp.status, "t_send": t_send, "stream": stream,
+           "batch_size": resp.getheader("X-Batch-Size")}
+    if stream and resp.status == 200:
+        header = resp.read(44)
+        first = resp.read(2)
+        out["t_first"] = time.perf_counter()
+        out["body"] = header + first + resp.read()
+    else:
+        out["body"] = resp.read()
+        out["t_first"] = time.perf_counter()
+    out["t_done"] = time.perf_counter()
+    conn.close()
+    return out
+
+
+def get_json(port, path):
+    import urllib.request
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=60) as r:
+        return json.load(r)
+
+
+def send_batch(port, requests, stagger_s=0.1):
+    """`requests` [(path, body)] from one client thread each, started
+    `stagger_s` apart (so they queue in this order, within the server's
+    max_wait_ms); returns their results in order."""
+    import threading
+    results = [None] * len(requests)
+
+    def client(i, path, body):
+        try:
+            results[i] = http_request(port, path, body, stream=path == "/tts/stream")
+        except Exception as e:  # surfaced below as a failed request
+            results[i] = {"status": None, "error": repr(e)}
+
+    threads = [threading.Thread(target=client, args=(i, *r)) for i, r in enumerate(requests)]
+    for th in threads:
+        th.start()
+        time.sleep(stagger_s)
+    for th in threads:
+        th.join(timeout=900)
+    return results
+
+
+def wav_pcm(data: bytes, name: str, want_samples: int, stream: bool) -> np.ndarray:
+    """PCM16 samples of a mono 24 kHz WAV (a streamed one: its header of
+    unknown length, then the PCM); raises unless it holds exactly
+    `want_samples` samples, not all zero."""
+    import io
+    import struct
+    import wave
+    if stream:
+        ok = data[:4] == b"RIFF" and data[8:16] == b"WAVEfmt " and data[36:40] == b"data"
+        ch, sr, _, _, bits = struct.unpack("<HIIHH", data[22:36]) if ok else (0, 0, 0, 0, 0)
+        fmt, pcm = (ch, sr, bits // 8), np.frombuffer(data[44:], "<i2")
+    else:
+        with wave.open(io.BytesIO(data)) as w:
+            fmt = (w.getnchannels(), w.getframerate(), w.getsampwidth())
+            pcm = np.frombuffer(w.readframes(w.getnframes()), "<i2")
+    if fmt != (1, 24000, 2) or len(pcm) != want_samples or not np.any(pcm):
+        raise RuntimeError(f"{name}: WAV {fmt} with {len(pcm)} samples (want mono 24 kHz "
+                           f"PCM16 of {want_samples}), all zero: {not np.any(pcm)}")
+    return pcm
+
+
+FOUR_SPEAKER_LINES = (
+    "Welcome back to the program. Today we have four guests around the table, and "
+    "each of them has spent years working on how machines learn to speak.",
+    "Thank you for having me. I think the most surprising thing for listeners is how "
+    "much of natural speech lives in the pauses and the breathing, not in the words.",
+    "I agree, and that is exactly why long-form generation is so hard. A single "
+    "sentence can sound perfect while a whole conversation drifts apart over minutes.",
+    "From the engineering side, the hard part is keeping every speaker consistent "
+    "while serving many requests at once on a single accelerator without stalls.",
+    "So let us start there. What does consistency mean for a voice that has to last "
+    "for an hour?")
+
+
+def phase_serving(dev, card, root):
+    """The serving deployment: a full-width 1.5B bf16 checkpoint written in
+    the reference's names, loaded through `VibeVoiceTTS.from_pretrained` in
+    the quantized configuration with the fused stages, and served through
+    `TTSServer` to client threads: a single request, a batch of 4, a batch
+    of 3 whose engine is captured on the worker thread under traffic (one
+    request streamed), the same batch again through /tts, a four-speaker
+    request past 1024 prompt tokens (flash prefill) and a single request
+    again.  Returns the wrappers' launches while serving and the launches
+    that ran on the device (the wrappers' and each replay's graph nodes)."""
+    import gc
+    import tempfile
+    from vibevoice_tpu_torch.configs import vibevoice_1_5b
+    from vibevoice_tpu_torch.engine import generate as G
+    from vibevoice_tpu_torch.models import vibevoice as V
+    from vibevoice_tpu_torch.pipeline import VibeVoiceTTS
+    from vibevoice_tpu_torch.serving.server import TTSServer, wav_bytes
+    from vibevoice_tpu_torch.utils.checkpoint import load_hf_checkpoint
+    bf = torch.bfloat16
+    cfg = vibevoice_1_5b()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    src = V.init_model(cfg, dtype=bf, device=dev, generator=gen)
+    _live_audio_path(src, gen)  # else the random codec's audio rounds to silent PCM16
+    for k in ("speech_scaling_factor", "speech_bias_factor"):
+        src[k] = src[k].to(bf)
+    parts = {k: sum(x.numel() for _, x in tree_leaves(v) if x is not None)
+             for k, v in src.items()}
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        size = write_checkpoint(d, src, cfg)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded, _ = load_hf_checkpoint(d, dtype=bf, device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        assert_bit_equal_trees(loaded, src)
+        del loaded, src
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        tts = VibeVoiceTTS.from_pretrained(d, dtype=bf, device=dev, ddpm_steps=5,
+                                           algorithm_type="sde-dpmsolver++",
+                                           use_fused_stages=True, **QUANT_MODES)
+        torch.cuda.synchronize()
+        pretrained_s = time.perf_counter() - t0
+    emit("checkpoint", model="vibevoice_1_5b", dtype="bf16", shards=2, bytes=size,
+         params=sum(parts.values()), params_by_part=parts, write_s=write_s, load_s=load_s,
+         load_gb_per_s=size / load_s / 1e9, bit_equal_to_source=True,
+         from_pretrained_s=pretrained_s, modes=dict(QUANT_MODES, use_fused_stages=True),
+         text_tokenizer=type(tts.tokenizer).__name__, card=card)
+
+    presets = load_presets(root)
+    steps, hop = 64, cfg.speech_compress_ratio
+    names = ["en-Alice", "en-Bob", "en-Carol", "en-Dave"]
+    one = "Speaker 1: Good morning, and welcome to the show about voices."
+    batch4 = [f"Speaker 1: Request {i} asks for a short greeting, read aloud." for i in range(4)]
+    batch3 = [f"Speaker 1: Request {i} of three, the middle one streamed." for i in range(3)]
+    again = "Speaker 1: Good evening, and thanks for staying with the show."
+    four = "\n".join(f"Speaker {i % 4 + 1}: {line}" for i, line in enumerate(FOUR_SPEAKER_LINES))
+    body = lambda script, voice, seed, **kw: dict(script=script, voice=voice, seed=seed,
+                                                   max_new_tokens=steps, **kw)
+    waves = [
+        ("a", [("/tts", body(one, names[0], 11))]),
+        ("b", [("/tts", body(s, names[i], 21)) for i, s in enumerate(batch4)]),
+        ("c", [("/tts/stream" if i == 1 else "/tts",
+                body(s, names[i], 31, **({"buffer_sec": 0.5} if i == 1 else {})))
+               for i, s in enumerate(batch3)]),
+        ("c-again", [("/tts", body(s, names[i], 31)) for i, s in enumerate(batch3)]),
+        ("d", [("/tts", body(four, names, 41))]),
+        ("a-again", [("/tts", body(again, names[1], 12))]),
+    ]
+    voices_of = lambda v: [presets[n] for n in v] if isinstance(v, list) else [presets[v]]
+    # the engines the batches ask for, forced to diffuse every step; decode
+    # attention on, as a real podcast request's cache (4096+ slots) takes it
+    keys = {}
+    for tag, reqs in waves:
+        scripts = [b["script"] for _, b in reqs]
+        eng = register_forced_engine(tts, G, scripts, [voices_of(b["voice"]) for _, b in reqs],
+                                     steps, use_flash_decode=True)
+        keys[tag] = (eng.batch, eng.prompt_len, steps)
+    b2 = register_forced_engine(tts, G, batch4[:2], [voices_of(n) for n in names[:2]], steps,
+                                use_flash_decode=True)
+    if keys["a"] != keys["a-again"] or keys["c"] != keys["c-again"]:
+        raise RuntimeError(f"the repeated requests ask for other engines: {keys}")
+    if not (keys["d"][1] >= 1024 and tts._engines[keys["d"]].use_flash_prefill):
+        raise RuntimeError(f"the four-speaker request is off flash prefill: {keys['d']}")
+    # warm every engine but B=3's, one by one (each captures its step on
+    # this thread): B=3 stays cold, to be captured on the worker under traffic
+    warm_keys = sorted({keys["a"], keys["b"], keys["d"], (2, b2.prompt_len, steps)})
+    engines = []
+    torch.cuda.reset_peak_memory_stats(dev)  # the peaks below: the warm-up's, the serving's
+    for key in warm_keys:
+        a0, r0 = torch.cuda.memory_allocated(dev), torch.cuda.memory_reserved(dev)
+        tts.warm(batch_sizes=(key[0],), prompt_buckets=[key[1]], max_new_tokens=(steps,))
+        eng = tts._engines[key]
+        engines.append(dict(key=key, capture_s=eng.capture_s,
+                            allocated_delta=torch.cuda.memory_allocated(dev) - a0,
+                            reserved_delta=torch.cuda.memory_reserved(dev) - r0))
+    emit("serving_warm", engines=engines, engines_registered=sorted(tts._engines),
+         memory_allocated=torch.cuda.memory_allocated(dev),
+         max_memory_allocated=torch.cuda.max_memory_allocated(dev),
+         memory_reserved=torch.cuda.memory_reserved(dev), card=card)
+    cold = tts._engines[keys["c"]]
+    if cold.graph is not None or any(tts._engines[k].captures != 1 for k in warm_keys):
+        raise RuntimeError("the warm-up did not capture each warmed engine once")
+
+    counters = kernel_counters()
+    replays0 = {k: e.replays for k, e in tts._engines.items()}
+    rec = RecordingTTS(tts)
+    srv = TTSServer(tts, port=0, max_batch=4, max_wait_ms=500, voice_presets=presets)
+    srv.frontend.tts = rec
+    submitted, submit = [], srv.frontend.submit_request
+
+    def recording_submit(*a, **k):  # the frontend's requests, for their queue and wall s
+        r = submit(*a, **k)
+        submitted.append(r)
+        return r
+
+    srv.frontend.submit_request = recording_submit
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for c in counters.values():
+        c.launches = 0
+    srv.start()
+    results = {}
+    try:
+        for tag, reqs in waves:
+            results[tag] = send_batch(srv.port, reqs)
+        metrics, healthz = (get_json(srv.port, path) for path in ("/metrics", "/healthz"))
+    finally:
+        srv.stop()
+    launches = {k: c.launches for k, c in counters.items()}
+    torch.cuda.synchronize()
+    peak_serving = torch.cuda.max_memory_allocated(dev)
+    bad = [(tag, r.get("status"), r.get("error") or r["body"][:200])
+           for tag, rs in results.items() for r in rs if r.get("status") != 200]
+    if bad or metrics["errors"] or not healthz.get("ok"):
+        raise RuntimeError(f"failed requests {bad}; /metrics errors {metrics['errors']}")
+    if metrics["batched_requests_max"] < 4:
+        raise RuntimeError(f"no batch of 4 formed: {metrics}")
+    idle = [k for k in launches if k != "fused_block_chain" and launches[k] == 0]
+    if idle:
+        raise RuntimeError(f"kernels of the serving path never launched while serving: {idle}")
+
+    # the batches as the worker formed them, one per wave; each request's
+    # frontend record (matched by script within its wave) and PCM
+    if [sorted(b["scripts"]) for b in rec.batches] != \
+            [sorted(b["script"] for _, b in reqs) for _, reqs in waves]:
+        raise RuntimeError(f"the worker formed other batches: "
+                           f"{[b['scripts'] for b in rec.batches]}")
+    batches = {tag: b for (tag, _), b in zip(waves, rec.batches)}
+    pb = tts.prompt_bucket
+    for b in batches.values():
+        t = tts.processor(b["scripts"], b["voices"]).input_ids.shape[1]
+        b["bucket"] = max(pb, -(-t // pb) * pb)
+    rows, pcm, at = {}, {}, 0
+    for tag, reqs in waves:
+        mine = submitted[at: at + len(reqs)]
+        at += len(reqs)
+        for (path, b), r in zip(reqs, results[tag]):
+            rows[(tag, b["script"])] = next(x for x in mine if x.script == b["script"])
+            pcm[(tag, b["script"])] = wav_pcm(r["body"], f"{tag} {path}", steps * hop,
+                                              r["stream"])
+    if not np.array_equal(pcm[("c", batch3[1])], pcm[("c-again", batch3[1])]):
+        raise RuntimeError("the streamed request's PCM differs from the same request's "
+                           "through /tts")
+
+    # engines: no warmed engine captured again, B=3 captured once (under
+    # traffic), each graph's kernel nodes equal to one eager step's launches
+    graphs = []
+    for key, eng in sorted(tts._engines.items()):
+        per_step = expected_launches(cfg, "int4", eng)[1]
+        want = merge_stages(per_step)
+        nodes, other = graph_launches(eng.graph)
+        if nodes != want:
+            raise RuntimeError(f"engine {key}: graph nodes {nodes}, want {want}")
+        if eng.captures != 1:
+            raise RuntimeError(f"engine {key} captured its step {eng.captures} times")
+        graphs.append(dict(key=key, captured_under_traffic=eng is cold, capture_s=eng.capture_s,
+                           replays=eng.replays - replays0[key], launches_per_step=per_step,
+                           graph_nodes=nodes,
+                           graph_other_nodes=other, rowlane=uses_rowlane_any(eng),
+                           flash_prefill=eng.use_flash_prefill))
+    emit("serving_engines", engines=graphs, card=card)
+    device_launches = dict(launches)
+    for g in graphs:  # each replay runs one step's launches (its graph's nodes)
+        for k, n in g["launches_per_step"].items():
+            device_launches[k] += g["replays"] * n
+
+    # the stream's first bytes went out before its batch ended
+    _, sm = rows[("c", batch3[1])].future.result()
+    ttfb_into_batch = metrics["ttfb_s_last"] - sm["queue_s"]
+    if not ttfb_into_batch < sm["wall_s"]:
+        raise RuntimeError(f"the stream's first bytes came {ttfb_into_batch} s into its batch, "
+                           f"whose wall time is {sm['wall_s']} s")
+
+    # the same batches through tts.generate on this thread, the server
+    # stopped: each request's PCM equal to its HTTP response's; (a) runs after
+    # (a-again) served another request on its engine
+    direct = {}
+    for tag, _ in waves:
+        if tag.endswith("again"):
+            continue
+        bt = batches[tag]
+        t0 = time.perf_counter()
+        res, m = tts.generate(bt["scripts"], bt["voices"], max_new_tokens=steps,
+                              seed=bt["seed"])
+        wall = time.perf_counter() - t0
+        for i, script in enumerate(bt["scripts"]):
+            got = np.frombuffer(wav_bytes(res.audio[i])[44:], "<i2")
+            if not np.array_equal(got, pcm[(tag, script)]):
+                raise RuntimeError(f"{tag}: row {i}'s HTTP PCM differs from tts.generate's")
+        direct[tag] = dict(batch=len(bt["scripts"]), wall_s=wall,
+                           audio_s_per_s=m["audio_sec"] / wall)
+
+    # one line per request, then the summary
+    http = {}
+    for tag, reqs in waves:
+        for (path, b), r in zip(reqs, results[tag]):
+            _, m = rows[(tag, b["script"])].future.result()
+            emit("serving", request=tag, endpoint=path, batch_size=m["batch_size"],
+                 prompt_bucket=batches[tag]["bucket"], speakers=len(voices_of(b["voice"])),
+                 queue_s=m["queue_s"], wall_s=m["wall_s"], audio_s=steps * hop / 24000,
+                 client_s=r["t_done"] - r["t_send"], ttfb_s=r["t_first"] - r["t_send"],
+                 http_overhead_s=None if r["stream"] else
+                 r["t_done"] - r["t_send"] - m["queue_s"] - m["wall_s"], card=card)
+        span = max(r["t_done"] for r in results[tag]) - min(r["t_send"] for r in results[tag])
+        http[tag] = dict(batch=len(reqs), audio_s_per_s=len(reqs) * steps * hop / 24000 / span,
+                         worker_wall_s=batches[tag]["t_end"] - batches[tag]["t_start"])
+    emit("serving_summary", http=http, direct_generate=direct, metrics_rtf=metrics["rtf"],
+         metrics=metrics, ttfb_into_batch_s=ttfb_into_batch, stream_batch_wall_s=sm["wall_s"],
+         max_memory_allocated_serving=peak_serving,
+         launches=launches, device_launches=device_launches, card=card)
+    del tts, rec, srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, device_launches
 
 
 # ---------------------------------------------------------------------------
@@ -1778,11 +2323,20 @@ def main() -> int:
     phase_reference(dev, stages=True, b=2)
     phase_reference(dev, flash_chain=True)
 
+    # 8. the serving deployment: a 1.5B checkpoint loaded and served over HTTP
+    serving, serving_device = phase_serving(dev, card, os.path.dirname(os.path.abspath(__file__)))
+
     emit("done", seconds=time.perf_counter() - t_start)
     # beside the wrappers' count of the main path's run (the prefill, the
-    # warm-up step and the captured one), the launches that ran on the device
+    # warm-up step and the captured one), the launches that ran on the device;
+    # and both counts while the serving path ran (the row-lane calls under
+    # fused_stage_chain_rowlane)
     for e in entries:
         e["device_launches"] = device_launches[e["name"]]
+        key = e["name"].split("[")[0]
+        if not e["name"].endswith("[int8 KV]"):
+            e["serving_launches"] = serving[key]
+            e["serving_device_launches"] = serving_device[key]
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -474,6 +474,7 @@ STAGE_CASES = {
     "enc3-down": (1, 200, 256, 3, ("down", 4, 8, 128), False, None),
     "plain-b2": (2, 400, 128, 3, None, False, None),
     "rowlane-r2": (2, 800, 32, 3, None, False, 2),
+    "rowlane-r3": (3, 800, 32, 3, None, False, 3),
     "rowlane-r4": (4, 400, 32, 2, None, False, 4),
     "rowlane-d64": (4, 400, 64, 2, None, False, 2),
     "tiny-up-fp32": (1, 16, 4, 1, ("up", 2, 4, 8), True, None),
@@ -1011,3 +1012,63 @@ def test_graph_draws_the_generators_noise(cuda_device):
     _assert_bit_equal(_graph_request(graph, 0), want)
     _assert_bit_equal(_graph_request(graph, 0), want)
     assert not torch.equal(want[0].audio_chunk[1], want[0].audio_chunk[2])
+
+
+# ---------------------------------------------------------------------------
+# the serving layer on the card: HTTP handler threads beside a worker thread
+# that owns the card and captures each engine's step
+# ---------------------------------------------------------------------------
+
+def test_server_on_card_equals_generate_and_captures_on_the_worker(cuda_device):
+    """A tiny fp32 model (head_dim 64: decode attention on the kernel, the
+    fused stages at T >= 7, row-lane at B=2) served over HTTP at B=1 and in
+    a batch of two: each response's PCM equals `tts.generate` on the card
+    for the same batch and seed, called after the server stops, and each
+    engine's step was captured once, on the server's worker thread."""
+    import threading
+
+    from chip_smoke import _live_audio_path, register_forced_engine, send_batch, uses_rowlane_any
+    from vibevoice_tpu_torch.pipeline import VibeVoiceTTS
+    from vibevoice_tpu_torch.processor.text_tokenizer import ByteFallbackTokenizer
+    from vibevoice_tpu_torch.serving.server import TTSServer, wav_bytes
+    cfg = tiny_config(hidden_size=256, vocab_size=320)
+    gen = torch.Generator().manual_seed(0)
+    params = V.init_model(cfg, generator=gen)
+    _live_audio_path(params, gen)
+    tts = VibeVoiceTTS(params, cfg, ByteFallbackTokenizer(), dtype=torch.float32,
+                       device=cuda_device, ddpm_steps=3, use_fused_stages=True,
+                       prompt_bucket=64)
+    rng = np.random.default_rng(0)
+    presets = {n: rng.normal(0, 0.05, 480).astype(np.float32) for n in ("a", "b")}
+    scripts, steps = ["Speaker 1: one request alone.", "Speaker 1: the second of two."], 12
+    engines = [register_forced_engine(tts, G, scripts[:1], [[presets["a"]]], steps,
+                                      use_flash_decode=True, fused_stage_t_min=7),
+               register_forced_engine(tts, G, scripts, [[presets["a"]], [presets["b"]]], steps,
+                                      use_flash_decode=True, fused_stage_t_min=7)]
+    assert uses_rowlane_any(engines[1])
+    threads = {}
+    for eng in engines:
+        def capture(static, outs, eng=eng, real=eng._capture):
+            threads[id(eng)] = threading.current_thread()
+            return real(static, outs)
+        eng._capture = capture
+    srv = TTSServer(tts, port=0, max_batch=2, max_wait_ms=400, voice_presets=presets).start()
+    body = lambda i, seed: ("/tts", dict(script=scripts[i], voice="ab"[i], seed=seed,
+                                         max_new_tokens=steps))
+    try:
+        alone = send_batch(srv.port, [body(0, 5)])
+        pair = send_batch(srv.port, [body(0, 7), body(1, 7)])
+    finally:
+        srv.stop()
+    for r, want_b in ((alone[0], "1"), (pair[0], "2"), (pair[1], "2")):
+        assert r["status"] == 200 and r["batch_size"] == want_b
+    for eng in engines:
+        assert eng.captures == 1 and eng.replays > 0
+        assert threads[id(eng)] is not threading.main_thread()
+    res, _ = tts.generate(scripts[:1], [[presets["a"]]], max_new_tokens=steps, seed=5)
+    assert alone[0]["body"] == wav_bytes(res.audio[0])
+    res, _ = tts.generate(scripts, [[presets["a"]], [presets["b"]]], max_new_tokens=steps,
+                          seed=7)
+    for i in range(2):
+        assert pair[i]["body"] == wav_bytes(res.audio[i])
+        assert np.any(np.frombuffer(pair[i]["body"][44:], "<i2"))

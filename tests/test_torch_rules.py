@@ -90,3 +90,36 @@ def test_pipeline_modes_outside_the_slice_raise(kw):
     (emb_f, tok_f), (emb_d, tok_d) = outs
     assert torch.isfinite(emb_f).all() and torch.equal(tok_f, tok_d)
     torch.testing.assert_close(emb_f, emb_d, atol=1e-5, rtol=1e-5)
+
+
+def test_serving_entry_points_default_to_cuda_and_raise_without_it(no_cuda, tmp_path):
+    """`from_pretrained` and the serving CLI's `main` run on CUDA unless asked
+    for the CPU, and raise without a card (before reading any file)."""
+    from vibevoice_tpu_torch.serving.__main__ import main
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        VibeVoiceTTS.from_pretrained(str(tmp_path))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["--model_path", str(tmp_path), "--no_warm"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["--no_warm"])
+
+
+def test_serving_cli_help_runs_without_jax():
+    """`python -m vibevoice_tpu_torch.serving --help` prints its usage and
+    imports no JAX."""
+    code = textwrap.dedent("""
+        import runpy, sys
+        sys.argv = ["vibevoice_tpu_torch.serving", "--help"]
+        try:
+            runpy.run_module("vibevoice_tpu_torch.serving", run_name="__main__")
+        except SystemExit as e:
+            assert e.code == 0, e.code
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith(("jax.", "jaxlib"))
+                     or m == "vibevoice_tpu" or m.startswith("vibevoice_tpu."))
+        assert not bad, bad
+    """)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "--model_path" in out.stdout and "--device" in out.stdout

@@ -260,11 +260,12 @@ class Engine:
         self.sched = ds.set_timesteps(self.solver_cfg, self.tables, gen.ddpm_steps)
         # on the device once: a host-to-device copy cannot be captured
         self.timesteps = torch.as_tensor(self.sched.timesteps, device=self.device)
-        # the compiled step (CUDA only): the graph, the capture's seconds, the
-        # replays so far, its static state and outputs, and the generator it
-        # draws from
+        # the compiled step (CUDA only): the graph, the captures and the last
+        # one's seconds, the replays so far, its static state and outputs, and
+        # the generator it draws from
         self.use_graph = self.device.type == "cuda" and not eager
         self.graph = None
+        self.captures = 0
         self.capture_s = None
         self.replays = 0
         self._static: Optional[GenState] = None
@@ -671,6 +672,7 @@ class Engine:
         with torch.cuda.graph(graph, stream=stream):
             out = self._step_into(static)
         graph.instantiate()
+        self.captures += 1
         self.capture_s = time.perf_counter() - t0
         self.graph, self._graph_out = graph, out
 

@@ -10,11 +10,12 @@ runs the deep stages on the int4 chain kernel) and `quantize_diffusion="int4k"`
 (the fused int4 head kernel).  `use_fused_stages=True` runs the large-T
 sigma-VAE stages on the fused stage kernels (`ops.fused_stage`); it composes
 with the quantized modes, since the large-T stages' dims sit below
-`tokenizer_min_dim` and stay plain.  `from_pretrained` waits for the
-checkpoint slice.
+`tokenizer_min_dim` and stay plain.  `from_pretrained` loads an HF-format
+checkpoint directory (`utils.checkpoint.load_hf_checkpoint`).
 """
 from __future__ import annotations
 
+import os
 import time
 from typing import Dict, List, Optional, Sequence
 
@@ -28,7 +29,7 @@ from .models import tokenizer as tokmod
 from .models import vibevoice as V
 from .ops import fused_head
 from .processor.processor import VibeVoiceProcessor
-from .processor.text_tokenizer import ByteFallbackTokenizer
+from .processor.text_tokenizer import ByteFallbackTokenizer, QwenTextTokenizer
 from .utils import quantize as Q
 
 
@@ -125,6 +126,27 @@ class VibeVoiceTTS:
         return params
 
     # ------------------------------------------------------------------
+    @classmethod
+    def from_pretrained(cls, model_path: str, tokenizer_path: Optional[str] = None,
+                        dtype=torch.bfloat16, device="cuda", **kw) -> "VibeVoiceTTS":
+        """An HF-format checkpoint directory (safetensors shards in the
+        reference's names, `config.json`), loaded onto `device` in `dtype`;
+        the Qwen text tokenizer from `tokenizer_path` (default: the
+        checkpoint's directory), else the byte tokenizer; the processor from
+        its `preprocessor_config.json` where there is one.  `kw` goes to
+        `__init__` (the quantized modes among it)."""
+        from .utils.checkpoint import load_hf_checkpoint
+        params, cfg = load_hf_checkpoint(model_path, dtype=dtype, device=device)
+        try:
+            tokenizer = QwenTextTokenizer(tokenizer_path or model_path)
+        except Exception:  # no tokenizer files, or no `transformers`: as the JAX pipeline
+            tokenizer = ByteFallbackTokenizer()
+        processor = None
+        if os.path.exists(os.path.join(model_path, "preprocessor_config.json")):
+            processor = VibeVoiceProcessor.from_pretrained(model_path, tokenizer=tokenizer)
+        return cls(params, cfg, tokenizer, dtype=dtype, processor=processor, device=device,
+                   **kw)
+
     @classmethod
     def from_random(cls, cfg: Optional[VibeVoiceConfig] = None, seed: int = 0,
                     dtype=torch.bfloat16, device="cuda", **kw) -> "VibeVoiceTTS":

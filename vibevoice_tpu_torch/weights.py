@@ -29,8 +29,9 @@ _HEAD_ATTRS = ("w", "b", "k", "has_norm")
 def _leaf_to_torch(x, device, dtype: Optional[torch.dtype]) -> torch.Tensor:
     a = np.asarray(x)
     if a.dtype.name == "bfloat16":  # ml_dtypes bf16 has no torch.from_numpy path
+        # (np.ascontiguousarray makes a 0-d array 1-d: reshape it back)
         t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).astype(np.int16))
-        t = t.view(torch.bfloat16)
+        t = t.view(torch.bfloat16).reshape(a.shape)
     else:
         t = torch.from_numpy(np.array(a))  # a writable copy
     if dtype is not None and t.is_floating_point() and t.dim() > 0:
