@@ -82,7 +82,20 @@ Phases, in order; any failure stops the run with a non-zero exit:
      same batch and seed after the server stops; the stream equals its
      request through /tts and its first bytes leave before its batch ends;
      each engine was captured once, its graph's kernel nodes one eager
-     step's launches.
+     step's launches;
+  9. the training path: with what earlier phases held released,
+     `init_model(vibevoice_1_5b(), float32)` on the card, a batch of 2 rows
+     x 6 turns (one ~70-byte line and one 8 s demo voice each, 1024 tokens a
+     row, 720 frames) built by `data.build_training_batch` with the byte
+     tokenizer and the card's semantic encoder, `init_scaling_stats`, then
+     `make_optimizer(lr=1e-4, warmup_steps=2, total_steps=100)` and 4
+     `train_step`s, each printed (wall s, device ms, tokens/s, losses, peak
+     memory, model FLOP/s and its share of the fp32 peak) and split into the
+     audio encode, forward, backward and optimizer by CUDA events.  It holds
+     that every loss is finite, step 1 (lr 0) leaves every parameter
+     bit-equal, step 2 decays each >=2-d frozen-tokenizer weight by exactly
+     (1 - lr1 * wd), ce_loss falls, no kernel wrapper launches and TF32 is
+     off; then a tiny model trains two steps on the card as on the CPU.
 
 Weights are random, made from a seed.  Prints one JSON line per measurement,
 then the `kernels` line (each kernel also with its launches while phase 8
@@ -2191,6 +2204,331 @@ def phase_serving(dev, card, root):
 
 
 # ---------------------------------------------------------------------------
+# phase 9: the 1.5B trains on the card
+# ---------------------------------------------------------------------------
+
+FP32_FLOPS = 67e12  # H100 SXM, fp32 outside the tensor cores (TF32 is off)
+# one ~70-byte line a turn; two rows of six turns alternate two speakers
+TRAIN_LINES = (
+    " Welcome back to the show, today we talk about trains and timetables.",
+    " Thanks for having me, I have been looking forward to this for weeks.",
+    " Let us start with the basics: why do trains still run late so often?",
+    " Mostly it is the track work, and a few old signals that fail in rain.",
+    " And what could a small town do about it, short of building new line?",
+    " Better buses to the station help, and honest delay boards help more.",
+    " Our second guest builds the software that plans every crew shift.",
+    " It is a puzzle: every engineer needs rest, and every train needs one.",
+    " How long does the planner take to find a good plan for a whole week?",
+    " About an hour on one machine, and we rerun it when a storm comes in.",
+    " That is faster than I expected, given how many rules there must be.",
+    " The rules are the easy part; the hard part is agreeing on the goals.",
+)
+TRAIN_ROWS, TRAIN_TURNS, TRAIN_STEPS = 2, 6, 4
+
+
+def speech_batch(params, cfg, dev, root):
+    """2 rows x 6 turns of the demo voices (8 s, 60 frames each) through the
+    port's data pipeline with the byte tokenizer; the semantic features come
+    from the port's semantic encoder on the card, under no_grad."""
+    from vibevoice_tpu_torch import data as D
+    from vibevoice_tpu_torch.models import tokenizer as tok
+    from vibevoice_tpu_torch.processor.text_tokenizer import ByteFallbackTokenizer
+    clips = list(load_presets(root).values())
+    examples = []
+    for r in range(TRAIN_ROWS):
+        turns = [(1 + j % 2, TRAIN_LINES[r * TRAIN_TURNS + j]) for j in range(TRAIN_TURNS)]
+        audio = [clips[(r * TRAIN_TURNS + j) % len(clips)] for j in range(TRAIN_TURNS)]
+        examples.append((turns, audio))
+
+    @torch.no_grad()
+    def semantic_fn(speech):
+        x = torch.from_numpy(speech).to(dev)[..., None]
+        return tok.encoder_apply(params["semantic_encoder"], cfg.semantic_tokenizer,
+                                 x).cpu().numpy()
+
+    return D.build_training_batch(ByteFallbackTokenizer(), examples,
+                                  hop=cfg.speech_compress_ratio, semantic_fn=semantic_fn,
+                                  semantic_dim=cfg.semantic_vae_dim)
+
+
+def encoder_flops(enc, cfg, samples: int, rows: int) -> int:
+    """Forward FLOPs of a σ-VAE encoder over `rows` clips of `samples`: two
+    per weight element per output position of its conv or linear."""
+    strides = [1] + list(reversed(cfg.encoder_ratios))
+    t, n = samples, 0
+    for i, stage in enumerate(enc["stages"]):
+        t //= strides[i]
+        n += enc["down"][i]["w"].numel() * t
+        n += sum(blk[k]["w"].numel() for blk in stage for k in ("mixer", "ffn1", "ffn2")) * t
+    n += enc["head"]["w"].numel() * t
+    return 2 * n * rows
+
+
+def train_step_flops(params, cfg, batch, mul: int) -> dict:
+    """Model FLOPs of one training step from the shapes: 6 per weight
+    element per row for the trained products (forward + two backward), dense
+    attention's two products over every (query, key) pair, the acoustic
+    encoder's forward alone (it runs under no_grad)."""
+    dec = cfg.decoder
+    b, t = batch.input_ids.shape
+    two_d = lambda tree: sum(p.numel() for p in _tensors(tree) if p.dim() > 1)
+    frames = batch.speech_masks.size
+    out = {
+        "lm_products": 6 * two_d(params["lm"]["layers"]) * b * t,
+        "logits": 6 * dec.hidden_size * dec.vocab_size * b * t,
+        "attention": 3 * 4 * b * t * t * dec.num_attention_heads * dec.head_dim
+        * dec.num_hidden_layers,
+        "diffusion_head": 6 * two_d(params["diffusion_head"]) * frames * mul,
+        "connectors": (6 * two_d(params["acoustic_connector"])
+                       + 2 * two_d(params["semantic_connector"])) * frames,
+        "acoustic_encoder": encoder_flops(params["acoustic_encoder"], cfg.acoustic_tokenizer,
+                                          batch.speech_tensors.shape[1],
+                                          batch.speech_tensors.shape[0]),
+    }
+    out["total"] = sum(out.values())
+    return out
+
+
+def _tensors(tree):
+    return [x for _, x in tree_leaves(tree) if isinstance(x, torch.Tensor)]
+
+
+class StepMarks:
+    """CUDA events at the parts of `train_step`: the audio encode (under
+    no_grad, inside the forward), the rest of the forward, the backward and
+    the optimizer.  It wraps the model's `training_forward` and
+    `encode_voice_prompts` and the optimizer's `step` while it is entered."""
+
+    PARTS = ("encode", "forward", "backward", "optimizer")
+
+    def __init__(self, V, opt):
+        self.V, self.opt = V, opt
+
+    def _mark(self, name):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        self.events[name] = e
+
+    def _wrap(self, fn, before, after):
+        def run(*a, **k):
+            if before:
+                self._mark(before)
+            out = fn(*a, **k)
+            self._mark(after)
+            return out
+        return run
+
+    def __enter__(self):
+        self.events = {}
+        self.saved = (self.V.training_forward, self.V.encode_voice_prompts, self.opt.step)
+        tf, enc, step = self.saved
+        self.V.training_forward = self._wrap(tf, None, "forward_end")
+        self.V.encode_voice_prompts = self._wrap(enc, "encode_start", "encode_end")
+        self.opt.step = self._wrap(step, "backward_end", "optimizer_end")
+        self._mark("start")
+        return self
+
+    def __exit__(self, *exc):
+        self.V.training_forward, self.V.encode_voice_prompts, self.opt.step = self.saved
+        self._mark("end")
+
+    def parts_ms(self) -> dict:
+        e = self.events
+        e["end"].synchronize()
+        ms = lambda a, b: e[a].elapsed_time(e[b])
+        enc = ms("encode_start", "encode_end")
+        return {"encode": enc, "forward": ms("start", "forward_end") - enc,
+                "backward": ms("forward_end", "backward_end"),
+                "optimizer": ms("backward_end", "optimizer_end"),
+                "step": ms("start", "end")}
+
+
+FROZEN = ("acoustic_encoder", "acoustic_decoder", "semantic_encoder")
+
+
+def phase_train(dev, card, root):
+    """The training path at full width and depth: `init_model(vibevoice_1_5b,
+    float32)` on the card, a batch of 2 rows x 6 turns from `demo/voices`
+    through `data.build_training_batch`, `init_scaling_stats`, then
+    `make_optimizer(lr=1e-4, warmup_steps=2, total_steps=100)` and 4
+    `train_step`s.  Checks: finite losses; step 1 (lr 0) leaves every
+    parameter bit-equal; step 2 decays each >=2-d frozen-tokenizer weight by
+    (1 - lr1 * wd) and leaves its 1-d leaves as they were; ce_loss falls;
+    no kernel wrapper launches; TF32 is off."""
+    import gc
+    from vibevoice_tpu_torch import train as T
+    from vibevoice_tpu_torch.configs import vibevoice_1_5b
+    from vibevoice_tpu_torch.models import vibevoice as V
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("train_memory", allocated_before=torch.cuda.memory_allocated(),
+         reserved_before=torch.cuda.memory_reserved())
+    counters = kernel_counters()
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    cfg = vibevoice_1_5b()
+    t0 = time.perf_counter()
+    params = V.init_model(cfg, dtype=torch.float32, device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    batch = speech_batch(params, cfg, dev, root)
+    params = T.init_scaling_stats(params, cfg, torch.Generator(device=dev).manual_seed(SEED),
+                                  batch, device=dev)
+    torch.cuda.synchronize()
+    batch_s = time.perf_counter() - t0
+    b, t = batch.input_ids.shape
+    n_tok = int(batch.attention_mask.sum())
+    mul = cfg.diffusion_head.ddpm_batch_mul
+    if (b, t) != (TRAIN_ROWS, 1024) or batch.speech_masks.shape != (12, 60):
+        raise RuntimeError(f"batch {batch.input_ids.shape}, frames {batch.speech_masks.shape}")
+    lr, wd = 1e-4, 0.01
+    opt = T.make_optimizer(params, lr=lr, weight_decay=wd, warmup_steps=2, total_steps=100)
+    step = T.make_train_step(cfg, opt, device=dev)
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        raise RuntimeError("TF32 is on for fp32 matmuls or convolutions")
+    n_params = sum(p.numel() for p in opt.leaves)
+    flops = train_step_flops(params, cfg, batch, mul)
+    emit("train_setup", model="vibevoice_1_5b", dtype="fp32", params=n_params,
+         leaves=len(opt.leaves), batch=[b, t], tokens=n_tok, clips=batch.speech_masks.shape[0],
+         frames=int(batch.speech_masks.sum()), diffusion_rows=batch.speech_masks.size * mul,
+         init_s=init_s, batch_and_scaling_s=batch_s,
+         speech_scaling_factor=params["speech_scaling_factor"].item(),
+         speech_bias_factor=params["speech_bias_factor"].item(), step_flops=flops,
+         allocated=torch.cuda.memory_allocated())
+    before = [p.detach().to("cpu", copy=True) for p in opt.leaves]
+    frozen = {id(p) for name in FROZEN for p in _tensors(params[name])}
+    losses, parts = [], []
+    for i in range(TRAIN_STEPS):
+        torch.cuda.reset_peak_memory_stats()
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        lr_i = opt.schedule(opt.count)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with StepMarks(V, opt) as marks:
+            m = step(params, batch, gen)
+        loss = {k: float(v) for k, v in m.items()}
+        wall = time.perf_counter() - t0
+        p_ms = marks.parts_ms()
+        losses.append(loss)
+        parts.append(p_ms)
+        emit("train", step=i + 1, lr=lr_i, wall_s=wall, device_ms=p_ms["step"],
+             tokens_per_s=n_tok / wall, padded_tokens_per_s=b * t / wall, **loss,
+             max_memory_allocated=torch.cuda.max_memory_allocated(),
+             allocated_after=torch.cuda.memory_allocated(), model_flops=flops["total"],
+             flops_per_s=flops["total"] / wall,
+             fp32_peak_share=flops["total"] / wall / FP32_FLOPS, card=card)
+        if not all(np.isfinite(v) for v in loss.values()):
+            raise RuntimeError(f"step {i + 1}: loss not finite: {loss}")
+        if i == 0:  # lr(0) = 0: nothing moves
+            changed = [j for j, (p, w) in enumerate(zip(opt.leaves, before))
+                       if not torch.equal(p.detach().cpu(), w)]
+            if changed:
+                raise RuntimeError(f"step 1 (lr 0) changed {len(changed)} leaves")
+        elif i == 1:  # the frozen tokenizers only decay, by (1 - lr1 * wd)
+            factor = np.float32(1.0 - lr_i * wd)
+            worst, n_frozen = 0.0, 0
+            for p, w in zip(opt.leaves, before):
+                if id(p) not in frozen:
+                    continue
+                n_frozen += 1
+                w = w.to(dev)
+                want = w * float(factor) if p.dim() > 1 else w
+                rel = float(((p.detach() - want).abs() / want.abs().clamp_min(1e-30)).max())
+                worst = max(worst, rel)
+            emit("train_frozen_decay", leaves=n_frozen, factor=float(factor),
+                 max_rel_err=worst, bit_equal=worst == 0.0)
+            if worst > 2.0 ** -23:
+                raise RuntimeError(f"frozen tokenizer weights: {worst} off (1 - lr*wd)")
+    del before
+    mean = {k: float(np.mean([p[k] for p in parts[1:]])) for k in parts[0]}
+    emit("train_parts", steps=f"2-{TRAIN_STEPS}", **{k + "_ms": v for k, v in mean.items()},
+         card=card)
+    launched = {k: c.launches for k, c in counters.items() if c.launches}
+    if launched:
+        raise RuntimeError(f"kernels launched while training: {launched}")
+    if not losses[-1]["ce_loss"] < losses[0]["ce_loss"]:
+        raise RuntimeError(f"ce_loss did not fall: {[l['ce_loss'] for l in losses]}")
+    del opt, step, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses
+
+
+def tiny_train_batch(cfg, pad_to_multiple=64, seed=SEED):
+    """Two examples, three clips of 3, 1 and 2 frames (the short ones leave
+    frames masked out), random semantic features."""
+    from vibevoice_tpu_torch import data as D
+    from vibevoice_tpu_torch.processor.text_tokenizer import ByteFallbackTokenizer
+    rng = np.random.default_rng(seed)
+    hop = cfg.speech_compress_ratio
+    examples = [([(1, " Hello there."), (2, " Hi.")],
+                 [rng.normal(0, 0.1, 3 * hop - 8), rng.normal(0, 0.1, hop)]),
+                ([(1, " Short.")], [rng.normal(0, 0.1, 2 * hop - 4)])]
+    sem = lambda s: rng.normal(0, 0.1, (len(s), s.shape[1] // hop,
+                                        cfg.semantic_vae_dim)).astype(np.float32)
+    return D.build_training_batch(ByteFallbackTokenizer(), examples, hop=hop, semantic_fn=sem,
+                                  semantic_dim=cfg.semantic_vae_dim,
+                                  pad_to_multiple=pad_to_multiple)
+
+
+TRAIN_REL_TOL = 1e-5  # of a leaf's largest magnitude (or of 1): fp32, sums in another order
+
+
+def phase_train_reference(dev, steps=2):
+    """`tiny_config(vocab_size=320)` in fp32 takes `steps` train_steps on the
+    card and on the CPU from the same weights, batch and injected noise and
+    timesteps (the VAE samples with fix_std 0), lr 1e-2 from the second step:
+    the losses and every parameter afterwards agree within TRAIN_REL_TOL.
+    Returns the largest relative disagreements."""
+    import copy
+    import dataclasses
+    from vibevoice_tpu_torch import train as T
+    from vibevoice_tpu_torch.configs import tiny_config
+    from vibevoice_tpu_torch.models import vibevoice as V
+    from vibevoice_tpu_torch.weights import to_device
+    cfg = tiny_config(vocab_size=320)
+    cfg = dataclasses.replace(cfg, acoustic_tokenizer=dataclasses.replace(
+        cfg.acoustic_tokenizer, fix_std=0.0))
+    gen = torch.Generator().manual_seed(SEED)
+    params = V.init_model(cfg, generator=gen)
+    _live_audio_path(params, gen)
+    batch = tiny_train_batch(cfg)
+    rng = np.random.default_rng(SEED)
+    n = batch.speech_masks.size * cfg.diffusion_head.ddpm_batch_mul
+    inj = [(rng.normal(size=(n, cfg.acoustic_vae_dim)).astype(np.float32),
+            rng.integers(0, cfg.diffusion_head.ddpm_num_steps, n).astype(np.int32))
+           for _ in range(steps)]
+    counters = kernel_counters()
+    for c in counters.values():
+        c.launches = 0
+    out = {}
+    for where in ("cpu", dev):
+        p = to_device(copy.deepcopy(params), where)
+        opt = T.make_optimizer(p, lr=1e-2, warmup_steps=1, total_steps=10)
+        step = T.make_train_step(cfg, opt, device=where)
+        losses = [{k: float(v) for k, v in step(p, batch, None, nz, ts).items()}
+                  for nz, ts in inj]
+        out[str(where)] = (losses, [x.detach().cpu() for x in opt.leaves])
+    (l_cpu, p_cpu), (l_gpu, p_gpu) = out["cpu"], out[str(dev)]
+    launched = {k: c.launches for k, c in counters.items() if c.launches}
+    loss_err = max(abs(g[k] - w[k]) / abs(w[k]) for g, w in zip(l_gpu, l_cpu) for k in w)
+    param_err = max(float((g - w).abs().max()) / max(float(w.abs().max()), 1.0)
+                    for g, w in zip(p_gpu, p_cpu))
+    emit("train_reference", model="tiny_config(vocab_size=320)", steps=steps,
+         losses_cpu=l_cpu, losses_gpu=l_gpu, loss_max_rel_err=loss_err,
+         param_max_rel_err=param_err, tol=TRAIN_REL_TOL, kernel_launches=launched)
+    if launched:
+        raise RuntimeError(f"kernels launched while training: {launched}")
+    if not (loss_err <= TRAIN_REL_TOL and param_err <= TRAIN_REL_TOL):
+        raise RuntimeError(f"card and CPU training disagree: losses {loss_err}, "
+                           f"params {param_err} > {TRAIN_REL_TOL}")
+    return loss_err, param_err
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2324,7 +2662,13 @@ def main() -> int:
     phase_reference(dev, flash_chain=True)
 
     # 8. the serving deployment: a 1.5B checkpoint loaded and served over HTTP
-    serving, serving_device = phase_serving(dev, card, os.path.dirname(os.path.abspath(__file__)))
+    root = os.path.dirname(os.path.abspath(__file__))
+    serving, serving_device = phase_serving(dev, card, root)
+
+    # 9. the training path: the full-width 1.5B takes fp32 AdamW steps, and a
+    # tiny model trains on the card as on the CPU
+    phase_train(dev, card, root)
+    phase_train_reference(dev)
 
     emit("done", seconds=time.perf_counter() - t_start)
     # beside the wrappers' count of the main path's run (the prefill, the

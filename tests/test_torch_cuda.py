@@ -1072,3 +1072,40 @@ def test_server_on_card_equals_generate_and_captures_on_the_worker(cuda_device):
     for i in range(2):
         assert pair[i]["body"] == wav_bytes(res.audio[i])
         assert np.any(np.frombuffer(pair[i]["body"][44:], "<i2"))
+
+
+def test_train_step_on_card_matches_cpu(cuda_device):
+    """Two train_steps of tiny_config(vocab_size=320) in fp32 on the card and
+    on the CPU, from the same weights, batch and injected noise and
+    timesteps, TF32 off: the losses and every parameter afterwards agree
+    within chip_smoke.TRAIN_REL_TOL, and no kernel launches
+    (`chip_smoke.phase_train_reference` raises otherwise)."""
+    from chip_smoke import TRAIN_REL_TOL, phase_train_reference
+    loss_err, param_err = phase_train_reference(cuda_device)
+    assert loss_err <= TRAIN_REL_TOL and param_err <= TRAIN_REL_TOL
+
+
+def test_train_step_launches_no_kernel(cuda_device):
+    """A training step on the card at T=1024 with head_dim 64, where the
+    engine would prefill through flash attention: no kernel wrapper's
+    `launches` counter moves, the losses are finite and the weights move."""
+    from chip_smoke import kernel_counters, tiny_train_batch
+    from vibevoice_tpu_torch import train as T
+    dev = cuda_device
+    cfg = tiny_config(hidden_size=256, vocab_size=320)
+    params = V.init_model(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    params["speech_scaling_factor"] = torch.tensor(1.0, device=dev)
+    params["speech_bias_factor"] = torch.tensor(0.0, device=dev)
+    batch = tiny_train_batch(cfg, pad_to_multiple=1024)
+    assert batch.input_ids.shape == (2, 1024)
+    opt = T.make_optimizer(params, lr=1e-3, warmup_steps=0, total_steps=10)
+    step = T.make_train_step(cfg, opt, device=dev)
+    counters = kernel_counters()
+    for c in counters.values():
+        c.launches = 0
+    embed = params["lm"]["embed"].detach().clone()
+    metrics = step(params, batch, torch.Generator(device=dev).manual_seed(1))
+    assert {k: c.launches for k, c in counters.items() if c.launches} == {}
+    assert all(np.isfinite(float(v)) for v in metrics.values())
+    assert not torch.equal(params["lm"]["embed"], embed)
+    assert not torch.backends.cuda.matmul.allow_tf32

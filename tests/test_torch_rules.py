@@ -56,6 +56,20 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
         VibeVoiceTTS.from_random(cfg)
 
 
+
+def test_training_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
+    """`make_train_step` and `init_scaling_stats` run on CUDA unless asked for
+    the CPU, and raise without a card."""
+    from vibevoice_tpu_torch import train as TT
+    cfg = TC.tiny_config(vocab_size=320)
+    params = {"w": torch.zeros(2, 2)}
+    opt = TT.make_optimizer(params)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TT.make_train_step(cfg, opt)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TT.init_scaling_stats(params, cfg, None, None)
+    TT.make_train_step(cfg, opt, device="cpu")
+
 def test_entry_points_pin_fp32_matmuls_to_full_precision():
     torch.backends.cuda.matmul.allow_tf32 = True
     torch.backends.cudnn.allow_tf32 = True

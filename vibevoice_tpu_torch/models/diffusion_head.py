@@ -6,8 +6,9 @@ sinusoidal timestep embedding -> 2-layer SiLU MLP, condition projection; N
 adaLN-modulated SwiGLU FFN blocks; final adaLN linear back to the latent dim.
 The adaLN modulations of every solver step are computed once per frame
 (`precompute_modulations`), so each step runs only the projection, the FFNs
-and the final linear.  The FFN and adaLN weights may be quantized
-(`utils.quantize.mm`); the int4 layout fuses gate|up into `gateup`.
+and the final linear; training runs `apply`, one timestep per row.  The FFN
+and adaLN weights may be quantized (`utils.quantize.mm`); the int4 layout
+fuses gate|up into `gateup`.
 """
 from __future__ import annotations
 
@@ -101,4 +102,23 @@ def apply_with_modulations(params: Params, cfg: DiffusionHeadConfig,
     return x @ params["final_linear"]
 
 
-__all__ = ["init", "timestep_embedding", "precompute_modulations", "apply_with_modulations"]
+def apply(params: Params, cfg: DiffusionHeadConfig, noisy: torch.Tensor,
+          timesteps: torch.Tensor, condition: torch.Tensor) -> torch.Tensor:
+    """noisy [N, latent], timesteps [N], condition [N, hidden] -> [N, latent]
+    (ref forward :254-280): each row has its own timestep."""
+    eps = cfg.rms_norm_eps
+    x = noisy @ params["noisy_proj"]
+    t_freq = timestep_embedding(timesteps, cfg.freq_embed_size).to(x.dtype)
+    t_emb = F.silu(t_freq @ params["t_mlp1"]) @ params["t_mlp2"]
+    silu_c = F.silu(condition @ params["cond_proj"] + t_emb)
+    for lp in params["layers"]:
+        shift, scale, gate = torch.chunk(mm(silu_c, lp["ada_w"]), 3, dim=-1)
+        h = rms_norm(x, lp["norm_w"], eps) * (1 + scale) + shift
+        x = x + gate * mm(_swiglu(h, lp), lp["down"])
+    shift, scale = torch.chunk(mm(silu_c, params["final_ada_w"]), 2, dim=-1)
+    x = rms_norm(x, None, eps) * (1 + scale) + shift
+    return x @ params["final_linear"]
+
+
+__all__ = ["init", "timestep_embedding", "precompute_modulations", "apply_with_modulations",
+           "apply"]

@@ -1,19 +1,22 @@
-"""VibeVoice model assembly, inference half: LM + tokenizers + connectors +
-diffusion head.
+"""VibeVoice model assembly: LM + tokenizers + connectors + diffusion head.
 
 Port of `vibevoice_tpu/models/vibevoice.py` (reference
-`modeling_vibevoice.py:107-477`): the parameter tree, the constrained logits
-head, per-frame CFG diffusion sampling, latent scaling, the speech-embedding
-splice and voice-prompt encoding.  Training belongs to a later slice.
+`modeling_vibevoice.py:107-477`): the parameter tree, the logits head and its
+constrained subset, per-frame CFG diffusion sampling, latent scaling, the
+speech-embedding splice, voice-prompt encoding, and the training forward
+(`training_forward`: LM cross-entropy + diffusion loss) with the speech
+scaling statistics it needs.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ..configs import VibeVoiceConfig
 from ..schedule import dpm_solver as ds
+from ..schedule import timestep_sampler
 from ..ops import fused_head
 from ..ops.int4_matmul import dequant_int4
 from . import connectors, diffusion_head, qwen2, tokenizer
@@ -44,6 +47,10 @@ def init_model(cfg: VibeVoiceConfig, dtype=torch.float32, device="cpu",
                         dtype=torch.float32, device=device)
         params["lm_head"] = (w * 0.02).to(dtype)
     return params
+
+
+def lm_logits(params: Params, cfg: VibeVoiceConfig, hidden: torch.Tensor) -> torch.Tensor:
+    return qwen2.logits(params["lm"], cfg.decoder, hidden, params["lm_head"])
 
 
 def lm_head_subset(params: Params, ids, dtype=torch.bfloat16) -> Dict[str, Any]:
@@ -132,6 +139,18 @@ def sample_speech_latents(
     return x
 
 
+def compute_scaling_stats(latents: torch.Tensor,
+                          mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """scaling = 1/std(masked latents), bias = -mean (ref :307-317), as 0-d
+    tensors.  One process's statistics: averaging them over a process group
+    (the reference's all_reduce) comes with the parallel paths."""
+    m = mask[..., None].to(latents.dtype)
+    n = torch.clamp(m.sum() * latents.shape[-1], min=1.0)
+    mean = (latents * m).sum() / n
+    var = (((latents - mean) * m) ** 2).sum() / torch.clamp(n - 1.0, min=1.0)
+    return 1.0 / torch.sqrt(var), -mean
+
+
 def encode_voice_prompts(params: Params, cfg: VibeVoiceConfig, speech_tensors: torch.Tensor,
                          generator: Optional[torch.Generator] = None,
                          sample_noise: bool = True) -> torch.Tensor:
@@ -172,8 +191,124 @@ def splice_speech_embeds(inputs_embeds: torch.Tensor, speech_embeds: torch.Tenso
     return out.reshape(b, t, h)
 
 
+# ---------------------------------------------------------------------------
+# training forward (ref VibeVoiceForConditionalGeneration.forward :332-477)
+# ---------------------------------------------------------------------------
+
+class TrainingOutput(NamedTuple):
+    logits: torch.Tensor
+    diffusion_loss: torch.Tensor
+    ce_loss: torch.Tensor
+
+
+def _packed_order(mask: torch.Tensor) -> torch.Tensor:
+    """Indices that put the True entries of a flat mask first, each group in
+    its original order (`jnp.argsort(~mask, stable=True)`)."""
+    return torch.argsort((~mask.bool()).to(torch.int32), stable=True)
+
+
+def training_forward(
+    params: Params,
+    cfg: VibeVoiceConfig,
+    solver_tables: ds.SolverTables,
+    generator: Optional[torch.Generator],
+    input_ids: torch.Tensor,            # [B, T]
+    attention_mask: torch.Tensor,       # [B, T]
+    speech_tensors: torch.Tensor,       # [N, Ta] target audio
+    speech_masks: torch.Tensor,         # [N, F] valid-frame mask
+    speech_semantic_tensors: torch.Tensor,  # [N, F, sem_dim]
+    acoustic_input_mask: torch.Tensor,  # [B, T] bool: speech positions in sequence
+    acoustic_loss_mask: torch.Tensor,   # [B, T] bool: positions w/ diffusion loss
+    labels: Optional[torch.Tensor] = None,  # [B, T] (-100 = ignore)
+    ddpm_batch_mul: int = 1,
+    speeches_loss_input: Optional[torch.Tensor] = None,  # [N, F]: frames w/ diffusion loss
+    injected_noise: Optional[torch.Tensor] = None,       # [N*mul, latent] parity tests
+    injected_timesteps: Optional[torch.Tensor] = None,   # [N*mul]
+) -> TrainingOutput:
+    """Training-shaped forward.  The scaling factors must already be set
+    (`compute_scaling_stats` on the first batch, `train.init_scaling_stats`).
+    `generator` (on the inputs' device) draws the VAE sample, the noise and
+    the timesteps.  The LM attends densely with the causal bias: the port's
+    kernels have no backward, and none of them runs here."""
+    dec = cfg.decoder
+    speech_masks = speech_masks.bool()
+
+    # embed text then splice speech features (ref :358-383).  With
+    # `speeches_loss_input` the splice adds semantic features (ref :371);
+    # the default path splices acoustic-connector features only (ref :383).
+    embeds = params["lm"]["embed"][input_ids]
+    sem_connect = connectors.apply(params["semantic_connector"], speech_semantic_tensors)
+    with torch.no_grad():  # the tokenizer is frozen (ref no_grad :287)
+        latents = encode_voice_prompts(params, cfg, speech_tensors, generator)
+    audio_features = scale_latents(params, latents)           # [N, F, vae]
+    ac_connect = connectors.apply(params["acoustic_connector"], audio_features)
+    if speeches_loss_input is not None:
+        combined = (ac_connect + sem_connect).reshape(-1, dec.hidden_size)
+    else:
+        combined = ac_connect.reshape(-1, dec.hidden_size)
+    flat_valid = speech_masks.reshape(-1)
+    # keep only valid frames, packed to the front (the reference's [speech_masks])
+    order = _packed_order(flat_valid)
+    embeds = splice_speech_embeds(embeds, combined[order], acoustic_input_mask)
+
+    pos = qwen2.positions_from_mask(attention_mask)
+    bias = qwen2.causal_bias(attention_mask, input_ids.shape[1])
+    hidden, _ = qwen2.forward(params["lm"], dec, embeds, pos, bias)
+    logits = lm_logits(params, cfg, hidden)
+
+    # CE loss (left to the outer script in the reference :404-406).  A gather
+    # of the label's log-probability: the JAX package's one-hot sum without
+    # its [B, T, V] one-hot
+    if labels is not None:
+        valid = labels != -100
+        logp = F.log_softmax(logits.float(), dim=-1)
+        target = torch.where(valid, labels, 0).long()
+        ce = -logp.gather(-1, target[..., None])[..., 0]
+        ce_loss = (ce * valid).sum() / torch.clamp(valid.sum(), min=1)
+    else:
+        ce_loss = torch.zeros((), dtype=torch.float32, device=logits.device)
+
+    # diffusion loss (ref :411-455); with speeches_loss_input only the
+    # flagged frames contribute (ref :374-375)
+    if speeches_loss_input is not None:
+        flat_valid = (speech_masks & speeches_loss_input.bool()).reshape(-1)
+        order = _packed_order(flat_valid)
+    flat_latents = audio_features.reshape(-1, cfg.acoustic_vae_dim)[order]
+    cond = hidden.reshape(-1, dec.hidden_size)
+    cond_packed = cond[_packed_order(acoustic_loss_mask.reshape(-1))]
+
+    # the first N loss positions condition the N frames, invalid ones
+    # included (frame_valid masks those below), as in the JAX package
+    speech_rep = torch.repeat_interleave(flat_latents, ddpm_batch_mul, dim=0)
+    cond_rep = torch.repeat_interleave(cond_packed[: flat_latents.shape[0]], ddpm_batch_mul,
+                                       dim=0)
+    n_rep = speech_rep.shape[0]
+    if injected_noise is not None:
+        noise = injected_noise.to(speech_rep.dtype)
+        timesteps = injected_timesteps
+    else:
+        noise = torch.randn(speech_rep.shape, generator=generator, dtype=speech_rep.dtype,
+                            device=speech_rep.device)
+        timesteps = timestep_sampler.uniform_sample(generator, n_rep,
+                                                    cfg.diffusion_head.ddpm_num_steps)
+
+    noisy = ds.add_noise(solver_tables, speech_rep, noise, timesteps)
+    pred = diffusion_head.apply(params["diffusion_head"], cfg.diffusion_head,
+                                noisy, timesteps.to(speech_rep.dtype), cond_rep)
+    if cfg.diffusion_head.prediction_type == "epsilon":
+        target = noise
+    else:
+        target = ds.get_velocity(solver_tables, speech_rep, noise, timesteps)
+
+    frame_valid = torch.repeat_interleave(flat_valid[order], ddpm_batch_mul, dim=0)
+    se = ((pred.float() - target.float()) ** 2).sum(-1)
+    diffusion_loss = (se * frame_valid).sum() / cfg.acoustic_vae_dim / ddpm_batch_mul
+    return TrainingOutput(logits=logits, diffusion_loss=diffusion_loss, ce_loss=ce_loss)
+
+
 __all__ = [
     "init_model",
+    "lm_logits",
     "lm_head_subset",
     "lm_logits_subset",
     "sample_speech_latents",
@@ -181,4 +316,7 @@ __all__ = [
     "scale_latents",
     "unscale_latents",
     "splice_speech_embeds",
+    "compute_scaling_stats",
+    "TrainingOutput",
+    "training_forward",
 ]

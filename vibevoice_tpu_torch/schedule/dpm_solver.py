@@ -13,7 +13,8 @@ vendored diffusers fork, `vibevoice/schedule/dpm_solver.py:122-1065`):
 
 Algorithms dpmsolver++ / sde-dpmsolver++ / dpmsolver / sde-dpmsolver, orders
 1-3 (no sde third order, as in the reference), every timestep spacing, karras
-/ lu sigmas, zero-SNR rescale and dynamic thresholding.
+/ lu sigmas, zero-SNR rescale and dynamic thresholding.  Training noises its
+targets with `add_noise` and regresses `get_velocity`.
 """
 from __future__ import annotations
 
@@ -452,6 +453,32 @@ def step(
     return prev.to(model_output.dtype), SolverState(history=history, lower_order_nums=new_lon)
 
 
+def _alpha_sigma_at(tables: SolverTables, original: torch.Tensor,
+                    timesteps: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """alpha_t and sigma_t at each timestep, in the samples' dtype and on
+    their device, shaped to broadcast over the samples' trailing axes."""
+    kw = dict(dtype=original.dtype, device=original.device)
+    idx = timesteps.to(original.device).long()
+    shape = tuple(timesteps.shape) + (1,) * (original.dim() - timesteps.dim())
+    a = torch.as_tensor(tables.alpha_t, **kw)[idx].reshape(shape)
+    s = torch.as_tensor(tables.sigma_t, **kw)[idx].reshape(shape)
+    return a, s
+
+
+def add_noise(tables: SolverTables, original: torch.Tensor, noise: torch.Tensor,
+              timesteps: torch.Tensor) -> torch.Tensor:
+    """ref add_noise :1024-1044."""
+    a, s = _alpha_sigma_at(tables, original, timesteps)
+    return a * original + s * noise
+
+
+def get_velocity(tables: SolverTables, original: torch.Tensor, noise: torch.Tensor,
+                 timesteps: torch.Tensor) -> torch.Tensor:
+    """ref get_velocity :1046-1062."""
+    a, s = _alpha_sigma_at(tables, original, timesteps)
+    return a * noise - s * original
+
+
 __all__ = [
     "SolverConfig",
     "SolverTables",
@@ -462,4 +489,6 @@ __all__ = [
     "init_state",
     "step",
     "convert_model_output",
+    "add_noise",
+    "get_velocity",
 ]
