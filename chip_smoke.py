@@ -10,8 +10,9 @@ Phases, in order; any failure stops the run with a non-zero exit:
      its time, the plain version's, the library yardstick's and the bound:
      decode attention (bf16 and int8 KV, layers 0 and 27, a partial and a full
      live length, a visibility mask with holes; then ~340 live slots of 4096,
-     40 000 of 40 960 in bf16 and int8 KV and the 7B grouping H=28, KVH=4, each
-     with its share of the bound and two calls bit-equal); int4_matmul at the four LM
+     40 000 of 40 960 in bf16 and int8 KV, the 7B grouping H=28, KVH=4, and a
+     TP=2 rank's lanes H=6, KVH=1 in bf16 and int8 KV, each with its share of
+     the bound and two calls bit-equal); int4_matmul at the four LM
      projections with M=2 (per channel and with 128-row groups) and at M=64
      and M=128; the int4 Block1D chain at the 1.5B stage shapes with B=1 and
      B=4, two calls bit-equal; the fused int4 head at N=2, two calls
@@ -21,8 +22,10 @@ Phases, in order; any failure stops the run with a non-zero exit:
      3 (three lane groups), 4 and 32, each followed by the plain stage kernel
      on the same rows and required bit-equal to it; flash prefill (bf16, H=12, KVH=2, D=128) at B=1 with T=1024
      and 4096 and at B=2, T=1024 with one row left-padded by 333 tokens, and
-     at the 7B shape (H=28, KVH=4) with B=1, T=4096, each query row against
-     its own scale, at the CTA height it picks and at both (64 and 128
+     at the 7B shape (H=28, KVH=4) with B=1, T=4096, and at phase 10's
+     shapes (a TP=2 rank's H=6, KVH=1 at T=1024; a CP rank's 4096 rows over
+     S=8192 keys at row_offset 0 and 4096), each query row against its own
+     scale, at the CTA height it picks and at both (64 and 128
      rows), against its bound and SDPA; the plain-pack (bf16) chain at the
      four packed stages of a step, B=1 and B=2, two chunks with the context
      carried, two calls bit-equal, with its share of the bound;
@@ -95,12 +98,38 @@ Phases, in order; any failure stops the run with a non-zero exit:
      that every loss is finite, step 1 (lr 0) leaves every parameter
      bit-equal, step 2 decays each >=2-d frozen-tokenizer weight by exactly
      (1 - lr1 * wd), ce_loss falls, no kernel wrapper launches and TF32 is
-     off; then a tiny model trains two steps on the card as on the CPU.
+     off; then a tiny model trains two steps on the card as on the CPU;
+ 10. the parallel paths as two ranks on this one card over gloo (NCCL
+     refuses two ranks on one device; gloo stages every collective through
+     the host, so no time here is a TP or DP speed), spawned after this
+     process ran the unsharded references and released what it held:
+     10a TP=2, the bf16 1.5B (live audio path), B=1, a 1024-token prompt
+     (flash prefill on each rank's H=6, KVH=1) and a 4096-slot cache, 8 + 16
+     eager steps, and the same weights in fp32; tokens equal to the
+     unsharded engine's, the prompt's last hidden state and the first frame
+     within twice the unsharded bf16-vs-fp32 distance (fp32: within 1e-3 of
+     the unsharded fp32 engine's; later frames are reported: the random
+     model grows any difference ~5x a frame), 28 flash
+     launches a prefill and 28 decode-attention launches a step per rank,
+     the all-reduces per step and their bytes and host time; 10b the same
+     with int8 weights and int8 KV, 8 + 8 steps, both ranks' slot scales
+     equal and every written slot's largest |int8| over both ranks 127; 10c
+     DP=2, the served configuration (int4 + int4k + head int4k + fused
+     stages) on a global B=4, 2 rows a rank, each rank its own captured step
+     (nodes asserted, no collective in a step), its rows bit-equal to an
+     unsharded B=2 engine's on them and its tokens to the B=4 engine's,
+     `dp_scaling_report`; 10d `cp_prefill_attention` at T=8192
+     (4096 rows a rank, flash at row_offset 0 and 4096 over S=8192) and
+     `ring_prefill_attention` at T=4096, every query row against the plain
+     version of flash prefill over all rows in one process.
 
 Weights are random, made from a seed.  Prints one JSON line per measurement,
 then the `kernels` line (each kernel also with its launches while phase 8
 served: through its wrapper, and on the device with each graph replay's
-nodes), the card's name and power limit, and as the last line
+nodes; and its launches on each rank of phase 10, counted by its wrapper
+and, for a DP rank's captured step, from its graph's nodes times its
+replays), the card's name and
+power limit, and as the last line
 `{"ok": true, "device": {...}}`.  Exits non-zero without a GPU.
 """
 import json
@@ -266,10 +295,13 @@ def measure_attention(q, caches, vis, lengths, quant):
 # `phase_kernels`: (cache slots, live slots of both rows, int8 KV, H, KVH,
 # layers, cache copies), each loop over copy x layer reading more than L2: the
 # engine's own live length (~340 of a 4096-slot cache), a 90-minute request
-# (40 000 live of 40 960) in bf16 and int8 KV, and the 7B grouping (G=7)
+# (40 000 live of 40 960) in bf16 and int8 KV, the 7B grouping (G=7), and a
+# 1.5B TP=2 rank's own lanes (H=6, KVH=1: G=6) at phase 10's live length
+# (its 1024-token prompt and steps) in bf16 and int8 KV
 ATTN_CASES = ((4096, 340, False, 12, 2, 28, 4), (40960, 40000, False, 12, 2, 4, 1),
               (40960, 40000, True, 12, 2, 4, 1), (4096, 1500, False, 28, 4, 28, 1),
-              (40960, 40000, False, 28, 4, 2, 1))
+              (40960, 40000, False, 28, 4, 2, 1), (4096, 1050, False, 6, 1, 28, 4),
+              (4096, 1050, True, 6, 1, 28, 4))
 
 
 def phase_kernels(dev):
@@ -681,26 +713,33 @@ def phase_stage_kernels(dev):
 # the 1.5B attention shape, then the 7B one (seven query heads per KV head)
 FLASH_CASES = ((1, 1024, 0, 12, 2), (1, 4096, 0, 12, 2), (2, 1024, 333, 12, 2),
                (1, 4096, 0, 28, 4))
+# and at the shapes phase 10 gives it, B=1, D=128: (T query rows, S keys,
+# row_offset, H, KVH): a 1.5B TP=2 rank's heads over the 1024-token prompt,
+# and each context-parallel rank's 4096 rows of the 8192-token prompt over
+# all its keys (T != S)
+FLASH_SHARD_CASES = ((1024, 1024, 0, 6, 1), (4096, 8192, 0, 12, 2), (4096, 8192, 4096, 12, 2))
 ROW_REL_TOL = 2 ** -7  # one bf16 rounding step of a row's own largest output
 
 
-def flash_inputs(b, t, pad, gen, dev, h=12, kvh=2, d=128):
-    """bf16 q [B, T, H, D], k/v [B, T, KVH, D] and the pad mask, the last row
-    left-padded by `pad` tokens."""
+def flash_inputs(b, t, pad, gen, dev, h=12, kvh=2, d=128, s=None):
+    """bf16 q [B, T, H, D], k/v [B, S, KVH, D] (S = T by default) and the pad
+    mask [B, S], the last row left-padded by `pad` tokens."""
     rnd = lambda *shape: (0.5 * torch.randn(shape, generator=gen, device=dev)).to(torch.bfloat16)
-    mask = torch.ones((b, t), dtype=torch.int32, device=dev)
+    s = t if s is None else s
+    mask = torch.ones((b, s), dtype=torch.int32, device=dev)
     mask[b - 1, :pad] = 0
-    return rnd(b, t, h, d), rnd(b, t, kvh, d), rnd(b, t, kvh, d), mask
+    return rnd(b, t, h, d), rnd(b, s, kvh, d), rnd(b, s, kvh, d), mask
 
 
-def agree_rows(name, got, want, mask):
+def agree_rows(name, got, want, mask, tol=ROW_REL_TOL):
     """Flash prefill's output against its plain version, row by row: every
     row finite, each real query row (position, head) within one bf16 step of
     its own largest output (a late row averages over thousands of keys and is
     far smaller than the largest of all), the rows that see no key zero.
     Returns (max abs error, worst row's error over its scale, median |want|
     over the real rows)."""
-    torch.cuda.synchronize()
+    if got.is_cuda:
+        torch.cuda.synchronize()
     if not bool(torch.isfinite(got).all()):
         raise RuntimeError(f"{name} kernel returned non-finite values")
     real = mask > 0
@@ -708,56 +747,64 @@ def agree_rows(name, got, want, mask):
     err_row = (g - w).abs().amax(dim=-1)
     scale_row = w.abs().amax(dim=-1)
     worst = float((err_row / scale_row.clamp_min(1e-30)).max())
-    if not worst <= ROW_REL_TOL:
+    if not worst <= tol:
         raise RuntimeError(f"{name} disagrees with its plain version: a row is off by {worst} "
-                           f"of its scale > {ROW_REL_TOL}")
+                           f"of its scale > {tol}")
     if bool(got[~real].any()):
         raise RuntimeError(f"{name}: a row that sees no key is not zero")
     return float(err_row.max()), worst, float(w.abs().median())
 
 
-def flash_library(q, k, v, mask):
+def flash_library(q, k, v, mask, row_offset=0):
     """One SDPA call computing the same function (causal, GQA; with the pad
-    mask where a row is padded)."""
+    mask where a row is padded, and query row i at position row_offset + i
+    of the keys)."""
     import torch.nn.functional as F
-    t = q.shape[1]
+    t, s = q.shape[1], k.shape[1]
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     real = mask > 0
-    if bool(real.all()):
+    if bool(real.all()) and t == s:
         return lambda i: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
                                                         enable_gqa=True)
-    allowed = (torch.ones((t, t), dtype=torch.bool, device=q.device).tril()[None]
+    pos = row_offset + torch.arange(t, device=q.device)
+    allowed = ((torch.arange(s, device=q.device)[None] <= pos[:, None])[None]
                & real[:, None, :])[:, None]
     return lambda i: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=allowed,
                                                     enable_gqa=True)
 
 
-def flash_bound(q, k, v, mask):
+def flash_bound(q, k, v, mask, row_offset=0):
     """The real rows' causal (row, key) pairs at 4*D*H flops each, or q, k,
     v, the mask and the output once over HBM."""
     from vibevoice_tpu_torch.ops import flash_attention as fa
     _, t, h, d = q.shape
-    return bound(nbytes(q, k, v, mask) + nbytes(q), 4 * d * h * fa.attended_pairs(mask, t))
+    pairs = fa.attended_pairs(mask, t, row_offset=row_offset)
+    return bound(nbytes(q, k, v, mask) + nbytes(q), 4 * d * h * pairs)
 
 
-def measure_flash(q, k, v, mask):
-    """Flash prefill against its plain version (`agree_rows`), then the
-    kernel's time at the CTA height it picks and at both heights, the plain
-    version's and SDPA's times, and the bound."""
+def measure_flash(q, k, v, mask, row_offset=0):
+    """Flash prefill against its plain version (`agree_rows`, on the query
+    rows' own positions row_offset + i of the mask), then the kernel's time
+    at the CTA height it picks and at both heights, the plain version's and
+    SDPA's times, and the bound."""
     from vibevoice_tpu_torch.ops import cuda_build, flash_attention as fa
-    want = fa.flash_attention_prefill_ref(q, k, v, mask)
+    off = dict(row_offset=row_offset)
+    rows_mask = mask[:, row_offset:row_offset + q.shape[1]]
+    want = fa.flash_attention_prefill_ref(q, k, v, mask, **off)
     err, worst, typical = agree_rows("flash_attention_prefill",
-                                     fa.flash_attention_prefill(q, k, v, mask), want, mask)
+                                     fa.flash_attention_prefill(q, k, v, mask, **off), want,
+                                     rows_mask)
     for rows in (64, 128):
         agree_rows(f"flash_attention_prefill[{rows} rows]",
-                   fa.flash_attention_prefill_at(q, k, v, mask, rows), want, mask)
+                   fa.flash_attention_prefill_at(q, k, v, mask, rows, **off), want, rows_mask)
     del want
-    ms = cuda_ms(lambda i: fa.flash_attention_prefill(q, k, v, mask), 20)
-    ms_at = {str(rows): cuda_ms(lambda i: fa.flash_attention_prefill_at(q, k, v, mask, rows), 20)
+    ms = cuda_ms(lambda i: fa.flash_attention_prefill(q, k, v, mask, **off), 20)
+    ms_at = {str(rows): cuda_ms(lambda i: fa.flash_attention_prefill_at(q, k, v, mask, rows,
+                                                                        **off), 20)
              for rows in (64, 128)}
-    plain_ms = cuda_ms(lambda i: fa.flash_attention_prefill_ref(q, k, v, mask), 3)
-    lib_ms = cuda_ms(flash_library(q, k, v, mask), 20)
-    bms, by = flash_bound(q, k, v, mask)
+    plain_ms = cuda_ms(lambda i: fa.flash_attention_prefill_ref(q, k, v, mask, **off), 3)
+    lib_ms = cuda_ms(flash_library(q, k, v, mask, row_offset), 20)
+    bms, by = flash_bound(q, k, v, mask, row_offset)
     b, t, h, _ = q.shape
     rows = fa.cta_rows(b, t, h, k.shape[2], cuda_build.sm_count(q.device))
     return dict(max_abs_err=err, worst_row_err_rel=worst, row_rel_tol=ROW_REL_TOL,
@@ -767,12 +814,17 @@ def measure_flash(q, k, v, mask):
 
 def phase_flash_kernel(dev):
     """Flash prefill at the 1.5B attention shape (H=12, KVH=2, D=128), bf16,
-    and at the 7B one (H=28, KVH=4: seven query heads per KV head)."""
+    at the 7B one (H=28, KVH=4: seven query heads per KV head), and at the
+    shapes of phase 10's ranks (`FLASH_SHARD_CASES`)."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 7)
     for b, t, pad, h, kvh in FLASH_CASES:
         r = measure_flash(*flash_inputs(b, t, pad, gen, dev, h, kvh))
         emit("kernel_vs_plain", kernel="flash_attention_prefill", B=b, T=t, H=h, KVH=kvh, D=128,
              left_pad=pad, model="7B" if h == 28 else "1.5B", **r)
+    for t, s, off, h, kvh in FLASH_SHARD_CASES:
+        r = measure_flash(*flash_inputs(1, t, 0, gen, dev, h, kvh, s=s), row_offset=off)
+        emit("kernel_vs_plain", kernel="flash_attention_prefill", B=1, T=t, S=s, row_offset=off,
+             H=h, KVH=kvh, D=128, model="1.5B", path="TP rank" if h == 6 else "CP rank", **r)
     torch.cuda.empty_cache()
 
 
@@ -2529,6 +2581,588 @@ def phase_train_reference(dev, steps=2):
 
 
 # ---------------------------------------------------------------------------
+# phase 10: the parallel paths, two ranks on one card over gloo
+# ---------------------------------------------------------------------------
+
+# 10a/10b: a 1024-token prompt (flash prefill by the auto rule) and a
+# 4096-slot cache (decode attention); 10c: the served configuration at a
+# global B=4; 10d: context-parallel and ring prefill at the 1.5B layer shape
+PAR_PROMPT, PAR_STEPS = 1024, 3072
+DP_BATCH, DP_PROMPT, DP_STEPS = 4, 256, 3840
+CP_T, RING_T = 8192, 4096
+PAR_RANKS = 2
+# the TP runs (weights, KV cache, warm-up steps, timed steps); fp32 is the
+# well-conditioned one, held over the whole run
+PAR_TP_RUNS = (("bf16", "model", 8, 16), ("fp32", "model", 8, 16), ("int8", "int8", 8, 8))
+PAR_TIMEOUT_S = 600  # a rank still alive then is killed, and the run fails
+# TP against the unsharded engine in fp32, on the prompt's last hidden state
+# and the first frame (relative L2): the split reorders fp32 sums (~1e-7
+# each) over 28 layers and the head; a rank that summed wrong or missed a
+# collective is O(1) off.  Later frames are not held: the random model feeds
+# each frame back into the LM and grows a difference ~5x a frame (fp32 TP
+# against fp32: 5e-5, 2e-4, 1e-3, 7e-3, 5e-2, ... ~1 by the tenth frame)
+FP32_TOL = 1e-3
+
+
+def parallel_gen(G):
+    """`bench_gen` under the deterministic solver: with injected noise, two
+    runs of one weight set differ by their arithmetic alone."""
+    import dataclasses
+    return dataclasses.replace(bench_gen(G), algorithm_type="dpmsolver++")
+
+
+def _as_fp32(tree):
+    if isinstance(tree, dict):
+        return {k: _as_fp32(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_as_fp32(v) for v in tree]
+    if torch.is_tensor(tree) and tree.is_floating_point():
+        return tree.float()
+    return tree
+
+
+def parallel_params(cfg, dev, kind):
+    """The phase's weights, made from the seed the same way in every process:
+    the bf16 1.5B with a live audio path (`_live_audio_path`: the head's
+    adaLN and final layers random, so the audio depends on the LM), then as
+    `kind` says: "bf16", "fp32" (the same values in fp32), "int8" (the LM and
+    head int8, `utils.quantize.quantize_model`) or "int4" (the served
+    configuration, `QUANT_MODES` through `VibeVoiceTTS`)."""
+    from vibevoice_tpu_torch.models import vibevoice as V
+    from vibevoice_tpu_torch.pipeline import VibeVoiceTTS
+    from vibevoice_tpu_torch.processor.text_tokenizer import ByteFallbackTokenizer
+    from vibevoice_tpu_torch.utils.quantize import quantize_model
+    params = V.init_model(cfg, dtype=torch.bfloat16, device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(SEED))
+    _live_audio_path(params, torch.Generator(device=dev).manual_seed(SEED + 10))
+    if kind == "fp32":
+        return _as_fp32(params)
+    if kind == "int8":
+        return quantize_model(params, cfg.decoder.tie_word_embeddings, mode="int8")
+    if kind == "int4":
+        return VibeVoiceTTS(params, cfg, ByteFallbackTokenizer(), dtype=torch.bfloat16,
+                            device=dev, **QUANT_MODES).params
+    return params
+
+
+def parallel_inputs(batch, prompt_len, frames, cfg):
+    """Prompt ids, mask (rows 1 and 3 left-padded at B=4), speech mask and the
+    injected noise [frames, B, latent], from the seed."""
+    rng = np.random.default_rng(SEED + 7)
+    ids = rng.integers(0, 1000, (batch, prompt_len)).astype(np.int32)
+    mask = np.ones((batch, prompt_len), np.int32)
+    if batch >= 4:
+        mask[1, :37] = 0
+        mask[3, :101] = 0
+    sim = np.zeros((batch, prompt_len), bool)
+    noise = rng.normal(size=(frames, batch, cfg.acoustic_vae_dim)).astype(np.float32)
+    return ids, mask, sim, noise
+
+
+class Collectives:
+    """Counts the `torch.distributed` collectives made while it is open (the
+    port calls them through the module): per kind, the calls, the bytes each
+    sent and the host seconds inside them (with gloo on CUDA tensors a call
+    also waits for the card to reach it)."""
+    KINDS = ("all_reduce", "all_gather", "all_to_all_single", "broadcast")
+
+    def __enter__(self):
+        import torch.distributed as dist
+        self.dist, self.orig, self.calls = dist, {}, {}
+
+        def wrap(kind, fn):
+            def timed(*a, **kw):
+                t = a[1] if kind in ("all_gather", "all_to_all_single") else a[0]
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                rec = self.calls.setdefault(kind, {"calls": 0, "bytes": [], "s": 0.0})
+                rec["calls"] += 1
+                rec["bytes"].append(t.numel() * t.element_size())
+                rec["s"] += time.perf_counter() - t0
+                return out
+            return timed
+
+        for k in self.KINDS:
+            self.orig[k] = getattr(dist, k)
+            setattr(dist, k, wrap(k, self.orig[k]))
+        return self
+
+    def __exit__(self, *exc):
+        for k, fn in self.orig.items():
+            setattr(self.dist, k, fn)
+
+
+def par_run(eng, inputs, warm, timed, dev):
+    """Prefill, a warm-up chunk and a timed chunk of `eng`: the tokens, audio
+    and emitted flags so far (this engine's rows), the prompt's last hidden
+    state, the wrappers' launches in the prefill and over the decode steps,
+    ms per frame of the timed chunk and the collectives made in it."""
+    counters = kernel_counters()
+    for c in counters.values():
+        c.launches = 0
+    ids, mask, sim, noise = inputs
+    with PromptHidden() as hid:
+        state, _ = eng.prefill(ids, mask, sim, generator=torch.Generator(device=dev)
+                               .manual_seed(SEED), latent_noise=noise)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    prefill = {k: c.launches for k, c in counters.items()}
+    state, _ = eng.decode_chunk(state, warm)
+    f0 = int(state.frames.sum())
+    with Collectives() as coll:
+        t0 = time.perf_counter()
+        state, _ = eng.decode_chunk(state, timed)
+        frames = int(state.frames.sum()) - f0  # waits for the card
+        wall = time.perf_counter() - t0
+    n = state.host_step
+    if len(hid.rows) != 1:
+        raise RuntimeError(f"{len(hid.rows)} prompt forwards in one prefill")
+    return dict(state=state, tokens=state.tokens[:, :n].cpu(),
+                audio=state.audio[:, :n].float().cpu(), emitted=state.emitted[:, :n].cpu(),
+                hidden=hid.rows[0].cpu(), prefill_launches=prefill,
+                step_launches={k: c.launches - prefill[k] for k, c in counters.items()},
+                frames=frames, wall_s=wall, ms_per_frame=1e3 * wall / max(frames, 1),
+                collectives={k: dict(v, per_step=v["calls"] / timed)
+                             for k, v in coll.calls.items()})
+
+
+def rel_l2(a, b) -> float:
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm().clamp_min(1e-300))
+
+
+def _slim(r):
+    """What a rank hands back of a `par_run` (CPU tensors and numbers)."""
+    return {k: v for k, v in r.items() if k != "state"}
+
+
+def _rank_tp(rank, dev, card, cfg):
+    """10a and 10b on this rank (`PAR_TP_RUNS`: bf16, the same weights in
+    fp32, int8 + int8 KV): the TP=2 engine over the rank's shard, eager (gloo
+    collectives cannot be captured); 28 flash launches in the prefill, 28
+    decode-attention launches a step, asserted.  10b also hands back the
+    int8 cache's slot scales and each slot's largest |int8| on this rank's
+    lanes."""
+    from vibevoice_tpu_torch.engine import generate as G
+    from vibevoice_tpu_torch.parallel import make_mesh, shard_params
+    n_layers = cfg.decoder.num_hidden_layers
+    mesh = make_mesh(data=1, model=PAR_RANKS)
+    out = {}
+    for kind, kv, warm, timed in PAR_TP_RUNS:
+        full = parallel_params(cfg, dev, kind)
+        local = shard_params(full, mesh, cfg=cfg)
+        del full
+        torch.cuda.empty_cache()
+        dtype = torch.float32 if kind == "fp32" else torch.bfloat16
+        eng = G.Engine(local, cfg, parallel_gen(G), max_steps=PAR_STEPS, batch=1,
+                       prompt_len=PAR_PROMPT, dtype=dtype, kv_dtype=kv, device=dev,
+                       inject_latent_noise=True, mesh=mesh, eager=True)
+        if not (eng.use_flash_prefill and eng.use_flash_decode and eng.cache_len == 4096):
+            raise RuntimeError("the TP engine is off the kernels' path")
+        r = par_run(eng, parallel_inputs(1, PAR_PROMPT, warm + timed + 1, cfg), warm, timed,
+                    dev)
+        steps = warm + timed
+        want_pre = dict.fromkeys(kernel_counters(), 0)
+        want_pre["flash_attention_prefill"] = n_layers
+        want_step = dict.fromkeys(kernel_counters(), 0)
+        want_step["decode_attention"] = n_layers * steps
+        if r["prefill_launches"] != want_pre or r["step_launches"] != want_step:
+            raise RuntimeError(f"TP rank {rank} ({kind}): launches {r['prefill_launches']} / "
+                               f"{r['step_launches']}, want {want_pre} / {want_step}")
+        cache = r["state"].cache
+        if kv == "int8":
+            r["k_scale"], r["v_scale"] = cache.k_scale.cpu(), cache.v_scale.cpu()
+            r["k_qmax"] = cache.k.abs().amax(dim=-1).cpu()
+            r["v_qmax"] = cache.v.abs().amax(dim=-1).cpu()
+        coll = r["collectives"]
+        ar = coll.get("all_reduce", {"calls": 0, "bytes": [0], "s": 0.0, "per_step": 0})
+        emit("parallel_tp", rank=rank, weights=kind, kv=kv, backend=mesh.backend("model"),
+             cache_lanes=int(cache.k.shape[-1]), local_heads=[
+                 cfg.decoder.num_attention_heads // PAR_RANKS,
+                 cfg.decoder.num_key_value_heads // PAR_RANKS],
+             prefill_launches=r["prefill_launches"], step_launches=r["step_launches"],
+             steps=steps, timed_steps=timed, ms_per_frame=r["ms_per_frame"],
+             all_reduces_per_step=ar["per_step"], all_reduce_bytes_max=max(ar["bytes"]),
+             all_reduce_bytes_per_step=sum(ar["bytes"]) / timed,
+             all_reduce_ms_per_step=1e3 * ar["s"] / timed,
+             all_reduce_share=ar["s"] / r["wall_s"],
+             other_collectives={k: v["calls"] for k, v in coll.items() if k != "all_reduce"},
+             note="eager; gloo stages every collective through the host: not a TP speed",
+             card=card)
+        if set(coll) - {"all_reduce"} or max(ar["bytes"]) > 16384:
+            raise RuntimeError(f"TP rank {rank}: a step made {coll}")
+        out[kind] = _slim(r)
+        del eng, local, r, cache
+        torch.cuda.empty_cache()
+    return out
+
+
+def _rank_dp(rank, dev, card, cfg):
+    """10c on this rank: the served configuration (int4 + int4k + head int4k
+    + fused stages) on a DP=2 mesh over the global B=4 batch, 2 rows a rank,
+    its own captured step; kernel nodes per step asserted against the step's
+    launches at the rank's batch, no collective in the timed steps;
+    `dp_scaling_report` over the ranks."""
+    from vibevoice_tpu_torch.engine import generate as G
+    from vibevoice_tpu_torch.parallel import make_mesh
+    from vibevoice_tpu_torch.parallel.multihost import dp_scaling_report
+    mesh = make_mesh(data=PAR_RANKS, model=1)
+    params = parallel_params(cfg, dev, "int4")
+    eng = G.Engine(params, cfg, parallel_gen(G), max_steps=DP_STEPS, batch=DP_BATCH,
+                   prompt_len=DP_PROMPT, dtype=torch.bfloat16, device=dev,
+                   inject_latent_noise=True, mesh=mesh, use_fused_vocoder=True,
+                   use_fused_semantic=True, use_fused_stages=True)
+    warm, timed = 8, 16
+    r = par_run(eng, parallel_inputs(DP_BATCH, DP_PROMPT, warm + timed + 1, cfg), warm, timed,
+                dev)
+    want_pre, want_step = expected_launches(cfg, "int4", eng)
+    nodes, other = graph_launches(eng.graph)
+    if (eng.captures != 1 or nodes != merge_stages(want_step)
+            or r["prefill_launches"] != want_pre
+            or r["step_launches"] != {k: 2 * v for k, v in want_step.items()}):
+        raise RuntimeError(f"DP rank {rank}: captures {eng.captures}, nodes {nodes}, launches "
+                           f"{r['prefill_launches']} / {r['step_launches']}; want "
+                           f"{merge_stages(want_step)}, {want_pre}")
+    if r["collectives"]:
+        raise RuntimeError(f"DP rank {rank}: a step made {r['collectives']}")
+    replays = eng.replays  # before the timing loop's replays below
+    rows = eng.gather(r["state"])
+    n = r["tokens"].shape[1]
+    if not torch.equal(rows.tokens[2 * rank:2 * rank + 2, :n].cpu(), r["tokens"]):
+        raise RuntimeError("the gathered rows are not in global order")
+    audio_s = r["frames"] * cfg.speech_compress_ratio / 24000.0
+    report = dp_scaling_report(audio_s, r["wall_s"])
+    device_ms = cuda_ms(lambda i: eng.graph.replay(), 10)
+    emit("parallel_dp", rank=rank, rows=[2 * rank, 2 * rank + 1], local_batch=eng.batch,
+         graph_nodes=nodes, graph_other_nodes=other, captures=eng.captures,
+         capture_s=eng.capture_s, ms_per_frame=r["ms_per_frame"],
+         device_ms_per_replay=device_ms, collectives_in_steps=r["collectives"],
+         rowlane=uses_rowlane_any(eng), dp_scaling_report=report,
+         note="two ranks share one card: not a scaling figure", card=card)
+    r["graph_nodes"], r["replays"] = nodes, replays
+    out = _slim(r)
+    del eng, params, r, rows
+    torch.cuda.empty_cache()
+    return out
+
+
+def _rank_cp_ring(rank, dev, card):
+    """10d on this rank: `cp_prefill_attention` at T=8192 (this rank's 4096
+    rows, the flash kernel at row_offset rank * 4096 over S=8192) and
+    `ring_prefill_attention` at T=4096, both over the data axis, with their
+    wall ms, the all-gather's and peak memory."""
+    from vibevoice_tpu_torch.ops import flash_attention as fa
+    from vibevoice_tpu_torch.parallel import make_mesh
+    from vibevoice_tpu_torch.parallel.context_parallel import cp_prefill_attention, gather_kv
+    from vibevoice_tpu_torch.parallel.ring_attention import ring_prefill_attention
+    mesh = make_mesh(data=PAR_RANKS, model=1)
+    out = {}
+
+    def wall_ms(fn, reps=3):
+        ts = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            ts.append(1e3 * (time.perf_counter() - t0))
+        return res, ts
+
+    for case, t, seed in (("cp", CP_T, SEED + 20), ("ring", RING_T, SEED + 21)):
+        q, k, v, mask = flash_inputs(1, t, 0, torch.Generator(device=dev).manual_seed(seed), dev)
+        n = t // PAR_RANKS
+        rows = slice(rank * n, (rank + 1) * n)
+        args = tuple(x[:, rows].contiguous() for x in (q, k, v, mask))
+        del q, k, v, mask
+        before = fa.flash_attention_prefill.launches
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        with Collectives() as coll:
+            if case == "cp":
+                got, ms = wall_ms(lambda: cp_prefill_attention(*args, mesh))
+            else:
+                got, ms = wall_ms(lambda: ring_prefill_attention(*args, mesh))
+        peak = torch.cuda.max_memory_allocated() - base
+        launches = fa.flash_attention_prefill.launches - before
+        gather = wall_ms(lambda: gather_kv(args[1], args[2], args[3], mesh))[1] \
+            if case == "cp" else None
+        want_launches = 3 if case == "cp" else 0
+        if launches != want_launches:
+            raise RuntimeError(f"{case} rank {rank}: {launches} flash launches, want "
+                               f"{want_launches}")
+        emit("parallel_" + case, rank=rank, t=t, rows=[rank * n, (rank + 1) * n],
+             row_offset=rank * n, key_slots=t if case == "cp" else n,
+             shape={"q": list(args[0].shape), "k": list(args[1].shape)}, wall_ms=ms,
+             all_gather_ms=gather, peak_bytes=peak, flash_launches=launches,
+             collectives={kk: vv["calls"] for kk, vv in coll.calls.items()},
+             note="gloo through the host: not a CP speed", card=card)
+        out[case] = got.cpu()
+        out[case + "_launches"] = launches
+        del got, args
+        torch.cuda.empty_cache()
+    return out
+
+
+def _rank_main(rank, world, store, out_dir, card):
+    """One rank of phase 10 (a spawned process): 10a-10d in order, its
+    results saved to `out_dir`; a failure leaves its traceback there and a
+    non-zero exit."""
+    import datetime
+    import traceback
+    import torch.distributed as dist
+    try:
+        from vibevoice_tpu_torch.configs import vibevoice_1_5b
+        from vibevoice_tpu_torch.engine.generate import resolve_device
+        torch.cuda.set_device(0)
+        dev = resolve_device("cuda")
+        dist.init_process_group("gloo", init_method="file://" + store, world_size=world,
+                                rank=rank, timeout=datetime.timedelta(seconds=PAR_TIMEOUT_S))
+        cfg = vibevoice_1_5b()
+        out = {"tp": _rank_tp(rank, dev, card, cfg), "dp": _rank_dp(rank, dev, card, cfg),
+               "cp": _rank_cp_ring(rank, dev, card)}
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+        dist.barrier()
+        dist.destroy_process_group()
+    except BaseException:
+        with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def parallel_references(dev, card, cfg):
+    """The unsharded runs phase 10 is held against, on this process, on the
+    same card, with the same weights, inputs and injected noise: 10a the bf16
+    engine and the fp32 one (also the yardstick: how far bf16 arithmetic
+    alone moves the hidden state and the audio); 10b the int8 + int8 KV
+    engine; 10c the served configuration at B=4 and at B=2 on rows 0-1 and
+    2-3; 10d the plain version of flash prefill over all rows."""
+    from vibevoice_tpu_torch.engine import generate as G
+    refs = {}
+    for kind, kv, warm, timed in PAR_TP_RUNS:
+        params = parallel_params(cfg, dev, kind)
+        dtype = torch.float32 if kind == "fp32" else torch.bfloat16
+        eng = G.Engine(params, cfg, parallel_gen(G), max_steps=PAR_STEPS, batch=1,
+                       prompt_len=PAR_PROMPT, dtype=dtype, kv_dtype=kv, device=dev,
+                       inject_latent_noise=True, eager=True)
+        r = par_run(eng, parallel_inputs(1, PAR_PROMPT, warm + timed + 1, cfg), warm, timed,
+                    dev)
+        if kv == "int8":
+            r["k_scale"], r["v_scale"] = r["state"].cache.k_scale.cpu(), \
+                r["state"].cache.v_scale.cpu()
+        refs[kind] = _slim(r)
+        del eng, params, r
+        torch.cuda.empty_cache()
+    params = parallel_params(cfg, dev, "int4")
+    ids, mask, sim, noise = parallel_inputs(DP_BATCH, DP_PROMPT, 25, cfg)
+    for name, rows in (("b4", slice(0, 4)), ("b2_0", slice(0, 2)), ("b2_1", slice(2, 4))):
+        b = rows.stop - rows.start
+        eng = G.Engine(params, cfg, parallel_gen(G), max_steps=DP_STEPS, batch=b,
+                       prompt_len=DP_PROMPT, dtype=torch.bfloat16, device=dev,
+                       inject_latent_noise=True, use_fused_vocoder=True,
+                       use_fused_semantic=True, use_fused_stages=True)
+        inputs = (ids[rows], mask[rows], sim[rows], noise[:, rows])
+        refs[name] = _slim(par_run(eng, inputs, 8, 16, dev))
+        del eng
+        torch.cuda.empty_cache()
+    del params
+    from vibevoice_tpu_torch.ops import flash_attention as fa
+    for case, t, seed in (("cp", CP_T, SEED + 20), ("ring", RING_T, SEED + 21)):
+        q, k, v, mask = flash_inputs(1, t, 0, torch.Generator(device=dev).manual_seed(seed), dev)
+        refs["flash_" + case] = fa.flash_attention_prefill_ref(q, k, v, mask).cpu()
+        refs["kernel_" + case] = fa.flash_attention_prefill(q, k, v, mask).cpu()
+        del q, k, v, mask
+    torch.cuda.empty_cache()
+    return refs
+
+
+def phase_parallel(dev, card):
+    """Phase 10: the parallel paths as two ranks on this one card, over gloo
+    (NCCL refuses two ranks on one device): the unsharded references first,
+    on this process, then with what this process holds released, two ranks
+    spawned (a `file://` store in a temporary directory, a finite timeout)
+    that run 10a-10d; then every rank's results held against the references.
+    Returns each kernel's launches on each rank (`parallel_launches`)."""
+    import gc
+    import multiprocessing
+    import shutil
+    import tempfile
+    from vibevoice_tpu_torch.configs import vibevoice_1_5b
+    cfg = vibevoice_1_5b()
+    t_start = time.perf_counter()
+    refs = parallel_references(dev, card, cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("parallel_references", seconds=time.perf_counter() - t_start,
+         allocated=torch.cuda.memory_allocated(), card=card)
+
+    work = tempfile.mkdtemp(prefix="vv_parallel_")
+    try:
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=_rank_main,
+                             args=(r, PAR_RANKS, os.path.join(work, "store"), work, card))
+                 for r in range(PAR_RANKS)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + PAR_TIMEOUT_S
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+        alive = [r for r, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+        errors = []
+        for r, p in enumerate(procs):
+            err = os.path.join(work, f"rank{r}.err")
+            if os.path.exists(err):
+                with open(err) as f:
+                    errors.append(f"rank {r}:\n{f.read()}")
+            elif r in alive:
+                errors.append(f"rank {r} still alive after {PAR_TIMEOUT_S} s: killed")
+            elif p.exitcode != 0:
+                errors.append(f"rank {r} exited with {p.exitcode}")
+        if errors:
+            raise RuntimeError("phase 10 ranks failed:\n" + "\n".join(errors))
+        ranks = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
+                 for r in range(PAR_RANKS)]
+        ranks_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    # 10a / 10b.  The random 1.5B grows any difference ~5x a fed-back frame
+    # (FP32_TOL), so two runs that differ in arithmetic decorrelate within
+    # ~10 frames and a run is held where it is well conditioned: the
+    # prompt's last hidden state and the first frame.  bf16 and int8: each
+    # within twice the distance between the unsharded bf16 and fp32 engines
+    # (TP only reorders bf16 sums: an independent error of that size puts it
+    # ~1.4x apart), the bf16 hidden state also within twice that of the
+    # fp32 engine's; fp32: within FP32_TOL of the unsharded fp32 engine.
+    # The whole run's distances are reported by frame.  Tokens equal; both
+    # ranks hold the same values.
+    yard_h = rel_l2(refs["bf16"]["hidden"], refs["fp32"]["hidden"])
+    yard_f0 = rel_l2(refs["bf16"]["audio"][:, 0], refs["fp32"]["audio"][:, 0])
+    yard_run = rel_l2(refs["bf16"]["audio"], refs["fp32"]["audio"])
+    for kind in ("bf16", "fp32", "int8"):
+        ref = refs[kind]
+        got = [rk["tp"][kind] for rk in ranks]
+        d_hidden = [rel_l2(g["hidden"], ref["hidden"]) for g in got]
+        d_f0 = [rel_l2(g["audio"][:, 0], ref["audio"][:, 0]) for g in got]
+        d_run = [rel_l2(g["audio"], ref["audio"]) for g in got]
+        d_frames = [rel_l2(got[0]["audio"][:, f], ref["audio"][:, f])
+                    for f in range(ref["audio"].shape[1])]
+        same_tokens = all(torch.equal(g["tokens"], ref["tokens"]) for g in got)
+        ranks_equal = torch.equal(got[0]["audio"], got[1]["audio"])
+        check = dict(weights=kind, hidden_rel_l2=d_hidden, first_frame_rel_l2=d_f0,
+                     audio_rel_l2=d_run, audio_rel_l2_by_frame=d_frames,
+                     bf16_vs_fp32=dict(hidden=yard_h, first_frame=yard_f0, audio=yard_run),
+                     tokens_equal=same_tokens, ranks_audio_equal=ranks_equal,
+                     unsharded_ms_per_frame=ref["ms_per_frame"],
+                     rank_ms_per_frame=[g["ms_per_frame"] for g in got])
+        ok = same_tokens and ranks_equal
+        if kind == "fp32":
+            check["tol"] = dict(hidden=FP32_TOL, first_frame=FP32_TOL)
+            ok = ok and max(d_hidden) <= FP32_TOL and max(d_f0) <= FP32_TOL
+        else:
+            check["tol"] = dict(hidden=2 * yard_h, first_frame=2 * yard_f0)
+            ok = ok and max(d_hidden) <= 2 * yard_h and max(d_f0) <= 2 * yard_f0
+        if kind == "bf16":
+            check["hidden_rel_l2_vs_fp32"] = [rel_l2(g["hidden"], refs["fp32"]["hidden"])
+                                              for g in got]
+            ok = ok and max(check["hidden_rel_l2_vs_fp32"]) <= 2 * yard_h
+        if kind == "int8":
+            # the slot scales: one per slot over ALL lanes, so both ranks
+            # store the same scales, and each written slot's largest |int8|
+            # over both ranks' lanes is 127 (the slot's amax sets its scale)
+            for s in ("k", "v"):
+                sc = [g[s + "_scale"] for g in got]
+                qmax = torch.maximum(got[0][s + "_qmax"], got[1][s + "_qmax"])
+                written = sc[0][:, :, 0].float() > 0
+                check[s + "_scales_equal_across_ranks"] = torch.equal(sc[0], sc[1])
+                check[s + "_written_slots"] = int(written.sum())
+                check[s + "_slot_qmax_127"] = bool((qmax[written] == 127).all())
+                same = (sc[0] == ref[s + "_scale"])[:, :, 0]
+                check[s + "_scales_equal_unsharded_share"] = float(same[written].float().mean())
+                check[s + "_scales_equal_unsharded_share_layer0"] = float(
+                    same[0][written[0]].float().mean())
+                ok = ok and check[s + "_scales_equal_across_ranks"] \
+                    and check[s + "_slot_qmax_127"]
+        emit("parallel_tp_check", **check, card=card)
+        if not ok:
+            raise RuntimeError(f"TP {kind} ranks disagree with the unsharded engine: {check}")
+
+    # 10c: a DP rank is a B=2 engine over its two rows: its tokens and audio
+    # equal the unsharded B=2 engine's on those rows bit for bit.  Against
+    # the unsharded B=4 engine's rows (other M and row-lane R in the int4 and
+    # stage kernels, so other rounding, which the fed-back frames grow)
+    # the tokens are equal and the distances are reported beside the one
+    # between the unsharded B=2 and B=4 engines.
+    b4 = refs["b4"]
+    b2_audio = torch.cat([refs["b2_0"]["audio"], refs["b2_1"]["audio"]])
+    dist_b4, bit_equal, tokens_ok = [], True, True
+    for r, rk in enumerate(ranks):
+        g, b2 = rk["dp"], refs[f"b2_{r}"]
+        rows = slice(2 * r, 2 * r + 2)
+        tokens_ok &= torch.equal(g["tokens"], b4["tokens"][rows])
+        bit_equal &= torch.equal(g["tokens"], b2["tokens"]) and torch.equal(g["audio"], b2["audio"])
+        dist_b4.append(dict(audio=rel_l2(g["audio"], b4["audio"][rows]),
+                            first_frame=rel_l2(g["audio"][:, 0], b4["audio"][rows, 0])))
+    emit("parallel_dp_check", equal_to_b2_engines=bit_equal, tokens_equal_b4=tokens_ok,
+         rel_l2_vs_b4=dist_b4,
+         b2_vs_b4=dict(audio=rel_l2(b2_audio, b4["audio"]),
+                       first_frame=rel_l2(b2_audio[:, 0], b4["audio"][:, 0])),
+         unsharded_b4_ms_per_frame=b4["ms_per_frame"],
+         unsharded_b2_ms_per_frame=[refs["b2_0"]["ms_per_frame"], refs["b2_1"]["ms_per_frame"]],
+         rank_ms_per_frame=[rk["dp"]["ms_per_frame"] for rk in ranks], card=card)
+    if not (tokens_ok and bit_equal):
+        raise RuntimeError("DP ranks disagree with the unsharded B=2 / B=4 engines")
+
+    # 10d: every query row of both ranks against the plain version of flash
+    # prefill over all rows in one process: CP runs the flash kernel at
+    # row_offset rank * T/n over all T keys, so within one bf16 step of the
+    # row's largest output, as the kernel is in phase 2; the ring's fp32
+    # softmax, rounded once, and the plain version's (P rounded to bf16
+    # before P.V) each lie within a step of the exact rows, so within two of
+    # each other.  Reported beside: whether CP equals the kernel run over all
+    # rows in one process
+    for case, tol in (("cp", ROW_REL_TOL), ("ring", 2 * ROW_REL_TOL)):
+        got = torch.cat([rk["cp"][case] for rk in ranks], dim=1)
+        want = refs["flash_" + case]
+        err, worst, med = agree_rows(case, got, want,
+                                     torch.ones(got.shape[:2], dtype=torch.int32), tol=tol)
+        emit("parallel_" + case + "_check", t=got.shape[1], against="flash_attention_prefill_ref",
+             max_abs_err=err, worst_row_rel=worst, tol=tol, median_abs=med,
+             equal_to_one_process_kernel=torch.equal(got, refs["kernel_" + case]), card=card)
+
+    # each kernel's launches on each rank over phase 10, as counted: the
+    # wrappers' counts (prefills, eager steps, the DP warm-up and capture,
+    # the CP calls) plus the DP rank's graph replays times the kernel nodes
+    # read from its graph.  B4 and B7 are one kernel function, so their
+    # nodes are not told apart: both entries get their sum
+    launches = {}
+    for rk in ranks:
+        tp, dp = rk["tp"], rk["dp"]
+        per = {k: dp["prefill_launches"][k] + dp["step_launches"][k]
+               + dp["replays"] * dp["graph_nodes"].get(k, 0) for k in kernel_counters()}
+        per["fused_stage_chain"] += per["fused_stage_chain_rowlane"]
+        per["fused_stage_chain_rowlane"] = per["fused_stage_chain"]
+        per["decode_attention"] += sum(tp[w]["step_launches"]["decode_attention"]
+                                       for w in ("bf16", "fp32"))
+        per["decode_attention[int8 KV]"] = tp["int8"]["step_launches"]["decode_attention"]
+        per["flash_attention_prefill"] += rk["cp"]["cp_launches"] + sum(
+            tp[w]["prefill_launches"]["flash_attention_prefill"] for w in ("bf16", "fp32", "int8"))
+        for k, v in per.items():
+            launches.setdefault(k, []).append(v)
+    emit("parallel_summary", seconds=time.perf_counter() - t_start, ranks_s=ranks_s,
+         ranks=PAR_RANKS, backend="gloo", launches_per_rank=launches,
+         dp_replays=[rk["dp"]["replays"] for rk in ranks],
+         dp_graph_nodes=[rk["dp"]["graph_nodes"] for rk in ranks],
+         merged=["fused_stage_chain", "fused_stage_chain_rowlane"], card=card)
+    return launches
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2670,6 +3304,10 @@ def main() -> int:
     phase_train(dev, card, root)
     phase_train_reference(dev)
 
+    # 10. the parallel paths: TP and DP engines, CP and ring prefill, as two
+    # ranks on this card over gloo, held against the unsharded runs
+    parallel = phase_parallel(dev, card)
+
     emit("done", seconds=time.perf_counter() - t_start)
     # beside the wrappers' count of the main path's run (the prefill, the
     # warm-up step and the captured one), the launches that ran on the device;
@@ -2677,7 +3315,11 @@ def main() -> int:
     # fused_stage_chain_rowlane)
     for e in entries:
         e["device_launches"] = device_launches[e["name"]]
+        e["parallel_launches"] = parallel[e["name"]]
         key = e["name"].split("[")[0]
+        if key.startswith("fused_stage_chain"):
+            # one kernel function: a graph's nodes give the two calls' sum
+            e["parallel_launches_of"] = "fused_stage_chain + fused_stage_chain_rowlane"
         if not e["name"].endswith("[int8 KV]"):
             e["serving_launches"] = serving[key]
             e["serving_device_launches"] = serving_device[key]

@@ -1,0 +1,402 @@
+"""Rank harness for the port's parallel tests: runs one function on N ranks of
+a gloo process group, each in a process of its own (`spawn`), and collects
+what each returns.
+
+Ranks import torch, numpy and the port only, never JAX: a test makes its JAX
+reference in its own process, hands weights and inputs to the ranks as `.npz`
+files (`save_tree`; the ranks read them back with `load_tree` and
+`weights.from_jax`), and reads the ranks' results (pickled numpy trees) from
+its `tmp_path`.  Every rank runs with one thread (the suite runs under
+xdist), and every spawn is joined with a deadline: a rank still alive then is
+killed and the test fails, so a collective that one rank never joins costs
+one test, not the suite.
+
+The rank programs (`tp_program`, `dp_program`, `cp_ring_program`,
+`multihost_program`) live here, beside the harness, so that a rank imports
+nothing of the test modules (which import JAX).
+"""
+from __future__ import annotations
+
+import datetime
+import multiprocessing
+import os
+import pickle
+import time
+import traceback
+from typing import Any, Callable, Dict, List
+
+import numpy as np
+
+# ---------------------------------------------------------------------------
+# numpy trees as .npz
+# ---------------------------------------------------------------------------
+
+_SEP = "/"
+
+
+def save_tree(path, tree) -> None:
+    """A tree of dicts, lists, None and arrays (bf16 included, as its bits)
+    as one .npz: the leaves under their paths, the shape of the tree beside."""
+    arrays: Dict[str, np.ndarray] = {}
+
+    def walk(x, p):
+        if isinstance(x, dict):
+            return {"d": {k: walk(v, p + _SEP + str(k)) for k, v in x.items()}}
+        if isinstance(x, (list, tuple)):
+            return {"l": [walk(v, f"{p}{_SEP}{i}") for i, v in enumerate(x)]}
+        if x is None:
+            return None
+        a = np.asarray(x)
+        if a.dtype.name == "bfloat16":
+            arrays[p] = np.ascontiguousarray(a).view(np.uint16)
+            return {"bf16": p}
+        arrays[p] = a
+        return {"a": p}
+
+    skeleton = walk(tree, "")
+    arrays["__tree__"] = np.frombuffer(pickle.dumps(skeleton), dtype=np.uint8)
+    np.savez(path, **arrays)
+
+
+def load_tree(path):
+    """The tree of `save_tree`, its leaves as numpy arrays; bf16 leaves come
+    back as torch bf16 tensors (numpy has no bf16)."""
+    import torch
+
+    data = np.load(path)
+    skeleton = pickle.loads(data["__tree__"].tobytes())
+
+    def build(node):
+        if node is None:
+            return None
+        if "d" in node:
+            return {k: build(v) for k, v in node["d"].items()}
+        if "l" in node:
+            return [build(v) for v in node["l"]]
+        if "bf16" in node:
+            a = data[node["bf16"]]
+            return torch.from_numpy(a.astype(np.int16)).view(torch.bfloat16).reshape(a.shape)
+        return data[node["a"]]
+
+    return build(skeleton)
+
+
+def to_torch(tree):
+    """`load_tree`'s tree as torch tensors on the CPU (`weights.from_jax`, which
+    the bf16 leaves, already tensors, skip)."""
+    import torch
+    from vibevoice_tpu_torch.weights import from_jax
+
+    if isinstance(tree, dict):
+        return {k: to_torch(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_torch(v) for v in tree]
+    if torch.is_tensor(tree):
+        return tree
+    return from_jax(tree)
+
+
+# ---------------------------------------------------------------------------
+# spawning ranks
+# ---------------------------------------------------------------------------
+
+def _entry(fn: Callable, rank: int, world: int, store: str, out_dir: str, args: tuple):
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    try:
+        dist.init_process_group("gloo", init_method="file://" + store, world_size=world,
+                                rank=rank, timeout=datetime.timedelta(seconds=60))
+        result = fn(rank, world, *args)
+        with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(result, f)
+        dist.barrier()
+        dist.destroy_process_group()
+    except BaseException:
+        with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+class Ranks:
+    """`fn(rank, world, *args)` started on `world` gloo ranks (the caller may
+    work meanwhile); `results()` waits for them."""
+
+    def __init__(self, fn: Callable, world: int, tmp_path, *args, timeout: float = 120.0):
+        self.world, self.timeout = world, timeout
+        self.out_dir = os.path.join(str(tmp_path), f"ranks_{fn.__name__}")
+        os.makedirs(self.out_dir, exist_ok=True)
+        store = os.path.join(self.out_dir, "store")
+        ctx = multiprocessing.get_context("spawn")
+        self.procs = [ctx.Process(target=_entry, args=(fn, r, world, store, self.out_dir, args))
+                      for r in range(world)]
+        self.deadline = time.monotonic() + timeout
+        for p in self.procs:
+            p.start()
+
+    def results(self) -> List[Any]:
+        """What each rank returned.  AssertionError (with each failed rank's
+        traceback) when a rank fails, returns nothing or is still alive
+        `timeout` seconds after the start; every process is gone when this
+        returns."""
+        for p in self.procs:
+            p.join(max(0.0, self.deadline - time.monotonic()))
+        hung = [r for r, p in enumerate(self.procs) if p.is_alive()]
+        for p in self.procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+        errors = []
+        for r, p in enumerate(self.procs):
+            err = os.path.join(self.out_dir, f"rank{r}.err")
+            if os.path.exists(err):
+                with open(err) as f:
+                    errors.append(f"rank {r}:\n{f.read()}")
+            elif r in hung:
+                errors.append(f"rank {r}: still alive after {self.timeout} s, killed")
+            elif p.exitcode != 0:
+                errors.append(f"rank {r}: exit code {p.exitcode}")
+        if errors:
+            raise AssertionError("\n".join(errors))
+        out = []
+        for r in range(self.world):
+            with open(os.path.join(self.out_dir, f"rank{r}.pkl"), "rb") as f:
+                out.append(pickle.load(f))
+        return out
+
+
+class CollectiveCounter:
+    """Counts the `torch.distributed` collectives made while it is active
+    (the port calls them through the module, so wrapping the module's
+    functions sees every call): per kind, calls and the bytes of the tensor
+    each call sends."""
+
+    KINDS = ("all_reduce", "all_gather", "all_gather_into_tensor", "all_to_all_single",
+             "all_to_all", "broadcast", "reduce_scatter", "reduce_scatter_tensor", "send",
+             "recv", "isend", "irecv")
+
+    def __init__(self):
+        self.calls: Dict[str, List[int]] = {}
+        self._orig: Dict[str, Callable] = {}
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        def wrap(kind, fn):
+            def counted(*a, **kw):
+                t = a[1] if kind in ("all_gather", "all_to_all_single", "all_gather_into_tensor",
+                                     "reduce_scatter_tensor") else a[0]
+                n = sum(x.numel() * x.element_size() for x in t) if isinstance(t, list) \
+                    else t.numel() * t.element_size()
+                self.calls.setdefault(kind, []).append(int(n))
+                return fn(*a, **kw)
+            return counted
+
+        for k in self.KINDS:
+            if hasattr(dist, k):
+                self._orig[k] = getattr(dist, k)
+                setattr(dist, k, wrap(k, self._orig[k]))
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+        for k, fn in self._orig.items():
+            setattr(dist, k, fn)
+
+    def summary(self) -> Dict[str, List[int]]:
+        return {k: list(v) for k, v in self.calls.items()}
+
+
+# ---------------------------------------------------------------------------
+# rank programs
+# ---------------------------------------------------------------------------
+
+GEN = dict(speech_start_id=258, speech_end_id=259, speech_diffusion_id=260, eos_id=256,
+           cfg_scale=1.5, ddpm_steps=3, max_length_times=16.0)
+
+
+def _state_np(state, extra=None) -> Dict[str, np.ndarray]:
+    out = {k: getattr(state, k).detach().cpu().numpy()
+           for k in ("tokens", "audio", "emitted", "frames", "finished", "reach_max")}
+    if state.cache.k_scale is not None:
+        out["k_scale"] = state.cache.k_scale.float().cpu().numpy()
+        out["v_scale"] = state.cache.v_scale.float().cpu().numpy()
+    out.update(extra or {})
+    return out
+
+
+def _engine_run(eng, inputs, steps, counter_steps=1):
+    """prefill, one counted step, the rest: the state and the step's counts."""
+    ids, mask, sim, fmask, vl, noise = inputs
+    state, _ = eng.prefill(ids, mask, sim, speech_frame_masks=fmask, voice_latents=vl,
+                           latent_noise=noise)
+    with CollectiveCounter() as c:
+        state, _ = eng.decode_chunk(state, counter_steps)
+    state, _ = eng.decode_chunk(state, steps - 1 - counter_steps)
+    return state, c.summary()
+
+
+def tp_program(rank, world, work_dir, cases, steps):
+    """TP=2 engines over gloo, one per case (name, weights npz, Engine
+    keyword arguments); beside each, the unsharded engine on rank 0.  Also
+    the refusals that need a live group, the whole-column logits subset of
+    a column-split head, and the int8 KV case with the amax reduction
+    removed."""
+    import torch
+    from vibevoice_tpu_torch import configs as TC
+    from vibevoice_tpu_torch.engine import generate as TG
+    from vibevoice_tpu_torch.models import vibevoice as TV
+    from vibevoice_tpu_torch.parallel import make_mesh, shard_params
+
+    cfg = TC.tiny_config(vocab_size=320)
+    gen = TG.GenerationConfig(**GEN)
+    inputs = load_tree(os.path.join(work_dir, "inputs.npz"))
+    mesh = make_mesh(data=1, model=2)
+    b, t = inputs[0].shape
+    base = dict(max_steps=steps, batch=b, prompt_len=t, inject_latent_noise=True, device="cpu")
+    out: Dict[str, Any] = {}
+    for name, weights, kw in cases:
+        params = to_torch(load_tree(os.path.join(work_dir, weights)))
+        local = shard_params(params, mesh, cfg=cfg)
+        eng = TG.Engine(local, cfg, gen, **base, **kw, mesh=mesh, eager=True)
+        state, counts = _engine_run(eng, inputs, steps)
+        out[name] = _state_np(state)
+        out[name]["counts"] = counts
+        out[name]["cache_lanes"] = int(state.cache.k.shape[-1])
+        if rank == 0:
+            ref = TG.Engine(params, cfg, gen, **base, **kw)
+            out[name]["unsharded"] = _state_np(_engine_run(ref, inputs, steps)[0])
+        if kw.get("kv_dtype") == "int8":
+            # the same engine without the amax reduction: each rank's scales
+            # cover its own lanes only
+            orig = mesh.all_reduce
+            mesh.all_reduce = lambda x, axis="model", op="sum": (
+                x if op == "max" else orig(x, axis, op))
+            try:
+                eng2 = TG.Engine(local, cfg, gen, **base, **kw, mesh=mesh, eager=True)
+                out[name]["no_amax_reduce"] = _state_np(_engine_run(eng2, inputs, steps)[0])
+            finally:
+                mesh.all_reduce = orig
+        if name == "int8":
+            # the int8 tree's lm_head (embed^T, int8) is split by column: the
+            # engine's subset must be whole on every rank
+            allowed = sorted({gen.speech_start_id, gen.speech_end_id, gen.speech_diffusion_id,
+                              gen.eos_id})
+            p_nosub = {k: v for k, v in local.items() if k != "_lm_head_sub"}
+            sub = TV.lm_head_subset(p_nosub, allowed, torch.float32, mesh=mesh)
+            want = TV.lm_head_subset(params, allowed, torch.float32)
+            out["head_subset"] = {
+                "split_width": int(local["lm_head"]["qint8"].shape[1]),
+                "equal": all(torch.equal(sub[k], want[k]) for k in want)}
+    # the refusals that need the live group: gloo cannot take a captured TP
+    # step, and unsharded params do not fit a TP mesh
+    params = to_torch(load_tree(os.path.join(work_dir, cases[0][1])))
+    refusals = {}
+    for what, p, kw in (("gloo_graph", shard_params(params, mesh, cfg=cfg), dict(eager=False)),
+                        ("unsharded_params", params, dict(eager=True))):
+        try:
+            TG.Engine(p, cfg, gen, **base, mesh=mesh, **kw)
+            refusals[what] = None
+        except Exception as e:  # the type and message are the result
+            refusals[what] = (type(e).__name__, str(e))
+    out["refusals"] = refusals
+    return out
+
+
+def dp_program(rank, world, work_dir, steps, kw):
+    """A DP=2 engine over gloo on the global batch: its gathered rows, the
+    collectives of a step, `generate`'s global result with a streamer
+    attached, `generate` stopped by one rank's stop check, and the refusal of
+    a batch that does not split."""
+    from vibevoice_tpu_torch import configs as TC
+    from vibevoice_tpu_torch.engine import generate as TG
+    from vibevoice_tpu_torch.engine.streamer import AudioStreamer
+    from vibevoice_tpu_torch.parallel import make_mesh
+
+    cfg = TC.tiny_config(vocab_size=320)
+    gen = TG.GenerationConfig(**GEN)
+    inputs = load_tree(os.path.join(work_dir, "dp_inputs.npz"))
+    params = to_torch(load_tree(os.path.join(work_dir, "weights.npz")))
+    mesh = make_mesh(data=2, model=1)
+    b, t = inputs[0].shape
+    base = dict(max_steps=steps, batch=b, prompt_len=t, inject_latent_noise=True, device="cpu")
+    eng = TG.Engine(params, cfg, gen, **base, **kw, mesh=mesh)
+    state, counts = _engine_run(eng, inputs, steps)
+    rows = eng.gather(state)
+    out = {"local_batch": eng.batch, "counts": counts,
+           "gathered": {k: getattr(rows, k).cpu().numpy() for k in rows._fields}}
+    ids, mask, sim, fmask, vl, noise = inputs
+    # the streamer gets this rank's rows under their global indices
+    streamer = AudioStreamer(batch_size=b)
+    res = TG.generate(eng, ids, mask, sim, speech_frame_masks=fmask, voice_latents=vl,
+                      latent_noise=noise, audio_streamer=streamer)
+    streamed = {}
+    for idx, chunk in streamer:
+        streamed.setdefault(idx, []).append(chunk)
+    out["generate"] = {"tokens": res.tokens, "audio": res.audio, "steps": res.steps,
+                       "streamed": {i: np.concatenate(c) for i, c in streamed.items()}}
+    # rank 0's stop check fires before its second chunk, rank 1's never: both
+    # ranks end on the same chunk
+    checks = []
+
+    def stop():
+        checks.append(1)
+        return rank == 0 and len(checks) >= 2
+
+    res = TG.generate(eng, ids, mask, sim, speech_frame_masks=fmask, voice_latents=vl,
+                      latent_noise=noise, stop_check_fn=stop, stream_chunk=1)
+    out["stopped"] = {"tokens": res.tokens, "steps": res.steps}
+    try:
+        TG.Engine(params, cfg, gen, **dict(base, batch=3), mesh=mesh)
+        out["odd_batch"] = None
+    except Exception as e:
+        out["odd_batch"] = (type(e).__name__, str(e))
+    return out
+
+
+def cp_ring_program(rank, world, work_dir):
+    """Context-parallel and ring prefill on `world` ranks of the data axis:
+    each rank's rows of the CP (dense and flash-plain) and ring outputs, and
+    the collectives each made."""
+    import torch
+    from vibevoice_tpu_torch.parallel import make_mesh
+    from vibevoice_tpu_torch.parallel.context_parallel import cp_prefill_attention
+    from vibevoice_tpu_torch.parallel.ring_attention import ring_prefill_attention
+
+    mesh = make_mesh(data=world, model=1)
+    out = {}
+    for case in ("cp", "ring"):
+        q, k, v, pad = (torch.from_numpy(np.asarray(a))
+                        for a in load_tree(os.path.join(work_dir, f"{case}.npz")))
+        n = q.shape[1] // world
+        rows = slice(rank * n, (rank + 1) * n)
+        args = (q[:, rows].contiguous(), k[:, rows].contiguous(), v[:, rows].contiguous(),
+                pad[:, rows].to(torch.int32).contiguous(), mesh)
+        with CollectiveCounter() as c:
+            if case == "cp":
+                out["cp_dense"] = cp_prefill_attention(*args, use_flash=False).numpy()
+                out["cp_flash"] = cp_prefill_attention(*args, use_flash=True).numpy()
+            else:
+                out["ring"] = ring_prefill_attention(*args).numpy()
+        out[case + "_counts"] = c.summary()
+    return out
+
+
+def multihost_program(rank, world):
+    """`global_mesh`, `shard_batch_for_host` and `dp_scaling_report` on live
+    ranks."""
+    from vibevoice_tpu_torch.parallel import multihost as mh
+
+    m_tp = mh.global_mesh(model_parallel=world)
+    m_dp = mh.global_mesh(model_parallel=1)
+    batch = {"x": np.arange(8 * 5, dtype=np.float32).reshape(8, 5), "y": None}
+    local = mh.shard_batch_for_host(batch, m_dp)
+    rep = mh.dp_scaling_report(12.0 / (rank + 1), 3.0 + rank)
+    return {"tp_shape": dict(m_tp.shape), "tp_coords": m_tp.coords,
+            "dp_shape": dict(m_dp.shape), "dp_coords": m_dp.coords,
+            "x": local["x"], "y": local["y"], "report": rep}
+
+
+__all__ = ["save_tree", "load_tree", "to_torch", "Ranks", "CollectiveCounter",
+           "tp_program", "dp_program", "cp_ring_program", "multihost_program", "GEN"]

@@ -660,6 +660,8 @@ FLASH_CASES = {
     "7b-g7-pad": (2, 1000, 1000, 28, 4, 128, 333, None, torch.bfloat16, True, 0.5),
     "non-causal": (2, 300, 300, 12, 2, 128, 37, None, torch.bfloat16, False, 0.5),
     "1.5b-peaked": (1, 1024, 1024, 12, 2, 128, 0, None, torch.bfloat16, True, 2.0),
+    # a context-parallel rank's half of an 8192-token prompt (the second)
+    "1.5b-cp-half": (1, 4096, 8192, 12, 2, 128, 0, 4096, torch.bfloat16, True, 0.5),
 }
 
 
@@ -1109,3 +1111,75 @@ def test_train_step_launches_no_kernel(cuda_device):
     assert all(np.isfinite(float(v)) for v in metrics.values())
     assert not torch.equal(params["lm"]["embed"], embed)
     assert not torch.backends.cuda.matmul.allow_tf32
+
+
+def _rank_mesh(rank):
+    """Rank `rank` of a two-rank model axis, with no process group: enough for
+    the sharded wrappers, which make no collective."""
+    from vibevoice_tpu_torch.parallel.mesh import Mesh
+    return Mesh(1, 2, rank=rank, groups={})
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_decode_attention_on_a_tp_shard(cuda_device, quant):
+    """The 1.5B cache split over two TP ranks: each rank's decode attention
+    reads its own 128 lanes (H=6, KVH=1, G=6) through
+    `decode_attention_sharded`, one launch, and agrees with the plain version
+    on the shard and with the query heads' slice of the whole cache's kernel
+    output (bf16 rounding, fp32 sums in another split order)."""
+    dev = cuda_device
+    gen = torch.Generator(device=dev).manual_seed(11)
+    s = 4096
+    q = torch.randn((2, 12, 128), generator=gen, device=dev).to(torch.bfloat16)
+    k, v, ks, vs = _cache(28, 2, s, 256, quant, gen, dev)
+    lengths = torch.tensor([1500, s], dtype=torch.int32, device=dev)
+    vis = (torch.arange(s, device=dev)[None] < lengths[:, None]).to(torch.int32)
+    vis[1, 1:40] = 0
+    assert da.plan(2, 1, s, torch.bfloat16, torch.cuda.get_device_properties(dev)
+                   .multi_processor_count, k.dtype) >= 1
+    for layer in (0, 27):
+        full = da.decode_attention(q, k, v, layer, vis, lengths, ks, vs)
+        for r in range(2):
+            qr = q[:, 6 * r:6 * r + 6].contiguous()
+            kr = k[..., 128 * r:128 * (r + 1)].contiguous()
+            vr = v[..., 128 * r:128 * (r + 1)].contiguous()
+            before = da.decode_attention.launches
+            got = da.decode_attention_sharded(_rank_mesh(r), qr, kr, vr, layer, vis, lengths,
+                                              ks, vs, num_key_value_heads=2)
+            torch.cuda.synchronize()
+            assert da.decode_attention.launches == before + 1
+            want = da.decode_attention_ref(qr, kr, vr, layer, vis, lengths, ks, vs)
+            torch.testing.assert_close(got.float(), want.float(), atol=2e-3, rtol=0)
+            torch.testing.assert_close(got.float(), full[:, 6 * r:6 * r + 6].float(),
+                                       atol=2e-3, rtol=0)
+
+
+def test_flash_prefill_on_a_tp_shard(cuda_device):
+    """A 1024-token 1.5B prompt's attention split over two TP ranks: each
+    rank's flash prefill on its heads (H=6, KVH=1, D=128) through
+    `flash_attention_prefill_sharded`, one launch, within one bf16 rounding
+    step of each row's largest output of the plain version on the shard and
+    of the heads' slice of the whole prompt's kernel output."""
+    from vibevoice_tpu_torch.ops import flash_attention as fa
+    dev = cuda_device
+    gen = torch.Generator(device=dev).manual_seed(12)
+    rnd = lambda *shape: 0.5 * torch.randn(shape, generator=gen, device=dev)
+    q, k, v = (rnd(1, 1024, 12, 128).to(torch.bfloat16), rnd(1, 1024, 2, 128).to(torch.bfloat16),
+               rnd(1, 1024, 2, 128).to(torch.bfloat16))
+    mask = torch.ones((1, 1024), dtype=torch.int32, device=dev)
+    full = fa.flash_attention_prefill(q, k, v, mask)
+    for r in range(2):
+        qr = q[:, :, 6 * r:6 * r + 6].contiguous()
+        kr, vr = k[:, :, r:r + 1].contiguous(), v[:, :, r:r + 1].contiguous()
+        before = fa.flash_attention_prefill.launches
+        got = fa.flash_attention_prefill_sharded(_rank_mesh(r), qr, kr, vr, mask,
+                                                 num_key_value_heads=2)
+        torch.cuda.synchronize()
+        assert fa.flash_attention_prefill.launches == before + 1
+        for want in (fa.flash_attention_prefill_ref(qr, kr, vr, mask),
+                     full[:, :, 6 * r:6 * r + 6]):
+            w = want.float()
+            tol = 2 ** -7 * w.abs().amax(dim=-1, keepdim=True)
+            assert bool(((got.float() - w).abs() <= tol).all())
+    with pytest.raises(ValueError, match="num_key_value_heads"):
+        fa.flash_attention_prefill_sharded(_rank_mesh(0), q, k, v, mask, num_key_value_heads=2)

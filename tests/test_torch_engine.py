@@ -16,6 +16,7 @@ from vibevoice_tpu.engine import generate as JG
 from vibevoice_tpu_torch import configs as TC
 from vibevoice_tpu_torch.engine import generate as TG
 from vibevoice_tpu_torch.models import vibevoice as TV
+from vibevoice_tpu_torch.parallel.mesh import Mesh
 from vibevoice_tpu_torch.weights import from_jax
 
 from tests._torch_parity import DIFF, END, EOS, START, tiny_params, to_np
@@ -98,7 +99,9 @@ def test_engine_slice_matches_jax(kv_dtype):
 
 
 def test_engine_rejects_modes_outside_the_slice():
-    """Meshes (ROADMAP A12) still raise; the auto rules of the JAX engine hold:
+    """A data x model mesh raises, as in the JAX engine (TP and DP meshes
+    serve since ROADMAP A12: `tests/test_torch_tp_dp.py`); the auto rules of
+    the JAX engine hold:
     flash prefill at prompts of 1024 tokens or more with head_dim % 128 == 0,
     flash decode at 4096 slots or more, with the cache rounded up to 2048-slot
     multiples (the engines are only built)."""
@@ -106,8 +109,8 @@ def test_engine_rejects_modes_outside_the_slice():
     tcfg = TC.tiny_config(vocab_size=320)
     gen = TG.GenerationConfig(**GEN)
     base = dict(max_steps=4, batch=1, prompt_len=8, device="cpu")
-    with pytest.raises(NotImplementedError, match="parallel"):
-        TG.Engine(tp, tcfg, gen, **base, mesh=object())
+    with pytest.raises(NotImplementedError, match="data x model"):
+        TG.Engine(tp, tcfg, gen, **base, mesh=Mesh(2, 2, rank=0, groups={}))
     # head_dim 16 (tiny) and 128 (hidden 512, 4 heads): flash prefill auto-on
     # from 1024 prompt tokens, and only at a head_dim that is a multiple of 128
     wide = TC.tiny_config(hidden_size=512, vocab_size=320)

@@ -1,5 +1,6 @@
 """Rules of the PyTorch port: it imports neither JAX nor the JAX package, and
 its entry points run on CUDA unless the caller asks for the CPU."""
+import os
 import subprocess
 import sys
 import textwrap
@@ -30,6 +31,28 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                          timeout=120)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.split()[-1]) >= 20  # every module of the port was imported
+
+
+def test_parallel_package_and_rank_harness_import_neither_jax_nor_the_jax_package():
+    """`vibevoice_tpu_torch.parallel` and the ranks of the parallel tests
+    (`tests/_torch_ranks.py`, every rank program's imports included) load
+    torch, numpy and the port only."""
+    code = textwrap.dedent("""
+        import sys
+        import vibevoice_tpu_torch.parallel.mesh, vibevoice_tpu_torch.parallel.multihost
+        import vibevoice_tpu_torch.parallel.context_parallel
+        import vibevoice_tpu_torch.parallel.ring_attention
+        import tests._torch_ranks
+        import vibevoice_tpu_torch.engine.generate, vibevoice_tpu_torch.models.vibevoice
+        import vibevoice_tpu_torch.weights, vibevoice_tpu_torch.configs
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith(("jax.", "jaxlib"))
+                     or m == "vibevoice_tpu" or m.startswith("vibevoice_tpu."))
+        assert not bad, bad
+    """)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=120, cwd=os.path.dirname(os.path.dirname(__file__)))
+    assert out.returncode == 0, out.stderr
 
 
 @pytest.fixture()

@@ -53,6 +53,26 @@ int4 packs where the caller injects them, as the pipeline's
 fused stage kernels (`ops.fused_stage`, packs in
 `params["_vocoder_packs_large"]` / `["_semantic_packs_large"]`), with the JAX
 engine's batch policies for the folds and the row-lane layout.
+
+`Engine(mesh=...)` (a `parallel.Mesh`, one process a rank; the JAX engine
+finds its mesh in the params' shardings, which torch tensors do not carry):
+  * tensor parallel (model > 1, data = 1): the params are this rank's shard
+    (`parallel.shard_params`), the cache holds its KV heads' lanes, and both
+    attention kernels run on its own heads; a step sums the o, down and
+    diffusion-head FFN products over the model group (and reduces the int8
+    cache's slot amaxes), and gathers nothing.  Its graph is captured only
+    over NCCL: gloo collectives cannot be captured, so over gloo the engine
+    must be built `eager=True` (it raises otherwise);
+  * data parallel (data > 1, model = 1): the params are whole, the engine
+    takes the GLOBAL batch, as the JAX DP engine does, and serves this rank's
+    B/dp rows (`latent_noise` split on its batch axis; the generator derived
+    from the caller's and the rank, the counterpart of `fold_in(key,
+    axis_index)`); a step makes no collective, so each rank captures its own
+    graph.  `gather` returns the tokens, audio and flags in global row order;
+    the batch policies of the fused stages see the rank's B/dp rows.
+As in the JAX engine, a data x model mesh raises NotImplementedError, and a
+batch that does not split over `data` or KV heads that do not split over
+`model` raise ValueError.
 """
 from __future__ import annotations
 
@@ -178,6 +198,63 @@ def _leaves(state: GenState) -> List[torch.Tensor]:
     return out
 
 
+class Gathered(NamedTuple):
+    """A data-parallel engine's per-row results in global row order."""
+    tokens: torch.Tensor     # [B, max_steps] int32
+    audio: torch.Tensor      # [B, max_steps | 1, hop] fp32
+    emitted: torch.Tensor    # [B, max_steps] bool
+    frames: torch.Tensor     # [B] int32
+    finished: torch.Tensor   # [B] bool
+    reach_max: torch.Tensor  # [B] bool
+
+
+def _out_width(w) -> int:
+    if isinstance(w, dict):
+        return (w["qint8"] if "qint8" in w else w["qint4"]).shape[-1]
+    return w.shape[-1]
+
+
+def _in_width(w) -> int:
+    if isinstance(w, dict):
+        return w["qint8"].shape[0] if "qint8" in w else 2 * w["qint4"].shape[0]
+    return w.shape[0]
+
+
+def _check_shard_shapes(params: Params, cfg: VibeVoiceConfig, mp: int):
+    """ValueError unless every split weight has the shape of a 1/mp shard
+    (mp = 1: of the whole weight): the q/k/v and gate/up outputs and the o and
+    down inputs of every LM layer, and the diffusion head's FFN."""
+    dec = cfg.decoder
+    hd = dec.head_dim
+    ffn_head = int(cfg.diffusion_head.hidden_size * cfg.diffusion_head.head_ffn_ratio)
+
+    def need(got, want, what):
+        if got != want:
+            raise ValueError(f"{what} has width {got}, but a shard over {mp} model rank(s) "
+                             f"has {want}: pass this rank's `parallel.shard_params` shard")
+
+    for i, lp in enumerate(params["lm"]["layers"]):
+        if "qkv" in lp or "gateup" in lp:
+            if mp > 1:
+                raise ValueError("int4's fused qkv/gateup layout is not TP-adaptable; "
+                                 "quantize with mode='int8' for tensor parallelism")
+            continue
+        for name, heads in (("q", dec.num_attention_heads), ("k", dec.num_key_value_heads),
+                            ("v", dec.num_key_value_heads)):
+            need(_out_width(lp[name]["w"]), heads * hd // mp, f"layer {i} {name}")
+        need(_in_width(lp["o"]["w"]), dec.num_attention_heads * hd // mp, f"layer {i} o")
+        for name in ("gate", "up"):
+            need(_out_width(lp[name]), dec.intermediate_size // mp, f"layer {i} {name}")
+        need(_in_width(lp["down"]), dec.intermediate_size // mp, f"layer {i} down")
+    for i, lp in enumerate(params["diffusion_head"]["layers"]):
+        if "gateup" in lp or lp.get("gate") is None:  # int4 layouts, the head kernel's pack
+            if mp > 1:
+                raise ValueError("an int4 diffusion head is not TP-adaptable")
+            continue
+        need(_out_width(lp["gate"]), ffn_head // mp, f"head layer {i} gate")
+        need(_in_width(lp["down"]), ffn_head // mp, f"head layer {i} down")
+
+
 def _copy_into(dst: GenState, src: GenState):
     """Copy every tensor of `src` into the same tensor of `dst` (skipping the
     ones that are already the same tensor)."""
@@ -213,10 +290,33 @@ class Engine:
                  eager: bool = False):
         """`eager=True` runs `decode_chunk` step by step on the card rather
         than replaying the captured step (the counterpart of
-        `jax.disable_jit`); on the CPU it always runs so."""
-        if mesh is not None:
+        `jax.disable_jit`); on the CPU it always runs so.  `mesh`: see the
+        module docstring (`batch` is the global batch under data
+        parallelism)."""
+        self.mesh = mesh
+        self.dp = 1 if mesh is None else mesh.shape["data"]
+        self.mp = 1 if mesh is None else mesh.shape["model"]
+        if self.dp > 1 and self.mp > 1:
             raise NotImplementedError(
-                "tensor/data-parallel decode is not ported yet (ROADMAP A12)")
+                "combined data x model decode sharding is not supported; use a pure-TP "
+                "mesh for sharded models or a pure-DP mesh for batch serving")
+        if batch % self.dp:
+            raise ValueError(f"batch {batch} must divide over data axis {self.dp}")
+        if cfg.decoder.num_key_value_heads % self.mp:
+            raise ValueError(f"TP degree {self.mp} must divide num_key_value_heads "
+                             f"{cfg.decoder.num_key_value_heads}; use a smaller model axis")
+        if mesh is not None and mesh.coords is None:
+            raise ValueError(f"this process (rank {mesh.rank}) is not in {mesh!r}")
+        if self.mp > 1 and not eager and mesh.backend("model") != "nccl":
+            raise ValueError(
+                f"a tensor-parallel step over {mesh.backend('model')} cannot be captured in a "
+                "CUDA graph (only NCCL collectives can): build the engine with eager=True, "
+                "or use an NCCL process group")
+        # the mesh the LM and the diffusion head sum their split products over
+        self.tp_mesh = mesh if self.mp > 1 else None
+        self.dp_index = mesh.axis_index("data") if self.dp > 1 else 0
+        self.global_batch = batch
+        batch //= self.dp  # the rows this rank serves
         if kv_dtype not in ("model", "int8"):
             raise ValueError(f"kv_dtype must be 'model' or 'int8', got {kv_dtype}")
         self.device = resolve_device(device)
@@ -277,6 +377,8 @@ class Engine:
         allowed = sorted(set(allowed))
         self.allowed_ids = torch.tensor(allowed, dtype=torch.int32, device=self.device)
         params = to_device(dict(params), self.device)
+        if mesh is not None:
+            _check_shard_shapes(params, cfg, self.mp)
         # chain packs already in the tree (the pipeline's int4 packs, or a JAX
         # engine's through `weights.from_jax`) are kept; else plain packs of
         # the weights as they are
@@ -320,7 +422,8 @@ class Engine:
                     chunk_t=cfg.speech_compress_ratio, t_min=fused_stage_t_min,
                     fold_conv=fused_stage_fold_conv, rowlane_batch=rl_batch)
         if "_lm_head_sub" not in params:
-            params["_lm_head_sub"] = vibevoice.lm_head_subset(params, allowed, dtype)
+            params["_lm_head_sub"] = vibevoice.lm_head_subset(params, allowed, dtype,
+                                                              mesh=self.tp_mesh)
         self.params = params
 
     # ------------------------------------------------------------------
@@ -384,7 +487,7 @@ class Engine:
         sde_gen = state.rng if gen.algorithm_type.startswith("sde") else None
         latent = vibevoice.sample_speech_latents(
             p, cfg, self.solver_cfg, self.sched, h_t, h_neg, gen.cfg_scale, x_init,
-            sde_generator=sde_gen, timesteps=self.timesteps)
+            sde_generator=sde_gen, timesteps=self.timesteps, mesh=self.tp_mesh)
         scaled = vibevoice.unscale_latents(p, latent)
         if self.use_fused_vocoder or self.use_fused_stages:
             chunk, ac_new = tokenizer.decoder_apply_streaming_fused(
@@ -453,7 +556,9 @@ class Engine:
         """Process the prompt, build the unified cache, run step 0.
 
         Array arguments may be numpy or torch; `generator` defaults to a
-        generator on the engine's device seeded with 0."""
+        generator on the engine's device seeded with 0.  A data-parallel
+        engine takes the global batch and keeps this rank's rows (the voice
+        inputs' rows likewise, `latent_noise` on its axis 1)."""
         p, cfg, gen, dev = self.params, self.cfg, self.gen, self.device
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
@@ -462,13 +567,22 @@ class Engine:
             return None if x is None else torch.as_tensor(x, dtype=dtype, device=dev)
 
         input_ids = t(input_ids, torch.int64)
+        if tuple(input_ids.shape) != (self.global_batch, self.prompt_len):
+            raise ValueError(f"engine built for [{self.global_batch}, {self.prompt_len}] "
+                             f"prompts, got {tuple(input_ids.shape)}")
         attention_mask = t(attention_mask, torch.int32)
         speech_input_mask = t(speech_input_mask, torch.bool)
+        if self.dp > 1:
+            input_ids, attention_mask, speech_input_mask = (
+                self._rows(x) for x in (input_ids, attention_mask, speech_input_mask))
+            speech_tensors, speech_frame_masks, voice_latents = (
+                None if x is None else self._rows(t(x))
+                for x in (speech_tensors, speech_frame_masks, voice_latents))
+            if latent_noise is not None:
+                latent_noise = self._rows(t(latent_noise), dim=1)
+            generator = self._rank_generator(generator)
         b, t0 = input_ids.shape
         dec = cfg.decoder
-        if b != self.batch or t0 != self.prompt_len:
-            raise ValueError(f"engine built for [{self.batch}, {self.prompt_len}] prompts, "
-                             f"got {tuple(input_ids.shape)}")
 
         embeds = qwen2.embed_rows(p["lm"], input_ids).to(self.dtype)
         if speech_tensors is not None or voice_latents is not None:
@@ -492,7 +606,8 @@ class Engine:
                     buf.zero_()
         else:
             cache = qwen2.kv_cache_init(dec, 2 * b, self.cache_len, self.dtype,
-                                        quantized=self.kv_quant, device=dev)
+                                        quantized=self.kv_quant, device=dev,
+                                        mesh=self.tp_mesh)
 
         # positive prefill into rows [:B]; the flash path attends the prompt's
         # own k/v and needs no [B, 1, T, S] bias, so its memory stays linear in T
@@ -503,7 +618,7 @@ class Engine:
         pos = qwen2.positions_from_mask(attention_mask)
         hidden, cache = qwen2.forward(p["lm"], dec, embeds, pos, bias, cache=cache,
                                       write_pos=0, pad_mask=attention_mask,
-                                      use_flash=self.use_flash_prefill)
+                                      use_flash=self.use_flash_prefill, mesh=self.tp_mesh)
         h_last = hidden[:, -1]
         del bias
 
@@ -515,7 +630,8 @@ class Engine:
         neg_bias[:, :, :, 0] = 0.0
         h_neg0, cache = qwen2.forward(p["lm"], dec, ss_embed,
                                       torch.zeros((b, 1), dtype=torch.int32, device=dev),
-                                      neg_bias, cache=cache, write_pos=0, batch_offset=b)
+                                      neg_bias, cache=cache, write_pos=0, batch_offset=b,
+                                      mesh=self.tp_mesh)
 
         visible = torch.zeros((2 * b, self.cache_len), dtype=torch.int32, device=dev)
         visible[:b, :t0] = attention_mask
@@ -555,6 +671,52 @@ class Engine:
         # at step 0 the negative stream's "just-written" kv is the slot-0 pre-seed
         return self._post_lm(state, h_last, h_neg0[:, 0], neg_slot=zeros((), torch.int32))
 
+    def _rows(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """This data rank's equal part of axis `dim`."""
+        n = x.shape[dim]
+        if n % self.dp:
+            raise ValueError(f"{n} rows do not split over data axis {self.dp}")
+        n //= self.dp
+        return x.narrow(dim, self.dp_index * n, n)
+
+    def _rank_generator(self, generator: torch.Generator) -> torch.Generator:
+        """This data rank's generator: one seed drawn from the caller's (the
+        same on every rank), mixed with the rank's index, so that the ranks'
+        draws differ."""
+        seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator,
+                                 device=generator.device))
+        mixed = (seed + 0x9E3779B97F4A7C15 * (self.dp_index + 1)) % 2 ** 63
+        return torch.Generator(device=self.device).manual_seed(mixed)
+
+    def gather(self, state: GenState) -> Gathered:
+        """The per-row results of every data rank in global row order (one
+        all-gather over the data group per tensor; every rank must call it).
+        Without data parallelism, this engine's own."""
+        fields = (state.tokens, state.audio, state.emitted, state.frames, state.finished,
+                  state.reach_max)
+        if self.dp == 1:
+            return Gathered(*fields)
+        out = []
+        for x in fields:
+            # bool through uint8: not every backend reduces or gathers bool
+            y = self.mesh.all_gather(x.to(torch.uint8) if x.dtype == torch.bool else x,
+                                     "data", dim=0)
+            out.append(y.bool() if x.dtype == torch.bool else y)
+        return Gathered(*out)
+
+    def all_finished(self, finished, stop: bool) -> bool:
+        """Whether generation ends: every row has finished, or `stop` is set.
+        Under data parallelism every rank's rows and every rank's `stop` count
+        (one reduction over the data group), so all ranks end on the same
+        chunk and go on to the same collectives."""
+        done = bool(np.all(finished))
+        if self.dp == 1:
+            return done or stop
+        flags = torch.tensor([0 if done else 1, int(stop)], dtype=torch.int32,
+                             device=self.device)
+        self.mesh.all_reduce(flags, "data", op="max")
+        return int(flags[0]) == 0 or int(flags[1]) == 1
+
     # ------------------------------------------------------------------
     def _step(self, state: GenState):
         """One decode step, safe to capture: a combined [2B] forward over the
@@ -579,7 +741,8 @@ class Engine:
         else:
             bias = qwen2.decode_bias(vis_step)
         hidden, _ = qwen2.forward(p["lm"], cfg.decoder, embeds2, positions2, bias,
-                                  cache=state.cache, write_pos=wp, decode_ctx=decode_ctx)
+                                  cache=state.cache, write_pos=wp, decode_ctx=decode_ctx,
+                                  mesh=self.tp_mesh)
         state.visible[:b].index_fill_(1, slot, 1)
         state = state._replace(write_pos=wp + 1, pos_positions=state.pos_positions + 1)
         return self._post_lm(state, hidden[:b, 0], hidden[b:, 0], neg_slot=wp)
@@ -714,11 +877,18 @@ def generate(
 
     `on_step(out: StepOutput)` gets numpy views once per decode step — the
     engine's emitted-frame clock.  `show_progress` shows a tqdm bar over the
-    decode steps where tqdm is installed."""
+    decode steps where tqdm is installed.
+
+    With a data-parallel engine every rank calls it with the global batch:
+    the loop stops when every rank's rows have finished or any rank's
+    `stop_check_fn` fires, the result is in global row order, a streamer
+    (sized for the global batch) gets this rank's rows under their global
+    indices, and `on_step` sees this rank's rows."""
     state, out = engine.prefill(input_ids, attention_mask, speech_input_mask,
                                 speech_tensors, speech_frame_masks, generator,
                                 voice_latents, latent_noise)
-    b = engine.batch
+    b = engine.global_batch
+    row0 = engine.dp_index * engine.batch  # this rank's first global row
     steps_done = 1
     bar = None
     if show_progress:
@@ -735,9 +905,9 @@ def generate(
             return
         if o.emitted.any():
             idx = np.nonzero(o.emitted)[0]
-            audio_streamer.put(o.audio_chunk[idx], idx)
+            audio_streamer.put(o.audio_chunk[idx], row0 + idx)
         if o.finished.any():
-            audio_streamer.end(np.nonzero(o.finished)[0])
+            audio_streamer.end(row0 + np.nonzero(o.finished)[0])
 
     out_np = StepOutput(*(_np(x) for x in out))
     _feed(out_np)
@@ -745,9 +915,8 @@ def generate(
     per_step = audio_streamer is not None or stop_check_fn is not None or on_step is not None
     # one read from the device per chunk: its outputs, or its finished flags
     while steps_done < engine.max_steps:
-        if per_step and stop_check_fn is not None and stop_check_fn():
-            break
-        if finished.all():
+        stop = per_step and stop_check_fn is not None and bool(stop_check_fn())
+        if engine.all_finished(finished, stop):
             break
         n = min(max(1, stream_chunk) if per_step else check_every,
                 engine.max_steps - steps_done)
@@ -768,17 +937,18 @@ def generate(
     if audio_streamer is not None:
         audio_streamer.end()
 
-    frames = _np(state.frames)
+    rows = engine.gather(state)
+    frames = _np(rows.frames)
     if engine.keep_audio:
-        audio_buf, emitted_map = _np(state.audio), _np(state.emitted)
+        audio_buf, emitted_map = _np(rows.audio), _np(rows.emitted)
         audio = [audio_buf[i][emitted_map[i]].reshape(-1) if frames[i] > 0 else None
                  for i in range(b)]
     else:
         audio = [None] * b  # streaming consumers got the chunks already
-    tokens = _np(state.tokens)[:, : min(state.host_step, engine.max_steps)]
-    return GenerationResult(tokens=tokens, audio=audio, reach_max=_np(state.reach_max),
+    tokens = _np(rows.tokens)[:, : min(state.host_step, engine.max_steps)]
+    return GenerationResult(tokens=tokens, audio=audio, reach_max=_np(rows.reach_max),
                             steps=steps_done)
 
 
-__all__ = ["Engine", "GenerationConfig", "GenState", "StepOutput",
+__all__ = ["Engine", "GenerationConfig", "GenState", "Gathered", "StepOutput",
            "GenerationResult", "generate", "select_token", "resolve_device"]

@@ -89,14 +89,22 @@ def precompute_modulations(params: Params, cfg: DiffusionHeadConfig,
 
 
 def apply_with_modulations(params: Params, cfg: DiffusionHeadConfig,
-                           noisy: torch.Tensor, layer_mods, final_mod) -> torch.Tensor:
-    """Denoise step with precomputed modulations ([N, 3H] each)."""
+                           noisy: torch.Tensor, layer_mods, final_mod,
+                           mesh=None) -> torch.Tensor:
+    """Denoise step with precomputed modulations ([N, 3H] each).  Under TP
+    (`mesh` with a `model` axis larger than 1) the layers' FFNs are this
+    rank's shard, gate/up by column and down by row
+    (`parallel.mesh.model_param_specs`), and each FFN output is summed over
+    the model group."""
     eps = cfg.rms_norm_eps
     x = noisy @ params["noisy_proj"]
     for lp, mod in zip(params["layers"], layer_mods):
         shift, scale, gate = torch.chunk(mod, 3, dim=-1)
         h = rms_norm(x, lp["norm_w"], eps) * (1 + scale) + shift
-        x = x + gate * mm(_swiglu(h, lp), lp["down"])
+        ffn = mm(_swiglu(h, lp), lp["down"])
+        if mesh is not None:
+            mesh.all_reduce(ffn, "model")  # a no-op on a model axis of 1
+        x = x + gate * ffn
     shift, scale = torch.chunk(final_mod, 2, dim=-1)
     x = rms_norm(x, None, eps) * (1 + scale) + shift
     return x @ params["final_linear"]

@@ -13,6 +13,15 @@ reads the cache through the split-K CUDA kernel `ops.decode_attention`; with
 `use_flash` a prompt (T > 1) attends its own fresh k/v through the flash
 prefill kernel `ops.flash_attention` (memory linear in T, no bias); every
 other call attends densely with an additive fp32 bias.
+
+Tensor parallelism (`mesh` with a `model` axis of mp > 1, `parallel.mesh`):
+the layer holds this rank's shard of the weights (q/k/v/gate/up split by
+column, o/down by row), so it computes H/mp query heads and KVH/mp KV heads,
+its cache holds their (KVH/mp)*D lanes, and both kernels run on those heads
+alone; the o and down products are summed over the model group (they have no
+bias, so nothing is added twice).  An int8 cache takes one amax per slot over
+ALL KVH*D lanes, as the unsharded cache does: the k and v amaxes are reduced
+(max) over the group in one collective before quantizing.
 """
 from __future__ import annotations
 
@@ -106,10 +115,26 @@ class KVCache(NamedTuple):
     v_scale: Optional[torch.Tensor] = None  # [L, B, 8, S] bf16
 
 
+def tp_degree(mesh) -> int:
+    """The size of the mesh's `model` axis (1 without a mesh)."""
+    return 1 if mesh is None else mesh.shape["model"]
+
+
+def local_heads(cfg: Qwen2Config, mesh=None) -> Tuple[int, int]:
+    """(query heads, KV heads) of this rank's shard; ValueError when the TP
+    degree does not divide the KV heads (GQA groups must stay whole)."""
+    mp = tp_degree(mesh)
+    nh, nkv = cfg.num_attention_heads, cfg.num_key_value_heads
+    if nkv % mp:
+        raise ValueError(f"TP degree {mp} must divide num_key_value_heads {nkv}")
+    return nh // mp, nkv // mp
+
+
 def kv_cache_init(cfg: Qwen2Config, batch: int, max_len: int, dtype=torch.float32,
-                  quantized: bool = False, device="cpu") -> KVCache:
+                  quantized: bool = False, device="cpu", mesh=None) -> KVCache:
+    """The zeroed cache; under TP (`mesh`) its lanes are this rank's KV heads."""
     shape = (cfg.num_hidden_layers, batch, max_len,
-             cfg.num_key_value_heads * cfg.head_dim)
+             local_heads(cfg, mesh)[1] * cfg.head_dim)
     if quantized:
         sshape = (cfg.num_hidden_layers, batch, 8, max_len)
         return KVCache(k=torch.zeros(shape, dtype=torch.int8, device=device),
@@ -120,15 +145,32 @@ def kv_cache_init(cfg: Qwen2Config, batch: int, max_len: int, dtype=torch.float3
                    v=torch.zeros(shape, dtype=dtype, device=device))
 
 
-def _quantize_slots(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x [B, T, F] -> int8 [B, T, F] + per-slot scale [B, T] bf16 (symmetric)."""
+def _quantize_slots(x: torch.Tensor, amax: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x [B, T, F] -> int8 [B, T, F] + per-slot scale [B, T] bf16 (symmetric).
+    `amax` [B, T, 1] overrides the slots' own (under TP: the whole slot's)."""
     xf = x.float()
-    amax = xf.abs().amax(dim=-1, keepdim=True)
+    if amax is None:
+        amax = xf.abs().amax(dim=-1, keepdim=True)
     # the scale is rounded to bf16 first, so quantize and dequantize use the
     # identical (stored) value
     scale = (amax / 127.0).to(torch.bfloat16).float()
     q = torch.clamp(torch.round(xf / scale.clamp_min(1e-12)), -127, 127).to(torch.int8)
     return q, scale[..., 0].to(torch.bfloat16)
+
+
+def _quantize_kv(k: torch.Tensor, v: torch.Tensor, mesh=None):
+    """Both streams' int8 slots.  Under TP each rank holds a slice of a slot's
+    lanes, so the per-slot amaxes are reduced (max) over the model group, k's
+    and v's in ONE collective, before quantizing: the scales, and so the
+    stored values, are the unsharded cache's."""
+    amax = torch.stack([k.float().abs().amax(dim=-1, keepdim=True),
+                        v.float().abs().amax(dim=-1, keepdim=True)])
+    if tp_degree(mesh) > 1:
+        mesh.all_reduce(amax, "model", op="max")
+    kq, ks = _quantize_slots(k, amax[0])
+    vq, vs = _quantize_slots(v, amax[1])
+    return kq, ks, vq, vs
 
 
 # ---------------------------------------------------------------------------
@@ -163,15 +205,18 @@ def _layer(lp: Params, cfg: Qwen2Config, x: torch.Tensor, cos: torch.Tensor,
            sin: torch.Tensor, cache_full: Optional[Tuple[KVCache, int, int, int]],
            bias: Optional[torch.Tensor],
            decode_ctx: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-           pad_mask: Optional[torch.Tensor] = None, use_flash: bool = False) -> torch.Tensor:
+           pad_mask: Optional[torch.Tensor] = None, use_flash: bool = False,
+           mesh=None) -> torch.Tensor:
     """One decoder layer.  With `cache_full=(cache, layer, write_pos, row_off)`
     the new k/v are written in place into the stacked cache at slots
     [write_pos, write_pos+T) of rows [row_off, row_off+B), and attention reads
     this layer's cache, except with `use_flash` and T > 1: then it spans
     exactly the new k/v (in the model dtype, also over an int8 cache), causal,
-    with `pad_mask` [B, T] masking the left pads."""
+    with `pad_mask` [B, T] masking the left pads.  Under TP (`mesh`) the
+    layer computes this rank's heads and sums o and down over the group."""
     b, t, _ = x.shape
-    nh, nkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    (nh, nkv), hd = local_heads(cfg, mesh), cfg.head_dim
+    tp = tp_degree(mesh) > 1
 
     hn = rms_norm(x, lp["input_norm_w"], cfg.rms_norm_eps)
     if "qkv" in lp:  # int4 layout: q/k/v in one packed matrix, one kernel call
@@ -190,8 +235,7 @@ def _layer(lp: Params, cfg: Qwen2Config, x: torch.Tensor, cos: torch.Tensor,
         v2 = v
         rows = slice(row_off, row_off + b)
         if quant:
-            k2, k_sc = _quantize_slots(k2)
-            v2, v_sc = _quantize_slots(v2)
+            k2, k_sc, v2, v_sc = _quantize_kv(k2, v2, mesh)
         # in-place slot write into the stacked cache (the JAX package's
         # aliased dynamic_update_slice); a device position's start is
         # clamped so the write fits, as dynamic_update_slice clamps a traced
@@ -207,8 +251,8 @@ def _layer(lp: Params, cfg: Qwen2Config, x: torch.Tensor, cos: torch.Tensor,
         cache.v[li, rows].index_copy_(1, idx, v2.to(cache.v.dtype))
     if use_flash and t > 1:
         # prefill: memory-linear attention over the fresh k/v
-        att = flash_attention_prefill(q, k, v.reshape(b, t, nkv, hd).contiguous(), pad_mask,
-                                      causal=True)
+        vr = v.reshape(b, t, nkv, hd).contiguous()
+        att = flash_attention_prefill(q, k, vr, pad_mask, causal=True)
     elif cache_full is not None:
         if decode_ctx is not None and t == 1:
             # long-cache decode: the CUDA kernel reads the layer straight out
@@ -228,7 +272,10 @@ def _layer(lp: Params, cfg: Qwen2Config, x: torch.Tensor, cos: torch.Tensor,
                           v_att.reshape(b, s_max, nkv, hd), bias)
     else:
         att = _attend(q, k, v.reshape(b, t, nkv, hd), bias)
-    x = x + mm(att.reshape(b, t, nh * hd), lp["o"]["w"])
+    o = mm(att.reshape(b, t, nh * hd), lp["o"]["w"])
+    if tp:
+        mesh.all_reduce(o, "model")
+    x = x + o
 
     hn = rms_norm(x, lp["post_norm_w"], cfg.rms_norm_eps)
     if "gateup" in lp:  # int4 layout: gate|up in one packed matrix
@@ -237,6 +284,8 @@ def _layer(lp: Params, cfg: Qwen2Config, x: torch.Tensor, cos: torch.Tensor,
         mlp = mm(F.silu(gu[..., :ffn]) * gu[..., ffn:], lp["down"])
     else:
         mlp = mm(F.silu(mm(hn, lp["gate"])) * mm(hn, lp["up"]), lp["down"])
+    if tp:
+        mesh.all_reduce(mlp, "model")
     return x + mlp
 
 
@@ -252,6 +301,7 @@ def forward(
     batch_offset: int = 0,
     pad_mask: Optional[torch.Tensor] = None,  # [B, T] int (1 = real token)
     use_flash: bool = False,
+    mesh=None,                            # parallel.Mesh: TP over its `model` axis
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Run the decoder stack.  With `cache`, keys/values are written at slot
     `write_pos` (one slot for every row: left-padded batching; a host int, or
@@ -261,7 +311,9 @@ def forward(
     without, attention spans the inputs.  With `use_flash` and T > 1,
     attention spans exactly the inputs' own k/v through the flash prefill
     kernel, masked by `pad_mask`.  `attn_bias` may be None only on the kernel
-    paths (`decode_ctx` with T == 1, or `use_flash`)."""
+    paths (`decode_ctx` with T == 1, or `use_flash`).  With a `mesh` whose
+    `model` axis is larger than 1 the params are this rank's shard and the
+    cache its lanes (`kv_cache_init(..., mesh=mesh)`)."""
     if cache is not None and not (isinstance(write_pos, int) or (
             torch.is_tensor(write_pos) and write_pos.dim() == 0
             and not write_pos.is_floating_point())):
@@ -272,7 +324,7 @@ def forward(
     for li, lp in enumerate(params["layers"]):
         cache_full = None if cache is None else (cache, li, write_pos, batch_offset)
         x = _layer(lp, cfg, x, cos, sin, cache_full, attn_bias, decode_ctx=decode_ctx,
-                   pad_mask=pad_mask, use_flash=use_flash)
+                   pad_mask=pad_mask, use_flash=use_flash, mesh=mesh)
     x = rms_norm(x, params["final_norm_w"], cfg.rms_norm_eps)
     return x, cache
 
@@ -324,6 +376,8 @@ __all__ = [
     "embed_rows",
     "KVCache",
     "kv_cache_init",
+    "local_heads",
+    "tp_degree",
     "rope_cos_sin",
     "apply_rope",
     "causal_bias",

@@ -53,7 +53,20 @@ def lm_logits(params: Params, cfg: VibeVoiceConfig, hidden: torch.Tensor) -> tor
     return qwen2.logits(params["lm"], cfg.decoder, hidden, params["lm_head"])
 
 
-def lm_head_subset(params: Params, ids, dtype=torch.bfloat16) -> Dict[str, Any]:
+def _whole_columns(x: torch.Tensor, ids, mesh) -> torch.Tensor:
+    """Columns `ids` of a matrix (or vector) split by column over the mesh's
+    model axis, whole on every rank: each rank places the columns that it
+    holds into zeros, and the group sums them (exact: one value and zeros)."""
+    width = x.shape[-1]
+    lo = mesh.axis_index("model") * width
+    out = torch.zeros(*x.shape[:-1], len(ids), dtype=x.dtype, device=x.device)
+    for j, i in enumerate(ids):
+        if lo <= i < lo + width:
+            out[..., j] = x[..., i - lo]
+    return mesh.all_reduce(out, "model")
+
+
+def lm_head_subset(params: Params, ids, dtype=torch.bfloat16, mesh=None) -> Dict[str, Any]:
     """Columns of the logits head for the allowed control tokens only.
 
     Generation can select just 4-5 control tokens, so the per-step logits
@@ -62,7 +75,12 @@ def lm_head_subset(params: Params, ids, dtype=torch.bfloat16) -> Dict[str, Any]:
     subset argmax equals the bias-masked full argmax.  Returns {"q": int8
     [H, n], "scale": [n]} for an int8 head or embedding, {"w": [H, n]}
     otherwise; an int4 head's columns are dequantized once, to `dtype`, by the
-    plain `dequant_int4` (as the JAX package does)."""
+    plain `dequant_int4` (as the JAX package does).
+
+    Under TP (`mesh` with a `model` axis larger than 1) an untied head is this
+    rank's column shard [H, V/mp]; the subset is assembled whole on every rank
+    (one sum over the model group per leaf, once per engine).  The embedding
+    is replicated."""
     ids = sorted(set(int(i) for i in ids))
     head = params.get("lm_head")
     if head is None:
@@ -70,6 +88,13 @@ def lm_head_subset(params: Params, ids, dtype=torch.bfloat16) -> Dict[str, Any]:
         if isinstance(e, dict):  # int8 embed, per-row scales (rows = vocab)
             return {"q": e["qint8"][ids].T.contiguous(), "scale": e["scale"][ids]}
         return {"w": e[ids].T.contiguous()}
+    if mesh is not None and mesh.shape["model"] > 1:
+        if isinstance(head, dict) and "qint4" in head:
+            raise ValueError("an int4 head is not TP-adaptable; quantize with mode='int8'")
+        if isinstance(head, dict):
+            return {"q": _whole_columns(head["qint8"], ids, mesh),
+                    "scale": _whole_columns(head["scale"], ids, mesh)}
+        return {"w": _whole_columns(head, ids, mesh)}
     if isinstance(head, dict):
         if "qint4" in head:
             return {"w": dequant_int4(head["qint4"][:, ids].contiguous(),
@@ -97,6 +122,7 @@ def sample_speech_latents(
     step_noise: Optional[torch.Tensor] = None,  # [steps, N, latent] for SDE solvers
     sde_generator: Optional[torch.Generator] = None,  # draws SDE noise per step
     timesteps: Optional[torch.Tensor] = None,  # sched.timesteps on the device
+    mesh=None,                    # parallel.Mesh: the head's FFN split over `model`
 ) -> torch.Tensor:
     """DPM-Solver sampling with classifier-free guidance (ref
     `sample_speech_tokens`, modeling_vibevoice_inference.py:712-725): each
@@ -126,7 +152,7 @@ def sample_speech_latents(
                 head["final_linear"], dh_cfg.rms_norm_eps)
         else:
             eps = diffusion_head.apply_with_modulations(
-                head, dh_cfg, x2, [m[i] for m in layer_mods], final_mod[i])
+                head, dh_cfg, x2, [m[i] for m in layer_mods], final_mod[i], mesh=mesh)
         cond_eps, uncond_eps = torch.chunk(eps, 2, dim=0)
         guided = uncond_eps + cfg_scale * (cond_eps - uncond_eps)
         noise = None

@@ -134,6 +134,25 @@ def decode_attention(q, k_full, v_full, layer: int, visible, lengths,
     return out
 
 
+def decode_attention_sharded(mesh, q, k_full, v_full, layer: int, visible, lengths,
+                             k_scale=None, v_scale=None, num_key_value_heads=None):
+    """Tensor-parallel decode attention (the JAX package's
+    `decode_attention_sharded`): a rank passes ITS shard, q [B, H/mp, D] and
+    the cache's (KVH/mp)*D lanes, and the kernel reads those lanes alone.
+    The slot scales of an int8 cache cover the whole slot and are the same on
+    every rank.  ValueError when the shard's KV heads are not KVH/mp
+    (`num_key_value_heads`, the model's KVH, when given).  `qwen2.forward`
+    calls `decode_attention` on its local heads directly: the engine has
+    checked the split."""
+    mp, kvh = mesh.shape["model"], k_full.shape[3] // q.shape[-1]
+    if num_key_value_heads is not None and (num_key_value_heads % mp
+                                            or num_key_value_heads // mp != kvh):
+        raise ValueError(f"model axis {mp} must divide num_key_value_heads "
+                         f"{num_key_value_heads} into this shard's {kvh} KV heads")
+    return decode_attention(q, k_full, v_full, layer, visible, lengths,
+                            k_scale=k_scale, v_scale=v_scale)
+
+
 @functools.lru_cache(maxsize=None)
 def plan(b: int, kvh: int, s: int, q_dtype: torch.dtype, sms: int,
          kv_dtype: torch.dtype = torch.bfloat16) -> int:
@@ -204,6 +223,6 @@ def live_bytes(q, k_full, lengths, quant: bool) -> int:
     return 2 * q.numel() * q.element_size() + kv + scales + live * 4 + b * 4
 
 
-__all__ = ["decode_attention", "decode_attention_ref", "live_bytes", "plan", "split_of",
+__all__ = ["decode_attention", "decode_attention_ref", "decode_attention_sharded", "live_bytes", "plan", "split_of",
            "workspace",
            "NEG_INF"]

@@ -153,6 +153,24 @@ def flash_attention_prefill_at(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
 flash_attention_prefill.launches = 0
 
 
+def flash_attention_prefill_sharded(mesh, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                    pad_mask: torch.Tensor,
+                                    num_key_value_heads: Optional[int] = None) -> torch.Tensor:
+    """Tensor-parallel flash prefill (the JAX package's
+    `flash_attention_prefill_sharded`): a rank passes ITS heads, q
+    [B, T, H/mp, D] and k/v [B, S, KVH/mp, D], and attends them alone.
+    ValueError when the shard's KV heads are not KVH/mp
+    (`num_key_value_heads`, the model's KVH, when given).  `qwen2.forward`
+    calls `flash_attention_prefill` on its local heads directly: the engine
+    has checked the split."""
+    mp = mesh.shape["model"]
+    if num_key_value_heads is not None and (num_key_value_heads % mp
+                                            or num_key_value_heads // mp != k.shape[2]):
+        raise ValueError(f"model axis {mp} must divide num_key_value_heads "
+                         f"{num_key_value_heads} into this shard's {k.shape[2]} KV heads")
+    return flash_attention_prefill(q, k, v, pad_mask)
+
+
 def _library() -> ctypes.CDLL:
     lib = cuda_build.load("flash_prefill")
     fn = lib.vv_flash_prefill
@@ -176,5 +194,6 @@ def attended_pairs(pad_mask: torch.Tensor, t: int, causal: bool = True, row_offs
     return int((per_row * pad[:, idx]).sum())
 
 
-__all__ = ["flash_attention_prefill", "flash_attention_prefill_at", "flash_attention_prefill_ref",
+__all__ = ["flash_attention_prefill", "flash_attention_prefill_at",
+           "flash_attention_prefill_sharded", "flash_attention_prefill_ref",
            "attended_pairs", "cta_rows", "NEG_INF"]
