@@ -116,12 +116,31 @@ Phases, in order; any failure stops the run with a non-zero exit:
      equal and every written slot's largest |int8| over both ranks 127; 10c
      DP=2, the served configuration (int4 + int4k + head int4k + fused
      stages) on a global B=4, 2 rows a rank, each rank its own captured step
-     (nodes asserted, no collective in a step), its rows bit-equal to an
-     unsharded B=2 engine's on them and its tokens to the B=4 engine's,
+     (its stage packs chosen from the global batch, as the JAX DP engine's:
+     row groups of 4, which a rank's 2 rows do not fill, so those stages run
+     the plain stage kernel; nodes asserted, no collective in a step), its
+     rows bit-equal to an unsharded B=2 engine's on them and its tokens to
+     the B=4 engine's,
      `dp_scaling_report`; 10d `cp_prefill_attention` at T=8192
      (4096 rows a rank, flash at row_offset 0 and 4096 over S=8192) and
      `ring_prefill_attention` at T=4096, every query row against the plain
-     version of flash prefill over all rows in one process.
+     version of flash prefill over all rows in one process;
+ 11. the sharded training step as two gloo ranks on this card: this process
+     takes two unsharded steps of the fp32 1.5B at full width with its LM
+     cut to 4 layers (2 rows x 3 turns of the demo voices, 576 tokens a
+     row, the VAE at fix_std 0, injected noise; lr 0, then 1e-4), keeps
+     each trained leaf's update and releases the model; the ranks run 11a
+     TP=2 and 11b DP=2 (`shard_params`, `data.shard_batch`,
+     `make_train_step(mesh=)`) from the same weights, batch and noise, each
+     step split by CUDA events into forward / backward / gradient
+     all-reduce / optimizer, with each rank's peak memory ("gloo on one
+     card": not a TP or DP speed).  Every rank's losses equal each other's
+     and the unsharded step's within 1e-5, every gathered update within
+     2 lr of the unsharded one (Adam's first moves are ~lr sign(g)) and each
+     leaf's mean difference within lr/100, the frozen tokenizers' decay
+     exact, the DP ranks' scaling statistics the mean of their shares', no
+     kernel launches; then the tiny model's TP=2 steps (untied `lm_head`,
+     its logits gathered) on the card as on the CPU.
 
 Weights are random, made from a seed.  Prints one JSON line per measurement,
 then the `kernels` line (each kernel also with its launches while phase 8
@@ -1671,7 +1690,7 @@ def phase_reference(dev, quant=False, stages=False, b=2, flash_chain=False):
     # head_dim 64 (hidden 256), or 128 (hidden 512), as the kernels take it
     cfg = tiny_config(hidden_size=512 if flash_chain else 256, vocab_size=320)
     gen = torch.Generator().manual_seed(SEED)
-    params = V.init_model(cfg, generator=gen)
+    params = V.init_model(cfg, generator=gen, device="cpu")
     _live_audio_path(params, gen)
     if quant:
         params = VibeVoiceTTS(params, cfg, ByteFallbackTokenizer(), dtype=torch.float32,
@@ -2278,19 +2297,19 @@ TRAIN_LINES = (
 TRAIN_ROWS, TRAIN_TURNS, TRAIN_STEPS = 2, 6, 4
 
 
-def speech_batch(params, cfg, dev, root):
-    """2 rows x 6 turns of the demo voices (8 s, 60 frames each) through the
-    port's data pipeline with the byte tokenizer; the semantic features come
-    from the port's semantic encoder on the card, under no_grad."""
+def speech_batch(params, cfg, dev, root, turns=TRAIN_TURNS):
+    """2 rows x `turns` turns of the demo voices (8 s, 60 frames each) through
+    the port's data pipeline with the byte tokenizer; the semantic features
+    come from the port's semantic encoder on the card, under no_grad."""
     from vibevoice_tpu_torch import data as D
     from vibevoice_tpu_torch.models import tokenizer as tok
     from vibevoice_tpu_torch.processor.text_tokenizer import ByteFallbackTokenizer
     clips = list(load_presets(root).values())
     examples = []
     for r in range(TRAIN_ROWS):
-        turns = [(1 + j % 2, TRAIN_LINES[r * TRAIN_TURNS + j]) for j in range(TRAIN_TURNS)]
-        audio = [clips[(r * TRAIN_TURNS + j) % len(clips)] for j in range(TRAIN_TURNS)]
-        examples.append((turns, audio))
+        lines = [(1 + j % 2, TRAIN_LINES[r * TRAIN_TURNS + j]) for j in range(turns)]
+        audio = [clips[(r * TRAIN_TURNS + j) % len(clips)] for j in range(turns)]
+        examples.append((lines, audio))
 
     @torch.no_grad()
     def semantic_fn(speech):
@@ -2545,7 +2564,7 @@ def phase_train_reference(dev, steps=2):
     cfg = dataclasses.replace(cfg, acoustic_tokenizer=dataclasses.replace(
         cfg.acoustic_tokenizer, fix_std=0.0))
     gen = torch.Generator().manual_seed(SEED)
-    params = V.init_model(cfg, generator=gen)
+    params = V.init_model(cfg, generator=gen, device="cpu")
     _live_audio_path(params, gen)
     batch = tiny_train_batch(cfg)
     rng = np.random.default_rng(SEED)
@@ -2837,7 +2856,8 @@ def _rank_dp(rank, dev, card, cfg):
          graph_nodes=nodes, graph_other_nodes=other, captures=eng.captures,
          capture_s=eng.capture_s, ms_per_frame=r["ms_per_frame"],
          device_ms_per_replay=device_ms, collectives_in_steps=r["collectives"],
-         rowlane=uses_rowlane_any(eng), dp_scaling_report=report,
+         rowlane=uses_rowlane_any(eng), stage_launches_per_step=stage_launches(eng),
+         dp_scaling_report=report,
          note="two ranks share one card: not a scaling figure", card=card)
     r["graph_nodes"], r["replays"] = nodes, replays
     out = _slim(r)
@@ -2904,23 +2924,56 @@ def _rank_cp_ring(rank, dev, card):
     return out
 
 
-def _rank_main(rank, world, store, out_dir, card):
-    """One rank of phase 10 (a spawned process): 10a-10d in order, its
-    results saved to `out_dir`; a failure leaves its traceback there and a
-    non-zero exit."""
+def spawn_ranks(target, world, work, args, timeout, what):
+    """`target(rank, world, store, work, *args)` in `world` spawned
+    processes, joined with a deadline (a rank still alive then is killed);
+    each rank's `rank{r}.pt`, or RuntimeError with every failed rank's
+    traceback."""
+    import multiprocessing
+    ctx = multiprocessing.get_context("spawn")
+    store = os.path.join(work, "store")
+    procs = [ctx.Process(target=target, args=(r, world, store, work) + tuple(args))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    alive = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(10)
+    errors = []
+    for r, p in enumerate(procs):
+        err = os.path.join(work, f"rank{r}.err")
+        if os.path.exists(err):
+            with open(err) as f:
+                errors.append(f"rank {r}:\n{f.read()}")
+        elif r in alive:
+            errors.append(f"rank {r} still alive after {timeout} s: killed")
+        elif p.exitcode != 0:
+            errors.append(f"rank {r} exited with {p.exitcode}")
+    if errors:
+        raise RuntimeError(f"{what} ranks failed:\n" + "\n".join(errors))
+    return [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
+            for r in range(world)]
+
+
+def _gloo_rank(rank, world, store, out_dir, fn, *args):
+    """A spawned gloo rank on `cuda:0`: `fn(rank, dev, *args)`'s result saved
+    to `out_dir`; a failure leaves its traceback there and a non-zero
+    exit."""
     import datetime
     import traceback
     import torch.distributed as dist
     try:
-        from vibevoice_tpu_torch.configs import vibevoice_1_5b
-        from vibevoice_tpu_torch.engine.generate import resolve_device
+        from vibevoice_tpu_torch.device import resolve_device
         torch.cuda.set_device(0)
         dev = resolve_device("cuda")
         dist.init_process_group("gloo", init_method="file://" + store, world_size=world,
                                 rank=rank, timeout=datetime.timedelta(seconds=PAR_TIMEOUT_S))
-        cfg = vibevoice_1_5b()
-        out = {"tp": _rank_tp(rank, dev, card, cfg), "dp": _rank_dp(rank, dev, card, cfg),
-               "cp": _rank_cp_ring(rank, dev, card)}
+        out = fn(rank, dev, *args)
         torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
         dist.barrier()
         dist.destroy_process_group()
@@ -2928,6 +2981,15 @@ def _rank_main(rank, world, store, out_dir, card):
         with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as f:
             f.write(traceback.format_exc())
         raise
+
+
+def _parallel_rank(rank, dev, card):
+    """One rank of phase 10 (a spawned process, `_gloo_rank`): 10a-10d in
+    order."""
+    from vibevoice_tpu_torch.configs import vibevoice_1_5b
+    cfg = vibevoice_1_5b()
+    return {"tp": _rank_tp(rank, dev, card, cfg), "dp": _rank_dp(rank, dev, card, cfg),
+            "cp": _rank_cp_ring(rank, dev, card)}
 
 
 def parallel_references(dev, card, cfg):
@@ -2984,7 +3046,6 @@ def phase_parallel(dev, card):
     that run 10a-10d; then every rank's results held against the references.
     Returns each kernel's launches on each rank (`parallel_launches`)."""
     import gc
-    import multiprocessing
     import shutil
     import tempfile
     from vibevoice_tpu_torch.configs import vibevoice_1_5b
@@ -2998,35 +3059,9 @@ def phase_parallel(dev, card):
 
     work = tempfile.mkdtemp(prefix="vv_parallel_")
     try:
-        ctx = multiprocessing.get_context("spawn")
-        procs = [ctx.Process(target=_rank_main,
-                             args=(r, PAR_RANKS, os.path.join(work, "store"), work, card))
-                 for r in range(PAR_RANKS)]
         t0 = time.perf_counter()
-        for p in procs:
-            p.start()
-        deadline = time.monotonic() + PAR_TIMEOUT_S
-        for p in procs:
-            p.join(max(0.0, deadline - time.monotonic()))
-        alive = [r for r, p in enumerate(procs) if p.is_alive()]
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-                p.join(10)
-        errors = []
-        for r, p in enumerate(procs):
-            err = os.path.join(work, f"rank{r}.err")
-            if os.path.exists(err):
-                with open(err) as f:
-                    errors.append(f"rank {r}:\n{f.read()}")
-            elif r in alive:
-                errors.append(f"rank {r} still alive after {PAR_TIMEOUT_S} s: killed")
-            elif p.exitcode != 0:
-                errors.append(f"rank {r} exited with {p.exitcode}")
-        if errors:
-            raise RuntimeError("phase 10 ranks failed:\n" + "\n".join(errors))
-        ranks = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
-                 for r in range(PAR_RANKS)]
+        ranks = spawn_ranks(_gloo_rank, PAR_RANKS, work, (_parallel_rank, card), PAR_TIMEOUT_S,
+                            "phase 10")
         ranks_s = time.perf_counter() - t0
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -3160,6 +3195,363 @@ def phase_parallel(dev, card):
          dp_graph_nodes=[rk["dp"]["graph_nodes"] for rk in ranks],
          merged=["fused_stage_chain", "fused_stage_chain_rowlane"], card=card)
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the sharded training step, two ranks on one card over gloo
+# ---------------------------------------------------------------------------
+
+# the fp32 1.5B at full width with its LM cut to 4 layers (two whole copies
+# with their gradients and Adam moments fit one card), a global batch of 2
+# rows x 3 turns (556 and 554 tokens, padded to 576), two steps: lr 0, then
+# 1e-4
+SHARD_LAYERS, SHARD_TURNS, SHARD_STEPS = 4, 3, 2
+SHARD_LR, SHARD_WD = 1e-4, 0.01
+SHARD_RUNS = (("tp", 1, 2), ("dp", 2, 1))  # (name, data, model)
+# the losses: fp32, the split reorders sums (the TP all-reduces, the DP
+# loss shares) over 4 layers at hidden 1536 and ~10^5 diffusion terms
+SHARD_LOSS_TOL = 1e-5
+# the updates of step 2 (lr 1e-4): Adam's first moves are close to
+# lr * sign(g), so a gradient element near 0 whose sign the reordered sums
+# flip moves by up to 2 lr more or less than the unsharded step's; every
+# element stays within that, and the mean difference of a leaf within 1% of
+# lr (nearly every element agrees)
+SHARD_UPDATE_MAX = 2 * SHARD_LR * (1 + 1e-3)
+SHARD_UPDATE_MEAN = 1e-2 * SHARD_LR
+
+
+def shard_train_cfg(layers=SHARD_LAYERS):
+    """`vibevoice_1_5b()` with its LM cut to `layers` and the acoustic VAE
+    sampling with fix_std 0 (the same latents on every rank and in the
+    unsharded run)."""
+    import dataclasses
+    from vibevoice_tpu_torch.configs import vibevoice_1_5b
+    cfg = vibevoice_1_5b()
+    return dataclasses.replace(
+        cfg, decoder=dataclasses.replace(cfg.decoder, num_hidden_layers=layers),
+        acoustic_tokenizer=dataclasses.replace(cfg.acoustic_tokenizer, fix_std=0.0))
+
+
+class ShardMarks(StepMarks):
+    """StepMarks with the gradient all-reduce over `data` (the optimizer's
+    `sync_grads`) split out of the optimizer: forward (the audio encode
+    included), backward, all-reduce, optimizer."""
+
+    PARTS = ("forward", "backward", "allreduce", "optimizer")
+
+    def __enter__(self):
+        self.saved_sync = self.opt.sync_grads
+        self.opt.sync_grads = self._wrap(self.saved_sync, "backward_end", "allreduce_end")
+        super().__enter__()
+        self.opt.step = self._wrap(self.saved[2], None, "optimizer_end")
+        return self
+
+    def __exit__(self, *exc):
+        super().__exit__(*exc)
+        self.opt.sync_grads = self.saved_sync
+
+    def parts_ms(self) -> dict:
+        e = self.events
+        ms = lambda a, b: e[a].elapsed_time(e[b])
+        return {"forward": ms("start", "forward_end"),
+                "backward": ms("forward_end", "backward_end"),
+                "allreduce": ms("backward_end", "allreduce_end"),
+                "optimizer": ms("allreduce_end", "optimizer_end"),
+                "step": ms("start", "end")}
+
+
+def shard_injected(batch, cfg, steps=SHARD_STEPS, seed=SEED):
+    """Each step's injected diffusion noise and timesteps of the global batch."""
+    rng = np.random.default_rng(seed)
+    n = batch.speech_masks.size * cfg.diffusion_head.ddpm_batch_mul
+    return [(rng.normal(size=(n, cfg.acoustic_vae_dim)).astype(np.float32),
+             rng.integers(0, cfg.diffusion_head.ddpm_num_steps, n).astype(np.int32))
+            for _ in range(steps)]
+
+
+def _load_batch(path):
+    from vibevoice_tpu_torch.train import TrainBatch
+    with np.load(path) as f:
+        return TrainBatch(*(f[k] for k in TrainBatch._fields))
+
+
+def _shard_ranks(rank, dev, work, card, stats):
+    """Phase 11 on this rank: for each of SHARD_RUNS a mesh, this rank's
+    shard of the seed's weights and share of the global batch, two
+    `train_step`s timed by parts, then every leaf's move held against the
+    unsharded step's (`ref.pt`, the trained leaves' updates in the whole
+    layout) and the frozen tokenizers' decay; no kernel launches."""
+    import gc
+    from vibevoice_tpu_torch import data as D, train as T
+    from vibevoice_tpu_torch.models import vibevoice as V
+    from vibevoice_tpu_torch.parallel import make_mesh, model_param_specs, shard_params
+    from vibevoice_tpu_torch.parallel import split_dims
+    cfg = shard_train_cfg()
+    batch = _load_batch(os.path.join(work, "batch.npz"))
+    inj = shard_injected(batch, cfg)
+    ref = torch.load(os.path.join(work, "ref.pt"), mmap=True, weights_only=False)
+    counters = kernel_counters()
+    out = {}
+    for name, data, model in SHARD_RUNS:
+        mesh = make_mesh(data=data, model=model)
+        torch.cuda.reset_peak_memory_stats()
+        params = V.init_model(cfg, dtype=torch.float32, device=dev,
+                              generator=torch.Generator(device=dev).manual_seed(SEED))
+        params["speech_scaling_factor"] = torch.tensor(stats[0], device=dev)
+        params["speech_bias_factor"] = torch.tensor(stats[1], device=dev)
+        dims = split_dims(params, model_param_specs(params, cfg), "model")
+        local = shard_params(params, mesh, cfg=cfg)
+        del params
+        gc.collect()
+        mine = D.shard_batch(batch, mesh)
+        averaged = T.init_scaling_stats(local, cfg, None, mine, device=dev, mesh=mesh)
+        averaged = (averaged["speech_scaling_factor"].item(),
+                    averaged["speech_bias_factor"].item())
+        frozen_ids = {id(p) for k in FROZEN for p in _tensors(local[k])}
+        opt = T.make_optimizer(local, lr=SHARD_LR, weight_decay=SHARD_WD, warmup_steps=1,
+                               total_steps=100, mesh=mesh,
+                               specs=model_param_specs(local, cfg))
+        step = T.make_train_step(cfg, opt, device=dev, mesh=mesh)
+        before = [p.detach().to("cpu", copy=True) for p in opt.leaves]
+        for c in counters.values():
+            c.launches = 0
+        losses, parts = [], []
+        for i, (noise, t) in enumerate(inj):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with ShardMarks(V, opt) as marks:
+                m = step(local, mine, None, noise, t)
+            losses.append({k: float(v) for k, v in m.items()})
+            wall = time.perf_counter() - t0
+            parts.append(dict(marks.parts_ms(), wall_ms=1e3 * wall))
+        launched = {k: c.launches for k, c in counters.items() if c.launches}
+        peak = torch.cuda.max_memory_allocated()
+        lr2 = opt.schedule(1)
+        factor = np.float32(1.0 - lr2 * SHARD_WD)
+        m_idx = mesh.axis_index("model")
+        worst = {"split": [0.0, 0.0], "whole": [0.0, 0.0]}
+        frozen_rel, frozen_bit_equal, n_frozen = 0.0, True, 0
+        for j, (p, w) in enumerate(zip(opt.leaves, before)):
+            w = w.to(dev)
+            if id(p) in frozen_ids:
+                n_frozen += 1
+                want = w * float(factor) if p.dim() > 1 else w
+                frozen_bit_equal &= torch.equal(p.detach(), want)
+                frozen_rel = max(frozen_rel, float(
+                    ((p.detach() - want).abs() / want.abs().clamp_min(1e-30)).max()))
+                continue
+            upd = p.detach() - w
+            want = ref[j]
+            if dims[j] is not None:
+                n = want.shape[dims[j]] // model
+                want = want.narrow(dims[j], m_idx * n, n)
+            diff = (upd - want.to(dev)).abs()
+            key = "split" if dims[j] is not None else "whole"
+            worst[key][0] = max(worst[key][0], float(diff.max()))
+            worst[key][1] = max(worst[key][1], float(diff.mean()))
+            del w, upd, want, diff
+        emit("train_sharded_rank", run=name, rank=rank, mesh=dict(mesh.shape),
+             rows=int(mine.input_ids.shape[0]), clips=int(mine.speech_masks.shape[0]),
+             losses=losses, steps_ms=parts, max_memory_allocated=peak,
+             update_max_abs_diff={k: v[0] for k, v in worst.items()},
+             update_worst_leaf_mean_abs_diff={k: v[1] for k, v in worst.items()},
+             frozen_leaves=n_frozen, frozen_decay_max_rel_err=frozen_rel,
+             frozen_decay_bit_equal=frozen_bit_equal, scaling_stats_averaged=averaged,
+             kernel_launches=launched, note="gloo on one card: not a TP or DP speed",
+             card=card)
+        out[name] = dict(losses=losses, parts=parts, peak=peak, worst=worst,
+                         frozen_rel=frozen_rel, n_frozen=n_frozen, launched=launched,
+                         averaged=averaged, q_width=int(local["lm"]["layers"][0]["q"]["w"]
+                                                        .shape[1]))
+        del opt, step, local, before, mine, marks
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_sharded(dev, card, root):
+    """Phase 11: the sharded training step as two gloo ranks on this card.
+    This process first takes SHARD_STEPS unsharded steps of the fp32 1.5B
+    (full width, LM cut to SHARD_LAYERS) on the global batch and keeps each
+    trained leaf's update, releases the model, then spawns two ranks that
+    run 11a TP=2 (data 1, model 2) and 11b DP=2 (data 2, model 1) from the
+    same weights, batch and injected noise.  Holds: every rank's losses
+    equal each other's and the unsharded step's within SHARD_LOSS_TOL;
+    every gathered update within SHARD_UPDATE_MAX of the unsharded one and
+    each leaf's mean difference within SHARD_UPDATE_MEAN; the frozen
+    tokenizers' (1 - lr*wd) decay exact; the DP ranks' averaged scaling
+    statistics the mean of their shares'; no kernel launches."""
+    import gc
+    import shutil
+    import tempfile
+    from vibevoice_tpu_torch import data as D, train as T
+    from vibevoice_tpu_torch.models import vibevoice as V
+    from vibevoice_tpu_torch.parallel.mesh import Mesh
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = shard_train_cfg()
+    t_start = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    params = V.init_model(cfg, dtype=torch.float32, device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(SEED))
+    batch = speech_batch(params, cfg, dev, root, turns=SHARD_TURNS)
+    if batch.input_ids.shape != (TRAIN_ROWS, 576):
+        raise RuntimeError(f"phase 11 batch {batch.input_ids.shape}, want (2, 576)")
+    # each DP rank's share's statistics, averaged: what the ranks must get
+    shares = [T.init_scaling_stats(params, cfg, None,
+                                   D.shard_batch(batch, Mesh(2, 1, rank=r, groups={})),
+                                   device=dev) for r in range(2)]
+    share_mean = tuple(float(np.mean([s[k].item() for s in shares]))
+                       for k in ("speech_scaling_factor", "speech_bias_factor"))
+    del shares
+    params = T.init_scaling_stats(params, cfg, None, batch, device=dev)
+    stats = (params["speech_scaling_factor"].item(), params["speech_bias_factor"].item())
+    frozen_ids = {id(p) for k in FROZEN for p in _tensors(params[k])}
+    opt = T.make_optimizer(params, lr=SHARD_LR, weight_decay=SHARD_WD, warmup_steps=1,
+                           total_steps=100)
+    step = T.make_train_step(cfg, opt, device=dev)
+    trained = [j for j, p in enumerate(opt.leaves) if id(p) not in frozen_ids]
+    before = {j: opt.leaves[j].detach().to("cpu", copy=True) for j in trained}
+    losses, parts = [], []
+    for noise, t in shard_injected(batch, cfg):
+        with ShardMarks(V, opt) as marks:
+            losses.append({k: float(v) for k, v in step(params, batch, None, noise, t).items()})
+        parts.append(marks.parts_ms())
+    ref = {j: opt.leaves[j].detach().cpu() - before[j] for j in trained}
+    peak = torch.cuda.max_memory_allocated()
+    n_params = sum(p.numel() for p in opt.leaves)
+    del opt, step, params, before, marks
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("train_sharded_reference", model="vibevoice_1_5b", layers=SHARD_LAYERS, dtype="fp32",
+         params=n_params, batch=list(batch.input_ids.shape), clips=batch.speech_masks.shape[0],
+         frames=int(batch.speech_masks.sum()), speech_scaling_factor=stats[0],
+         speech_bias_factor=stats[1], losses=losses, steps_ms=parts,
+         max_memory_allocated=peak, allocated_after=torch.cuda.memory_allocated(),
+         seconds=time.perf_counter() - t_start, card=card)
+
+    work = tempfile.mkdtemp(prefix="vv_train_sharded_")
+    try:
+        np.savez(os.path.join(work, "batch.npz"), **batch._asdict())
+        torch.save(ref, os.path.join(work, "ref.pt"))
+        del ref
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(_gloo_rank, PAR_RANKS, work, (_shard_ranks, work, card, stats),
+                            PAR_TIMEOUT_S, "phase 11")
+        ranks_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    cfg_dec = cfg.decoder
+    for name, data, model in SHARD_RUNS:
+        got = [rk[name] for rk in ranks]
+        loss_err = max(abs(g["losses"][i][k] - losses[i][k]) / abs(losses[i][k])
+                       for g in got for i in range(SHARD_STEPS) for k in losses[i])
+        same = all(g["losses"] == got[0]["losses"] for g in got)
+        upd_max = max(max(v[0] for v in g["worst"].values()) for g in got)
+        upd_mean = max(max(v[1] for v in g["worst"].values()) for g in got)
+        frozen_rel = max(g["frozen_rel"] for g in got)
+        launched = [g["launched"] for g in got]
+        q_want = cfg_dec.num_attention_heads * cfg_dec.head_dim // model
+        check = dict(run=name, data=data, model=model, loss_max_rel_err=loss_err,
+                     loss_tol=SHARD_LOSS_TOL, ranks_losses_equal=same,
+                     update_max_abs_diff=upd_max, update_tol=SHARD_UPDATE_MAX,
+                     update_leaf_mean_abs_diff=upd_mean, update_mean_tol=SHARD_UPDATE_MEAN,
+                     frozen_decay_max_rel_err=frozen_rel,
+                     frozen_leaves=[g["n_frozen"] for g in got],
+                     q_widths=[g["q_width"] for g in got], kernel_launches=launched,
+                     peak_bytes=[g["peak"] for g in got],
+                     unsharded_peak_bytes=peak,
+                     steps_ms=[g["parts"] for g in got], unsharded_steps_ms=parts,
+                     note="gloo on one card: not a TP or DP speed", card=card)
+        ok = (loss_err <= SHARD_LOSS_TOL and same and upd_max <= SHARD_UPDATE_MAX
+              and upd_mean <= SHARD_UPDATE_MEAN and frozen_rel <= 2.0 ** -23
+              and not any(launched) and all(w == q_want for w in check["q_widths"]))
+        if name == "dp":
+            avg = [g["averaged"] for g in got]
+            check["scaling_stats_averaged"] = avg
+            check["scaling_stats_share_mean"] = share_mean
+            stat_err = max(abs(a[k] - share_mean[k]) / abs(share_mean[k])
+                           for a in avg for k in (0, 1))
+            check["scaling_stats_max_rel_err"] = stat_err
+            ok = ok and stat_err <= 1e-5
+        emit("train_sharded_check", **check)
+        if not ok:
+            raise RuntimeError(f"phase 11 {name} ranks disagree with the unsharded step: "
+                               f"{check}")
+    emit("train_sharded_summary", seconds=time.perf_counter() - t_start, ranks_s=ranks_s,
+         ranks=PAR_RANKS, backend="gloo", card=card)
+    return ranks
+
+
+def _tiny_tp_train_rank(rank, dev, work, steps):
+    """One rank of `phase_train_sharded_reference`: the tiny untied model's
+    TP=2 steps on `dev` and then on the CPU; the losses and every leaf."""
+    import copy
+    from vibevoice_tpu_torch import train as T
+    from vibevoice_tpu_torch.parallel import make_mesh, model_param_specs, shard_params
+    from vibevoice_tpu_torch.weights import to_device
+    cfg, params = tiny_untied(torch.Generator().manual_seed(SEED))
+    batch = tiny_train_batch(cfg)
+    inj = shard_injected(batch, cfg, steps)
+    mesh = make_mesh(data=1, model=2)
+    local = shard_params(params, mesh, cfg=cfg)
+    out = {}
+    for where in (dev, torch.device("cpu")):
+        p = to_device(copy.deepcopy(local), where)
+        opt = T.make_optimizer(p, lr=1e-2, warmup_steps=1, total_steps=10, mesh=mesh,
+                               specs=model_param_specs(p, cfg))
+        step = T.make_train_step(cfg, opt, device=where, mesh=mesh)
+        losses = [{k: float(v) for k, v in step(p, batch, None, nz, ts).items()}
+                  for nz, ts in inj]
+        out[where.type] = (losses, [x.detach().cpu() for x in opt.leaves])
+    return out
+
+
+def tiny_untied(gen):
+    """`tiny_config(vocab_size=320)` with an untied `lm_head` (split by
+    column under TP) and the VAE at fix_std 0, and its params on the CPU
+    with a live audio path."""
+    import dataclasses
+    from vibevoice_tpu_torch.configs import tiny_config
+    from vibevoice_tpu_torch.models import vibevoice as V
+    cfg = tiny_config(vocab_size=320)
+    cfg = dataclasses.replace(
+        cfg, decoder=dataclasses.replace(cfg.decoder, tie_word_embeddings=False),
+        acoustic_tokenizer=dataclasses.replace(cfg.acoustic_tokenizer, fix_std=0.0))
+    params = V.init_model(cfg, generator=gen, device="cpu")
+    _live_audio_path(params, gen)
+    return cfg, params
+
+
+def phase_train_sharded_reference(dev, steps=2):
+    """The tiny untied model's TP=2 train steps as two gloo ranks, on the
+    card and on the CPU in each rank: the losses and every leaf afterwards
+    agree within TRAIN_REL_TOL.  Returns the largest relative
+    disagreements."""
+    import shutil
+    import tempfile
+    work = tempfile.mkdtemp(prefix="vv_tiny_tp_train_")
+    try:
+        ranks = spawn_ranks(_gloo_rank, PAR_RANKS, work, (_tiny_tp_train_rank, work, steps),
+                            PAR_TIMEOUT_S, "tiny TP train")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    loss_err = param_err = 0.0
+    for rk in ranks:
+        (l_gpu, p_gpu), (l_cpu, p_cpu) = rk["cuda"], rk["cpu"]
+        loss_err = max(loss_err, max(abs(g[k] - w[k]) / abs(w[k])
+                                     for g, w in zip(l_gpu, l_cpu) for k in w))
+        param_err = max(param_err, max(float((g - w).abs().max()) / max(float(w.abs().max()),
+                                                                       1.0)
+                                       for g, w in zip(p_gpu, p_cpu)))
+    emit("train_sharded_tiny_reference", model="tiny_config(vocab_size=320), untied lm_head",
+         mesh={"data": 1, "model": 2}, steps=steps, losses=[rk["cuda"][0] for rk in ranks],
+         loss_max_rel_err=loss_err, param_max_rel_err=param_err, tol=TRAIN_REL_TOL)
+    if not (loss_err <= TRAIN_REL_TOL and param_err <= TRAIN_REL_TOL):
+        raise RuntimeError(f"TP training on the card and on the CPU disagree: losses "
+                           f"{loss_err}, params {param_err} > {TRAIN_REL_TOL}")
+    return loss_err, param_err
 
 
 # ---------------------------------------------------------------------------
@@ -3307,6 +3699,12 @@ def main() -> int:
     # 10. the parallel paths: TP and DP engines, CP and ring prefill, as two
     # ranks on this card over gloo, held against the unsharded runs
     parallel = phase_parallel(dev, card)
+
+    # 11. the sharded training step: TP=2 and DP=2 ranks of the fp32 1.5B
+    # (LM cut to 4 layers) on this card over gloo, held against the
+    # unsharded step; and the tiny model's TP=2 step on the card as on the CPU
+    phase_train_sharded(dev, card, root)
+    phase_train_sharded_reference(dev)
 
     emit("done", seconds=time.perf_counter() - t_start)
     # beside the wrappers' count of the main path's run (the prefill, the

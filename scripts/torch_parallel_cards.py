@@ -5,6 +5,7 @@ context-parallel and ring prefill, each beside the same work on one card.
 
     python3 -c "from vibevoice_tpu_torch.ops import cuda_build; cuda_build.build_all()"
     python3 -m torch.distributed.run --nproc_per_node 4 scripts/torch_parallel_cards.py
+    python3 -m torch.distributed.run --nproc_per_node 4 scripts/torch_parallel_cards.py train
 
 Every rank calls `parallel.multihost.initialize()` (NCCL, the card of its
 LOCAL_RANK) and `make_mesh`.  With N ranks (N >= 2):
@@ -21,6 +22,15 @@ LOCAL_RANK) and `make_mesh`.  With N ranks (N >= 2):
   * CP over N ranks at T = 4096 N and ring at T = 2048 N (H=12, KVH=2,
     D=128): wall ms per call, every query row against the plain version of
     flash prefill over all rows on rank 0's card.
+With `train` (N a multiple of 2, no kernel build needed) it runs the
+sharded training step instead: a data=N/2 x model=2 mesh, the fp32 1.5B at
+full width and depth (`parallel.shard_params`: each rank the whole σ-VAE
+stacks, head, connectors and embedding, half of each LM layer), the batch of
+`chip_smoke.py` phase 9 (2 rows x 1024 tokens of the demo voices) split over
+`data` (`data.shard_batch`), `init_scaling_stats` averaged over `data`, and
+TRAIN_STEPS `train_step`s (`make_train_step(mesh=)`, lr 1e-4 after a warm-up
+step): each rank's losses, peak memory and step time split into forward,
+backward, the gradient all-reduce over `data` and the optimizer.
 One JSON line per result from rank 0, then the cards' name and power limit.
 """
 import json
@@ -38,7 +48,8 @@ import chip_smoke as cs  # noqa: E402
 from vibevoice_tpu_torch.configs import vibevoice_1_5b  # noqa: E402
 from vibevoice_tpu_torch.engine import generate as G  # noqa: E402
 from vibevoice_tpu_torch.ops import flash_attention as fa  # noqa: E402
-from vibevoice_tpu_torch.parallel import make_mesh, multihost, shard_params  # noqa: E402
+from vibevoice_tpu_torch.parallel import (  # noqa: E402
+    make_mesh, model_param_specs, multihost, shard_params)
 from vibevoice_tpu_torch.parallel.context_parallel import cp_prefill_attention  # noqa: E402
 from vibevoice_tpu_torch.parallel.ring_attention import ring_prefill_attention  # noqa: E402
 
@@ -172,6 +183,61 @@ def phase_cp_ring(rank, world, dev, report):
         del q, k, v, mask, mine, got, full
 
 
+TRAIN_STEPS = 4
+
+
+def phase_train(rank, world, dev, report):
+    """The data x model training step of the full 1.5B in fp32, one rank a
+    card.  The ranks of a data group draw the same noise (their generator's
+    seed is the data index's), other groups other noise."""
+    from vibevoice_tpu_torch import data as D, train as T
+    from vibevoice_tpu_torch.models import vibevoice as V
+    import numpy as np
+    mesh = multihost.global_mesh(model_parallel=2)
+    di = mesh.axis_index("data")
+    torch.cuda.reset_peak_memory_stats()
+    params = V.init_model(CFG, dtype=torch.float32, device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(cs.SEED))
+    batch = cs.speech_batch(params, CFG, dev, ROOT)
+    local = shard_params(params, mesh, cfg=CFG)
+    del params
+    torch.cuda.empty_cache()
+    mine = D.shard_batch(batch, mesh)
+    gen = lambda: torch.Generator(device=dev).manual_seed(cs.SEED + di)
+    local = T.init_scaling_stats(local, CFG, gen(), mine, device=dev, mesh=mesh)
+    opt = T.make_optimizer(local, lr=1e-4, weight_decay=0.01, warmup_steps=1, total_steps=100,
+                           mesh=mesh, specs=model_param_specs(local, CFG))
+    step = T.make_train_step(CFG, opt, device=dev, mesh=mesh)
+    steps = []
+    for i in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with cs.ShardMarks(V, opt) as marks:
+            m = step(local, mine, gen())
+        losses = {k: float(v) for k, v in m.items()}
+        steps.append(dict(losses, wall_ms=1e3 * (time.perf_counter() - t0), **marks.parts_ms()))
+    mine_out = dict(rank=rank, coords=mesh.coords, rows=int(mine.input_ids.shape[0]),
+                    clips=int(mine.speech_masks.shape[0]),
+                    params_on_rank=sum(p.numel() for p in opt.leaves),
+                    max_memory_allocated=torch.cuda.max_memory_allocated(), steps=steps)
+    got = [None] * world
+    dist.all_gather_object(got, mine_out)
+    if rank == 0:
+        finite = all(np.isfinite(s[k]) for g in got for s in g["steps"]
+                     for k in ("loss", "ce_loss", "diffusion_loss"))
+        same = all([s["loss"] for s in g["steps"]] == [s["loss"] for s in got[0]["steps"]]
+                   for g in got)
+        mean = {k: float(np.mean([s[k] for g in got for s in g["steps"][1:]]))
+                for k in ("forward", "backward", "allreduce", "optimizer", "step", "wall_ms")}
+        report("train", mesh=dict(mesh.shape), model="vibevoice_1_5b", dtype="fp32",
+               batch=list(batch.input_ids.shape), ranks=got, mean_ms_steps_2_on=mean,
+               losses_finite=finite, ranks_losses_equal=same)
+        if not (finite and same):
+            raise RuntimeError("the ranks' losses are not finite or not equal")
+    del opt, step, local
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     multihost.initialize()
     rank, world = dist.get_rank(), dist.get_world_size()
@@ -185,9 +251,12 @@ def main() -> int:
                           "card": card}, default=str), flush=True)
 
     t0 = time.perf_counter()
-    phase_tp(rank, world, dev, report)
-    phase_dp(rank, world, dev, report)
-    phase_cp_ring(rank, world, dev, report)
+    if sys.argv[1:] == ["train"]:
+        phase_train(rank, world, dev, report)
+    else:
+        phase_tp(rank, world, dev, report)
+        phase_dp(rank, world, dev, report)
+        phase_cp_ring(rank, world, dev, report)
     dist.barrier()
     if rank == 0:
         print(json.dumps({"phase": "cards_done", "seconds": time.perf_counter() - t0,

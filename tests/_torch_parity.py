@@ -33,7 +33,7 @@ def _boost(tree):
 def _tiny_np(seed: int):
     cfg = tiny_config(vocab_size=320)
     gen = torch.Generator().manual_seed(seed)
-    p = TV.init_model(TC.tiny_config(vocab_size=320), generator=gen)
+    p = TV.init_model(TC.tiny_config(vocab_size=320), generator=gen, device="cpu")
     p = jax.tree_util.tree_map(lambda t: t.numpy(), p)
     p["speech_scaling_factor"] = np.asarray(0.8, np.float32)
     p["speech_bias_factor"] = np.asarray(0.1, np.float32)

@@ -11,8 +11,9 @@ xdist), and every spawn is joined with a deadline: a rank still alive then is
 killed and the test fails, so a collective that one rank never joins costs
 one test, not the suite.
 
-The rank programs (`tp_program`, `dp_program`, `cp_ring_program`,
-`multihost_program`) live here, beside the harness, so that a rank imports
+The rank programs (`tp_program`, `dp_program`, `dp_stages_program`,
+`cp_ring_program`, `multihost_program`, `train_grad_program`,
+`train_step_program`) live here, beside the harness, so that a rank imports
 nothing of the test modules (which import JAX).
 """
 from __future__ import annotations
@@ -93,7 +94,7 @@ def to_torch(tree):
         return [to_torch(v) for v in tree]
     if torch.is_tensor(tree):
         return tree
-    return from_jax(tree)
+    return from_jax(tree, device="cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -355,6 +356,154 @@ def dp_program(rank, world, work_dir, steps, kw):
     return out
 
 
+def stage_packs_summary(params) -> Dict[str, Dict[int, tuple]]:
+    """Per large-T stage pack: (transition conv folded, row-lane row group;
+    1 without a row-lane pack).  Takes the port's packs and the JAX
+    package's (both hold "vecs" [blocks, 8, D] and "rowlane" ["vecs"] [..,
+    R*D])."""
+    out = {}
+    for key in ("_vocoder_packs_large", "_semantic_packs_large"):
+        out[key] = {int(i): ("conv" in p, int(p["rowlane"]["vecs"].shape[2]
+                                              // p["vecs"].shape[2]) if "rowlane" in p else 1)
+                    for i, p in params[key].items()}
+    return out
+
+
+def dp_stages_program(rank, world, work_dir, steps, batches):
+    """A DP=2 engine with the fused large-T stages (`fused_stage_t_min=7`, the
+    tiny model's stages) at each global batch of `batches`, on the first rows
+    of the DP inputs: its gathered rows and its stage packs' summary."""
+    from vibevoice_tpu_torch import configs as TC
+    from vibevoice_tpu_torch.engine import generate as TG
+    from vibevoice_tpu_torch.parallel import make_mesh
+
+    cfg = TC.tiny_config(vocab_size=320)
+    gen = TG.GenerationConfig(**GEN)
+    inputs = load_tree(os.path.join(work_dir, "dp_inputs.npz"))
+    params = to_torch(load_tree(os.path.join(work_dir, "weights.npz")))
+    mesh = make_mesh(data=2, model=1)
+    out = {}
+    for b in batches:
+        rows = [a[:b] for a in inputs[:5]] + [inputs[5][:, :b]]
+        eng = TG.Engine(params, cfg, gen, max_steps=steps, batch=b, prompt_len=rows[0].shape[1],
+                        inject_latent_noise=True, device="cpu", mesh=mesh,
+                        use_fused_stages=True, fused_stage_t_min=7)
+        state, _ = _engine_run(eng, rows, steps)
+        got = eng.gather(state)
+        out[b] = {"local_batch": eng.batch, "packs": stage_packs_summary(eng.params),
+                  "gathered": {k: getattr(got, k).cpu().numpy() for k in got._fields}}
+    return out
+
+
+def train_cfg(untied: bool = False):
+    """The port's config of the sharded training tests: `tiny_config(vocab_size
+    =320)` with the acoustic VAE at `fix_std = 0` (deterministic latents), its
+    `lm_head` untied on request."""
+    import dataclasses
+    from vibevoice_tpu_torch import configs as TC
+
+    c = TC.tiny_config(vocab_size=320)
+    c = dataclasses.replace(c, acoustic_tokenizer=dataclasses.replace(c.acoustic_tokenizer,
+                                                                      fix_std=0.0))
+    if untied:
+        c = dataclasses.replace(c, decoder=dataclasses.replace(c.decoder,
+                                                               tie_word_embeddings=False))
+    return c
+
+
+def _train_batch(work_dir):
+    from vibevoice_tpu_torch.train import TrainBatch
+    return TrainBatch(*load_tree(os.path.join(work_dir, "batch.npz")))
+
+
+def _split_dims(params, cfg):
+    from vibevoice_tpu_torch.parallel import model_param_specs, split_dims
+    return split_dims(params, model_param_specs(params, cfg), "model")
+
+
+def train_grad_program(rank, world, work_dir, mul):
+    """One backward of the training loss on a model=2 mesh, tied and untied
+    `lm_head`: each trainable leaf's gradient on this rank (None where autograd
+    left none), the dimension each leaf is split along, and the optimizer's
+    global norm before its clip."""
+    import torch
+    from vibevoice_tpu_torch import train as TT
+    from vibevoice_tpu_torch.models import vibevoice as TV
+    from vibevoice_tpu_torch.parallel import make_mesh, model_param_specs, shard_params
+
+    mesh = make_mesh(data=1, model=world)
+    noise, t = load_tree(os.path.join(work_dir, "noise0.npz"))
+    b = TT._device_batch(_train_batch(work_dir), "cpu")
+    out = {}
+    for name, untied in (("tied", False), ("untied", True)):
+        cfg = train_cfg(untied)
+        params = to_torch(load_tree(os.path.join(work_dir, f"weights_{name}.npz")))
+        dims = _split_dims(params, cfg)
+        local = shard_params(params, mesh, cfg=cfg)
+        opt = TT.make_optimizer(local, mesh=mesh, specs=model_param_specs(params, cfg))
+        res = TV.training_forward(
+            local, cfg, TT.solver_tables(cfg), None, input_ids=b.input_ids,
+            attention_mask=b.attention_mask, speech_tensors=b.speech_tensors,
+            speech_masks=b.speech_masks, speech_semantic_tensors=b.speech_semantic_tensors,
+            acoustic_input_mask=b.acoustic_input_mask, acoustic_loss_mask=b.acoustic_loss_mask,
+            labels=b.labels, ddpm_batch_mul=mul, injected_noise=torch.from_numpy(noise),
+            injected_timesteps=torch.from_numpy(t), mesh=mesh)
+        (res.ce_loss + res.diffusion_loss).backward()
+        grads = [None if p.grad is None else p.grad.numpy().copy() for p in opt.leaves]
+        for p in opt.leaves:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        norm = float(opt.clip_())
+        out[name] = {"grads": grads, "dims": dims, "norm": norm,
+                     "logits": res.logits.detach().numpy(),
+                     "losses": (float(res.ce_loss), float(res.diffusion_loss))}
+    return out
+
+
+def train_step_program(rank, world, work_dir, data, model, mul, steps):
+    """`make_train_step` on a data x model mesh over the global batch's
+    `data.shard_batch` share: each step's metrics, every leaf after the steps
+    (with its split dimension), the q shard's width, this rank's clips, the
+    scaling statistics (`init_scaling_stats` on the share, and
+    `compute_scaling_stats` of the given latents: equal and unequal
+    shares), each averaged over the data group."""
+    import torch
+    from vibevoice_tpu_torch import data as TD, train as TT
+    from vibevoice_tpu_torch.models import vibevoice as TV
+    from vibevoice_tpu_torch.parallel import make_mesh, model_param_specs, shard_params
+
+    cfg = train_cfg()
+    mesh = make_mesh(data=data, model=model)
+    di = mesh.axis_index("data")
+    params = to_torch(load_tree(os.path.join(work_dir, "weights_tied.npz")))
+    dims = _split_dims(params, cfg)
+    batch = _train_batch(work_dir)
+    mine = TD.shard_batch(batch, mesh)
+    local = shard_params(params, mesh, cfg=cfg)
+    out = {"clips": np.flatnonzero((TD.clip_owners(batch) // (batch.input_ids.shape[0] // data))
+                                   == di),
+           "dims": dims, "rows": mine.input_ids.shape[0]}
+    stats = TT.init_scaling_stats(local, cfg, None, mine, device="cpu", mesh=mesh)
+    out["init_stats"] = (float(stats["speech_scaling_factor"]),
+                         float(stats["speech_bias_factor"]))
+    lat = load_tree(os.path.join(work_dir, "stats.npz"))
+    for case in ("equal", "unequal"):
+        x, m = lat[case][di]
+        out[case] = tuple(float(v) for v in TV.compute_scaling_stats(
+            torch.from_numpy(x), torch.from_numpy(m), mesh=mesh))
+    opt = TT.make_optimizer(local, lr=1e-2, warmup_steps=1, total_steps=10, mesh=mesh,
+                            specs=model_param_specs(params, cfg))
+    step = TT.make_train_step(cfg, opt, ddpm_batch_mul=mul, device="cpu", mesh=mesh)
+    out["metrics"] = []
+    for i in range(steps):
+        noise, t = load_tree(os.path.join(work_dir, f"noise{i}.npz"))
+        m = step(local, mine, None, noise, t)
+        out["metrics"].append({k: float(v) for k, v in m.items()})
+    out["leaves"] = [p.detach().numpy().copy() for p in opt.leaves]
+    out["q_width"] = int(local["lm"]["layers"][0]["q"]["w"].shape[1])
+    return out
+
+
 def cp_ring_program(rank, world, work_dir):
     """Context-parallel and ring prefill on `world` ranks of the data axis:
     each rank's rows of the CP (dense and flash-plain) and ring outputs, and
@@ -399,4 +548,6 @@ def multihost_program(rank, world):
 
 
 __all__ = ["save_tree", "load_tree", "to_torch", "Ranks", "CollectiveCounter",
-           "tp_program", "dp_program", "cp_ring_program", "multihost_program", "GEN"]
+           "tp_program", "dp_program", "dp_stages_program", "stage_packs_summary",
+           "cp_ring_program", "multihost_program", "train_cfg", "train_grad_program",
+           "train_step_program", "GEN"]

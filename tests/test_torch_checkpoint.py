@@ -198,12 +198,13 @@ def test_load_hf_checkpoint_matches_jax_loader(tmp_path, case):
                                          if load_dt is None else getattr(torch, load_dt))
     assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
     assert (got["lm_head"] is None) == (not untied)
-    assert_trees_bit_equal(got, weights.from_jax(jax.tree_util.tree_map(np.asarray, want)))
+    assert_trees_bit_equal(got, weights.from_jax(jax.tree_util.tree_map(np.asarray, want),
+                                                 device="cpu"))
 
 
 def test_from_jax_keeps_bf16_scalars_0d():
     """A 0-d bf16 leaf (a speech factor loaded in bf16) stays 0-d."""
-    got = weights.from_jax({"s": np.asarray(jnp.asarray(-0.1, jnp.bfloat16))})["s"]
+    got = weights.from_jax({"s": np.asarray(jnp.asarray(-0.1, jnp.bfloat16))}, device="cpu")["s"]
     assert got.shape == () and got.dtype == torch.bfloat16
     assert float(got) == float(jnp.asarray(-0.1, jnp.bfloat16))
 
@@ -214,7 +215,8 @@ def test_params_from_flat_matches_jax(tmp_path):
     want = jckpt.params_from_flat(flat, cfg)
     got = tckpt.params_from_flat({k: torch.from_numpy(v.copy()) for k, v in flat.items()},
                                  TC.tiny_config())
-    assert_trees_bit_equal(got, weights.from_jax(jax.tree_util.tree_map(np.asarray, want)))
+    assert_trees_bit_equal(got, weights.from_jax(jax.tree_util.tree_map(np.asarray, want),
+                                                 device="cpu"))
 
 
 def test_config_json_round_trip(tmp_path):
@@ -278,12 +280,12 @@ def test_reader_rejects_malformed_files(tmp_path, case, match):
 
 def test_native_round_trip_is_bit_equal(tmp_path):
     p, _ = _jax_tree()
-    tree = weights.from_jax(jax.tree_util.tree_map(np.asarray, p))
+    tree = weights.from_jax(jax.tree_util.tree_map(np.asarray, p), device="cpu")
     tree["lm"]["embed"] = tree["lm"]["embed"].to(torch.bfloat16)
     tree["_packs"] = {3: {"q": torch.arange(6, dtype=torch.int8)}, 5: (torch.ones(2), None)}
     out = tckpt.save_native(tree, str(tmp_path / "params"))
     assert out.endswith(".npz")
-    assert_trees_bit_equal(tckpt.load_native(out), tree)
+    assert_trees_bit_equal(tckpt.load_native(out, device="cpu"), tree)
 
 
 @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
@@ -296,11 +298,11 @@ def test_load_native_reads_the_jax_npz_fallback(tmp_path, monkeypatch, dtype):
     path = str(tmp_path / "jax_params")
     jckpt.save_native(p, path)
     assert os.path.exists(path + ".npz")
-    want = weights.from_jax(jax.tree_util.tree_map(np.asarray, p))
+    want = weights.from_jax(jax.tree_util.tree_map(np.asarray, p), device="cpu")
     like = jax.tree_util.tree_map(lambda x: torch.zeros(1), want)
-    assert_trees_bit_equal(tckpt.load_native(path, like=like), want)
+    assert_trees_bit_equal(tckpt.load_native(path, like=like, device="cpu"), want)
     with pytest.raises(ValueError, match="like"):
-        tckpt.load_native(path)
+        tckpt.load_native(path, device="cpu")
 
 
 def test_from_pretrained_falls_back_to_bytes_and_generates(tmp_path):
@@ -317,7 +319,8 @@ def test_from_pretrained_falls_back_to_bytes_and_generates(tmp_path):
                                        ddpm_steps=2, prompt_bucket=64)
     assert isinstance(tts.tokenizer, ByteFallbackTokenizer)
     assert tts.processor.db_normalize is False
-    assert_trees_bit_equal(tts.params, weights.from_jax(jax.tree_util.tree_map(np.asarray, p)))
+    assert_trees_bit_equal(tts.params, weights.from_jax(jax.tree_util.tree_map(np.asarray, p),
+                                                        device="cpu"))
     from tests.test_torch_pipeline import force_diffusion_engine
     script = "Speaker 1: Loaded from a checkpoint."
     voice = [np.random.default_rng(0).normal(0, 0.05, 4800).astype(np.float32)]

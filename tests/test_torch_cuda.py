@@ -172,7 +172,7 @@ def test_engine_on_card_matches_cpu(cuda_device):
     1e-3 of its scale."""
     cfg = tiny_config(hidden_size=256, vocab_size=320)
     gen = torch.Generator().manual_seed(0)
-    params = V.init_model(cfg, generator=gen)
+    params = V.init_model(cfg, generator=gen, device="cpu")
     head = params["diffusion_head"]
     for lp in head["layers"]:
         lp["ada_w"] = torch.randn(lp["ada_w"].shape, generator=gen) * 0.05
@@ -415,7 +415,7 @@ def test_quantized_engine_on_card_matches_cpu(cuda_device):
     from vibevoice_tpu_torch.processor.text_tokenizer import ByteFallbackTokenizer
     cfg = tiny_config(hidden_size=256, vocab_size=320)
     gen = torch.Generator().manual_seed(0)
-    params = V.init_model(cfg, generator=gen)
+    params = V.init_model(cfg, generator=gen, device="cpu")
     head = params["diffusion_head"]
     for lp in head["layers"]:
         lp["ada_w"] = torch.randn(lp["ada_w"].shape, generator=gen) * 0.05
@@ -813,7 +813,7 @@ def test_flash_prefill_and_plain_chain_engine_on_card_matches_cpu(cuda_device):
     from vibevoice_tpu_torch.ops import flash_attention as fa, fused_blocks as fb
     cfg = tiny_config(hidden_size=512, vocab_size=320)
     gen = torch.Generator().manual_seed(0)
-    params = V.init_model(cfg, generator=gen)
+    params = V.init_model(cfg, generator=gen, device="cpu")
     for name in ("acoustic_decoder", "semantic_encoder"):  # audio of order 0.1, not 1e-7
         for stage in params[name]["stages"]:
             for bp in stage:
@@ -877,7 +877,7 @@ def _graph_engines(case, dev, **gen_kw):
     from vibevoice_tpu_torch.processor.text_tokenizer import ByteFallbackTokenizer
     cfg = tiny_config(hidden_size=256, vocab_size=320)
     gen = torch.Generator().manual_seed(0)
-    params = V.init_model(cfg, generator=gen)
+    params = V.init_model(cfg, generator=gen, device="cpu")
     _live_audio_path(params, gen)
     kw = dict(use_flash_decode=True, inject_latent_noise=not gen_kw)
     t = 40
@@ -1035,7 +1035,7 @@ def test_server_on_card_equals_generate_and_captures_on_the_worker(cuda_device):
     from vibevoice_tpu_torch.serving.server import TTSServer, wav_bytes
     cfg = tiny_config(hidden_size=256, vocab_size=320)
     gen = torch.Generator().manual_seed(0)
-    params = V.init_model(cfg, generator=gen)
+    params = V.init_model(cfg, generator=gen, device="cpu")
     _live_audio_path(params, gen)
     tts = VibeVoiceTTS(params, cfg, ByteFallbackTokenizer(), dtype=torch.float32,
                        device=cuda_device, ddpm_steps=3, use_fused_stages=True,
@@ -1111,6 +1111,18 @@ def test_train_step_launches_no_kernel(cuda_device):
     assert all(np.isfinite(float(v)) for v in metrics.values())
     assert not torch.equal(params["lm"]["embed"], embed)
     assert not torch.backends.cuda.matmul.allow_tf32
+
+
+def test_tp_train_step_on_card_matches_cpu(cuda_device):
+    """Two TP=2 train steps of tiny_config(vocab_size=320) with an untied
+    `lm_head` (split by column, its logits gathered) as two gloo ranks, each
+    on the card and on the CPU from the same shard, batch and injected noise:
+    the losses and every leaf afterwards agree within
+    chip_smoke.TRAIN_REL_TOL (`chip_smoke.phase_train_sharded_reference`
+    raises otherwise)."""
+    from chip_smoke import TRAIN_REL_TOL, phase_train_sharded_reference
+    loss_err, param_err = phase_train_sharded_reference(cuda_device)
+    assert loss_err <= TRAIN_REL_TOL and param_err <= TRAIN_REL_TOL
 
 
 def _rank_mesh(rank):

@@ -79,7 +79,7 @@ def test_batch_trains():
     tk = ByteFallbackTokenizer()
     hop = cfg.speech_compress_ratio
     rng = np.random.default_rng(1)
-    params = TV.init_model(cfg, generator=torch.Generator().manual_seed(0))
+    params = TV.init_model(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
     params["speech_scaling_factor"] = torch.tensor(1.0)
     params["speech_bias_factor"] = torch.tensor(0.0)
 
@@ -108,7 +108,7 @@ def test_init_scaling_stats_sets_the_factors():
     cfg = tiny_config(vocab_size=320)
     cfg = dataclasses.replace(cfg, acoustic_tokenizer=dataclasses.replace(
         cfg.acoustic_tokenizer, fix_std=0.0))
-    params = TV.init_model(cfg, generator=torch.Generator().manual_seed(0))
+    params = TV.init_model(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
     batch = TD.build_training_batch(ByteFallbackTokenizer(), _examples(
         np.random.default_rng(0)), hop=cfg.speech_compress_ratio, semantic_dim=16)
     out = TT.init_scaling_stats(params, cfg, None, batch, device="cpu")
@@ -144,7 +144,7 @@ def test_train_step_reaches_no_kernel_wrapper(monkeypatch):
                       (fs, "fused_stage_chain"), (fs, "fused_stage_chain_rowlane")):
         monkeypatch.setattr(mod, name, refuse)
     cfg = tiny_config(hidden_size=256, vocab_size=320)
-    params = TV.init_model(cfg, generator=torch.Generator().manual_seed(0))
+    params = TV.init_model(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
     params["speech_scaling_factor"] = torch.tensor(1.0)
     params["speech_bias_factor"] = torch.tensor(0.0)
     batch = TD.build_training_batch(ByteFallbackTokenizer(), _examples(

@@ -85,7 +85,7 @@ def test_sde_third_order_rejected():
 
 def test_connector_matches_jax():
     cfg, jp = tiny_params()
-    tp = from_jax(to_np(jp))
+    tp = from_jax(to_np(jp), device="cpu")
     x = np.random.default_rng(0).normal(size=(2, 3, cfg.acoustic_vae_dim)).astype(np.float32)
     want = np.asarray(jconn.apply(jp["acoustic_connector"], jnp.asarray(x)))
     got = tconn.apply(tp["acoustic_connector"], torch.tensor(x)).numpy()
@@ -98,7 +98,7 @@ def test_sample_speech_latents_matches_jax(algorithm, steps):
     the SDE solver, injected per-step noise (`step_noise`); the production
     setting is sde-dpmsolver++ with 5 steps at cfg 1.3."""
     cfg, jp = tiny_params()
-    tp = from_jax(to_np(jp))
+    tp = from_jax(to_np(jp), device="cpu")
     tcfg = TC.tiny_config(vocab_size=320)
     rng = np.random.default_rng(5)
     n, h, lat = 3, cfg.decoder.hidden_size, cfg.acoustic_vae_dim
@@ -123,7 +123,7 @@ def test_sample_speech_latents_matches_jax(algorithm, steps):
 
 def test_lm_head_subset_and_splice_match_jax():
     cfg, jp = tiny_params()
-    tp = from_jax(to_np(jp))
+    tp = from_jax(to_np(jp), device="cpu")
     ids = [260, 256, 258, 259]
     jsub = JV.lm_head_subset(jp, ids, jnp.float32)
     tsub = TV.lm_head_subset(tp, ids)

@@ -48,7 +48,7 @@ def _params():
     w[:, 0] = 0.0
     w[:, 3] += 0.3
     jp = dict(jp, _lm_head_sub={"w": jnp.asarray(w)})
-    return cfg, jp, from_jax(to_np(jp))
+    return cfg, jp, from_jax(to_np(jp), device="cpu")
 
 
 def _run(package, engine, ids, mask, sim, fmask, vl, noise):
@@ -114,7 +114,7 @@ def test_engine_rejects_modes_outside_the_slice():
     # head_dim 16 (tiny) and 128 (hidden 512, 4 heads): flash prefill auto-on
     # from 1024 prompt tokens, and only at a head_dim that is a multiple of 128
     wide = TC.tiny_config(hidden_size=512, vocab_size=320)
-    wide_params = TV.init_model(wide, generator=torch.Generator().manual_seed(0))
+    wide_params = TV.init_model(wide, generator=torch.Generator().manual_seed(0), device="cpu")
     for c, p in ((tcfg, tp), (wide, wide_params)):
         for prompt_len in (1023, 1024):
             eng = TG.Engine(p, c, gen, max_steps=4, batch=1, prompt_len=prompt_len,

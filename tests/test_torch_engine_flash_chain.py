@@ -71,7 +71,7 @@ def test_from_jax_carries_plain_chain_packs():
     cfg, jp, tp = _params()
     je = JG.Engine(jp, cfg, JG.GenerationConfig(**GEN), batch=2, use_fused_vocoder=True,
                    use_fused_semantic=True, **BASE)
-    carried = from_jax(to_np(je.params))
+    carried = from_jax(to_np(je.params), device="cpu")
     own = TG.Engine(tp, TC.tiny_config(vocab_size=320), TG.GenerationConfig(**GEN), batch=2,
                     device="cpu", use_fused_vocoder=True, use_fused_semantic=True, **BASE)
     for key in ("_vocoder_packs", "_semantic_packs"):

@@ -30,7 +30,7 @@ def test_forward_with_a_device_write_pos_equals_the_host_int(quant, t):
     the write to the last T slots, as dynamic_update_slice does."""
     b, t0, s, h = 2, 9, 32, DEC.hidden_size
     gen = torch.Generator().manual_seed(5)
-    params = tq.init(DEC, dtype=torch.bfloat16, generator=gen)
+    params = tq.init(DEC, dtype=torch.bfloat16, device="cpu", generator=gen)
     rng = np.random.default_rng(5)
     x = torch.tensor(rng.normal(size=(b, t0, h)), dtype=torch.bfloat16)
     mask = torch.ones((b, t0), dtype=torch.int32)

@@ -44,7 +44,7 @@ def test_batched_chain_matches_jax(b, t):
     jpack = JFB.pack_stage_q([{k: (jnp.asarray(v) if not isinstance(v, dict) else
                                    {kk: jnp.asarray(vv) for kk, vv in v.items()})
                                for k, v in bp.items()} for bp in blocks])
-    tpack = TFB.pack_stage_q(from_jax(blocks))
+    tpack = TFB.pack_stage_q(from_jax(blocks, device="cpu"))
     _assert_trees_equal(tpack, jpack)
     rng = np.random.default_rng(b * t)
     x = (0.5 * rng.normal(size=(b, t, d))).astype(np.float32)
@@ -65,7 +65,7 @@ def test_batched_chain_matches_jax(b, t):
 @pytest.fixture(scope="module")
 def models():
     cfg, jp = tiny_params()
-    return cfg, jp, from_jax(to_np(jp)), TC.tiny_config(vocab_size=320)
+    return cfg, jp, from_jax(to_np(jp), device="cpu"), TC.tiny_config(vocab_size=320)
 
 
 def test_decoder_streaming_with_int4_packs_matches_jax(models):
@@ -145,7 +145,7 @@ def test_plain_chain_matches_jax(dtype, t):
     blocks = _blocks(d, n, seed=20 + t)
     jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
     jpack = JFB.pack_stage(_jnp_blocks(blocks), dtype=jdt)
-    tpack = TFB.pack_stage(from_jax(blocks), dtype=tdt)
+    tpack = TFB.pack_stage(from_jax(blocks, device="cpu"), dtype=tdt)
     assert sorted(tpack) == sorted(jpack)
     for k in jpack:
         assert tpack[k].dtype == tdt

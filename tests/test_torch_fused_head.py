@@ -41,7 +41,7 @@ def test_fused_head_step_matches_jax(n):
     jhead = {k: (jnp.asarray(v) if not isinstance(v, list) else
                  [{kk: jnp.asarray(vv) for kk, vv in lp.items()} for lp in v])
              for k, v in head.items()}
-    thead = from_jax(head)
+    thead = from_jax(head, device="cpu")
     jpack, tpack = JFH.pack_head_solver_q(jhead), TFH.pack_head_solver_q(thead)
     _assert_trees_equal(tpack, jpack)
     rng = np.random.default_rng(10 + n)
@@ -69,7 +69,7 @@ def test_sample_speech_latents_with_pack_matches_jax(algorithm, steps):
     """The pack in `params["_diffusion_head_packq"]` turns every solver step
     into one fused-head call, in both packages (CFG over [cond; neg])."""
     cfg, jp = tiny_params()
-    tp = from_jax(to_np(jp))
+    tp = from_jax(to_np(jp), device="cpu")
     tcfg = TC.tiny_config(vocab_size=320)
     jp = dict(jp, _diffusion_head_packq=JFH.pack_head_solver_q(jp["diffusion_head"]))
     tp = dict(tp, _diffusion_head_packq=TFH.pack_head_solver_q(tp["diffusion_head"]))
@@ -104,7 +104,7 @@ def test_sample_speech_latents_with_pack_matches_jax(algorithm, steps):
 
 def test_pack_rejects_quantized_heads():
     _, jp = tiny_params()
-    tp = from_jax(to_np(jp))
+    tp = from_jax(to_np(jp), device="cpu")
     head = dict(tp["diffusion_head"])
     head["layers"] = [dict(lp, gateup=lp["gate"]) for lp in head["layers"]]
     with pytest.raises(ValueError, match="unquantized"):

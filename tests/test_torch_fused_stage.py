@@ -95,18 +95,20 @@ def test_packs_equal_jax(dtype):
     head = {"w": _rnd(rng, 7, d, 1), "b": _rnd(rng, 1)}
     norm = _rnd(rng, d) + 1
     jd, td = getattr(jnp, dtype), getattr(torch, dtype)
-    _same_pack(TFS.pack_stage(from_jax(blocks), dtype=td), JFS.pack_stage(_j(blocks), dtype=jd))
+    _same_pack(TFS.pack_stage(from_jax(blocks, device="cpu"), dtype=td),
+               JFS.pack_stage(_j(blocks), dtype=jd))
     for r in (2, 4):
-        _same_pack(TFS.pack_stage_rowlane(from_jax(blocks), r, dtype=td),
+        _same_pack(TFS.pack_stage_rowlane(from_jax(blocks, device="cpu"), r, dtype=td),
                    JFS.pack_stage_rowlane(_j(blocks), r, dtype=jd))
-    _same_pack({"conv": TFS.pack_up_conv(from_jax(up), s, dtype=td)},
+    _same_pack({"conv": TFS.pack_up_conv(from_jax(up, device="cpu"), s, dtype=td)},
                {"conv": JFS.pack_up_conv(_j(up), s, dtype=jd)})
-    _same_pack({"conv": TFS.pack_down_conv(from_jax(down), s, dtype=td)},
+    _same_pack({"conv": TFS.pack_down_conv(from_jax(down, device="cpu"), s, dtype=td)},
                {"conv": JFS.pack_down_conv(_j(down), s, dtype=jd)})
-    _same_pack({"conv": TFS.pack_down_conv(from_jax(stem), 1, dtype=td)},
+    _same_pack({"conv": TFS.pack_down_conv(from_jax(stem, device="cpu"), 1, dtype=td)},
                {"conv": JFS.pack_down_conv(_j(stem), 1, dtype=jd)})
     for nw in (norm, None):
-        _same_pack({"head": TFS.pack_head(from_jax(head), from_jax(nw), dtype=td)},
+        _same_pack({"head": TFS.pack_head(from_jax(head, device="cpu"), from_jax(nw, device="cpu"),
+                                          dtype=td)},
                    {"head": JFS.pack_head(_j(head), None if nw is None else jnp.asarray(nw),
                                           dtype=jd)})
 
@@ -116,7 +118,7 @@ def test_packs_equal_jax(dtype):
                                 dict(fold_conv=False, rowlane_batch=4)])
 def test_stages_large_equal_jax(kw):
     cfg, jp = tiny_params()
-    tp, tcfg = from_jax(to_np(jp)), TC.tiny_config(vocab_size=320)
+    tp, tcfg = from_jax(to_np(jp), device="cpu"), TC.tiny_config(vocab_size=320)
     kw = dict({"t_min": 7}, **kw)
     jdec = jtok.pack_decoder_stages_large(jp["acoustic_decoder"], cfg.acoustic_tokenizer, **kw)
     tdec = ttok.pack_decoder_stages_large(tp["acoustic_decoder"], tcfg.acoustic_tokenizer, **kw)
@@ -141,7 +143,7 @@ def test_plain_stage_matches_jax(b, t, d, n, tile):
     blocks = _blocks(d, n, seed=t + d)
     rng = np.random.default_rng(b * t)
     x, ctx = _rnd(rng, b, t, d), _rnd(rng, b, n, 6, d)
-    jpk, tpk = JFS.pack_stage(_j(blocks)), TFS.pack_stage(from_jax(blocks))
+    jpk, tpk = JFS.pack_stage(_j(blocks)), TFS.pack_stage(from_jax(blocks, device="cpu"))
     jy, jc = JFS.fused_stage_chain(jpk, jnp.asarray(x), jnp.asarray(ctx), tile_want=tile)
     ty, tc = TFS.fused_stage_chain(tpk, torch.tensor(x), torch.tensor(ctx), tile_want=tile)
     scale = np.abs(np.asarray(jy)).max()
@@ -174,7 +176,8 @@ def test_folded_up_conv_matches_jax(s, din, d, t):
     blocks = _blocks(d, n, seed=3)
     up = {"w": _rnd(rng, din, 2 * s, d, s=0.2), "b": _rnd(rng, d, s=0.1)}
     jpk = dict(JFS.pack_stage(_j(blocks)), conv=JFS.pack_up_conv(_j(up), s))
-    tpk = dict(TFS.pack_stage(from_jax(blocks)), conv=TFS.pack_up_conv(from_jax(up), s))
+    tpk = dict(TFS.pack_stage(from_jax(blocks, device="cpu")),
+               conv=TFS.pack_up_conv(from_jax(up, device="cpu"), s))
     xs = [_rnd(rng, b, t // s, din) for _ in range(2)]
     _two_chunks(tpk, jpk, xs, _rnd(rng, b, n, 6, d), (b, s, d), "conv_state", rng)
 
@@ -186,7 +189,8 @@ def test_folded_down_conv_matches_jax(s, k, cin, d, t):
     blocks = _blocks(d, n, seed=4)
     dp = {"w": _rnd(rng, k, cin, d, s=0.2), "b": _rnd(rng, d, s=0.1)}
     jpk = dict(JFS.pack_stage(_j(blocks)), conv=JFS.pack_down_conv(_j(dp), s))
-    tpk = dict(TFS.pack_stage(from_jax(blocks)), conv=TFS.pack_down_conv(from_jax(dp), s))
+    tpk = dict(TFS.pack_stage(from_jax(blocks, device="cpu")),
+               conv=TFS.pack_down_conv(from_jax(dp, device="cpu"), s))
     xs = [_rnd(rng, b, t * s, cin) for _ in range(2)]
     _two_chunks(tpk, jpk, xs, _rnd(rng, b, n, 6, d), (b, k - s, cin), "conv_state", rng)
 
@@ -200,8 +204,8 @@ def test_head_fold_matches_jax(has_norm):
     norm = _rnd(rng, d, s=0.1) + 1 if has_norm else None
     jpk = dict(JFS.pack_stage(_j(blocks)),
                head=JFS.pack_head(_j(head), None if norm is None else jnp.asarray(norm)))
-    tpk = dict(TFS.pack_stage(from_jax(blocks)),
-               head=TFS.pack_head(from_jax(head), from_jax(norm)))
+    tpk = dict(TFS.pack_stage(from_jax(blocks, device="cpu")),
+               head=TFS.pack_head(from_jax(head, device="cpu"), from_jax(norm, device="cpu")))
     xs = [_rnd(rng, b, t, d) for _ in range(2)]
     _two_chunks(tpk, jpk, xs, _rnd(rng, b, n, 6, d), (b, 6, d), "head_state", rng)
 
@@ -212,9 +216,9 @@ def test_rowlane_matches_jax_and_plain_stage(b, t, d, n, r):
     port's plain stage on the same rows, over two chunks."""
     rng = np.random.default_rng(r * d)
     blocks = _blocks(d, n, seed=6)
-    plain_t = TFS.pack_stage(from_jax(blocks))
+    plain_t = TFS.pack_stage(from_jax(blocks, device="cpu"))
     jpk = dict(JFS.pack_stage(_j(blocks)), rowlane=JFS.pack_stage_rowlane(_j(blocks), r))
-    tpk = dict(plain_t, rowlane=TFS.pack_stage_rowlane(from_jax(blocks), r))
+    tpk = dict(plain_t, rowlane=TFS.pack_stage_rowlane(from_jax(blocks, device="cpu"), r))
     ctx = _rnd(rng, b, n, 6, d)
     c_j, c_t, c_p = jnp.asarray(ctx), torch.tensor(ctx), torch.tensor(ctx)
     for _ in range(2):
@@ -335,8 +339,8 @@ def test_from_jax_carries_large_packs():
         je = JG.Engine(jp, cfg, JG.GenerationConfig(**GEN), max_steps=16, batch=b,
                        prompt_len=24, inject_latent_noise=True, use_fused_stages=True,
                        fused_stage_t_min=7)
-        carried = from_jax(to_np(je.params))
-        own = TG.Engine(from_jax(to_np(jp)), TC.tiny_config(vocab_size=320),
+        carried = from_jax(to_np(je.params), device="cpu")
+        own = TG.Engine(from_jax(to_np(jp), device="cpu"), TC.tiny_config(vocab_size=320),
                         TG.GenerationConfig(**GEN), max_steps=16, batch=b, prompt_len=24,
                         device="cpu", use_fused_stages=True, fused_stage_t_min=7,
                         fused_stage_rowlane=True)
@@ -438,7 +442,7 @@ def test_stage_layout_reads_each_lane_groups_blocks(r):
     blocks of w1, b1 and w2), which equal the plain pack's vectors, w1 rows,
     bias row and w2."""
     d, n = 8, 3
-    blocks = from_jax(_blocks(d, n, seed=6))
+    blocks = from_jax(_blocks(d, n, seed=6), device="cpu")
     base = TFS.pack_stage(blocks)
     f = base["w2"].shape[1]
     pack = base if r == 1 else TFS.pack_stage_rowlane(blocks, r)
@@ -483,10 +487,10 @@ def test_rowlane_packs_are_block_diagonal(r, dtype):
     d, n = 16, 2
     blocks = _blocks(d, n, seed=9)
     td, jd = getattr(torch, dtype), getattr(jnp, dtype)
-    base = TFS.pack_stage(from_jax(blocks), dtype=td)
+    base = TFS.pack_stage(from_jax(blocks, device="cpu"), dtype=td)
     f = base["w2"].shape[1]
-    packs = {"port": TFS.pack_stage_rowlane(from_jax(blocks), r, dtype=td),
-             "jax": from_jax(to_np(JFS.pack_stage_rowlane(_j(blocks), r, dtype=jd)))}
+    packs = {"port": TFS.pack_stage_rowlane(from_jax(blocks, device="cpu"), r, dtype=td),
+             "jax": from_jax(to_np(JFS.pack_stage_rowlane(_j(blocks), r, dtype=jd)), device="cpu")}
     for who, rl in packs.items():
         assert rl["w1"].dtype == td and rl["avg"].dtype == torch.float32, who
         for g in range(r):

@@ -60,7 +60,7 @@ def _trees():
 def test_spec_trees_equal_jax(which):
     cfg, trees = _trees()
     jp = dict(trees)[which]
-    tp = from_jax(to_np(jp))
+    tp = from_jax(to_np(jp), device="cpu")
     assert TM.qwen2_param_specs(3) == _spec_tree(JM.qwen2_param_specs(3))
     want = JM.adapt_specs_to_quantized(jp, JM.model_param_specs(jp, cfg))
     got = TM.adapt_specs_to_quantized(tp, TM.model_param_specs(tp, cfg))
@@ -75,7 +75,8 @@ def test_adapt_specs_rejects_int4_fused_layout():
     jq = quantize_model(jp, cfg.decoder.tie_word_embeddings, mode="int4")
     with pytest.raises(ValueError) as jerr:
         JM.adapt_specs_to_quantized(jq, JM.model_param_specs(jq, cfg))
-    tq = t_quantize(from_jax(to_np(jp)), cfg.decoder.tie_word_embeddings, mode="int4")
+    tq = t_quantize(from_jax(to_np(jp), device="cpu"), cfg.decoder.tie_word_embeddings,
+                    mode="int4")
     with pytest.raises(jerr.type):
         TM.adapt_specs_to_quantized(tq, TM.model_param_specs(tq, cfg))
     mesh = TM.Mesh(1, 2, rank=0, groups={})
@@ -108,7 +109,7 @@ def test_shard_params_equals_jax_shards(which, data, model):
     jp = dict(trees)[which]
     jmesh = JM.make_mesh(data=data, model=model)
     jshard = JM.shard_params(jp, jmesh, cfg=cfg)
-    tp = from_jax(to_np(jp))
+    tp = from_jax(to_np(jp), device="cpu")
     jleaves = dict(_leaves(jshard))
     split = 0
     for rank in range(data * model):

@@ -58,7 +58,7 @@ def build(mode):
     cfg, jp = tiny_params(0)
     kw = dict(MODES[mode], **COMMON)
     jtts = JTTS(jp, cfg, JTok(), dtype=jnp.float32, **kw)
-    ttts = TTTS(from_jax(to_np(jp)), TC.tiny_config(vocab_size=320), TTok(),
+    ttts = TTTS(from_jax(to_np(jp), device="cpu"), TC.tiny_config(vocab_size=320), TTok(),
                 dtype=torch.float32, device="cpu", **kw)
     return cfg, jtts, ttts
 

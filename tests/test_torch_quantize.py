@@ -52,7 +52,7 @@ def test_quantize_model_bit_equal(mode, gs, tok):
     """LM (fused qkv/gateup under int4), logits head, diffusion head and the
     tokenizer stacks, with the chain-pack skip sets and the embedding."""
     _, jp = tiny_params()
-    tp = from_jax(to_np(jp))
+    tp = from_jax(to_np(jp), device="cpu")
     kw = dict(mode=mode, group_size=gs, quantize_embed=True, tokenizer_mode=tok,
               tokenizer_min_dim=4,
               tokenizer_skip={"acoustic_decoder": {0, 1}, "semantic_encoder": {3}})
@@ -113,7 +113,7 @@ def test_quantized_tokenizer_stacks_match_jax(mode):
     """Both stacks with every FFN and transition conv quantized
     (min_dim and conv_min_params at 0), full and one streaming frame."""
     cfg, jp = tiny_params()
-    tp = from_jax(to_np(jp))
+    tp = from_jax(to_np(jp), device="cpu")
     tcfg = TC.tiny_config(vocab_size=320)
     kw = dict(mode=mode, min_dim=0, conv_min_params=0)
     jd = JQ.quantize_tokenizer_stack(jp["acoustic_decoder"], **kw)
@@ -141,7 +141,7 @@ def test_quantized_tokenizer_stacks_match_jax(mode):
 
 def test_int8_embedding_rows_and_logits_match_jax():
     _, jp = tiny_params()
-    tp = from_jax(to_np(jp))
+    tp = from_jax(to_np(jp), device="cpu")
     cfg = TC.tiny_config(vocab_size=320).decoder
     jlm = JQ.quantize_lm(jp["lm"], quantize_embed=True)
     tlm = TQ.quantize_lm(tp["lm"], quantize_embed=True)
@@ -161,7 +161,7 @@ def test_lm_head_subset_matches_jax(head):
     """The subset columns of a quantized head: int8 kept as int8 + scales,
     int4 dequantized once to the engine dtype (bf16 by default)."""
     _, jp = tiny_params()
-    tp = from_jax(to_np(jp))
+    tp = from_jax(to_np(jp), device="cpu")
     ids = [256, 258, 259, 260]
     if head == "int8-embed":
         jp = dict(jp, lm=JQ.quantize_lm(jp["lm"], quantize_embed=True))

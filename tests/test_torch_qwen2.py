@@ -26,7 +26,7 @@ def lm_params():
         for name in ("q", "k", "v"):
             lp[name]["b"] = jnp.asarray(rng.normal(size=lp[name]["b"].shape).astype(np.float32) * 0.1)
         lp["input_norm_w"] = jnp.asarray(1 + 0.1 * rng.normal(size=lp["input_norm_w"].shape).astype(np.float32))
-    return p, from_jax(to_np(p))
+    return p, from_jax(to_np(p), device="cpu")
 
 
 def test_rms_norm_matches_jax():

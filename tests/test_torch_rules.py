@@ -93,6 +93,47 @@ def test_training_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
         TT.init_scaling_stats(params, cfg, None, None)
     TT.make_train_step(cfg, opt, device="cpu")
 
+def _init_model():
+    from vibevoice_tpu_torch.models import vibevoice as TV
+    TV.init_model(TC.tiny_config(vocab_size=320))
+
+
+def _from_jax():
+    import numpy as np
+    from vibevoice_tpu_torch.weights import from_jax
+    from_jax({"w": np.zeros((2, 2), np.float32)})
+
+
+def _load_native(tmp_path):
+    from vibevoice_tpu_torch.utils import checkpoint
+    path = checkpoint.save_native({"w": torch.zeros(2)}, str(tmp_path / "tree"))
+    checkpoint.load_native(path)
+
+
+@pytest.mark.parametrize("call", ["init_model", "from_jax", "load_native"])
+def test_builders_and_loaders_default_to_cuda_and_raise_without_it(no_cuda, tmp_path, call):
+    """`vibevoice.init_model`, `weights.from_jax` and `checkpoint.load_native`
+    called without `device=` run on CUDA, and raise without a card rather
+    than falling back to the CPU."""
+    fn = {"init_model": _init_model, "from_jax": _from_jax,
+          "load_native": lambda: _load_native(tmp_path)}[call]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fn()
+
+
+def test_module_inits_take_their_callers_device():
+    """The per-module parameter inits have no device of their own: the
+    caller (`init_model`) passes one."""
+    from vibevoice_tpu_torch.models import connectors, diffusion_head, qwen2, tokenizer
+    cfg = TC.tiny_config(vocab_size=320)
+    for fn, args in ((qwen2.init, (cfg.decoder,)), (diffusion_head.init, (cfg.diffusion_head,)),
+                     (tokenizer.init_encoder, (cfg.semantic_tokenizer,)),
+                     (tokenizer.init_decoder, (cfg.acoustic_tokenizer,)),
+                     (connectors.init, (8, 64))):
+        with pytest.raises(TypeError, match="device"):
+            fn(*args)
+
+
 def test_entry_points_pin_fp32_matmuls_to_full_precision():
     torch.backends.cuda.matmul.allow_tf32 = True
     torch.backends.cudnn.allow_tf32 = True

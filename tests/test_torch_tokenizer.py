@@ -92,7 +92,7 @@ def test_conv_transpose_streaming_equals_full(stride, chunk):
 @pytest.fixture(scope="module")
 def models():
     cfg, jp = tiny_params()
-    return cfg, jp, from_jax(to_np(jp)), TC.tiny_config(vocab_size=320)
+    return cfg, jp, from_jax(to_np(jp), device="cpu"), TC.tiny_config(vocab_size=320)
 
 
 def test_encoder_and_decoder_match_jax(models):

@@ -16,6 +16,11 @@ against the unsharded engines: the tiny fp32 model of `test_torch_engine.py`
 * DP=2 on the global batch of 4 ragged rows: the gathered rows and
   `generate`'s result against the JAX DP engine on `make_mesh(data=2)` and
   the unsharded one; no collective in a step.
+* DP=2 with the fused large-T stages at global B=2 and B=4: the gathered
+  rows against the JAX DP engine's, and each rank's stage packs (folded
+  conv, row-lane row group) equal to the JAX DP engine's, which the policies
+  choose from the global batch.  At B=4 the row group (4) does not divide a
+  rank's 2 rows, which then take the plain stage path.
 * The refusals, with the JAX engine's exception types.
 """
 import numpy as np
@@ -29,7 +34,8 @@ from vibevoice_tpu_torch.engine import generate as TG
 from vibevoice_tpu_torch.parallel.mesh import Mesh
 
 from tests._torch_parity import to_np
-from tests._torch_ranks import GEN, Ranks, dp_program, save_tree, tp_program
+from tests._torch_ranks import (GEN, Ranks, dp_program, dp_stages_program, save_tree,
+                                stage_packs_summary, tp_program)
 from tests.test_torch_engine import STEPS, _inputs, _params
 
 FLASH = dict(use_flash_prefill=True, use_flash_decode=True)
@@ -38,6 +44,7 @@ TP_CASES = [("plain", "weights.npz", {}),
             ("int8", "weights_int8.npz", FLASH),
             ("int8kv", "weights.npz", dict(use_flash_decode=True, kv_dtype="int8"))]
 FIELDS = ("tokens", "audio", "emitted", "frames", "finished", "reach_max")
+STAGE_BATCHES = (2, 4)
 
 
 def _jax_run(params, cfg, inputs, mesh=None, **kw):
@@ -83,6 +90,7 @@ def runs(tmp_path_factory):
     save_tree(work / "dp_inputs.npz", list(_dp_inputs()))
     tp = Ranks(tp_program, 2, work, str(work), TP_CASES, STEPS, timeout=300)
     dp = Ranks(dp_program, 2, work, str(work), STEPS, {}, timeout=300)
+    dps = Ranks(dp_stages_program, 2, work, str(work), STEPS, STAGE_BATCHES, timeout=300)
 
     tp_mesh = JM.make_mesh(data=1, model=2)
     trees = {"weights.npz": jp, "weights_int8.npz": jq}
@@ -97,8 +105,15 @@ def runs(tmp_path_factory):
                           mesh=dp_mesh)
     assert je.dp_mesh is dp_mesh
     _, jax_dp_ref = _jax_run(jp, cfg, _dp_inputs())
+    jax_stages = {}
+    for b in STAGE_BATCHES:
+        rows = [a[:b] for a in _dp_inputs()[:5]] + [_dp_inputs()[5][:, :b]]
+        je, got = _jax_run(JM.shard_params(jp, dp_mesh, cfg=cfg), cfg, rows, mesh=dp_mesh,
+                           use_fused_stages=True, fused_stage_t_min=7)
+        jax_stages[b] = dict(got, packs=stage_packs_summary(je.params))
     return dict(cfg=cfg, tp=tp.results(), dp=dp.results(), jax_tp=jax_tp,
-                jax_plain=jax_plain, jax_dp=jax_dp, jax_dp_ref=jax_dp_ref)
+                jax_plain=jax_plain, jax_dp=jax_dp, jax_dp_ref=jax_dp_ref,
+                dp_stages=dps.results(), jax_dp_stages=jax_stages)
 
 
 def _assert_rows_match(got, want, what):
@@ -181,6 +196,23 @@ def test_dp_engine_matches_jax(runs):
         assert out["local_batch"] == 2
         _assert_rows_match(out["gathered"], runs["jax_dp"], f"rank {r} vs the JAX DP engine")
         _assert_rows_match(out["gathered"], runs["jax_dp_ref"], f"rank {r} vs the JAX engine")
+
+
+@pytest.mark.parametrize("b", STAGE_BATCHES)
+def test_dp_fused_stages_match_jax(runs, b):
+    """DP=2 with the fused stages at global B=2 and B=4: each rank's packs
+    fold no conv and carry the row-lane row group of the JAX DP engine's,
+    which reads the global batch (a rank's own rows would fold the convs at
+    B=2 and take row groups of 2 at B=4), and the gathered rows equal the
+    JAX DP engine's (tokens equal, audio within 1e-4)."""
+    want = runs["jax_dp_stages"][b]
+    assert not any(fold for packs in want["packs"].values() for fold, _ in packs.values())
+    assert {r for packs in want["packs"].values() for _, r in packs.values()} == {b}
+    for r, out in enumerate(runs["dp_stages"]):
+        got = out[b]
+        assert got["local_batch"] == b // 2
+        assert got["packs"] == want["packs"], f"rank {r}"
+        _assert_rows_match(got["gathered"], want, f"rank {r}, B={b} vs the JAX DP engine")
 
 
 def test_dp_step_makes_no_collective(runs):

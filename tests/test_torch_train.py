@@ -124,7 +124,7 @@ def _torch_forward(params, mul, sli, noise, t):
 
 def _port_params():
     _, jp = tiny_params()
-    return from_jax(to_np(jp))
+    return from_jax(to_np(jp), device="cpu")
 
 
 def test_add_noise_and_get_velocity_match_jax():
@@ -282,7 +282,8 @@ def test_two_optimizer_steps_match_optax():
     for p, w in zip(topt.leaves, jleaves):
         _close(p.detach().numpy(), np.asarray(w))
     decay = np.float32(1 - 1e-2 * 0.01)
-    enc_before = TT.trainable({"e": from_jax(to_np(tiny_params()[1]["acoustic_encoder"]))})
+    enc_before = TT.trainable(
+        {"e": from_jax(to_np(tiny_params()[1]["acoustic_encoder"]), device="cpu")})
     enc_after = TT.trainable({"e": tp["acoustic_encoder"]})
     for b, a in zip(enc_before, enc_after):
         if b.dim() > 1:

@@ -104,4 +104,57 @@ def build_training_batch(tokenizer, examples, hop: int = 3200,
     )
 
 
-__all__ = ["build_training_example", "build_training_batch"]
+def clip_owners(batch: TrainBatch) -> np.ndarray:
+    """The row of each clip [N]: the clips come in row order, and a row's
+    speech positions (`acoustic_input_mask`, row-major) are its clips' valid
+    frames (`speech_masks`) in clip order.  ValueError when the counts do not
+    line up so, or when a row's loss positions (`acoustic_loss_mask`) are not
+    as many as its speech positions."""
+    want = np.asarray(batch.acoustic_input_mask).sum(axis=1)
+    if not np.array_equal(np.asarray(batch.acoustic_loss_mask).sum(axis=1), want):
+        raise ValueError("each row needs as many loss positions as speech positions")
+    frames = np.asarray(batch.speech_masks).sum(axis=1)
+    owners = np.empty(len(frames), np.int64)
+    row, have = 0, 0
+    for i, f in enumerate(frames):
+        while row < len(want) and have == want[row]:
+            row, have = row + 1, 0
+        if row == len(want) or have + f > want[row]:
+            raise ValueError(f"clip {i}'s {f} valid frames do not fit the speech positions "
+                             "of the rows")
+        owners[i], have = row, have + f
+    if frames.sum() != want.sum():
+        raise ValueError("the clips' valid frames do not fill the rows' speech positions")
+    return owners
+
+
+def shard_batch(batch: TrainBatch, mesh) -> TrainBatch:
+    """This data rank's share of a global batch: its rows r*B/dp .. (r+1)*B/dp
+    and the clips those rows own (`clip_owners`), with T, F and the audio
+    length of the global batch kept, so each rank's latents and packed frames
+    are the global batch's (re-padding a rank's own examples would change F,
+    the audio length and the σ-VAE encoder's padding).  Ranks may hold
+    different numbers of clips.  The whole batch without a data axis."""
+    dp = 1 if mesh is None else mesh.shape["data"]
+    if dp == 1:
+        return batch
+    b = np.asarray(batch.input_ids).shape[0]
+    if b % dp:
+        raise ValueError(f"{b} rows do not split over {dp} data ranks")
+    n = b // dp
+    lo = mesh.axis_index("data") * n
+    owners = clip_owners(batch)
+    clips = (owners >= lo) & (owners < lo + n)
+    rows = slice(lo, lo + n)
+    return TrainBatch(
+        input_ids=np.asarray(batch.input_ids)[rows],
+        attention_mask=np.asarray(batch.attention_mask)[rows],
+        labels=np.asarray(batch.labels)[rows],
+        speech_tensors=np.asarray(batch.speech_tensors)[clips],
+        speech_masks=np.asarray(batch.speech_masks)[clips],
+        speech_semantic_tensors=np.asarray(batch.speech_semantic_tensors)[clips],
+        acoustic_input_mask=np.asarray(batch.acoustic_input_mask)[rows],
+        acoustic_loss_mask=np.asarray(batch.acoustic_loss_mask)[rows])
+
+
+__all__ = ["build_training_example", "build_training_batch", "clip_owners", "shard_batch"]

@@ -69,7 +69,8 @@ finds its mesh in the params' shardings, which torch tensors do not carry):
     from the caller's and the rank, the counterpart of `fold_in(key,
     axis_index)`); a step makes no collective, so each rank captures its own
     graph.  `gather` returns the tokens, audio and flags in global row order;
-    the batch policies of the fused stages see the rank's B/dp rows.
+    the batch policies of the fused stages read the global batch, as the JAX
+    engine's do, and each rank runs those packs on its own rows.
 As in the JAX engine, a data x model mesh raises NotImplementedError, and a
 batch that does not split over `data` or KV heads that do not split over
 `model` raise ValueError.
@@ -84,27 +85,13 @@ import numpy as np
 import torch
 
 from ..configs import VibeVoiceConfig
+from ..device import resolve_device
+from ..parallel.mesh import check_shard_shapes
 from ..models import connectors, qwen2, tokenizer, vibevoice
 from ..schedule import dpm_solver as ds
 from ..weights import to_device
 
 Params = Dict[str, Any]
-
-
-def resolve_device(device) -> torch.device:
-    """The device an entry point runs on: CUDA unless the caller asks for the
-    CPU.  Raises when CUDA is asked for and absent, rather than running
-    quietly on the CPU.
-
-    fp32 matmuls and convolutions are pinned to full fp32 (no TF32): the
-    port's parity tolerances against the JAX package assume it."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available; pass device='cpu' to run "
-                           "on the CPU")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    return device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -206,53 +193,6 @@ class Gathered(NamedTuple):
     frames: torch.Tensor     # [B] int32
     finished: torch.Tensor   # [B] bool
     reach_max: torch.Tensor  # [B] bool
-
-
-def _out_width(w) -> int:
-    if isinstance(w, dict):
-        return (w["qint8"] if "qint8" in w else w["qint4"]).shape[-1]
-    return w.shape[-1]
-
-
-def _in_width(w) -> int:
-    if isinstance(w, dict):
-        return w["qint8"].shape[0] if "qint8" in w else 2 * w["qint4"].shape[0]
-    return w.shape[0]
-
-
-def _check_shard_shapes(params: Params, cfg: VibeVoiceConfig, mp: int):
-    """ValueError unless every split weight has the shape of a 1/mp shard
-    (mp = 1: of the whole weight): the q/k/v and gate/up outputs and the o and
-    down inputs of every LM layer, and the diffusion head's FFN."""
-    dec = cfg.decoder
-    hd = dec.head_dim
-    ffn_head = int(cfg.diffusion_head.hidden_size * cfg.diffusion_head.head_ffn_ratio)
-
-    def need(got, want, what):
-        if got != want:
-            raise ValueError(f"{what} has width {got}, but a shard over {mp} model rank(s) "
-                             f"has {want}: pass this rank's `parallel.shard_params` shard")
-
-    for i, lp in enumerate(params["lm"]["layers"]):
-        if "qkv" in lp or "gateup" in lp:
-            if mp > 1:
-                raise ValueError("int4's fused qkv/gateup layout is not TP-adaptable; "
-                                 "quantize with mode='int8' for tensor parallelism")
-            continue
-        for name, heads in (("q", dec.num_attention_heads), ("k", dec.num_key_value_heads),
-                            ("v", dec.num_key_value_heads)):
-            need(_out_width(lp[name]["w"]), heads * hd // mp, f"layer {i} {name}")
-        need(_in_width(lp["o"]["w"]), dec.num_attention_heads * hd // mp, f"layer {i} o")
-        for name in ("gate", "up"):
-            need(_out_width(lp[name]), dec.intermediate_size // mp, f"layer {i} {name}")
-        need(_in_width(lp["down"]), dec.intermediate_size // mp, f"layer {i} down")
-    for i, lp in enumerate(params["diffusion_head"]["layers"]):
-        if "gateup" in lp or lp.get("gate") is None:  # int4 layouts, the head kernel's pack
-            if mp > 1:
-                raise ValueError("an int4 diffusion head is not TP-adaptable")
-            continue
-        need(_out_width(lp["gate"]), ffn_head // mp, f"head layer {i} gate")
-        need(_in_width(lp["down"]), ffn_head // mp, f"head layer {i} down")
 
 
 def _copy_into(dst: GenState, src: GenState):
@@ -378,7 +318,7 @@ class Engine:
         self.allowed_ids = torch.tensor(allowed, dtype=torch.int32, device=self.device)
         params = to_device(dict(params), self.device)
         if mesh is not None:
-            _check_shard_shapes(params, cfg, self.mp)
+            check_shard_shapes(params, cfg, self.mp)
         # chain packs already in the tree (the pipeline's int4 packs, or a JAX
         # engine's through `weights.from_jax`) are kept; else plain packs of
         # the weights as they are
@@ -404,13 +344,17 @@ class Engine:
             # `fused_stage_tile` / `fused_stage_tile_semantic` are the JAX
             # kernel's T-tile targets: accepted and ignored, since the stage
             # kernel does not tile T by them (as `tile_want`)
+            # Under data parallelism the rules read the global batch, as the
+            # JAX DP engine's do, and each rank runs those packs on its B/dp
+            # rows
+            gb = self.global_batch
             if fused_stage_fold_conv is None:
-                fused_stage_fold_conv = batch == 1
+                fused_stage_fold_conv = gb == 1
             if fused_stage_fold_head is None:
                 fused_stage_fold_head = False
             if fused_stage_rowlane is None:
-                fused_stage_rowlane = 2 <= batch <= 4 or batch >= 32
-            rl_batch = batch if (fused_stage_rowlane and batch > 1) else 0
+                fused_stage_rowlane = 2 <= gb <= 4 or gb >= 32
+            rl_batch = gb if (fused_stage_rowlane and gb > 1) else 0
             if "_vocoder_packs_large" not in params:
                 params["_vocoder_packs_large"] = tokenizer.pack_decoder_stages_large(
                     params["acoustic_decoder"], cfg.acoustic_tokenizer,

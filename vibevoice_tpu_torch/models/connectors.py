@@ -14,7 +14,7 @@ from .norms import rms_norm
 Params = Dict[str, Any]
 
 
-def init(input_dim: int, output_dim: int, dtype=torch.float32, device="cpu",
+def init(input_dim: int, output_dim: int, dtype=torch.float32, *, device,
          generator: Optional[torch.Generator] = None, std: float = 0.02) -> Params:
     def nrm(shape):
         w = torch.randn(shape, generator=generator, dtype=torch.float32, device=device)

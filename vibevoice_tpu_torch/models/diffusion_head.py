@@ -19,13 +19,14 @@ import torch
 import torch.nn.functional as F
 
 from ..configs import DiffusionHeadConfig
+from ..parallel.autograd import copy_to, reduce_from
 from ..utils.quantize import mm
 from .norms import rms_norm
 
 Params = Dict[str, Any]
 
 
-def init(cfg: DiffusionHeadConfig, dtype=torch.float32, device="cpu",
+def init(cfg: DiffusionHeadConfig, dtype=torch.float32, *, device,
          generator: Optional[torch.Generator] = None) -> Params:
     """Init matching the reference: t-embedder and projections ~ N(0, 0.02);
     adaLN modulation and final linear zero."""
@@ -111,9 +112,13 @@ def apply_with_modulations(params: Params, cfg: DiffusionHeadConfig,
 
 
 def apply(params: Params, cfg: DiffusionHeadConfig, noisy: torch.Tensor,
-          timesteps: torch.Tensor, condition: torch.Tensor) -> torch.Tensor:
+          timesteps: torch.Tensor, condition: torch.Tensor, mesh=None) -> torch.Tensor:
     """noisy [N, latent], timesteps [N], condition [N, hidden] -> [N, latent]
-    (ref forward :254-280): each row has its own timestep."""
+    (ref forward :254-280): each row has its own timestep.  Under TP (`mesh`
+    with a `model` axis larger than 1) the layers' FFNs are this rank's
+    shard, as in `apply_with_modulations`; their inputs and summed outputs go
+    through `parallel.autograd`, so training differentiates through the
+    split."""
     eps = cfg.rms_norm_eps
     x = noisy @ params["noisy_proj"]
     t_freq = timestep_embedding(timesteps, cfg.freq_embed_size).to(x.dtype)
@@ -121,8 +126,8 @@ def apply(params: Params, cfg: DiffusionHeadConfig, noisy: torch.Tensor,
     silu_c = F.silu(condition @ params["cond_proj"] + t_emb)
     for lp in params["layers"]:
         shift, scale, gate = torch.chunk(mm(silu_c, lp["ada_w"]), 3, dim=-1)
-        h = rms_norm(x, lp["norm_w"], eps) * (1 + scale) + shift
-        x = x + gate * mm(_swiglu(h, lp), lp["down"])
+        h = copy_to(rms_norm(x, lp["norm_w"], eps) * (1 + scale) + shift, mesh)
+        x = x + gate * reduce_from(mm(_swiglu(h, lp), lp["down"]), mesh)
     shift, scale = torch.chunk(mm(silu_c, params["final_ada_w"]), 2, dim=-1)
     x = rms_norm(x, None, eps) * (1 + scale) + shift
     return x @ params["final_linear"]

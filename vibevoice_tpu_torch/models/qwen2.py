@@ -19,7 +19,10 @@ the layer holds this rank's shard of the weights (q/k/v/gate/up split by
 column, o/down by row), so it computes H/mp query heads and KVH/mp KV heads,
 its cache holds their (KVH/mp)*D lanes, and both kernels run on those heads
 alone; the o and down products are summed over the model group (they have no
-bias, so nothing is added twice).  An int8 cache takes one amax per slot over
+bias, so nothing is added twice).  With gradients on (training) those sums and
+the replicated inputs of the column-split products go through
+`parallel.autograd` (`reduce_from`, `copy_to`), so the backward sums the
+replicated leaves' gradients over the group too.  An int8 cache takes one amax per slot over
 ALL KVH*D lanes, as the unsharded cache does: the k and v amaxes are reduced
 (max) over the group in one collective before quantizing.
 """
@@ -33,6 +36,7 @@ import torch.nn.functional as F
 from ..configs import Qwen2Config
 from ..ops.decode_attention import decode_attention
 from ..ops.flash_attention import flash_attention_prefill
+from ..parallel.autograd import copy_to, reduce_from
 from ..utils.quantize import mm
 from .norms import rms_norm
 
@@ -44,7 +48,7 @@ def _normal(generator, shape, std, dtype, device) -> torch.Tensor:
             * std).to(dtype)
 
 
-def init(cfg: Qwen2Config, dtype=torch.float32, device="cpu",
+def init(cfg: Qwen2Config, dtype=torch.float32, *, device,
          generator: Optional[torch.Generator] = None) -> Params:
     """Random init (N(0, 0.02)) with the JAX package's layout; real weights
     come from a checkpoint."""
@@ -216,9 +220,8 @@ def _layer(lp: Params, cfg: Qwen2Config, x: torch.Tensor, cos: torch.Tensor,
     layer computes this rank's heads and sums o and down over the group."""
     b, t, _ = x.shape
     (nh, nkv), hd = local_heads(cfg, mesh), cfg.head_dim
-    tp = tp_degree(mesh) > 1
 
-    hn = rms_norm(x, lp["input_norm_w"], cfg.rms_norm_eps)
+    hn = copy_to(rms_norm(x, lp["input_norm_w"], cfg.rms_norm_eps), mesh)
     if "qkv" in lp:  # int4 layout: q/k/v in one packed matrix, one kernel call
         qkv = _linear(hn, lp["qkv"])
         q, k, v = qkv[..., : nh * hd], qkv[..., nh * hd: (nh + nkv) * hd], \
@@ -272,21 +275,16 @@ def _layer(lp: Params, cfg: Qwen2Config, x: torch.Tensor, cos: torch.Tensor,
                           v_att.reshape(b, s_max, nkv, hd), bias)
     else:
         att = _attend(q, k, v.reshape(b, t, nkv, hd), bias)
-    o = mm(att.reshape(b, t, nh * hd), lp["o"]["w"])
-    if tp:
-        mesh.all_reduce(o, "model")
-    x = x + o
+    x = x + reduce_from(mm(att.reshape(b, t, nh * hd), lp["o"]["w"]), mesh)
 
-    hn = rms_norm(x, lp["post_norm_w"], cfg.rms_norm_eps)
+    hn = copy_to(rms_norm(x, lp["post_norm_w"], cfg.rms_norm_eps), mesh)
     if "gateup" in lp:  # int4 layout: gate|up in one packed matrix
         gu = mm(hn, lp["gateup"])
         ffn = gu.shape[-1] // 2
         mlp = mm(F.silu(gu[..., :ffn]) * gu[..., ffn:], lp["down"])
     else:
         mlp = mm(F.silu(mm(hn, lp["gate"])) * mm(hn, lp["up"]), lp["down"])
-    if tp:
-        mesh.all_reduce(mlp, "model")
-    return x + mlp
+    return x + reduce_from(mlp, mesh)
 
 
 def forward(

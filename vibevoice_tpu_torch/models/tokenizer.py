@@ -89,7 +89,7 @@ def decoder_dims(n_filters: int, n_stages: int) -> List[int]:
     return [n_filters * (2 ** (n_stages - 1 - i)) for i in range(n_stages)]
 
 
-def init_encoder(cfg, dtype=torch.float32, device="cpu",
+def init_encoder(cfg, dtype=torch.float32, *, device,
                  generator: Optional[torch.Generator] = None) -> Params:
     """TokenizerEncoder params (ref :687-774)."""
     it = _Init(dtype, device, generator)
@@ -107,7 +107,7 @@ def init_encoder(cfg, dtype=torch.float32, device="cpu",
     return {"down": down, "stages": stages, "final_norm_w": final_norm, "head": head}
 
 
-def init_decoder(cfg: AcousticTokenizerConfig, dtype=torch.float32, device="cpu",
+def init_decoder(cfg: AcousticTokenizerConfig, dtype=torch.float32, *, device,
                  generator: Optional[torch.Generator] = None) -> Params:
     """TokenizerDecoder params (ref :816-912)."""
     it = _Init(dtype, device, generator)

@@ -15,19 +15,24 @@ import torch
 import torch.nn.functional as F
 
 from ..configs import VibeVoiceConfig
+from ..device import resolve_device
 from ..schedule import dpm_solver as ds
 from ..schedule import timestep_sampler
 from ..ops import fused_head
 from ..ops.int4_matmul import dequant_int4
+from ..parallel.autograd import copy_to, gather_last
 from . import connectors, diffusion_head, qwen2, tokenizer
 
 Params = Dict[str, Any]
 
 
-def init_model(cfg: VibeVoiceConfig, dtype=torch.float32, device="cpu",
+def init_model(cfg: VibeVoiceConfig, dtype=torch.float32, device="cuda",
                generator: Optional[torch.Generator] = None) -> Params:
-    """Random parameters in the JAX package's tree and layouts.  The speech
-    scaling factors are NaN until set (as in the reference, :131-132)."""
+    """Random parameters in the JAX package's tree and layouts, on `device`
+    (CUDA unless the caller asks for the CPU; `generator` lives there).  The
+    speech scaling factors are NaN until set (as in the reference,
+    :131-132)."""
+    device = resolve_device(device)
     h = cfg.decoder.hidden_size
     kw = dict(dtype=dtype, device=device, generator=generator)
     params = {
@@ -165,16 +170,21 @@ def sample_speech_latents(
     return x
 
 
-def compute_scaling_stats(latents: torch.Tensor,
-                          mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def compute_scaling_stats(latents: torch.Tensor, mask: torch.Tensor,
+                          mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """scaling = 1/std(masked latents), bias = -mean (ref :307-317), as 0-d
-    tensors.  One process's statistics: averaging them over a process group
-    (the reference's all_reduce) comes with the parallel paths."""
+    tensors.  With a `mesh` whose `data` axis is larger than 1, each rank's
+    statistics are averaged over its data group (the JAX package's
+    `lax.pmean` over `axis_name`, the reference's all_reduce): the mean of
+    the ranks' statistics, not the statistics of their pooled frames."""
     m = mask[..., None].to(latents.dtype)
     n = torch.clamp(m.sum() * latents.shape[-1], min=1.0)
     mean = (latents * m).sum() / n
     var = (((latents - mean) * m) ** 2).sum() / torch.clamp(n - 1.0, min=1.0)
-    return 1.0 / torch.sqrt(var), -mean
+    stats = torch.stack([1.0 / torch.sqrt(var), -mean])
+    if mesh is not None and mesh.group("data") is not None:
+        stats = mesh.all_reduce(stats, "data") / mesh.shape["data"]
+    return stats[0], stats[1]
 
 
 def encode_voice_prompts(params: Params, cfg: VibeVoiceConfig, speech_tensors: torch.Tensor,
@@ -250,12 +260,22 @@ def training_forward(
     speeches_loss_input: Optional[torch.Tensor] = None,  # [N, F]: frames w/ diffusion loss
     injected_noise: Optional[torch.Tensor] = None,       # [N*mul, latent] parity tests
     injected_timesteps: Optional[torch.Tensor] = None,   # [N*mul]
+    mesh=None,                          # parallel.Mesh: the (data, model) split
 ) -> TrainingOutput:
     """Training-shaped forward.  The scaling factors must already be set
     (`compute_scaling_stats` on the first batch, `train.init_scaling_stats`).
     `generator` (on the inputs' device) draws the VAE sample, the noise and
     the timesteps.  The LM attends densely with the causal bias: the port's
-    kernels have no backward, and none of them runs here."""
+    kernels have no backward, and none of them runs here.
+
+    With a `mesh`, the params are this rank's `parallel.shard_params` shard
+    and the inputs its data rank's share of a global batch
+    (`train.shard_batch`).  The LM and the head's FFNs run split over
+    `model`; an untied `lm_head` (split by column) gives whole logits through
+    a gather.  Over `data` the losses are this rank's share of the global
+    batch's: `ce_loss` its CE sum over the global count of valid labels,
+    `diffusion_loss` its sum, so that their sums over the data group are the
+    unsharded losses."""
     dec = cfg.decoder
     speech_masks = speech_masks.bool()
 
@@ -279,8 +299,11 @@ def training_forward(
 
     pos = qwen2.positions_from_mask(attention_mask)
     bias = qwen2.causal_bias(attention_mask, input_ids.shape[1])
-    hidden, _ = qwen2.forward(params["lm"], dec, embeds, pos, bias)
-    logits = lm_logits(params, cfg, hidden)
+    hidden, _ = qwen2.forward(params["lm"], dec, embeds, pos, bias, mesh=mesh)
+    if params["lm_head"] is not None and qwen2.tp_degree(mesh) > 1:
+        logits = gather_last(copy_to(hidden, mesh) @ params["lm_head"], mesh)
+    else:
+        logits = lm_logits(params, cfg, hidden)
 
     # CE loss (left to the outer script in the reference :404-406).  A gather
     # of the label's log-probability: the JAX package's one-hot sum without
@@ -290,7 +313,10 @@ def training_forward(
         logp = F.log_softmax(logits.float(), dim=-1)
         target = torch.where(valid, labels, 0).long()
         ce = -logp.gather(-1, target[..., None])[..., 0]
-        ce_loss = (ce * valid).sum() / torch.clamp(valid.sum(), min=1)
+        count = valid.sum()
+        if mesh is not None and mesh.group("data") is not None:
+            count = mesh.all_reduce(count.clone(), "data")  # an integer: no gradient
+        ce_loss = (ce * valid).sum() / torch.clamp(count, min=1)
     else:
         ce_loss = torch.zeros((), dtype=torch.float32, device=logits.device)
 
@@ -320,7 +346,7 @@ def training_forward(
 
     noisy = ds.add_noise(solver_tables, speech_rep, noise, timesteps)
     pred = diffusion_head.apply(params["diffusion_head"], cfg.diffusion_head,
-                                noisy, timesteps.to(speech_rep.dtype), cond_rep)
+                                noisy, timesteps.to(speech_rep.dtype), cond_rep, mesh=mesh)
     if cfg.diffusion_head.prediction_type == "epsilon":
         target = noise
     else:

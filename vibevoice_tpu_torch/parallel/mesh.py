@@ -19,7 +19,7 @@ are the JAX package's, leaf for leaf.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -233,6 +233,91 @@ def shard_params(params, mesh: Mesh, specs=None, cfg: Optional[VibeVoiceConfig] 
     return _shard(params, specs, mesh, "params")
 
 
+def _out_width(w) -> int:
+    if isinstance(w, dict):
+        return (w["qint8"] if "qint8" in w else w["qint4"]).shape[-1]
+    return w.shape[-1]
+
+
+def _in_width(w) -> int:
+    if isinstance(w, dict):
+        return w["qint8"].shape[0] if "qint8" in w else 2 * w["qint4"].shape[0]
+    return w.shape[0]
+
+
+def check_shard_shapes(params, cfg: VibeVoiceConfig, mp: int, train: bool = False):
+    """ValueError unless every split weight has the shape of a 1/mp shard
+    (mp = 1: of the whole weight): the q/k/v and gate/up outputs and the o and
+    down inputs of every LM layer, and the diffusion head's FFN.  Heads split
+    at head boundaries: `mp` must divide the KV heads.  With `train`, an
+    untied `lm_head` must be a 1/mp column shard too (its logits are gathered
+    whole for the cross-entropy), and int4 layouts are refused at any mp
+    (training is fp32 or bf16)."""
+    dec = cfg.decoder
+    hd = dec.head_dim
+    ffn_head = int(cfg.diffusion_head.hidden_size * cfg.diffusion_head.head_ffn_ratio)
+    if dec.num_key_value_heads % mp:
+        raise ValueError(f"TP degree {mp} must divide num_key_value_heads "
+                         f"{dec.num_key_value_heads}; use a smaller model axis")
+
+    def need(got, want, what):
+        if got != want:
+            raise ValueError(f"{what} has width {got}, but a shard over {mp} model rank(s) "
+                             f"has {want}: pass this rank's `parallel.shard_params` shard")
+
+    for i, lp in enumerate(params["lm"]["layers"]):
+        if "qkv" in lp or "gateup" in lp:
+            if mp > 1 or train:
+                raise ValueError("int4's fused qkv/gateup layout is not TP-adaptable; "
+                                 "quantize with mode='int8' for tensor parallelism")
+            continue
+        for name, heads in (("q", dec.num_attention_heads), ("k", dec.num_key_value_heads),
+                            ("v", dec.num_key_value_heads)):
+            need(_out_width(lp[name]["w"]), heads * hd // mp, f"layer {i} {name}")
+        need(_in_width(lp["o"]["w"]), dec.num_attention_heads * hd // mp, f"layer {i} o")
+        for name in ("gate", "up"):
+            need(_out_width(lp[name]), dec.intermediate_size // mp, f"layer {i} {name}")
+        need(_in_width(lp["down"]), dec.intermediate_size // mp, f"layer {i} down")
+    for i, lp in enumerate(params["diffusion_head"]["layers"]):
+        if "gateup" in lp or lp.get("gate") is None:  # int4 layouts, the head kernel's pack
+            if mp > 1 or train:
+                raise ValueError("an int4 diffusion head is not TP-adaptable")
+            continue
+        need(_out_width(lp["gate"]), ffn_head // mp, f"head layer {i} gate")
+        need(_in_width(lp["down"]), ffn_head // mp, f"head layer {i} down")
+    if train and params.get("lm_head") is not None:
+        if dec.vocab_size % mp:
+            raise ValueError(f"lm_head's {dec.vocab_size} columns do not split over {mp} "
+                             "model ranks")
+        need(_out_width(params["lm_head"]), dec.vocab_size // mp, "lm_head")
+
+
+def split_dims(params, specs, axis: str = "model") -> List[Optional[int]]:
+    """For each floating tensor leaf of `params`, in the JAX tree's flattening
+    order (dict keys sorted, None skipped: the order of `train.trainable`),
+    the dimension its spec splits over `axis`, or None for a leaf that is
+    whole on every rank of the axis."""
+    out: List[Optional[int]] = []
+
+    def walk(x, spec):
+        if x is None:
+            return
+        if isinstance(x, dict):
+            for k in sorted(x):
+                walk(x[k], spec.get(k) if isinstance(spec, dict) else ())
+            return
+        if isinstance(x, list):
+            for i, v in enumerate(x):
+                walk(v, spec[i] if isinstance(spec, list) else ())
+            return
+        if torch.is_tensor(x) and x.is_floating_point():
+            names = spec if isinstance(spec, tuple) else ()
+            out.append(names.index(axis) if axis in names else None)
+
+    walk(params, specs)
+    return out
+
+
 def batch_specs() -> Dict[str, tuple]:
     """Input specs: the utterance batch over the data axis."""
     return {
@@ -246,4 +331,5 @@ def batch_specs() -> Dict[str, tuple]:
 
 
 __all__ = ["Mesh", "make_mesh", "model_param_specs", "qwen2_param_specs",
-           "adapt_specs_to_quantized", "shard_params", "batch_specs"]
+           "adapt_specs_to_quantized", "shard_params", "check_shard_shapes", "split_dims",
+           "batch_specs"]

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ..configs import VibeVoiceConfig, config_from_json
+from ..device import resolve_device
 
 # safetensors dtype -> (numpy dtype of the stored bytes, torch dtype); bf16 is
 # stored as int16 bits (numpy has no bf16) and viewed as torch.bfloat16
@@ -242,7 +243,6 @@ def load_hf_checkpoint(model_path: str, cfg: Optional[VibeVoiceConfig] = None,
     `device`, config).  Reads the shards of `model.safetensors.index.json`,
     or `model.safetensors`; the config from `config.json` unless given.
     `dtype` recasts the floating leaves."""
-    from ..engine.generate import resolve_device
     device = resolve_device(device)
     if cfg is None:
         cfg = config_from_json(os.path.join(model_path, "config.json"))
@@ -324,10 +324,12 @@ def _fill_jax_order(tree, arrays, device):
     return _from_numpy(a, a.dtype.kind == "V" and a.dtype.itemsize == 2, device)
 
 
-def load_native(path: str, like=None, device="cpu"):
-    """Load a tree saved by `save_native` onto `device`.  The JAX package's
-    npz fallback (leaves `arr_0..` in its flattening order) needs `like`, a
-    tree of the same structure, whose leaves it replaces."""
+def load_native(path: str, like=None, device="cuda"):
+    """Load a tree saved by `save_native` onto `device` (CUDA unless the
+    caller asks for the CPU).  The JAX package's npz fallback (leaves
+    `arr_0..` in its flattening order) needs `like`, a tree of the same
+    structure, whose leaves it replaces."""
+    device = resolve_device(device)
     with np.load(_npz_path(path)) as data:
         if "__tree__" in data.files:
             def build(node):

@@ -20,6 +20,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from .device import resolve_device
 from .ops.fused_stage import ConvPack, HeadPack
 
 _CONV_ATTRS = ("kind", "w", "b", "s", "k", "cin")
@@ -47,24 +48,30 @@ def _keeps_dtypes(key, node) -> bool:
     return isinstance(node, dict) and ("qint8" in node or "qint4" in node)
 
 
-def from_jax(params_np: Any, device="cpu", dtype: Optional[torch.dtype] = None) -> Any:
+def from_jax(params_np: Any, device="cuda", dtype: Optional[torch.dtype] = None) -> Any:
     """numpy pytree (dicts, lists, tuples, None leaves) -> the same tree of
-    torch tensors on `device`.  `dtype` recasts the floating arrays, except
-    0-dim scalars (the speech scaling factors stay fp32), quantized weights
-    and kernel packs."""
+    torch tensors on `device` (CUDA unless the caller asks for the CPU).
+    `dtype` recasts the floating arrays, except 0-dim scalars (the speech
+    scaling factors stay fp32), quantized weights and kernel packs."""
+    return _from_jax(params_np, resolve_device(device), dtype)
+
+
+def _from_jax(params_np: Any, device: torch.device, dtype: Optional[torch.dtype]) -> Any:
     if params_np is None:
         return None
     if isinstance(params_np, dict):
-        return {k: from_jax(v, device, None if _keeps_dtypes(k, v) else dtype)
+        return {k: _from_jax(v, device, None if _keeps_dtypes(k, v) else dtype)
                 for k, v in params_np.items()}
     if isinstance(params_np, (list, tuple)):
-        return type(params_np)(from_jax(v, device, dtype) for v in params_np)
+        return type(params_np)(_from_jax(v, device, dtype) for v in params_np)
     if all(hasattr(params_np, a) for a in _CONV_ATTRS):
         p = params_np
-        return ConvPack(p.kind, from_jax(p.w, device), from_jax(p.b, device), p.s, p.k, p.cin)
+        return ConvPack(p.kind, _from_jax(p.w, device, None), _from_jax(p.b, device, None),
+                        p.s, p.k, p.cin)
     if all(hasattr(params_np, a) for a in _HEAD_ATTRS):
         p = params_np
-        return HeadPack(from_jax(p.w, device), from_jax(p.b, device), p.k, p.has_norm)
+        return HeadPack(_from_jax(p.w, device, None), _from_jax(p.b, device, None), p.k,
+                        p.has_norm)
     return _leaf_to_torch(params_np, device, dtype)
 
 
