@@ -140,14 +140,33 @@ Phases, in order; any failure stops the run with a non-zero exit:
      leaf's mean difference within lr/100, the frozen tokenizers' decay
      exact, the DP ranks' scaling statistics the mean of their shares', no
      kernel launches; then the tiny model's TP=2 steps (untied `lm_head`,
-     its logits gathered) on the card as on the CPU.
+     its logits gathered) on the card as on the CPU;
+ 12. the caption and quality-evaluation path through the port's own entry
+     points, on a full-width 1.5B bf16 checkpoint (random, from the seed,
+     with a live audio path; phase 8's writer) that each run loads with
+     `--model_path`, every engine forced to diffuse (`PathRecorder`; the
+     program has no such flag): 12a `scripts.quality_eval.main` with
+     `--canonical` (the fifteen candidates against the bf16 baseline), 5
+     solver steps and 32 new tokens on the builtin two-speaker script, every
+     candidate's mel_l2 / lsd_db / snr_db finite, `decide`'s three ladders,
+     and each request's launches at `expected_launches`' counts (B2 in the
+     int4/int4f candidates, B3 in int4k, B4 in fs, B8 in dh4), with its RTF;
+     12b `demo.inference_simple_captions.main` on a four-speaker script of
+     the demo voices (a prompt past 1024 tokens: 28 flash-prefill launches)
+     with steps to a 4096-slot cache (28 decode-attention launches a step,
+     the graph's nodes), a mono 24 kHz wav, not silent, its SRT, VTT and JSON
+     tiling [0, its duration], and a `FrameClockCaptionTracker` fed by the
+     same `generate` call whose clock is the steps' audio; 12c
+     `demo.batch_inference_simple_captions.main` on three scripts at
+     `--batch_size 2`, its stdout ending in one `Saved audio to:` line per
+     file.
 
 Weights are random, made from a seed.  Prints one JSON line per measurement,
 then the `kernels` line (each kernel also with its launches while phase 8
 served: through its wrapper, and on the device with each graph replay's
 nodes; and its launches on each rank of phase 10, counted by its wrapper
 and, for a DP rank's captured step, from its graph's nodes times its
-replays), the card's name and
+replays; and its launches on the device over phase 12), the card's name and
 power limit, and as the last line
 `{"ok": true, "device": {...}}`.  Exits non-zero without a GPU.
 """
@@ -941,9 +960,10 @@ def stage_launches(eng):
     return {k: c[k] for k in ("fused_stage_chain", "fused_stage_chain_rowlane")}
 
 
-def expected_launches(cfg, quant, eng):
+def expected_launches(cfg, quant, eng, head=None):
     """(prefill, per decode step) launches of each kernel of `eng` with
-    force_diffusion: decode attention once per layer per decode step; flash
+    force_diffusion: decode attention once per layer per decode step where
+    the engine takes it (a cache of 4096+ slots); flash
     prefill once per layer in the prompt's forward where the engine takes it
     (prompts of 1024 tokens or more), never in a step; the int4 GEMVs (qkv,
     o, gateup, down; only gateup and down under int4f) once per layer in the
@@ -951,15 +971,17 @@ def expected_launches(cfg, quant, eng):
     prompt forward takes the dequantized route); the chains and the stage
     kernels as `codec_launches` counts them (at 1.5B: a chain on 2 stages of
     the vocoder and 2 of the re-encode) and the head once per solver step, on
-    every diffusing step, step 0 (in prefill) included."""
+    every diffusing step, step 0 (in prefill) included: 5 solver steps with
+    `quant` unless `head` gives the count (0 without the head pack)."""
     n_layers = cfg.decoder.num_hidden_layers
-    gemv = {None: 0, "int4": 4, "int4f": 2}[quant] * n_layers
-    head = 5 if quant else 0
+    gemv = {None: 0, "int8": 0, "int4": 4, "int4f": 2}[quant] * n_layers
+    if head is None:
+        head = 5 if quant else 0
     per_step = dict(codec_launches(eng), fused_head_solver_step=head)
     prefill = dict(per_step, decode_attention=0, int4_matmul=gemv,
                    flash_attention_prefill=n_layers if eng.use_flash_prefill else 0)
-    step = dict(per_step, decode_attention=n_layers, int4_matmul=gemv,
-                flash_attention_prefill=0)
+    step = dict(per_step, decode_attention=n_layers if eng.use_flash_decode else 0,
+                int4_matmul=gemv, flash_attention_prefill=0)
     return prefill, step
 
 
@@ -3555,6 +3577,373 @@ def phase_train_sharded_reference(dev, steps=2):
 
 
 # ---------------------------------------------------------------------------
+# phase 12: the caption and quality-evaluation path through the port's CLIs
+# ---------------------------------------------------------------------------
+
+QUALITY_STEPS = 32
+QUALITY_DDPM = 5
+# None: `--canonical`, the harness's fifteen candidates
+QUALITY_CANDIDATES = None
+CAPTION_SLOTS = 4096  # prompt + steps: the decode-attention kernel's cache
+BATCH_STEPS = 48
+BATCH_LINES = ("Speaker 1: Here are the markets this morning, in brief.",
+               "Speaker 1: A second script, read in the same batch as the first one.\n"
+               "Speaker 2: With a second speaker, who answers it.",
+               "Speaker 1: The third script runs alone, in a batch of its own.")
+
+
+class PathRecorder:
+    """While active: `VibeVoiceTTS._engine` hands out force-diffusion engines
+    (built as `register_forced_engine` builds them; random weights almost
+    never pick the diffusion token), and each `VibeVoiceTTS.generate` call
+    is recorded: its engine's shape and flags, the wrappers' launches during
+    the call, the captured step's kernel nodes, the replays, and its steps
+    and timing.  `from_pretrained` calls are timed.  `on_step`, when set,
+    is handed to every `generate` call."""
+
+    def __init__(self, tts_cls, G):
+        self.cls, self.G = tts_cls, G
+        self.calls, self.loads, self.on_step = [], [], None
+        self._engine = self._generate = self._from_pretrained = None
+        self._current = None
+
+    def __enter__(self):
+        rec, G = self, self.G
+        self._engine, self._generate = self.cls._engine, self.cls.generate
+        self._from_pretrained = self.cls.__dict__["from_pretrained"]
+
+        def engine(tts, batch, prompt_len, max_steps):
+            bucket = max(tts.prompt_bucket,
+                         -(-prompt_len // tts.prompt_bucket) * tts.prompt_bucket)
+            key = (batch, bucket, max_steps)
+            if key not in tts._engines:
+                gen = G.GenerationConfig(
+                    speech_start_id=tts.tokenizer.speech_start_id,
+                    speech_end_id=tts.tokenizer.speech_end_id,
+                    speech_diffusion_id=tts.tokenizer.speech_diffusion_id,
+                    eos_id=tts.tokenizer.eos_id, cfg_scale=tts.cfg_scale,
+                    ddpm_steps=tts.ddpm_steps, algorithm_type=tts.algorithm_type,
+                    force_diffusion=True, max_length_times=64.0)
+                chain = tts._chain_packs is not None
+                tts._engines[key] = G.Engine(
+                    tts.params, tts.cfg, gen, max_steps=max_steps, batch=batch,
+                    prompt_len=bucket, dtype=tts.dtype, kv_dtype=tts.kv_dtype,
+                    device=tts.device, use_fused_vocoder=chain, use_fused_semantic=chain,
+                    use_fused_stages=tts.use_fused_stages)
+            eng = tts._engines[key]
+            rec._current = (eng, eng.graph is not None, eng.replays)
+            return eng
+
+        def generate(tts, *args, **kw):
+            counters = kernel_counters()
+            for c in counters.values():
+                c.launches = 0
+            if rec.on_step is not None:
+                kw["on_step"] = rec.on_step
+            res, metrics = rec._generate(tts, *args, **kw)
+            torch.cuda.synchronize()
+            launches = {k: c.launches for k, c in counters.items()}
+            eng, had_graph, replays0 = rec._current
+            rec._current = None
+            nodes, _ = graph_launches(eng.graph)
+            captured = not had_graph and eng.graph is not None
+            replays = eng.replays - replays0
+            # on the device: the wrappers' launches but the captured step's
+            # (capturing runs nothing), and each replay's kernel nodes
+            device = merge_stages(launches)
+            for k, n in nodes.items():
+                device[k] += replays * n - (n if captured else 0)
+            rec.calls.append(dict(
+                batch=eng.batch, prompt_len=eng.prompt_len, cache_slots=eng.cache_len,
+                flash_prefill=eng.use_flash_prefill, flash_decode=eng.use_flash_decode,
+                codec=codec_launches(eng), head_pack="_diffusion_head_packq" in eng.params,
+                steps=res.steps, captured=captured, capture_s=eng.capture_s if captured else None,
+                replays=replays, launches=launches, graph_nodes=nodes, device_launches=device,
+                wall_s=metrics["wall_s"], audio_sec=metrics["audio_sec"], rtf=metrics["rtf"],
+                engine=eng))
+            return res, metrics
+
+        def from_pretrained(cls, *args, **kw):
+            t0 = time.perf_counter()
+            tts = rec._from_pretrained.__func__(cls, *args, **kw)
+            torch.cuda.synchronize()
+            rec.loads.append(time.perf_counter() - t0)
+            return tts
+
+        self.cls._engine, self.cls.generate = engine, generate
+        self.cls.from_pretrained = classmethod(from_pretrained)
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._engine, self.cls.generate = self._engine, self._generate
+        self.cls.from_pretrained = self._from_pretrained
+        return False
+
+    def check(self, cfg, call, quant, what):
+        """The call's launches against `expected_launches` for its engine:
+        through the wrappers the prefill's (and, in the call that captured,
+        the warm-up step's and the captured step's), the graph's kernel nodes
+        one step's.  Drops the call's engine."""
+        eng = call.pop("engine")
+        head = eng.gen.ddpm_steps if call["head_pack"] else 0
+        want_prefill, want_step = expected_launches(cfg, quant, eng, head=head)
+        want = {k: want_prefill[k] + (2 if call["captured"] else 0) * want_step[k]
+                for k in want_prefill}
+        if call["launches"] != want or call["graph_nodes"] != merge_stages(want_step):
+            raise RuntimeError(f"{what}: launches {call['launches']}, want {want}; graph "
+                               f"nodes {call['graph_nodes']}, want {merge_stages(want_step)}")
+        if call["replays"] + (1 if call["captured"] else 0) + 1 != call["steps"]:
+            raise RuntimeError(f"{what}: {call['replays']} replays for {call['steps']} steps")
+        call["launches_per_step"] = want_step
+        return call
+
+
+def wav_file(path, want_samples: int, what: str) -> np.ndarray:
+    """The samples (as floats) of a mono 24 kHz PCM16 wav file; raises unless
+    it holds exactly `want_samples` samples, not all zero (as `wav_pcm`)."""
+    with open(path, "rb") as f:
+        pcm = wav_pcm(f.read(), what, want_samples, stream=False)
+    return pcm.astype(np.float64) / 32767
+
+
+def check_captions(files, duration, what):
+    """The SRT, VTT and JSON beside the wav: present, one cue per JSON
+    segment, the segments in order inside [0, duration] and ending at it;
+    with no ffmpeg (the WPM rung) they start at 0 and none overlaps the
+    next."""
+    import shutil
+    for ext in ("srt", "vtt", "json"):
+        if not os.path.isfile(files.get(ext, "")):
+            raise RuntimeError(f"{what}: no {ext} caption file")
+    with open(files["json"]) as f:
+        segs = json.load(f)["segments"]
+    with open(files["srt"]) as f:
+        srt_cues = f.read().count(" --> ")
+    with open(files["vtt"]) as f:
+        vtt_cues = f.read().count(" --> ")
+    end = round(duration, 3)
+    wpm = shutil.which("ffmpeg") is None
+    ok = (segs and srt_cues == vtt_cues == len(segs) and segs[-1]["end"] == end
+          and all(0 <= s["start"] <= s["end"] <= end for s in segs)
+          and all(a["start"] <= b["start"] for a, b in zip(segs, segs[1:])))
+    if wpm:
+        ok = ok and segs[0]["start"] == 0 and all(
+            a["end"] <= b["start"] for a, b in zip(segs, segs[1:]))
+    if not ok:
+        raise RuntimeError(f"{what}: caption segments {segs} do not tile [0, {end}] "
+                           f"({srt_cues} SRT / {vtt_cues} VTT cues)")
+    return dict(segments=len(segs), rung="words-per-minute" if wpm else "ffmpeg available",
+                first=segs[0], last=segs[-1])
+
+
+def phase_captions_quality(dev, card, root):
+    """The caption and quality-evaluation path, as users run it, on a
+    full-width 1.5B bf16 checkpoint (random, from the seed, with a live audio
+    path) written by phase 8's writer and loaded through `--model_path`, the
+    engines forced to diffuse (`PathRecorder`):
+    12a `scripts.quality_eval.main` with the canonical candidates (or
+    QUALITY_CANDIDATES), 5 solver steps and 32 new tokens on the builtin
+    two-speaker script: every metric finite, the verdict's three ladders,
+    and each candidate's kernels (B2 in int4/int4f, B3 in int4k, B4 in fs,
+    B8 in dh4) at `expected_launches`' counts;
+    12b `demo.inference_simple_captions.main` on a four-speaker script of the
+    demo voices (a prompt past 1024 tokens: flash prefill) with steps to a
+    4096-slot cache (decode attention), a `FrameClockCaptionTracker` fed by
+    the same `generate` call: a mono 24 kHz wav, finite and not silent, its
+    SRT, VTT and JSON tiling it, the tracker's clock the steps' audio;
+    12c `demo.batch_inference_simple_captions.main` on three scripts at
+    --batch_size 2: one `Saved audio to:` line per script, each file there.
+    Returns the launches that ran on the device, by kernel, over the phase."""
+    import contextlib
+    import gc
+    import io
+    import tempfile
+    from vibevoice_tpu_torch.caption.simple import FrameClockCaptionTracker
+    from vibevoice_tpu_torch.configs import vibevoice_1_5b
+    from vibevoice_tpu_torch.demo import batch_inference_simple_captions as batch_cli
+    from vibevoice_tpu_torch.demo import inference_simple_captions as caption_cli
+    from vibevoice_tpu_torch.demo.inference_from_file import VoiceMapper, parse_txt_script
+    from vibevoice_tpu_torch.engine import generate as G
+    from vibevoice_tpu_torch.models import vibevoice as V
+    from vibevoice_tpu_torch.pipeline import VibeVoiceTTS
+    from vibevoice_tpu_torch.processor.processor import VibeVoiceProcessor
+    from vibevoice_tpu_torch.processor.text_tokenizer import ByteFallbackTokenizer
+    from vibevoice_tpu_torch.scripts import quality_eval as QE
+    bf = torch.bfloat16
+    cfg = vibevoice_1_5b()
+    hop = cfg.speech_compress_ratio
+    t_phase = time.perf_counter()
+    # every row is B=1 or B=2 without the fused stages: no row-lane call
+    total = dict(merge_stages(dict.fromkeys(kernel_counters(), 0)),
+                 fused_stage_chain_rowlane=0)
+
+    def add(call):
+        if call["launches"]["fused_stage_chain_rowlane"]:
+            raise RuntimeError(f"a row-lane stage call on the caption path: {call}")
+        for k, v in call["device_launches"].items():
+            total[k] += v
+
+    with tempfile.TemporaryDirectory() as work:
+        ckpt = os.path.join(work, "ckpt")
+        os.makedirs(ckpt)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+        src = V.init_model(cfg, dtype=bf, device=dev, generator=gen)
+        _live_audio_path(src, gen)
+        for k in ("speech_scaling_factor", "speech_bias_factor"):
+            src[k] = src[k].to(bf)
+        t0 = time.perf_counter()
+        size = write_checkpoint(ckpt, src, cfg)
+        emit("captions_checkpoint", bytes=size, write_s=time.perf_counter() - t0, card=card)
+        del src
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 12a: the quality harness over the candidates
+        cands = QUALITY_CANDIDATES or QE.CANONICAL_CANDIDATES
+        argv = ["--model_path", ckpt, "--ddpm_steps", str(QUALITY_DDPM), "--max_new_tokens",
+                str(QUALITY_STEPS), "--output_dir", os.path.join(work, "quality")]
+        argv += ["--canonical"] if QUALITY_CANDIDATES is None else ["--candidates", *cands]
+        t0 = time.perf_counter()
+        with PathRecorder(VibeVoiceTTS, G) as rec, contextlib.redirect_stdout(io.StringIO()):
+            results = QE.main(argv)
+        quality_s = time.perf_counter() - t0
+        names = ["bf16"] + list(cands)
+        if len(rec.calls) != len(names) or len(rec.loads) != len(names):
+            raise RuntimeError(f"quality_eval made {len(rec.calls)} requests and "
+                               f"{len(rec.loads)} loads for {len(names)} configurations")
+        per = {}
+        for name, call, load_s in zip(names, rec.calls, rec.loads):
+            modes = {} if name == "bf16" else QE.CANDIDATES[name]
+            call = rec.check(cfg, call, modes.get("quantize"), f"12a {name}")
+            add(call)
+            m = {} if name == "bf16" else results[f"{name}/builtin_smoke"]
+            if name != "bf16" and not all(isinstance(m[k], float) and np.isfinite(m[k])
+                                          for k in ("mel_l2", "lsd_db", "snr_db")):
+                raise RuntimeError(f"12a {name}: metrics not finite: {m}")
+            per[name] = dict(from_pretrained_s=load_s, rtf=call["rtf"], wall_s=call["wall_s"],
+                             audio_sec=call["audio_sec"], steps=call["steps"],
+                             capture_s=call["capture_s"],
+                             **{k: m[k] for k in ("mel_l2", "lsd_db", "snr_db") if k in m},
+                             launches_per_step={k: v for k, v in call["launches_per_step"]
+                                                .items() if v})
+        kernels_in = {k: [n for n in names if per[n]["launches_per_step"].get(k)]
+                      for k in ("int4_matmul", "fused_block_chain_batched",
+                                "fused_stage_chain", "fused_head_solver_step")}
+        if not all(kernels_in.values()):
+            raise RuntimeError(f"12a: a kernel ran in no candidate: {kernels_in}")
+        verdict = results["verdict"]
+        if set(verdict["recommended"]) != {"B1", "B>=2", "tokenizer"} or \
+                set(verdict["verdicts"]) != set(cands):
+            raise RuntimeError(f"12a: the verdict lacks its ladders: {verdict}")
+        base_rtf = per["bf16"]["rtf"]
+        emit("quality_eval", canonical=QUALITY_CANDIDATES is None, candidates=len(cands),
+             ddpm_steps=QUALITY_DDPM, max_new_tokens=QUALITY_STEPS, seconds=quality_s,
+             per_candidate=per, rtf_vs_bf16={n: per[n]["rtf"] / base_rtf for n in names},
+             kernels_in=kernels_in, recommended=verdict["recommended"],
+             passed=sorted(c for c, v in verdict["verdicts"].items() if v["pass"]),
+             note="random weights: a test of the plumbing, not a quality statement",
+             card=card)
+        del rec, results
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 12b: the caption CLI on a four-speaker podcast to a 4096-slot cache
+        names4 = ("Alice", "Bob", "Carol", "Dave")
+        lines = "\n".join(f"Speaker {names4[i % 4]}: {line}"
+                          for i, line in enumerate(FOUR_SPEAKER_LINES))
+        txt = os.path.join(work, "roundtable.txt")
+        with open(txt, "w", encoding="utf-8") as f:
+            f.write(lines + "\n")
+        script, speakers = parse_txt_script(lines)
+        mapper = VoiceMapper()
+        voices = [mapper.get_voice_path(s) for s in speakers]
+        if len(set(voices)) != 4:
+            raise RuntimeError(f"the four speakers map to {voices}")
+        proc = VibeVoiceProcessor.from_pretrained(ckpt, tokenizer=ByteFallbackTokenizer())
+        t_prompt = proc(script, voices).input_ids.shape[1]
+        bucket = -(-t_prompt // 256) * 256
+        steps = CAPTION_SLOTS - bucket
+        tracker = FrameClockCaptionTracker(
+            [(f"Speaker {sid + 1}", t.strip()) for sid, t in proc._parse_script(script)],
+            speech_end_id=ByteFallbackTokenizer().speech_end_id, hop=hop)
+        out_dir = os.path.join(work, "captions")
+        t0 = time.perf_counter()
+        with PathRecorder(VibeVoiceTTS, G) as rec, contextlib.redirect_stdout(io.StringIO()):
+            rec.on_step = tracker.update
+            out = caption_cli.main(["--model_path", ckpt, "--txt_path", txt, "--output_dir",
+                                    out_dir, "--ddpm_steps", str(QUALITY_DDPM),
+                                    "--max_new_tokens", str(steps)])
+        caption_s = time.perf_counter() - t0
+        (call,) = rec.calls
+        call = rec.check(cfg, call, None, "12b")
+        add(call)
+        if not (call["flash_prefill"] and call["flash_decode"] and t_prompt >= 1024
+                and call["cache_slots"] >= CAPTION_SLOTS and call["steps"] == steps):
+            raise RuntimeError(f"12b is off the flash prefill / decode attention path: "
+                               f"prompt {t_prompt}, {call}")
+        if not (call["launches"]["flash_attention_prefill"] == cfg.decoder.num_hidden_layers
+                and call["graph_nodes"]["decode_attention"] == cfg.decoder.num_hidden_layers):
+            raise RuntimeError(f"12b: flash prefill / decode attention launches {call}")
+        files = out["files"]
+        pcm = wav_file(files["wav"], steps * hop, "12b")
+        duration = len(pcm) / 24000.0
+        caps = check_captions(files, duration, "12b")
+        want_clock = call["steps"] * hop / 24000.0
+        if abs(tracker.clock - want_clock) > 1e-9:
+            raise RuntimeError(f"12b: the frame clock reads {tracker.clock} s after "
+                               f"{call['steps']} steps ({want_clock} s)")
+        emit("captions_cli", prompt_tokens=t_prompt, prompt_bucket=call["prompt_len"],
+             cache_slots=call["cache_slots"], steps=call["steps"], seconds=caption_s,
+             from_pretrained_s=rec.loads[0], wall_s=call["wall_s"], rtf=call["rtf"],
+             capture_s=call["capture_s"], audio_s=duration, peak=float(np.abs(pcm).max()),
+             prefill_launches={k: v for k, v in call["launches"].items() if v},
+             graph_nodes={k: v for k, v in call["graph_nodes"].items() if v},
+             device_launches={k: v for k, v in call["device_launches"].items() if v},
+             captions=caps, tracker_clock_s=tracker.clock, tracker_bounds=len(tracker.bounds),
+             card=card)
+        del rec, call
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 12c: the batch CLI, three scripts at --batch_size 2
+        bdir = os.path.join(work, "batch_in")
+        os.makedirs(bdir)
+        for i, text in enumerate(BATCH_LINES):
+            with open(os.path.join(bdir, f"episode_{i}.txt"), "w", encoding="utf-8") as f:
+                f.write(text)
+        t0 = time.perf_counter()
+        printed = io.StringIO()
+        with PathRecorder(VibeVoiceTTS, G) as rec, contextlib.redirect_stdout(printed):
+            saved = batch_cli.main(["--model_path", ckpt, "--input_dir", bdir, "--output_dir",
+                                    os.path.join(work, "batch_out"), "--batch_size", "2",
+                                    "--ddpm_steps", str(QUALITY_DDPM), "--max_new_tokens",
+                                    str(BATCH_STEPS)])
+        batch_s = time.perf_counter() - t0
+        tail = printed.getvalue().splitlines()[-len(BATCH_LINES):]
+        want_names = [f"episode_{i}.wav" for i in range(len(BATCH_LINES))]
+        if (len(saved) != len(BATCH_LINES) or tail != [f"Saved audio to: {p}" for p in saved]
+                or [os.path.basename(p) for p in saved] != want_names
+                or not all(os.path.isfile(p) for p in saved)):
+            raise RuntimeError(f"12c: stdout ends in {tail}, saved {saved}")
+        if [c["batch"] for c in rec.calls] != [2, 1]:
+            raise RuntimeError(f"12c: batches {[c['batch'] for c in rec.calls]}")
+        for i, call in enumerate(rec.calls):
+            add(rec.check(cfg, call, None, f"12c batch {i}"))
+        for p in saved:
+            wav_file(p, BATCH_STEPS * hop, f"12c {os.path.basename(p)}")
+        emit("batch_cli", scripts=len(BATCH_LINES), batch_size=2, seconds=batch_s,
+             batches=[dict(batch=c["batch"], prompt_bucket=c["prompt_len"], wall_s=c["wall_s"],
+                           rtf=c["rtf"], captured=c["captured"]) for c in rec.calls],
+             saved_lines=tail, card=card)
+        del rec
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("captions_quality", seconds=time.perf_counter() - t_phase, device_launches=total,
+         card=card)
+    return total
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -3706,6 +4095,10 @@ def main() -> int:
     phase_train_sharded(dev, card, root)
     phase_train_sharded_reference(dev)
 
+    # 12. the caption and quality-evaluation path: the quality harness, the
+    # caption CLI to a 4096-slot cache and the batch CLI, on a checkpoint
+    captions = phase_captions_quality(dev, card, root)
+
     emit("done", seconds=time.perf_counter() - t_start)
     # beside the wrappers' count of the main path's run (the prefill, the
     # warm-up step and the captured one), the launches that ran on the device;
@@ -3721,6 +4114,9 @@ def main() -> int:
         if not e["name"].endswith("[int8 KV]"):
             e["serving_launches"] = serving[key]
             e["serving_device_launches"] = serving_device[key]
+        # on the device while phase 12 ran (no int8 KV there)
+        e["caption_quality_launches"] = (0 if e["name"].endswith("[int8 KV]") else
+                                         captions[key])
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

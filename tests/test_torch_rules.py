@@ -201,3 +201,62 @@ def test_serving_cli_help_runs_without_jax():
                          timeout=120)
     assert out.returncode == 0, out.stderr
     assert "--model_path" in out.stdout and "--device" in out.stdout
+
+
+# the port's command-line entry points beside the package, each with
+# arguments that would otherwise run it
+CLI_ENTRY_POINTS = {
+    "demo.inference_from_file": ["--txt_path", "missing.txt", "--tiny"],
+    "demo.inference_simple_captions": ["--txt_path", "missing.txt", "--tiny"],
+    "demo.inference_with_captions": ["--txt_path", "missing.txt", "--tiny"],
+    "demo.batch_inference_simple_captions": ["--txt_path", "missing.txt", "--tiny"],
+    "demo.generate_captions_for_existing_audio": ["--audio_path", "missing.wav",
+                                                  "--txt_path", "missing.txt"],
+    "scripts.quality_eval": [],
+    "scripts.convert_nnscaler_checkpoint": ["--checkpoint", "missing.pt", "--config",
+                                            "missing.json", "--output", "out"],
+}
+
+
+@pytest.mark.parametrize("name", sorted(CLI_ENTRY_POINTS))
+def test_cli_entry_points_default_to_cuda_and_raise_without_it(no_cuda, name, tmp_path,
+                                                               monkeypatch):
+    """Every CLI of the port runs on CUDA unless `--device cpu` is given, and
+    raises without a card before it reads a file; with `--device cpu` it goes
+    on to its first file (missing here: the batch CLI reports it and saves
+    nothing)."""
+    import importlib
+    monkeypatch.chdir(tmp_path)
+    main = importlib.import_module(f"vibevoice_tpu_torch.{name}").main
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(CLI_ENTRY_POINTS[name])
+    on_cpu = CLI_ENTRY_POINTS[name] + ["--device", "cpu"]
+    if name == "demo.batch_inference_simple_captions":
+        assert main(on_cpu) == []
+    elif name != "scripts.quality_eval":  # on the CPU it runs the tiny harness
+        with pytest.raises(FileNotFoundError):
+            main(on_cpu)
+
+
+def test_cli_help_runs_without_jax():
+    """`python -m vibevoice_tpu_torch.<cli> --help` prints each CLI's usage with
+    its `--device` flag and imports no JAX."""
+    code = textwrap.dedent("""
+        import contextlib, io, runpy, sys
+        for name in NAMES:
+            sys.argv = [name, "--help"]
+            out = io.StringIO()
+            try:
+                with contextlib.redirect_stdout(out):
+                    runpy.run_module("vibevoice_tpu_torch." + name, run_name="__main__")
+            except SystemExit as e:
+                assert e.code == 0, (name, e.code)
+            assert "--device" in out.getvalue(), name
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith(("jax.", "jaxlib"))
+                     or m == "vibevoice_tpu" or m.startswith("vibevoice_tpu."))
+        assert not bad, bad
+    """).replace("NAMES", repr(sorted(CLI_ENTRY_POINTS)))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr

@@ -21,4 +21,16 @@ def rms_norm(x: torch.Tensor, weight: Optional[torch.Tensor], eps: float) -> tor
     return out
 
 
-__all__ = ["rms_norm"]
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float) -> torch.Tensor:
+    """LayerNorm over the last axis with the statistics and the affine step in
+    fp32, cast back to the input dtype (ref ConvLayerNorm :39-51)."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mean).pow(2).mean(dim=-1, keepdim=True)
+    normed = (xf - mean) * torch.rsqrt(var + eps)
+    normed = normed * weight.float() + bias.float()
+    return normed.to(x.dtype)
+
+
+__all__ = ["rms_norm", "layer_norm"]

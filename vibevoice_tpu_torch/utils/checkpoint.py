@@ -6,7 +6,8 @@ reference's names, the output of its converter
 into the params tree.  The safetensors reader is the port's own: it maps the
 file and hands out tensors that are views of the mapping, so a shard is read
 from disk once, when its tensors are copied to the target device.  Export: the
-port's native format, an `.npz` keyed by each leaf's tree path.
+port's native format, an `.npz` keyed by each leaf's tree path, or one
+safetensors file (`save_safetensors`, the reader's inverse).
 
 The PyTorch port's own copy of `vibevoice_tpu/utils/checkpoint.py`.
 """
@@ -74,6 +75,30 @@ def read_safetensors(path: str) -> Dict[str, torch.Tensor]:
         if begin < end:
             raise ValueError(f"{path}: tensors {prev!r} and {name!r} overlap")
     return out
+
+
+_NAMES = {torch_dt: name for name, (_, torch_dt) in _DTYPES.items()}
+
+
+def save_safetensors(tensors: Mapping[str, torch.Tensor], path: str) -> int:
+    """Write {name: tensor} as one safetensors file, the inverse of
+    `read_safetensors`: an 8-byte little-endian header length, the JSON
+    header (padded with spaces to 8 bytes), then each tensor's bytes in
+    order.  Returns the file's size."""
+    import struct
+    header, off = {"__metadata__": {"format": "pt"}}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": _NAMES[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [off, off + n]}
+        off += n
+    h = json.dumps(header).encode()
+    h += b" " * (-len(h) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(h)) + h)
+        for t in tensors.values():
+            f.write(t.detach().contiguous().reshape(-1).view(torch.uint8).cpu().numpy().data)
+    return 8 + len(h) + off
 
 
 # ---------------------------------------------------------------------------
@@ -352,5 +377,5 @@ def load_native(path: str, like=None, device="cuda"):
     return _fill_jax_order(like, iter(arrays), device)
 
 
-__all__ = ["read_safetensors", "params_from_flat", "load_hf_checkpoint", "save_native",
-           "load_native"]
+__all__ = ["read_safetensors", "save_safetensors", "params_from_flat", "load_hf_checkpoint",
+           "save_native", "load_native"]
