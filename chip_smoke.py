@@ -98,7 +98,12 @@ Phases, in order; any failure stops the run with a non-zero exit:
      that every loss is finite, step 1 (lr 0) leaves every parameter
      bit-equal, step 2 decays each >=2-d frozen-tokenizer weight by exactly
      (1 - lr1 * wd), ce_loss falls, no kernel wrapper launches and TF32 is
-     off; then a tiny model trains two steps on the card as on the CPU;
+     off; then, with the same params and optimizer, 4 steps of the captured
+     train step (`make_train_step`'s default on the card: a warm-up step and
+     the capture, then 3 replays), each timed, with the capture's seconds,
+     the graph pool's bytes and the peak memory, finite losses, ce_loss
+     falling and no kernel launches; then a tiny model trains two steps on
+     the card (captured) as on the CPU;
  10. the parallel paths as two ranks on this one card over gloo (NCCL
      refuses two ranks on one device; gloo stages every collective through
      the host, so no time here is a TP or DP speed), spawned after this
@@ -125,7 +130,12 @@ Phases, in order; any failure stops the run with a non-zero exit:
      (4096 rows a rank, flash at row_offset 0 and 4096 over S=8192) and
      `ring_prefill_attention` at T=4096, every query row against the plain
      version of flash prefill over all rows in one process;
- 11. the sharded training step as two gloo ranks on this card: this process
+ 11. the captured train step against the eager one on the fp32 1.5B at full
+     width with its LM cut to 4 layers, unsharded: 4 eager and 4 captured
+     steps from one set of weights, one batch and one generator seed, with
+     injected and with drawn noise, the losses and every parameter
+     afterwards bit-equal; then the sharded training step (eager: a mesh's
+     collectives are not captured) as two gloo ranks on this card: this process
      takes two unsharded steps of the fp32 1.5B at full width with its LM
      cut to 4 layers (2 rows x 3 turns of the demo voices, 576 tokens a
      row, the VAE at fix_std 0, injected noise; lr 0, then 1e-4), keeps
@@ -159,15 +169,31 @@ Phases, in order; any failure stops the run with a non-zero exit:
      same `generate` call whose clock is the steps' audio; 12c
      `demo.batch_inference_simple_captions.main` on three scripts at
      `--batch_size 2`, its stdout ending in one `Saved audio to:` line per
-     file.
+     file;
+ 13. the web demos, the warm CLI and the podcast pipeline on phase 12's
+     checkpoint (`phase_demos_pipelines`): 13a
+     `scripts.warm_serving_cache.main --batch_sizes 1 2 --quantize int4`
+     (every kernel library already present, both engines captured); 13b the
+     web demo's event function from its UI built on the gradio stub
+     (`tests/_gradio_stub.py`), int4, on `demo/text_examples/2p_dialogue.txt`:
+     the streamed chunks concatenate to the complete audio, "Done", 112
+     int4_matmul launches a step, and a second request stopped after its
+     first chunk ends with "Generation stopped."; 13c the captions demo on
+     `4p_roundtable.txt` (a 1024-token bucket: 28 flash-prefill launches)
+     to a 4096-slot cache (28 decode-attention launches a step), live
+     captions with every chunk, its SRT/VTT/JSON tiling the audio; 13d
+     `vibevoice_tpu_torch/pipelines/run_podcast_pipeline.sh` for real with
+     MODEL_PATH the checkpoint and BATCH_SIZE=2 over two scripts (its batch
+     CLI forced to diffuse through `forced_module` in place of `python`):
+     one wav and one srt per script, both upload hooks fired for each.
 
 Weights are random, made from a seed.  Prints one JSON line per measurement,
 then the `kernels` line (each kernel also with its launches while phase 8
 served: through its wrapper, and on the device with each graph replay's
 nodes; and its launches on each rank of phase 10, counted by its wrapper
 and, for a DP rank's captured step, from its graph's nodes times its
-replays; and its launches on the device over phase 12), the card's name and
-power limit, and as the last line
+replays; and its launches on the device over phase 12, and over phase 13),
+the card's name and power limit, and as the last line
 `{"ok": true, "device": {...}}`.  Exits non-zero without a GPU.
 """
 import json
@@ -2479,7 +2505,7 @@ def phase_train(dev, card, root):
         raise RuntimeError(f"batch {batch.input_ids.shape}, frames {batch.speech_masks.shape}")
     lr, wd = 1e-4, 0.01
     opt = T.make_optimizer(params, lr=lr, weight_decay=wd, warmup_steps=2, total_steps=100)
-    step = T.make_train_step(cfg, opt, device=dev)
+    step = T.make_train_step(cfg, opt, device=dev, eager=True)
     if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
         raise RuntimeError("TF32 is on for fp32 matmuls or convolutions")
     n_params = sum(p.numel() for p in opt.leaves)
@@ -2539,14 +2565,73 @@ def phase_train(dev, card, root):
     mean = {k: float(np.mean([p[k] for p in parts[1:]])) for k in parts[0]}
     emit("train_parts", steps=f"2-{TRAIN_STEPS}", **{k + "_ms": v for k, v in mean.items()},
          card=card)
+    graph = phase_train_graph(T, cfg, params, opt, batch, dev, card, n_tok, mean["step"])
+    losses += graph
     launched = {k: c.launches for k, c in counters.items() if c.launches}
     if launched:
         raise RuntimeError(f"kernels launched while training: {launched}")
-    if not losses[-1]["ce_loss"] < losses[0]["ce_loss"]:
-        raise RuntimeError(f"ce_loss did not fall: {[l['ce_loss'] for l in losses]}")
+    for run in (losses[:TRAIN_STEPS], graph):
+        if not run[-1]["ce_loss"] < run[0]["ce_loss"]:
+            raise RuntimeError(f"ce_loss did not fall: {[l['ce_loss'] for l in losses]}")
     del opt, step, params
     gc.collect()
     torch.cuda.empty_cache()
+    return losses
+
+
+def pool_bytes(pool) -> int:
+    """Bytes the caching allocator holds in the segments of one graph memory
+    pool (`torch.cuda.graph_pool_handle()`)."""
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) == tuple(pool))
+
+
+def phase_train_graph(T, cfg, params, opt, batch, dev, card, n_tok, eager_ms):
+    """Phase 9's captured steps: after the eager ones, with the same params
+    and optimizer, TRAIN_STEPS steps of `make_train_step` as it runs by
+    default on the card: the first a real step on a side stream and the
+    capture, the rest replays.  Each step is timed on the host and by CUDA
+    events around the call (the batch's copy in, the replay, the metrics'
+    copy out).  Raises on a loss that is not finite or a step that did not
+    replay.  Returns the losses."""
+    gstep = T.make_train_step(cfg, opt, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    reserved0 = torch.cuda.memory_reserved()
+    losses, ms, walls = [], [], []
+    peak_capture = pool = reserved = None
+    for i in range(TRAIN_STEPS):
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        lr_i = opt.schedule(opt.count)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        m = gstep(params, batch, gen)
+        end.record()
+        loss = {k: float(v) for k, v in m.items()}
+        walls.append(time.perf_counter() - t0)
+        ms.append(start.elapsed_time(end))
+        losses.append(loss)
+        if i == 0:
+            peak_capture = torch.cuda.max_memory_allocated()
+            pool, reserved = pool_bytes(gstep.pool), torch.cuda.memory_reserved()
+            torch.cuda.reset_peak_memory_stats()
+        emit("train_graph", step=TRAIN_STEPS + i + 1, captured=i == 0, lr=lr_i,
+             wall_s=walls[-1], device_ms=ms[-1], tokens_per_s=n_tok / walls[-1], **loss,
+             card=card)
+        if not all(np.isfinite(v) for v in loss.values()):
+            raise RuntimeError(f"captured step {i + 1}: loss not finite: {loss}")
+    if not (gstep.captures == 1 and gstep.replays == TRAIN_STEPS - 1):
+        raise RuntimeError(f"{gstep.captures} captures, {gstep.replays} replays")
+    replay_ms = float(np.mean(ms[1:]))
+    emit("train_graph_summary", capture_s=gstep.capture_s, first_step_wall_s=walls[0],
+         replay_device_ms=replay_ms, replay_device_ms_each=ms[1:],
+         replay_wall_ms=1e3 * float(np.mean(walls[1:])), eager_step_device_ms=eager_ms,
+         eager_over_replay=eager_ms / replay_ms, pool_bytes=pool,
+         reserved_growth_over_capture=reserved - reserved0,
+         max_memory_allocated_capture=peak_capture,
+         max_memory_allocated_replays=torch.cuda.max_memory_allocated(), card=card)
+    del gstep
     return losses
 
 
@@ -2619,6 +2704,55 @@ def phase_train_reference(dev, steps=2):
         raise RuntimeError(f"card and CPU training disagree: losses {loss_err}, "
                            f"params {param_err} > {TRAIN_REL_TOL}")
     return loss_err, param_err
+
+
+def train_eager_vs_graph(cfg, make_params, batch, dev, steps, injected, lr=1e-4):
+    """`steps` train steps from `make_params()` on one batch, first eager
+    (`make_train_step(eager=True)`), then captured (the default on the card),
+    with one generator seed (drawn noise: the timesteps, the diffusion noise
+    and the VAE sample) or injected noise and timesteps with no generator.
+    Returns, for "eager" and "graph": the losses by step, every leaf
+    afterwards (on the host) and the step's captures, replays and last
+    capture's seconds; each run's model is released before the next."""
+    import gc
+    from vibevoice_tpu_torch import train as T
+    n = batch.speech_masks.size * cfg.diffusion_head.ddpm_batch_mul
+    rng = np.random.default_rng(SEED + 3)
+    inj = [(rng.normal(size=(n, cfg.acoustic_vae_dim)).astype(np.float32),
+            rng.integers(0, cfg.diffusion_head.ddpm_num_steps, n).astype(np.int32))
+           for _ in range(steps)]
+    out = {}
+    for mode in ("eager", "graph"):
+        params = make_params()
+        opt = T.make_optimizer(params, lr=lr, weight_decay=0.01, warmup_steps=1,
+                               total_steps=100)
+        step = T.make_train_step(cfg, opt, device=dev, eager=mode == "eager")
+        gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+        losses = []
+        for i in range(steps):
+            args = (None, *inj[i]) if injected else (gen,)
+            m = step(params, batch, *args)
+            losses.append(torch.stack([m[k] for k in ("loss", "ce_loss", "diffusion_loss")])
+                          .cpu())
+        out[mode] = (losses, [p.detach().cpu() for p in opt.leaves],
+                     dict(captures=step.captures, replays=step.replays,
+                          capture_s=step.capture_s))
+        del params, opt, m, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def bit_equal_runs(runs) -> dict:
+    """What `train_eager_vs_graph` gave, compared: whether the losses of
+    every step and every leaf afterwards are bit-equal, and how many leaves
+    differ."""
+    (l_e, p_e, _), (l_g, p_g, _) = runs["eager"], runs["graph"]
+    losses_equal = all(torch.equal(a, b) for a, b in zip(l_e, l_g))
+    differ = [i for i, (a, b) in enumerate(zip(p_e, p_g)) if not torch.equal(a, b)]
+    return dict(losses_equal=losses_equal, leaves=len(p_e), leaves_differ=len(differ),
+                first_leaf_differs=differ[0] if differ else None,
+                losses_eager=[x.tolist() for x in l_e], losses_graph=[x.tolist() for x in l_g])
 
 
 # ---------------------------------------------------------------------------
@@ -3254,6 +3388,55 @@ def shard_train_cfg(layers=SHARD_LAYERS):
         acoustic_tokenizer=dataclasses.replace(cfg.acoustic_tokenizer, fix_std=0.0))
 
 
+def phase_train_graph_equal(dev, card, root):
+    """The captured train step against the eager one on phase 11's model
+    (`shard_train_cfg`: the fp32 1.5B at full width, its LM cut to 4
+    layers), unsharded: from one set of weights, one batch and one
+    generator seed, TRAIN_STEPS eager steps and TRAIN_STEPS captured ones,
+    with injected noise and timesteps and then with drawn ones.  The losses
+    of every step and every parameter afterwards must be bit-equal."""
+    import gc
+    from vibevoice_tpu_torch import train as T
+    from vibevoice_tpu_torch.models import vibevoice as V
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = shard_train_cfg()
+    init = lambda: V.init_model(cfg, dtype=torch.float32, device=dev,
+                                generator=torch.Generator(device=dev).manual_seed(SEED))
+    params = init()
+    batch = speech_batch(params, cfg, dev, root, turns=SHARD_TURNS)
+    stats = T.init_scaling_stats(params, cfg, None, batch, device=dev)
+    stats = {k: stats[k].detach().clone() for k in ("speech_scaling_factor",
+                                                     "speech_bias_factor")}
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def make_params():
+        p = init()
+        p.update({k: v.clone() for k, v in stats.items()})
+        return p
+
+    out = {}
+    for noise in ("injected", "drawn"):
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        runs = train_eager_vs_graph(cfg, make_params, batch, dev, TRAIN_STEPS,
+                                    noise == "injected", lr=SHARD_LR)
+        got = dict(bit_equal_runs(runs), **runs["graph"][2])
+        del runs
+        gc.collect()
+        emit("train_graph_equal", model="vibevoice_1_5b", layers=SHARD_LAYERS, dtype="fp32",
+             noise=noise, steps=TRAIN_STEPS, batch=list(batch.input_ids.shape),
+             max_memory_allocated=torch.cuda.max_memory_allocated(),
+             seconds=time.perf_counter() - t0, card=card, **got)
+        if not (got["losses_equal"] and got["leaves_differ"] == 0 and got["captures"] == 1
+                and got["replays"] == TRAIN_STEPS - 1):
+            raise RuntimeError(f"captured and eager train steps differ ({noise} noise): {got}")
+        out[noise] = got
+    return out
+
+
 class ShardMarks(StepMarks):
     """StepMarks with the gradient all-reduce over `data` (the optimizer's
     `sync_grads`) split out of the optimizer: forward (the audio encode
@@ -3333,7 +3516,7 @@ def _shard_ranks(rank, dev, work, card, stats):
         opt = T.make_optimizer(local, lr=SHARD_LR, weight_decay=SHARD_WD, warmup_steps=1,
                                total_steps=100, mesh=mesh,
                                specs=model_param_specs(local, cfg))
-        step = T.make_train_step(cfg, opt, device=dev, mesh=mesh)
+        step = T.make_train_step(cfg, opt, device=dev, mesh=mesh, eager=True)
         before = [p.detach().to("cpu", copy=True) for p in opt.leaves]
         for c in counters.values():
             c.launches = 0
@@ -3431,7 +3614,7 @@ def phase_train_sharded(dev, card, root):
     frozen_ids = {id(p) for k in FROZEN for p in _tensors(params[k])}
     opt = T.make_optimizer(params, lr=SHARD_LR, weight_decay=SHARD_WD, warmup_steps=1,
                            total_steps=100)
-    step = T.make_train_step(cfg, opt, device=dev)
+    step = T.make_train_step(cfg, opt, device=dev, eager=True)
     trained = [j for j, p in enumerate(opt.leaves) if id(p) not in frozen_ids]
     before = {j: opt.leaves[j].detach().to("cpu", copy=True) for j in trained}
     losses, parts = [], []
@@ -3523,7 +3706,7 @@ def _tiny_tp_train_rank(rank, dev, work, steps):
         p = to_device(copy.deepcopy(local), where)
         opt = T.make_optimizer(p, lr=1e-2, warmup_steps=1, total_steps=10, mesh=mesh,
                                specs=model_param_specs(p, cfg))
-        step = T.make_train_step(cfg, opt, device=where, mesh=mesh)
+        step = T.make_train_step(cfg, opt, device=where, mesh=mesh, eager=True)
         losses = [{k: float(v) for k, v in step(p, batch, None, nz, ts).items()}
                   for nz, ts in inj]
         out[where.type] = (losses, [x.detach().cpu() for x in opt.leaves])
@@ -3736,11 +3919,34 @@ def check_captions(files, duration, what):
                 first=segs[0], last=segs[-1])
 
 
-def phase_captions_quality(dev, card, root):
-    """The caption and quality-evaluation path, as users run it, on a
-    full-width 1.5B bf16 checkpoint (random, from the seed, with a live audio
-    path) written by phase 8's writer and loaded through `--model_path`, the
-    engines forced to diffuse (`PathRecorder`):
+def write_live_checkpoint(ckpt, dev, card):
+    """A full-width 1.5B bf16 checkpoint in `ckpt` (random, from the seed,
+    with a live audio path), by phase 8's writer: phases 12 and 13 load it
+    through `--model_path`."""
+    import gc
+    from vibevoice_tpu_torch.configs import vibevoice_1_5b
+    from vibevoice_tpu_torch.models import vibevoice as V
+    bf = torch.bfloat16
+    cfg = vibevoice_1_5b()
+    os.makedirs(ckpt)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    src = V.init_model(cfg, dtype=bf, device=dev, generator=gen)
+    _live_audio_path(src, gen)
+    for k in ("speech_scaling_factor", "speech_bias_factor"):
+        src[k] = src[k].to(bf)
+    t0 = time.perf_counter()
+    size = write_checkpoint(ckpt, src, cfg)
+    emit("captions_checkpoint", bytes=size, write_s=time.perf_counter() - t0, card=card)
+    del src
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_captions_quality(dev, card, root, ckpt):
+    """The caption and quality-evaluation path, as users run it, on the
+    full-width 1.5B bf16 checkpoint `ckpt` (`write_live_checkpoint`)
+    loaded through `--model_path`, the engines forced to diffuse
+    (`PathRecorder`):
     12a `scripts.quality_eval.main` with the canonical candidates (or
     QUALITY_CANDIDATES), 5 solver steps and 32 new tokens on the builtin
     two-speaker script: every metric finite, the verdict's three ladders,
@@ -3764,12 +3970,10 @@ def phase_captions_quality(dev, card, root):
     from vibevoice_tpu_torch.demo import inference_simple_captions as caption_cli
     from vibevoice_tpu_torch.demo.inference_from_file import VoiceMapper, parse_txt_script
     from vibevoice_tpu_torch.engine import generate as G
-    from vibevoice_tpu_torch.models import vibevoice as V
     from vibevoice_tpu_torch.pipeline import VibeVoiceTTS
     from vibevoice_tpu_torch.processor.processor import VibeVoiceProcessor
     from vibevoice_tpu_torch.processor.text_tokenizer import ByteFallbackTokenizer
     from vibevoice_tpu_torch.scripts import quality_eval as QE
-    bf = torch.bfloat16
     cfg = vibevoice_1_5b()
     hop = cfg.speech_compress_ratio
     t_phase = time.perf_counter()
@@ -3784,20 +3988,6 @@ def phase_captions_quality(dev, card, root):
             total[k] += v
 
     with tempfile.TemporaryDirectory() as work:
-        ckpt = os.path.join(work, "ckpt")
-        os.makedirs(ckpt)
-        gen = torch.Generator(device=dev).manual_seed(SEED + 12)
-        src = V.init_model(cfg, dtype=bf, device=dev, generator=gen)
-        _live_audio_path(src, gen)
-        for k in ("speech_scaling_factor", "speech_bias_factor"):
-            src[k] = src[k].to(bf)
-        t0 = time.perf_counter()
-        size = write_checkpoint(ckpt, src, cfg)
-        emit("captions_checkpoint", bytes=size, write_s=time.perf_counter() - t0, card=card)
-        del src
-        gc.collect()
-        torch.cuda.empty_cache()
-
         # 12a: the quality harness over the candidates
         cands = QUALITY_CANDIDATES or QE.CANONICAL_CANDIDATES
         argv = ["--model_path", ckpt, "--ddpm_steps", str(QUALITY_DDPM), "--max_new_tokens",
@@ -3940,6 +4130,288 @@ def phase_captions_quality(dev, card, root):
     torch.cuda.empty_cache()
     emit("captions_quality", seconds=time.perf_counter() - t_phase, device_launches=total,
          card=card)
+    return total
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the web demos, the warm CLI and the podcast pipeline
+# ---------------------------------------------------------------------------
+
+DEMO_DDPM = 5  # the web demos' solver steps
+DEMO_STEPS = 512  # the web demos' max_new_tokens
+PIPELINE_STEPS = 512  # the batch CLI's default max_new_tokens
+PIPELINE_TIMEOUT_S = 300
+
+
+def _demo_yields(event, args, stop=None):
+    """Run a demo's event function (its generator) to its end; returns its
+    yields.  With `stop`, calls it after the first streamed chunk."""
+    out = []
+    for y in event(*args):
+        out.append(y)
+        if stop is not None and y[0] is not None and len(
+                [x for x in out if x[0] is not None]) == 1:
+            stop()
+    return out
+
+
+def _update_value(u):
+    return u.get("value") if isinstance(u, dict) else None
+
+
+def forced_module() -> int:
+    """`python -m <module> <args>` with the port's engines forced to diffuse
+    (`PathRecorder`), each `generate` call checked against
+    `expected_launches` and recorded in the JSON file `$VV_FORCED_RECORD`:
+    phase 13d puts this in place of `python` on the pipeline's PATH."""
+    import runpy
+    from vibevoice_tpu_torch.configs import vibevoice_1_5b
+    from vibevoice_tpu_torch.engine import generate as G
+    from vibevoice_tpu_torch.pipeline import VibeVoiceTTS
+    args = sys.argv[1:]
+    if args[:1] != ["-m"]:
+        raise SystemExit(f"forced_module runs `-m <module>`, got {args}")
+    sys.argv = [args[1], *args[2:]]
+    with PathRecorder(VibeVoiceTTS, G) as rec:
+        runpy.run_module(args[1], run_name="__main__", alter_sys=True)
+    calls = [rec.check(vibevoice_1_5b(), c, None, f"13d call {i}")
+             for i, c in enumerate(rec.calls)]
+    with open(os.environ["VV_FORCED_RECORD"], "w") as f:
+        json.dump(dict(calls=calls, loads=rec.loads), f, default=str)
+    return 0
+
+
+def phase_demos_pipelines(dev, card, root, ckpt):
+    """The rest of the port's entry points, on the full-width 1.5B bf16
+    checkpoint `ckpt` (`write_live_checkpoint`):
+    13a `scripts.warm_serving_cache.main` with `--batch_sizes 1 2 --quantize
+    int4`: the kernel libraries all present (phase 1 built them), both
+    engines built, prefilled and captured;
+    13b the web demo's event function, from its UI built on the gradio stub
+    (`tests/_gradio_stub.py`), `--quantize int4`, on
+    `demo/text_examples/2p_dialogue.txt` with the UI's default voices: the
+    streamed chunks concatenate to the complete audio, the last log says
+    "Done", B2 runs at its 112 launches a step; a second request stopped
+    after its first streamed chunk ends with "Generation stopped.";
+    13c the captions demo on `demo/text_examples/4p_roundtable.txt` with four
+    voices (a 1024-token bucket: flash prefill) and steps to a 4096-slot
+    cache (decode attention): live captions arrive with the stream, the
+    SRT/VTT/JSON package tiles the complete audio;
+    13d `vibevoice_tpu_torch/pipelines/run_podcast_pipeline.sh` for real
+    with MODEL_PATH the checkpoint and BATCH_SIZE=2 over two scripts: one
+    wav and one srt per script, both upload hooks fire for each.
+    The demos' and the pipeline's engines are forced to diffuse
+    (`PathRecorder`; the pipeline's CLI through `forced_module`).  Returns
+    the launches that ran on the device, by kernel, over the phase."""
+    import contextlib
+    import gc
+    import io
+    import shutil
+    import tempfile
+    from tests import _gradio_stub as stub
+    from vibevoice_tpu_torch.configs import vibevoice_1_5b
+    from vibevoice_tpu_torch.demo import gradio_demo as GD
+    from vibevoice_tpu_torch.demo import gradio_demo_with_captions as GC
+    from vibevoice_tpu_torch.engine import generate as G
+    from vibevoice_tpu_torch.ops import cuda_build
+    from vibevoice_tpu_torch.pipeline import VibeVoiceTTS
+    from vibevoice_tpu_torch.scripts import warm_serving_cache as warm_cli
+    cfg = vibevoice_1_5b()
+    hop = cfg.speech_compress_ratio
+    t_phase = time.perf_counter()
+    total = dict(merge_stages(dict.fromkeys(kernel_counters(), 0)),
+                 fused_stage_chain_rowlane=0)
+    seconds = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] += v
+
+    # 13a: the warm CLI, int4 at B=1 and B=2
+    counters = kernel_counters()
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        out = warm_cli.main(["--model_path", ckpt, "--batch_sizes", "1", "2", "--quantize",
+                             "int4"])
+    torch.cuda.synchronize()
+    seconds["13a"] = time.perf_counter() - t0
+    lines = printed.getvalue().splitlines()
+    engines = list(out["tts"]._engines.values())
+    n_src = len(cuda_build.SOURCES)
+    want = [f"warmed engine (batch={b}, prompt=256, max_new=256)" for b in (1, 2)]
+    if (out["build"]["present"] != n_src or out["build"]["compiled"] != 0
+            or [l for l in lines if l.startswith("warmed engine")] != want
+            or [e.captures for e in engines] != [1, 1]):
+        raise RuntimeError(f"13a: {lines}, captures {[e.captures for e in engines]}")
+    # on the device: the prefills and warm-up steps (the captures ran nothing)
+    device = merge_stages({k: c.launches for k, c in counters.items()})
+    for e in engines:
+        for k, n in graph_launches(e.graph)[0].items():
+            device[k] -= n
+    add(device)
+    emit("warm_cli", seconds=seconds["13a"], lines=lines, build=out["build"],
+         capture_s=[e.capture_s for e in engines],
+         graph_nodes=[{k: v for k, v in graph_launches(e.graph)[0].items() if v}
+                      for e in engines], card=card)
+    del out, engines
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def read_script(name):
+        with open(os.path.join(root, "demo", "text_examples", name), encoding="utf-8") as f:
+            return "\n".join(l for l in f.read().strip().split("\n") if l.strip())
+
+    # 13b: the web demo's event function, from the stub-built UI, in int4
+    t0 = time.perf_counter()
+    with PathRecorder(VibeVoiceTTS, G) as rec:
+        demo = GD.VibeVoiceDemo(ckpt, DEMO_DDPM, quantize="int4", device=dev)
+        ui = GD.create_demo_interface(demo, gr=stub)
+        buttons = {b.kw["args"][0]: b for b in ui.by_kind("Button")}
+        event = buttons["Generate"].events[-1]["fn"]
+        stop = buttons["Stop"].events[0]["fn"]
+        voices = [d.kw["value"] for d in ui.by_kind("Dropdown")]
+        script = read_script("2p_dialogue.txt")
+        args = (demo._get_num_speakers_from_script(script), script, *voices, 1.3)
+        ys = _demo_yields(event, args)
+        stopped = _demo_yields(event, args, stop=stop)
+    seconds["13b"] = time.perf_counter() - t0
+    streamed = [y[0][1] for y in ys if y[0] is not None]
+    complete = [_update_value(y[1]) for y in ys if _update_value(y[1]) is not None]
+    if not (len(complete) == 1 and streamed and "Done" in ys[-1][2]
+            and np.array_equal(GD.convert_to_16_bit_wav(np.concatenate(streamed)),
+                               complete[0][1])
+            and len(complete[0][1]) == DEMO_STEPS * hop and np.abs(complete[0][1]).max() > 0):
+        raise RuntimeError(f"13b: logs {[y[2] for y in ys]}, {len(streamed)} chunks")
+    if stopped[-1][2] != "Generation stopped.":
+        raise RuntimeError(f"13b stop: logs {[y[2] for y in stopped]}")
+    calls = [rec.check(cfg, c, "int4", f"13b request {i}") for i, c in enumerate(rec.calls)]
+    if len(calls) != 2 or calls[0]["launches_per_step"]["int4_matmul"] != 112 \
+            or not calls[1]["steps"] < DEMO_STEPS:
+        raise RuntimeError(f"13b: {len(calls)} requests, {calls}")
+    for c in calls:
+        add(c["device_launches"])
+    emit("gradio_demo", quantize="int4", script="2p_dialogue.txt", voices=voices[:2],
+         seconds=seconds["13b"], from_pretrained_s=rec.loads[0],
+         logs=[y[2] for y in ys], chunks=[len(c) for c in streamed],
+         audio_s=len(complete[0][1]) / 24000, steps=calls[0]["steps"],
+         wall_s=calls[0]["wall_s"], rtf=calls[0]["rtf"], capture_s=calls[0]["capture_s"],
+         prompt_bucket=calls[0]["prompt_len"],
+         launches_per_step={k: v for k, v in calls[0]["launches_per_step"].items() if v},
+         stopped_steps=calls[1]["steps"], stopped_logs=[y[2] for y in stopped], card=card)
+    del rec, demo, ui, event, stop, ys, stopped, calls
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 13c: the captions demo to a 4096-slot cache
+    t0 = time.perf_counter()
+    with PathRecorder(VibeVoiceTTS, G) as rec:
+        cdemo = GC.VibeVoiceDemoWithCaptions(ckpt, DEMO_DDPM, device=dev)
+        script = read_script("4p_roundtable.txt")
+        voices = cdemo.available_voices[:4]
+        t_prompt = cdemo.tts.processor(script, [cdemo.voice_presets[v] for v in voices]
+                                       ).input_ids.shape[1]
+        steps = CAPTION_SLOTS - -(-t_prompt // 256) * 256
+        ys = list(cdemo.generate_with_captions(4, script, *voices, cfg_scale=1.3,
+                                               max_new_tokens=steps))
+    seconds["13c"] = time.perf_counter() - t0
+    if len(rec.calls) != 1:
+        raise RuntimeError(f"13c: {len(rec.calls)} requests, logs {[y[2] for y in ys]}")
+    (call,) = rec.calls
+    call = rec.check(cfg, call, None, "13c")
+    add(call["device_launches"])
+    streamed = [y for y in ys if y[0] is not None]
+    sr, audio = ys[-1][1]
+    files = dict(zip(("srt", "vtt", "json"), ys[-1][5] or ()))
+    if not (call["prompt_len"] >= 1024 and call["flash_prefill"] and call["flash_decode"]
+            and call["launches"]["flash_attention_prefill"] == cfg.decoder.num_hidden_layers
+            and call["graph_nodes"]["decode_attention"] == cfg.decoder.num_hidden_layers
+            and call["cache_slots"] >= CAPTION_SLOTS and call["steps"] == steps):
+        raise RuntimeError(f"13c is off the flash prefill / decode attention path: prompt "
+                           f"{t_prompt}, {call}")
+    if not (streamed and all(y[4] for y in streamed) and "Done" in ys[-1][2]
+            and np.array_equal(GD.convert_to_16_bit_wav(
+                np.concatenate([y[0][1] for y in streamed])), audio)
+            and len(audio) == steps * hop):
+        raise RuntimeError(f"13c: logs {[y[2] for y in ys]}, captions {[y[4] for y in ys]}")
+    caps = check_captions(files, len(audio) / sr, "13c")
+    emit("gradio_demo_captions", script="4p_roundtable.txt", voices=voices,
+         prompt_tokens=t_prompt, prompt_bucket=call["prompt_len"],
+         cache_slots=call["cache_slots"], steps=call["steps"], seconds=seconds["13c"],
+         from_pretrained_s=rec.loads[0], wall_s=call["wall_s"], rtf=call["rtf"],
+         capture_s=call["capture_s"], audio_s=len(audio) / sr, chunks=len(streamed),
+         live_captions=[y[4] for y in streamed][:3], captions=caps,
+         prefill_launches={k: v for k, v in call["launches"].items() if v},
+         graph_nodes={k: v for k, v in call["graph_nodes"].items() if v}, card=card)
+    del rec, cdemo, ys, streamed, audio, call
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 13d: the podcast pipeline for real, its batch CLI forced to diffuse
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        scripts = os.path.join(work, "scripts")
+        out_dir = os.path.join(work, "out")
+        shim = os.path.join(work, "bin")
+        for d in (scripts, out_dir, shim):
+            os.makedirs(d)
+        names = [f"episode_{i}" for i in range(2)]
+        for name, text in zip(names, BATCH_LINES):
+            with open(os.path.join(scripts, f"{name}.txt"), "w", encoding="utf-8") as f:
+                f.write(text)
+        uploads = os.path.join(work, "uploads.log")
+        hook = os.path.join(work, "upload.sh")
+        with open(hook, "w") as f:
+            f.write(f"#!/bin/sh\necho \"$0 $1\" >> {uploads}\n")
+        for kind in ("audio", "srt"):
+            os.symlink(hook, os.path.join(work, f"upload_{kind}.sh"))
+        os.chmod(hook, 0o755)
+        with open(os.path.join(shim, "python"), "w") as f:
+            f.write(f"#!/bin/sh\nexec {sys.executable} -c 'import sys; sys.path.insert(0, "
+                    f"{json.dumps(root)}); import chip_smoke; "
+                    f"sys.exit(chip_smoke.forced_module())' \"$@\"\n")
+        os.chmod(os.path.join(shim, "python"), 0o755)
+        record = os.path.join(work, "record.json")
+        env = dict(os.environ, PATH=f"{shim}:{os.environ.get('PATH', '')}", MODEL_PATH=ckpt,
+                   BATCH_SIZE="2", SCRIPTS_DIR=scripts, OUTPUT_DIR=out_dir,
+                   LOG_DIR=os.path.join(work, "logs"), VV_FORCED_RECORD=record,
+                   UPLOAD_AUDIO_CMD=os.path.join(work, "upload_audio.sh"),
+                   UPLOAD_SRT_CMD=os.path.join(work, "upload_srt.sh"))
+        env.pop("PIPELINE_DRY_RUN", None)
+        proc = subprocess.run(
+            ["bash", os.path.join(root, "vibevoice_tpu_torch", "pipelines",
+                                  "run_podcast_pipeline.sh"), "2026-01-05", "smoke", "key"],
+            capture_output=True, text=True, timeout=PIPELINE_TIMEOUT_S, env=env)
+        seconds["13d"] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise RuntimeError(f"13d: the pipeline exited {proc.returncode}:\n"
+                               f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        with open(record) as f:
+            rec = json.load(f)
+        with open(uploads) as f:
+            ups = f.read().splitlines()
+        wavs = sorted(os.path.basename(p) for p in os.listdir(out_dir) if p.endswith(".wav"))
+        srts = sorted(os.path.basename(p) for p in os.listdir(out_dir) if p.endswith(".srt"))
+        for name in names:
+            wav_file(os.path.join(out_dir, f"{name}.wav"), PIPELINE_STEPS * hop, f"13d {name}")
+        audio_ups = [u for u in ups if "upload_audio.sh" in u]
+        srt_ups = [u for u in ups if "upload_srt.sh" in u]
+        if not (wavs == [f"{n}.wav" for n in names] and srts == [f"{n}.srt" for n in names]
+                and len(audio_ups) == len(srt_ups) == len(names)
+                and [c["batch"] for c in rec["calls"]] == [2]):
+            raise RuntimeError(f"13d: wavs {wavs}, srts {srts}, uploads {ups}, "
+                               f"batches {[c['batch'] for c in rec['calls']]}")
+        add(rec["calls"][0]["device_launches"])
+        mp3 = shutil.which("ffmpeg") is not None
+        emit("podcast_pipeline", seconds=seconds["13d"], scripts=len(names), batch_size=2,
+             wavs=wavs, srts=srts, uploads=[u.split()[-1].rsplit("/", 1)[-1] for u in ups],
+             mp3=mp3, from_pretrained_s=rec["loads"][0], wall_s=rec["calls"][0]["wall_s"],
+             rtf=rec["calls"][0]["rtf"], steps=rec["calls"][0]["steps"],
+             capture_s=rec["calls"][0]["capture_s"], card=card)
+    emit("demos_pipelines", seconds=time.perf_counter() - t_phase, parts_s=seconds,
+         device_launches=total, card=card)
     return total
 
 
@@ -4092,12 +4564,19 @@ def main() -> int:
     # 11. the sharded training step: TP=2 and DP=2 ranks of the fp32 1.5B
     # (LM cut to 4 layers) on this card over gloo, held against the
     # unsharded step; and the tiny model's TP=2 step on the card as on the CPU
+    phase_train_graph_equal(dev, card, root)
     phase_train_sharded(dev, card, root)
     phase_train_sharded_reference(dev)
 
     # 12. the caption and quality-evaluation path: the quality harness, the
-    # caption CLI to a 4096-slot cache and the batch CLI, on a checkpoint
-    captions = phase_captions_quality(dev, card, root)
+    # caption CLI to a 4096-slot cache and the batch CLI, on a checkpoint;
+    # 13. the web demos, the warm CLI and the podcast pipeline on it
+    import tempfile
+    with tempfile.TemporaryDirectory() as work:
+        ckpt = os.path.join(work, "ckpt")
+        write_live_checkpoint(ckpt, dev, card)
+        captions = phase_captions_quality(dev, card, root, ckpt)
+        demos = phase_demos_pipelines(dev, card, root, ckpt)
 
     emit("done", seconds=time.perf_counter() - t_start)
     # beside the wrappers' count of the main path's run (the prefill, the
@@ -4114,9 +4593,11 @@ def main() -> int:
         if not e["name"].endswith("[int8 KV]"):
             e["serving_launches"] = serving[key]
             e["serving_device_launches"] = serving_device[key]
-        # on the device while phase 12 ran (no int8 KV there)
+        # on the device while phase 12 ran, and while phase 13 ran (no int8
+        # KV in either)
         e["caption_quality_launches"] = (0 if e["name"].endswith("[int8 KV]") else
                                          captions[key])
+        e["demo_pipeline_launches"] = (0 if e["name"].endswith("[int8 KV]") else demos[key])
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

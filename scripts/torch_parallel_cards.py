@@ -207,7 +207,7 @@ def phase_train(rank, world, dev, report):
     local = T.init_scaling_stats(local, CFG, gen(), mine, device=dev, mesh=mesh)
     opt = T.make_optimizer(local, lr=1e-4, weight_decay=0.01, warmup_steps=1, total_steps=100,
                            mesh=mesh, specs=model_param_specs(local, CFG))
-    step = T.make_train_step(CFG, opt, device=dev, mesh=mesh)
+    step = T.make_train_step(CFG, opt, device=dev, mesh=mesh, eager=True)
     steps = []
     for i in range(TRAIN_STEPS):
         torch.cuda.synchronize()

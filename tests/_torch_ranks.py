@@ -493,7 +493,8 @@ def train_step_program(rank, world, work_dir, data, model, mul, steps):
             torch.from_numpy(x), torch.from_numpy(m), mesh=mesh))
     opt = TT.make_optimizer(local, lr=1e-2, warmup_steps=1, total_steps=10, mesh=mesh,
                             specs=model_param_specs(params, cfg))
-    step = TT.make_train_step(cfg, opt, ddpm_batch_mul=mul, device="cpu", mesh=mesh)
+    step = TT.make_train_step(cfg, opt, ddpm_batch_mul=mul, device="cpu", mesh=mesh,
+                              eager=True)
     out["metrics"] = []
     for i in range(steps):
         noise, t = load_tree(os.path.join(work_dir, f"noise{i}.npz"))

@@ -1195,3 +1195,90 @@ def test_flash_prefill_on_a_tp_shard(cuda_device):
             assert bool(((got.float() - w).abs() <= tol).all())
     with pytest.raises(ValueError, match="num_key_value_heads"):
         fa.flash_attention_prefill_sharded(_rank_mesh(0), q, k, v, mask, num_key_value_heads=2)
+
+
+def _tiny_train(drawn):
+    """tiny_config(vocab_size=320) in fp32 with its scaling statistics set, a
+    function that makes its seeded weights on the card, and the tiny batch.  With
+    injected noise the acoustic VAE samples at fix_std 0 (the draws of a
+    step without a generator do not reach the latents)."""
+    import dataclasses
+    from chip_smoke import tiny_train_batch
+    cfg = tiny_config(vocab_size=320)
+    if not drawn:
+        cfg = dataclasses.replace(cfg, acoustic_tokenizer=dataclasses.replace(
+            cfg.acoustic_tokenizer, fix_std=0.0))
+    dev = G.resolve_device("cuda")
+
+    def make_params():
+        p = V.init_model(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+        p["speech_scaling_factor"] = torch.tensor(0.8, device=dev)
+        p["speech_bias_factor"] = torch.tensor(0.1, device=dev)
+        return p
+    return cfg, make_params, tiny_train_batch(cfg)
+
+
+@pytest.mark.parametrize("noise", ["injected", "drawn"])
+def test_captured_train_step_bit_equal_to_eager(cuda_device, noise):
+    """Three train steps of the tiny model captured (the default on the card:
+    a warm-up step, the capture, two replays) and three eager ones, from one
+    set of weights, one batch and one generator seed (or injected noise):
+    the losses of every step and every parameter afterwards are bit-equal."""
+    from chip_smoke import bit_equal_runs, train_eager_vs_graph
+    cfg, make_params, batch = _tiny_train(noise == "drawn")
+    runs = train_eager_vs_graph(cfg, make_params, batch, cuda_device, 3, noise == "injected",
+                                lr=1e-2)
+    graph = runs["graph"][2]
+    assert graph["captures"] == 1 and graph["replays"] == 2 and runs["eager"][2]["captures"] == 0
+    got = bit_equal_runs(runs)
+    assert got["losses_equal"] and got["leaves_differ"] == 0, got
+    assert np.isfinite(np.asarray(got["losses_graph"])).all()
+
+
+def test_captured_train_step_one_graph_per_batch_shape(cuda_device):
+    """A repeated batch shape replays its graph; a new shape (another
+    padding) captures a second one in the same memory pool; going back to
+    the first shape replays the first graph, and the losses stay finite."""
+    from chip_smoke import tiny_train_batch
+    from vibevoice_tpu_torch import train as T
+    cfg, make_params, batch = _tiny_train(True)
+    wide = tiny_train_batch(cfg, pad_to_multiple=128)
+    assert wide.input_ids.shape != batch.input_ids.shape
+    params = make_params()
+    opt = T.make_optimizer(params, lr=1e-3, warmup_steps=1, total_steps=10)
+    step = T.make_train_step(cfg, opt, device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    losses = [float(step(params, b, gen)["loss"]) for b in (batch, batch, wide, batch, wide)]
+    assert step.captures == 2 and len(step.graphs) == 2 and step.replays == 3
+    assert step.pool is not None and opt.count == 5
+    assert all(np.isfinite(losses))
+
+
+def test_captured_train_step_returns_its_own_metrics(cuda_device):
+    """The metrics a replay returns are copies: the next replay does not
+    overwrite them."""
+    from vibevoice_tpu_torch import train as T
+    cfg, make_params, batch = _tiny_train(True)
+    params = make_params()
+    opt = T.make_optimizer(params, lr=1e-2, warmup_steps=1, total_steps=10)
+    step = T.make_train_step(cfg, opt, device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    step(params, batch, gen)
+    first = step(params, batch, gen)
+    kept = {k: v.clone() for k, v in first.items()}
+    second = step(params, batch, gen)
+    assert step.replays == 2
+    assert all(torch.equal(first[k], kept[k]) for k in kept)
+    assert not torch.equal(first["loss"], second["loss"])
+
+
+def test_train_step_on_a_mesh_needs_eager(cuda_device):
+    """A train step on a mesh is not captured: without `eager=True` it
+    raises, with it the step is made."""
+    from vibevoice_tpu_torch import train as T
+    cfg = tiny_config(vocab_size=320)
+    opt = T.make_optimizer({"w": torch.zeros(2, 2, device=cuda_device)})
+    with pytest.raises(ValueError, match="eager=True"):
+        T.make_train_step(cfg, opt, device=cuda_device, mesh=_rank_mesh(0))
+    assert not T.make_train_step(cfg, opt, device=cuda_device, mesh=_rank_mesh(0),
+                                 eager=True).use_graph

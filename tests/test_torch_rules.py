@@ -215,16 +215,23 @@ CLI_ENTRY_POINTS = {
     "scripts.quality_eval": [],
     "scripts.convert_nnscaler_checkpoint": ["--checkpoint", "missing.pt", "--config",
                                             "missing.json", "--output", "out"],
+    "scripts.warm_serving_cache": ["--model_path", "missing_dir"],
+    "demo.gradio_demo": ["--model_path", "missing_dir"],
+    "demo.gradio_demo_with_captions": ["--model_path", "missing_dir"],
 }
+# the web demos need gradio: without it, with `--device cpu`, they stop
+# there, before reading a file
+WEB_DEMOS = ("demo.gradio_demo", "demo.gradio_demo_with_captions")
 
 
 @pytest.mark.parametrize("name", sorted(CLI_ENTRY_POINTS))
 def test_cli_entry_points_default_to_cuda_and_raise_without_it(no_cuda, name, tmp_path,
-                                                               monkeypatch):
+                                                               monkeypatch, capsys):
     """Every CLI of the port runs on CUDA unless `--device cpu` is given, and
     raises without a card before it reads a file; with `--device cpu` it goes
     on to its first file (missing here: the batch CLI reports it and saves
-    nothing)."""
+    nothing; a web demo without gradio exits 1 with the JAX demo's
+    message)."""
     import importlib
     monkeypatch.chdir(tmp_path)
     main = importlib.import_module(f"vibevoice_tpu_torch.{name}").main
@@ -233,6 +240,13 @@ def test_cli_entry_points_default_to_cuda_and_raise_without_it(no_cuda, name, tm
     on_cpu = CLI_ENTRY_POINTS[name] + ["--device", "cpu"]
     if name == "demo.batch_inference_simple_captions":
         assert main(on_cpu) == []
+    elif name in WEB_DEMOS:
+        monkeypatch.setitem(sys.modules, "gradio", None)  # absent, wherever this runs
+        with pytest.raises(SystemExit) as exc:
+            main(on_cpu)
+        assert exc.value.code == 1
+        assert capsys.readouterr().out.strip().endswith(
+            "gradio is not installed; `pip install gradio` to run the web demo.")
     elif name != "scripts.quality_eval":  # on the CPU it runs the tiny harness
         with pytest.raises(FileNotFoundError):
             main(on_cpu)

@@ -60,6 +60,12 @@ def _lib_path(name: str) -> str:
     return os.path.join(build_dir(), f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
+def built(names: Optional[List[str]] = None) -> List[str]:
+    """The kernels of `names` (default: all) whose library is in build_dir()."""
+    return [n for n in (list(SOURCES) if names is None else names)
+            if os.path.exists(_lib_path(n))]
+
+
 def _start(name: str) -> Tuple[Optional[subprocess.Popen], str, str]:
     """Start nvcc for `name` unless its library exists; returns (proc, tmp, dst)."""
     dst = _lib_path(name)
@@ -137,4 +143,4 @@ def fitting_plan(device, make_plan, clusters_that_fit, what: str):
     raise RuntimeError(f"no launch of {what} fits the card")
 
 
-__all__ = ["SOURCES", "build_all", "load", "build_dir", "sm_count", "fitting_plan"]
+__all__ = ["SOURCES", "build_all", "built", "load", "build_dir", "sm_count", "fitting_plan"]

@@ -4,8 +4,12 @@ Port of `vibevoice_tpu/train.py`.  The reference ships only the
 training-shaped forward (`vibevoice/modular/modeling_vibevoice.py:332-477`);
 the JAX package adds the step: loss = CE + diffusion MSE and an optax update,
 jitted over a `(data, model)` mesh.  Here the update is `torch.optim.AdamW`
-driven to reproduce that optax chain step for step (`make_optimizer`), and the
-step runs eagerly, on one device or on the ranks of a `parallel.Mesh`.
+driven to reproduce that optax chain step for step (`make_optimizer`).  On
+the card the step is captured, as the JAX step is jitted: the first call for
+a batch shape runs one real step, then records forward, backward, the clip
+and the AdamW update in one `torch.cuda.CUDAGraph`, which later calls replay
+(`make_train_step(..., eager=True)` runs every step from the host).  On the
+CPU, and on the ranks of a `parallel.Mesh`, the step runs eagerly.
 
 On a mesh (`make_train_step(..., mesh=)`) each rank holds its
 `parallel.shard_params` shard and its data rank's share of the global batch
@@ -24,6 +28,7 @@ skipped), the order `jax.tree_util.tree_leaves` gives.
 from __future__ import annotations
 
 import math
+import time
 from typing import Any, Dict, List, NamedTuple, Optional
 
 import numpy as np
@@ -116,7 +121,13 @@ class Optimizer:
     summed over the model group plus the whole leaves' counted once, which is
     `optax.global_norm` of the gathered tree.  AdamW stays elementwise on
     each shard, as optax on the sharded tree.  `sync_grads` sums the
-    gradients over `data`."""
+    gradients over `data`.
+
+    On the card (leaves on CUDA) the AdamW update is capturable and reads its
+    learning rate from a 0-d fp32 tensor on the card, which `set_lr` writes
+    before each update: a captured step then takes the same arithmetic as an
+    eager one.  On the CPU the learning rate is a host float, as in
+    `torch.optim.AdamW`'s default form."""
 
     def __init__(self, params: Dict[str, Any], lr: float, weight_decay: float,
                  warmup_steps: int, total_steps: int, mesh=None, specs=None):
@@ -135,10 +146,13 @@ class Optimizer:
         self.count = 0  # updates applied (optax's schedule count)
         decay = [p for p in self.leaves if p.dim() > 1]
         rest = [p for p in self.leaves if p.dim() <= 1]
+        on_card = bool(self.leaves) and self.leaves[0].is_cuda
+        card_lr = dict(lr=torch.zeros((), dtype=torch.float32, device=self.leaves[0].device),
+                       capturable=True) if on_card else dict(lr=0.0)
         self.adamw = torch.optim.AdamW(
             [{"params": decay, "weight_decay": weight_decay},
              {"params": rest, "weight_decay": 0.0}],
-            lr=0.0, betas=(0.9, 0.95), eps=1e-8)
+            betas=(0.9, 0.95), eps=1e-8, **card_lr)
 
     def zero_grad(self) -> None:
         self.adamw.zero_grad(set_to_none=True)
@@ -199,17 +213,33 @@ class Optimizer:
                     bucket.append(p)
                     size += p.numel()
 
+    def set_lr(self) -> float:
+        """Write the schedule's learning rate for the next update into the
+        param groups (on the card: into their lr tensors, outside any
+        captured step); returns it."""
+        lr = self.schedule(self.count)
+        for group in self.adamw.param_groups:
+            if isinstance(group["lr"], torch.Tensor):
+                group["lr"].fill_(lr)
+            else:
+                group["lr"] = lr
+        return lr
+
     @torch.no_grad()
-    def step(self) -> None:
-        """One update from the leaves' gradients."""
+    def update(self) -> None:
+        """The device half of `step`: zero gradients for the leaves without
+        one, the clip and the AdamW update at the learning rate `set_lr`
+        wrote.  A captured train step records this."""
         for p in self.leaves:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         self.clip_()
-        lr = self.schedule(self.count)
-        for group in self.adamw.param_groups:
-            group["lr"] = lr
         self.adamw.step()
+
+    def step(self) -> None:
+        """One update from the leaves' gradients."""
+        self.set_lr()
+        self.update()
         self.count += 1
 
 
@@ -220,10 +250,10 @@ def make_optimizer(params: Dict[str, Any], lr: float = 1e-4, weight_decay: float
                      specs=specs)
 
 
-def _device_batch(batch: TrainBatch, device) -> TrainBatch:
-    def put(a, dtype=None):
-        t = torch.as_tensor(np.asarray(a))
-        return t.to(device=device, dtype=dtype if dtype is not None else t.dtype)
+def _host_batch(batch: TrainBatch) -> TrainBatch:
+    """The batch as CPU tensors in the dtypes the step takes."""
+    def put(a, dtype):
+        return torch.as_tensor(np.asarray(a)).to(dtype)
     return TrainBatch(
         input_ids=put(batch.input_ids, torch.int64),
         attention_mask=put(batch.attention_mask, torch.int64),
@@ -233,6 +263,10 @@ def _device_batch(batch: TrainBatch, device) -> TrainBatch:
         speech_semantic_tensors=put(batch.speech_semantic_tensors, torch.float32),
         acoustic_input_mask=put(batch.acoustic_input_mask, torch.bool),
         acoustic_loss_mask=put(batch.acoustic_loss_mask, torch.bool))
+
+
+def _device_batch(batch: TrainBatch, device) -> TrainBatch:
+    return TrainBatch(*(t.to(device) for t in _host_batch(batch)))
 
 
 def solver_tables(cfg: VibeVoiceConfig) -> ds.SolverTables:
@@ -258,65 +292,194 @@ def injected_rows(valid: np.ndarray, invalid: np.ndarray, index: int, mul: int) 
     return (frames[:, None] * mul + np.arange(mul)).reshape(-1)
 
 
+class _Captured(NamedTuple):
+    graph: Any                  # torch.cuda.CUDAGraph
+    inputs: List[torch.Tensor]  # the static batch (and injected noise, timesteps)
+    metrics: torch.Tensor       # [3] static output: loss, ce_loss, diffusion_loss
+
+
+METRICS = ("loss", "ce_loss", "diffusion_loss")
+
+
+class TrainStep:
+    """`make_train_step`'s step.  On the card, unless `eager`, it follows
+    `engine.generate.Engine`'s rule: the first call for a batch's shapes
+    (with or without injected noise, with or without a generator) runs one
+    real step on a side stream, then captures forward, backward,
+    `Optimizer.update` (the clip and AdamW) in a `torch.cuda.CUDAGraph` with
+    the step's generator registered; a later call copies its batch into that
+    graph's static buffers, writes the learning rate into the optimizer's lr
+    tensors and replays.  The graphs share one memory pool.  A failed
+    capture raises: there is no eager fallback.
+
+    `graphs` (by key), `captures`, `capture_s` (the last capture's seconds)
+    and `replays` say what it did."""
+
+    def __init__(self, cfg: VibeVoiceConfig, optimizer: Optimizer,
+                 ddpm_batch_mul: Optional[int], diffusion_loss_weight: float, device,
+                 mesh, eager: bool):
+        self.device = resolve_device(device)
+        if mesh is not None and not eager:
+            raise ValueError("a train step on a mesh runs eagerly (its gloo or NCCL "
+                             "collectives are not captured): pass eager=True")
+        self.cfg, self.optimizer, self.mesh = cfg, optimizer, mesh
+        self.loss_weight = diffusion_loss_weight
+        self.mul = (ddpm_batch_mul if ddpm_batch_mul is not None
+                    else cfg.diffusion_head.ddpm_batch_mul)
+        # on the device once: a host-to-device copy cannot be captured
+        self.tables = ds.SolverTables(*(torch.as_tensor(np.asarray(x), device=self.device)
+                                        for x in solver_tables(cfg)))
+        self.dp_group = None if mesh is None else mesh.group("data")
+        self.use_graph = self.device.type == "cuda" and not eager
+        self.graphs: Dict[tuple, _Captured] = {}
+        self.pool = None
+        self.captures = 0
+        self.capture_s: Optional[float] = None
+        self.replays = 0
+        self._rng: Optional[torch.Generator] = None
+
+    def _forward_backward(self, params, b: TrainBatch, generator, noise,
+                          timesteps) -> torch.Tensor:
+        """The losses and their gradients in the leaves' `.grad`; returns
+        [loss, ce_loss, diffusion_loss]."""
+        out = vibevoice.training_forward(
+            params, self.cfg, self.tables, generator,
+            input_ids=b.input_ids, attention_mask=b.attention_mask,
+            speech_tensors=b.speech_tensors, speech_masks=b.speech_masks,
+            speech_semantic_tensors=b.speech_semantic_tensors,
+            acoustic_input_mask=b.acoustic_input_mask,
+            acoustic_loss_mask=b.acoustic_loss_mask, labels=b.labels,
+            ddpm_batch_mul=self.mul, injected_noise=noise, injected_timesteps=timesteps,
+            mesh=self.mesh)
+        loss = out.ce_loss + self.loss_weight * out.diffusion_loss
+        loss.backward()
+        return torch.stack([loss, out.ce_loss, out.diffusion_loss]).detach()
+
+    def _body(self, params, inputs: List[torch.Tensor], generator) -> torch.Tensor:
+        """What a captured step records: forward, backward and the update."""
+        b = TrainBatch(*inputs[:len(TrainBatch._fields)])
+        noise, timesteps = (inputs[len(TrainBatch._fields):] + [None, None])[:2]
+        metrics = self._forward_backward(params, b, generator, noise, timesteps)
+        self.optimizer.update()
+        return metrics
+
+    def __call__(self, params, batch: TrainBatch, generator: Optional[torch.Generator],
+                 injected_noise=None, injected_timesteps=None) -> Dict[str, torch.Tensor]:
+        if self.use_graph:
+            metrics = self._graph_step(params, batch, generator, injected_noise,
+                                       injected_timesteps)
+        else:
+            metrics = self._eager_step(params, batch, generator, injected_noise,
+                                       injected_timesteps)
+        return dict(zip(METRICS, metrics.unbind()))
+
+    def _eager_step(self, params, batch, generator, injected_noise, injected_timesteps):
+        mesh, device, opt = self.mesh, self.device, self.optimizer
+        if mesh is not None:
+            check_shard_shapes(params, self.cfg, mesh.shape["model"], train=True)
+        b = _device_batch(batch, device)
+        if injected_noise is not None:
+            injected_noise = torch.as_tensor(injected_noise).to(device)
+            injected_timesteps = torch.as_tensor(injected_timesteps).to(device)
+            if self.dp_group is not None:
+                sm = np.asarray(batch.speech_masks)
+                counts = torch.tensor([int(sm.sum()), int(sm.size - sm.sum())], device=device)
+                per_rank = mesh.all_gather(counts[None], "data").cpu().numpy()
+                rows = torch.from_numpy(injected_rows(per_rank[:, 0], per_rank[:, 1],
+                                                      mesh.axis_index("data"), self.mul)
+                                        ).to(device)
+                injected_noise = injected_noise[rows]
+                injected_timesteps = injected_timesteps[rows]
+        opt.zero_grad()
+        metrics = self._forward_backward(params, b, generator, injected_noise,
+                                         injected_timesteps)
+        opt.sync_grads()
+        opt.step()
+        if self.dp_group is not None:
+            metrics = mesh.all_reduce(metrics, "data")
+        return metrics
+
+    def _graph_step(self, params, batch, generator, injected_noise, injected_timesteps):
+        host = list(_host_batch(batch))
+        if injected_noise is not None:
+            host += [torch.as_tensor(injected_noise), torch.as_tensor(injected_timesteps)]
+        key = (tuple((tuple(t.shape), t.dtype) for t in host), generator is None)
+        rng = None
+        if generator is not None:
+            # the caller's generator state goes into the one the graphs draw
+            # from, and comes back advanced by the step's draws
+            if self._rng is None:
+                self._rng = torch.Generator(device=self.device)
+            self._rng.set_state(generator.get_state())
+            rng = self._rng
+        self.optimizer.set_lr()
+        cap = self.graphs.get(key)
+        if cap is None:
+            metrics = self._capture(params, [t.to(self.device, copy=True) for t in host], rng,
+                                    key)
+        else:
+            for dst, src in zip(cap.inputs, host):
+                dst.copy_(src)
+            cap.graph.replay()
+            self.replays += 1
+            metrics = cap.metrics.clone()  # the next replay overwrites the static output
+        self.optimizer.count += 1
+        if generator is not None:
+            generator.set_state(self._rng.get_state())
+        return metrics
+
+    def _capture(self, params, inputs, rng, key) -> torch.Tensor:
+        """Warm one step up on a side stream (a real step: its metrics are
+        this call's), then capture one step on that stream into the shared
+        pool.  The warm-up's gradients are dropped first, so that the
+        capture's backward makes the graph's own, static ones."""
+        dev, opt = self.device, self.optimizer
+        stream = torch.cuda.Stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            opt.zero_grad()
+            metrics = self._body(params, inputs, rng)
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        opt.zero_grad()
+        if self.pool is None:
+            self.pool = torch.cuda.graph_pool_handle()
+        t0 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        if rng is not None:
+            graph.register_generator_state(rng)
+        # entering frees the warm-up's cached blocks (empty_cache) first
+        with torch.cuda.graph(graph, pool=self.pool, stream=stream):
+            out = self._body(params, inputs, rng)
+        self.captures += 1
+        self.capture_s = time.perf_counter() - t0
+        self.graphs[key] = _Captured(graph, inputs, out)
+        return metrics
+
+
 def make_train_step(cfg: VibeVoiceConfig, optimizer: Optimizer,
                     ddpm_batch_mul: Optional[int] = None,
-                    diffusion_loss_weight: float = 1.0, device="cuda", mesh=None):
+                    diffusion_loss_weight: float = 1.0, device="cuda", mesh=None,
+                    eager: bool = False) -> TrainStep:
     """Returns `train_step(params, batch, generator, injected_noise=None,
     injected_timesteps=None) -> metrics` ({"loss", "ce_loss",
     "diffusion_loss"}: 0-d tensors on the device).  It updates the leaves of
     `params` that `optimizer` was made from, in place.  Those, and the
     generator, live on `device` (CUDA unless the caller asks for the CPU);
     the batch moves there.  The injection arguments fix the diffusion noise
-    and timesteps, for parity tests.
+    and timesteps, for parity tests.  A step without them draws from
+    `generator`, which it advances as an eager step would.
 
-    On a `mesh` (the optimizer's): `params` are this rank's shards
-    (`check_shard_shapes` refuses others), `batch` is its data rank's share
-    (`data.shard_batch`), injected noise and timesteps are the global
-    batch's (each rank takes its rows, `injected_rows`), the gradients are
-    summed over `data` before the clip, and the metrics are summed over
-    `data`: every rank reports the global batch's losses."""
-    device = resolve_device(device)
-    tables = solver_tables(cfg)
-    bm = ddpm_batch_mul if ddpm_batch_mul is not None else cfg.diffusion_head.ddpm_batch_mul
-    dp_group = None if mesh is None else mesh.group("data")
+    On the card the step is captured (`TrainStep`); `eager=True` runs it from
+    the host, for comparisons.  On the CPU it always runs eagerly.
 
-    def train_step(params, batch: TrainBatch, generator: torch.Generator,
-                   injected_noise: Optional[torch.Tensor] = None,
-                   injected_timesteps: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
-        if mesh is not None:
-            check_shard_shapes(params, cfg, mesh.shape["model"], train=True)
-        b = _device_batch(batch, device)
-        if injected_noise is not None:
-            injected_noise = torch.as_tensor(injected_noise).to(device)
-            injected_timesteps = torch.as_tensor(injected_timesteps).to(device)
-            if dp_group is not None:
-                sm = np.asarray(batch.speech_masks)
-                counts = torch.tensor([int(sm.sum()), int(sm.size - sm.sum())], device=device)
-                per_rank = mesh.all_gather(counts[None], "data").cpu().numpy()
-                rows = torch.from_numpy(injected_rows(per_rank[:, 0], per_rank[:, 1],
-                                                      mesh.axis_index("data"), bm)).to(device)
-                injected_noise = injected_noise[rows]
-                injected_timesteps = injected_timesteps[rows]
-        optimizer.zero_grad()
-        out = vibevoice.training_forward(
-            params, cfg, tables, generator,
-            input_ids=b.input_ids, attention_mask=b.attention_mask,
-            speech_tensors=b.speech_tensors, speech_masks=b.speech_masks,
-            speech_semantic_tensors=b.speech_semantic_tensors,
-            acoustic_input_mask=b.acoustic_input_mask,
-            acoustic_loss_mask=b.acoustic_loss_mask, labels=b.labels,
-            ddpm_batch_mul=bm, injected_noise=injected_noise,
-            injected_timesteps=injected_timesteps, mesh=mesh)
-        loss = out.ce_loss + diffusion_loss_weight * out.diffusion_loss
-        loss.backward()
-        optimizer.sync_grads()
-        optimizer.step()
-        metrics = torch.stack([loss, out.ce_loss, out.diffusion_loss]).detach()
-        if dp_group is not None:
-            metrics = mesh.all_reduce(metrics, "data")
-        return dict(zip(("loss", "ce_loss", "diffusion_loss"), metrics.unbind()))
-
-    return train_step
+    On a `mesh` (the optimizer's), which needs `eager=True`: `params` are
+    this rank's shards (`check_shard_shapes` refuses others), `batch` is its
+    data rank's share (`data.shard_batch`), injected noise and timesteps are
+    the global batch's (each rank takes its rows, `injected_rows`), the
+    gradients are summed over `data` before the clip, and the metrics are
+    summed over `data`: every rank reports the global batch's losses."""
+    return TrainStep(cfg, optimizer, ddpm_batch_mul, diffusion_loss_weight, device, mesh,
+                     eager)
 
 
 @torch.no_grad()
@@ -337,6 +500,6 @@ def init_scaling_stats(params: Dict[str, Any], cfg: VibeVoiceConfig,
     return params
 
 
-__all__ = ["TrainBatch", "Optimizer", "make_optimizer", "make_train_step",
+__all__ = ["TrainBatch", "Optimizer", "TrainStep", "make_optimizer", "make_train_step",
            "init_scaling_stats", "injected_rows", "trainable", "solver_tables",
            "warmup_cosine_decay"]
