@@ -134,7 +134,7 @@ Phases, in order; any failure stops the run with a non-zero exit:
      width with its LM cut to 4 layers, unsharded: 4 eager and 4 captured
      steps from one set of weights, one batch and one generator seed, with
      injected and with drawn noise, the losses and every parameter
-     afterwards bit-equal; then the sharded training step (eager: a mesh's
+     afterwards bit-equal; then the sharded training step (eager: gloo's
      collectives are not captured) as two gloo ranks on this card: this process
      takes two unsharded steps of the fp32 1.5B at full width with its LM
      cut to 4 layers (2 rows x 3 turns of the demo voices, 576 tokens a
@@ -150,7 +150,15 @@ Phases, in order; any failure stops the run with a non-zero exit:
      leaf's mean difference within lr/100, the frozen tokenizers' decay
      exact, the DP ranks' scaling statistics the mean of their shares', no
      kernel launches; then the tiny model's TP=2 steps (untied `lm_head`,
-     its logits gathered) on the card as on the CPU;
+     its logits gathered) on the card as on the CPU; 11c the sharded step
+     captured over NCCL, in a child process whose NCCL group of one rank is
+     both the data and the model group of a (1, 1) mesh, so that every
+     collective the sharded step guards is issued (NCCL refuses two ranks on
+     one card): on the same model, batch and injected noise, 2 captured and
+     2 eager steps bit-equal (losses, every leaf) and both within 1e-5 (the
+     losses) and 2 lr / lr/100 (the updates) of the unsharded captured step,
+     the graph's kernel, NCCL and other nodes printed (one rank: not a TP or
+     DP speed);
  12. the caption and quality-evaluation path through the port's own entry
      points, on a full-width 1.5B bf16 checkpoint (random, from the seed,
      with a live audio path; phase 8's writer) that each run loads with
@@ -2413,10 +2421,11 @@ def _tensors(tree):
 
 
 class StepMarks:
-    """CUDA events at the parts of `train_step`: the audio encode (under
-    no_grad, inside the forward), the rest of the forward, the backward and
-    the optimizer.  It wraps the model's `training_forward` and
-    `encode_voice_prompts` and the optimizer's `step` while it is entered."""
+    """CUDA events at the parts of an eager `train_step`: the audio encode
+    (under no_grad, inside the forward), the rest of the forward, the
+    backward and the optimizer.  It wraps the model's `training_forward` and
+    `encode_voice_prompts` and the optimizer's `update` while it is
+    entered."""
 
     PARTS = ("encode", "forward", "backward", "optimizer")
 
@@ -2439,16 +2448,16 @@ class StepMarks:
 
     def __enter__(self):
         self.events = {}
-        self.saved = (self.V.training_forward, self.V.encode_voice_prompts, self.opt.step)
-        tf, enc, step = self.saved
+        self.saved = (self.V.training_forward, self.V.encode_voice_prompts, self.opt.update)
+        tf, enc, update = self.saved
         self.V.training_forward = self._wrap(tf, None, "forward_end")
         self.V.encode_voice_prompts = self._wrap(enc, "encode_start", "encode_end")
-        self.opt.step = self._wrap(step, "backward_end", "optimizer_end")
+        self.opt.update = self._wrap(update, "backward_end", "optimizer_end")
         self._mark("start")
         return self
 
     def __exit__(self, *exc):
-        self.V.training_forward, self.V.encode_voice_prompts, self.opt.step = self.saved
+        self.V.training_forward, self.V.encode_voice_prompts, self.opt.update = self.saved
         self._mark("end")
 
     def parts_ms(self) -> dict:
@@ -2706,53 +2715,66 @@ def phase_train_reference(dev, steps=2):
     return loss_err, param_err
 
 
-def train_eager_vs_graph(cfg, make_params, batch, dev, steps, injected, lr=1e-4):
-    """`steps` train steps from `make_params()` on one batch, first eager
-    (`make_train_step(eager=True)`), then captured (the default on the card),
-    with one generator seed (drawn noise: the timesteps, the diffusion noise
-    and the VAE sample) or injected noise and timesteps with no generator.
-    Returns, for "eager" and "graph": the losses by step, every leaf
-    afterwards (on the host) and the step's captures, replays and last
-    capture's seconds; each run's model is released before the next."""
+def train_turns(cfg, make_params, batch, dev, inj, turns, lr=1e-4, steps=None):
+    """Train steps from `make_params()` in turns, each model released before
+    the next: `turns` holds (name, mesh or None, eager).  `inj` holds one
+    (injected noise, timesteps) pair a step; with None every turn draws from
+    a generator of one seed (`steps` steps).  Returns per turn the losses of
+    every step, every leaf afterwards (on the host), the step's captures,
+    replays and last capture's seconds, its graphs' node names
+    (`graph_kernels`) and the collectives of its last call."""
     import gc
     from vibevoice_tpu_torch import train as T
-    n = batch.speech_masks.size * cfg.diffusion_head.ddpm_batch_mul
-    rng = np.random.default_rng(SEED + 3)
-    inj = [(rng.normal(size=(n, cfg.acoustic_vae_dim)).astype(np.float32),
-            rng.integers(0, cfg.diffusion_head.ddpm_num_steps, n).astype(np.int32))
-           for _ in range(steps)]
+    from vibevoice_tpu_torch.parallel import model_param_specs
     out = {}
-    for mode in ("eager", "graph"):
+    for name, mesh, eager in turns:
         params = make_params()
         opt = T.make_optimizer(params, lr=lr, weight_decay=0.01, warmup_steps=1,
-                               total_steps=100)
-        step = T.make_train_step(cfg, opt, device=dev, eager=mode == "eager")
+                               total_steps=100, mesh=mesh,
+                               specs=None if mesh is None else model_param_specs(params, cfg))
+        step = T.make_train_step(cfg, opt, device=dev, mesh=mesh, eager=eager)
         gen = torch.Generator(device=dev).manual_seed(SEED + 5)
         losses = []
-        for i in range(steps):
-            args = (None, *inj[i]) if injected else (gen,)
-            m = step(params, batch, *args)
-            losses.append(torch.stack([m[k] for k in ("loss", "ce_loss", "diffusion_loss")])
-                          .cpu())
-        out[mode] = (losses, [p.detach().cpu() for p in opt.leaves],
-                     dict(captures=step.captures, replays=step.replays,
-                          capture_s=step.capture_s))
+        for i in range(len(inj) if inj is not None else steps):
+            args = (None, *inj[i]) if inj is not None else (gen,)
+            with Collectives() as coll:
+                m = step(params, batch, *args)
+                losses.append(torch.stack([m[k] for k in T.METRICS]).cpu())
+        out[name] = dict(losses=losses, leaves=[p.detach().cpu() for p in opt.leaves],
+                         captures=step.captures, replays=step.replays,
+                         capture_s=step.capture_s,
+                         nodes=[graph_kernels(c.graph) for c in step.graphs.values()],
+                         collectives={k: v["calls"] for k, v in coll.calls.items()})
         del params, opt, m, step
         gc.collect()
         torch.cuda.empty_cache()
     return out
 
 
-def bit_equal_runs(runs) -> dict:
-    """What `train_eager_vs_graph` gave, compared: whether the losses of
-    every step and every leaf afterwards are bit-equal, and how many leaves
-    differ."""
-    (l_e, p_e, _), (l_g, p_g, _) = runs["eager"], runs["graph"]
-    losses_equal = all(torch.equal(a, b) for a, b in zip(l_e, l_g))
-    differ = [i for i, (a, b) in enumerate(zip(p_e, p_g)) if not torch.equal(a, b)]
+def train_eager_vs_graph(cfg, make_params, batch, dev, steps, injected, lr=1e-4):
+    """`steps` train steps from `make_params()` on one batch, first eager
+    (`make_train_step(eager=True)`), then captured (the default on the card),
+    with one generator seed (drawn noise: the timesteps, the diffusion noise
+    and the VAE sample) or injected noise and timesteps with no generator
+    (`train_turns`)."""
+    n = batch.speech_masks.size * cfg.diffusion_head.ddpm_batch_mul
+    rng = np.random.default_rng(SEED + 3)
+    inj = [(rng.normal(size=(n, cfg.acoustic_vae_dim)).astype(np.float32),
+            rng.integers(0, cfg.diffusion_head.ddpm_num_steps, n).astype(np.int32))
+           for _ in range(steps)]
+    return train_turns(cfg, make_params, batch, dev, inj if injected else None,
+                       (("eager", None, True), ("graph", None, False)), lr=lr, steps=steps)
+
+
+def bit_equal_runs(runs, a="eager", b="graph") -> dict:
+    """Two turns of `train_turns` compared: whether the losses of every step
+    and every leaf afterwards are bit-equal, and how many leaves differ."""
+    (l_e, p_e), (l_g, p_g) = ((runs[t]["losses"], runs[t]["leaves"]) for t in (a, b))
+    losses_equal = all(torch.equal(x, y) for x, y in zip(l_e, l_g))
+    differ = [i for i, (x, y) in enumerate(zip(p_e, p_g)) if not torch.equal(x, y)]
     return dict(losses_equal=losses_equal, leaves=len(p_e), leaves_differ=len(differ),
                 first_leaf_differs=differ[0] if differ else None,
-                losses_eager=[x.tolist() for x in l_e], losses_graph=[x.tolist() for x in l_g])
+                **{f"losses_{t}": [x.tolist() for x in runs[t]["losses"]] for t in (a, b)})
 
 
 # ---------------------------------------------------------------------------
@@ -3388,18 +3410,14 @@ def shard_train_cfg(layers=SHARD_LAYERS):
         acoustic_tokenizer=dataclasses.replace(cfg.acoustic_tokenizer, fix_std=0.0))
 
 
-def phase_train_graph_equal(dev, card, root):
-    """The captured train step against the eager one on phase 11's model
-    (`shard_train_cfg`: the fp32 1.5B at full width, its LM cut to 4
-    layers), unsharded: from one set of weights, one batch and one
-    generator seed, TRAIN_STEPS eager steps and TRAIN_STEPS captured ones,
-    with injected noise and timesteps and then with drawn ones.  The losses
-    of every step and every parameter afterwards must be bit-equal."""
+def shard_train_model(dev, root):
+    """Phase 11's model (`shard_train_cfg`) and batch (2 rows x SHARD_TURNS
+    turns of the demo voices): the config, a function that makes the seed's
+    weights on `dev` with the whole batch's scaling statistics, and the
+    batch."""
     import gc
     from vibevoice_tpu_torch import train as T
     from vibevoice_tpu_torch.models import vibevoice as V
-    gc.collect()
-    torch.cuda.empty_cache()
     cfg = shard_train_cfg()
     init = lambda: V.init_model(cfg, dtype=torch.float32, device=dev,
                                 generator=torch.Generator(device=dev).manual_seed(SEED))
@@ -3416,14 +3434,28 @@ def phase_train_graph_equal(dev, card, root):
         p = init()
         p.update({k: v.clone() for k, v in stats.items()})
         return p
+    return cfg, make_params, batch
 
+
+def phase_train_graph_equal(dev, card, root):
+    """The captured train step against the eager one on phase 11's model
+    (`shard_train_cfg`: the fp32 1.5B at full width, its LM cut to 4
+    layers), unsharded: from one set of weights, one batch and one
+    generator seed, TRAIN_STEPS eager steps and TRAIN_STEPS captured ones,
+    with injected noise and timesteps and then with drawn ones.  The losses
+    of every step and every parameter afterwards must be bit-equal."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, make_params, batch = shard_train_model(dev, root)
     out = {}
     for noise in ("injected", "drawn"):
         t0 = time.perf_counter()
         torch.cuda.reset_peak_memory_stats()
         runs = train_eager_vs_graph(cfg, make_params, batch, dev, TRAIN_STEPS,
                                     noise == "injected", lr=SHARD_LR)
-        got = dict(bit_equal_runs(runs), **runs["graph"][2])
+        got = dict(bit_equal_runs(runs), **{k: runs["graph"][k]
+                                            for k in ("captures", "replays", "capture_s")})
         del runs
         gc.collect()
         emit("train_graph_equal", model="vibevoice_1_5b", layers=SHARD_LAYERS, dtype="fp32",
@@ -3448,7 +3480,7 @@ class ShardMarks(StepMarks):
         self.saved_sync = self.opt.sync_grads
         self.opt.sync_grads = self._wrap(self.saved_sync, "backward_end", "allreduce_end")
         super().__enter__()
-        self.opt.step = self._wrap(self.saved[2], None, "optimizer_end")
+        self.opt.update = self._wrap(self.saved[2], None, "optimizer_end")
         return self
 
     def __exit__(self, *exc):
@@ -3757,6 +3789,144 @@ def phase_train_sharded_reference(dev, steps=2):
         raise RuntimeError(f"TP training on the card and on the CPU disagree: losses "
                            f"{loss_err}, params {param_err} > {TRAIN_REL_TOL}")
     return loss_err, param_err
+
+
+# ---------------------------------------------------------------------------
+# phase 11c: the captured sharded step over an NCCL group of one rank
+# ---------------------------------------------------------------------------
+
+MESH_TURNS = (("unsharded", False, False), ("graph", True, False), ("eager", True, True))
+
+
+def node_counts(names) -> dict:
+    """A captured graph's nodes (`graph_kernels`): kernel nodes, the NCCL
+    kernels among them, and the other nodes (copies, fills, memsets)."""
+    kernels = [n for n in names if not n.startswith("graph node of type")]
+    return dict(kernel_nodes=len(kernels), nccl_nodes=sum("nccl" in n.lower() for n in kernels),
+                other_nodes=len(names) - len(kernels))
+
+
+def mesh_train_turns(cfg, make_params, batch, inj, dev, mesh, lr=SHARD_LR):
+    """`train_turns` with injected noise in three turns: "unsharded"
+    (captured, no mesh), "graph" (captured on `mesh`) and "eager"
+    (`eager=True` on `mesh`)."""
+    return train_turns(cfg, make_params, batch, dev, inj,
+                       [(n, mesh if on_mesh else None, eager) for n, on_mesh, eager in MESH_TURNS],
+                       lr=lr)
+
+
+def compare_mesh_turns(runs) -> dict:
+    """`mesh_train_turns`' turns compared: the mesh's captured and eager
+    turns bit-equal (`bit_equal_runs`), and each against the unsharded
+    captured turn: the largest relative loss difference, and of each leaf
+    (from the same start: the difference of the updates) the largest and
+    the worst leaf's mean absolute difference."""
+    out = bit_equal_runs(runs, "graph", "eager")
+    u = runs["unsharded"]
+    for turn in ("graph", "eager"):
+        r = runs[turn]
+        loss = max(float(((a.double() - b.double()).abs() / b.double().abs()).max())
+                   for a, b in zip(r["losses"], u["losses"]))
+        diffs = [(a - b).abs() for a, b in zip(r["leaves"], u["leaves"])]
+        out[turn + "_vs_unsharded"] = dict(
+            loss_max_rel_err=loss, update_max_abs_diff=max(float(d.max()) for d in diffs),
+            update_leaf_mean_abs_diff=max(float(d.mean()) for d in diffs))
+    return out
+
+
+def _nccl_rank(rank, world, store, out_dir, fn, *args):
+    """A spawned rank of an NCCL default group on `cuda:0` (one rank a
+    card): `fn(rank, dev, *args)`'s result saved to `out_dir`; a failure
+    leaves its traceback there and a non-zero exit."""
+    import datetime
+    import traceback
+    import torch.distributed as dist
+    try:
+        from vibevoice_tpu_torch.device import resolve_device
+        torch.cuda.set_device(0)
+        dev = resolve_device("cuda")
+        dist.init_process_group("nccl", init_method="file://" + store, world_size=world,
+                                rank=rank, timeout=datetime.timedelta(seconds=PAR_TIMEOUT_S))
+        out = fn(rank, dev, *args)
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+        dist.destroy_process_group()
+    except BaseException:
+        with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def one_rank_nccl_mesh():
+    """The (1, 1) mesh over an NCCL default group of one rank, with that group
+    as both its `data` and its `model` group: every collective the sharded
+    step guards with `mesh.group(...)` is issued, over NCCL."""
+    import torch.distributed as dist
+    from vibevoice_tpu_torch.parallel.mesh import Mesh
+    g = dist.group.WORLD
+    return Mesh(1, 1, rank=0, groups={"data": g, "model": g})
+
+
+def _train_nccl_rank(rank, dev, root):
+    """Phase 11c's child: phase 11's model and batch (`shard_train_model`),
+    SHARD_STEPS steps
+    of injected noise in `mesh_train_turns` on `one_rank_nccl_mesh()`."""
+    cfg, make_params, batch = shard_train_model(dev, root)
+    counters = kernel_counters()
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    runs = mesh_train_turns(cfg, make_params, batch, shard_injected(batch, cfg), dev,
+                            one_rank_nccl_mesh())
+    got = compare_mesh_turns(runs)
+    return dict(got, batch=list(batch.input_ids.shape),
+                losses_unsharded=[x.tolist() for x in runs["unsharded"]["losses"]],
+                graph={k: runs["graph"][k] for k in ("captures", "replays", "capture_s")},
+                nodes=[node_counts(n) for n in runs["graph"]["nodes"]],
+                unsharded_nodes=[node_counts(n) for n in runs["unsharded"]["nodes"]],
+                eager_step_collectives=runs["eager"]["collectives"],
+                kernel_launches={k: c.launches for k, c in counters.items() if c.launches},
+                max_memory_allocated=torch.cuda.max_memory_allocated())
+
+
+def phase_train_graph_nccl(dev, card, root):
+    """Phase 11c: the sharded step captured over NCCL, in a spawned child
+    whose NCCL default group holds one rank (NCCL refuses two ranks on one
+    card): on `one_rank_nccl_mesh()` and phase 11's model, SHARD_STEPS
+    captured and SHARD_STEPS eager steps from the same weights, batch and
+    injected noise must be bit-equal (losses, every leaf), and both within
+    phase 11's tolerances of the unsharded captured step (the clip sums its
+    split and whole leaves' squares apart, so not bit-equal to it).  Prints
+    the graph's kernel, NCCL and other nodes.  A one-rank communicator shows
+    that the step's NCCL work is captured on this card image, not a TP or DP
+    speed."""
+    import gc
+    import shutil
+    import tempfile
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="vv_train_nccl_")
+    try:
+        got = spawn_ranks(_nccl_rank, 1, work, (_train_nccl_rank, root), PAR_TIMEOUT_S,
+                          "phase 11c")[0]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    emit("train_graph_nccl", model="vibevoice_1_5b", layers=SHARD_LAYERS, dtype="fp32",
+         mesh={"data": 1, "model": 1}, backend="nccl", ranks=1, steps=SHARD_STEPS,
+         loss_tol=SHARD_LOSS_TOL, update_tol=SHARD_UPDATE_MAX,
+         update_mean_tol=SHARD_UPDATE_MEAN, seconds=time.perf_counter() - t0,
+         note="one NCCL rank: the collectives are captured, not a TP or DP speed",
+         card=card, **got)
+    ok = (got["losses_equal"] and got["leaves_differ"] == 0 and not got["kernel_launches"]
+          and got["graph"]["captures"] == 1 and got["graph"]["replays"] == SHARD_STEPS - 1)
+    for turn in ("graph", "eager"):
+        d = got[turn + "_vs_unsharded"]
+        ok = ok and (d["loss_max_rel_err"] <= SHARD_LOSS_TOL
+                     and d["update_max_abs_diff"] <= SHARD_UPDATE_MAX
+                     and d["update_leaf_mean_abs_diff"] <= SHARD_UPDATE_MEAN)
+    if not ok:
+        raise RuntimeError(f"phase 11c: the captured sharded step over NCCL fails: {got}")
+    return got
 
 
 # ---------------------------------------------------------------------------
@@ -4567,6 +4737,9 @@ def main() -> int:
     phase_train_graph_equal(dev, card, root)
     phase_train_sharded(dev, card, root)
     phase_train_sharded_reference(dev)
+    # 11c. the sharded step captured over NCCL: one rank's NCCL group as the
+    # mesh's data and model groups, captured against eager
+    phase_train_graph_nccl(dev, card, root)
 
     # 12. the caption and quality-evaluation path: the quality harness, the
     # caption CLI to a 4096-slot cache and the batch CLI, on a checkpoint;

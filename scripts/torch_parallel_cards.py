@@ -29,8 +29,12 @@ stacks, head, connectors and embedding, half of each LM layer), the batch of
 `chip_smoke.py` phase 9 (2 rows x 1024 tokens of the demo voices) split over
 `data` (`data.shard_batch`), `init_scaling_stats` averaged over `data`, and
 TRAIN_STEPS `train_step`s (`make_train_step(mesh=)`, lr 1e-4 after a warm-up
-step): each rank's losses, peak memory and step time split into forward,
-backward, the gradient all-reduce over `data` and the optimizer.
+step) in two turns from the same weights, batch and generator seeds: eager,
+each step split into forward, backward, the gradient all-reduce over `data`
+and the optimizer; then captured (the default over NCCL: a warm-up step and
+the capture, then replays), each step's device ms, the capture's seconds,
+the graph pool's bytes and the graph's kernel, NCCL and other nodes.  Both
+turns' losses and every leaf must be bit-equal; each rank's peak memory.
 One JSON line per result from rank 0, then the cards' name and power limit.
 """
 import json
@@ -186,56 +190,121 @@ def phase_cp_ring(rank, world, dev, report):
 TRAIN_STEPS = 4
 
 
+def _train_turn(mesh, dev, batch, eager, gen):
+    """TRAIN_STEPS steps of the sharded fp32 1.5B from the seed's weights:
+    eager, each step split by CUDA events into forward, backward, the
+    gradient all-reduce over `data` and the optimizer (`ShardMarks`); or
+    captured, each step's device ms by CUDA events around the call, with the
+    first step's capture seconds, the graph pool's bytes and the graph's
+    nodes.  Returns the turn's summary, its losses and every leaf afterwards
+    (on the host)."""
+    import gc
+    from vibevoice_tpu_torch import data as D, train as T
+    from vibevoice_tpu_torch.models import vibevoice as V
+    torch.cuda.reset_peak_memory_stats()
+    params = V.init_model(CFG, dtype=torch.float32, device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(cs.SEED))
+    local = shard_params(params, mesh, cfg=CFG)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    mine = D.shard_batch(batch, mesh)
+    local = T.init_scaling_stats(local, CFG, gen(), mine, device=dev, mesh=mesh)
+    opt = T.make_optimizer(local, lr=1e-4, weight_decay=0.01, warmup_steps=1, total_steps=100,
+                           mesh=mesh, specs=model_param_specs(local, CFG))
+    step = T.make_train_step(CFG, opt, device=dev, mesh=mesh, eager=eager)
+    steps, losses = [], []
+    out = {}
+    for i in range(TRAIN_STEPS):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        if eager:
+            with cs.ShardMarks(V, opt) as marks:
+                m = step(local, mine, gen())
+        else:
+            m = step(local, mine, gen())
+        end.record()
+        losses.append(torch.stack([m[k] for k in T.METRICS]).cpu())
+        wall = time.perf_counter() - t0
+        parts = marks.parts_ms() if eager else {"step": start.elapsed_time(end)}
+        steps.append(dict(zip(T.METRICS, losses[-1].tolist()), wall_ms=1e3 * wall,
+                          **parts))
+        if not eager and i == 0:
+            out.update(capture_s=step.capture_s, first_step_wall_s=wall,
+                       pool_bytes=cs.pool_bytes(step.pool),
+                       max_memory_allocated_capture=torch.cuda.max_memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
+    leaves = [p.detach().cpu() for p in opt.leaves]
+    out.update(steps=steps, max_memory_allocated=torch.cuda.max_memory_allocated(),
+               rows=int(mine.input_ids.shape[0]), clips=int(mine.speech_masks.shape[0]),
+               params_on_rank=sum(p.numel() for p in opt.leaves))
+    if not eager:
+        (cap,) = step.graphs.values()
+        out.update(captures=step.captures, replays=step.replays,
+                   **cs.node_counts(cs.graph_kernels(cap.graph)),
+                   # after the turn's leaves are kept: these replays train on
+                   device_ms_per_replay=cs.cuda_ms(lambda i: cap.graph.replay(), 3))
+    del opt, step, local, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, losses, leaves
+
+
 def phase_train(rank, world, dev, report):
     """The data x model training step of the full 1.5B in fp32, one rank a
-    card.  The ranks of a data group draw the same noise (their generator's
-    seed is the data index's), other groups other noise."""
-    from vibevoice_tpu_torch import data as D, train as T
+    card, in two turns from the same weights, batch and generator seeds:
+    eager (`make_train_step(mesh=, eager=True)`), then captured (its default
+    over NCCL: the collectives of the model and data groups are nodes of the
+    graph).  The turns must be bit-equal: every rank's losses at every step
+    and every leaf afterwards.  The ranks of a data group draw the same noise
+    (their generator's seed is the data index's), other groups other noise."""
+    from vibevoice_tpu_torch import train as T
     from vibevoice_tpu_torch.models import vibevoice as V
     import numpy as np
     mesh = multihost.global_mesh(model_parallel=2)
     di = mesh.axis_index("data")
-    torch.cuda.reset_peak_memory_stats()
+    gen = lambda: torch.Generator(device=dev).manual_seed(cs.SEED + di)
     params = V.init_model(CFG, dtype=torch.float32, device=dev,
                           generator=torch.Generator(device=dev).manual_seed(cs.SEED))
     batch = cs.speech_batch(params, CFG, dev, ROOT)
-    local = shard_params(params, mesh, cfg=CFG)
     del params
     torch.cuda.empty_cache()
-    mine = D.shard_batch(batch, mesh)
-    gen = lambda: torch.Generator(device=dev).manual_seed(cs.SEED + di)
-    local = T.init_scaling_stats(local, CFG, gen(), mine, device=dev, mesh=mesh)
-    opt = T.make_optimizer(local, lr=1e-4, weight_decay=0.01, warmup_steps=1, total_steps=100,
-                           mesh=mesh, specs=model_param_specs(local, CFG))
-    step = T.make_train_step(CFG, opt, device=dev, mesh=mesh, eager=True)
-    steps = []
-    for i in range(TRAIN_STEPS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with cs.ShardMarks(V, opt) as marks:
-            m = step(local, mine, gen())
-        losses = {k: float(v) for k, v in m.items()}
-        steps.append(dict(losses, wall_ms=1e3 * (time.perf_counter() - t0), **marks.parts_ms()))
-    mine_out = dict(rank=rank, coords=mesh.coords, rows=int(mine.input_ids.shape[0]),
-                    clips=int(mine.speech_masks.shape[0]),
-                    params_on_rank=sum(p.numel() for p in opt.leaves),
-                    max_memory_allocated=torch.cuda.max_memory_allocated(), steps=steps)
+    eager, e_losses, e_leaves = _train_turn(mesh, dev, batch, True, gen)
+    graph, g_losses, g_leaves = _train_turn(mesh, dev, batch, False, gen)
+    differ = sum(not torch.equal(a, b) for a, b in zip(e_leaves, g_leaves))
+    mine_out = dict(rank=rank, coords=mesh.coords, eager=eager, graph=graph,
+                    losses_equal=all(torch.equal(a, b) for a, b in zip(e_losses, g_losses)),
+                    leaves=len(e_leaves), leaves_differ=differ)
+    del e_leaves, g_leaves
     got = [None] * world
     dist.all_gather_object(got, mine_out)
     if rank == 0:
-        finite = all(np.isfinite(s[k]) for g in got for s in g["steps"]
-                     for k in ("loss", "ce_loss", "diffusion_loss"))
-        same = all([s["loss"] for s in g["steps"]] == [s["loss"] for s in got[0]["steps"]]
-                   for g in got)
-        mean = {k: float(np.mean([s[k] for g in got for s in g["steps"][1:]]))
-                for k in ("forward", "backward", "allreduce", "optimizer", "step", "wall_ms")}
+        finite = all(np.isfinite(s[k]) for g in got for t in ("eager", "graph")
+                     for s in g[t]["steps"] for k in T.METRICS)
+        same = all([s["loss"] for s in g["graph"]["steps"]]
+                   == [s["loss"] for s in got[0]["graph"]["steps"]] for g in got)
+        bit_equal = all(g["losses_equal"] and g["leaves_differ"] == 0 for g in got)
+        later = lambda t, k: float(np.mean([s[k] for g in got for s in g[t]["steps"][1:]]))
+        mean_eager = {k: later("eager", k) for k in ("forward", "backward", "allreduce",
+                                                     "optimizer", "step", "wall_ms")}
+        mean_graph = {k: later("graph", k) for k in ("step", "wall_ms")}
         report("train", mesh=dict(mesh.shape), model="vibevoice_1_5b", dtype="fp32",
-               batch=list(batch.input_ids.shape), ranks=got, mean_ms_steps_2_on=mean,
-               losses_finite=finite, ranks_losses_equal=same)
-        if not (finite and same):
-            raise RuntimeError("the ranks' losses are not finite or not equal")
-    del opt, step, local
-    torch.cuda.empty_cache()
+               batch=list(batch.input_ids.shape), steps=TRAIN_STEPS, ranks=got,
+               eager_mean_ms_steps_2_on=mean_eager, graph_mean_ms_steps_2_on=mean_graph,
+               eager_over_graph=mean_eager["step"] / mean_graph["step"],
+               capture_s=[g["graph"]["capture_s"] for g in got],
+               pool_gb=[g["graph"]["pool_bytes"] / 1e9 for g in got],
+               peak_gb=[max(g["eager"]["max_memory_allocated"],
+                            g["graph"]["max_memory_allocated_capture"],
+                            g["graph"]["max_memory_allocated"]) / 1e9 for g in got],
+               nccl_nodes=[g["graph"]["nccl_nodes"] for g in got],
+               losses_finite=finite, ranks_losses_equal=same,
+               graph_bit_equal_eager=bit_equal)
+        if not (finite and same and bit_equal):
+            raise RuntimeError("the ranks' losses are not finite or not equal, or the "
+                               "captured turn differs from the eager one")
 
 
 def main() -> int:

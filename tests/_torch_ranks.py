@@ -13,8 +13,8 @@ one test, not the suite.
 
 The rank programs (`tp_program`, `dp_program`, `dp_stages_program`,
 `cp_ring_program`, `multihost_program`, `train_grad_program`,
-`train_step_program`) live here, beside the harness, so that a rank imports
-nothing of the test modules (which import JAX).
+`train_step_program`, `train_graph_program`) live here, beside the harness,
+so that a rank imports nothing of the test modules (which import JAX).
 """
 from __future__ import annotations
 
@@ -505,6 +505,214 @@ def train_step_program(rank, world, work_dir, data, model, mul, steps):
     return out
 
 
+class host_reads_refused:
+    """While entered, a tensor read on the host (`bool`, `int`, `float`,
+    `item`, `tolist`, `numpy`, an index by a boolean tensor, whose shape the
+    host must read) and a tensor made from host data (`torch.tensor`,
+    `torch.from_numpy`, `torch.as_tensor` of anything but a tensor) raise
+    AssertionError: on the card each is a copy between the host and the
+    device, which a CUDA graph cannot record."""
+
+    NAMES = ("__bool__", "__int__", "__float__", "__index__", "item", "tolist", "numpy")
+
+    def __enter__(self):
+        import torch
+
+        def refuse(*_a, **_k):
+            raise AssertionError("the captured step reads the host or copies to the device")
+
+        def tensors_only(fn):
+            def call(x, *a, **k):
+                if not isinstance(x, torch.Tensor):
+                    refuse()
+                return fn(x, *a, **k)
+            return call
+
+        getitem = torch.Tensor.__getitem__
+
+        def no_bool_index(x, idx):
+            parts = idx if isinstance(idx, tuple) else (idx,)
+            if any(isinstance(i, torch.Tensor) and i.dtype == torch.bool for i in parts):
+                refuse()
+            return getitem(x, idx)
+
+        self.saved = ([(torch.Tensor, n, getattr(torch.Tensor, n))
+                       for n in self.NAMES + ("__getitem__",)]
+                      + [(torch, n, getattr(torch, n)) for n in ("as_tensor", "from_numpy",
+                                                                 "tensor")])
+        for n in self.NAMES:
+            setattr(torch.Tensor, n, refuse)
+        torch.Tensor.__getitem__ = no_bool_index
+        torch.as_tensor = tensors_only(torch.as_tensor)
+        torch.from_numpy = torch.tensor = refuse
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self.saved:
+            setattr(owner, name, fn)
+
+
+def four_row_batch():
+    """The port's `data.build_training_batch` of the four examples of
+    `tests/test_torch_train_sharded.py` (hop 16; data rank 0 of two takes
+    rows 0-1 with three clips, rank 1 rows 2-3 with four, each with
+    masked-out frames)."""
+    from vibevoice_tpu_torch import data as TD
+    from vibevoice_tpu_torch.processor.text_tokenizer import ByteFallbackTokenizer
+    rng = np.random.default_rng(5)
+    examples = [
+        ([(1, " Hello there."), (2, " Hi.")], [rng.normal(0, 0.1, 40), rng.normal(0, 0.1, 16)]),
+        ([(1, " Short.")], [rng.normal(0, 0.1, 20)]),
+        ([(2, " A much longer line of text.")], [rng.normal(0, 0.1, 48)]),
+        ([(1, " One."), (2, " Two two."), (1, " Three.")],
+         [rng.normal(0, 0.1, 16), rng.normal(0, 0.1, 36), rng.normal(0, 0.1, 8)]),
+    ]
+    sem_rng = np.random.default_rng(6)
+    sem_fn = lambda s: sem_rng.normal(0, 0.1, (s.shape[0], s.shape[1] // 16, 16)).astype(
+        np.float32)
+    return TD.build_training_batch(ByteFallbackTokenizer(), examples, hop=16,
+                                   semantic_fn=sem_fn, semantic_dim=16)
+
+
+# the leaves of `grad_plan_program`: (shape, dtype, the data ranks whose
+# backward gives the leaf a gradient at step 0, and at step 1)
+PLAN_LEAVES = {"a": ((3, 4), "float32", (0, 1), (0, 1)), "b": ((5,), "float32", (0, 1), (1,)),
+               "c": ((2, 2), "float32", (0,), ()), "d": ((3,), "float32", (), ()),
+               "e": ((4,), "bfloat16", (0, 1), (0,))}
+
+
+def plan_grads_of(index: int, step: int):
+    """Data rank `index`'s gradients at `step` of `grad_plan_program`
+    (None where PLAN_LEAVES gives it none), from a seed of both."""
+    import torch
+    rng = np.random.default_rng(100 * step + index)
+    out = {}
+    for name, (shape, dtype, *who) in sorted(PLAN_LEAVES.items()):
+        g = rng.normal(size=shape).astype(np.float32)
+        out[name] = (torch.from_numpy(g).to(getattr(torch, dtype)) if index in who[step]
+                     else None)
+    return out
+
+
+def _grad_plan_run(mesh, replan_each_step: bool):
+    """Two steps of `sync_grads` on PLAN_LEAVES' gradients: the planned path
+    (`plan_grads` at the first step only) or the flag-exchanging one (a plan
+    of each step's flags alone, made at every step).  Each step's summed
+    gradients, with a leaf left without one as zeros (what `update` gives
+    it)."""
+    import torch
+    from vibevoice_tpu_torch import train as TT
+
+    params = {k: torch.zeros(shape, dtype=getattr(torch, dtype))
+              for k, (shape, dtype, *_w) in PLAN_LEAVES.items()}
+    opt = TT.make_optimizer(params, mesh=mesh)
+    names = sorted(PLAN_LEAVES)
+    out = []
+    for step in range(2):
+        grads = plan_grads_of(mesh.axis_index("data"), step)
+        for name, p in zip(names, opt.leaves):
+            p.grad = None if grads[name] is None else grads[name].clone()
+        if replan_each_step:
+            opt.plan = None
+        if replan_each_step or step == 0:
+            opt.plan_grads()
+        opt.sync_grads()
+        out.append({n: (torch.zeros_like(p) if p.grad is None else p.grad).float().numpy()
+                    for n, p in zip(names, opt.leaves)})
+    return out, opt.plan.live
+
+
+def train_graph_program(rank, world, work_dir):
+    """On a data=2 x model=2 mesh: the sharded step's body (`TrainStep._body`
+    after `_prepare` and a warm-up, as the card captures it) under
+    `host_reads_refused`, with drawn and with injected noise (AdamW's step
+    left out: on the CPU it is the non-capturable form), and its metrics;
+    and, over the data group, `sync_grads` planned once against the
+    flag-exchanging path (`_grad_plan_run`); and the eager step's decisions
+    when one data rank meets a new shape (`_one_rank_new_shape`)."""
+    import torch
+    from vibevoice_tpu_torch import data as TD, train as TT
+    from vibevoice_tpu_torch.models import vibevoice as TV
+    from vibevoice_tpu_torch.parallel import make_mesh, model_param_specs, shard_params
+    from vibevoice_tpu_torch.parallel.mesh import Mesh
+
+    cfg = train_cfg()
+    mesh = make_mesh(data=2, model=2)
+    di = mesh.axis_index("data")
+    batch = four_row_batch()
+    mine = TD.shard_batch(batch, mesh)
+    out = {"body": {}}
+    for injected in (False, True):
+        params = TV.init_model(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+        params["speech_scaling_factor"] = torch.tensor(0.8)
+        params["speech_bias_factor"] = torch.tensor(0.1)
+        local = shard_params(params, mesh, cfg=cfg)
+        opt = TT.make_optimizer(local, lr=1e-3, warmup_steps=1, total_steps=10, mesh=mesh,
+                                specs=model_param_specs(params, cfg))
+        step = TT.make_train_step(cfg, opt, ddpm_batch_mul=4, device="cpu", mesh=mesh,
+                                  eager=True)
+        noise = [None, None]
+        if injected:
+            n = batch.speech_masks.size * 4
+            rng = np.random.default_rng(3)
+            noise = [rng.normal(size=(n, cfg.acoustic_vae_dim)).astype(np.float32),
+                     rng.integers(0, cfg.diffusion_head.ddpm_num_steps, n).astype(np.int32)]
+        gen = None if injected else torch.Generator().manual_seed(1 + di)
+        host, key, fresh = step._prepare(local, mine, gen, *noise)
+        opt.set_lr()
+        opt.zero_grad()
+        step._body(local, host, gen, plan=True)  # the warm-up, as on the card
+        saved = opt.adamw.step
+        opt.adamw.step = lambda: None
+        opt.zero_grad()
+        try:
+            with host_reads_refused():
+                metrics = step._body(local, host, gen)
+        finally:
+            opt.adamw.step = saved
+        out["body"][injected] = {"metrics": metrics.numpy().copy(), "fresh": fresh,
+                                 "inputs": len(host), "planned": sum(opt.plan.live)}
+    dmesh = Mesh(2, 1, rank=di, groups={"data": mesh.group("data")})
+    out["planned"] = _grad_plan_run(dmesh, False)
+    out["exchanged"] = _grad_plan_run(dmesh, True)
+    out["decisions"] = _one_rank_new_shape(step, local, mine, di)
+    return out
+
+
+def _padded(batch, extra: int):
+    """`batch` with `extra` more text positions at the end (masked out,
+    ignored by the loss, no speech): the same example in another shape."""
+    from vibevoice_tpu_torch.train import TrainBatch
+    fill = {"input_ids": 0, "attention_mask": 0, "labels": -100, "acoustic_input_mask": False,
+            "acoustic_loss_mask": False}
+    return TrainBatch(**{k: np.pad(v, ((0, 0), (0, extra)), constant_values=fill[k])
+                         if k in fill else v for k, v in batch._asdict().items()})
+
+
+def _one_rank_new_shape(step, local, mine, di):
+    """Three eager steps where only data rank 0 meets a new shape at the
+    second (its share padded): which calls planned (`_body`'s `plan`) and
+    the losses.  Were the decision this rank's own, rank 0's data group
+    would plan alone and its flag exchange would wait for a peer that never
+    joins."""
+    import torch
+    seen = []
+    body = step._body
+
+    def record(params, inputs, generator, plan=False):
+        seen.append(plan)
+        return body(params, inputs, generator, plan)
+
+    step._body = record
+    losses = []
+    for call in range(3):
+        b = _padded(mine, 8) if (call == 1 and di == 0) else mine
+        m = step(local, b, torch.Generator().manual_seed(1 + di))
+        losses.append(float(m["loss"]))
+    step._body = body
+    return {"planned": seen, "losses": losses}
+
+
 def cp_ring_program(rank, world, work_dir):
     """Context-parallel and ring prefill on `world` ranks of the data axis:
     each rank's rows of the CP (dense and flash-plain) and ring outputs, and
@@ -551,4 +759,5 @@ def multihost_program(rank, world):
 __all__ = ["save_tree", "load_tree", "to_torch", "Ranks", "CollectiveCounter",
            "tp_program", "dp_program", "dp_stages_program", "stage_packs_summary",
            "cp_ring_program", "multihost_program", "train_cfg", "train_grad_program",
-           "train_step_program", "GEN"]
+           "train_step_program", "train_graph_program", "host_reads_refused",
+           "four_row_batch", "plan_grads_of", "PLAN_LEAVES", "GEN"]

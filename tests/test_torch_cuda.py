@@ -1228,8 +1228,8 @@ def test_captured_train_step_bit_equal_to_eager(cuda_device, noise):
     cfg, make_params, batch = _tiny_train(noise == "drawn")
     runs = train_eager_vs_graph(cfg, make_params, batch, cuda_device, 3, noise == "injected",
                                 lr=1e-2)
-    graph = runs["graph"][2]
-    assert graph["captures"] == 1 and graph["replays"] == 2 and runs["eager"][2]["captures"] == 0
+    graph = runs["graph"]
+    assert graph["captures"] == 1 and graph["replays"] == 2 and runs["eager"]["captures"] == 0
     got = bit_equal_runs(runs)
     assert got["losses_equal"] and got["leaves_differ"] == 0, got
     assert np.isfinite(np.asarray(got["losses_graph"])).all()
@@ -1273,8 +1273,9 @@ def test_captured_train_step_returns_its_own_metrics(cuda_device):
 
 
 def test_train_step_on_a_mesh_needs_eager(cuda_device):
-    """A train step on a mesh is not captured: without `eager=True` it
-    raises, with it the step is made."""
+    """A train step on a mesh whose model axis of 2 has no process group is
+    not captured: without `eager=True` it raises, with it the step is
+    made."""
     from vibevoice_tpu_torch import train as T
     cfg = tiny_config(vocab_size=320)
     opt = T.make_optimizer({"w": torch.zeros(2, 2, device=cuda_device)})
@@ -1282,3 +1283,63 @@ def test_train_step_on_a_mesh_needs_eager(cuda_device):
         T.make_train_step(cfg, opt, device=cuda_device, mesh=_rank_mesh(0))
     assert not T.make_train_step(cfg, opt, device=cuda_device, mesh=_rank_mesh(0),
                                  eager=True).use_graph
+
+
+def _one_rank_group(backend, tmp_path):
+    """A default process group of one rank (`backend`) in this process; the
+    caller destroys it."""
+    import torch.distributed as dist
+    dist.init_process_group(backend, init_method=f"file://{tmp_path}/store", world_size=1,
+                            rank=0)
+
+
+def test_captured_sharded_step_over_nccl_bit_equal_to_eager(cuda_device, tmp_path):
+    """On a (1, 1) mesh over an NCCL group of one rank, as both its data and
+    its model group (`chip_smoke.one_rank_nccl_mesh`: every collective of the
+    sharded step is issued), three captured train steps of the tiny model
+    and three eager ones from one set of weights, batch and injected noise
+    are bit-equal (losses, every leaf); the step issues its all-reduces over
+    both groups; both turns are within chip_smoke.TRAIN_REL_TOL of the
+    unsharded captured step (its clip sums the leaves' squares in another
+    order)."""
+    import torch.distributed as dist
+    from chip_smoke import TRAIN_REL_TOL, compare_mesh_turns, one_rank_nccl_mesh
+    from chip_smoke import mesh_train_turns, shard_injected
+    cfg, make_params, batch = _tiny_train(False)
+    _one_rank_group("nccl", tmp_path)
+    try:
+        mesh = one_rank_nccl_mesh()
+        assert mesh.backend("data") == mesh.backend("model") == "nccl"
+        runs = mesh_train_turns(cfg, make_params, batch, shard_injected(batch, cfg, 3),
+                                cuda_device, mesh, lr=1e-2)
+    finally:
+        dist.destroy_process_group()
+    got = compare_mesh_turns(runs)
+    assert got["losses_equal"] and got["leaves_differ"] == 0, got
+    graph = runs["graph"]
+    assert graph["captures"] == 1 and graph["replays"] == 2 and len(graph["nodes"]) == 1
+    assert runs["eager"]["captures"] == 0
+    assert runs["eager"]["collectives"].get("all_reduce", 0) > 0
+    for turn in ("graph", "eager"):
+        assert got[turn + "_vs_unsharded"]["loss_max_rel_err"] <= TRAIN_REL_TOL, got
+    assert np.isfinite(torch.stack(graph["losses"]).numpy()).all()
+
+
+def test_train_step_on_a_gloo_mesh_needs_eager(cuda_device, tmp_path):
+    """A mesh over gloo cannot capture its step on the card: without
+    `eager=True` `make_train_step` raises, with it the step is made."""
+    import torch.distributed as dist
+    from vibevoice_tpu_torch import train as T
+    from vibevoice_tpu_torch.parallel.mesh import Mesh
+    cfg = tiny_config(vocab_size=320)
+    opt = T.make_optimizer({"w": torch.zeros(2, 2, device=cuda_device)})
+    _one_rank_group("gloo", tmp_path)
+    try:
+        g = dist.group.WORLD
+        mesh = Mesh(1, 1, rank=0, groups={"data": g, "model": g})
+        with pytest.raises(ValueError, match="eager=True"):
+            T.make_train_step(cfg, opt, device=cuda_device, mesh=mesh)
+        assert not T.make_train_step(cfg, opt, device=cuda_device, mesh=mesh,
+                                     eager=True).use_graph
+    finally:
+        dist.destroy_process_group()

@@ -343,3 +343,34 @@ def test_train_shapes_that_do_not_split_are_refused():
         check_shard_shapes(local, cfg, 4, train=True)
     with pytest.raises(ValueError, match="lm_head"):
         check_shard_shapes(dict(local, lm_head=params["lm_head"]), cfg, 2, train=True)
+
+
+def test_host_selection_of_injected_rows_equals_the_device_one():
+    """On the unequal shares of `_batch` (three clips and four), each data
+    rank's rows of the global injected noise and timesteps as the step now
+    takes them, on the host before the copy in (`train.select_injected`
+    with the counts of `TrainStep._exchange`), equal the rows the step took
+    before, gathered on the device and indexed there
+    (`mesh.all_gather(counts)` then `injected_rows` as an index tensor), and
+    together hold every row once."""
+    import torch
+    batch = _batch()
+    noise, t = _noise(batch, 20)
+    shares = [TD.shard_batch(batch, Mesh(2, 1, rank=d, groups={})) for d in (0, 1)]
+    table = np.array([[s.speech_masks.sum(), s.speech_masks.size - s.speech_masks.sum(), 0]
+                      for s in shares])
+    assert table[0, 0] != table[1, 0] and table[0, 1] != table[1, 1]
+    counts = torch.cat([torch.tensor([[int(s.speech_masks.sum()),
+                                       int(s.speech_masks.size - s.speech_masks.sum())]])
+                        for s in shares])  # the device-side gather's result
+    seen = 0
+    for d, share in enumerate(shares):
+        got = TT.select_injected(noise, t, table[:, 0], table[:, 1], d, MUL)
+        rows = torch.from_numpy(TT.injected_rows(counts[:, 0].numpy(), counts[:, 1].numpy(),
+                                                 d, MUL))
+        want = (torch.as_tensor(noise)[rows], torch.as_tensor(t)[rows])
+        assert got[0].shape == (share.speech_masks.size * MUL, noise.shape[1])
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        seen += len(got[0])
+    assert seen == len(noise)

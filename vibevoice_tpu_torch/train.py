@@ -9,7 +9,7 @@ the card the step is captured, as the JAX step is jitted: the first call for
 a batch shape runs one real step, then records forward, backward, the clip
 and the AdamW update in one `torch.cuda.CUDAGraph`, which later calls replay
 (`make_train_step(..., eager=True)` runs every step from the host).  On the
-CPU, and on the ranks of a `parallel.Mesh`, the step runs eagerly.
+CPU the step runs eagerly.
 
 On a mesh (`make_train_step(..., mesh=)`) each rank holds its
 `parallel.shard_params` shard and its data rank's share of the global batch
@@ -19,6 +19,9 @@ and the optimizer clips by the global norm of the whole tree
 (`Optimizer(mesh=, specs=)`), so every rank takes the JAX package's GSPMD
 step on the global batch.  The ranks of one data group must draw the same
 noise (generators with one seed); ranks of different data groups should not.
+On the card a mesh whose groups are NCCL captures its step with the
+collectives in the graph, as the JAX step is one program over the mesh; over
+gloo it runs eagerly.
 
 The parameters stay the port's plain tree of tensors in the JAX layouts.
 `trainable` makes every floating leaf a leaf tensor that takes a gradient and
@@ -29,7 +32,7 @@ from __future__ import annotations
 
 import math
 import time
-from typing import Any, Dict, List, NamedTuple, Optional
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -37,7 +40,7 @@ import torch
 from .configs import VibeVoiceConfig
 from .device import resolve_device
 from .models import vibevoice
-from .parallel.mesh import check_shard_shapes, split_dims
+from .parallel.mesh import AXES, check_shard_shapes, split_dims
 from .schedule import dpm_solver as ds
 
 
@@ -102,6 +105,36 @@ MAX_GRAD_NORM = 1.0
 GRAD_BUCKET = 1 << 25
 
 
+class GradPlan(NamedTuple):
+    """What `Optimizer.sync_grads` sums over `data`: the leaves that take
+    part (a rank's backward gave them a gradient at a step planned so far)
+    and their flat buckets, as leaf indices grouped by dtype, at most
+    GRAD_BUCKET elements each."""
+    live: Tuple[bool, ...]
+    buckets: Tuple[Tuple[int, ...], ...]
+
+
+def grad_buckets(leaves: List[torch.Tensor], live) -> Tuple[Tuple[int, ...], ...]:
+    """The live leaves' indices in flat buckets: by dtype (in the order the
+    dtypes first appear), each bucket at most GRAD_BUCKET elements (a larger
+    leaf alone)."""
+    by_dtype: Dict[torch.dtype, List[int]] = {}
+    for i, (p, on) in enumerate(zip(leaves, live)):
+        if on:
+            by_dtype.setdefault(p.dtype, []).append(i)
+    buckets = []
+    for idx in by_dtype.values():
+        bucket, size = [], 0
+        for i in idx:
+            if bucket and size + leaves[i].numel() > GRAD_BUCKET:
+                buckets.append(tuple(bucket))
+                bucket, size = [], 0
+            bucket.append(i)
+            size += leaves[i].numel()
+        buckets.append(tuple(bucket))
+    return tuple(buckets)
+
+
 class Optimizer:
     """optax.chain(clip_by_global_norm(1.0), adamw(warmup_cosine_decay(0, lr,
     warmup, total), b1=0.9, b2=0.95, weight_decay=wd, mask=ndim > 1)) over the
@@ -121,7 +154,8 @@ class Optimizer:
     summed over the model group plus the whole leaves' counted once, which is
     `optax.global_norm` of the gathered tree.  AdamW stays elementwise on
     each shard, as optax on the sharded tree.  `sync_grads` sums the
-    gradients over `data`.
+    gradients over `data` by the plan that `plan_grads` makes.  Nothing of
+    `sync_grads` and `update` reads the host: a captured step records them.
 
     On the card (leaves on CUDA) the AdamW update is capturable and reads its
     learning rate from a 0-d fp32 tensor on the card, which `set_lr` writes
@@ -142,6 +176,15 @@ class Optimizer:
         if self.split and len(self.split) != len(self.leaves):
             raise ValueError(f"the specs name {len(self.split)} floating leaves, the tree "
                              f"holds {len(self.leaves)}")
+        # the clip's split and whole leaves as index tensors on the leaves'
+        # device, made once: a list would be copied in at every update, and
+        # a boolean index gives a shape that the host reads
+        self._split_rows = self._whole_rows = None
+        if self.split:
+            rows = lambda want: torch.tensor([i for i, s in enumerate(self.split) if s == want],
+                                             dtype=torch.long, device=self.leaves[0].device)
+            self._split_rows, self._whole_rows = rows(True), rows(False)
+        self.plan: Optional[GradPlan] = None
         self.lr, self.warmup_steps, self.total_steps = lr, warmup_steps, total_steps
         self.count = 0  # updates applied (optax's schedule count)
         decay = [p for p in self.leaves if p.dim() > 1]
@@ -167,9 +210,8 @@ class Optimizer:
         grads = [p.grad for p in self.leaves]
         if self.split:
             sq = torch.stack([torch.linalg.vector_norm(g) for g in grads]) ** 2
-            mine = torch.tensor(self.split, device=sq.device)
-            split_sq = self.mesh.all_reduce(sq[mine].sum(), "model")
-            norm = torch.sqrt(split_sq + sq[~mine].sum())
+            split_sq = self.mesh.all_reduce(sq.index_select(0, self._split_rows).sum(), "model")
+            norm = torch.sqrt(split_sq + sq.index_select(0, self._whole_rows).sum())
         else:
             norm = torch.linalg.vector_norm(
                 torch.stack([torch.linalg.vector_norm(g) for g in grads]))
@@ -182,36 +224,47 @@ class Optimizer:
             g.div_(div).mul_(mul)
         return norm
 
+    def plan_grads(self) -> bool:
+        """Plan `sync_grads` from the gradients the backward just left: which
+        leaves any rank of the `data` group has a gradient for (one small
+        collective of flags, read on the host: never part of a captured
+        step), added to the leaves planned before, and their buckets.  Every
+        rank of the group must call it at the same step.  Returns whether the
+        plan changed (it is the same on every rank).  A no-op without a data
+        axis.  A leaf planned at an earlier step but without a gradient now
+        takes part with zeros, which leaves the sum as it would be without it:
+        `update` gives such a leaf a zero gradient anyway."""
+        if self.mesh is None or self.mesh.group("data") is None:
+            return False
+        flags = torch.tensor([p.grad is not None for p in self.leaves], dtype=torch.int32,
+                             device=self.leaves[0].device)
+        self.mesh.all_reduce(flags, "data", op="max")
+        old = self.plan.live if self.plan is not None else (False,) * len(self.leaves)
+        live = tuple(bool(f) or o for f, o in zip(flags.tolist(), old))
+        if self.plan is not None and live == self.plan.live:
+            return False
+        self.plan = GradPlan(live, grad_buckets(self.leaves, live))
+        return True
+
     @torch.no_grad()
     def sync_grads(self) -> None:
-        """Sum the gradients over the mesh's `data` axis (a no-op without
-        one), in flat buckets of at most GRAD_BUCKET elements per dtype.  A
-        leaf takes part where any rank of the group has its gradient (one
-        small collective of flags first); a rank without it adds zeros."""
+        """Sum the gradients over the mesh's `data` axis by the plan
+        (`plan_grads`), one flat all-reduce per bucket; a planned leaf without
+        a gradient on this rank adds zeros.  It reads nothing from the host,
+        so a captured step records it.  A no-op without a data axis."""
         if self.mesh is None or self.mesh.group("data") is None:
             return
-        dev = self.leaves[0].device
-        flags = torch.tensor([p.grad is not None for p in self.leaves], dtype=torch.int32,
-                             device=dev)
-        self.mesh.all_reduce(flags, "data", op="max")
-        live = [p for p, f in zip(self.leaves, flags.tolist()) if f]
-        by_dtype: Dict[torch.dtype, List[torch.Tensor]] = {}
-        for p in live:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-            by_dtype.setdefault(p.grad.dtype, []).append(p)
-        for ps in by_dtype.values():
-            bucket, size = [], 0
-            for p in ps + [None]:
-                if bucket and (p is None or size + p.numel() > GRAD_BUCKET):
-                    flat = self.mesh.all_reduce(
-                        torch.cat([q.grad.reshape(-1) for q in bucket]), "data")
-                    for q, g in zip(bucket, flat.split([q.numel() for q in bucket])):
-                        q.grad.copy_(g.view_as(q.grad))
-                    bucket, size = [], 0
-                if p is not None:
-                    bucket.append(p)
-                    size += p.numel()
+        if self.plan is None:
+            raise RuntimeError("sync_grads before plan_grads: the ranks have not said which "
+                               "leaves take part")
+        for bucket in self.plan.buckets:
+            ps = [self.leaves[i] for i in bucket]
+            for p in ps:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            flat = self.mesh.all_reduce(torch.cat([p.grad.reshape(-1) for p in ps]), "data")
+            for p, g in zip(ps, flat.split([p.numel() for p in ps])):
+                p.grad.copy_(g.view_as(p.grad))
 
     def set_lr(self) -> float:
         """Write the schedule's learning rate for the next update into the
@@ -292,8 +345,27 @@ def injected_rows(valid: np.ndarray, invalid: np.ndarray, index: int, mul: int) 
     return (frames[:, None] * mul + np.arange(mul)).reshape(-1)
 
 
+def select_injected(noise, timesteps, valid, invalid, index: int,
+                    mul: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Data rank `index`'s rows (`injected_rows`) of a global batch's
+    injected noise and timesteps, taken where they lie (on the host, before
+    the step copies them in)."""
+    rows = torch.from_numpy(injected_rows(valid, invalid, index, mul))
+    noise, timesteps = torch.as_tensor(noise), torch.as_tensor(timesteps)
+    return noise[rows.to(noise.device)], timesteps[rows.to(timesteps.device)]
+
+
+def must_capture(fresh_flags) -> bool:
+    """Whether this call warms up and captures (eager: plans the gradient
+    sum) on every rank: when any data rank meets a batch it has no graph (or
+    plan) for.  Each rank applies it to the same gathered flags, so all take
+    one path: a rank replaying real collectives while another only recorded
+    them into a graph would hang both."""
+    return bool(np.asarray(fresh_flags).any())
+
+
 class _Captured(NamedTuple):
-    graph: Any                  # torch.cuda.CUDAGraph
+    graph: Any                  # torch.cuda.CUDAGraph (keep_graph: its nodes can be read)
     inputs: List[torch.Tensor]  # the static batch (and injected noise, timesteps)
     metrics: torch.Tensor       # [3] static output: loss, ce_loss, diffusion_loss
 
@@ -301,16 +373,39 @@ class _Captured(NamedTuple):
 METRICS = ("loss", "ce_loss", "diffusion_loss")
 
 
+def _capture_refusal(mesh) -> Optional[str]:
+    """Why a train step on `mesh` cannot be captured (None when it can): each
+    axis of size > 1 needs its process group, and every group the mesh holds
+    must be NCCL (gloo's collectives are not CUDA work)."""
+    for axis in AXES:
+        if mesh.group(axis) is None:
+            if mesh.shape[axis] > 1:
+                return f"its {axis!r} axis of {mesh.shape[axis]} has no process group"
+        elif mesh.backend(axis) != "nccl":
+            return f"its {axis!r} group is {mesh.backend(axis)}, not NCCL"
+    return None
+
+
 class TrainStep:
     """`make_train_step`'s step.  On the card, unless `eager`, it follows
     `engine.generate.Engine`'s rule: the first call for a batch's shapes
     (with or without injected noise, with or without a generator) runs one
-    real step on a side stream, then captures forward, backward,
-    `Optimizer.update` (the clip and AdamW) in a `torch.cuda.CUDAGraph` with
-    the step's generator registered; a later call copies its batch into that
-    graph's static buffers, writes the learning rate into the optimizer's lr
-    tensors and replays.  The graphs share one memory pool.  A failed
-    capture raises: there is no eager fallback.
+    real step on a side stream, then captures forward, backward, the
+    gradient sum over `data`, `Optimizer.update` (the clip and AdamW) and the
+    metrics' sum over `data` in a `torch.cuda.CUDAGraph` with the step's
+    generator registered; a later call copies its batch into that graph's
+    static buffers, writes the learning rate into the optimizer's lr tensors
+    and replays.  The graphs share one memory pool.  A failed capture
+    raises: there is no eager fallback.
+
+    On a mesh the host work stays out of what is captured: per call,
+    `check_shard_shapes`, one small collective over `data` before the step
+    (each rank's frame counts and whether it meets a new batch shape), the
+    rank's rows of the injected noise and timesteps (`select_injected`) and
+    `set_lr`.  When any data rank meets a new shape, every rank warms up and
+    captures (`must_capture`); the warm-up also plans the gradient sum
+    (`Optimizer.plan_grads`), and a changed plan drops every graph.  The
+    eager step runs the same body and plans at the same calls.
 
     `graphs` (by key), `captures`, `capture_s` (the last capture's seconds)
     and `replays` say what it did."""
@@ -320,8 +415,10 @@ class TrainStep:
                  mesh, eager: bool):
         self.device = resolve_device(device)
         if mesh is not None and not eager:
-            raise ValueError("a train step on a mesh runs eagerly (its gloo or NCCL "
-                             "collectives are not captured): pass eager=True")
+            why = _capture_refusal(mesh)
+            if why is not None:
+                raise ValueError(f"a train step on this mesh cannot be captured in a CUDA graph "
+                                 f"({why}): pass eager=True, or use NCCL process groups")
         self.cfg, self.optimizer, self.mesh = cfg, optimizer, mesh
         self.loss_weight = diffusion_loss_weight
         self.mul = (ddpm_batch_mul if ddpm_batch_mul is not None
@@ -332,6 +429,7 @@ class TrainStep:
         self.dp_group = None if mesh is None else mesh.group("data")
         self.use_graph = self.device.type == "cuda" and not eager
         self.graphs: Dict[tuple, _Captured] = {}
+        self._seen: set = set()  # the eager step's planned keys
         self.pool = None
         self.captures = 0
         self.capture_s: Optional[float] = None
@@ -355,55 +453,78 @@ class TrainStep:
         loss.backward()
         return torch.stack([loss, out.ce_loss, out.diffusion_loss]).detach()
 
-    def _body(self, params, inputs: List[torch.Tensor], generator) -> torch.Tensor:
-        """What a captured step records: forward, backward and the update."""
+    def _body(self, params, inputs: List[torch.Tensor], generator,
+              plan: bool = False) -> torch.Tensor:
+        """What a captured step records: forward and backward (with the model
+        axis's collectives), the gradient sum over `data`, the update and the
+        metrics' sum over `data`.  With `plan` (the first step of a new
+        shape: a warm-up or an eager step, never a capture) the gradient sum
+        is planned first, and a changed plan drops every graph."""
         b = TrainBatch(*inputs[:len(TrainBatch._fields)])
         noise, timesteps = (inputs[len(TrainBatch._fields):] + [None, None])[:2]
         metrics = self._forward_backward(params, b, generator, noise, timesteps)
-        self.optimizer.update()
+        opt = self.optimizer
+        if plan and opt.plan_grads():
+            self.graphs.clear()
+        opt.sync_grads()
+        opt.update()
+        if self.dp_group is not None:
+            metrics = self.mesh.all_reduce(metrics, "data")
         return metrics
 
     def __call__(self, params, batch: TrainBatch, generator: Optional[torch.Generator],
                  injected_noise=None, injected_timesteps=None) -> Dict[str, torch.Tensor]:
+        opt = self.optimizer
+        host, key, fresh = self._prepare(params, batch, generator, injected_noise,
+                                         injected_timesteps)
+        opt.set_lr()
         if self.use_graph:
-            metrics = self._graph_step(params, batch, generator, injected_noise,
-                                       injected_timesteps)
+            metrics = self._graph_step(params, host, generator, key, fresh)
         else:
-            metrics = self._eager_step(params, batch, generator, injected_noise,
-                                       injected_timesteps)
+            opt.zero_grad()
+            metrics = self._body(params, [t.to(self.device) for t in host], generator, fresh)
+            self._seen.add(key)
+        opt.count += 1
         return dict(zip(METRICS, metrics.unbind()))
 
-    def _eager_step(self, params, batch, generator, injected_noise, injected_timesteps):
-        mesh, device, opt = self.mesh, self.device, self.optimizer
+    def _prepare(self, params, batch: TrainBatch, generator, injected_noise,
+                 injected_timesteps) -> Tuple[List[torch.Tensor], tuple, bool]:
+        """The host's work before a step, none of it captured: the shard
+        check, the batch as host tensors, the step's key, the exchange over
+        `data` and the capture decision it gives (`must_capture`), and this
+        rank's rows of the injected noise and timesteps.  Returns (the
+        step's inputs on the host, its key, whether every rank warms up and
+        captures, or plans)."""
+        mesh = self.mesh
         if mesh is not None:
             check_shard_shapes(params, self.cfg, mesh.shape["model"], train=True)
-        b = _device_batch(batch, device)
-        if injected_noise is not None:
-            injected_noise = torch.as_tensor(injected_noise).to(device)
-            injected_timesteps = torch.as_tensor(injected_timesteps).to(device)
-            if self.dp_group is not None:
-                sm = np.asarray(batch.speech_masks)
-                counts = torch.tensor([int(sm.sum()), int(sm.size - sm.sum())], device=device)
-                per_rank = mesh.all_gather(counts[None], "data").cpu().numpy()
-                rows = torch.from_numpy(injected_rows(per_rank[:, 0], per_rank[:, 1],
-                                                      mesh.axis_index("data"), self.mul)
-                                        ).to(device)
-                injected_noise = injected_noise[rows]
-                injected_timesteps = injected_timesteps[rows]
-        opt.zero_grad()
-        metrics = self._forward_backward(params, b, generator, injected_noise,
-                                         injected_timesteps)
-        opt.sync_grads()
-        opt.step()
-        if self.dp_group is not None:
-            metrics = mesh.all_reduce(metrics, "data")
-        return metrics
-
-    def _graph_step(self, params, batch, generator, injected_noise, injected_timesteps):
         host = list(_host_batch(batch))
+        injected = None
         if injected_noise is not None:
-            host += [torch.as_tensor(injected_noise), torch.as_tensor(injected_timesteps)]
-        key = (tuple((tuple(t.shape), t.dtype) for t in host), generator is None)
+            injected = [torch.as_tensor(injected_noise), torch.as_tensor(injected_timesteps)]
+        key = (tuple((tuple(t.shape), t.dtype) for t in host + (injected or [])),
+               generator is None)
+        table = self._exchange(batch, key not in (self.graphs if self.use_graph else self._seen))
+        if injected is not None:
+            if self.dp_group is not None:
+                injected = select_injected(*injected, table[:, 0], table[:, 1],
+                                           mesh.axis_index("data"), self.mul)
+            host += injected
+        return host, key, must_capture(table[:, 2])
+
+    def _exchange(self, batch: TrainBatch, fresh: bool) -> np.ndarray:
+        """[data ranks, 3] int64: each data rank's valid and masked-out frames
+        and whether it meets a new key, gathered over `data` before the step
+        (one small collective on the host's path; this rank's row alone
+        without a data axis)."""
+        sm = np.asarray(batch.speech_masks)
+        mine = np.array([[sm.sum(), sm.size - sm.sum(), fresh]], np.int64)
+        if self.dp_group is None:
+            return mine
+        where = self.device if self.mesh.backend("data") == "nccl" else "cpu"
+        return self.mesh.all_gather(torch.from_numpy(mine).to(where), "data").cpu().numpy()
+
+    def _graph_step(self, params, host, generator, key, fresh):
         rng = None
         if generator is not None:
             # the caller's generator state goes into the one the graphs draw
@@ -412,24 +533,23 @@ class TrainStep:
                 self._rng = torch.Generator(device=self.device)
             self._rng.set_state(generator.get_state())
             rng = self._rng
-        self.optimizer.set_lr()
-        cap = self.graphs.get(key)
-        if cap is None:
+        if fresh:
             metrics = self._capture(params, [t.to(self.device, copy=True) for t in host], rng,
                                     key)
         else:
+            cap = self.graphs[key]
             for dst, src in zip(cap.inputs, host):
                 dst.copy_(src)
             cap.graph.replay()
             self.replays += 1
             metrics = cap.metrics.clone()  # the next replay overwrites the static output
-        self.optimizer.count += 1
         if generator is not None:
             generator.set_state(self._rng.get_state())
         return metrics
 
     def _capture(self, params, inputs, rng, key) -> torch.Tensor:
-        """Warm one step up on a side stream (a real step: its metrics are
+        """Warm one step up on a side stream (a real step, which plans the
+        gradient sum and makes every group's communicator: its metrics are
         this call's), then capture one step on that stream into the shared
         pool.  The warm-up's gradients are dropped first, so that the
         capture's backward makes the graph's own, static ones."""
@@ -438,18 +558,19 @@ class TrainStep:
         stream.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(stream):
             opt.zero_grad()
-            metrics = self._body(params, inputs, rng)
+            metrics = self._body(params, inputs, rng, plan=True)
         torch.cuda.current_stream(dev).wait_stream(stream)
         opt.zero_grad()
         if self.pool is None:
             self.pool = torch.cuda.graph_pool_handle()
         t0 = time.perf_counter()
-        graph = torch.cuda.CUDAGraph()
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
         if rng is not None:
             graph.register_generator_state(rng)
         # entering frees the warm-up's cached blocks (empty_cache) first
         with torch.cuda.graph(graph, pool=self.pool, stream=stream):
             out = self._body(params, inputs, rng)
+        graph.instantiate()
         self.captures += 1
         self.capture_s = time.perf_counter() - t0
         self.graphs[key] = _Captured(graph, inputs, out)
@@ -472,12 +593,15 @@ def make_train_step(cfg: VibeVoiceConfig, optimizer: Optimizer,
     On the card the step is captured (`TrainStep`); `eager=True` runs it from
     the host, for comparisons.  On the CPU it always runs eagerly.
 
-    On a `mesh` (the optimizer's), which needs `eager=True`: `params` are
-    this rank's shards (`check_shard_shapes` refuses others), `batch` is its
-    data rank's share (`data.shard_batch`), injected noise and timesteps are
-    the global batch's (each rank takes its rows, `injected_rows`), the
-    gradients are summed over `data` before the clip, and the metrics are
-    summed over `data`: every rank reports the global batch's losses."""
+    On a `mesh` (the optimizer's): `params` are this rank's shards
+    (`check_shard_shapes` refuses others), `batch` is its data rank's share
+    (`data.shard_batch`), injected noise and timesteps are the global
+    batch's (each rank takes its rows, `injected_rows`), the gradients are
+    summed over `data` before the clip, and the metrics are summed over
+    `data`: every rank reports the global batch's losses.  Every rank of the
+    mesh calls the step together.  A mesh needs `eager=True` unless every
+    process group it holds is NCCL (and every axis larger than 1 has one):
+    ValueError otherwise."""
     return TrainStep(cfg, optimizer, ddpm_batch_mul, diffusion_loss_weight, device, mesh,
                      eager)
 
