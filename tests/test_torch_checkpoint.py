@@ -1,6 +1,6 @@
 """The port's checkpoint import and export (`vibevoice_tpu_torch.utils.checkpoint`)
 against the JAX package's loader on the same files, `VibeVoiceTTS.from_pretrained`
-on the CPU, and the port's profiling and logging utilities."""
+on the CPU."""
 import dataclasses
 import json
 import os
@@ -24,8 +24,6 @@ from vibevoice_tpu_torch import weights
 from vibevoice_tpu_torch.pipeline import VibeVoiceTTS
 from vibevoice_tpu_torch.processor.text_tokenizer import ByteFallbackTokenizer
 from vibevoice_tpu_torch.utils import checkpoint as tckpt
-from vibevoice_tpu_torch.utils.logging import EventLogger
-from vibevoice_tpu_torch.utils.profiling import PhaseTimer, device_trace, rtf_counter
 
 
 # ---------------------------------------------------------------------------
@@ -329,46 +327,3 @@ def test_from_pretrained_falls_back_to_bytes_and_generates(tmp_path):
     audio = res.audio[0]
     assert audio is not None and len(audio) == 4 * cfg.speech_compress_ratio
     assert np.isfinite(audio).all() and np.abs(audio).max() > 0
-
-
-# ---------------------------------------------------------------------------
-# utils.profiling and utils.logging
-# ---------------------------------------------------------------------------
-
-def test_phase_timer_accumulates_and_syncs_cpu_tensors():
-    t = PhaseTimer()
-    for _ in range(3):
-        with t.phase("decode", sync={"x": [torch.ones(2)], "y": None}):
-            pass
-    with t.phase("prefill"):
-        pass
-    s = t.summary()
-    assert s["decode"]["count"] == 3 and s["prefill"]["count"] == 1
-    assert s["decode"]["total_s"] >= 0 and json.loads(t.report()) == s
-
-
-def test_rtf_counter():
-    r = rtf_counter(48000, 0.5, chips=2)
-    assert r == {"audio_sec": 2.0, "wall_s": 0.5, "rtf": 4.0, "audio_sec_per_s_per_chip": 2.0}
-    assert rtf_counter(24000, 0.0)["rtf"] == 0.0
-
-
-def test_event_logger_appends_jsonl(tmp_path, capsys):
-    path = tmp_path / "logs" / "events.jsonl"
-    log = EventLogger(str(path))
-    log.log("request", batch=2, wall_s=0.25)
-    log.log("error", err=ValueError("x"))
-    log.close()
-    recs = [json.loads(x) for x in path.read_text().splitlines()]
-    assert [r["event"] for r in recs] == ["request", "error"]
-    assert recs[0]["batch"] == 2 and recs[1]["err"] == "x" and recs[0]["ts"] > 0
-    EventLogger().log("to-stderr", n=1)
-    assert json.loads(capsys.readouterr().err)["n"] == 1
-
-
-def test_device_trace_writes_a_chrome_trace(tmp_path):
-    with device_trace(str(tmp_path)) as d:
-        torch.ones(8) @ torch.ones(8)
-    with open(os.path.join(d, "trace.json")) as f:
-        assert "traceEvents" in json.load(f)
-

@@ -1016,6 +1016,60 @@ def test_graph_draws_the_generators_noise(cuda_device):
     assert not torch.equal(want[0].audio_chunk[1], want[0].audio_chunk[2])
 
 
+def _all_nodes(graph) -> int:
+    """Every node (kernel, copy, fill, event record) of a captured graph."""
+    import ctypes
+    cu = ctypes.CDLL("libcuda.so.1")
+    cu.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                   ctypes.POINTER(ctypes.c_size_t)]
+    cu.cuGraphGetNodes.restype = ctypes.c_int
+    n = ctypes.c_size_t(0)
+    assert cu.cuGraphGetNodes(ctypes.c_void_p(graph.raw_cuda_graph()), None,
+                              ctypes.byref(n)) == 0
+    return n.value
+
+
+def test_traced_graph_replays_bit_equal_with_its_parts_summing_to_the_replay(cuda_device):
+    """A tracer set on the engine recaptures the step with its parts'
+    boundary events: 7 more nodes (6 segments, "rest" being two), none once
+    the tracer is taken off again; the traced and untraced requests are
+    bit-equal; the parts of a replay sum, within 3%, to CUDA events recorded
+    around `graph.replay()`; and each chunk reads the last replay of the one
+    before as a part sample."""
+    from vibevoice_tpu_torch.utils.profiling import PARTS, Tracer
+    _, eng = _graph_engines("plain", cuda_device)
+    want = _graph_request(eng, 0)
+    plain_nodes = _all_nodes(eng.graph)
+    tr = Tracer()
+    eng.set_tracer(tr)
+    _assert_bit_equal(_graph_request(eng, 0), want)
+    assert _all_nodes(eng.graph) == plain_nodes + 7 and eng.captures == 2
+    marks = eng._graph_marks
+    assert [m[0] for m in marks] == [None, "lm", "rest", "head", "acoustic_decoder",
+                                     "semantic_encoder", "rest"]
+    # the second chunk read the first's last replay, or skipped it if not yet
+    # done; the request ended in a synchronize, so the second's is done
+    c = tr.counters
+    assert c["part_samples"] + c["part_samples_skipped"] == 1 and c["chunks"] == 2
+    samples = c["part_samples"]
+    eng._read_replay(tr)
+    assert c["part_samples"] == samples + 1 and set(tr.sampled_ns) == set(PARTS)
+    ratios = []
+    for _ in range(20):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(1_000_000)  # the device busy while the host enqueues
+        a.record()
+        eng.graph.replay()
+        b.record()
+        b.synchronize()
+        parts = sum(x[1].elapsed_time(y[1]) for x, y in zip(marks, marks[1:]))
+        ratios.append(parts / a.elapsed_time(b))
+    assert abs(float(np.median(ratios)) - 1) < 0.03, ratios
+    eng.set_tracer(None)
+    _assert_bit_equal(_graph_request(eng, 0), want)
+    assert _all_nodes(eng.graph) == plain_nodes and eng._graph_marks is None
+
+
 # ---------------------------------------------------------------------------
 # the serving layer on the card: HTTP handler threads beside a worker thread
 # that owns the card and captures each engine's step

@@ -77,6 +77,7 @@ batch that does not split over `data` or KV heads that do not split over
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Any, Dict, List, NamedTuple, Optional
@@ -89,6 +90,7 @@ from ..device import resolve_device
 from ..parallel.mesh import check_shard_shapes
 from ..models import connectors, qwen2, tokenizer, vibevoice
 from ..schedule import dpm_solver as ds
+from ..utils.profiling import Tracer
 from ..weights import to_device
 
 Params = Dict[str, Any]
@@ -227,12 +229,14 @@ class Engine:
                  kv_dtype: str = "model",
                  mesh=None,
                  device="cuda",
-                 eager: bool = False):
+                 eager: bool = False,
+                 tracer: Optional[Tracer] = None):
         """`eager=True` runs `decode_chunk` step by step on the card rather
         than replaying the captured step (the counterpart of
         `jax.disable_jit`); on the CPU it always runs so.  `mesh`: see the
         module docstring (`batch` is the global batch under data
-        parallelism)."""
+        parallelism).  `tracer`: see `set_tracer`; given here, it also gets
+        the packs' host span "engine.pack"."""
         self.mesh = mesh
         self.dp = 1 if mesh is None else mesh.shape["data"]
         self.mp = 1 if mesh is None else mesh.shape["model"]
@@ -311,6 +315,16 @@ class Engine:
         self._static: Optional[GenState] = None
         self._graph_out: Optional[StepOutput] = None
         self._rng: Optional[torch.Generator] = None
+        # tracing (`set_tracer`): the tracer; the part boundaries of the step
+        # being run and their stamp; the captured step's own boundary events;
+        # the chunk whose last replay's parts are still unread; the device
+        # span (chunk or prefill) the steps run under
+        self.tracer: Optional[Tracer] = None
+        self._marks: Optional[list] = None
+        self._stamp = None
+        self._graph_marks: Optional[list] = None
+        self._unread: Optional[int] = None
+        self._span: Optional[int] = None
         allowed = [gen.speech_start_id, gen.speech_end_id, gen.speech_diffusion_id, gen.eos_id]
         if gen.bos_id is not None:
             allowed.append(gen.bos_id)
@@ -319,6 +333,7 @@ class Engine:
         params = to_device(dict(params), self.device)
         if mesh is not None:
             check_shard_shapes(params, cfg, self.mp)
+        t_pack = time.perf_counter_ns()
         # chain packs already in the tree (the pipeline's int4 packs, or a JAX
         # engine's through `weights.from_jax`) are kept; else plain packs of
         # the weights as they are
@@ -369,6 +384,78 @@ class Engine:
             params["_lm_head_sub"] = vibevoice.lm_head_subset(params, allowed, dtype,
                                                               mesh=self.tp_mesh)
         self.params = params
+        t_end = time.perf_counter_ns()
+        # the packs' seconds (always kept, as `capture_s`)
+        self.pack_s = (t_end - t_pack) / 1e9
+        if tracer is not None:
+            tracer.add("engine.pack", t_pack, t_end)
+            self.set_tracer(tracer)
+
+    # ------------------------------------------------------------------
+    def set_tracer(self, tracer: Optional[Tracer]):
+        """Trace this engine into `tracer` (None: stop): each prefill and
+        chunk as a device span ("engine.prefill", "engine.chunk") and the
+        prefill's host span, the capture's host span, and each step's parts
+        (`utils.profiling.PARTS`) under an "engine.step" span.  Eager steps
+        record their parts with the tracer's stamps.  The captured step
+        records its own: with a tracer set at capture time, timing events at
+        the parts' boundaries are nodes of the graph (seven, the same events
+        at every replay), and each chunk first reads the previous chunk's
+        last replay from them if it is done, or counts it skipped (it waits
+        for nothing).  Setting the tracer drops the captured graph, so the
+        next `decode_chunk` captures the step again, with those events or
+        without; the last chunk's replay is read first, waiting for it.
+        On a CUDA device the tracer is anchored to the device's clock."""
+        if self.tracer is not None:
+            self._read_replay(self.tracer, wait=True)
+        self.tracer, self._unread = tracer, None
+        if tracer is not None and self.device.type == "cuda":
+            tracer.anchor(self.device)
+        self.graph, self._graph_out, self._graph_marks = None, None, None
+
+    def _mark(self, part: str):
+        """The end of `part` of the step being run (nothing untraced)."""
+        if self._marks is not None:
+            self._marks.append((part, self._stamp()))
+
+    @contextlib.contextmanager
+    def _marking(self, stamp):
+        """Record the parts' boundaries of the step run in the block with
+        `stamp`; the list it yields holds them afterwards, [(part, stamp)]
+        from the step's start (part None) to the end of its last "rest"."""
+        marks = [(None, stamp())]
+        self._marks, self._stamp = marks, stamp
+        try:
+            yield marks
+        finally:
+            self._marks = self._stamp = None
+        marks.append(("rest", stamp()))
+
+    def _eager_marked(self, fn, *args):
+        """`fn(*args)`, one step or its part after the LM, with its parts'
+        spans under the current chunk or prefill when traced."""
+        tr = self.tracer
+        if tr is None:
+            return fn(*args)
+        with self._marking(tr.stamp) as marks:
+            out = fn(*args)
+        tr.step_spans(marks, parent=self._span)
+        return out
+
+    def _read_replay(self, tr: Tracer, wait: bool = False):
+        """The parts of the last replay of the chunk left unread, from the
+        graph's boundary events, if they are done (with `wait`, waiting for
+        them); else a skipped sample."""
+        chunk, self._unread = self._unread, None
+        if chunk is None:
+            return
+        marks = self._graph_marks
+        if wait:
+            marks[-1][1].synchronize()
+        elif not marks[-1][1].query():
+            tr.count("part_samples_skipped")
+            return
+        tr.step_spans(marks, parent=chunk, replay=True)
 
     # ------------------------------------------------------------------
     def _post_lm(self, state: GenState, h_t: torch.Tensor, h_neg: torch.Tensor,
@@ -429,9 +516,11 @@ class Engine:
             x_init = torch.randn((b, cfg.acoustic_vae_dim), generator=state.rng,
                                  dtype=h_t.dtype, device=dev)
         sde_gen = state.rng if gen.algorithm_type.startswith("sde") else None
+        self._mark("rest")
         latent = vibevoice.sample_speech_latents(
             p, cfg, self.solver_cfg, self.sched, h_t, h_neg, gen.cfg_scale, x_init,
             sde_generator=sde_gen, timesteps=self.timesteps, mesh=self.tp_mesh)
+        self._mark("head")
         scaled = vibevoice.unscale_latents(p, latent)
         if self.use_fused_vocoder or self.use_fused_stages:
             chunk, ac_new = tokenizer.decoder_apply_streaming_fused(
@@ -442,6 +531,7 @@ class Engine:
             chunk, ac_new = tokenizer.decoder_apply_streaming(
                 p["acoustic_decoder"], cfg.acoustic_tokenizer, scaled[:, None, :],
                 acoustic_state)
+        self._mark("acoustic_decoder")
         if self.use_fused_semantic or self.use_fused_stages:
             sem, sem_new = tokenizer.encoder_apply_streaming_fused(
                 p["semantic_encoder"], cfg.semantic_tokenizer, chunk, semantic_state,
@@ -450,6 +540,7 @@ class Engine:
         else:
             sem, sem_new = tokenizer.encoder_apply_streaming(
                 p["semantic_encoder"], cfg.semantic_tokenizer, chunk, semantic_state)
+        self._mark("semantic_encoder")
         diff_embeds = (connectors.apply(p["acoustic_connector"], latent)
                        + connectors.apply(p["semantic_connector"], sem[:, 0]))
         chunk = torch.where(is_diff.any(), chunk[:, :, 0], 0.0)
@@ -503,6 +594,23 @@ class Engine:
         generator on the engine's device seeded with 0.  A data-parallel
         engine takes the global batch and keeps this rank's rows (the voice
         inputs' rows likewise, `latent_noise` on its axis 1)."""
+        args = (input_ids, attention_mask, speech_input_mask, speech_tensors,
+                speech_frame_masks, generator, voice_latents, latent_noise)
+        tr = self.tracer
+        if tr is None:
+            return self._prefill(*args)
+        self._read_replay(tr)
+        with tr.span("engine.prefill.host") as host:
+            begin, self._span = tr.stamp(), tr.new_id()
+            try:
+                out = self._prefill(*args)
+            finally:
+                span, self._span = self._span, None
+            tr.device_span("engine.prefill", begin, tr.stamp(), parent=host, id=span)
+        return out
+
+    def _prefill(self, input_ids, attention_mask, speech_input_mask, speech_tensors,
+                 speech_frame_masks, generator, voice_latents, latent_noise):
         p, cfg, gen, dev = self.params, self.cfg, self.gen, self.device
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
@@ -613,7 +721,8 @@ class Engine:
             host_step=0,
         )
         # at step 0 the negative stream's "just-written" kv is the slot-0 pre-seed
-        return self._post_lm(state, h_last, h_neg0[:, 0], neg_slot=zeros((), torch.int32))
+        return self._eager_marked(self._post_lm, state, h_last, h_neg0[:, 0],
+                                  zeros((), torch.int32))
 
     def _rows(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
         """This data rank's equal part of axis `dim`."""
@@ -687,6 +796,7 @@ class Engine:
         hidden, _ = qwen2.forward(p["lm"], cfg.decoder, embeds2, positions2, bias,
                                   cache=state.cache, write_pos=wp, decode_ctx=decode_ctx,
                                   mesh=self.tp_mesh)
+        self._mark("lm")
         state.visible[:b].index_fill_(1, slot, 1)
         state = state._replace(write_pos=wp + 1, pos_positions=state.pos_positions + 1)
         return self._post_lm(state, hidden[:b, 0], hidden[b:, 0], neg_slot=wp)
@@ -705,7 +815,7 @@ class Engine:
             state, outs = self.decode_chunk(state, 1)
             return state, StepOutput(*(x[0] for x in outs))
         self._check_room(state, 1)
-        return self._step(state)
+        return self._eager_marked(self._step, state)
 
     @torch.no_grad()
     def decode_chunk(self, state: GenState, n: int):
@@ -713,6 +823,26 @@ class Engine:
         card each step is a replay of the captured step (the first call after
         the engine's first prefill captures it), with no read from the
         device."""
+        tr = self.tracer
+        if tr is None:
+            return self._decode_chunk(state, n)
+        tr.poll()
+        self._read_replay(tr)
+        replays, captures = self.replays, self.captures
+        begin, self._span = tr.stamp(), tr.new_id()
+        try:
+            state, outs = self._decode_chunk(state, n)
+        finally:
+            span, self._span = self._span, None
+        tr.device_span("engine.chunk", begin, tr.stamp(), parent=tr.current(), id=span)
+        tr.count("chunks")
+        tr.count("replays", self.replays - replays)
+        tr.count("captures", self.captures - captures)
+        if self.replays > replays and self._graph_marks is not None:
+            self._unread = span
+        return state, outs
+
+    def _decode_chunk(self, state: GenState, n: int):
         if not self.use_graph:
             outs = []
             for _ in range(n):
@@ -770,18 +900,34 @@ class Engine:
         stream = torch.cuda.Stream(dev)
         stream.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(stream):
-            for dst, src in zip(outs, self._step_into(static)):
+            for dst, src in zip(outs, self._eager_marked(self._step_into, static)):
                 dst[0].copy_(src)
         torch.cuda.current_stream(dev).wait_stream(stream)
-        t0 = time.perf_counter()
+        tr, marks = self.tracer, None
+        t0 = time.perf_counter_ns()
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         graph.register_generator_state(self._rng)
         with torch.cuda.graph(graph, stream=stream):
-            out = self._step_into(static)
+            if tr is None:
+                out = self._step_into(static)
+            else:
+                with self._marking(_graph_event) as marks:
+                    out = self._step_into(static)
         graph.instantiate()
+        t1 = time.perf_counter_ns()
         self.captures += 1
-        self.capture_s = time.perf_counter() - t0
-        self.graph, self._graph_out = graph, out
+        self.capture_s = (t1 - t0) / 1e9
+        if tr is not None:
+            tr.add("engine.capture", t0, t1, parent=tr.current())
+        self.graph, self._graph_out, self._graph_marks = graph, out, marks
+
+
+def _graph_event() -> torch.cuda.Event:
+    """A timing event recorded on the capturing stream: a node of the graph
+    (`external`), recorded again at each replay."""
+    ev = torch.cuda.Event(enable_timing=True, external=True)
+    ev.record()
+    return ev
 
 
 class GenerationResult(NamedTuple):
@@ -789,6 +935,14 @@ class GenerationResult(NamedTuple):
     audio: list                 # list of [T_b] float32 waveforms (or None)
     reach_max: np.ndarray       # [B] bool
     steps: int
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def _untraced(name: str, request: bool = False):
+    """`Tracer.span`'s stand-in when nothing traces: one shared null context."""
+    return _NO_SPAN
 
 
 def _np(x: torch.Tensor) -> np.ndarray:
@@ -827,71 +981,88 @@ def generate(
     the loop stops when every rank's rows have finished or any rank's
     `stop_check_fn` fires, the result is in global row order, a streamer
     (sized for the global batch) gets this rank's rows under their global
-    indices, and `on_step` sees this rank's rows."""
-    state, out = engine.prefill(input_ids, attention_mask, speech_input_mask,
-                                speech_tensors, speech_frame_masks, generator,
-                                voice_latents, latent_noise)
-    b = engine.global_batch
-    row0 = engine.dp_index * engine.batch  # this rank's first global row
-    steps_done = 1
-    bar = None
-    if show_progress:
-        try:
-            from tqdm import tqdm
-            bar = tqdm(total=engine.max_steps - 1, desc="Generating", ncols=100)
-        except ImportError:
-            pass
+    indices, and `on_step` sees this rank's rows.
 
-    def _feed(o: StepOutput):
-        if on_step is not None:
-            on_step(o)
-        if audio_streamer is None:
-            return
-        if o.emitted.any():
-            idx = np.nonzero(o.emitted)[0]
-            audio_streamer.put(o.audio_chunk[idx], row0 + idx)
-        if o.finished.any():
-            audio_streamer.end(row0 + np.nonzero(o.finished)[0])
+    With a tracer on the engine (`Engine.set_tracer`) the call is a request
+    under a host span "generate", with host spans around each chunk's
+    enqueue ("engine.decode_chunk"), its read to the host ("generate.read"),
+    the callbacks ("generate.feed"), the stop test ("generate.stop_check") and
+    the results' gather and copy ("generate.finish")."""
+    tr = getattr(engine, "tracer", None)
+    span = _untraced if tr is None else tr.span
+    with span("generate", request=True):
+        state, out = engine.prefill(input_ids, attention_mask, speech_input_mask,
+                                    speech_tensors, speech_frame_masks, generator,
+                                    voice_latents, latent_noise)
+        b = engine.global_batch
+        row0 = engine.dp_index * engine.batch  # this rank's first global row
+        steps_done = 1
+        bar = None
+        if show_progress:
+            try:
+                from tqdm import tqdm
+                bar = tqdm(total=engine.max_steps - 1, desc="Generating", ncols=100)
+            except ImportError:
+                pass
 
-    out_np = StepOutput(*(_np(x) for x in out))
-    _feed(out_np)
-    finished = out_np.finished
-    per_step = audio_streamer is not None or stop_check_fn is not None or on_step is not None
-    # one read from the device per chunk: its outputs, or its finished flags
-    while steps_done < engine.max_steps:
-        stop = per_step and stop_check_fn is not None and bool(stop_check_fn())
-        if engine.all_finished(finished, stop):
-            break
-        n = min(max(1, stream_chunk) if per_step else check_every,
-                engine.max_steps - steps_done)
-        state, outs = engine.decode_chunk(state, n)
-        steps_done += n
+        def _feed(o: StepOutput):
+            if on_step is not None:
+                on_step(o)
+            if audio_streamer is None:
+                return
+            if o.emitted.any():
+                idx = np.nonzero(o.emitted)[0]
+                audio_streamer.put(o.audio_chunk[idx], row0 + idx)
+            if o.finished.any():
+                audio_streamer.end(row0 + np.nonzero(o.finished)[0])
+
+        with span("generate.read"):
+            out_np = StepOutput(*(_np(x) for x in out))
+        with span("generate.feed"):
+            _feed(out_np)
+        finished = out_np.finished
+        per_step = audio_streamer is not None or stop_check_fn is not None or on_step is not None
+        # one read from the device per chunk: its outputs, or its finished flags
+        while steps_done < engine.max_steps:
+            with span("generate.stop_check"):
+                stop = per_step and stop_check_fn is not None and bool(stop_check_fn())
+                if engine.all_finished(finished, stop):
+                    break
+            n = min(max(1, stream_chunk) if per_step else check_every,
+                    engine.max_steps - steps_done)
+            with span("engine.decode_chunk"):
+                state, outs = engine.decode_chunk(state, n)
+            steps_done += n
+            if bar is not None:
+                bar.update(n)
+            if per_step:
+                with span("generate.read"):
+                    outs_np = StepOutput(*(_np(x) for x in outs))
+                with span("generate.feed"):
+                    for i in range(n):
+                        _feed(StepOutput(*(x[i] for x in outs_np)))
+                finished = outs_np.finished[-1]
+            else:
+                with span("generate.read"):
+                    finished = _np(state.finished)
+
         if bar is not None:
-            bar.update(n)
-        if per_step:
-            outs_np = StepOutput(*(_np(x) for x in outs))
-            for i in range(n):
-                _feed(StepOutput(*(x[i] for x in outs_np)))
-            finished = outs_np.finished[-1]
-        else:
-            finished = _np(state.finished)
+            bar.close()
+        if audio_streamer is not None:
+            audio_streamer.end()
 
-    if bar is not None:
-        bar.close()
-    if audio_streamer is not None:
-        audio_streamer.end()
-
-    rows = engine.gather(state)
-    frames = _np(rows.frames)
-    if engine.keep_audio:
-        audio_buf, emitted_map = _np(rows.audio), _np(rows.emitted)
-        audio = [audio_buf[i][emitted_map[i]].reshape(-1) if frames[i] > 0 else None
-                 for i in range(b)]
-    else:
-        audio = [None] * b  # streaming consumers got the chunks already
-    tokens = _np(rows.tokens)[:, : min(state.host_step, engine.max_steps)]
-    return GenerationResult(tokens=tokens, audio=audio, reach_max=_np(rows.reach_max),
-                            steps=steps_done)
+        with span("generate.finish"):
+            rows = engine.gather(state)
+            frames = _np(rows.frames)
+            if engine.keep_audio:
+                audio_buf, emitted_map = _np(rows.audio), _np(rows.emitted)
+                audio = [audio_buf[i][emitted_map[i]].reshape(-1) if frames[i] > 0 else None
+                         for i in range(b)]
+            else:
+                audio = [None] * b  # streaming consumers got the chunks already
+            tokens = _np(rows.tokens)[:, : min(state.host_step, engine.max_steps)]
+            reach_max = _np(rows.reach_max)
+    return GenerationResult(tokens=tokens, audio=audio, reach_max=reach_max, steps=steps_done)
 
 
 __all__ = ["Engine", "GenerationConfig", "GenState", "Gathered", "StepOutput",
