@@ -572,6 +572,105 @@ def head_bound(pack, x, mods, fmod, fl):
                  6 * rows * h * f * nl + 2 * rows * h * fl.shape[1])
 
 
+# the bf16 head kernel's phase-2 shapes (H, F): the 1.5B and Large heads, one
+# solver step at N = 16 (B = 8, the podcast cells' batch)
+HEAD_BF16_SHAPES = ((1536, 4608), (3584, 10752))
+
+
+def random_head_bf16(h, f, lat, gen, dev):
+    """A 4-layer bf16 head at width h, FFN width f: the layers' FFN weights
+    and norms, noisy_proj and final_linear."""
+    bf = torch.bfloat16
+    r = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    return {"layers": [{"norm_w": (1 + 0.1 * r(h)).to(bf), "gate": (0.03 * r(h, f)).to(bf),
+                        "up": (0.03 * r(h, f)).to(bf), "down": (0.03 * r(f, h)).to(bf)}
+                       for _ in range(4)],
+            "noisy_proj": (0.05 * r(lat, h)).to(bf), "final_linear": (0.05 * r(h, lat)).to(bf)}
+
+
+def measure_head_bf16(heads, n, gen, dev, eps=1e-5):
+    """The bf16 head kernel at one shape over copies of the head (per call):
+    its error against the plain version, two calls bit-equal; its time, the
+    plain version's, the library yardstick's (the plain bf16
+    `apply_with_modulations` chain the kernel replaced: cuBLAS matmuls and
+    elementwise ops, from the noisy latent) and the bound."""
+    from vibevoice_tpu_torch.configs import DiffusionHeadConfig
+    from vibevoice_tpu_torch.models import diffusion_head as dh
+    from vibevoice_tpu_torch.ops import fused_head_bf16 as fhb
+    h, f = heads[0]["layers"][0]["gate"].shape
+    lat = heads[0]["final_linear"].shape[1]
+    cfg = DiffusionHeadConfig(hidden_size=h, latent_size=lat, head_layers=4,
+                              head_ffn_ratio=f / h, rms_norm_eps=eps)
+    pks = [fhb.pack(hd) for hd in heads]
+    r = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    noisy = r(n, lat).to(torch.bfloat16)
+    mods, fmod = (0.3 * r(4, n, 3 * h)).to(torch.bfloat16), (0.3 * r(n, 2 * h)).to(torch.bfloat16)
+    x, fl = noisy @ heads[0]["noisy_proj"], heads[0]["final_linear"]
+    got = fhb.fused_head_bf16_step(pks[0], x, mods, fmod, fl, eps)
+    err, tol = agree("fused_head_bf16", got,
+                     fhb.fused_head_bf16_step_ref(pks[0], x, mods, fmod, fl, eps))
+    if not torch.equal(got, fhb.fused_head_bf16_step(pks[0], x, mods, fmod, fl, eps)):
+        raise RuntimeError("fused_head_bf16: two calls on the same inputs differ")
+    k = len(heads)
+    ms = cuda_ms(lambda i: fhb.fused_head_bf16_step(pks[i % k], x, mods, fmod, fl, eps), 2 * k)
+    plain_ms = cuda_ms(lambda i: fhb.fused_head_bf16_step_ref(pks[i % k], x, mods, fmod, fl,
+                                                              eps), k)
+    lib_ms = cuda_ms(lambda i: dh.apply_with_modulations(heads[i % k], cfg, noisy, list(mods),
+                                                         fmod), 2 * k)
+    bms, by = bound(fhb.weight_bytes(pks[0]) + nbytes(x, mods, fmod, fl, *pks[0]["norm_w"])
+                    + n * lat * 2, 6 * n * h * f * 4 + 2 * n * h * lat)
+    return dict(max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                library_ms=lib_ms)
+
+
+def phase_head_bf16(dev):
+    """The bf16 head kernel against its plain version at the 1.5B and Large
+    shapes, N = 16, on random weights made from the seed; returns each
+    shape's result."""
+    from vibevoice_tpu_torch.ops import fused_head_bf16 as fhb
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    out = {}
+    for h, f in HEAD_BF16_SHAPES:
+        heads = [random_head_bf16(h, f, 64, gen, dev) for _ in range(copies_for(6 * 4 * h * f))]
+        r = measure_head_bf16(heads, 16, gen, dev)
+        r["bound_share"] = r["bound_ms"] / r["ms"]
+        emit("kernel_vs_plain", kernel="fused_head_bf16", N=16, H=h, F=f, layers=4,
+             plan=fhb.plan_for(heads[0]["final_linear"].new_empty(16, h), f, 64)._asdict(), **r)
+        out[(h, f)] = r
+        del heads
+    torch.cuda.empty_cache()
+    return out
+
+
+def bf16_head_route(eng):
+    """Whether `eng` must run its head on the bf16 head kernel, from its
+    configuration and not from the route it set: plain bf16 head weights at
+    widths the kernel takes (H a multiple of 128 up to 4096), on the card,
+    with no TP mesh and no int4k pack."""
+    layers = eng.params["diffusion_head"]["layers"]
+    h = layers[0]["gate"].shape[0] if isinstance(layers[0]["gate"], torch.Tensor) else 0
+    return (eng.device.type == "cuda" and eng.tp_mesh is None
+            and "_diffusion_head_packq" not in eng.params and h % 128 == 0 and 0 < h <= 4096
+            and all(isinstance(lp[k], torch.Tensor) and lp[k].dtype == torch.bfloat16
+                    for lp in layers for k in ("gate", "up", "down")))
+
+
+def head_bf16_entry(results, eng, launches):
+    """The kernels-line entry of the bf16 head kernel: the 1.5B shape's
+    numbers (N = 16), the Large shape's beside them, and the launches of the
+    phase-3 bf16 engine, which must hold the route and have launched it."""
+    if "_diffusion_head_bf16" not in eng.params or launches <= 0:
+        raise RuntimeError(f"the bf16 engine ran its head off the bf16 head kernel: route "
+                           f"{'_diffusion_head_bf16' in eng.params}, {launches} launches")
+    (h, f), (h7, f7) = HEAD_BF16_SHAPES
+    return {"name": "fused_head_bf16", "route": "cuda",
+            "source": "vibevoice_tpu_torch/csrc/fused_head_bf16.cu",
+            "replaces": "none (the JAX package leaves the bf16 head to XLA)",
+            "launches": launches, **results[(h, f)],
+            "per": f"launch: one solver step at N=16, H={h}, F={f}",
+            "large": dict(results[(h7, f7)], per=f"N=16, H={h7}, F={f7}")}
+
+
 # the int4 chain's phase-2 cases (D, blocks, T, B): the four 1.5B stages are
 # two shapes (decoder 0 / encoder 6: D=2048, 8 blocks, T=1; decoder 1 /
 # encoder 5: D=1024, 3 blocks, T=8), plus B=4
@@ -951,10 +1050,12 @@ def kernel_counters():
     """name -> the wrapper whose `launches` counts that kernel's launches."""
     from vibevoice_tpu_torch.ops import decode_attention as da, flash_attention as fa
     from vibevoice_tpu_torch.ops import fused_blocks as fb, fused_head as fh
+    from vibevoice_tpu_torch.ops import fused_head_bf16 as fhb
     from vibevoice_tpu_torch.ops import fused_stage as fs, int4_matmul as im
     return {"decode_attention": da.decode_attention, "int4_matmul": im.int4_matmul,
             "fused_block_chain_batched": fb.fused_block_chain_batched,
             "fused_head_solver_step": fh.fused_head_solver_step,
+            "fused_head_bf16": fhb.fused_head_bf16_step,
             "fused_stage_chain": fs.fused_stage_chain,
             "fused_stage_chain_rowlane": fs.fused_stage_chain_rowlane,
             "flash_attention_prefill": fa.flash_attention_prefill,
@@ -1006,12 +1107,15 @@ def expected_launches(cfg, quant, eng, head=None):
     kernels as `codec_launches` counts them (at 1.5B: a chain on 2 stages of
     the vocoder and 2 of the re-encode) and the head once per solver step, on
     every diffusing step, step 0 (in prefill) included: 5 solver steps with
-    `quant` unless `head` gives the count (0 without the head pack)."""
+    `quant` unless `head` gives the count (0 without the head pack); the
+    bf16 head kernel once per solver step where the engine took its route."""
     n_layers = cfg.decoder.num_hidden_layers
     gemv = {None: 0, "int8": 0, "int4": 4, "int4f": 2}[quant] * n_layers
     if head is None:
         head = 5 if quant else 0
-    per_step = dict(codec_launches(eng), fused_head_solver_step=head)
+    bf16_head = eng.sched.num_steps if bf16_head_route(eng) else 0
+    per_step = dict(codec_launches(eng), fused_head_solver_step=head,
+                    fused_head_bf16=bf16_head)
     prefill = dict(per_step, decode_attention=0, int4_matmul=gemv,
                    flash_attention_prefill=n_layers if eng.use_flash_prefill else 0)
     step = dict(per_step, decode_attention=n_layers if eng.use_flash_decode else 0,
@@ -1202,6 +1306,7 @@ NODE_KERNELS = (("flash_wgmma_kernel", "flash_attention_prefill"),
                 ("chain_q_kernel", "fused_block_chain_batched"),
                 ("chain_p_kernel", "fused_block_chain"),
                 ("head_q_kernel", "fused_head_solver_step"),
+                ("head_bf16_kernel", "fused_head_bf16"),
                 ("cluster_kernel", "fused_stage_chain"))
 
 
@@ -1788,6 +1893,7 @@ def phase_reference(dev, quant=False, stages=False, b=2, flash_chain=False):
             "int4_matmul": 4 * n_layers if quant else 0,
             "fused_block_chain_batched": 6 if quant else 0,
             "fused_head_solver_step": 3 if quant else 0,
+            "fused_head_bf16": 3 if bf16_head_route(eng) else 0,
             "flash_attention_prefill": 0,
             "fused_block_chain": 6 if flash_chain else 0,
             **stage_launches(eng)}
@@ -2231,7 +2337,8 @@ def phase_serving(dev, card, root):
         raise RuntimeError(f"failed requests {bad}; /metrics errors {metrics['errors']}")
     if metrics["batched_requests_max"] < 4:
         raise RuntimeError(f"no batch of 4 formed: {metrics}")
-    idle = [k for k in launches if k != "fused_block_chain" and launches[k] == 0]
+    idle = [k for k in launches
+            if k not in ("fused_block_chain", "fused_head_bf16") and launches[k] == 0]
     if idle:
         raise RuntimeError(f"kernels of the serving path never launched while serving: {idle}")
 
@@ -4615,6 +4722,7 @@ def main() -> int:
     # 2. kernel against plain
     phase_kernels(dev)
     phase_int4_kernels(dev)
+    head_bf16 = phase_head_bf16(dev)
     phase_stage_kernels(dev)
     phase_flash_kernel(dev)
     phase_plain_chain(dev)
@@ -4635,10 +4743,13 @@ def main() -> int:
         runs[kv] = (r.launches["decode_attention"], r.state.cache, vis, lengths)
         device_launches["decode_attention" + ("[int8 KV]" if kv == "int8" else "")] = \
             r.device_launches["decode_attention"]
+        if kv == "model":  # the bf16 head on its kernel
+            head_bf16 = head_bf16_entry(head_bf16, r.eng, r.launches["fused_head_bf16"])
+            device_launches["fused_head_bf16"] = r.device_launches["fused_head_bf16"]
         del r
     entries = [kernel_entry("decode_attention", *runs["model"], False, dev, cfg.decoder),
                kernel_entry("decode_attention[int8 KV]", *runs["int8"], True, dev,
-                            cfg.decoder)]
+                            cfg.decoder), head_bf16]
     del runs
     # the large-T stages at B=2: the row-lane layout turned off (8 stage calls
     # per step), then by default (the JAX engine's rule: 4 stage calls and 4

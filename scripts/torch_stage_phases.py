@@ -2,7 +2,8 @@
 """Where the time of one fused-stage or small-T chain launch goes, phase by
 phase, on one NVIDIA GPU.
 
-    python3 scripts/torch_stage_phases.py [stage] [chain] [chain-fine] [plain] [head] [--other DIR]
+    python3 scripts/torch_stage_phases.py [stage] [chain] [chain-fine] [plain] [head] [head-bf16]
+        [--other DIR]
 
 Builds an instrumented copy of `vibevoice_tpu_torch/csrc/fused_stage.cu` into
 the build directory: CTA 0 reads the `%globaltimer` at the kernel's start
@@ -40,8 +41,14 @@ seven times per layer, after: the norm and its two cluster exchanges (with
 the layer's small copies), the up-projection, the down-projection, the
 cluster's partial, the grid barrier, the sums of the partials, and the final
 layer (cluster 0, after the last layer; a stamp alone elsewhere), at the
-1.5B head with N=2 and N=8 and the 7B head with N=2.  `stage` and `chain` by
-default; last, the card's name and power limit.
+1.5B head with N=2 and N=8 and the 7B head with N=2.  `head-bf16` stamps
+the bf16 head kernel (`csrc/fused_head_bf16.cu`) seven times per layer, after:
+the norm and its two cluster exchanges, the up-projection (with its ring's
+waits), the activations' cluster exchange, the down-projection, the grid
+barrier, the sums of the partials and the final layer (a stamp alone but
+after the last layer), at the 1.5B and Large heads with N=16 (`chip_smoke.py`'s
+shapes) and the 1.5B head with N=8.  `stage` and `chain` by default; last,
+the card's name and power limit.
 """
 import ctypes
 import json
@@ -357,6 +364,57 @@ def head_phases(dev):
         del packs
 
 
+# the bf16 head kernel (`head_bf16_kernel`): its body and the statements of a
+# layer after which `head-bf16` stamps, and the phases they end
+HEAD_BF16_KERNEL = ("__global__ void __launch_bounds__(NT, 1)\n    head_bf16_kernel",
+                    "  cl.sync();  // no peer reads this CTA's shared memory after it exits\n}",
+                    "extern __shared__ __align__(1024) unsigned char smem_raw[];")
+HEAD_BF16_MARKS = [("      norm_h(a, x, cl, l, nr, mods, xr, xch, hb);", "norm"),
+                   ("      up_proj(a, x, cl, c, l, hb, ab);", "up"),
+                   ("      cluster_csync(x);  // the cluster's activations are whole in every CTA",
+                    "exchange"),
+                   ("        down_proj<false>(a, x, c, l, ab, nr, part);", "down"),
+                   ("      grid_barrier(a.bar, [] { csync(); });  // the layer's only grid-wide barrier",
+                    "barrier"),
+                   ("      next_x(a, x, nr, mods, a.part + static_cast<size_t>(s & 1) * a.ncl * a.rg * a.H, xr);",
+                    "sums"),
+                   ("                    reinterpret_cast<float*>(ab));", "final")]
+HEAD_BF16_CASES = ((16, 1536, 4608), (16, 3584, 10752), (8, 1536, 4608))
+
+
+def head_bf16_phases(dev, cases=HEAD_BF16_CASES):
+    """The bf16 head solver step's phases per layer at `cases` (N, H, F; 4
+    layers, latent 64), each launch checked against the plain version first;
+    the last layer's "sums" phase is the final layer."""
+    import chip_smoke as cs
+    from vibevoice_tpu_torch.ops import cuda_build, fused_head_bf16 as fhb
+    with open(os.path.join(cuda_build.CSRC_DIR, "fused_head_bf16.cu")) as f:
+        src = _fine_stamped(f.read(), *HEAD_BF16_KERNEL, HEAD_BF16_MARKS, "fused_head_bf16.cu")
+    # the stamps' barrier is the consumer warps' own (`csync`): the producer
+    # warp takes part in no barrier of the step
+    src = src.replace("\n    FSTAMP", "\n    { csync(); STAMP }")
+    lib = _stamped_library(cuda_build, "fused_head_bf16",
+                           _with_stamps(src, cuda_build.CSRC_DIR, "fused_head_bf16.cu"),
+                           fhb._library)
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED + 7)
+    for n, h, f in cases:
+        heads = [cs.random_head_bf16(h, f, 64, gen, dev)
+                 for _ in range(cs.copies_for(6 * 4 * h * f))]
+        r = cs.measure_head_bf16(heads, n, gen, dev)
+        pk = fhb.pack(heads[1 % len(heads)])
+        x = torch.randn((n, h), generator=gen, device=dev).to(torch.bfloat16)
+        mods = (0.3 * torch.randn((4, n, 3 * h), generator=gen, device=dev)).to(torch.bfloat16)
+        fmod = (0.3 * torch.randn((n, 2 * h), generator=gen, device=dev)).to(torch.bfloat16)
+        fhb.fused_head_bf16_step(pk, x, mods, fmod, heads[0]["final_linear"], 1e-5)  # stamped
+        plan = fhb.plan_for(x, f, 64)
+        names = [f"group {g} layer {i} {ph}" for g in range(-(-n // plan.rows)) for i in range(4)
+                 for _, ph in HEAD_BF16_MARKS]
+        us, grid = read_stamps(lib, len(names))
+        print(json.dumps({"head_bf16": f"N={n} H={h} F={f}", "layers": 4, **r, "grid": grid,
+                          "plan": plan._asdict(), "phases": names, "phase_us": us}), flush=True)
+        del heads
+
+
 def ofb_items(ofb, x, f):
     """Batch items per row group of a checkout's int4 chain at x [B, T, D]."""
     if hasattr(ofb, "plan_for"):
@@ -371,7 +429,7 @@ def main() -> int:
         i = args.index("--other")
         other = args[i + 1]
         del args[i:i + 2]
-    if not set(args) <= {"stage", "chain", "chain-fine", "plain", "head"}:
+    if not set(args) <= {"stage", "chain", "chain-fine", "plain", "head", "head-bf16"}:
         print(__doc__, file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -389,6 +447,8 @@ def main() -> int:
         plain_phases(dev)
     if "head" in args:
         head_phases(dev)
+    if "head-bf16" in args:
+        head_bf16_phases(dev)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True, timeout=60)
     print(card.stdout.strip(), flush=True)

@@ -405,6 +405,149 @@ def test_fused_head_replays_in_a_cuda_graph(cuda_device):
         assert torch.equal(got, want)
 
 
+def _bf16_head_case(n, h, f, dev, seed=5):
+    """A 4-layer bf16 head's own tensors (the route's pack), x after
+    noisy_proj, one solver step's modulations and the final linear."""
+    from vibevoice_tpu_torch.ops import fused_head_bf16 as fhb
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    bf = torch.bfloat16
+    r = lambda *s: torch.randn(s, generator=gen, device=dev)
+    head = {"layers": [{"norm_w": (1 + 0.1 * r(h)).to(bf), "gate": (0.03 * r(h, f)).to(bf),
+                        "up": (0.03 * r(h, f)).to(bf), "down": (0.03 * r(f, h)).to(bf)}
+                       for _ in range(4)]}
+    return (fhb.pack(head), r(n, h).to(bf), (0.3 * r(4, n, 3 * h)).to(bf),
+            (0.3 * r(n, 2 * h)).to(bf), (0.05 * r(h, 64)).to(bf))
+
+
+# (N, H, F): the 1.5B head at B=1, 4 and 8 and at N=20 (row groups of 16 and
+# 4), the Large head at B=1, 4 and 8
+@pytest.mark.parametrize("n,h,f", [(2, 1536, 4608), (8, 1536, 4608), (16, 1536, 4608),
+                                   (20, 1536, 4608), (2, 3584, 10752), (8, 3584, 10752),
+                                   (16, 3584, 10752)])
+def test_fused_head_bf16_kernel_matches_plain(cuda_device, n, h, f):
+    """The bf16 head kernel against its plain version, which makes the same
+    roundings (x fp32 across the layers, h and the activations rounded to
+    bf16) with fp32 sums in another order; the output is bf16, so the
+    tolerance is one rounding step of the largest output (2^-7 of it)."""
+    from vibevoice_tpu_torch.ops import fused_head_bf16 as fhb
+    pk, x, mods, fmod, fl = _bf16_head_case(n, h, f, cuda_device)
+    before = fhb.fused_head_bf16_step.launches
+    got = fhb.fused_head_bf16_step(pk, x, mods, fmod, fl, 1e-5)
+    torch.cuda.synchronize()
+    want = fhb.fused_head_bf16_step_ref(pk, x, mods, fmod, fl, 1e-5)
+    assert fhb.fused_head_bf16_step.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), atol=_rel_tol(want), rtol=0)
+
+
+@pytest.mark.parametrize("shift", [1, 3, 7])
+@pytest.mark.parametrize("n,h,f", [(16, 1536, 4608), (8, 3584, 10752)])
+def test_fused_head_bf16_on_weights_inside_one_buffer(cuda_device, n, h, f, shift):
+    """The weights as views into one buffer, each starting `shift` elements
+    into a 16-byte unit (the benchmark makes its weights so): against the
+    plain version at `test_fused_head_bf16_kernel_matches_plain`'s
+    tolerance, as the same weights on their own are (the CTAs then take
+    other columns, so the down projection's sums meet in another order and
+    the bits may differ)."""
+    from vibevoice_tpu_torch.ops import fused_head_bf16 as fhb
+    pk, x, mods, fmod, fl = _bf16_head_case(n, h, f, cuda_device)
+    tensors = [t for k in ("gate", "up", "down", "norm_w") for t in pk[k]] + [fl]
+    buf = torch.zeros(sum(t.numel() for t in tensors) + 8 * len(tensors) + shift,
+                      dtype=torch.bfloat16, device=cuda_device)
+    views, at = [], shift
+    for t in tensors:  # each view shift (mod 8) elements into a unit
+        views.append(buf[at:at + t.numel()].view(t.shape))
+        views[-1].copy_(t)
+        at += -(-t.numel() // 8) * 8 + 8
+    nl = len(pk["gate"])
+    shifted = {k: views[i * nl:(i + 1) * nl] for i, k in enumerate(("gate", "up", "down", "norm_w"))}
+    assert all(v.data_ptr() % 16 == 2 * shift for v in views)
+    want = fhb.fused_head_bf16_step_ref(pk, x, mods, fmod, fl, 1e-5)
+    got = fhb.fused_head_bf16_step(shifted, x, mods, fmod, views[-1], 1e-5)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=_rel_tol(want), rtol=0)
+    assert torch.equal(got, fhb.fused_head_bf16_step(shifted, x, mods, fmod, views[-1], 1e-5))
+
+
+@pytest.mark.parametrize("n,h,f", [(16, 1536, 4608), (8, 3584, 10752)])
+def test_fused_head_bf16_on_weights_packed_unpadded(cuda_device, n, h, f):
+    """The weights packed into one buffer with no room after the last: each
+    layer's gate and up 3 elements into a 16-byte unit, down 5, the norms 6
+    and final_linear 7, which ends the buffer.  The engine takes the route for
+    such a head; the kernel agrees with the plain version at
+    `test_fused_head_bf16_kernel_matches_plain`'s tolerance, two calls give
+    the same bits, and a layer whose gate and up start at different offsets
+    raises rather than running."""
+    from vibevoice_tpu_torch.ops import fused_head_bf16 as fhb
+    pk, x, mods, fmod, fl = _bf16_head_case(n, h, f, cuda_device)
+    keys = ("gate", "up", "down", "norm_w")
+    tensors = [t for k in keys for t in pk[k]] + [fl]
+    nl = len(pk["gate"])
+    gaps = [3] + [0] * (2 * nl - 1) + [2] + [0] * (nl - 1) + [1] + [0] * (nl - 1) + [1]
+    buf = torch.zeros(sum(t.numel() for t in tensors) + sum(gaps), dtype=torch.bfloat16,
+                      device=cuda_device)
+    views, at = [], 0
+    for t, gap in zip(tensors, gaps):
+        at += gap
+        views.append(buf[at:at + t.numel()].view(t.shape))
+        views[-1].copy_(t)
+        at += t.numel()
+    assert at == buf.numel()
+    packed = {k: views[i * nl:(i + 1) * nl] for i, k in enumerate(keys)}
+    assert [{v.data_ptr() % 16 // 2 for v in packed[k]} for k in keys] == [{3}, {3}, {5}, {6}]
+    assert views[-1].data_ptr() % 16 == 14
+    head = {"layers": [dict(zip(keys, lw)) for lw in zip(*(packed[k] for k in keys))],
+            "final_linear": views[-1]}
+    assert fhb.takes(head, cuda_device)
+    want = fhb.fused_head_bf16_step_ref(pk, x, mods, fmod, fl, 1e-5)
+    got = fhb.fused_head_bf16_step(packed, x, mods, fmod, views[-1], 1e-5)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=_rel_tol(want), rtol=0)
+    assert torch.equal(got, fhb.fused_head_bf16_step(packed, x, mods, fmod, views[-1], 1e-5))
+    before = fhb.fused_head_bf16_step.launches
+    with pytest.raises(ValueError, match="same offset"):
+        fhb.fused_head_bf16_step(dict(packed, up=pk["up"]), x, mods, fmod, views[-1], 1e-5)
+    assert fhb.fused_head_bf16_step.launches == before
+
+
+@pytest.mark.parametrize("h,f", [(1536, 4608), (3584, 10752)])
+def test_fused_head_bf16_two_calls_equal(cuda_device, h, f):
+    """The sums run in a fixed order (mma k-steps in order, partials in
+    cluster order, the final sums in rank order): two calls on the same
+    inputs give the same bits, and it is one kernel a call."""
+    from vibevoice_tpu_torch.ops import fused_head_bf16 as fhb
+    pk, x, mods, fmod, fl = _bf16_head_case(16, h, f, cuda_device)
+    a, kernels = _device_kernels(lambda: fhb.fused_head_bf16_step(pk, x, mods, fmod, fl, 1e-5))
+    b = fhb.fused_head_bf16_step(pk, x, mods, fmod, fl, 1e-5)
+    torch.cuda.synchronize()
+    assert len(kernels) == 1 and "head_bf16_kernel" in kernels[0], kernels
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("h,f", [(1536, 4608), (3584, 10752)])
+def test_fused_head_bf16_replays_in_a_cuda_graph(cuda_device, h, f):
+    """The kernel captured in a CUDA graph and replayed three times gives the
+    eager call's bits: the grid barrier's counter and the cached workspace
+    survive replay."""
+    from vibevoice_tpu_torch.ops import fused_head_bf16 as fhb
+    pk, x, mods, fmod, fl = _bf16_head_case(16, h, f, cuda_device)
+    want = fhb.fused_head_bf16_step(pk, x, mods, fmod, fl, 1e-5)
+    stream = torch.cuda.Stream(cuda_device)
+    stream.wait_stream(torch.cuda.current_stream(cuda_device))
+    with torch.cuda.stream(stream):  # the capture stream's workspace, made eagerly
+        fhb.fused_head_bf16_step(pk, x, mods, fmod, fl, 1e-5)
+    torch.cuda.current_stream(cuda_device).wait_stream(stream)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        got = fhb.fused_head_bf16_step(pk, x, mods, fmod, fl, 1e-5)
+    for _ in range(3):
+        got.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
 def test_quantized_engine_on_card_matches_cpu(cuda_device):
     """A small fp32 model in the int4 serving modes (int4 LM with group
     scales, int4k tokenizer chains, int4k head): every int4 kernel on the
@@ -863,7 +1006,7 @@ def test_flash_prefill_and_plain_chain_engine_on_card_matches_cpu(cuda_device):
 # the compiled decode step: captured once per engine, replayed by decode_chunk
 # ---------------------------------------------------------------------------
 
-GRAPH_CASES = ("plain", "int4", "stages-b2", "plain-chain")
+GRAPH_CASES = ("plain", "int4", "stages-b2", "plain-chain", "bf16-head")
 GRAPH_STEPS, GRAPH_CHUNKS = 24, (4, 5)  # a warm-up step and 3 replays, then 5
 
 
@@ -871,15 +1014,17 @@ def _graph_engines(case, dev, **gen_kw):
     """An eager engine and a graph engine (sharing the eager one's params and
     packs) on a tiny fp32 model (head_dim 64), B=2, injected x_T: decode
     attention alone (plain), the int4 modes (B2, B3, B8), the fused stages
-    at B=2 (B4 and the row-lane B7), or the plain chains (B6)."""
+    at B=2 (B4 and the row-lane B7), or the plain chains (B6); or the same
+    model in bf16, whose 256-wide head takes the bf16 head kernel."""
     from chip_smoke import _live_audio_path
     from vibevoice_tpu_torch.pipeline import VibeVoiceTTS
     from vibevoice_tpu_torch.processor.text_tokenizer import ByteFallbackTokenizer
     cfg = tiny_config(hidden_size=256, vocab_size=320)
     gen = torch.Generator().manual_seed(0)
-    params = V.init_model(cfg, generator=gen, device="cpu")
+    dtype = torch.bfloat16 if case == "bf16-head" else torch.float32
+    params = V.init_model(cfg, dtype=dtype, generator=gen, device="cpu")
     _live_audio_path(params, gen)
-    kw = dict(use_flash_decode=True, inject_latent_noise=not gen_kw)
+    kw = dict(use_flash_decode=True, inject_latent_noise=not gen_kw, dtype=dtype)
     t = 40
     if case == "int4":
         params = VibeVoiceTTS(params, cfg, ByteFallbackTokenizer(), dtype=torch.float32,
@@ -990,7 +1135,8 @@ def test_graph_nodes_equal_step_launches(cuda_device, case):
     assert not any(graph_calls[2].values())
     assert _graph_nodes(graph) == merge_stages(per_step)
     want = {"plain": "decode_attention", "int4": "fused_head_solver_step",
-            "stages-b2": "fused_stage_chain_rowlane", "plain-chain": "fused_block_chain"}
+            "stages-b2": "fused_stage_chain_rowlane", "plain-chain": "fused_block_chain",
+            "bf16-head": "fused_head_bf16"}
     assert per_step["decode_attention"] > 0 and per_step[want[case]] > 0
 
 

@@ -124,9 +124,12 @@ __device__ __forceinline__ void nibbles_f32(uint32_t w, float (&lo)[4], float (&
 // so the counter's top bit flips once all have arrived and its low bits are
 // back to 0).  Every CTA of the grid is resident: the grid is sized by the
 // occupancy of the cluster launch.  A barrier that is not reached within
-// seconds traps rather than hanging the card.
-__device__ inline void grid_barrier(unsigned int* bar) {
-  __syncthreads();
+// seconds traps rather than hanging the card.  `sync()` is the barrier of
+// the CTA's threads that take part (thread 0 among them): all of them unless
+// given.
+template <typename Sync>
+__device__ inline void grid_barrier(unsigned int* bar, Sync sync) {
+  sync();
   if (threadIdx.x == 0) {
     const unsigned int add = blockIdx.x == 0 ? 0x80000000u - (gridDim.x - 1) : 1u;
     __threadfence();
@@ -141,7 +144,10 @@ __device__ inline void grid_barrier(unsigned int* bar) {
     }
     __threadfence();
   }
-  __syncthreads();
+  sync();
+}
+__device__ inline void grid_barrier(unsigned int* bar) {
+  grid_barrier(bar, [] { __syncthreads(); });
 }
 
 // Global -> shared copies of the widths the tensor map and the bulk-copy

@@ -44,7 +44,11 @@ prompt of 1024 tokens or more through the flash prefill kernel
 `ops.flash_attention` (the JAX engine's auto rule; no [T, S] bias is built
 then).  Quantized params (`utils.quantize.quantize_model`) run as they are:
 int4 projections of at most 128 rows take the `ops.int4_matmul` kernel, an
-int4 head pack in `params["_diffusion_head_packq"]` the fused head kernel.
+int4 head pack in `params["_diffusion_head_packq"]` the fused head kernel; a
+plain bf16 head on the card, without a TP mesh, the bf16 head kernel
+(`ops.fused_head_bf16`, its route set in the packs as
+`params["_diffusion_head_bf16"]`; a tracer counts its solver steps as
+"head.bf16k_steps").
 With `use_fused_vocoder` / `use_fused_semantic` the small-T sigma-VAE stages
 run on the chain kernel (`params["_vocoder_packs"]` / `["_semantic_packs"]`:
 int4 packs where the caller injects them, as the pipeline's
@@ -89,6 +93,7 @@ from ..configs import VibeVoiceConfig
 from ..device import resolve_device
 from ..parallel.mesh import check_shard_shapes
 from ..models import connectors, qwen2, tokenizer, vibevoice
+from ..ops import fused_head_bf16
 from ..schedule import dpm_solver as ds
 from ..utils.profiling import Tracer
 from ..weights import to_device
@@ -383,6 +388,14 @@ class Engine:
         if "_lm_head_sub" not in params:
             params["_lm_head_sub"] = vibevoice.lm_head_subset(params, allowed, dtype,
                                                               mesh=self.tp_mesh)
+        # the bf16 head kernel's route (`fused_head_bf16.takes`, from the
+        # configuration alone): the head's own tensors, no copy; an engine off
+        # it runs the head as before, whatever the tree brought
+        if fused_head_bf16.takes(params["diffusion_head"], self.device, self.tp_mesh,
+                                 params.get("_diffusion_head_packq")):
+            params["_diffusion_head_bf16"] = fused_head_bf16.pack(params["diffusion_head"])
+        else:
+            params.pop("_diffusion_head_bf16", None)
         self.params = params
         t_end = time.perf_counter_ns()
         # the packs' seconds (always kept, as `capture_s`)
@@ -441,6 +454,13 @@ class Engine:
             out = fn(*args)
         tr.step_spans(marks, parent=self._span)
         return out
+
+    def _count_head_steps(self, tr: Tracer, steps: int):
+        """Counter "head.bf16k_steps": the solver steps the bf16 head kernel
+        ran in `steps` engine steps, on its route: every step, eager or
+        replayed, samples the head once, `sched.num_steps` solver steps."""
+        if "_diffusion_head_bf16" in self.params:
+            tr.count("head.bf16k_steps", steps * self.sched.num_steps)
 
     def _read_replay(self, tr: Tracer, wait: bool = False):
         """The parts of the last replay of the chunk left unread, from the
@@ -607,6 +627,7 @@ class Engine:
             finally:
                 span, self._span = self._span, None
             tr.device_span("engine.prefill", begin, tr.stamp(), parent=host, id=span)
+        self._count_head_steps(tr, 1)  # step 0
         return out
 
     def _prefill(self, input_ids, attention_mask, speech_input_mask, speech_tensors,
@@ -838,6 +859,7 @@ class Engine:
         tr.count("chunks")
         tr.count("replays", self.replays - replays)
         tr.count("captures", self.captures - captures)
+        self._count_head_steps(tr, n)
         if self.replays > replays and self._graph_marks is not None:
             self._unread = span
         return state, outs

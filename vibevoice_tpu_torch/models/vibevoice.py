@@ -18,7 +18,7 @@ from ..configs import VibeVoiceConfig
 from ..device import resolve_device
 from ..schedule import dpm_solver as ds
 from ..schedule import timestep_sampler
-from ..ops import fused_head
+from ..ops import fused_head, fused_head_bf16
 from ..ops.int4_matmul import dequant_int4
 from ..parallel.autograd import copy_to, gather_last
 from . import connectors, diffusion_head, qwen2, tokenizer
@@ -136,7 +136,10 @@ def sample_speech_latents(
 
     With an int4 head pack in `params["_diffusion_head_packq"]`
     (`quantize_diffusion="int4k"`) each solver step is ONE call of the fused
-    head kernel (`ops.fused_head`)."""
+    head kernel (`ops.fused_head`); with the bf16 route in
+    `params["_diffusion_head_bf16"]` (`Engine` sets it, `fused_head_bf16.takes`)
+    one call of the bf16 head kernel (`ops.fused_head_bf16`); otherwise the
+    plain `apply_with_modulations`."""
     dh_cfg = cfg.diffusion_head
     head = params["diffusion_head"]
     cond2 = torch.cat([condition, neg_condition], dim=0)
@@ -146,7 +149,8 @@ def sample_speech_latents(
     layer_mods, final_mod = diffusion_head.precompute_modulations(
         head, dh_cfg, cond2, timesteps)
     packq = params.get("_diffusion_head_packq")
-    if packq is not None:
+    route = params.get("_diffusion_head_bf16")
+    if packq is not None or route is not None:
         mods_stack = torch.stack(layer_mods, dim=1)  # [S, L, N, 3H]
     x = x_init
     for i in range(sched.num_steps):
@@ -154,6 +158,10 @@ def sample_speech_latents(
         if packq is not None:
             eps = fused_head.fused_head_solver_step(
                 packq, x2 @ head["noisy_proj"], mods_stack[i], final_mod[i],
+                head["final_linear"], dh_cfg.rms_norm_eps)
+        elif route is not None:
+            eps = fused_head_bf16.fused_head_bf16_step(
+                route, x2 @ head["noisy_proj"], mods_stack[i], final_mod[i],
                 head["final_linear"], dh_cfg.rms_norm_eps)
         else:
             eps = diffusion_head.apply_with_modulations(

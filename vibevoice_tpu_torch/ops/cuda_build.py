@@ -26,6 +26,7 @@ SOURCES: Dict[str, str] = {
     "int4_matmul": "int4_matmul.cu",
     "fused_block_chain": "fused_block_chain.cu",
     "fused_head": "fused_head.cu",
+    "fused_head_bf16": "fused_head_bf16.cu",
     "fused_stage": "fused_stage.cu",
     "flash_prefill": "flash_prefill.cu",
 }
