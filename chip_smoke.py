@@ -28,7 +28,13 @@ Phases, in order; any failure stops the run with a non-zero exit:
      scale, at the CTA height it picks and at both (64 and 128
      rows), against its bound and SDPA; the plain-pack (bf16) chain at the
      four packed stages of a step, B=1 and B=2, two chunks with the context
-     carried, two calls bit-equal, with its share of the bound;
+     carried, two calls bit-equal, with its share of the bound; the
+     latent-attention decode kernel (`phase_mla`) at the 45k DeepSeek-V2-Lite
+     cell's operands (27 layers, 8 rows of 53 248 latent slots, the
+     negative rows' sparse visibility), layers 0 and 26, two calls
+     bit-equal, its time against its bound, the plain version's and SDPA's,
+     and its nodes in the captured step of a DeepSeek-V2-Lite VibeVoice,
+     all 27 layers (equal to its eager step);
   3. the long-cache engine as `bench.py` drives it (1.5B, bf16, B=1, prompt
      256, 3840 steps -> a 4096-slot cache, so decode attention runs on the
      kernel): prefill, a 16-step warm-up chunk and two timed 32-step chunks.
@@ -4694,6 +4700,151 @@ def phase_demos_pipelines(dev, card, root, ckpt):
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phase 2, the latent-attention decode kernel (DeepSeek-V2's MLA)
+# ---------------------------------------------------------------------------
+
+# the 45k DeepSeek-V2-Lite cell's operands: 27 layers, 8 cache rows (4 rows
+# and their CFG-negative streams) of 53 248 slots, the window ~4 000 steps
+# into the episodes (the positive rows see 49 057 slots, the negative ones
+# slot 0 and their 4 001 decoded slots)
+MLA_SHAPE = dict(layers=27, rows=8, slots=53248, prompt=45056, write_pos=49056)
+MLA_SCALE = 192 ** -0.5 * (0.1 * 0.707 * np.log(40) + 1) ** 2
+
+
+def mla_operands(dev, gen, layers, rows, slots, prompt, write_pos):
+    """q [rows, 16, 576], one cache [layers, rows, slots, 576], the visibility
+    and lengths of the cell's window (`MLA_SHAPE`)."""
+    q = (0.3 * torch.randn((rows, 16, 576), generator=gen, device=dev)).to(torch.bfloat16)
+    cache = torch.empty((layers, rows, slots, 576), dtype=torch.bfloat16, device=dev)
+    for li in range(layers):
+        cache[li] = torch.randn((rows, slots, 576), generator=gen, device=dev)
+    vis = torch.zeros((rows, slots), dtype=torch.int32, device=dev)
+    half = rows // 2
+    vis[:half, :write_pos + 1] = 1
+    vis[half:, 0] = 1
+    vis[half:, prompt:write_pos + 1] = 1
+    lengths = torch.full((rows,), write_pos + 1, dtype=torch.int32, device=dev)
+    return q, cache, vis, lengths
+
+
+def mla_bound_ms(vis, lengths):
+    """The least time of one call: the visible slots' bytes (and q, out, the
+    mask) over HBM's rate, or its operations over the bf16 peak."""
+    from vibevoice_tpu_torch.ops.mla_decode_attention import live_bytes
+    visible = int(vis.sum())
+    rows = vis.shape[0]
+    nbytes = live_bytes(rows, visible, int(lengths.sum()))
+    flops = 2 * visible * 16 * (576 + 512)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_mla(dev, card):
+    """The latent-attention decode kernel against its plain version at the
+    cell's operands (layers 0 and 26), two calls bit-equal, and its time a
+    launch over the 27 layers (each layer's visible latents, ~225 MB, larger
+    than L2) against its bound, the plain version's and SDPA's (the 16 heads
+    over the latent as one KV head, the yardstick); then the launches on the
+    main path: the kernel nodes of a DeepSeek-V2-Lite VibeVoice engine's
+    captured step.  Returns the kernels-line entry."""
+    import torch.nn.functional as F
+    from vibevoice_tpu_torch.ops import mla_decode_attention as mla
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    q, cache, vis, lengths = mla_operands(dev, gen, **MLA_SHAPE)
+    err, worst = 0.0, 0.0
+    for layer in (0, cache.shape[0] - 1):
+        got = mla.mla_decode_attention(q, cache, layer, vis, lengths, MLA_SCALE)
+        want = mla.mla_decode_attention_ref(q, cache, layer, vis, lengths, MLA_SCALE)
+        err = max(err, (got.float() - want.float()).abs().max().item())
+        worst = max(worst, want.float().abs().max().item())
+    stable = torch.equal(*(mla.mla_decode_attention(q, cache, 0, vis, lengths, MLA_SCALE)
+                           for _ in range(2)))
+    tol = 2 ** -6 * worst
+    if not (err <= tol and stable):
+        raise RuntimeError(f"mla_decode_attention: error {err} > {tol} or two calls differ")
+    n_layers = cache.shape[0]
+    ms = cuda_ms(lambda i: mla.mla_decode_attention(q, cache, i % n_layers, vis, lengths,
+                                                    MLA_SCALE), 4 * n_layers)
+    plain_ms = cuda_ms(lambda i: mla.mla_decode_attention_ref(q, cache, i % n_layers, vis,
+                                                              lengths, MLA_SCALE), 4)
+    mask = ((vis > 0) & (torch.arange(vis.shape[1], device=dev)[None] < lengths[:, None]))
+
+    def lib(i):
+        lat = cache[i % n_layers][:, None]                               # [B, 1, S, 576]
+        F.scaled_dot_product_attention(q[:, :, None], lat, lat[..., :512],
+                                       attn_mask=mask[:, None, None], scale=MLA_SCALE,
+                                       enable_gqa=True)
+    lib_ms = cuda_ms(lib, n_layers)
+    bms, by = mla_bound_ms(vis, lengths)
+    n_splits = mla.plan(vis.shape[0], vis.shape[1], torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+    emit("kernel_vs_plain", kernel="mla_decode_attention", **MLA_SHAPE,
+         visible=int(vis.sum()), n_splits=n_splits, max_abs_err=err, tol=tol,
+         bit_stable=stable, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
+         bound_by=by, bound_share=bms / ms, card=card)
+    del q, cache, vis, lengths
+    torch.cuda.empty_cache()
+    per_step = mla_engine_launches(dev)
+    return {"name": "mla_decode_attention", "route": "cuda",
+            "source": "vibevoice_tpu_torch/csrc/mla_decode_attention.cu",
+            "replaces": "none (the JAX package has no latent attention)",
+            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bms,
+            "bound_by": by, "max_abs_err": err, "bit_stable": stable,
+            "per": f"launch: one layer at the 45k DeepSeek-V2-Lite cell's operands ({MLA_SHAPE})",
+            "launches": f"one per layer per decode step: {per_step} in the captured step "
+                        f"of a DeepSeek-V2-Lite engine",
+            "device_launches": per_step, "parallel_launches": 0, "serving_launches": 0,
+            "serving_device_launches": 0, "caption_quality_launches": 0,
+            "demo_pipeline_launches": 0,
+            "off_paths": "the DeepSeek-V2 decoder runs on no serving, parallel, caption or "
+                         "demo path"}
+
+
+def mla_engine_launches(dev) -> int:
+    """The MLA kernel's nodes in the captured step of a DeepSeek-V2-Lite
+    VibeVoice (all 27 layers, the bf16 weights ~31 GB) with a 6 144-slot
+    cache; the captured step's outputs equal the eager step's."""
+    import dataclasses
+    from vibevoice_tpu_torch.configs import DeepseekV2Config, vibevoice_1_5b, DiffusionHeadConfig
+    from vibevoice_tpu_torch.engine import generate as G
+    from vibevoice_tpu_torch.models import vibevoice as V
+    cfg = dataclasses.replace(vibevoice_1_5b(), decoder=DeepseekV2Config(),
+                              diffusion_head=DiffusionHeadConfig(hidden_size=2048))
+    params = V.init_model(cfg, dtype=torch.bfloat16, device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(SEED + 12))
+    params["speech_scaling_factor"] = torch.tensor(0.8, device=dev)
+    params["speech_bias_factor"] = torch.tensor(0.1, device=dev)
+    gen = G.GenerationConfig(speech_start_id=102396, speech_end_id=102397,
+                             speech_diffusion_id=102398, eos_id=100001, force_diffusion=True,
+                             ddpm_steps=10)
+    rng = np.random.default_rng(SEED)
+    ids = rng.integers(0, 100000, (2, 4096))
+    mask = np.ones((2, 4096), np.int32)
+    mask[1, :700] = 0
+    outs = []
+    for eager in (True, False):
+        eng = G.Engine(params, cfg, gen, max_steps=64, batch=2, prompt_len=4096,
+                       dtype=torch.bfloat16, device=dev, inject_latent_noise=True, eager=eager)
+        noise = torch.randn((64, 2, 64), generator=torch.Generator(device=dev).manual_seed(3),
+                            device=dev).to(torch.bfloat16)
+        st, _ = eng.prefill(ids, mask, np.zeros((2, 4096), bool), latent_noise=noise)
+        st, o = eng.decode_chunk(st, 6)
+        outs.append(o.audio_chunk.float().cpu())
+        if not eager:
+            names = graph_kernels(eng.graph)
+        del eng, st
+    if not torch.equal(outs[0][1:], outs[1][1:]):
+        raise RuntimeError("the captured DeepSeek-V2 step differs from the eager one")
+    torch.cuda.empty_cache()
+    n = sum("10mla_kernel" in x for x in names)
+    del params
+    torch.cuda.empty_cache()
+    emit("mla_engine", layers=cfg.decoder.num_hidden_layers, graph_nodes=len(names),
+         mla_nodes=n, audio_abs_mean=float(outs[1].abs().mean()))
+    return n
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on an NVIDIA GPU only",
@@ -4726,6 +4877,7 @@ def main() -> int:
     phase_stage_kernels(dev)
     phase_flash_kernel(dev)
     phase_plain_chain(dev)
+    mla_entry = phase_mla(dev, card)
 
     # 3-4. engine, bf16 then int8 KV
     cfg = vibevoice_1_5b()
@@ -4882,6 +5034,7 @@ def main() -> int:
         e["caption_quality_launches"] = (0 if e["name"].endswith("[int8 KV]") else
                                          captions[key])
         e["demo_pipeline_launches"] = (0 if e["name"].endswith("[int8 KV]") else demos[key])
+    entries.append(mla_entry)
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -4,14 +4,16 @@ The port's own copy of `vibevoice_tpu/configs.py` (the port imports nothing of
 the JAX package): the four sub-configs of the reference
 (`vibevoice/modular/configuration_vibevoice.py:13-241`) as frozen dataclasses.
 Presets reproduce `vibevoice/configs/qwen2.5_1.5b_64k.json` and
-`qwen2.5_7b_32k.json`.
+`qwen2.5_7b_32k.json`.  The LM is Qwen2 (`Qwen2Config`) or DeepSeek-V2
+(`DeepseekV2Config`: latent attention and a mixture of experts), chosen by the
+`model_type` of the JSON config's `decoder_config`.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
 from dataclasses import dataclass, field
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 
 @dataclass(frozen=True)
@@ -133,12 +135,87 @@ class Qwen2Config:
 
 
 @dataclass(frozen=True)
+class DeepseekV2Config:
+    """DeepSeek-V2 decoder config (huggingface.co/deepseek-ai/DeepSeek-V2-Lite
+    config.json; the defaults are DeepSeek-V2-Lite's): multi-head latent
+    attention without a q compression, YaRN RoPE on the rope part of q and k,
+    and DeepSeekMoE (`first_k_dense_replace` dense SwiGLU layers, then routed
+    experts with a softmax router, greedy top-k, and shared experts)."""
+    vocab_size: int = 102400
+    hidden_size: int = 2048
+    intermediate_size: int = 10944
+    moe_intermediate_size: int = 1408
+    num_hidden_layers: int = 27
+    num_attention_heads: int = 16
+    num_key_value_heads: int = 16
+    n_routed_experts: int = 64
+    n_shared_experts: int = 2
+    num_experts_per_tok: int = 6
+    first_k_dense_replace: int = 1
+    moe_layer_freq: int = 1
+    routed_scaling_factor: float = 1.0
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    max_position_embeddings: int = 163840
+    rope_theta: float = 10000.0
+    # rope_scaling {"type": "yarn", ...}
+    rope_factor: float = 40.0
+    original_max_position_embeddings: int = 4096
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 0.707
+    mscale_all_dim: float = 0.707
+    rms_norm_eps: float = 1e-6
+    tie_word_embeddings: bool = False
+
+    @property
+    def q_head_dim(self) -> int:
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
+
+    @property
+    def latent_dim(self) -> int:
+        """Width of a cache slot: the compressed kv and the roped k_pe."""
+        return self.kv_lora_rank + self.qk_rope_head_dim
+
+    def is_moe(self, layer: int) -> bool:
+        return layer >= self.first_k_dense_replace and layer % self.moe_layer_freq == 0
+
+
+def deepseek_v2_from_dict(dec: dict) -> DeepseekV2Config:
+    """The DeepSeek-V2 decoder of an HF-layout `config.json` dict; keys whose
+    other values the port does not implement raise."""
+    rs = dec.get("rope_scaling") or {}
+    if rs and rs.get("type", "yarn") != "yarn":
+        raise ValueError(f"rope_scaling type {rs.get('type')!r} is not supported")
+    unsupported = {"q_lora_rank": None, "scoring_func": "softmax", "topk_method": "greedy",
+                   "hidden_act": "silu", "attention_bias": False, "norm_topk_prob": False}
+    for k, want in unsupported.items():
+        if dec.get(k, want) != want:
+            raise ValueError(f"DeepSeek-V2 {k}={dec[k]!r} is not supported (only {want!r})")
+    d = DeepseekV2Config()
+    kw = {f.name: dec[f.name] for f in dataclasses.fields(DeepseekV2Config) if f.name in dec}
+    if rs:
+        kw.update(rope_factor=rs.get("factor", d.rope_factor),
+                  original_max_position_embeddings=rs.get(
+                      "original_max_position_embeddings", d.original_max_position_embeddings),
+                  beta_fast=rs.get("beta_fast", d.beta_fast),
+                  beta_slow=rs.get("beta_slow", d.beta_slow),
+                  mscale=rs.get("mscale", d.mscale),
+                  mscale_all_dim=rs.get("mscale_all_dim", d.mscale_all_dim))
+    else:
+        kw.update(rope_factor=1.0)
+    return DeepseekV2Config(**kw)
+
+
+@dataclass(frozen=True)
 class VibeVoiceConfig:
     """Composite config (ref configuration_vibevoice.py:164-241)."""
     acoustic_tokenizer: AcousticTokenizerConfig = field(default_factory=AcousticTokenizerConfig)
     semantic_tokenizer: SemanticTokenizerConfig = field(default_factory=SemanticTokenizerConfig)
     diffusion_head: DiffusionHeadConfig = field(default_factory=DiffusionHeadConfig)
-    decoder: Qwen2Config = field(default_factory=Qwen2Config)
+    decoder: Union[Qwen2Config, DeepseekV2Config] = field(default_factory=Qwen2Config)
     acoustic_vae_dim: int = 64
     semantic_vae_dim: int = 128
 
@@ -217,6 +294,21 @@ def config_from_json(path: str) -> VibeVoiceConfig:
             return tuple(int(x) for x in v.split("-"))
         return tuple(v)
 
+    if dec.get("model_type") == "deepseek_v2":
+        decoder = deepseek_v2_from_dict(dec)
+    else:
+        decoder = Qwen2Config(
+            vocab_size=dec.get("vocab_size", 151936),
+            hidden_size=dec.get("hidden_size", 1536),
+            intermediate_size=dec.get("intermediate_size", 8960),
+            num_hidden_layers=dec.get("num_hidden_layers", 28),
+            num_attention_heads=dec.get("num_attention_heads", 12),
+            num_key_value_heads=dec.get("num_key_value_heads", 2),
+            max_position_embeddings=dec.get("max_position_embeddings", 65536),
+            rope_theta=dec.get("rope_theta", 1e6),
+            rms_norm_eps=dec.get("rms_norm_eps", 1e-6),
+            tie_word_embeddings=dec.get("tie_word_embeddings", True),
+        )
     return VibeVoiceConfig(
         acoustic_tokenizer=AcousticTokenizerConfig(
             channels=ac.get("channels", 1),
@@ -269,18 +361,7 @@ def config_from_json(path: str) -> VibeVoiceConfig:
             ddpm_batch_mul=dh.get("ddpm_batch_mul", 4),
             prediction_type=dh.get("prediction_type", "v_prediction"),
         ),
-        decoder=Qwen2Config(
-            vocab_size=dec.get("vocab_size", 151936),
-            hidden_size=dec.get("hidden_size", 1536),
-            intermediate_size=dec.get("intermediate_size", 8960),
-            num_hidden_layers=dec.get("num_hidden_layers", 28),
-            num_attention_heads=dec.get("num_attention_heads", 12),
-            num_key_value_heads=dec.get("num_key_value_heads", 2),
-            max_position_embeddings=dec.get("max_position_embeddings", 65536),
-            rope_theta=dec.get("rope_theta", 1e6),
-            rms_norm_eps=dec.get("rms_norm_eps", 1e-6),
-            tie_word_embeddings=dec.get("tie_word_embeddings", True),
-        ),
+        decoder=decoder,
         acoustic_vae_dim=d.get("acoustic_vae_dim", 64),
         semantic_vae_dim=d.get("semantic_vae_dim", 128),
     )
@@ -291,6 +372,8 @@ __all__ = [
     "SemanticTokenizerConfig",
     "DiffusionHeadConfig",
     "Qwen2Config",
+    "DeepseekV2Config",
+    "deepseek_v2_from_dict",
     "VibeVoiceConfig",
     "vibevoice_1_5b",
     "vibevoice_7b",

@@ -37,6 +37,17 @@ Where it differs from the JAX engine:
     diffusion branch runs on every step, the generator advances on steps
     where no row diffuses too.
 
+The LM is the configuration's decoder (`vibevoice.decoder_module`): Qwen2
+(`models/qwen2.py`, a KV cache) or DeepSeek-V2 (`models/deepseek_v2.py`: latent
+attention over a latent cache [L, 2B, S, 576], its decode through the CUDA
+kernel `ops.mla_decode_attention`, its prompt attending itself with no [T, S]
+bias, and its experts computed densely in the step, so that nothing of the
+routing is read on the host); the engine raises for the modes not ported for
+DeepSeek-V2 (int8/int4 weights, an int8 cache, tensor parallelism).  Traced,
+a DeepSeek-V2 step also records its LM's sub-parts (`lm.mla`, `lm.moe`) and
+tallies the experts hit on the device ("moe.experts_hit" over
+"moe.layer_steps", read a chunk later with the step's events).
+
 The long-cache decode attention goes through the CUDA kernel
 `ops.decode_attention` (auto-on at 4096 slots or more, with the cache rounded
 up to a multiple of 2048 slots, as in the JAX engine), and the prefill of a
@@ -92,7 +103,7 @@ import torch
 from ..configs import VibeVoiceConfig
 from ..device import resolve_device
 from ..parallel.mesh import check_shard_shapes
-from ..models import connectors, qwen2, tokenizer, vibevoice
+from ..models import connectors, tokenizer, vibevoice
 from ..ops import fused_head_bf16
 from ..schedule import dpm_solver as ds
 from ..utils.profiling import Tracer
@@ -134,7 +145,7 @@ class StepOutput(NamedTuple):
 class GenState(NamedTuple):
     # unified cache: rows [:B] positive stream, rows [B:] negative stream; both
     # write at the shared slot clock `write_pos`
-    cache: qwen2.KVCache        # [L, 2B, S, KVH*D]
+    cache: Any                  # qwen2.KVCache [L, 2B, S, KVH*D] or deepseek_v2.LatentCache
     visible: torch.Tensor       # [2B, S] int32
     write_pos: torch.Tensor     # 0-d int32 next slot (both streams)
     pos_positions: torch.Tensor  # [B] int32 next rope position (positive)
@@ -251,6 +262,12 @@ class Engine:
                 "mesh for sharded models or a pure-DP mesh for batch serving")
         if batch % self.dp:
             raise ValueError(f"batch {batch} must divide over data axis {self.dp}")
+        # the decoder's module: Qwen2, or DeepSeek-V2 (latent attention + experts)
+        self.lm = vibevoice.decoder_module(cfg.decoder)
+        for mode in self.lm.UNPORTED:
+            if _uses_mode(mode, self.mp, kv_dtype, params):
+                raise ValueError(f"{_MODE_NAMES[mode]} is not ported for the "
+                                 f"{self.lm.__name__.rsplit('.', 1)[-1]} decoder")
         if cfg.decoder.num_key_value_heads % self.mp:
             raise ValueError(f"TP degree {self.mp} must divide num_key_value_heads "
                              f"{cfg.decoder.num_key_value_heads}; use a smaller model axis")
@@ -277,15 +294,13 @@ class Engine:
         # keep_audio=False drops the [B, max_steps, hop] waveform buffer;
         # streaming consumers get per-step chunks from StepOutput instead
         self.keep_audio = keep_audio
-        if use_flash_prefill is None:
-            # long prompts take the memory-linear flash prefill kernel
-            use_flash_prefill = prompt_len >= 1024 and cfg.decoder.head_dim % 128 == 0
-        self.use_flash_prefill = use_flash_prefill
-        if use_flash_decode is None:
-            # long caches: the decode kernel stops at each row's live length
-            use_flash_decode = ((prompt_len + max_steps) >= 4096
-                                and cfg.decoder.head_dim % 128 == 0)
-        self.use_flash_decode = use_flash_decode
+        # long prompts take the memory-linear flash prefill kernel, long
+        # caches the decode kernel, which stops at each row's live length
+        flash_prefill, flash_decode = self.lm.engine_routes(cfg.decoder, prompt_len,
+                                                            prompt_len + max_steps)
+        self.use_flash_prefill = (flash_prefill if use_flash_prefill is None
+                                  else use_flash_prefill)
+        self.use_flash_decode = flash_decode if use_flash_decode is None else use_flash_decode
         self.cfg = cfg
         self.gen = gen
         self.hop = cfg.speech_compress_ratio
@@ -330,6 +345,13 @@ class Engine:
         self._graph_marks: Optional[list] = None
         self._unread: Optional[int] = None
         self._span: Optional[int] = None
+        # DeepSeek-V2's traced sub-parts of the LM (the step's and the
+        # graph's) and its device tally of experts hit, with the part of it
+        # already counted
+        self._sub: Optional[list] = None
+        self._graph_sub: Optional[list] = None
+        self._tally: Optional[torch.Tensor] = None
+        self._tally_seen = [0, 0]
         allowed = [gen.speech_start_id, gen.speech_end_id, gen.speech_diffusion_id, gen.eos_id]
         if gen.bos_id is not None:
             allowed.append(gen.bos_id)
@@ -425,23 +447,33 @@ class Engine:
         if tracer is not None and self.device.type == "cuda":
             tracer.anchor(self.device)
         self.graph, self._graph_out, self._graph_marks = None, None, None
+        self._graph_sub = None
+        self._tally = (torch.zeros(2, dtype=torch.int64, device=self.device)
+                       if tracer is not None and self.lm.EXPERT_TALLY else None)
+        self._tally_seen = [0, 0]
 
     def _mark(self, part: str):
         """The end of `part` of the step being run (nothing untraced)."""
         if self._marks is not None:
             self._marks.append((part, self._stamp()))
 
+    def _sub_mark(self, part: Optional[str]):
+        """A boundary inside the LM of the step being run (`deepseek_v2.forward`'s
+        `mark`): the start (None) or the end of a sub-part."""
+        self._sub.append((part, self._stamp()))
+
     @contextlib.contextmanager
     def _marking(self, stamp):
         """Record the parts' boundaries of the step run in the block with
-        `stamp`; the list it yields holds them afterwards, [(part, stamp)]
-        from the step's start (part None) to the end of its last "rest"."""
-        marks = [(None, stamp())]
-        self._marks, self._stamp = marks, stamp
+        `stamp`; the lists it yields hold them afterwards: [(part, stamp)]
+        from the step's start (part None) to the end of its last "rest", and
+        the LM's sub-part boundaries (empty but for DeepSeek-V2)."""
+        marks, sub = [(None, stamp())], []
+        self._marks, self._stamp, self._sub = marks, stamp, sub
         try:
-            yield marks
+            yield marks, sub
         finally:
-            self._marks = self._stamp = None
+            self._marks = self._stamp = self._sub = None
         marks.append(("rest", stamp()))
 
     def _eager_marked(self, fn, *args):
@@ -450,10 +482,20 @@ class Engine:
         tr = self.tracer
         if tr is None:
             return fn(*args)
-        with self._marking(tr.stamp) as marks:
+        with self._marking(tr.stamp) as (marks, sub):
             out = fn(*args)
-        tr.step_spans(marks, parent=self._span)
+        tr.step_spans(marks, parent=self._span, sub=sub)
+        self._read_tally(tr)
         return out
+
+    def _read_tally(self, tr: Tracer):
+        """Counters "moe.experts_hit" and "moe.layer_steps": what the device
+        tally gained since it was last read (its steps are done)."""
+        if self._tally is None:
+            return
+        seen, self._tally_seen = self._tally_seen, self._tally.tolist()
+        tr.count("moe.experts_hit", self._tally_seen[0] - seen[0])
+        tr.count("moe.layer_steps", self._tally_seen[1] - seen[1])
 
     def _count_head_steps(self, tr: Tracer, steps: int):
         """Counter "head.bf16k_steps": the solver steps the bf16 head kernel
@@ -475,7 +517,8 @@ class Engine:
         elif not marks[-1][1].query():
             tr.count("part_samples_skipped")
             return
-        tr.step_spans(marks, parent=chunk, replay=True)
+        tr.step_spans(marks, parent=chunk, replay=True, sub=self._graph_sub)
+        self._read_tally(tr)
 
     # ------------------------------------------------------------------
     def _post_lm(self, state: GenState, h_t: torch.Tensor, h_neg: torch.Tensor,
@@ -591,7 +634,7 @@ class Engine:
         frames = state.frames + is_diff.to(torch.int32)
 
         # next input embeds (ref :582-690)
-        tok_embeds = qwen2.embed_rows(p["lm"], next_tok.long()).to(h_t.dtype)
+        tok_embeds = self.lm.embed_rows(p["lm"], next_tok.long()).to(h_t.dtype)
         cur_embeds = torch.where(is_diff[:, None], diff_embeds, tok_embeds)
 
         new_state = state._replace(
@@ -657,7 +700,7 @@ class Engine:
         b, t0 = input_ids.shape
         dec = cfg.decoder
 
-        embeds = qwen2.embed_rows(p["lm"], input_ids).to(self.dtype)
+        embeds = self.lm.embed_rows(p["lm"], input_ids).to(self.dtype)
         if speech_tensors is not None or voice_latents is not None:
             if voice_latents is None:
                 latents = vibevoice.encode_voice_prompts(
@@ -678,7 +721,7 @@ class Engine:
                 if buf is not None:
                     buf.zero_()
         else:
-            cache = qwen2.kv_cache_init(dec, 2 * b, self.cache_len, self.dtype,
+            cache = self.lm.kv_cache_init(dec, 2 * b, self.cache_len, self.dtype,
                                         quantized=self.kv_quant, device=dev,
                                         mesh=self.tp_mesh)
 
@@ -687,9 +730,9 @@ class Engine:
         bias = None
         if not self.use_flash_prefill:
             bias = torch.full((b, 1, t0, self.cache_len), -1e9, dtype=torch.float32, device=dev)
-            bias[:, :, :, :t0] = qwen2.causal_bias(attention_mask, t0)
-        pos = qwen2.positions_from_mask(attention_mask)
-        hidden, cache = qwen2.forward(p["lm"], dec, embeds, pos, bias, cache=cache,
+            bias[:, :, :, :t0] = self.lm.causal_bias(attention_mask, t0)
+        pos = self.lm.positions_from_mask(attention_mask)
+        hidden, cache = self.lm.forward(p["lm"], dec, embeds, pos, bias, cache=cache,
                                       write_pos=0, pad_mask=attention_mask,
                                       use_flash=self.use_flash_prefill, mesh=self.tp_mesh)
         h_last = hidden[:, -1]
@@ -698,10 +741,10 @@ class Engine:
         # negative pre-seed: the speech_start kv at slot 0 of rows [B:]
         # (committed lazily at the first diffusion step)
         ss_ids = torch.full((b, 1), gen.speech_start_id, dtype=torch.int64, device=dev)
-        ss_embed = qwen2.embed_rows(p["lm"], ss_ids).to(self.dtype)
+        ss_embed = self.lm.embed_rows(p["lm"], ss_ids).to(self.dtype)
         neg_bias = torch.full((b, 1, 1, self.cache_len), -1e9, dtype=torch.float32, device=dev)
         neg_bias[:, :, :, 0] = 0.0
-        h_neg0, cache = qwen2.forward(p["lm"], dec, ss_embed,
+        h_neg0, cache = self.lm.forward(p["lm"], dec, ss_embed,
                                       torch.zeros((b, 1), dtype=torch.int32, device=dev),
                                       neg_bias, cache=cache, write_pos=0, batch_offset=b,
                                       mesh=self.tp_mesh)
@@ -813,10 +856,13 @@ class Engine:
         if self.use_flash_decode:
             decode_ctx = (vis_step, (wp + 1).repeat(2 * b))
         else:
-            bias = qwen2.decode_bias(vis_step)
-        hidden, _ = qwen2.forward(p["lm"], cfg.decoder, embeds2, positions2, bias,
-                                  cache=state.cache, write_pos=wp, decode_ctx=decode_ctx,
-                                  mesh=self.tp_mesh)
+            bias = self.lm.decode_bias(vis_step)
+        # traced: the LM's sub-parts and the experts' tally (DeepSeek-V2's)
+        hidden, _ = self.lm.forward(p["lm"], cfg.decoder, embeds2, positions2, bias,
+                                    cache=state.cache, write_pos=wp, decode_ctx=decode_ctx,
+                                    mesh=self.tp_mesh,
+                                    mark=self._sub_mark if self._sub is not None else None,
+                                    tally=self._tally)
         self._mark("lm")
         state.visible[:b].index_fill_(1, slot, 1)
         state = state._replace(write_pos=wp + 1, pos_positions=state.pos_positions + 1)
@@ -933,8 +979,9 @@ class Engine:
             if tr is None:
                 out = self._step_into(static)
             else:
-                with self._marking(_graph_event) as marks:
+                with self._marking(_graph_event) as (marks, sub):
                     out = self._step_into(static)
+                self._graph_sub = sub
         graph.instantiate()
         t1 = time.perf_counter_ns()
         self.captures += 1
@@ -942,6 +989,28 @@ class Engine:
         if tr is not None:
             tr.add("engine.capture", t0, t1, parent=tr.current())
         self.graph, self._graph_out, self._graph_marks = graph, out, marks
+
+
+# the engine modes a decoder module may leave unported (its `UNPORTED`)
+_MODE_NAMES = {"tp": "tensor parallelism", "int8_kv": "an int8 KV cache",
+               "quantized": "int8/int4 LM weights"}
+
+
+def _uses_mode(mode: str, mp: int, kv_dtype: str, params) -> bool:
+    if mode == "tp":
+        return mp > 1
+    if mode == "int8_kv":
+        return kv_dtype != "model"
+    return _quantized(params.get("lm")) or _quantized(params.get("lm_head"))
+
+
+def _quantized(tree) -> bool:
+    """Whether a parameter tree holds int8 or int4 weights."""
+    if isinstance(tree, dict):
+        return "qint8" in tree or "qint4" in tree or any(_quantized(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return any(_quantized(v) for v in tree)
+    return False
 
 
 def _graph_event() -> torch.cuda.Event:

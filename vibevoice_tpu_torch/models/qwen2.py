@@ -42,6 +42,20 @@ from .norms import rms_norm
 
 Params = Dict[str, Any]
 
+# what the engine asks of its decoder module (`deepseek_v2` has the same): the
+# engine modes not ported for it, and whether `forward` tallies experts hit
+UNPORTED: Tuple[str, ...] = ()
+EXPERT_TALLY = False
+
+
+def engine_routes(cfg: Qwen2Config, prompt_len: int, cache_len: int) -> Tuple[bool, bool]:
+    """The engine's default routes, (flash prefill, decode kernel): a prompt
+    of 1 024 tokens or more takes the flash prefill kernel and a cache of
+    4 096 slots or more the decode kernel, where the head width is a multiple
+    of 128."""
+    fits = cfg.head_dim % 128 == 0
+    return prompt_len >= 1024 and fits, cache_len >= 4096 and fits
+
 
 def _normal(generator, shape, std, dtype, device) -> torch.Tensor:
     return (torch.randn(shape, generator=generator, dtype=torch.float32, device=device)
@@ -300,6 +314,8 @@ def forward(
     pad_mask: Optional[torch.Tensor] = None,  # [B, T] int (1 = real token)
     use_flash: bool = False,
     mesh=None,                            # parallel.Mesh: TP over its `model` axis
+    mark=None,
+    tally=None,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Run the decoder stack.  With `cache`, keys/values are written at slot
     `write_pos` (one slot for every row: left-padded batching; a host int, or
@@ -311,7 +327,9 @@ def forward(
     kernel, masked by `pad_mask`.  `attn_bias` may be None only on the kernel
     paths (`decode_ctx` with T == 1, or `use_flash`).  With a `mesh` whose
     `model` axis is larger than 1 the params are this rank's shard and the
-    cache its lanes (`kv_cache_init(..., mesh=mesh)`)."""
+    cache its lanes (`kv_cache_init(..., mesh=mesh)`).  `mark` and `tally`,
+    the traced engine's hooks inside the LM (`deepseek_v2.forward`), go
+    unused here."""
     if cache is not None and not (isinstance(write_pos, int) or (
             torch.is_tensor(write_pos) and write_pos.dim() == 0
             and not write_pos.is_floating_point())):

@@ -14,16 +14,23 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..configs import VibeVoiceConfig
+from ..configs import DeepseekV2Config, VibeVoiceConfig
 from ..device import resolve_device
 from ..schedule import dpm_solver as ds
 from ..schedule import timestep_sampler
 from ..ops import fused_head, fused_head_bf16
 from ..ops.int4_matmul import dequant_int4
 from ..parallel.autograd import copy_to, gather_last
-from . import connectors, diffusion_head, qwen2, tokenizer
+from . import connectors, deepseek_v2, diffusion_head, qwen2, tokenizer
 
 Params = Dict[str, Any]
+
+
+def decoder_module(dec):
+    """The module of the LM a decoder config names: `deepseek_v2` for a
+    `DeepseekV2Config`, else `qwen2`.  Both have `init`, `forward`,
+    `kv_cache_init`, `embed_rows`, `logits` and the bias helpers."""
+    return deepseek_v2 if isinstance(dec, DeepseekV2Config) else qwen2
 
 
 def init_model(cfg: VibeVoiceConfig, dtype=torch.float32, device="cuda",
@@ -36,7 +43,7 @@ def init_model(cfg: VibeVoiceConfig, dtype=torch.float32, device="cuda",
     h = cfg.decoder.hidden_size
     kw = dict(dtype=dtype, device=device, generator=generator)
     params = {
-        "lm": qwen2.init(cfg.decoder, **kw),
+        "lm": decoder_module(cfg.decoder).init(cfg.decoder, **kw),
         "acoustic_encoder": tokenizer.init_encoder(cfg.acoustic_tokenizer, **kw),
         "acoustic_decoder": tokenizer.init_decoder(cfg.acoustic_tokenizer, **kw),
         "semantic_encoder": tokenizer.init_encoder(cfg.semantic_tokenizer, **kw),
@@ -55,7 +62,8 @@ def init_model(cfg: VibeVoiceConfig, dtype=torch.float32, device="cuda",
 
 
 def lm_logits(params: Params, cfg: VibeVoiceConfig, hidden: torch.Tensor) -> torch.Tensor:
-    return qwen2.logits(params["lm"], cfg.decoder, hidden, params["lm_head"])
+    return decoder_module(cfg.decoder).logits(params["lm"], cfg.decoder, hidden,
+                                              params["lm_head"])
 
 
 def _whole_columns(x: torch.Tensor, ids, mesh) -> torch.Tensor:
@@ -285,6 +293,8 @@ def training_forward(
     `diffusion_loss` its sum, so that their sums over the data group are the
     unsharded losses."""
     dec = cfg.decoder
+    if isinstance(dec, DeepseekV2Config):
+        raise NotImplementedError("training is not ported for the DeepSeek-V2 decoder")
     speech_masks = speech_masks.bool()
 
     # embed text then splice speech features (ref :358-383).  With

@@ -29,6 +29,7 @@ SOURCES: Dict[str, str] = {
     "fused_head_bf16": "fused_head_bf16.cu",
     "fused_stage": "fused_stage.cu",
     "flash_prefill": "flash_prefill.cu",
+    "mla_decode_attention": "mla_decode_attention.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

@@ -13,7 +13,8 @@ request (`generate` call) it belongs to, on one of two tracks:
 
 Spans are kept in memory up to `cap`, past which `dropped` counts them;
 per-name counts and totals are kept for every span.  `counters` counts at the
-same boundaries (chunks, replays, captures, part samples taken and skipped).
+same boundaries (chunks, replays, captures, part samples taken and skipped;
+for DeepSeek-V2 the experts hit, "moe.experts_hit" over "moe.layer_steps").
 A device span whose events are not done yet waits in a pending list until
 `poll` finds them done (`flush` waits for them), so tracing adds no
 synchronize to the traced program.
@@ -77,8 +78,10 @@ class Tracer:
         self.counters: Dict[str, int] = defaultdict(int)
         # (track, name) -> [count, total ns], over every span, kept or dropped
         self.totals: Dict[Tuple[str, str], List[int]] = defaultdict(lambda: [0, 0])
-        # part -> total ns over the sampled replays (`counters["part_samples"]`)
+        # part -> total ns over the sampled replays (`counters["part_samples"]`),
+        # and the same of the sub-parts inside a part (`step_spans`'s `sub`)
         self.sampled_ns: Dict[str, int] = defaultdict(int)
+        self.sub_sampled_ns: Dict[str, int] = defaultdict(int)
         self.request_id: Optional[int] = None
         self._next = 0
         self._stack: List[int] = []  # open host spans
@@ -178,26 +181,32 @@ class Tracer:
         self._defer([(sid, name, parent, self.request_id, begin, end)], end, (begin, end))
         return sid
 
-    def step_spans(self, marks, parent: Optional[int] = None, replay: bool = False):
+    def step_spans(self, marks, parent: Optional[int] = None, replay: bool = False,
+                   sub=None):
         """The spans of one step from its part boundaries `marks`, [(part,
         stamp)] in order, the first part None (the step's start): a device
         span "engine.step" from the first stamp to the last, and one for each
-        segment, named by the part that ends it.  With `replay`, the stamps
-        are a captured graph's own events, done now and overwritten by its
-        next replay: they are read now, kept, and the step counts as a part
-        sample; else they are pool stamps, recorded once done."""
+        segment, named by the part that ends it.  `sub`, boundaries inside a
+        part in the same form (the DeepSeek-V2 LM's, `deepseek_v2.forward`'s
+        `mark`: each layer's attention "lm.mla" and expert block "lm.moe"),
+        adds one span for each of its segments, also a child of the step.  With `replay`, the stamps are a captured graph's
+        own events, done now and overwritten by its next replay: they are
+        read now, kept, and the step counts as a part sample (`sampled_ns`
+        sums each part's segments, `sub_sampled_ns` each sub-part's); else
+        they are pool stamps, recorded once done."""
         step, req = self.new_id(), self.request_id
+        sub = sub or []
+        parts, subs = list(zip(marks, marks[1:])), list(zip(sub, sub[1:]))
         specs = [(step, "engine.step", parent, req, marks[0][1], marks[-1][1])]
-        specs += [(self.new_id(), part, step, req, a, b)
-                  for (_, a), (part, b) in zip(marks, marks[1:])]
+        specs += [(self.new_id(), part, step, req, a, b) for (_, a), (part, b) in parts + subs]
         if not replay:
-            self._defer(specs, marks[-1][1], [s for _, s in marks])
+            self._defer(specs, marks[-1][1], [s for _, s in marks + sub])
             return
         self._record(specs)
         self.count("part_samples")
-        t = [self.to_ns(s) for _, s in marks]
-        for (part, _), a, b in zip(marks[1:], t, t[1:]):
-            self.sampled_ns[part] += b - a
+        for total, segments in ((self.sampled_ns, parts), (self.sub_sampled_ns, subs)):
+            for (_, a), (part, b) in segments:
+                total[part] += self.to_ns(b) - self.to_ns(a)
 
     def _defer(self, specs, end, stamps):
         if isinstance(end, int):
