@@ -34,7 +34,12 @@ Phases, in order; any failure stops the run with a non-zero exit:
      negative rows' sparse visibility), layers 0 and 26, two calls
      bit-equal, its time against its bound, the plain version's and SDPA's,
      and its nodes in the captured step of a DeepSeek-V2-Lite VibeVoice,
-     all 27 layers (equal to its eager step);
+     all 27 layers (equal to its eager step), with the grouped expert
+     kernel's; the grouped expert kernel (`phase_moe`) at the cell's expert
+     layers (64 experts of H 2 048, F 1 408, 8 rows hitting 24), against the
+     plain version in fp32 with the plain bf16 version's error beside it, two
+     calls bit-equal, its time a layer against its bound and the plain
+     version's;
   3. the long-cache engine as `bench.py` drives it (1.5B, bf16, B=1, prompt
      256, 3840 steps -> a 4096-slot cache, so decode attention runs on the
      kernel): prefill, a 16-step warm-up chunk and two timed 32-step chunks.
@@ -4747,7 +4752,8 @@ def phase_mla(dev, card):
     than L2) against its bound, the plain version's and SDPA's (the 16 heads
     over the latent as one KV head, the yardstick); then the launches on the
     main path: the kernel nodes of a DeepSeek-V2-Lite VibeVoice engine's
-    captured step.  Returns the kernels-line entry."""
+    captured step.  Returns the grouped expert kernel's nodes in that step
+    and the kernels-line entry."""
     import torch.nn.functional as F
     from vibevoice_tpu_torch.ops import mla_decode_attention as mla
     gen = torch.Generator(device=dev).manual_seed(SEED + 11)
@@ -4785,8 +4791,8 @@ def phase_mla(dev, card):
          bound_by=by, bound_share=bms / ms, card=card)
     del q, cache, vis, lengths
     torch.cuda.empty_cache()
-    per_step = mla_engine_launches(dev)
-    return {"name": "mla_decode_attention", "route": "cuda",
+    per_step, moe_per_step = mla_engine_launches(dev)
+    return moe_per_step, {"name": "mla_decode_attention", "route": "cuda",
             "source": "vibevoice_tpu_torch/csrc/mla_decode_attention.cu",
             "replaces": "none (the JAX package has no latent attention)",
             "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bms,
@@ -4801,10 +4807,11 @@ def phase_mla(dev, card):
                          "demo path"}
 
 
-def mla_engine_launches(dev) -> int:
-    """The MLA kernel's nodes in the captured step of a DeepSeek-V2-Lite
-    VibeVoice (all 27 layers, the bf16 weights ~31 GB) with a 6 144-slot
-    cache; the captured step's outputs equal the eager step's."""
+def mla_engine_launches(dev):
+    """The MLA kernel's and the grouped expert kernel's nodes in the
+    captured step of a DeepSeek-V2-Lite VibeVoice (all 27 layers, the bf16
+    weights ~31 GB) with a 6 144-slot cache; the captured step's outputs
+    equal the eager step's."""
     import dataclasses
     from vibevoice_tpu_torch.configs import DeepseekV2Config, vibevoice_1_5b, DiffusionHeadConfig
     from vibevoice_tpu_torch.engine import generate as G
@@ -4838,11 +4845,93 @@ def mla_engine_launches(dev) -> int:
         raise RuntimeError("the captured DeepSeek-V2 step differs from the eager one")
     torch.cuda.empty_cache()
     n = sum("10mla_kernel" in x for x in names)
+    n_moe = sum("18moe_experts_kernel" in x for x in names)
+    from vibevoice_tpu_torch.models import deepseek_v2
+    if n_moe != deepseek_v2.grouped_layers(cfg.decoder, 4, dev):
+        raise RuntimeError(f"{n_moe} grouped expert nodes in the captured step; the engine's "
+                           f"counter says {deepseek_v2.grouped_layers(cfg.decoder, 4, dev)}")
     del params
     torch.cuda.empty_cache()
     emit("mla_engine", layers=cfg.decoder.num_hidden_layers, graph_nodes=len(names),
-         mla_nodes=n, audio_abs_mean=float(outs[1].abs().mean()))
-    return n
+         mla_nodes=n, moe_experts_nodes=n_moe, audio_abs_mean=float(outs[1].abs().mean()))
+    return n, n_moe
+
+
+# the 45k DeepSeek-V2-Lite cell's expert layers: 64 experts of H 2 048 and F
+# 1 408, a decode call's 8 rows (B = 4 and their CFG-negative streams) hitting
+# ~24 experts; three copies of the experts (3.3 GB) rotated, each larger
+# than L2
+MOE_SHAPE = dict(experts=64, hidden=2048, inter=1408, rows=8, hit=24, copies=3)
+
+
+def moe_routing(dev, gen, experts, rows, hit):
+    """w [rows, experts] fp32 of a decode call of the cell: positive row r
+    takes block r of 6 of `hit` experts drawn from the seed, its CFG-negative
+    stream (row r + rows / 2, which shares its input embedding, so their
+    routings overlap) 4 of those and 2 of the next block, so the call hits
+    `hit` distinct experts; softmax-sized weights."""
+    perm = torch.randperm(experts, generator=gen, device=dev)[:hit].tolist()
+    half, w = rows // 2, torch.zeros((rows, experts), device=dev)
+    for r in range(half):
+        blk, nxt = perm[6 * r:6 * r + 6], perm[(6 * r + 6) % hit:(6 * r + 6) % hit + 6]
+        w[r, blk] = 1.0
+        w[r + half, blk[:4] + nxt[4:]] = 1.0
+    return w * (0.05 + 0.25 * torch.rand((rows, experts), generator=gen, device=dev))
+
+
+def phase_moe(dev, card, device_launches):
+    """The grouped expert kernel against the plain version in fp32 on the
+    same bf16 operands (and the plain bf16 version's error beside it) at the
+    cell's operands (`MOE_SHAPE`), two calls bit-equal, its time a layer with
+    the experts rotated through copies against its bound and the plain
+    version's; `device_launches` its nodes in `phase_mla`'s captured step.
+    Returns the kernels-line entry."""
+    from vibevoice_tpu_torch.ops import moe_experts as me
+    sh = MOE_SHAPE
+    e, hd, f, n = sh["experts"], sh["hidden"], sh["inter"], sh["rows"]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+
+    def nrm(*shape):
+        return (0.02 * torch.randn(shape, generator=gen, device=dev)).to(torch.bfloat16)
+    copies = [(nrm(e, hd, f), nrm(e, hd, f), nrm(e, f, hd)) for _ in range(sh["copies"])]
+    h = torch.randn((n, hd), generator=gen, device=dev).to(torch.bfloat16)
+    w = moe_routing(dev, gen, e, n, sh["hit"])
+    hit = int((w != 0).any(dim=0).sum())
+    ex = copies[0]
+    got = me.moe_experts(h, w, *ex)
+    exact = me.moe_experts_ref(h.float(), w, *(t.float() for t in ex))
+    err = (got - exact).abs().max().item()
+    plain_err = (me.moe_experts_ref(h, w, *ex) - exact).abs().max().item()
+    tol = 2 ** -7 * exact.abs().max().item()
+    stable = torch.equal(got, me.moe_experts(h, w, *ex))
+    del exact
+    if not (err <= tol and stable):
+        raise RuntimeError(f"moe_experts: error {err} > {tol} or two calls differ")
+    k = len(copies)
+    ms = cuda_ms(lambda i: me.moe_experts(h, w, *copies[i % k]), 26 * k)
+    plain_ms = cuda_ms(lambda i: me.moe_experts_ref(h, w, *copies[i % k]), 2 * k)
+    nbytes = me.hit_bytes(w, hd, f)
+    bms = nbytes / HBM_BYTES_PER_S * 1e3
+    p = me.plan_for(dev, n, hd, f, e)
+    emit("kernel_vs_plain", kernel="moe_experts", **sh, hit_experts=hit, plan=p._asdict(),
+         max_abs_err=err, tol=tol, plain_bf16_err=plain_err, bit_stable=stable, ms=ms,
+         plain_ms=plain_ms, bound_ms=bms, bound_by="bytes", bound_share=bms / ms, card=card)
+    del copies, ex, got, h, w
+    torch.cuda.empty_cache()  # the 3.3 GB of experts go back to the card for the later phases
+    return {"name": "moe_experts", "route": "cuda",
+            "source": "vibevoice_tpu_torch/csrc/moe_experts.cu",
+            "replaces": "none (the JAX package has no mixture of experts)",
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": "bytes",
+            "max_abs_err": err, "plain_bf16_err": plain_err, "bit_stable": stable,
+            "per": f"launch: one expert layer at the 45k DeepSeek-V2-Lite cell's operands "
+                   f"({sh}, {hit} experts hit)",
+            "launches": f"one per expert layer per decode step: {device_launches} in the "
+                        f"captured step of a DeepSeek-V2-Lite engine",
+            "device_launches": device_launches, "parallel_launches": 0, "serving_launches": 0,
+            "serving_device_launches": 0, "caption_quality_launches": 0,
+            "demo_pipeline_launches": 0,
+            "off_paths": "the DeepSeek-V2 decoder runs on no serving, parallel, caption or "
+                         "demo path"}
 
 
 def main() -> int:
@@ -4877,7 +4966,8 @@ def main() -> int:
     phase_stage_kernels(dev)
     phase_flash_kernel(dev)
     phase_plain_chain(dev)
-    mla_entry = phase_mla(dev, card)
+    moe_nodes, mla_entry = phase_mla(dev, card)
+    moe_entry = phase_moe(dev, card, moe_nodes)
 
     # 3-4. engine, bf16 then int8 KV
     cfg = vibevoice_1_5b()
@@ -5034,7 +5124,7 @@ def main() -> int:
         e["caption_quality_launches"] = (0 if e["name"].endswith("[int8 KV]") else
                                          captions[key])
         e["demo_pipeline_launches"] = (0 if e["name"].endswith("[int8 KV]") else demos[key])
-    entries.append(mla_entry)
+    entries += [mla_entry, moe_entry]
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -41,12 +41,15 @@ The LM is the configuration's decoder (`vibevoice.decoder_module`): Qwen2
 (`models/qwen2.py`, a KV cache) or DeepSeek-V2 (`models/deepseek_v2.py`: latent
 attention over a latent cache [L, 2B, S, 576], its decode through the CUDA
 kernel `ops.mla_decode_attention`, its prompt attending itself with no [T, S]
-bias, and its experts computed densely in the step, so that nothing of the
-routing is read on the host); the engine raises for the modes not ported for
-DeepSeek-V2 (int8/int4 weights, an int8 cache, tensor parallelism).  Traced,
+bias, and its decode-sized expert layers on the grouped expert kernel
+`ops.moe_experts`, so that nothing of the routing is read on the host); the
+engine raises for the modes not ported for DeepSeek-V2 (int8/int4 weights, an
+int8 cache, tensor parallelism).  Traced,
 a DeepSeek-V2 step also records its LM's sub-parts (`lm.mla`, `lm.moe`) and
 tallies the experts hit on the device ("moe.experts_hit" over
-"moe.layer_steps", read a chunk later with the step's events).
+"moe.layer_steps", read a chunk later with the step's events), and counts the
+expert layers the grouped expert kernel ran ("moe.grouped_layer_steps", from
+its configuration).
 
 The long-cache decode attention goes through the CUDA kernel
 `ops.decode_attention` (auto-on at 4096 slots or more, with the cache rounded
@@ -504,6 +507,16 @@ class Engine:
         if "_diffusion_head_bf16" in self.params:
             tr.count("head.bf16k_steps", steps * self.sched.num_steps)
 
+    def _count_grouped_steps(self, tr: Tracer, steps: int):
+        """Counter "moe.grouped_layer_steps": the expert layer-steps the grouped
+        expert kernel ran in `steps` decode steps, from the engine's
+        configuration: each step's [2B]-row forward runs the layers that
+        DeepSeek-V2's `grouped_layers` names (none for Qwen2)."""
+        if self.lm.EXPERT_TALLY:
+            n = self.lm.grouped_layers(self.cfg.decoder, 2 * self.batch, self.device)
+            if n:
+                tr.count("moe.grouped_layer_steps", steps * n)
+
     def _read_replay(self, tr: Tracer, wait: bool = False):
         """The parts of the last replay of the chunk left unread, from the
         graph's boundary events, if they are done (with `wait`, waiting for
@@ -906,6 +919,7 @@ class Engine:
         tr.count("replays", self.replays - replays)
         tr.count("captures", self.captures - captures)
         self._count_head_steps(tr, n)
+        self._count_grouped_steps(tr, n)
         if self.replays > replays and self._graph_marks is not None:
             self._unread = span
         return state, outs

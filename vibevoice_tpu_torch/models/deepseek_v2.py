@@ -33,11 +33,15 @@ through the CUDA kernel `ops.mla_decode_attention` for a one-token decode
 with `decode_ctx=(visible, lengths)`, or densely with an additive bias.
 
 The experts: a call of at most `DENSE_MAX_TOKENS` tokens (every decode step)
-computes all experts of the layer as batched matmuls and weighs them by the
-dense gate matrix (zero outside the top-k), with no read of the routing on
-the host, so the step can be captured; a longer call (a prompt) runs each
-expert on its own tokens, in chunks of `PREFILL_CHUNK` tokens.  Every routed
-expert is computed exactly: no capacity, no dropped tokens.
+weighs the routed experts by the dense gate matrix (zero outside the top-k)
+in `_experts_dense`: on the card one launch of the CUDA kernel
+`ops.moe_experts` per 16 rows, which finds on the device the experts some
+row was routed to and reads only those, so nothing of the routing is read
+on the host and the step can be captured (the engine counts the layers it
+ran, `grouped_layers`); on the CPU all experts as batched matmuls.  A
+longer call (a prompt) runs each expert on its own tokens, in chunks of
+`PREFILL_CHUNK` tokens.  Every routed expert is computed exactly: no
+capacity, no dropped tokens.
 
 Not ported for this decoder (the engine raises): int8/int4 weights, an int8
 cache and tensor parallelism.
@@ -52,6 +56,7 @@ import torch.nn.functional as F
 
 from ..configs import DeepseekV2Config
 from ..ops.mla_decode_attention import mla_decode_attention
+from ..ops.moe_experts import moe_experts
 from . import qwen2
 from .norms import rms_norm
 
@@ -321,12 +326,19 @@ def _swiglu(x: torch.Tensor, gate: torch.Tensor, up: torch.Tensor, down: torch.T
 
 
 def _experts_dense(lp: Params, h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Every expert on every token [N, H], weighed by w [N, E] (fp32 sum)."""
-    e = w.shape[1]
-    x = h[None].expand(e, -1, -1)
-    a = F.silu(torch.bmm(x, lp["experts_gate"])) * torch.bmm(x, lp["experts_up"])
-    y = torch.bmm(a, lp["experts_down"])                                 # [E, N, H]
-    return torch.einsum("enh,ne->nh", y.float(), w)
+    """The routed experts on the tokens h [N, H], weighed by w [N, E] (fp32
+    sum, [N, H]): the grouped expert kernel on the card, every expert as
+    batched matmuls on the CPU (`ops.moe_experts`)."""
+    return moe_experts(h, w, lp["experts_gate"], lp["experts_up"], lp["experts_down"])
+
+
+def grouped_layers(cfg: DeepseekV2Config, tokens: int, device) -> int:
+    """The expert layers a forward of `tokens` tokens runs on the grouped
+    expert kernel: every one of a call of at most `DENSE_MAX_TOKENS` tokens
+    on a CUDA device, else none."""
+    if torch.device(device).type != "cuda" or tokens > DENSE_MAX_TOKENS:
+        return 0
+    return sum(cfg.is_moe(li) for li in range(cfg.num_hidden_layers))
 
 
 def _experts_sparse(lp: Params, h: torch.Tensor, sel: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -423,6 +435,6 @@ def forward(
 
 
 __all__ = ["UNPORTED", "EXPERT_TALLY", "engine_routes", "init", "forward", "logits", "embed_rows", "LatentCache", "kv_cache_init",
-           "route", "moe", "yarn_inv_freq", "yarn_get_mscale", "rope_cos_sin", "apply_rope",
+           "route", "moe", "grouped_layers", "yarn_inv_freq", "yarn_get_mscale", "rope_cos_sin", "apply_rope",
            "softmax_scale", "causal_bias", "decode_bias", "positions_from_mask",
            "DENSE_MAX_TOKENS", "PREFILL_CHUNK", "QUERY_BLOCK"]

@@ -30,6 +30,7 @@ SOURCES: Dict[str, str] = {
     "fused_stage": "fused_stage.cu",
     "flash_prefill": "flash_prefill.cu",
     "mla_decode_attention": "mla_decode_attention.cu",
+    "moe_experts": "moe_experts.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

@@ -14,7 +14,8 @@ request (`generate` call) it belongs to, on one of two tracks:
 Spans are kept in memory up to `cap`, past which `dropped` counts them;
 per-name counts and totals are kept for every span.  `counters` counts at the
 same boundaries (chunks, replays, captures, part samples taken and skipped;
-for DeepSeek-V2 the experts hit, "moe.experts_hit" over "moe.layer_steps").
+for DeepSeek-V2 the experts hit, "moe.experts_hit" over "moe.layer_steps",
+and the layer-steps on the grouped expert kernel, "moe.grouped_layer_steps").
 A device span whose events are not done yet waits in a pending list until
 `poll` finds them done (`flush` waits for them), so tracing adds no
 synchronize to the traced program.
