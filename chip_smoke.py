@@ -51,13 +51,12 @@ Phases, in order; any failure stops the run with a non-zero exit:
      kernel nodes by kernel (held against one step's launches) and its
      device time per replay;
   4. the same engine with `kv_dtype="int8"` for 8 + 8 steps, then at B=2 with
-     `use_fused_stages=True` for 8 + 16 steps, with
-     `fused_stage_rowlane=False` (eight stage-kernel calls per step) and by
+     `use_fused_stages=True` for 8 + 16 steps, on stage packs without the
+     row-lane layout handed in (eight stage-kernel calls per step) and by
      default (4 + 4 row-lane), the codec half of a step of each kind also
      captured alone in a CUDA graph (nodes, device time per replay);
      then the long-prompt engine: a 4096-token prompt (flash prefill by the
-     auto rule, 28 launches) with `use_fused_vocoder` / `use_fused_semantic`
-     on plain bf16 packs (4 chain launches per step), prefill and 8 + 16
+     auto rule, 28 launches) with `use_fused_chains` on plain bf16 packs (4 chain launches per step), prefill and 8 + 16
      steps; the same prompt's prefill through the dense path, its last hidden
      state held against the flash prefill's; and a 16 384-token flash prefill
      with its peak memory;
@@ -1076,18 +1075,14 @@ def kernel_counters():
 def codec_launches(eng):
     """Launches per diffusing step of the streaming codecs' four kernels,
     walking each stage of the vocoder and the re-encode as the tokenizer
-    does when the engine takes the fused path (`use_fused_vocoder` /
-    `use_fused_semantic`, or `use_fused_stages`): a large-T pack with a
+    does with the packs in the engine's params: a large-T pack with a
     folded conv runs the stage kernel; else a small-T chain pack runs its
     chain (int4 packs `fused_block_chain_batched`, plain ones
     `fused_block_chain`); else a large-T pack runs the stage kernel, in its
     row-lane form where `uses_rowlane` says so."""
     out = dict.fromkeys(("fused_stage_chain", "fused_stage_chain_rowlane",
                          "fused_block_chain_batched", "fused_block_chain"), 0)
-    for flag, key in ((eng.use_fused_vocoder, "_vocoder_packs"),
-                      (eng.use_fused_semantic, "_semantic_packs")):
-        if not (flag or eng.use_fused_stages):
-            continue
+    for key in ("_vocoder_packs", "_semantic_packs"):
         chain, large = eng.params.get(key) or {}, eng.params.get(key + "_large") or {}
         for i in set(chain) | set(large):
             lp = large.get(i)
@@ -1161,21 +1156,22 @@ def run_engine(params, cfg, dev, kv_dtype, warm_steps, timed_chunks, card, quant
     graph engine's second turn is a second request on the same graph.
 
     Launch checks against `expected_launches` (and, with `use_fused_stages`,
-    the stage kernels' per-step counts against `want_stages`; `rowlane`
-    turns the row-lane layout on or off, None leaves the engine's rule): an
+    the stage kernels' per-step counts against `want_stages`;
+    `rowlane=False` hands in the stage packs without the row-lane layout,
+    None leaves the engine's rule): an
     eager turn counts every kernel's launches per step; a graph turn counts
     the prefill's through the wrappers, plus the warm-up step's and the
     captured step's in the turn that captures, and nothing per replay, and
     the captured step's kernel nodes equal the per-step counts.  The small-T
     chains are on with `quant` (the pipeline's int4 packs in `params`) or
-    `chain` (plain packs, built by the engine).  Emits one `engine` line per
+    `chain` (plain packs, built by the engine: `use_fused_chains`).  Emits one `engine` line per
     turn (a graph turn with its nodes by kernel and the device ms of one
     replay) and one `engine_turns` line."""
     from vibevoice_tpu_torch.engine import generate as G
-    fused = quant is not None or chain
     kw = dict(max_steps=max_steps, batch=batch, prompt_len=prompt_len, dtype=torch.bfloat16,
-              kv_dtype=kv_dtype, device=dev, use_fused_vocoder=fused, use_fused_semantic=fused,
-              use_fused_stages=stages, fused_stage_rowlane=rowlane)
+              kv_dtype=kv_dtype, device=dev, use_fused_chains=chain, use_fused_stages=stages)
+    if rowlane is False:
+        params = without_rowlane(params, cfg, batch)
     eager = G.Engine(params, cfg, bench_gen(G), eager=True, **kw)
     eng = G.Engine(eager.params, cfg, bench_gen(G), **kw)  # the eager engine's packs
     engines = {"eager": eager, "graph": eng}
@@ -1357,10 +1353,10 @@ def codec_graph(eng, state, dev, card):
                          device=dev).to(torch.bfloat16)
 
     def codec():
-        chunk, _ = tok.decoder_apply_streaming_fused(
+        chunk, _ = tok.decoder_apply_streaming(
             p["acoustic_decoder"], cfg.acoustic_tokenizer, latent, state.acoustic_state,
             fused_packs=p.get("_vocoder_packs"), large_packs=p.get("_vocoder_packs_large"))
-        return tok.encoder_apply_streaming_fused(
+        return tok.encoder_apply_streaming(
             p["semantic_encoder"], cfg.semantic_tokenizer, chunk, state.semantic_state,
             fused_packs=p.get("_semantic_packs"), large_packs=p.get("_semantic_packs_large"))[0]
 
@@ -1384,6 +1380,18 @@ def codec_graph(eng, state, dev, card):
         kinds[key] = kinds.get(key, 0) + 1
     emit("codec_graph", batch=eng.batch, rowlane=uses_rowlane_any(eng), nodes=len(names),
          nodes_by_kind=kinds, device_ms=ms, card=card)
+
+
+def without_rowlane(params, cfg, batch):
+    """`params` with the large-T stage packs that the engine's batch rule
+    builds at `batch` but without the row-lane layout: how an engine runs
+    with the row-lane layout off."""
+    from vibevoice_tpu_torch.models import tokenizer as tok
+    return dict(params, _vocoder_packs_large=tok.pack_decoder_stages_large(
+        params["acoustic_decoder"], cfg.acoustic_tokenizer, fold_conv=batch == 1,
+        fold_head=False), _semantic_packs_large=tok.pack_encoder_stages_large(
+        params["semantic_encoder"], cfg.semantic_tokenizer, chunk_t=cfg.speech_compress_ratio,
+        fold_conv=batch == 1))
 
 
 def uses_rowlane_any(eng) -> bool:
@@ -1642,8 +1650,7 @@ def phase_long_prompt(params, cfg, dev, card):
                   _semantic_packs=eng.params["_semantic_packs"])
     engines = {flash: G.Engine(packed, cfg, bench_gen(G), max_steps=64, batch=1,
                                prompt_len=PROMPT_LONG, dtype=torch.bfloat16, device=dev,
-                               use_flash_prefill=flash, use_fused_vocoder=True,
-                               use_fused_semantic=True) for flash in (True, False)}
+                               use_flash_prefill=flash) for flash in (True, False)}
     runs = {True: [], False: []}
     for flash in (False, True, True, False):
         runs[flash].append(timed_prefill(engines[flash], dev))
@@ -1732,11 +1739,9 @@ def register_forced_engine(tts, G, script, voices, max_new_tokens, **engine_kw):
             speech_diffusion_id=tts.tokenizer.speech_diffusion_id,
             eos_id=tts.tokenizer.eos_id, cfg_scale=tts.cfg_scale, ddpm_steps=tts.ddpm_steps,
             algorithm_type=tts.algorithm_type, force_diffusion=True, max_length_times=64.0)
-        chain = tts._chain_packs is not None
         tts._engines[key] = G.Engine(tts.params, tts.cfg, gen, max_steps=max_new_tokens,
                                      batch=b, prompt_len=bucket, dtype=tts.dtype,
-                                     device=tts.device, use_fused_vocoder=chain,
-                                     use_fused_semantic=chain,
+                                     device=tts.device,
                                      use_fused_stages=tts.use_fused_stages, **engine_kw)
     return tts._engines[key]
 
@@ -1885,8 +1890,7 @@ def phase_reference(dev, quant=False, stages=False, b=2, flash_chain=False):
     for where in ("cpu", dev):
         eng = G.Engine(params, cfg, gcfg, max_steps=steps, batch=b, prompt_len=t,
                        inject_latent_noise=True, use_flash_decode=True, device=where,
-                       use_fused_vocoder=quant or flash_chain,
-                       use_fused_semantic=quant or flash_chain,
+                       use_fused_chains=flash_chain,
                        use_fused_stages=stages, fused_stage_t_min=7,
                        use_flash_prefill=flash_chain)
         for c in counters.values():
@@ -3125,8 +3129,7 @@ def _rank_dp(rank, dev, card, cfg):
     params = parallel_params(cfg, dev, "int4")
     eng = G.Engine(params, cfg, parallel_gen(G), max_steps=DP_STEPS, batch=DP_BATCH,
                    prompt_len=DP_PROMPT, dtype=torch.bfloat16, device=dev,
-                   inject_latent_noise=True, mesh=mesh, use_fused_vocoder=True,
-                   use_fused_semantic=True, use_fused_stages=True)
+                   inject_latent_noise=True, mesh=mesh, use_fused_stages=True)
     warm, timed = 8, 16
     r = par_run(eng, parallel_inputs(DP_BATCH, DP_PROMPT, warm + timed + 1, cfg), warm, timed,
                 dev)
@@ -3317,8 +3320,7 @@ def parallel_references(dev, card, cfg):
         b = rows.stop - rows.start
         eng = G.Engine(params, cfg, parallel_gen(G), max_steps=DP_STEPS, batch=b,
                        prompt_len=DP_PROMPT, dtype=torch.bfloat16, device=dev,
-                       inject_latent_noise=True, use_fused_vocoder=True,
-                       use_fused_semantic=True, use_fused_stages=True)
+                       inject_latent_noise=True, use_fused_stages=True)
         inputs = (ids[rows], mask[rows], sim[rows], noise[:, rows])
         refs[name] = _slim(par_run(eng, inputs, 8, 16, dev))
         del eng
@@ -4095,12 +4097,10 @@ class PathRecorder:
                     eos_id=tts.tokenizer.eos_id, cfg_scale=tts.cfg_scale,
                     ddpm_steps=tts.ddpm_steps, algorithm_type=tts.algorithm_type,
                     force_diffusion=True, max_length_times=64.0)
-                chain = tts._chain_packs is not None
                 tts._engines[key] = G.Engine(
                     tts.params, tts.cfg, gen, max_steps=max_steps, batch=batch,
                     prompt_len=bucket, dtype=tts.dtype, kv_dtype=tts.kv_dtype,
-                    device=tts.device, use_fused_vocoder=chain, use_fused_semantic=chain,
-                    use_fused_stages=tts.use_fused_stages)
+                    device=tts.device, use_fused_stages=tts.use_fused_stages)
             eng = tts._engines[key]
             rec._current = (eng, eng.graph is not None, eng.replays)
             return eng
@@ -5015,9 +5015,9 @@ def main() -> int:
     from vibevoice_tpu_torch.engine import generate as G
     for b in (4, 32):
         for rowlane in (None, False):
-            eng = G.Engine(params, cfg, bench_gen(G), max_steps=16, batch=b, prompt_len=256,
-                           dtype=torch.bfloat16, device=dev, use_fused_stages=True,
-                           fused_stage_rowlane=rowlane)
+            eng = G.Engine(params if rowlane is None else without_rowlane(params, cfg, b),
+                           cfg, bench_gen(G), max_steps=16, batch=b, prompt_len=256,
+                           dtype=torch.bfloat16, device=dev, use_fused_stages=True)
             per_step = stage_launches(eng)
             if (per_step["fused_stage_chain_rowlane"] > 0) != (rowlane is None):
                 raise RuntimeError(f"B={b}: the row-lane rule gives {per_step}")

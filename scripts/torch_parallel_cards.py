@@ -130,7 +130,7 @@ def phase_dp(rank, world, dev, report):
     b = 2 * world
     inputs = cs.parallel_inputs(b, cs.DP_PROMPT, WARM + TIMED + 1, CFG)
     params = cs.parallel_params(CFG, dev, "int4")
-    kw = dict(use_fused_vocoder=True, use_fused_semantic=True, use_fused_stages=True)
+    kw = dict(use_fused_stages=True)  # the int4 chain packs are in the params
     base = None
     if rank == 0:
         r = cs.par_run(engine(params, b, cs.DP_PROMPT, cs.DP_STEPS, dev, **kw), inputs,

@@ -12,9 +12,9 @@ go through `VibeVoiceTTS(quantize=..., quantize_tokenizer="int4k",
 quantize_diffusion="int4k")`, as in `chip_smoke.py` phase 5; `--stages` turns
 on `use_fused_stages` (the large-T sigma-VAE stages on the fused stage
 kernel, the transition convs folded at B=1); `--chain` turns on
-`use_fused_vocoder` / `use_fused_semantic` on the bf16 weights (the small-T
-stages on the plain-pack chain kernel, as `chip_smoke.py`'s long-prompt
-engine runs them).  The engine runs the captured step, as users run it, with
+`use_fused_chains` on the bf16 weights (the small-T stages on the plain-pack
+chain kernel, as `chip_smoke.py`'s long-prompt engine runs them; with
+`--quant` they run the int4 chain packs in the params).  The engine runs the captured step, as users run it, with
 a tracer set: the graph records timing events at the step's part boundaries,
 and each 4-step chunk of `generate` reads the last replay of the chunk
 before.  It runs one request of `--steps` decode steps, then prints JSON
@@ -49,7 +49,7 @@ def main() -> int:
     ap.add_argument("--quant", default=None, choices=["int4", "int4f"])
     ap.add_argument("--stages", action="store_true", help="use_fused_stages=True")
     ap.add_argument("--chain", action="store_true",
-                    help="use_fused_vocoder/use_fused_semantic on plain packs")
+                    help="use_fused_chains (plain packs)")
     ap.add_argument("--trace_out", default=None, help="write the spans as a Chrome trace")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -78,12 +78,10 @@ def main() -> int:
         speech_start_id=151652, speech_end_id=151653, speech_diffusion_id=151654,
         eos_id=151643, cfg_scale=1.3, ddpm_steps=5, algorithm_type="sde-dpmsolver++",
         force_diffusion=True, max_length_times=64.0)
-    fused = args.quant is not None or args.chain
     tr = Tracer()
     eng = G.Engine(params, cfg, gen, max_steps=3840, batch=1, prompt_len=256,
                    dtype=torch.bfloat16, kv_dtype=args.kv, device=dev,
-                   use_fused_vocoder=fused, use_fused_semantic=fused,
-                   use_fused_stages=args.stages, tracer=tr)
+                   use_fused_chains=args.chain, use_fused_stages=args.stages, tracer=tr)
     ids = np.random.default_rng(0).integers(0, 1000, (1, 256)).astype(np.int32)
     steps = [0]
 

@@ -60,3 +60,19 @@ def tiny_params(seed: int = 0):
 
 def to_np(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def spy_packs(monkeypatch):
+    """The packs that the chain and stage wrappers are called with, by kind."""
+    from vibevoice_tpu_torch.ops import fused_blocks as fb, fused_stage as fs
+    seen = {"chain": [], "stage": []}
+    for mod, name, kind in ((fb, "fused_block_chain_plain", "chain"),
+                            (fb, "fused_block_chain_batched", "chain"),
+                            (fs, "fused_stage_chain", "stage")):
+        real = getattr(mod, name)
+
+        def spy(packed, *a, _real=real, _kind=kind, **k):
+            seen[_kind].append(packed)
+            return _real(packed, *a, **k)
+        monkeypatch.setattr(mod, name, spy)
+    return seen

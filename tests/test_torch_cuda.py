@@ -583,8 +583,7 @@ def test_quantized_engine_on_card_matches_cpu(cuda_device):
     runs = {}
     for name, where in (("cpu", "cpu"), ("card", cuda_device)):
         eng = G.Engine(tts.params, cfg, gcfg, max_steps=steps, batch=b, prompt_len=t,
-                       inject_latent_noise=True, use_fused_vocoder=True,
-                       use_fused_semantic=True, device=where)
+                       inject_latent_noise=True, device=where)  # the tree's int4 chains
         before = [c.launches for c in counters]
         res = G.generate(eng, ids, mask, sim, latent_noise=noise)
         runs[name] = (res, [c.launches - n for c, n in zip(counters, before)])
@@ -983,8 +982,8 @@ def test_flash_prefill_and_plain_chain_engine_on_card_matches_cpu(cuda_device):
     runs = {}
     for name, where in (("cpu", "cpu"), ("card", cuda_device)):
         eng = G.Engine(params, cfg, gcfg, max_steps=steps, batch=b, prompt_len=t,
-                       inject_latent_noise=True, use_flash_prefill=True, use_fused_vocoder=True,
-                       use_fused_semantic=True, device=where)
+                       inject_latent_noise=True, use_flash_prefill=True, use_fused_chains=True,
+                       device=where)
         before = [c.launches for c in counters]
         res = G.generate(eng, ids, mask, sim, latent_noise=noise)
         runs[name] = (res, [c.launches - n for c, n in zip(counters, before)])
@@ -1030,13 +1029,12 @@ def _graph_engines(case, dev, **gen_kw):
         params = VibeVoiceTTS(params, cfg, ByteFallbackTokenizer(), dtype=torch.float32,
                               device="cpu", quantize="int4", int4_group_size=32,
                               quantize_tokenizer="int4k", quantize_diffusion="int4k",
-                              tokenizer_min_dim=4).params
-        kw.update(use_fused_vocoder=True, use_fused_semantic=True)
+                              tokenizer_min_dim=4).params  # with its int4 chain packs
         t = 72  # a 144-row prompt: prefill takes the dequantized route
     elif case == "stages-b2":
         kw.update(use_fused_stages=True, fused_stage_t_min=7)
     elif case == "plain-chain":
-        kw.update(use_fused_vocoder=True, use_fused_semantic=True)
+        kw.update(use_fused_chains=True)
     gcfg = G.GenerationConfig(speech_start_id=258, speech_end_id=259, speech_diffusion_id=260,
                               eos_id=256, ddpm_steps=3, force_diffusion=True,
                               max_length_times=64.0, **gen_kw)

@@ -85,7 +85,7 @@ def test_decoder_streaming_with_int4_packs_matches_jax(models):
         jy, jst = jtok.decoder_apply_streaming_fused(
             jp["acoustic_decoder"], cfg.acoustic_tokenizer, jnp.asarray(z[:, f:f + 1]), jst,
             fused_packs=jpacks)
-        ty, tst = ttok.decoder_apply_streaming_fused(
+        ty, tst = ttok.decoder_apply_streaming(
             tp["acoustic_decoder"], tcfg.acoustic_tokenizer, torch.tensor(z[:, f:f + 1]), tst,
             fused_packs=tpacks)
         scale = np.abs(np.asarray(jy)).max()
@@ -114,7 +114,7 @@ def test_encoder_streaming_with_int4_packs_matches_jax(models):
         jy, jst = jtok.encoder_apply_streaming_fused(
             jp["semantic_encoder"], cfg.semantic_tokenizer, jnp.asarray(chunk), jst,
             fused_packs=jpacks)
-        ty, tst = ttok.encoder_apply_streaming_fused(
+        ty, tst = ttok.encoder_apply_streaming(
             tp["semantic_encoder"], tcfg.semantic_tokenizer, torch.tensor(chunk), tst,
             fused_packs=tpacks)
         scale = np.abs(np.asarray(jy)).max()
@@ -191,7 +191,7 @@ def test_decoder_streaming_with_plain_packs_matches_jax(models):
         jy, jst = jtok.decoder_apply_streaming_fused(
             jp["acoustic_decoder"], cfg.acoustic_tokenizer, jnp.asarray(z[:, f:f + 1]), jst,
             fused_packs=jpacks)
-        ty, tst = ttok.decoder_apply_streaming_fused(
+        ty, tst = ttok.decoder_apply_streaming(
             tp["acoustic_decoder"], tcfg.acoustic_tokenizer, torch.tensor(z[:, f:f + 1]), tst,
             fused_packs=tpacks)
         scale = np.abs(np.asarray(jy)).max()
@@ -220,7 +220,7 @@ def test_encoder_streaming_with_plain_packs_matches_jax(models):
         jy, jst = jtok.encoder_apply_streaming_fused(
             jp["semantic_encoder"], cfg.semantic_tokenizer, jnp.asarray(chunk), jst,
             fused_packs=jpacks)
-        ty, tst = ttok.encoder_apply_streaming_fused(
+        ty, tst = ttok.encoder_apply_streaming(
             tp["semantic_encoder"], tcfg.semantic_tokenizer, torch.tensor(chunk), tst,
             fused_packs=tpacks)
         scale = np.abs(np.asarray(jy)).max()
@@ -229,7 +229,7 @@ def test_encoder_streaming_with_plain_packs_matches_jax(models):
 
 def test_paths_outside_the_slice_raise(models):
     """The plain pack runs on the T <= 8 chain now (TPU kernel #6): through
-    the single-row entry point and the tokenizer's fused streaming, on the CPU
+    the single-row entry point and the tokenizer's streaming, on the CPU
     without a launch.  Packs of quantized weights still raise."""
     cfg, _, tp, tcfg = models
     blocks = tp["acoustic_decoder"]["stages"][0]
@@ -244,8 +244,8 @@ def test_paths_outside_the_slice_raise(models):
     assert torch.equal(y, y_ref[0]) and torch.equal(new_ctx, ctx_ref[0])
     packs = ttok.pack_decoder_stages(tp["acoustic_decoder"], tcfg.acoustic_tokenizer)
     st = ttok.decoder_state_init(tcfg.acoustic_tokenizer, 1)
-    out, _ = ttok.decoder_apply_streaming_fused(tp["acoustic_decoder"], tcfg.acoustic_tokenizer,
-                                                torch.zeros(1, 1, 8), st, fused_packs=packs)
+    out, _ = ttok.decoder_apply_streaming(tp["acoustic_decoder"], tcfg.acoustic_tokenizer,
+                                          torch.zeros(1, 1, 8), st, fused_packs=packs)
     assert out.shape == (1, cfg.speech_compress_ratio, 1) and torch.isfinite(out).all()
     assert TFB.fused_block_chain_plain.launches == before  # CPU tensors: the plain version
     quantized = [dict(bp, ffn1={"w": {"qint8": torch.zeros(32, 128, dtype=torch.int8)},

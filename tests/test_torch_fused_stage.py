@@ -21,7 +21,7 @@ from vibevoice_tpu_torch.ops import fused_stage as TFS
 from vibevoice_tpu_torch.pipeline import VibeVoiceTTS
 from vibevoice_tpu_torch.weights import from_jax
 
-from tests._torch_parity import tiny_params, to_np
+from tests._torch_parity import spy_packs, tiny_params, to_np
 from tests.test_torch_engine import GEN, _inputs, _params, _run
 from tests.test_torch_fused_blocks import _blocks
 from tests.test_torch_pipeline import _serve
@@ -139,18 +139,16 @@ def test_stages_large_equal_jax(kw):
                                           (3, 200, 8, 1, 40), (2, 24, 32, 2, 8)])
 def test_plain_stage_matches_jax(b, t, d, n, tile):
     """Several T-tiles in the JAX kernel (the conv context crosses tiles in
-    its scratch); the port's result does not depend on `tile_want`."""
+    its scratch)."""
     blocks = _blocks(d, n, seed=t + d)
     rng = np.random.default_rng(b * t)
     x, ctx = _rnd(rng, b, t, d), _rnd(rng, b, n, 6, d)
     jpk, tpk = JFS.pack_stage(_j(blocks)), TFS.pack_stage(from_jax(blocks, device="cpu"))
     jy, jc = JFS.fused_stage_chain(jpk, jnp.asarray(x), jnp.asarray(ctx), tile_want=tile)
-    ty, tc = TFS.fused_stage_chain(tpk, torch.tensor(x), torch.tensor(ctx), tile_want=tile)
+    ty, tc = TFS.fused_stage_chain(tpk, torch.tensor(x), torch.tensor(ctx))
     scale = np.abs(np.asarray(jy)).max()
     _close(ty, jy, scale)
     _close(tc, jc, scale)
-    ty2, tc2 = TFS.fused_stage_chain(tpk, torch.tensor(x), torch.tensor(ctx), tile_want=t)
-    assert torch.equal(ty, ty2) and torch.equal(tc, tc2)
 
 
 def _two_chunks(tpk, jpk, xs, ctx, state_shape, state_kw, rng):
@@ -247,47 +245,81 @@ def test_rowlane_rows_policy():
         assert TFS.rowlane_rows(d, bsz) == JFS.rowlane_rows(d, bsz)
 
 
+LARGE = ("_vocoder_packs_large", "_semantic_packs_large")
+
+
+def _folded(tp, b, fold_conv, fold_head, rowlane):
+    """The port's tree with large-T stage packs of these folds and layout at
+    batch `b`: how a fold or layout other than the batch rules' reaches the
+    port's engine (the JAX engine takes them as options)."""
+    tcfg = TC.tiny_config(vocab_size=320)
+    rl = b if rowlane and b > 1 else 0
+    return dict(tp, _vocoder_packs_large=ttok.pack_decoder_stages_large(
+        tp["acoustic_decoder"], tcfg.acoustic_tokenizer, t_min=7, fold_conv=fold_conv,
+        fold_head=fold_head, rowlane_batch=rl), _semantic_packs_large=ttok.pack_encoder_stages_large(
+        tp["semantic_encoder"], tcfg.semantic_tokenizer, chunk_t=tcfg.speech_compress_ratio,
+        t_min=7, fold_conv=fold_conv, rowlane_batch=rl))
+
+
+def _jax_folds(fold_conv, fold_head, rowlane):
+    return dict(fused_stage_fold_conv=fold_conv, fused_stage_fold_head=fold_head,
+                fused_stage_rowlane=rowlane)
+
+
+def _same_large_packs(te, je):
+    for key in LARGE:
+        assert set(te.params[key]) == set(je.params[key]) and te.params[key], key
+        for i in je.params[key]:
+            _same_pack(te.params[key][i], je.params[key][i], f"{key}/{i}")
+
+
 def test_engine_auto_policies():
-    """Folds iff B == 1 and the tail never unless asked, and the row-lane
-    layout at 2 <= B <= 4 and B >= 32 unless asked otherwise: the JAX
-    engine's rules, on both engines."""
+    """Folds iff B == 1 and the tail never, and the row-lane layout at
+    2 <= B <= 4 and B >= 32: the JAX engine's rules, on both engines, pack
+    for pack.  Any other fold or layout, handed to the port's engine as packs
+    in its tree, is kept and equals the JAX engine's packs when that is asked
+    for the same."""
     cfg, jp, tp = _params()
     tcfg = TC.tiny_config(vocab_size=320)
-    gen = TG.GenerationConfig(**GEN)
 
-    def build(b, **kw):
-        return TG.Engine(tp, tcfg, gen, max_steps=2, batch=b, prompt_len=16, device="cpu",
-                         use_fused_stages=True, fused_stage_t_min=7, **kw)
+    def build(b, tree=tp):
+        return TG.Engine(tree, tcfg, TG.GenerationConfig(**GEN), max_steps=2, batch=b,
+                         prompt_len=16, device="cpu", use_fused_stages=True,
+                         fused_stage_t_min=7)
 
-    def build_jax(b):
+    def build_jax(b, **kw):
         return JG.Engine(jp, cfg, JG.GenerationConfig(**GEN), max_steps=2, batch=b,
-                         prompt_len=16, use_fused_stages=True, fused_stage_t_min=7)
+                         prompt_len=16, use_fused_stages=True, fused_stage_t_min=7, **kw)
 
     has = lambda eng, key, what: any(what in p for p in eng.params[key].values())
-    e1, e8 = build(1), build(8)
-    for key in ("_vocoder_packs_large", "_semantic_packs_large"):
-        assert has(e1, key, "conv") and not has(e8, key, "conv")
-        for b in (1, 2, 4, 8, 32):
-            eng = e1 if b == 1 else e8 if b == 8 else build(b)
+    for b in (1, 2, 4, 8, 32):
+        eng = build(b)
+        _same_large_packs(eng, build_jax(b))
+        for key in LARGE:
+            assert has(eng, key, "conv") == (b == 1)
             assert has(eng, key, "rowlane") == (2 <= b <= 4 or b >= 32)
-            assert has(eng, key, "rowlane") == has(build_jax(b), key, "rowlane")
-        for b in (2, 4, 8, 32):
-            assert has(build(b, fused_stage_rowlane=True), key, "rowlane")
-            assert not has(build(b, fused_stage_rowlane=False), key, "rowlane")
-        assert not has(build(1, fused_stage_rowlane=True), key, "rowlane")
-    assert not any("head" in p for p in e1.params["_vocoder_packs_large"].values())
-    e1h = build(1, fused_stage_fold_head=True)
-    assert any("head" in p for p in e1h.params["_vocoder_packs_large"].values())
-    e8f = build(8, fused_stage_fold_conv=True)
-    assert any("conv" in p for p in e8f.params["_vocoder_packs_large"].values())
+            assert not has(eng, key, "head")
+    for b, folds in ((2, (False, False, False)), (8, (False, False, True)),
+                     (32, (False, False, False)), (1, (True, False, True)),
+                     (1, (True, True, False)), (8, (True, False, False))):
+        eng = build(b, _folded(tp, b, *folds))
+        _same_large_packs(eng, build_jax(b, **_jax_folds(*folds)))
+        for key in LARGE:
+            assert has(eng, key, "rowlane") == (folds[2] and b > 1 and not folds[0])
+            assert has(eng, key, "conv") == folds[0]
+        assert has(eng, LARGE[0], "head") == folds[1]
 
 
-def _engine_pair(b, cfg, jp, tp, **extra):
+def _engine_pair(b, cfg, jp, tp, folds=None):
+    """The JAX engine and the port's with the fused stages at batch `b`: by
+    the batch rules, or with `folds` (fold_conv, fold_head, rowlane), given
+    to the JAX engine as options and to the port's as packs in its tree."""
     kw = dict(max_steps=16, batch=b, prompt_len=24, inject_latent_noise=True,
-              use_fused_stages=True, fused_stage_t_min=7, **extra)
-    je = JG.Engine(jp, cfg, JG.GenerationConfig(**GEN), **kw)
-    te = TG.Engine(tp, TC.tiny_config(vocab_size=320), TG.GenerationConfig(**GEN),
-                   device="cpu", **kw)
+              use_fused_stages=True, fused_stage_t_min=7)
+    je = JG.Engine(jp, cfg, JG.GenerationConfig(**GEN), **kw,
+                   **(_jax_folds(*folds) if folds else {}))
+    te = TG.Engine(_folded(tp, b, *folds) if folds else tp, TC.tiny_config(vocab_size=320),
+                   TG.GenerationConfig(**GEN), device="cpu", **kw)
     return je, te
 
 
@@ -312,8 +344,8 @@ def test_engine_fused_stages_matches_jax(b, fold_head):
     """B=1 (folded convs, and with the folded tail) and B=2 (row-lane, asked
     for on both sides), dpmsolver++ with injected noise: equal tokens and
     `emitted`, audio within 1e-4 of its scale."""
-    je, te = _engine_pair(b, *_params(), fused_stage_fold_head=fold_head,
-                          fused_stage_rowlane=b == 2)
+    je, te = _engine_pair(b, *_params(), folds=(b == 1, fold_head, b == 2))
+    _same_large_packs(te, je)
     kinds = {k for p in te.params["_vocoder_packs_large"].values() for k in p}
     assert ("conv" in kinds) == (b == 1) and ("rowlane" in kinds) == (b == 2)
     assert ("head" in kinds) == fold_head
@@ -342,8 +374,7 @@ def test_from_jax_carries_large_packs():
         carried = from_jax(to_np(je.params), device="cpu")
         own = TG.Engine(from_jax(to_np(jp), device="cpu"), TC.tiny_config(vocab_size=320),
                         TG.GenerationConfig(**GEN), max_steps=16, batch=b, prompt_len=24,
-                        device="cpu", use_fused_stages=True, fused_stage_t_min=7,
-                        fused_stage_rowlane=True)
+                        device="cpu", use_fused_stages=True, fused_stage_t_min=7)
         for key in ("_vocoder_packs_large", "_semantic_packs_large"):
             assert set(carried[key]) == set(own.params[key]) and carried[key]
             for i in carried[key]:
@@ -371,9 +402,9 @@ def test_pipeline_with_fused_stages_serves(modes):
 
 def test_plain_chain_packs_still_refused():
     """Plain packs (the stage kernel's) now run where they meet the T <= 8
-    chain (TPU kernel #6): fused streaming with them equals the block-by-block
-    path, and `Engine(use_fused_vocoder/semantic)` builds them itself, also
-    beside the large-T stage packs."""
+    chain (TPU kernel #6): streaming with them equals the block-by-block
+    path, and `Engine(use_fused_chains=True)` builds them itself for both
+    stacks, also beside the large-T stage packs."""
     cfg, _, tp = _params()
     tcfg = TC.tiny_config(vocab_size=320)
     packs = ttok.pack_decoder_stages(tp["acoustic_decoder"], tcfg.acoustic_tokenizer)
@@ -382,7 +413,7 @@ def test_plain_chain_packs_still_refused():
                      dtype=torch.float32)
     st_f = st_p = ttok.decoder_state_init(tcfg.acoustic_tokenizer, 1)
     for f in range(2):
-        got, st_f = ttok.decoder_apply_streaming_fused(
+        got, st_f = ttok.decoder_apply_streaming(
             tp["acoustic_decoder"], tcfg.acoustic_tokenizer, z[:, f:f + 1], st_f,
             fused_packs=packs)
         want, st_p = ttok.decoder_apply_streaming(tp["acoustic_decoder"],
@@ -390,14 +421,48 @@ def test_plain_chain_packs_still_refused():
         scale = float(want.abs().max())
         assert scale > 1e-2
         torch.testing.assert_close(got, want, atol=1e-5 * scale, rtol=0)
-    for kw in (dict(use_fused_vocoder=True), dict(use_fused_semantic=True),
-               dict(use_fused_vocoder=True, use_fused_stages=True)):
+    for kw in (dict(), dict(use_fused_chains=True),
+               dict(use_fused_chains=True, use_fused_stages=True)):
         eng = TG.Engine(tp, tcfg, TG.GenerationConfig(**GEN), max_steps=4, batch=1,
                         prompt_len=8, device="cpu", fused_stage_t_min=7, **kw)
-        for flag, key in (("use_fused_vocoder", "_vocoder_packs"),
-                          ("use_fused_semantic", "_semantic_packs")):
-            assert (key in eng.params) == bool(kw.get(flag))
+        for key in ("_vocoder_packs", "_semantic_packs"):
+            assert (key in eng.params) == bool(kw)
             assert all("w1" in p for p in eng.params.get(key, {}).values())
+
+
+def _ran_all_of(seen, packs):
+    """Every pack in `packs` was run, and nothing else was."""
+    assert packs and {id(p) for p in seen} == {id(p) for p in packs}
+
+
+@pytest.mark.parametrize("b", [1, 2])
+def test_engine_runs_the_packs_its_tree_holds(monkeypatch, b):
+    """An engine built with no sigma-VAE option on a tree that holds chain
+    and stage packs (a JAX engine's with `use_fused_vocoder`,
+    `use_fused_semantic` and `use_fused_stages`, through `weights.from_jax`)
+    runs those packs, and only those: the JAX engine's tokens and audio."""
+    cfg, jp, _ = _params()
+    je = JG.Engine(jp, cfg, JG.GenerationConfig(**GEN), max_steps=16, batch=b,
+                   prompt_len=24, inject_latent_noise=True, use_fused_vocoder=True,
+                   use_fused_semantic=True, use_fused_stages=True, fused_stage_t_min=7)
+    te = TG.Engine(from_jax(to_np(je.params), device="cpu"), TC.tiny_config(vocab_size=320),
+                   TG.GenerationConfig(**GEN), max_steps=16, batch=b, prompt_len=24,
+                   inject_latent_noise=True, device="cpu")
+    assert not te.use_fused_stages
+    seen = spy_packs(monkeypatch)
+    _assert_runs_match(je, te, b)
+    # a stage with both packs runs its stage pack where that folds the
+    # transition conv, else its chain pack
+    want = {"chain": [], "stage": []}
+    for key in ("_vocoder_packs", "_semantic_packs"):
+        chain, large = te.params[key], te.params[key + "_large"]
+        for i in set(chain) | set(large):
+            if i in chain and "conv" not in large.get(i, {}):
+                want["chain"].append(chain[i])
+            else:
+                want["stage"].append(large[i])
+    _ran_all_of(seen["chain"], want["chain"])
+    _ran_all_of(seen["stage"], want["stage"])
 
 
 @pytest.mark.parametrize("f,dtype,want", [

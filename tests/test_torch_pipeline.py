@@ -48,11 +48,10 @@ def force_diffusion_engine(tts, script, voices, max_new_tokens):
         speech_diffusion_id=tts.tokenizer.speech_diffusion_id,
         eos_id=tts.tokenizer.eos_id, ddpm_steps=tts.ddpm_steps, force_diffusion=True,
         max_length_times=64.0, algorithm_type=tts.algorithm_type)
-    chain = tts._chain_packs is not None
     tts._engines[(1, bucket, max_new_tokens)] = TG.Engine(
         tts.params, tts.cfg, gen, max_steps=max_new_tokens, batch=1, prompt_len=bucket,
-        dtype=tts.dtype, device=tts.device, use_fused_vocoder=chain, use_fused_semantic=chain,
-        use_fused_stages=tts.use_fused_stages, fused_stage_t_min=7)
+        dtype=tts.dtype, device=tts.device, use_fused_stages=tts.use_fused_stages,
+        fused_stage_t_min=7)
 
 
 def test_pipeline_serves_requests_with_streamer_and_stop():
@@ -71,7 +70,7 @@ def test_quantized_pipeline_serves_requests(modes):
     tts = VibeVoiceTTS.from_random(TC.tiny_config(vocab_size=320), dtype=torch.float32,
                                    ddpm_steps=2, prompt_bucket=64, device="cpu",
                                    algorithm_type="sde-dpmsolver++", **modes)
-    assert (tts._chain_packs is not None) == (modes.get("quantize_tokenizer") == "int4k")
+    assert ("_vocoder_packs" in tts.params) == (modes.get("quantize_tokenizer") == "int4k")
     _serve(tts)
 
 

@@ -60,12 +60,6 @@ def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
 
-def kw_engine(tts):
-    chain = tts._chain_packs is not None
-    return dict(use_fused_vocoder=chain, use_fused_semantic=chain,
-                use_fused_stages=tts.use_fused_stages)
-
-
 def _gen():
     return TG.GenerationConfig(speech_start_id=258, speech_end_id=259,
                                speech_diffusion_id=260, eos_id=256)
@@ -161,7 +155,8 @@ def test_pipeline_modes_outside_the_slice_raise(kw):
     outs = []
     for flash in (True, False):
         e = TG.Engine(tts.params, tts.cfg, _gen(), max_steps=4, batch=2, prompt_len=8,
-                      device="cpu", use_flash_prefill=flash, **kw_engine(tts))
+                      device="cpu", use_flash_prefill=flash,
+                      use_fused_stages=tts.use_fused_stages)
         assert e.use_flash_prefill == flash
         state, out = e.prefill(ids, mask, sim, generator=torch.Generator().manual_seed(0))
         outs.append((state.cur_embeds, out.token))

@@ -63,14 +63,15 @@ plain bf16 head on the card, without a TP mesh, the bf16 head kernel
 (`ops.fused_head_bf16`, its route set in the packs as
 `params["_diffusion_head_bf16"]`; a tracer counts its solver steps as
 "head.bf16k_steps").
-With `use_fused_vocoder` / `use_fused_semantic` the small-T sigma-VAE stages
-run on the chain kernel (`params["_vocoder_packs"]` / `["_semantic_packs"]`:
-int4 packs where the caller injects them, as the pipeline's
-`quantize_tokenizer="int4k"` does, else plain packs built here).
-`use_fused_stages` puts the large-T stages of both sigma-VAE stacks on the
-fused stage kernels (`ops.fused_stage`, packs in
-`params["_vocoder_packs_large"]` / `["_semantic_packs_large"]`), with the JAX
-engine's batch policies for the folds and the row-lane layout.
+The sigma-VAE stacks run the packs the params hold: small-T stages with a
+chain pack (`params["_vocoder_packs"]` / `["_semantic_packs"]`) on the chain
+kernel, large-T stages with a stage pack (`["_vocoder_packs_large"]` /
+`["_semantic_packs_large"]`) on the fused stage kernels (`ops.fused_stage`),
+the rest block by block.  Packs in the params are kept (the pipeline's int4
+chain packs from `quantize_tokenizer="int4k"`, a JAX engine's through
+`weights.from_jax`, or any fold or layout built by `pack_*_stages_large`);
+`use_fused_chains` builds plain chain packs where there are none, and
+`use_fused_stages` stage packs by the JAX engine's batch rules.
 
 `Engine(mesh=...)` (a `parallel.Mesh`, one process a rank; the JAX engine
 finds its mesh in the params' shardings, which torch tensors do not carry):
@@ -227,6 +228,15 @@ def _copy_into(dst: GenState, src: GenState):
             d.copy_(s)
 
 
+def _packs_of(params: Params, key: str) -> dict:
+    """The chain and stage packs of one sigma-VAE stack that the tree holds,
+    as its streaming apply's keyword arguments: a stack without packs is
+    called as the plain `(params, cfg, x, states)`, the signature that
+    `portbench`'s planted faults patch."""
+    return {arg: params[k] for arg, k in (("fused_packs", key), ("large_packs", key + "_large"))
+            if k in params}
+
+
 class Engine:
     """Parameters plus the prefill/step functions for one model and shape."""
 
@@ -235,15 +245,9 @@ class Engine:
                  dtype=torch.float32, inject_latent_noise: bool = False,
                  use_flash_prefill: Optional[bool] = None,
                  use_flash_decode: Optional[bool] = None,
-                 use_fused_vocoder: bool = False,
-                 use_fused_semantic: bool = False,
+                 use_fused_chains: bool = False,
                  use_fused_stages: bool = False,
                  fused_stage_t_min: int = 128,
-                 fused_stage_tile: Optional[int] = None,
-                 fused_stage_tile_semantic: Optional[int] = None,
-                 fused_stage_fold_conv: Optional[bool] = None,
-                 fused_stage_fold_head: Optional[bool] = None,
-                 fused_stage_rowlane: Optional[bool] = None,
                  keep_audio: bool = True,
                  kv_dtype: str = "model",
                  mesh=None,
@@ -290,8 +294,6 @@ class Engine:
             raise ValueError(f"kv_dtype must be 'model' or 'int8', got {kv_dtype}")
         self.device = resolve_device(device)
         self.inject_latent_noise = inject_latent_noise
-        self.use_fused_vocoder = use_fused_vocoder
-        self.use_fused_semantic = use_fused_semantic
         self.use_fused_stages = use_fused_stages
         self.kv_quant = kv_dtype == "int8"
         # keep_audio=False drops the [B, max_steps, hop] waveform buffer;
@@ -364,52 +366,39 @@ class Engine:
         if mesh is not None:
             check_shard_shapes(params, cfg, self.mp)
         t_pack = time.perf_counter_ns()
-        # chain packs already in the tree (the pipeline's int4 packs, or a JAX
-        # engine's through `weights.from_jax`) are kept; else plain packs of
-        # the weights as they are
-        if use_fused_vocoder and "_vocoder_packs" not in params:
+        # the sigma-VAE route is the packs in the tree (see the module
+        # docstring); packs already there are kept
+        if use_fused_chains and "_vocoder_packs" not in params:
             params["_vocoder_packs"] = tokenizer.pack_decoder_stages(
                 params["acoustic_decoder"], cfg.acoustic_tokenizer)
-        if use_fused_semantic and "_semantic_packs" not in params:
+        if use_fused_chains and "_semantic_packs" not in params:
             params["_semantic_packs"] = tokenizer.pack_encoder_stages(
                 params["semantic_encoder"], cfg.semantic_tokenizer,
                 chunk_t=cfg.speech_compress_ratio)
         if use_fused_stages:
-            # the JAX engine's batch policies: the transition convs fold at
-            # B == 1 only, the tail never unless asked, and the row-lane packs
-            # at 2 <= B <= 4 and B >= 32.  On the H100 a row-lane call is the
+            # the JAX engine's batch rules: the transition convs fold at
+            # B == 1 only, the tail never, and the row-lane packs at
+            # 2 <= B <= 4 and B >= 32.  On the H100 a row-lane call is the
             # stage kernel reading each row's diagonal blocks: bit-equal to
             # the plain stage kernel on the same rows and as fast within a
             # few percent at B = 2, 4 and 32 (`chip_smoke.py` phase 2,
-            # PERF.md), so the JAX rule costs nothing here.
-            # Packs already in the tree (e.g. a JAX engine's, through
-            # `weights.from_jax`) are kept; any pack is right at any batch (a
-            # row-lane pack whose row group does not divide the batch runs the
-            # plain stage kernel).
-            # `fused_stage_tile` / `fused_stage_tile_semantic` are the JAX
-            # kernel's T-tile targets: accepted and ignored, since the stage
-            # kernel does not tile T by them (as `tile_want`)
-            # Under data parallelism the rules read the global batch, as the
-            # JAX DP engine's do, and each rank runs those packs on its B/dp
-            # rows
+            # PERF.md), so the JAX rule costs nothing here.  Any pack is
+            # right at any batch (a row-lane pack whose row group does not
+            # divide the batch runs the plain stage kernel).  Under data
+            # parallelism the rules read the global batch, as the JAX DP
+            # engine's do, and each rank runs those packs on its B/dp rows
             gb = self.global_batch
-            if fused_stage_fold_conv is None:
-                fused_stage_fold_conv = gb == 1
-            if fused_stage_fold_head is None:
-                fused_stage_fold_head = False
-            if fused_stage_rowlane is None:
-                fused_stage_rowlane = 2 <= gb <= 4 or gb >= 32
-            rl_batch = gb if (fused_stage_rowlane and gb > 1) else 0
+            rl_batch = gb if 2 <= gb <= 4 or gb >= 32 else 0
             if "_vocoder_packs_large" not in params:
                 params["_vocoder_packs_large"] = tokenizer.pack_decoder_stages_large(
                     params["acoustic_decoder"], cfg.acoustic_tokenizer,
-                    t_min=fused_stage_t_min, fold_conv=fused_stage_fold_conv,
-                    fold_head=fused_stage_fold_head, rowlane_batch=rl_batch)
+                    t_min=fused_stage_t_min, fold_conv=gb == 1, fold_head=False,
+                    rowlane_batch=rl_batch)
             if "_semantic_packs_large" not in params:
                 params["_semantic_packs_large"] = tokenizer.pack_encoder_stages_large(
                     params["semantic_encoder"], cfg.semantic_tokenizer,
                     chunk_t=cfg.speech_compress_ratio, t_min=fused_stage_t_min,
-                    fold_conv=fused_stage_fold_conv, rowlane_batch=rl_batch)
+                    fold_conv=gb == 1, rowlane_batch=rl_batch)
         if "_lm_head_sub" not in params:
             params["_lm_head_sub"] = vibevoice.lm_head_subset(params, allowed, dtype,
                                                               mesh=self.tp_mesh)
@@ -598,24 +587,13 @@ class Engine:
             sde_generator=sde_gen, timesteps=self.timesteps, mesh=self.tp_mesh)
         self._mark("head")
         scaled = vibevoice.unscale_latents(p, latent)
-        if self.use_fused_vocoder or self.use_fused_stages:
-            chunk, ac_new = tokenizer.decoder_apply_streaming_fused(
-                p["acoustic_decoder"], cfg.acoustic_tokenizer, scaled[:, None, :],
-                acoustic_state, fused_packs=p.get("_vocoder_packs"),
-                large_packs=p.get("_vocoder_packs_large"))
-        else:
-            chunk, ac_new = tokenizer.decoder_apply_streaming(
-                p["acoustic_decoder"], cfg.acoustic_tokenizer, scaled[:, None, :],
-                acoustic_state)
+        chunk, ac_new = tokenizer.decoder_apply_streaming(
+            p["acoustic_decoder"], cfg.acoustic_tokenizer, scaled[:, None, :], acoustic_state,
+            **_packs_of(p, "_vocoder_packs"))
         self._mark("acoustic_decoder")
-        if self.use_fused_semantic or self.use_fused_stages:
-            sem, sem_new = tokenizer.encoder_apply_streaming_fused(
-                p["semantic_encoder"], cfg.semantic_tokenizer, chunk, semantic_state,
-                fused_packs=p.get("_semantic_packs"),
-                large_packs=p.get("_semantic_packs_large"))
-        else:
-            sem, sem_new = tokenizer.encoder_apply_streaming(
-                p["semantic_encoder"], cfg.semantic_tokenizer, chunk, semantic_state)
+        sem, sem_new = tokenizer.encoder_apply_streaming(
+            p["semantic_encoder"], cfg.semantic_tokenizer, chunk, semantic_state,
+            **_packs_of(p, "_semantic_packs"))
         self._mark("semantic_encoder")
         diff_embeds = (connectors.apply(p["acoustic_connector"], latent)
                        + connectors.apply(p["semantic_connector"], sem[:, 0]))

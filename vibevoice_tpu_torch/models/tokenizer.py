@@ -11,13 +11,15 @@ Port of `vibevoice_tpu/models/tokenizer.py` (reference codec stack
   list in the order the apply functions consume them (`*_state_init`).
 * Quantized weights (`utils.quantize.quantize_tokenizer_stack`): the FFNs go
   through `quantize.mm`, the transition convs take their int8 paths.
-* Fused streaming (`*_apply_streaming_fused`): the small-T stages (T <= 8
-  frames per 7.5 Hz frame) run as ONE chain-kernel call per stage
-  (`ops.fused_blocks`: int4 packs from `pack_*_stages(quant="int4")`, plain
-  bf16/fp32 packs from `pack_*_stages()`), and the large-T stages
-  (`large_packs` from `pack_*_stages_large`) as ONE fused stage-kernel call
-  each (`ops.fused_stage`), optionally with the transition conv in front and
-  the decoder tail folded into the same call.
+* Packs (the apply functions' `fused_packs` and `large_packs`, streaming
+  only): the small-T stages (T <= 8 frames per 7.5 Hz frame) run as ONE
+  chain-kernel call per stage (`ops.fused_blocks`: int4 packs from
+  `pack_*_stages(quant="int4")`, plain bf16/fp32 packs from
+  `pack_*_stages()`), and the large-T stages (`large_packs` from
+  `pack_*_stages_large`) as ONE fused stage-kernel call each
+  (`ops.fused_stage`), optionally with the transition conv in front and the
+  decoder tail folded into the same call.  Without packs every stage runs
+  block by block.
 """
 from __future__ import annotations
 
@@ -161,7 +163,7 @@ def _groups_of(cfg, dim: int) -> int:
 
 
 def _stage(params: Params, cfg, i: int, h: torch.Tensor, states: Optional[list],
-           fused_packs=None, large_packs=None, tile_want: int = 400) -> torch.Tensor:
+           fused_packs=None, large_packs=None) -> torch.Tensor:
     """Stage i's Block1D chain: through the chain kernel when it has a pack
     in `fused_packs` (int4 or plain; every batch row in one call), through the
     large-T stage kernel when it has one in `large_packs` (streaming only),
@@ -176,14 +178,14 @@ def _stage(params: Params, cfg, i: int, h: torch.Tensor, states: Optional[list],
         states.extend(ConvState(buf=new_ctx[:, j]) for j in range(n))
         return h
     if large_packs and i in large_packs:
-        return _large_stage(params, cfg, i, h, states, large_packs[i], tile_want)
+        return _large_stage(params, cfg, i, h, states, large_packs[i])
     for bp in blocks:
         h = _block_apply(bp, h, cfg.layernorm_eps, _groups_of(cfg, h.shape[-1]), states)
     return h
 
 
 def _large_stage(params: Params, cfg, i: int, h: torch.Tensor, states: list, packed,
-                 tile_want: int, conv_st=None) -> torch.Tensor:
+                 conv_st=None) -> torch.Tensor:
     """Stage i as ONE stage-kernel call, with the transition conv in front
     when `conv_st` (its state, popped already) is given and the decoder tail
     when the pack has a head: pops the N block states (and the head's) and
@@ -198,8 +200,7 @@ def _large_stage(params: Params, cfg, i: int, h: torch.Tensor, states: list, pac
     transposed = isinstance(conv_st, ConvTState)
     if conv_st is not None:
         kw["conv_state"] = conv_st.tail if transposed else conv_st.buf
-    res = list(fs.fused_stage_chain(packed, h, ctx, eps=cfg.layernorm_eps,
-                                    tile_want=tile_want, **kw))
+    res = list(fs.fused_stage_chain(packed, h, ctx, eps=cfg.layernorm_eps, **kw))
     if conv_st is not None:
         new_c = res.pop(2).to(kw["conv_state"].dtype)
         states.append(ConvTState(tail=new_c) if transposed else ConvState(buf=new_c))
@@ -209,28 +210,43 @@ def _large_stage(params: Params, cfg, i: int, h: torch.Tensor, states: list, pac
     return res[0]
 
 
-def encoder_apply(params: Params, cfg, x: torch.Tensor,
-                  states: Optional[list] = None) -> torch.Tensor:
+def encoder_apply(params: Params, cfg, x: torch.Tensor, states: Optional[list] = None,
+                  fused_packs=None, large_packs=None) -> torch.Tensor:
     """audio [B, T, 1] -> latents [B, T/hop, vae_dim] (ref forward :810-813).
     With `states` (from `encoder_state_init`) it runs one streaming chunk and
-    rotates the list in place."""
+    rotates the list in place; then the stages with a pack in `fused_packs`
+    run on the chain kernel and those with one in `large_packs` on the stage
+    kernel (a folded conv inside its call), with the same numerics up to
+    int4 weights and fp32 in-kernel rounding."""
     strides = [1] + list(reversed(cfg.encoder_ratios))
+    large_packs = large_packs or {}
     h = x
     for i in range(len(cfg.encoder_depths)):
+        lp = large_packs.get(i)
+        if lp is not None and "conv" in lp:
+            h = _large_stage(params, cfg, i, h, states, lp, conv_st=states.pop(0))
+            continue
         h = _conv(h, params["down"][i], states, stride=strides[i])
-        h = _stage(params, cfg, i, h, states)
+        h = _stage(params, cfg, i, h, states, fused_packs, large_packs)
     if params["final_norm_w"] is not None:
         h = rms_norm(h, params["final_norm_w"], cfg.layernorm_eps)
     return _conv(h, params["head"], states)
 
 
 def decoder_apply(params: Params, cfg: AcousticTokenizerConfig, z: torch.Tensor,
-                  states: Optional[list] = None) -> torch.Tensor:
+                  states: Optional[list] = None, fused_packs=None,
+                  large_packs=None) -> torch.Tensor:
     """latents [B, F, vae_dim] -> audio [B, F*hop, 1] (ref forward :948-951);
-    streaming as in `encoder_apply`."""
+    streaming and packs as in `encoder_apply`."""
+    depths = cfg.decoder_depths_resolved()
     strides = list(cfg.decoder_ratios)
+    large_packs = large_packs or {}
     h = z
-    for i in range(len(cfg.decoder_depths_resolved())):
+    for i in range(len(depths)):
+        lp = large_packs.get(i)
+        if lp is not None and "conv" in lp:
+            h = _large_stage(params, cfg, i, h, states, lp, conv_st=states.pop(0))
+            continue
         up = params["up"][i]
         if i == 0:
             h = _conv(h, up, states)
@@ -240,26 +256,31 @@ def decoder_apply(params: Params, cfg: AcousticTokenizerConfig, z: torch.Tensor,
             h, new_st = causal_conv_transpose1d_streaming(h, states.pop(0), up["w"], up["b"],
                                                           stride=strides[i - 1])
             states.append(new_st)
-        h = _stage(params, cfg, i, h, states)
+        h = _stage(params, cfg, i, h, states, fused_packs, large_packs)
+    last = large_packs.get(len(depths) - 1)
+    if last is not None and "head" in last:
+        return h  # the tail ran inside the last stage's call
     if params["final_norm_w"] is not None:
         h = rms_norm(h, params["final_norm_w"], cfg.layernorm_eps)
     return _conv(h, params["head"], states)
 
 
-def encoder_apply_streaming(params: Params, cfg, x: torch.Tensor, states):
+def encoder_apply_streaming(params: Params, cfg, x: torch.Tensor, states, fused_packs=None,
+                            large_packs=None):
     """Functional streaming encode: returns (latents, new_states)."""
     s = list(states)
-    return encoder_apply(params, cfg, x, s), s
+    return encoder_apply(params, cfg, x, s, fused_packs, large_packs), s
 
 
-def decoder_apply_streaming(params: Params, cfg, z: torch.Tensor, states):
+def decoder_apply_streaming(params: Params, cfg, z: torch.Tensor, states, fused_packs=None,
+                            large_packs=None):
     """Functional streaming decode: returns (audio, new_states)."""
     s = list(states)
-    return decoder_apply(params, cfg, z, s), s
+    return decoder_apply(params, cfg, z, s, fused_packs, large_packs), s
 
 
 # ---------------------------------------------------------------------------
-# fused streaming (chain kernels for the small-T stages, stage kernel for the large-T)
+# packs (chain kernels for the small-T stages, stage kernel for the large-T)
 # ---------------------------------------------------------------------------
 
 def _stage_pack(blocks, quant: Optional[str]):
@@ -387,59 +408,6 @@ def pack_encoder_stages_large(params: Params, cfg, chunk_t: int, t_min: int = 12
     return packs
 
 
-def decoder_apply_streaming_fused(params: Params, cfg: AcousticTokenizerConfig,
-                                  z: torch.Tensor, states, fused_packs=None,
-                                  large_packs=None, tile_want: int = 400):
-    """Streaming decode with the small-T stages on the chain kernels
-    (`fused_packs`, int4 or plain) and the large-T stages on the stage kernel
-    (`large_packs`); the same numerics as `decoder_apply_streaming` up to
-    int4 weights and fp32 in-kernel rounding.  Returns (audio, new_states)."""
-    depths = cfg.decoder_depths_resolved()
-    strides = list(cfg.decoder_ratios)
-    s = list(states)
-    h = z
-    large_packs = large_packs or {}
-    for i in range(len(depths)):
-        lp = large_packs.get(i)
-        if lp is not None and "conv" in lp:
-            h = _large_stage(params, cfg, i, h, s, lp, tile_want, conv_st=s.pop(0))
-            continue
-        up = params["up"][i]
-        if i == 0:
-            h = _conv(h, up, s)
-        else:
-            h, new_st = causal_conv_transpose1d_streaming(h, s.pop(0), up["w"], up["b"],
-                                                          stride=strides[i - 1])
-            s.append(new_st)
-        h = _stage(params, cfg, i, h, s, fused_packs, large_packs, tile_want)
-    last = large_packs.get(len(depths) - 1)
-    if last is not None and "head" in last:
-        return h, s  # the tail ran inside the last stage's call
-    if params["final_norm_w"] is not None:
-        h = rms_norm(h, params["final_norm_w"], cfg.layernorm_eps)
-    return _conv(h, params["head"], s), s
-
-
-def encoder_apply_streaming_fused(params: Params, cfg, x: torch.Tensor, states,
-                                  fused_packs=None, large_packs=None, tile_want: int = 400):
-    """Streaming encode, the mirror of `decoder_apply_streaming_fused`.
-    Returns (latents, new_states)."""
-    strides = [1] + list(reversed(cfg.encoder_ratios))
-    s = list(states)
-    h = x
-    large_packs = large_packs or {}
-    for i in range(len(cfg.encoder_depths)):
-        lp = large_packs.get(i)
-        if lp is not None and "conv" in lp:
-            h = _large_stage(params, cfg, i, h, s, lp, tile_want, conv_st=s.pop(0))
-            continue
-        h = _conv(h, params["down"][i], s, stride=strides[i])
-        h = _stage(params, cfg, i, h, s, fused_packs, large_packs, tile_want)
-    if params["final_norm_w"] is not None:
-        h = rms_norm(h, params["final_norm_w"], cfg.layernorm_eps)
-    return _conv(h, params["head"], s), s
-
-
 # ---------------------------------------------------------------------------
 # streaming state
 # ---------------------------------------------------------------------------
@@ -521,8 +489,6 @@ __all__ = [
     "decoder_apply",
     "encoder_apply_streaming",
     "decoder_apply_streaming",
-    "encoder_apply_streaming_fused",
-    "decoder_apply_streaming_fused",
     "pack_decoder_stages",
     "pack_encoder_stages",
     "pack_decoder_stages_large",

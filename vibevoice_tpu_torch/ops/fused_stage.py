@@ -43,9 +43,6 @@ the ffn1 bias through the augmented all-ones column (the row-lane form: the
 the TPU kernel).  Both use the exact `erf` GELU; the TPU kernel's rational
 erf differs by < 1.5e-7.  The kernel's row-lane means (sum of squares times
 1/D) and the plain version's `avg` product differ only in fp32 rounding.
-
-`tile_want` stays in the signatures for the JAX package's callers and is
-ignored: neither the CUDA kernel nor the plain version tiles T by it.
 """
 from __future__ import annotations
 
@@ -250,7 +247,7 @@ def _head_ref(hp: HeadPack, x: torch.Tensor, state: torch.Tensor, eps: float):
 
 
 def fused_stage_chain_ref(packed, x: torch.Tensor, ctx: torch.Tensor, eps: float = 1e-5,
-                          tile_want: int = 400, conv_state: Optional[torch.Tensor] = None,
+                          conv_state: Optional[torch.Tensor] = None,
                           head_state: Optional[torch.Tensor] = None):
     """Plain version of `fused_stage_chain` (no row-lane dispatch): the same
     arguments and returns."""
@@ -294,7 +291,7 @@ def _rowlane_rows(packed) -> int:
 
 
 def fused_stage_chain_rowlane_ref(packed, x: torch.Tensor, ctx: torch.Tensor,
-                                  eps: float = 1e-5, tile_want: int = 400):
+                                  eps: float = 1e-5):
     """Plain version of the row-lane stage: x [B, T, D], ctx [B, N, 6, D]
     (B a multiple of R) -> (y, new_ctx), computed on the [G, T, R*D] layout
     with the pack's block-diagonal weights and `avg` group means."""
@@ -479,9 +476,9 @@ def _launch(name, p, x, ctx, eps, conv=None, hp=None, conv_state=None, head_stat
 
 
 def fused_stage_chain(packed, x: torch.Tensor, ctx: torch.Tensor, eps: float = 1e-5,
-                      tile_want: int = 400, conv_state: Optional[torch.Tensor] = None,
+                      conv_state: Optional[torch.Tensor] = None,
                       head_state: Optional[torch.Tensor] = None):
-    """Run one large-T stage for a batch (the JAX package's signature).
+    """Run one large-T stage for a batch.
 
     Without folds: x [B, T, D], ctx [B, N, 6, D] -> (y [B, T, D], new_ctx).
     With packed["conv"], x is the pre-transition tensor and `conv_state` the
@@ -495,10 +492,10 @@ def fused_stage_chain(packed, x: torch.Tensor, ctx: torch.Tensor, eps: float = 1
     if "rowlane" in packed and conv is None and hp is None:
         r = _rowlane_rows(packed)
         if r > 1 and x.shape[0] % r == 0:
-            return fused_stage_chain_rowlane(packed, x, ctx, eps, tile_want)
+            return fused_stage_chain_rowlane(packed, x, ctx, eps)
     _check_rows(packed, x)
     if x.device.type == "cpu":
-        return fused_stage_chain_ref(packed, x, ctx, eps, tile_want, conv_state, head_state)
+        return fused_stage_chain_ref(packed, x, ctx, eps, conv_state, head_state)
     if x.device.type != "cuda":
         raise ValueError(f"fused_stage_chain runs on cuda or cpu, not {x.device}")
     out = _launch("fused_stage_chain", packed, x.contiguous(), ctx.contiguous(), eps, conv, hp,
@@ -512,8 +509,7 @@ def fused_stage_chain(packed, x: torch.Tensor, ctx: torch.Tensor, eps: float = 1
 fused_stage_chain.launches = 0
 
 
-def fused_stage_chain_rowlane(packed, x: torch.Tensor, ctx: torch.Tensor, eps: float = 1e-5,
-                              tile_want: int = 400):
+def fused_stage_chain_rowlane(packed, x: torch.Tensor, ctx: torch.Tensor, eps: float = 1e-5):
     """The row-lane stage (no folds): x [B, T, D], ctx [B, N, 6, D] with B a
     multiple of the pack's row group R -> (y, new_ctx).  CUDA tensors launch
     the kernel on x and ctx as they are (item bb reads lane group bb % R of
@@ -524,7 +520,7 @@ def fused_stage_chain_rowlane(packed, x: torch.Tensor, ctx: torch.Tensor, eps: f
         raise ValueError(f"batch {x.shape[0]} does not split into row groups of {r}")
     _check_rows({}, x)
     if x.device.type == "cpu":
-        return fused_stage_chain_rowlane_ref(packed, x, ctx, eps, tile_want)
+        return fused_stage_chain_rowlane_ref(packed, x, ctx, eps)
     if x.device.type != "cuda":
         raise ValueError(f"fused_stage_chain_rowlane runs on cuda or cpu, not {x.device}")
     out = _launch("fused_stage_chain_rowlane", packed["rowlane"], x.contiguous(), ctx.contiguous(),

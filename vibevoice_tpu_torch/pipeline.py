@@ -6,7 +6,8 @@ cached per (batch, bucketed prompt length, max steps).  Runs on CUDA unless
 `device="cpu"` is given.  The quantized serving modes are wired as in the JAX
 package: `quantize="int8"|"int4"|"int4f"` (LM and logits head),
 `quantize_tokenizer="int8"|"int4"|"int4k"` (sigma-VAE decode path; "int4k"
-runs the deep stages on the int4 chain kernel) and `quantize_diffusion="int4k"`
+runs the deep stages on the int4 chain kernel, whose packs in the params every
+engine runs) and `quantize_diffusion="int4k"`
 (the fused int4 head kernel).  `use_fused_stages=True` runs the large-T
 sigma-VAE stages on the fused stage kernels (`ops.fused_stage`); it composes
 with the quantized modes, since the large-T stages' dims sit below
@@ -175,13 +176,10 @@ class VibeVoiceTTS:
                 do_sample=self.do_sample, refresh_negative=self.refresh_negative,
                 algorithm_type=self.algorithm_type,
             )
-            chain = self._chain_packs is not None
             self._engines[key] = G.Engine(self.params, self.cfg, gen,
                                           max_steps=max_steps, batch=batch,
                                           prompt_len=bucket, dtype=self.dtype,
                                           kv_dtype=self.kv_dtype,
-                                          use_fused_vocoder=chain,
-                                          use_fused_semantic=chain,
                                           use_fused_stages=self.use_fused_stages,
                                           keep_audio=self.keep_audio,
                                           device=self.device)

@@ -267,10 +267,8 @@ def main(argv=None):
                 eos_id=tts.tokenizer.eos_id, ddpm_steps=tts.ddpm_steps,
                 cfg_scale=tts.cfg_scale, algorithm_type=tts.algorithm_type,
                 force_diffusion=True)
-            chain = tts._chain_packs is not None
             eng = G.Engine(tts.params, tts.cfg, gcfg, max_steps=max_new, batch=1,
                            prompt_len=512, dtype=tts.dtype, kv_dtype=tts.kv_dtype,
-                           use_fused_vocoder=chain, use_fused_semantic=chain,
                            use_fused_stages=tts.use_fused_stages,
                            fused_stage_t_min=7 if tts.use_fused_stages
                            and tts.cfg.decoder.hidden_size < 256 else 128,
